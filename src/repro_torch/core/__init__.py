@@ -1,0 +1,2 @@
+"""Protocol core of the port: SST arithmetic, SMC ring, null-send rule,
+delivery predicate, the fused sweep, the Group API and DDS topics."""

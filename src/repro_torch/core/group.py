@@ -1,0 +1,969 @@
+"""The unified Derecho-style ``Group`` API on PyTorch, scheduled path.
+
+One :class:`GroupConfig` describes a scenario (membership, subgroups,
+:class:`~repro_torch.core.simulator.SpindleFlags`, cost/net models) and
+:meth:`Group.run` executes it on one of two backends behind the
+:class:`ProtocolBackend` protocol:
+
+  * ``"graph"``  — the fused predicate sweep (:mod:`repro_torch.core.sweep`)
+                   with the plain ``max``-merge receive: the send pattern is
+                   lowered to an ``app_schedule`` tensor and run round by
+                   round on the device.
+  * ``"kernel"`` — the same protocol with the receive predicate evaluated
+                   by the SMC-sweep kernel
+                   (:func:`repro_torch.kernels.ops.smc_sweep_watermark`),
+                   launched once per round over every (subgroup, member,
+                   sender) lane.
+
+Both return the same :class:`RunReport` and per-subgroup total-order
+:class:`DeliveryLog`, bit-identical on integer fields to the reference
+package's ``graph`` / ``pallas`` backends.  All G subgroups run as one
+stacked loop (padded to a common (N_max, S_max) with validity masks), and
+a ``run_batch`` grid adds its points as one more leading dimension.  The
+round loop never copies to the host: the traces come back once, after it.
+
+Usage::
+
+    g = Group(cfg)                       # on the GPU; Group(cfg, device="cpu")
+    h = g.subgroup(0)
+    h.ordered_send(sender=0, n=100)
+    h.on_delivery(lambda member, msg: ...)
+    report = g.run(backend="kernel")
+
+Streaming (``Group.stream``) and view changes (``Group.reconfigure``)
+follow in a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Protocol,
+                    Tuple)
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.core import costmodel, delivery as delivery_mod
+from repro_torch.core import simulator as sim
+from repro_torch.core import sweep as sweep_mod
+from repro_torch.kernels import ops
+
+# SST row push size (bytes): the coalesced counter row (Sec. 2.2).
+_ROW_BYTES = 64
+
+
+# ---------------------------------------------------------------------------
+# Configuration
+# ---------------------------------------------------------------------------
+
+# Re-exported so callers need only `repro_torch.api` / this module.
+SubgroupSpec = sim.SubgroupSpec
+SpindleFlags = sim.SpindleFlags
+SenderPattern = sim.SenderPattern
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupConfig:
+    """One multicast scenario, independent of the substrate that runs it."""
+
+    members: Tuple[int, ...]                     # top-level membership
+    subgroups: Tuple[sim.SubgroupSpec, ...]
+    flags: sim.SpindleFlags = sim.SpindleFlags.spindle()
+    net: costmodel.NetworkModel = costmodel.RDMA_CX6
+    host: costmodel.HostModel = costmodel.HOST_X86
+    patterns: Tuple[Tuple[Tuple[int, int], sim.SenderPattern], ...] = ()
+    target_delivered: Optional[int] = None
+    # graph/kernel round budget; None = auto (max sends + settle rounds)
+    rounds: Optional[int] = None
+
+    def __post_init__(self):
+        members = set(self.members)
+        for spec in self.subgroups:
+            assert set(spec.members) <= members, \
+                f"subgroup members {spec.members} outside group {members}"
+
+    @property
+    def n_nodes(self) -> int:
+        return max(self.members) + 1 if self.members else 0
+
+    def pattern(self, g: int, node: int) -> sim.SenderPattern:
+        for (pg, pn), pat in self.patterns:
+            if pg == g and pn == node:
+                return pat
+        return sim.SenderPattern()
+
+
+def single_group(n_nodes: int, n_senders: Optional[int] = None,
+                 msg_size: int = 10240, window: int = 100,
+                 n_messages: int = 1000,
+                 flags: sim.SpindleFlags = sim.SpindleFlags.spindle(),
+                 **kw) -> GroupConfig:
+    """One subgroup over ``n_nodes`` nodes — the quickstart scenario."""
+    senders = tuple(range(n_senders if n_senders is not None else n_nodes))
+    spec = sim.SubgroupSpec(members=tuple(range(n_nodes)), senders=senders,
+                            msg_size=msg_size, window=window,
+                            n_messages=n_messages)
+    return GroupConfig(members=tuple(range(n_nodes)), subgroups=(spec,),
+                       flags=flags, **kw)
+
+
+# ---------------------------------------------------------------------------
+# The unified run report
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RunReport:
+    """Backend-independent result of one :meth:`Group.run`.
+
+    ``delivered_app_msgs``/``delivered_null_msgs`` are summed over members;
+    ``nulls_sent`` counts null *publishes*.  The time-domain numbers
+    (throughput, latency, duration, rdma_writes) come from the calibrated
+    RDMA cost model folded over the publish trace — modelled multicast
+    time, not a measurement of the device; ``extras["wall_s"]`` is the
+    host wall clock of the run.
+    """
+
+    backend: str
+    throughput_GBps: float
+    mean_latency_us: float
+    p99_latency_us: float
+    duration_us: float
+    delivered_app_msgs: int
+    delivered_null_msgs: int
+    nulls_sent: int
+    rdma_writes: int
+    rounds: int                         # protocol rounds run
+    per_node_throughput: List[float]
+    stalled: bool
+    send_batches: List[int] = dataclasses.field(default_factory=list)
+    recv_batches: List[int] = dataclasses.field(default_factory=list)
+    deliv_batches: List[int] = dataclasses.field(default_factory=list)
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def summary(self) -> Dict[str, Any]:
+        return {
+            "backend": self.backend,
+            "throughput_GBps": round(self.throughput_GBps, 4),
+            "mean_latency_us": round(self.mean_latency_us, 3),
+            "p99_latency_us": round(self.p99_latency_us, 3),
+            "delivered_app_msgs": self.delivered_app_msgs,
+            "delivered_null_msgs": self.delivered_null_msgs,
+            "nulls_sent": self.nulls_sent,
+            "rdma_writes": self.rdma_writes,
+            "stalled": self.stalled,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class Delivery:
+    """One delivered application message (nulls never reach upcalls)."""
+
+    subgroup: int
+    seq: int                # round-robin sequence number
+    sender_rank: int
+    sender_index: int       # per-sender publish index (ring index)
+
+
+@dataclasses.dataclass
+class DeliveryLog:
+    """The total-order publish log of one subgroup plus how far each
+    member's delivery predicate got into it."""
+
+    n_senders: int
+    is_app: List[np.ndarray]            # per sender-rank: nullness per index
+    delivered_seq: Dict[int, int]       # member node -> highest delivered seq
+
+    def sequence(self, node: int, *, apps_only: bool = True
+                 ) -> List[Tuple[int, int, bool]]:
+        """Delivered (sender_rank, sender_index, is_app) at ``node`` in
+        delivery order."""
+        out = []
+        for seq in range(self.delivered_seq.get(node, -1) + 1):
+            rank, idx = seq % self.n_senders, seq // self.n_senders
+            app = bool(idx < len(self.is_app[rank])
+                       and self.is_app[rank][idx])
+            if app or not apps_only:
+                out.append((rank, idx, app))
+        return out
+
+    def app_null_counts(self, node: int) -> Tuple[int, int]:
+        hi = self.delivered_seq.get(node, -1)
+        batch = delivery_mod.DeliveryBatch(lo_seq=0, hi_seq=hi,
+                                           n_senders=self.n_senders)
+        return delivery_mod.split_app_and_null(batch, self.is_app)
+
+    def app_flags_upto(self, hi: int) -> np.ndarray:
+        """Nullness of seqs ``0..hi`` in the total order (False for seqs
+        beyond any sender's logged publishes)."""
+        flags = np.zeros(max(hi + 1, 0), dtype=bool)
+        for r, log in enumerate(self.is_app):
+            seqs = np.arange(len(log)) * self.n_senders + r
+            m = seqs <= hi
+            flags[seqs[m]] = np.asarray(log, dtype=bool)[: len(seqs)][m]
+        return flags
+
+    def truncate_to_app_target(self, target: int) -> None:
+        """Clip each member's delivered prefix at its ``target``-th app
+        message — the logical form of ``target_delivered``'s measurement
+        window, applied identically on every backend."""
+        hi_all = max(self.delivered_seq.values(), default=-1)
+        if hi_all < 0:
+            return
+        cum = np.cumsum(self.app_flags_upto(hi_all))
+        for node, hi in self.delivered_seq.items():
+            if hi >= 0 and cum[hi] > target:
+                self.delivered_seq[node] = int(
+                    np.searchsorted(cum, target))
+
+
+# ---------------------------------------------------------------------------
+# Backend protocol + registry
+# ---------------------------------------------------------------------------
+
+
+class ProtocolBackend(Protocol):
+    """One substrate that can execute a :class:`GroupConfig` scenario."""
+
+    name: str
+
+    def run(self, cfg: GroupConfig,
+            counts: Dict[int, np.ndarray]) -> Tuple[RunReport,
+                                                    Dict[int, DeliveryLog]]:
+        """Execute the scenario.  ``counts[gid]`` is the per-sender-rank
+        app-message count for subgroup ``gid``.  Returns the unified report
+        plus one delivery log per subgroup."""
+        ...
+
+
+# name -> factory(device) -> backend
+BACKENDS: Dict[str, Callable[[torch.device], ProtocolBackend]] = {}
+
+
+def register_backend(name: str,
+                     factory: Callable[[torch.device], ProtocolBackend]):
+    BACKENDS[name] = factory
+
+
+def get_backend(backend, device: DeviceLike = None) -> ProtocolBackend:
+    """A backend by name, built for ``device``; an instance passes
+    through."""
+    if isinstance(backend, str):
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {backend!r}; the port has "
+                f"{sorted(BACKENDS)} ('kernel' is the counterpart of the "
+                "reference's 'pallas'; the DES backends come later)")
+        return BACKENDS[backend](resolve_device(device))
+    return backend
+
+
+# ---------------------------------------------------------------------------
+# The Group façade
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochCarry:
+    """What one membership epoch hands the next across the
+    virtual-synchrony cut (DESIGN.md Sec. 7).
+
+    Every field is indexed by the NEW view's subgroup ids and sender
+    ranks.  ``resend[g][s]`` is how many of sender s's app messages were
+    underway at the cut and must be re-published in the new view (the
+    tail of that sender's sequence, so per-sender FIFO order holds).
+    ``stable_apps[g][s]`` is the closing epoch's delta of apps delivered
+    everywhere; ``app_base[g][s]`` the cumulative count across all prior
+    epochs; ``cut_seq[g]`` the ragged-trim seq in the closing subgroup's
+    total order."""
+
+    from_epoch: int
+    cut_seq: Tuple[int, ...]
+    resend: Tuple[np.ndarray, ...]
+    stable_apps: Tuple[np.ndarray, ...]
+    app_base: Tuple[np.ndarray, ...]
+
+    def total_resend(self) -> int:
+        return int(sum(r.sum() for r in self.resend))
+
+
+class SubgroupHandle:
+    """Send/upcall handle for one subgroup — the Derecho user surface."""
+
+    def __init__(self, group: "Group", gid: int):
+        self.group = group
+        self.gid = gid
+
+    @property
+    def spec(self) -> sim.SubgroupSpec:
+        return self.group.cfg.subgroups[self.gid]
+
+    def send(self, sender: Optional[int] = None, n: int = 1) -> None:
+        """Queue ``n`` application messages from ``sender`` (a node id;
+        defaults to the subgroup's first sender).  Explicit sends take
+        over the whole subgroup: they replace the spec's ``n_messages``
+        scenario default AND any per-sender pattern budgets — senders you
+        do not ``send()`` to send nothing (nulls cover them)."""
+        spec = self.spec
+        sender = spec.senders[0] if sender is None else sender
+        if sender not in spec.senders:
+            raise ValueError(f"node {sender} is not a sender of "
+                             f"subgroup {self.gid}")
+        rank = spec.senders.index(sender)
+        self.group._explicit.setdefault(self.gid, np.zeros(
+            len(spec.senders), dtype=np.int64))[rank] += n
+
+    # Every send is totally ordered; the two Derecho entry points are
+    # therefore the same operation.
+    ordered_send = send
+
+    def on_delivery(self, fn: Callable[[int, Delivery], None]) -> None:
+        """Register a delivery upcall ``fn(member_node, Delivery)``; fired
+        (app messages only, in total order per member) after each run."""
+        self.group._upcalls.setdefault(self.gid, []).append(fn)
+
+    def delivered(self, node: int) -> List[Tuple[int, int, bool]]:
+        """Delivered (sender_rank, sender_index, is_app) at ``node`` from
+        the last run (apps only)."""
+        log = self.group.delivery_logs.get(self.gid)
+        if log is None:
+            raise RuntimeError("run() first")
+        return log.sequence(node)
+
+
+class Group:
+    """The one front door: configure once, run on any backend.
+
+    ``device`` is where the protocol rounds run: ``None`` means the GPU
+    (``RuntimeError`` if there is none); pass ``"cpu"`` for the plain
+    PyTorch path on the host."""
+
+    def __init__(self, cfg: GroupConfig, device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._explicit: Dict[int, np.ndarray] = {}
+        self._upcalls: Dict[int, List[Callable]] = {}
+        self.delivery_logs: Dict[int, DeliveryLog] = {}
+        self.last_report: Optional[RunReport] = None
+        # virtual-synchrony epoch carry (DESIGN.md Sec. 7): resends of the
+        # previous epoch, added to every run's counts
+        self.carry: Optional[EpochCarry] = None
+
+    def subgroup(self, gid: int) -> SubgroupHandle:
+        if not 0 <= gid < len(self.cfg.subgroups):
+            raise IndexError(gid)
+        return SubgroupHandle(self, gid)
+
+    @property
+    def n_subgroups(self) -> int:
+        return len(self.cfg.subgroups)
+
+    def send_counts(self, gid: int,
+                    cfg: Optional[GroupConfig] = None) -> np.ndarray:
+        """Effective per-sender-rank app-message counts for one subgroup.
+
+        Explicit queued ``send()`` calls take over the WHOLE subgroup: they
+        replace both the spec's ``n_messages`` default and any
+        ``SenderPattern.n_messages`` budgets.  Without explicit sends,
+        pattern budgets override the spec default per sender.  Inactive
+        patterns always mask to zero.  A virtual-synchrony ``carry``
+        (resend counts from the previous epoch's cut) is added ON TOP."""
+        cfg = self.cfg if cfg is None else cfg
+        spec = cfg.subgroups[gid]
+        explicit = self._explicit.get(gid)
+        if explicit is not None and len(explicit) != len(spec.senders):
+            raise ValueError(
+                f"subgroup {gid} has queued explicit sends for "
+                f"{len(explicit)} senders but the (overridden) spec has "
+                f"{len(spec.senders)}; drop the override or re-queue")
+        if explicit is not None:
+            counts = explicit.copy()
+        else:
+            counts = np.full(len(spec.senders), spec.n_messages,
+                             dtype=np.int64)
+        for rank, node in enumerate(spec.senders):
+            pat = cfg.pattern(gid, node)
+            if not pat.active:
+                counts[rank] = 0
+            elif pat.n_messages is not None and explicit is None:
+                counts[rank] = pat.n_messages
+        if self.carry is not None:
+            resend = self.carry.resend[gid]
+            if len(resend) != len(spec.senders):
+                raise ValueError(
+                    f"subgroup {gid} carries resends for {len(resend)} "
+                    f"senders but the (overridden) spec has "
+                    f"{len(spec.senders)}; a sender-set override cannot "
+                    "silently drop the previous epoch's resend set")
+            counts = counts + resend.astype(counts.dtype)
+        return counts
+
+    # -- running -------------------------------------------------------------
+
+    def run(self, backend="kernel", **overrides) -> RunReport:
+        """Execute the configured scenario on ``backend`` (name or
+        :class:`ProtocolBackend` instance) and fire delivery upcalls."""
+        cfg = (dataclasses.replace(self.cfg, **overrides) if overrides
+               else self.cfg)
+        be = get_backend(backend, self.device)
+        counts = {g: self.send_counts(g, cfg)
+                  for g in range(len(cfg.subgroups))}
+        report, logs = be.run(cfg, counts)
+        self.delivery_logs = logs
+        self.last_report = report
+        self._fire_upcalls()
+        return report
+
+    def run_batch(self, backend="kernel", *, windows=None, null_send=None,
+                  n_messages=None) -> List[RunReport]:
+        """Execute a grid of scenario variants as ONE batched loop.
+
+        Each keyword is ``None`` (keep the configured value) or a sequence
+        of per-point values; all given grids must share one length B.
+        ``windows``/``n_messages`` replace every subgroup's setting at
+        that point, ``null_send`` replaces the flag.  Every point, every
+        subgroup, runs in the same round loop (the points are a leading
+        tensor dimension); schedules are padded to a common round budget
+        and per-point traces sliced back, so each report equals the
+        corresponding sequential :meth:`run`.
+
+        Returns one :class:`RunReport` per point; each report carries its
+        delivery logs in ``extras["delivery_logs"]``.  Delivery upcalls do
+        not fire (batch runs are measurement sweeps)."""
+        grids = {name: list(vals) for name, vals in
+                 (("windows", windows), ("null_send", null_send),
+                  ("n_messages", n_messages)) if vals is not None}
+        if not grids:
+            raise ValueError("run_batch needs at least one grid "
+                             "(windows=, null_send= or n_messages=)")
+        sizes = {len(v) for v in grids.values()}
+        if len(sizes) != 1:
+            raise ValueError("grid lengths differ: " + str(
+                {k: len(v) for k, v in grids.items()}))
+        cfgs = []
+        for i in range(sizes.pop()):
+            cfg = self.cfg
+            over: Dict[str, Any] = {}
+            if windows is not None or n_messages is not None:
+                over["subgroups"] = tuple(
+                    dataclasses.replace(
+                        s,
+                        window=(int(windows[i]) if windows is not None
+                                else s.window),
+                        n_messages=(int(n_messages[i])
+                                    if n_messages is not None
+                                    else s.n_messages))
+                    for s in cfg.subgroups)
+            if null_send is not None:
+                over["flags"] = dataclasses.replace(
+                    cfg.flags, null_send=bool(null_send[i]))
+            cfgs.append(dataclasses.replace(cfg, **over) if over else cfg)
+        counts = [{g: self.send_counts(g, c)
+                   for g in range(len(c.subgroups))} for c in cfgs]
+        be = get_backend(backend, self.device)
+        if hasattr(be, "run_batch"):
+            results = be.run_batch(cfgs, counts)
+        else:
+            results = [be.run(c, k) for c, k in zip(cfgs, counts)]
+        reports = []
+        for report, logs in results:
+            report.extras["delivery_logs"] = logs
+            reports.append(report)
+        return reports
+
+    def _fire_upcalls(self):
+        for gid, fns in self._upcalls.items():
+            log = self.delivery_logs.get(gid)
+            if log is None:
+                continue
+            spec = self.cfg.subgroups[gid]
+            for member in spec.members:
+                for rank, idx, _ in log.sequence(member):
+                    d = Delivery(subgroup=gid,
+                                 seq=idx * log.n_senders + rank,
+                                 sender_rank=rank, sender_index=idx)
+                    for fn in fns:
+                        fn(member, d)
+
+
+# ---------------------------------------------------------------------------
+# Lowering and the cost fold
+# ---------------------------------------------------------------------------
+
+
+def _lower_schedule(counts: np.ndarray, rounds: int) -> np.ndarray:
+    """(S,) per-sender counts -> (T, S) app_schedule: one message per
+    active round until each sender's budget is spent."""
+    t = np.arange(rounds)[:, None]
+    return (t < counts[None, :]).astype(np.int32)
+
+
+def _cost_params(cfg: GroupConfig, spec: sim.SubgroupSpec) -> np.ndarray:
+    """Lower the per-round cost model to six coefficients consumed by
+    :func:`_fold_cost`: ``[base, post, per_msg, wire, row_writes, peers]``.
+
+    Per round every member pushes its SST row (one coalesced 64 B write per
+    peer, the ``base`` term); a sender that published ``k`` app messages
+    additionally pushes them as one batched slot write of ``k`` slots per
+    peer (``post + per_msg * k``).  The round takes as long as the busiest
+    node's post+serialization charge plus one wire hop.
+    """
+    n = len(spec.members)
+    if n <= 1:
+        return np.zeros(6)
+    slot = spec.msg_size + 8
+    host, net = cfg.host, cfg.net
+    base = host.lock_us + 3 * host.predicate_eval_us + \
+        (n - 1) * (net.post_us + net.serialization(_ROW_BYTES))
+    return np.array([base,
+                     (n - 1) * net.post_us,
+                     (n - 1) * net.serialization(slot),
+                     net.wire_latency(min(slot, 4096)),
+                     n * (n - 1),
+                     n - 1])
+
+
+def _fold_cost(app_pub: torch.Tensor, cost: torch.Tensor):
+    """The cost model over the (..., T, S) publish trace with (..., 6) f32
+    coefficients -> (..., T) per-round f32 time and int32 RDMA writes."""
+    c = cost[..., None, :]                                     # (..., 1, 6)
+    # Busiest sender per round: serialization is linear in k, so the
+    # max-k sender is the argmax of post + per_msg * k.
+    kmax = app_pub.amax(dim=-1)                                # (..., T)
+    busiest = torch.where(kmax > 0, c[..., 1] + c[..., 2] * kmax, 0.0)
+    round_t = c[..., 0] + busiest + c[..., 3]
+    round_w = c[..., 4].to(torch.int32) + c[..., 5].to(torch.int32) * \
+        (app_pub > 0).sum(dim=-1, dtype=torch.int32)
+    return round_t, round_w
+
+
+def fold_cost_np(app_pub: np.ndarray, cost: np.ndarray) -> np.ndarray:
+    """Host-side mirror of :func:`_fold_cost`'s time term over one
+    subgroup's (T, S) publish trace -> (T,) per-round microseconds."""
+    app_pub = np.asarray(app_pub)
+    kmax = app_pub.max(axis=1) if app_pub.size else \
+        np.zeros(app_pub.shape[0])
+    busiest = np.where(kmax > 0, cost[1] + cost[2] * kmax, 0.0)
+    return cost[0] + busiest + cost[3]
+
+
+def _kernel_receive(ring_window: int):
+    """Receive-predicate override for the ``kernel`` backend: one launch
+    of the watermark kernel sweeps every (point, subgroup, member, sender)
+    ring of the round, rebuilding each slot counter inside the kernel.
+    ``ring_window`` is the common ring width (the max window across the
+    stack / grid); a ring wider than a subgroup's protocol window is
+    harmless — slots are only reused after W messages and the publish cap
+    uses the per-subgroup window.  ``valid`` masks padded lanes (None when
+    unpadded) and is flattened over the same (…, N, S) plane."""
+
+    def receive(pub_vis, recv_counts, valid=None):
+        flat_valid = None if valid is None else \
+            valid.expand(pub_vis.shape).reshape(-1)
+        visible = ops.smc_sweep_watermark(
+            pub_vis.reshape(-1), recv_counts.reshape(-1),
+            window=ring_window, valid=flat_valid)
+        return torch.maximum(recv_counts, visible.view(recv_counts.shape))
+
+    return receive
+
+
+def _stack_masks(members: Tuple[int, ...], senders: Tuple[int, ...]):
+    """(G, N_max)/(G, S_max) suffix-padding validity masks — or
+    ``(None, None)`` for a homogeneous stack (every subgroup fills the
+    padded shape), which keeps the unmasked sweep arithmetic."""
+    n_max, s_max = max(members), max(senders)
+    member_masks = np.arange(n_max)[None, :] < np.asarray(members)[:, None]
+    sender_masks = np.arange(s_max)[None, :] < np.asarray(senders)[:, None]
+    if member_masks.all() and sender_masks.all():
+        return None, None
+    return member_masks, sender_masks
+
+
+@dataclasses.dataclass
+class _GraphAgg:
+    """Accumulates one run's subgroup post-processing into report inputs."""
+
+    duration: float = 0.0
+    writes: int = 0
+    delivered_app: int = 0
+    delivered_null: int = 0
+    nulls_sent: int = 0
+    rounds: int = 0
+    stalled: bool = False
+    latencies: List[float] = dataclasses.field(default_factory=list)
+    per_node_bytes: Dict[int, float] = dataclasses.field(
+        default_factory=dict)
+    logs: Dict[int, DeliveryLog] = dataclasses.field(default_factory=dict)
+
+
+class GraphBackend:
+    """Runs the scenario through :func:`repro_torch.core.sweep.run_stacked`:
+    all G subgroups, padded to a common (G, N_max, S_max) with validity
+    masks, execute as one stacked round loop on ``device`` with the cost
+    model folded on the device; delivery logs and latency round-pairs are
+    then reconstructed per subgroup from the sliced traces with numpy.
+    :meth:`run_batch` adds the grid points as a leading dimension of the
+    same loop."""
+
+    name = "graph"
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = resolve_device(device)
+
+    def _receive_fn(self, ring_window: int):
+        """The receive predicate override (None = the ``max`` merge)."""
+        return None
+
+    @staticmethod
+    def _rounds_for(cfg: GroupConfig, spec: sim.SubgroupSpec,
+                    counts: np.ndarray) -> int:
+        """Round budget: settle rounds for visibility/null drain, plus
+        slack for ring-window throttling."""
+        if cfg.rounds is not None:
+            return cfg.rounds
+        max_c = int(counts.max()) if len(counts) else 0
+        return max_c + 2 * len(spec.members) + 8 + \
+            3 * (max_c // max(spec.window, 1))
+
+    # -- stacking: one group scenario -> padded program inputs ---------------
+
+    def _stack(self, cfg: GroupConfig, counts: Dict[int, np.ndarray]):
+        """Lower one scenario to per-subgroup shape tuples, round budgets,
+        a (G, T_max, S_max) schedule stack and (G, 6) cost coefficients."""
+        members = tuple(len(s.members) for s in cfg.subgroups)
+        senders = tuple(len(s.senders) for s in cfg.subgroups)
+        windows = tuple(s.window for s in cfg.subgroups)
+        rounds = tuple(self._rounds_for(cfg, spec, counts[g])
+                       for g, spec in enumerate(cfg.subgroups))
+        t_max, s_max = max(rounds), max(senders)
+        scheds = np.zeros((len(members), t_max, s_max), np.int32)
+        for g in range(len(members)):
+            scheds[g, :, : senders[g]] = _lower_schedule(counts[g], t_max)
+        costs = np.stack([_cost_params(cfg, spec)
+                          for spec in cfg.subgroups]).astype(np.float32)
+        return members, senders, windows, rounds, scheds, costs
+
+    def _to_device(self, x: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.device)
+
+    def _execute(self, scheds: torch.Tensor, costs: torch.Tensor,
+                 windows: torch.Tensor, null_send, member_masks,
+                 sender_masks, n_max: int, ring_window: int):
+        """The device part of a run: the stacked round loop plus the cost
+        fold, inputs and outputs on ``self.device``, nothing copied to
+        the host.  scheds: (G, T, S_max) with a Python-bool
+        ``null_send``, or (B, G, T, S_max) with a (B,) bool tensor.
+        Returns (batches, app_pub, nulls, round_t, round_w)."""
+        states = sweep_mod.batch_states(n_max, scheds.shape[-1],
+                                        tuple(scheds.shape[:-2]),
+                                        self.device)
+        receive_fn = self._receive_fn(ring_window)
+        if scheds.dim() == 3:
+            _, (batches, app_pub, nulls) = sweep_mod.run_stacked(
+                states, scheds, windows=windows, null_send=null_send,
+                member_masks=member_masks, sender_masks=sender_masks,
+                receive_fn=receive_fn)
+        else:
+            _, (batches, app_pub, nulls) = sweep_mod.run_stacked_batch(
+                states, scheds, windows=windows, null_sends=null_send,
+                member_masks=member_masks, sender_masks=sender_masks,
+                receive_fn=receive_fn)
+        round_t, round_w = _fold_cost(app_pub, costs)
+        return batches, app_pub, nulls, round_t, round_w
+
+    def run(self, cfg: GroupConfig, counts: Dict[int, np.ndarray]
+            ) -> Tuple[RunReport, Dict[int, DeliveryLog]]:
+        agg = _GraphAgg()
+        wall0 = time.perf_counter()
+        if cfg.subgroups:
+            members, senders, windows, rounds, scheds, costs = \
+                self._stack(cfg, counts)
+            member_masks, sender_masks = _stack_masks(members, senders)
+            outs = self._run_device(
+                members, scheds, costs, np.asarray(windows, np.int32),
+                cfg.flags.null_send, member_masks, sender_masks,
+                max(windows))
+            self._finalize(cfg, counts, outs, rounds, agg)
+        return self._report(agg, wall0), agg.logs
+
+    def run_batch(self, cfgs: List[GroupConfig],
+                  counts_list: List[Dict[int, np.ndarray]]
+                  ) -> List[Tuple[RunReport, Dict[int, DeliveryLog]]]:
+        """Execute B scenario variants in ONE stacked round loop — every
+        grid point, every subgroup.  All points must share membership
+        shapes; schedules are padded to the common round budget and each
+        point's traces sliced back to its own budget afterwards, so every
+        point's results are identical to a sequential :meth:`run`."""
+        if not cfgs:
+            return []
+        base = cfgs[0]
+        for i, cfg in enumerate(cfgs[1:], start=1):
+            if len(cfg.subgroups) != len(base.subgroups):
+                raise ValueError(
+                    f"run_batch points must share membership shapes; grid "
+                    f"point {i} has {len(cfg.subgroups)} subgroups, grid "
+                    f"point 0 has {len(base.subgroups)}")
+            for gid, (s0, si) in enumerate(zip(base.subgroups,
+                                               cfg.subgroups)):
+                if (len(si.members) != len(s0.members)
+                        or len(si.senders) != len(s0.senders)):
+                    raise ValueError(
+                        "run_batch points must share membership shapes; "
+                        f"subgroup {gid} at grid point {i} has "
+                        f"{len(si.members)} members / {len(si.senders)} "
+                        f"senders vs grid point 0's {len(s0.members)} / "
+                        f"{len(s0.senders)}")
+        b = len(cfgs)
+        wall0 = time.perf_counter()
+        stacks = [self._stack(cfg, counts_list[i])
+                  for i, cfg in enumerate(cfgs)]
+        members, senders = stacks[0][0], stacks[0][1]
+        t_max = max(max(st[3]) for st in stacks)
+        s_max = max(senders)
+        scheds = np.zeros((b, len(members), t_max, s_max), np.int32)
+        for i, st in enumerate(stacks):
+            scheds[i, :, : st[4].shape[1]] = st[4]
+        windows = np.asarray([st[2] for st in stacks], np.int32)  # (B, G)
+        nulls_on = np.asarray([cfg.flags.null_send for cfg in cfgs])
+        costs = np.stack([st[5] for st in stacks])                # (B, G, 6)
+        member_masks, sender_masks = _stack_masks(members, senders)
+        outs = self._run_device(members, scheds, costs, windows, nulls_on,
+                                member_masks, sender_masks,
+                                int(windows.max()))
+        results = []
+        for i in range(b):
+            agg = _GraphAgg()
+            self._finalize(cfgs[i], counts_list[i],
+                           [o[i] for o in outs], stacks[i][3], agg)
+            # one wall clock covers the whole grid — stamp it under a
+            # batch key so nobody mistakes it for a per-point cost
+            results.append((self._report(agg, wall0,
+                                         wall_key="batch_wall_s"),
+                            agg.logs))
+        return results
+
+    def _run_device(self, members, scheds, costs, windows, null_send,
+                    member_masks, sender_masks, ring_window: int
+                    ) -> List[np.ndarray]:
+        """Copy the lowered inputs to the device, run :meth:`_execute`,
+        and copy its five traces back (the only device-to-host copies of a
+        run)."""
+        dev = self._to_device
+        if not isinstance(null_send, bool):
+            null_send = dev(null_send)
+        masks = (None, None) if member_masks is None else \
+            (dev(member_masks), dev(sender_masks))
+        outs = self._execute(dev(scheds), dev(costs), dev(windows),
+                             null_send, *masks, max(members), ring_window)
+        return [o.cpu().numpy() for o in outs]
+
+    # -- host-side post-processing -------------------------------------------
+
+    def _finalize(self, cfg: GroupConfig, counts: Dict[int, np.ndarray],
+                  outs: List[np.ndarray], rounds: Tuple[int, ...],
+                  agg: _GraphAgg) -> None:
+        """Slice one run's stacked (G, T_max, ...) traces back to each
+        subgroup's own round budget and real membership, reconstruct the
+        delivery logs, apply the target-delivered measurement window, and
+        accumulate report inputs."""
+        parts = []
+        for gid, spec in enumerate(cfg.subgroups):
+            n_g, s_g, t_g = len(spec.members), len(spec.senders), rounds[gid]
+            point = [outs[0][gid, :t_g, :n_g], outs[1][gid, :t_g, :s_g],
+                     outs[2][gid, :t_g, :s_g], outs[3][gid, :t_g],
+                     outs[4][gid, :t_g]]
+            log, lat = self._reconstruct(spec, point[0], point[1], point[2])
+            parts.append((gid, spec, point, log, lat))
+        cross_target = (cfg.target_delivered is not None
+                        and len(cfg.subgroups) > 1)
+        if cfg.target_delivered is not None:
+            if cross_target:
+                _clip_target_stacked(cfg, parts)
+            else:
+                parts[0][3].truncate_to_app_target(cfg.target_delivered)
+        for gid, spec, point, log, lat in parts:
+            self._account(cfg, spec, gid, counts[gid], rounds[gid], point,
+                          log, lat, agg,
+                          per_subgroup_stall=not cross_target)
+        if cross_target:
+            agg.stalled = agg.stalled or _stalled_across_subgroups(
+                cfg, counts, agg.logs)
+
+    def _account(self, cfg: GroupConfig, spec: sim.SubgroupSpec,
+                 gid: int, c: np.ndarray, rounds: int,
+                 arrays: List[np.ndarray], log: DeliveryLog,
+                 lat_pairs: np.ndarray, agg: _GraphAgg, *,
+                 per_subgroup_stall: bool = True) -> None:
+        """Accumulate one subgroup's post-processed traces into the
+        report inputs."""
+        batches, app_pub, nulls, round_t, round_w = arrays
+        agg.logs[gid] = log
+        agg.rounds += rounds
+        agg.nulls_sent += int(nulls.sum())
+        agg.writes += int(round_w.astype(np.int64).sum())
+        end_time = np.cumsum(round_t.astype(np.float64))
+        if rounds:
+            agg.duration = max(agg.duration, float(end_time[-1]))
+        if len(lat_pairs):
+            pr, dr = lat_pairs[:, 0], lat_pairs[:, 1]
+            start = np.where(pr > 0, end_time[np.maximum(pr - 1, 0)], 0.0)
+            agg.latencies.extend((end_time[dr] - start).tolist())
+        for node in spec.members:
+            a, nl = log.app_null_counts(node)
+            agg.delivered_app += a
+            agg.delivered_null += nl
+            agg.per_node_bytes[node] = \
+                agg.per_node_bytes.get(node, 0.0) + a * spec.msg_size
+        if per_subgroup_stall:
+            total_app = int(c.sum())
+            need = total_app if cfg.target_delivered is None else \
+                min(cfg.target_delivered, total_app)
+            if any(log.app_null_counts(node)[0] < need
+                   for node in spec.members):
+                agg.stalled = True
+
+    def _report(self, agg: _GraphAgg, wall0: float,
+                wall_key: str = "wall_s") -> RunReport:
+        per_node = [b / agg.duration / 1e3
+                    for b in agg.per_node_bytes.values()
+                    if agg.duration > 0 and b > 0]
+        lat = np.array(agg.latencies) if agg.latencies else np.array([0.0])
+        return RunReport(
+            backend=self.name,
+            throughput_GBps=float(np.mean(per_node)) if per_node else 0.0,
+            mean_latency_us=float(lat.mean()),
+            p99_latency_us=float(np.percentile(lat, 99)),
+            duration_us=agg.duration,
+            delivered_app_msgs=agg.delivered_app,
+            delivered_null_msgs=agg.delivered_null,
+            nulls_sent=agg.nulls_sent,
+            rdma_writes=agg.writes,
+            rounds=agg.rounds,
+            per_node_throughput=per_node,
+            stalled=agg.stalled,
+            extras={wall_key: time.perf_counter() - wall0},
+        )
+
+    @staticmethod
+    def _reconstruct(spec: sim.SubgroupSpec, batches: np.ndarray,
+                     app_pub: np.ndarray, nulls: np.ndarray):
+        """Rebuild the per-sender nullness log and (publish_round,
+        delivery_round) latency samples from the per-round trace, fully
+        vectorized.  Within a round a sender publishes its app messages
+        before its nulls.  Returns the log plus a (K, 2) int array of
+        latency round-pairs sampled at member position 0."""
+        n_s = len(spec.senders)
+        rounds = batches.shape[0]
+        is_app: List[np.ndarray] = []
+        pub_round: List[np.ndarray] = []
+        for s in range(n_s):
+            a = app_pub[:, s].astype(np.int64)
+            total = a + nulls[:, s].astype(np.int64)
+            rnd = np.repeat(np.arange(rounds), total)
+            start = np.cumsum(total) - total          # exclusive prefix
+            offset = np.arange(total.sum()) - np.repeat(start, total)
+            is_app.append(offset < np.repeat(a, total))
+            pub_round.append(rnd)
+        delivered_num = np.cumsum(batches, axis=0) - 1   # (T, N)
+        final = delivered_num[-1] if rounds else \
+            np.full(len(spec.members), -1)
+        delivered = {node: int(final[pos])
+                     for pos, node in enumerate(spec.members)}
+        lat = np.zeros((0, 2), np.int64)
+        if rounds and int(final[0]) >= 0:
+            col = delivered_num[:, 0]
+            seqs = np.arange(int(final[0]) + 1)
+            ranks, idxs = seqs % n_s, seqs // n_s
+            maxlen = max(len(x) for x in is_app)
+            flags = np.zeros((n_s, maxlen), bool)
+            rnds = np.zeros((n_s, maxlen), np.int64)
+            for s in range(n_s):
+                flags[s, : len(is_app[s])] = is_app[s]
+                rnds[s, : len(pub_round[s])] = pub_round[s]
+            m = flags[ranks, idxs]
+            lat = np.stack([rnds[ranks[m], idxs[m]],
+                            np.searchsorted(col, seqs[m])], axis=1)
+        log = DeliveryLog(n_senders=n_s, is_app=is_app,
+                          delivered_seq=delivered)
+        return log, lat
+
+
+def _clip_target_stacked(cfg: GroupConfig, parts) -> None:
+    """Apply the ``target_delivered`` measurement window to a
+    multi-subgroup stacked run.
+
+    Every subgroup runs on ONE shared round timeline, so the window is
+    cross-subgroup: for each member, find the earliest shared round at
+    which its app deliveries summed over its subgroups reach the target,
+    clip each subgroup's delivered prefix for that member to its value at
+    that round, then clip within-subgroup overshoot at the target."""
+    target = cfg.target_delivered
+    per_member: Dict[int, List[Tuple[DeliveryLog, int, np.ndarray,
+                                     np.ndarray]]] = {}
+    for gid, spec, point, log, lat in parts:
+        batches = point[0]
+        if not len(batches):
+            continue
+        delivered_num = np.cumsum(batches.astype(np.int64), axis=0) - 1
+        hi = int(delivered_num.max(initial=-1))
+        # app_cum[k] = app messages among the first k seqs of the order
+        app_cum = np.concatenate(
+            [[0], np.cumsum(log.app_flags_upto(hi))]).astype(np.int64)
+        for pos, node in enumerate(spec.members):
+            col = delivered_num[:, pos]                       # (t_g,)
+            apps = app_cum[col + 1]         # apps delivered by round r
+            per_member.setdefault(node, []).append((log, node, col, apps))
+    for node, entries in per_member.items():
+        t_shared = max(len(col) for _, _, col, _ in entries)
+        total = np.zeros(t_shared, np.int64)
+        for _, _, col, apps in entries:
+            pad = t_shared - len(apps)
+            total += np.concatenate(
+                [apps, np.full(pad, apps[-1] if len(apps) else 0)])
+        hit = np.nonzero(total >= target)[0]
+        if not len(hit):
+            continue                     # target never reached: keep all
+        cut = int(hit[0])
+        for log, node_, col, _ in entries:
+            log.delivered_seq[node_] = int(col[min(cut, len(col) - 1)])
+    for gid, spec, point, log, lat in parts:
+        log.truncate_to_app_target(target)
+
+
+def _stalled_across_subgroups(cfg: GroupConfig,
+                              counts: Dict[int, np.ndarray],
+                              logs: Mapping[int, DeliveryLog]) -> bool:
+    """Multi-subgroup target_delivered stall check: a member stalls when
+    its app deliveries summed over its subgroups fall short of the target
+    (capped by what its subgroups could supply at all)."""
+    delivered: Dict[int, int] = {}
+    avail: Dict[int, int] = {}
+    for gid, spec in enumerate(cfg.subgroups):
+        total_app = int(counts[gid].sum())
+        for node in spec.members:
+            delivered[node] = delivered.get(node, 0) + \
+                logs[gid].app_null_counts(node)[0]
+            avail[node] = avail.get(node, 0) + total_app
+    return any(delivered[node] < min(cfg.target_delivered, avail[node])
+               for node in delivered)
+
+
+class KernelBackend(GraphBackend):
+    """The graph protocol with the receive predicate evaluated by the SMC
+    sweep kernel: per round one launch of
+    :func:`repro_torch.kernels.ops.smc_sweep_watermark` over the flattened
+    (…, member, sender) plane of every subgroup, with an explicit lane
+    validity mask for padded stacks.  On CUDA tensors that is the Hopper
+    kernel; on CPU tensors its plain twin."""
+
+    name = "kernel"
+
+    def _receive_fn(self, ring_window: int):
+        return _kernel_receive(ring_window)
+
+
+register_backend("graph", GraphBackend)
+register_backend("kernel", KernelBackend)
