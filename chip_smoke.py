@@ -3,34 +3,49 @@
 
     python3 chip_smoke.py
 
-Builds the SMC-sweep kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch twin on the card, then drives the port's
-main path — ``Group.run`` and ``Group.run_batch`` on the ``kernel``
-backend — at the paper's deployment sizes and checks that the card's
-``kernel`` and ``graph`` runs and the CPU ``graph`` run agree exactly.
+Builds every kernel of the port from ``src/repro_torch/kernels`` (the
+CUDA sources with ``nvcc``, all at once; the Triton kernels at their
+first launch), holds each against its plain PyTorch version on the card,
+then drives the port's two main paths: the multicast (``Group.run`` and
+``Group.run_batch`` on the ``kernel`` backend, at the paper's deployment
+sizes, agreeing exactly with the card's ``graph`` and the CPU's ``graph``
+runs) and the serve plane (``ReplicatedEngine.run`` on a full-width
+qwen3-1.7b over the streamed multicast).
 
 Phases (one JSON line each; any failure exits non-zero):
 
 0. card identity (``nvidia-smi`` name and power limit) and build time;
-1. both kernels against their twins at the main path's lane counts and
-   at 2**20 lanes: exact equality, CUDA-event times, the byte bound;
+1. both SMC kernels against their twins at the main path's lane counts
+   and at 2**20 lanes: exact equality, CUDA-event times, the byte bound;
 2. the paper's testbed: 16 nodes, all senders, 10 KB messages, window
    100, 1000 messages per sender;
 3. the Fig. 6 window grid and the Fig. 11 null-send grid as one
    ``run_batch`` each, every point equal to its own sequential run;
 4. a heterogeneous 64-topic DDS domain over 16 nodes (the masked kernel
    path);
-5. the ``kernels`` line: per kernel its launches on the main path
-   (phases 2-4), its times and its bound.
+5. flash-decode and both RMSNorm kernels against their plain versions at
+   the serve shapes, float32 (2e-5) and bfloat16 (2e-2): CUDA-event and
+   profiler times, the plain and library times, the bound;
+6. the serve plane at full width: qwen3-1.7b (28 layers, bf16 weights
+   from seed 0), two replicas of 8 KV slots x 2048 positions, 16
+   requests each, on the ``kernel`` backend: every kernel launched once
+   per site per decode step, tokens/s, wall per round, device-busy share;
+7. the same serve scenario in float32 at 4 layers, on the kernels and on
+   ``Runtime(kernels="plain")`` over the ``graph`` backend: identical
+   logs, round traces and tokens (a token may differ only where the
+   plain run's top-2 logit margin is under 1e-4 relative);
+8. the ``kernels`` line: per kernel its launches on the main paths
+   (phases 2-4 and 6), its times and its bound.
 
-The round loop of every card ``kernel`` run executes under
+The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
 inside it fails the run.  The last line is the device record.  Needs one
-CUDA GPU and ``nvcc``; exits 2 without a GPU.
+CUDA GPU, ``nvcc`` and ``triton``; exits 2 without a GPU.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -47,12 +62,20 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import api  # noqa: E402
 from repro_torch.core.group import (GraphBackend, KernelBackend,  # noqa: E402
                                     _stack_masks)
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import smc_sweep as ss  # noqa: E402
+from repro_torch.models import layers, registry  # noqa: E402
+from repro_torch.models.runtime import Runtime  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 # The card's table has no int32 ALU rate; slot checks are charged at the
-# fp32 non-tensor-core peak (67 TFLOP/s), one operation per check.
+# fp32 non-tensor-core peak (67 TFLOP/s), one operation per check.  The
+# flash-decode and RMSNorm kernels compute in float32 outside the tensor
+# cores, so their operations are charged at the same peak.
 ALU_OPS_PER_S = 67e12
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 RTOL_FLOAT = 1e-6             # float report fields (FMA / summation order)
 
 INT_FIELDS = ("delivered_app_msgs", "delivered_null_msgs", "nulls_sent",
@@ -147,7 +170,15 @@ def phase0_identity():
     smi_line = smi.stdout.strip().splitlines()[0]
     print(smi_line, flush=True)
     t0 = time.perf_counter()
+    # one nvcc per CUDA source, all started together; Triton compiles each
+    # kernel at its first launch
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        for fut in [pool.submit(_build.build, name)
+                    for name in ("smc_sweep", "flash_decode")]:
+            fut.result()
     ss.build()
+    fd.build()
+    rn.build()
     build_s = time.perf_counter() - t0
     emit({"phase": 0, "nvidia_smi": smi_line,
           "device": torch.cuda.get_device_name(0),
@@ -407,48 +438,454 @@ def phase4_dds():
           "summary": out["graph_cpu"][0].summary()})
 
 
+# ---------------------------------------------------------------------------
+# the serve plane's kernels and the serve plane itself
+# ---------------------------------------------------------------------------
+
+def within(got, want, dtype) -> float:
+    """Max |got - want|; fails unless allclose at the dtype's bar."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max().item())
+    tol = TOL[dtype]
+    check(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
+          f"max error {err} beyond the {dtype} tolerance {tol}")
+    return err
+
+
+def bound(nbytes: float, flops: float):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / ALU_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def time_case(kernel, plain, library):
+    return {"ms": cuda_ms(kernel, 200),
+            "device_ms": profiled_device_ms(kernel, 50),
+            "plain_ms": cuda_ms(plain, 20, warmup=2),
+            "library_ms": None if library is None else cuda_ms(library, 200)}
+
+
+def sdpa_library(q, k, v, kv_len):
+    """One ``scaled_dot_product_attention`` call with a boolean mask over
+    the same inputs (timed as a yardstick; the port never calls it)."""
+    F = torch.nn.functional
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    qs = q[:, :, None]                                  # (B, Hq, 1, D)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)       # (B, Hkv, S, D)
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None]           # (B, 1, 1, S)
+    try:
+        F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                       enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    except TypeError:                     # a PyTorch without enable_gqa
+        kr = ks.repeat_interleave(hq // hkv, 1)
+        vr = vs.repeat_interleave(hq // hkv, 1)
+        return lambda: F.scaled_dot_product_attention(qs, kr, vr,
+                                                      attn_mask=mask)
+
+
+def phase5_kernels():
+    """The serve plane's kernels against their plain versions."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    b, hq, hkv, d, s_max = 8, 16, 8, 128, 2048
+    lengths = {
+        "mixed": [1, 511, 512, 513, 2048, 37, 1024, 1500],
+        # what the serve run gives it: prompts of 8-24 tokens plus up
+        # to 16 generated ones
+        "serve": np.random.default_rng(6).integers(1, 41, b).tolist()}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
+        k = torch.randn(b, s_max, hkv, d, generator=gen, device=dev).to(dtype)
+        v = torch.randn(b, s_max, hkv, d, generator=gen, device=dev).to(dtype)
+        for label, lens in lengths.items():
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kernel = lambda: fd.flash_decode(q, k, v, kv_len)
+            plain = lambda: fd.flash_decode_plain(q, k, v, kv_len)
+            err = within(kernel(), plain(), dtype)
+            keys = sum(lens)
+            esize = q.element_size()
+            nbytes = 2 * q.numel() * esize + 4 * b + \
+                2 * keys * hkv * d * esize
+            bound_ms, bound_by = bound(nbytes, 4 * d * hq * keys)
+            rows.append({"kernel": "flash_decode", "dtype": str(dtype),
+                         "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} "
+                         f"S_max={s_max} lengths={label}",
+                         "lengths": lens, "max_abs_err": err,
+                         **time_case(kernel, plain,
+                                     sdpa_library(q, k, v, kv_len)),
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+    F = torch.nn.functional
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((8, 2048), (8 * 16, 128)):
+            x, res = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                      for _ in range(2))
+            w = (1 + 0.1 * torch.randn(shape[-1:], generator=gen,
+                                       device=dev)).to(dtype)
+            esize, n = x.element_size(), x.numel()
+            cases = {
+                "rms_norm": (lambda: rn.rms_norm(x, w),
+                             lambda: rn.rms_norm_plain(x, w),
+                             (lambda: F.rms_norm(x, shape[-1:], w, 1e-6))
+                             if hasattr(F, "rms_norm") else None,
+                             2 * n * esize + w.numel() * esize, 4 * n),
+                "rms_norm_residual": (
+                    lambda: rn.rms_norm_residual(x, res, w),
+                    lambda: rn.rms_norm_residual_plain(x, res, w), None,
+                    4 * n * esize + w.numel() * esize, 5 * n)}
+            for name, (kernel, plain, library, nbytes, flops) in \
+                    cases.items():
+                got, want = kernel(), plain()
+                if name == "rms_norm":
+                    got, want = (got,), (want,)
+                err = max(within(g, w_, dtype) for g, w_ in zip(got, want))
+                bound_ms, bound_by = bound(nbytes, flops)
+                rows.append({"kernel": name, "dtype": str(dtype),
+                             "shape": f"{shape[0]}x{shape[1]}",
+                             "max_abs_err": err,
+                             **time_case(kernel, plain, library),
+                             "bound_ms": bound_ms, "bound_by": bound_by})
+    for r in rows:
+        emit({"phase": 5, **r})
+    return rows
+
+
+def serve_requests(request_cls, vocab: int, per_replica: int, seed: int,
+                   replicas: int = 2, new_tokens: int = 16):
+    """Seeded prompts of 8-24 tokens, one list per replica."""
+    rng = np.random.default_rng(seed)
+    return [[request_cls(rid=g * 1000 + i,
+                         prompt=rng.integers(0, vocab, int(rng.integers(
+                             8, 25)), dtype=np.int32),
+                         max_new_tokens=new_tokens)
+             for i in range(per_replica)] for g in range(replicas)]
+
+
+def tensors(tree):
+    """Every tensor of a nested dict."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+        return
+    for v in tree.values():
+        yield from tensors(v)
+
+
+def serve_setup(cfg, dtype, seed: int, rt=Runtime(), backend="kernel"):
+    """Two replicas sharing one random parameter set."""
+    specs = layers.map_specs(lambda sp: dataclasses.replace(sp, dtype=dtype),
+                             registry.param_specs(cfg))
+    params = layers.init_tree(specs, torch.Generator(
+        device="cuda").manual_seed(seed))
+    engines = [api.ServeEngine("qwen3-1.7b", params, cfg,
+                               api.EngineConfig(max_batch=8, max_len=2048),
+                               rt=rt, device="cuda") for _ in range(2)]
+    rep = api.ReplicatedEngine(engines, subscribers_per_replica=2,
+                               window=8, backend=backend, device="cuda")
+    return params, rep
+
+
+def serve_run(rep, per_replica: int, seed: int):
+    rep.reset()
+    for g, reqs in enumerate(serve_requests(
+            api.Request, rep.engines[0].cfg.vocab_size, per_replica, seed)):
+        for req in reqs:
+            rep.submit(g, req)
+    torch.cuda.synchronize()
+    report = rep.run()
+    torch.cuda.synchronize()
+    return report
+
+
+def serve_profile(rep, per_replica: int, seed: int):
+    """Device-busy share of a warm serve run, from the profiler's
+    device-side trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        report = serve_run(rep, per_replica, seed)
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    busy_us = sum(device_us(e) for e in events)
+    by_kernel = {}
+    for label, key in (("flash_decode", "flash_decode_kernel"),
+                       ("rms_norm", "rms_kernel"),
+                       ("rms_norm_residual", "rms_residual_kernel"),
+                       ("smc_sweep_watermark",
+                        "smc_sweep_watermark_kernel")):
+        hits = [e for e in events if key in e.key
+                and not (label == "rms_norm" and "residual" in e.key)]
+        n = sum(e.count for e in hits)
+        by_kernel[label] = {"launches": n, "device_us_per_launch":
+                            sum(device_us(e) for e in hits) / n
+                            if n else None}
+    top = sorted(events, key=device_us, reverse=True)[:6]
+    serve = report.extras["serve"]
+    return {"requests": serve["requests"], "decode_steps":
+            serve["decode_steps"], "wall_s": wall,
+            "device_busy_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "device_ms_per_decode_step": busy_us / 1e3
+            / serve["decode_steps"],
+            "kernels": by_kernel,
+            "top_device_ops_us": {e.key[:60]: device_us(e) for e in top}}
+
+
+def phase6_serve():
+    """The serve plane at qwen3-1.7b's full width on the kernel backend;
+    returns the serve path's launch counts."""
+    cfg = registry.get("qwen3-1.7b").cfg
+    t0 = time.perf_counter()
+    params, rep = serve_setup(cfg, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      tensors(params))
+    per_replica = 16
+    ops.reset_launch_counts()                 # the serve path starts here
+    report = serve_run(rep, per_replica, seed=1)
+    launches = ops.launch_counts()            # ... and ends here
+    serve = report.extras["serve"]
+    check(serve["drained"] and not report.stalled,
+          f"serve run did not drain: {serve}")
+    check(serve["requests"] == 32 and serve["tokens"] == 32 * 16,
+          f"serve run: {serve['requests']} requests, {serve['tokens']} "
+          "tokens (want 32, 512)")
+    steps = serve["decode_steps"]
+    want = {"flash_decode": cfg.n_layers * steps,
+            "rms_norm": (1 + 2 * cfg.n_layers) * steps,
+            "rms_norm_residual": 2 * cfg.n_layers * steps,
+            "smc_sweep_watermark": report.extras["streamed_rounds"],
+            "smc_sweep": 0}
+    check(launches == want, f"serve launches {launches}, want {want}")
+    tokens = rep.completed()
+    for stream in (t for per in tokens.values() for t in per):
+        check(len(stream) == 16 and all(0 <= x < cfg.vocab_size
+                                        for x in stream),
+              f"bad token stream {stream}")
+    # one more step straight through the decoder: finite logits
+    eng = rep.engines[0]
+    logits, _ = eng.decode(params, eng.cache, torch.zeros(
+        (8, 1), dtype=torch.int32, device="cuda"), torch.arange(
+        8, dtype=torch.int32, device="cuda"), np.ones(8, bool))
+    check(logits.shape == (8, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "full-width decode step gave non-finite logits")
+    warm = serve_run(rep, per_replica, seed=1)
+    check(rep.completed() == tokens, "warm serve run changed its tokens")
+    wserve = warm.extras["serve"]
+    emit({"phase": 6, "model": cfg.name, "layers": cfg.n_layers,
+          "params": cfg.param_count(), "param_bytes": param_bytes,
+          "replicas": 2, "slots": 8, "max_len": 2048, "window": 8,
+          "subscribers_per_replica": 2, "backend": "kernel",
+          "setup_s": setup_s, "launches": launches,
+          "launches_per_decode_step": {
+              k: launches[k] / steps for k in
+              ("flash_decode", "rms_norm", "rms_norm_residual")},
+          "cold": {"wall_s": serve["wall_s"],
+                   "tokens_per_s": serve["tokens_per_s"]},
+          "warm": {k: wserve[k] for k in
+                   ("requests", "tokens", "tokens_per_s", "wall_s",
+                    "engine_rounds", "decode_steps", "host_hops",
+                    "max_backlog", "stall_rounds")},
+          "warm_wall_ms_per_engine_round": wserve["wall_s"]
+          / wserve["engine_rounds"] * 1e3,
+          "warm_wall_ms_per_decode_step": wserve["wall_s"]
+          / wserve["decode_steps"] * 1e3,
+          "decode_step_bound_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
+          "streamed_rounds": warm.extras["streamed_rounds"],
+          "multicast": warm.summary(),
+          "profile_warm_2_per_replica": serve_profile(rep, 2, seed=3)})
+    del params, rep
+    torch.cuda.empty_cache()
+    return launches
+
+
+def record_margins(rep):
+    """Wrap each engine's decode so every generating step keeps its
+    rows' top-2 logits; returns the records (filled during the run)."""
+    records = []
+    for g, eng in enumerate(rep.engines):
+        decode = eng.decode
+
+        def wrapped(p, c, t, pos, valid, eng=eng, decode=decode, g=g):
+            logits, c = decode(p, c, t, pos, valid)
+            rows = [(i, eng.slot_req[i].rid, len(eng.slot_req[i].tokens_out))
+                    for i in np.flatnonzero(valid)
+                    if eng.slot_len[i] >= len(eng.slot_req[i].prompt)]
+            if rows:          # a generating step, not a prefill step
+                records.append((rows, torch.topk(logits.float(), 2,
+                                                 dim=-1).values))
+            return logits, c
+
+        eng.decode = wrapped
+    return records
+
+
+def phase7_kernels_vs_plain():
+    """The serve scenario in float32 at 4 layers on the kernels and on
+    the plain versions (over the graph backend)."""
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg, n_layers=4)
+    out = {}
+    margins = {}
+    for key, rt, backend in (("kernels", Runtime(), "kernel"),
+                             ("plain", Runtime(kernels="plain"), "graph")):
+        _, rep = serve_setup(cfg, torch.float32, seed=2, rt=rt,
+                             backend=backend)
+        records = record_margins(rep) if key == "plain" else None
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        report = serve_run(rep, 16, seed=4)
+        wall = time.perf_counter() - t0
+        after = ops.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        if key == "plain":
+            check(all(launched[k] == 0 for k in
+                      ("flash_decode", "rms_norm", "rms_norm_residual",
+                       "smc_sweep_watermark")),
+                  f"the plain run launched kernels: {launched}")
+            for rows, top in records:
+                top = top.cpu().numpy()
+                for i, rid, j in rows:
+                    t1, t2 = top[i]
+                    margins[(rid, j)] = (t1 - t2) / max(abs(t1), 1e-30)
+        else:
+            check(launched["flash_decode"] == cfg.n_layers
+                  * report.extras["serve"]["decode_steps"],
+                  f"kernel run launches {launched}")
+        out[key] = (report, rep, wall)
+        del rep
+        torch.cuda.empty_cache()
+    (rk, repk, wk), (rp, repp, wp) = out["kernels"], out["plain"]
+    same_logs({k: v for k, v in rk.extras["delivery_logs"].items()},
+              rp.extras["delivery_logs"], "phase 7 logs")
+    for f in INT_FIELDS:
+        check(getattr(rk, f) == getattr(rp, f), f"phase 7: {f} differs")
+    for key in ("engine_rounds", "decode_steps", "requests", "tokens",
+                "host_hops", "stall_rounds", "max_backlog"):
+        check(rk.extras["serve"][key] == rp.extras["serve"][key],
+              f"phase 7: serve {key} differs")
+    for name in ("admit_rounds", "admit_slots", "finish_rounds",
+                 "free_rounds"):
+        check(getattr(repk, name) == getattr(repp, name),
+              f"phase 7: {name} differs")
+    near_ties, compared = [], 0
+    by_rid_k = {r.rid: r.tokens_out for e in repk.engines
+                for r in e.completed}
+    by_rid_p = {r.rid: r.tokens_out for e in repp.engines
+                for r in e.completed}
+    check(by_rid_k.keys() == by_rid_p.keys(), "phase 7: requests differ")
+    for rid in sorted(by_rid_p):
+        a, b = by_rid_k[rid], by_rid_p[rid]
+        compared += len(b)
+        diff = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        if diff is None:
+            continue
+        m = margins.get((rid, diff))
+        check(m is not None and m < 1e-4,
+              f"phase 7: request {rid} differs at token {diff} where the "
+              f"plain run's top-2 margin is {m}")
+        near_ties.append({"rid": rid, "token": diff, "margin": float(m)})
+    emit({"phase": 7, "model": cfg.name, "layers": cfg.n_layers,
+          "dtype": "float32", "requests": rp.extras["serve"]["requests"],
+          "tokens_compared": compared, "identical_logs": True,
+          "identical_round_traces": True,
+          "differing_tokens_at_near_ties": near_ties,
+          "min_plain_margin": float(min(margins.values())),
+          "kernels_wall_s": wk, "plain_wall_s": wp,
+          "kernels_tokens_per_s": rk.extras["serve"]["tokens_per_s"],
+          "plain_tokens_per_s": rp.extras["serve"]["tokens_per_s"]})
+
+
+KERNELS = (
+    ("smc_sweep_watermark", "cuda", "src/repro_torch/kernels/csrc/smc_sweep.cu",
+     "src/repro/kernels/smc_sweep.py:153 smc_sweep_watermark_pallas"),
+    ("smc_sweep", "cuda", "src/repro_torch/kernels/csrc/smc_sweep.cu",
+     "src/repro/kernels/smc_sweep.py:127 smc_sweep_pallas"),
+    ("flash_decode", "cuda", "src/repro_torch/kernels/csrc/flash_decode.cu",
+     "src/repro/kernels/flash_decode.py:59 flash_decode_flat"),
+    ("rms_norm", "triton", "src/repro_torch/kernels/rmsnorm.py",
+     "src/repro/kernels/rmsnorm.py:34 rms_norm_pallas"),
+    ("rms_norm_residual", "triton", "src/repro_torch/kernels/rmsnorm.py",
+     "src/repro/kernels/rmsnorm.py:52 rms_norm_residual_pallas"),
+)
+# the shape each kernel's line reports: what its main path gives it
+# (bf16 for the serve kernels)
+LINE_SHAPES = {
+    "flash_decode": "B=8 Hq=16 Hkv=8 D=128 S_max=2048 lengths=serve",
+    "rms_norm": "128x128",                    # the per-head q/k norms
+    "rms_norm_residual": "8x2048",            # the hidden-state norms
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     phase0_identity()
     shapes = (("group16", 16 * 16, 100), ("fig6_grid", 5 * 16 * 16, 1000),
               ("dds_stack", dds_lanes(), 100), ("large", 1 << 20, 100))
     rows = phase1_kernels(shapes)
 
-    ss.reset_launch_counts()                  # the main path starts here
+    ops.reset_launch_counts()                 # the multicast path starts here
     phase2_testbed()
     phase3_grids()
     phase4_dds()
-    launches = ss.launch_counts()             # ... and ends here
-    check(launches["smc_sweep_watermark"] > 0,
-          "the main path never launched the watermark kernel")
+    multicast = ops.launch_counts()           # ... and ends here
+    check(multicast["smc_sweep_watermark"] > 0,
+          "the multicast path never launched the watermark kernel")
 
-    def main_shape(kernel):
-        return next(r for r in rows
-                    if r["kernel"] == kernel and r["shape"] == "group16")
+    serve_rows = phase5_kernels()
+    serve = phase6_serve()                    # counts of the serve path
+    check(all(serve[k] > 0 for k in ("flash_decode", "rms_norm",
+                                     "rms_norm_residual")),
+          f"the serve path skipped a kernel: {serve}")
+    phase7_kernels_vs_plain()
 
     kernels = []
-    for name, replaces, source in (
-            ("smc_sweep_watermark",
-             "src/repro/kernels/smc_sweep.py:153 smc_sweep_watermark_pallas",
-             "src/repro_torch/kernels/csrc/smc_sweep.cu"),
-            ("smc_sweep", "src/repro/kernels/smc_sweep.py:127 "
-             "smc_sweep_pallas", "src/repro_torch/kernels/csrc/smc_sweep.cu")):
-        r = main_shape(name)
+    for name, route, source, replaces in KERNELS:
+        if name in LINE_SHAPES:
+            r = next(x for x in serve_rows if x["kernel"] == name
+                     and x["shape"] == LINE_SHAPES[name]
+                     and x["dtype"] == str(torch.bfloat16))
+            errs = [x["max_abs_err"] for x in serve_rows
+                    if x["kernel"] == name]
+            shape = f"{r['shape']}, bf16"
+        else:
+            r = next(x for x in rows
+                     if x["kernel"] == name and x["shape"] == "group16")
+            errs = [x["max_abs_err"] for x in rows
+                    if x["kernel"].startswith(name)]
+            shape = f"{r['lanes']} lanes, W={r['window']}"
+            r = dict(r, exact=all(e == 0 for e in errs))
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "on_main_path": name == "smc_sweep_watermark",
-            "exact": all(x["max_abs_err"] == 0 for x in rows
-                         if x["kernel"].startswith(name)),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "name": name, "route": route, "source": source,
+            "replaces": replaces,
+            "launches": multicast[name] + serve[name],
+            "launches_by_path": {"multicast": multicast[name],
+                                 "serve": serve[name]},
+            "on_main_path": multicast[name] + serve[name] > 0,
+            "max_abs_err": r["max_abs_err"], "max_abs_err_all_shapes":
+            max(errs), "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
-            "yardstick_ms": r["yardstick_ms"],
-            "shape": f"{r['lanes']} lanes, W={r['window']}"})
-    emit({"kernels": kernels})
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "shape": shape, **{k: r[k] for k in ("exact", "yardstick_ms")
+                               if k in r}})
+    emit({"kernels": kernels, "total_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

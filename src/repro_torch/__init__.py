@@ -1,10 +1,12 @@
-"""repro_torch — the Spindle multicast core ported to PyTorch and CUDA.
+"""repro_torch — the Spindle system ported to PyTorch and CUDA.
 
 A second package beside :mod:`repro` (the JAX/Pallas reference), with the
 same module layout and names: ``core/`` holds the protocol (SST
-arithmetic, the fused predicate sweep, the ``Group`` API, DDS topics) and
-``kernels/`` the hand-written Hopper kernel that evaluates the receive
-predicate.  Nothing here imports ``jax`` or ``repro``.
+arithmetic, the fused predicate sweep, the ``Group`` API and its
+streams, DDS topics), ``models/`` and ``configs/`` the dense decoder,
+``serve/`` the serve plane on the streamed multicast, and ``kernels/``
+the hand-written Hopper kernels (the SMC receive sweep and flash decode
+in CUDA, RMSNorm in Triton).  Nothing here imports ``jax`` or ``repro``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 :func:`resolve_device` is the one place that decision is made.
@@ -22,10 +24,15 @@ DeviceLike = Optional[Union[str, torch.device]]
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``None`` means the GPU.  Raises ``RuntimeError`` when a CUDA
     device is asked for (explicitly or by default) and none is present;
-    the CPU is used only when the caller names it."""
+    the CPU is used only when the caller names it.  A CUDA device comes
+    back with its index (``cuda`` is the current card), so it compares
+    equal to the device of the tensors made on it."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device and none is available; "
-            "pass device='cpu' to run the plain PyTorch path on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device and none is available; "
+                "pass device='cpu' to run the plain PyTorch path on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

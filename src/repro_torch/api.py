@@ -18,22 +18,27 @@ later slices of the port.
 
 from repro_torch import resolve_device
 from repro_torch.core.costmodel import HOST_X86, RDMA_CX6
-from repro_torch.core.dds import (Domain, QoS, Topic, many_topic_domain,
-                                  single_topic_domain)
+from repro_torch.core.dds import (BoundDomain, Domain, QoS, Topic,
+                                  many_topic_domain, single_topic_domain)
 from repro_torch.core.group import (BACKENDS, Delivery, DeliveryLog,
                                     EpochCarry, GraphBackend, Group,
-                                    GroupConfig, KernelBackend,
+                                    GroupConfig, GroupStream, KernelBackend,
                                     ProtocolBackend, RunReport,
-                                    SenderPattern, SpindleFlags,
+                                    SenderPattern, SpindleFlags, StreamView,
                                     SubgroupHandle, SubgroupSpec,
                                     get_backend, register_backend,
                                     single_group)
+from repro_torch.load.admission import ServeAdmission
+from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+from repro_torch.serve.fanout import ReplicatedEngine
 
 __all__ = [
-    "BACKENDS", "Delivery", "DeliveryLog", "Domain", "EpochCarry",
-    "GraphBackend", "Group", "GroupConfig", "HOST_X86", "KernelBackend",
-    "ProtocolBackend", "QoS", "RDMA_CX6", "RunReport", "SenderPattern",
-    "SpindleFlags", "SubgroupHandle", "SubgroupSpec", "Topic",
-    "get_backend", "many_topic_domain", "register_backend",
-    "resolve_device", "single_group", "single_topic_domain",
+    "BACKENDS", "BoundDomain", "Delivery", "DeliveryLog", "Domain",
+    "EngineConfig", "EpochCarry", "GraphBackend", "Group", "GroupConfig",
+    "GroupStream", "HOST_X86", "KernelBackend", "ProtocolBackend", "QoS",
+    "RDMA_CX6", "ReplicatedEngine", "Request", "RunReport", "SenderPattern",
+    "ServeAdmission", "ServeEngine", "SpindleFlags", "StreamView",
+    "SubgroupHandle", "SubgroupSpec", "Topic", "get_backend",
+    "many_topic_domain", "register_backend", "resolve_device",
+    "single_group", "single_topic_domain",
 ]

@@ -10,14 +10,17 @@ round, not one per topic.
 
 Four QoS levels (Sec. 4.6): UNORDERED, ATOMIC_MULTICAST, VOLATILE (copied
 into subscriber memory) and LOGGED (appended to an SSD log).  Streaming
-a bound domain (``Domain.bind``) follows in a later slice of the port.
+a bound domain (``Domain.bind``) pushes one round of per-publisher sample
+counts at a time through a :class:`repro_torch.core.group.GroupStream`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch import DeviceLike
 from repro_torch.core import simulator as sim
@@ -118,6 +121,100 @@ class Domain:
             members=tuple(range(self.n_nodes)), subgroups=subgroups,
             flags=flags, target_delivered=target_delivered, **kw)
         return group_mod.Group(cfg, device=device)
+
+    def bind(self, *, backend: str = "kernel", spindle: bool = True,
+             device: DeviceLike = None, **kw) -> "BoundDomain":
+        """Open a STREAMING session over this domain on ``device`` (the
+        GPU unless ``"cpu"`` is named): per-round per-publisher sample
+        counts in, one stacked round per push.
+
+        Where :meth:`group` fixes ``samples_per_publisher`` upfront, a
+        bound domain accepts each round's message counts as they happen —
+        the data plane for workloads whose publish pattern only exists
+        at run time, e.g. the serve fan-out
+        (:mod:`repro_torch.serve.fanout`).  All topics still sweep as ONE
+        stacked round."""
+        g = self.group(samples_per_publisher=0, spindle=spindle,
+                       device=device, **kw)
+        return BoundDomain(self, g.stream(backend=backend))
+
+
+@dataclasses.dataclass
+class BoundDomain:
+    """A domain bound to a :class:`repro_torch.core.group.GroupStream`:
+    the topic-name-keyed front of the streaming entry point.
+
+    ``push_round({topic_name: per_publisher_counts})`` publishes one
+    round of samples (topics omitted from the mapping publish nothing
+    that round — the null-send scheme covers their publishers) and
+    returns the :class:`repro_torch.core.group.StreamView` watermarks;
+    ``finish()`` drains and returns the unified report plus per-TOPIC
+    delivery logs keyed by topic name.
+    """
+
+    domain: Domain
+    stream: "object"                # repro_torch.core.group.GroupStream
+
+    def __post_init__(self):
+        self._gid = {t.name: g for g, t in enumerate(self.domain.topics)}
+
+    @property
+    def round(self) -> int:
+        return self.stream.rounds
+
+    def push_round(self, counts_by_topic=None):
+        """One streamed round.  ``counts_by_topic`` maps topic name ->
+        per-publisher sample counts (a scalar broadcasts over the topic's
+        publishers; a sequence gives rank-ordered per-publisher counts,
+        publisher order as declared in :meth:`Domain.create_topic`)."""
+        ready = np.zeros(self.stream.shape, np.int32)
+        for name, counts in (counts_by_topic or {}).items():
+            if name not in self._gid:
+                raise KeyError(f"unknown topic {name!r}; have "
+                               f"{sorted(self._gid)}")
+            gid = self._gid[name]
+            n_pub = len(self.domain.topics[gid].publishers)
+            counts = np.asarray(counts, np.int32)
+            if counts.ndim == 0:
+                counts = np.full(n_pub, int(counts), np.int32)
+            if counts.shape != (n_pub,):
+                raise ValueError(
+                    f"topic {name!r} has {n_pub} publishers, got counts "
+                    f"of shape {counts.shape}")
+            ready[gid, :n_pub] = counts
+        return self.stream.step(ready)
+
+    def push_matrix(self, ready):
+        """One streamed round from a raw ``(G, S_max)`` ready matrix:
+        rows are topic-indexed in declaration order (``gid_of``); padded
+        publisher lanes must be zero (the stream validates)."""
+        return self.stream.step(ready)
+
+    def gid_of(self, name: str) -> int:
+        """Subgroup row of topic ``name`` in the stream's (G, S_max)
+        matrices (declaration order)."""
+        return self._gid[name]
+
+    def topic_backlogs(self, view=None) -> Dict[str, np.ndarray]:
+        """Per-topic window-throttled backlog, keyed by topic name: the
+        SMC backpressure signal an admission policy gates on.  ``view``
+        defaults to the stream's current watermarks."""
+        v = self.stream.view() if view is None else view
+        return {t.name: v.backlog[g, : len(t.publishers)].copy()
+                for g, t in enumerate(self.domain.topics)}
+
+    def finish(self, settle_max=None):
+        """Drain to quiescence; returns ``(RunReport, {topic_name:
+        DeliveryLog})``."""
+        report, logs = self.stream.finish(settle_max=settle_max)
+        named = {t.name: logs[g]
+                 for g, t in enumerate(self.domain.topics) if g in logs}
+        return report, named
+
+    def reconfigure(self, view):
+        from repro_torch.core import group as group_mod
+        raise group_mod.not_ported("BoundDomain.reconfigure",
+                                   group_mod.CUT_ITEM)
 
 
 def single_topic_domain(n_nodes: int, n_subscribers: int,

@@ -30,8 +30,10 @@ Usage::
     h.on_delivery(lambda member, msg: ...)
     report = g.run(backend="kernel")
 
-Streaming (``Group.stream``) and view changes (``Group.reconfigure``)
-follow in a later slice of the port.
+``Group.stream`` opens a :class:`GroupStream`: the same stacked round,
+fed one round of message counts at a time (the serve plane's entry
+point).  View changes (``Group.reconfigure``, the cut) follow in a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -472,6 +474,17 @@ class Group:
             report.extras["delivery_logs"] = logs
             reports.append(report)
         return reports
+
+    def stream(self, backend="kernel") -> "GroupStream":
+        """Open a streaming session over this scenario: feed per-round
+        per-sender app-message counts with :meth:`GroupStream.step` (all
+        G subgroups sweep as ONE stacked round) and close with
+        :meth:`GroupStream.finish` for the same :class:`RunReport` /
+        delivery logs a scheduled run produces.  This is the serve-plane
+        entry point: message arrivals that only exist at run time — a
+        decode loop's admissions and emitted tokens — ride the multicast
+        substrate round by round instead of as a precomputed schedule."""
+        return GroupStream(self, backend)
 
     def _fire_upcalls(self):
         for gid, fns in self._upcalls.items():
@@ -963,6 +976,335 @@ class KernelBackend(GraphBackend):
 
     def _receive_fn(self, ring_window: int):
         return _kernel_receive(ring_window)
+
+
+# ---------------------------------------------------------------------------
+# Streaming execution — per-round message counts on the stacked substrate
+# ---------------------------------------------------------------------------
+
+# The reference vmaps its one-subgroup cost fold over G; the port's fold
+# already takes G as a leading dimension.
+_fold_cost_stacked = _fold_cost
+
+# ROADMAP.md items that bring what a stream does not do yet.
+CUT_ITEM = "ROADMAP.md item 5 (the virtual-synchrony cut)"
+FUSED_ITEM = "ROADMAP.md item 9 (the fused serve program)"
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet; it comes with {item}, a later slice "
+        "of the port")
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamView:
+    """Host-side watermark snapshot after one streamed round.
+
+    ``delivered_num[g, m]`` is member position ``m``'s highest delivered
+    total-order seq in subgroup ``g``; ``published[g, s]`` sender rank
+    ``s``'s total publishes (apps + nulls); ``backlog[g, s]`` its
+    window-throttled still-queued app messages.  Padded lanes beyond a
+    subgroup's real ``n_members``/``n_senders`` carry garbage — always
+    slice with the per-subgroup sizes (as the helpers here do).
+    """
+
+    round: int
+    delivered_num: np.ndarray            # (G, N_max)
+    published: np.ndarray                # (G, S_max)
+    backlog: np.ndarray                  # (G, S_max)
+    n_members: Tuple[int, ...]
+    n_senders: Tuple[int, ...]
+    # the round's publish trace (None on a bare GroupStream.view() —
+    # only a step() carries what it just published)
+    app_pub: Optional[np.ndarray] = None     # (G, S_max)
+    nulls: Optional[np.ndarray] = None       # (G, S_max)
+
+    def sender_delivered(self, gid: int) -> np.ndarray:
+        """(S_g,) — how many of each sender rank's publishes (apps and
+        nulls) EVERY real member of subgroup ``gid`` has delivered: the
+        per-sender delivery watermark (seq ``i*S + s`` delivered means
+        sender ``s``'s first ``i+1`` publishes are)."""
+        n_g, s_g = self.n_members[gid], self.n_senders[gid]
+        d = int(self.delivered_num[gid, :n_g].min())
+        ranks = np.arange(s_g)
+        return np.where(d >= ranks, (d - ranks) // s_g + 1, 0)
+
+    def sender_drained(self, gid: int) -> np.ndarray:
+        """(S_g,) bool — sender rank has no queued backlog and every one
+        of its publishes so far is delivered at every member of ``gid``
+        (the slot-free condition of the serve plane)."""
+        s_g = self.n_senders[gid]
+        return ((self.backlog[gid, :s_g] == 0)
+                & (self.sender_delivered(gid)
+                   >= self.published[gid, :s_g]))
+
+
+class GroupStream:
+    """Streaming execution of one :class:`Group` scenario.
+
+    Where :meth:`Group.run` lowers a fixed per-sender message count to a
+    schedule upfront, a stream accepts the (G, S_max) app-message counts
+    of each round as they happen — the entry point for workloads whose
+    send pattern only exists at run time (the serve plane's decode
+    loop).  Every :meth:`step` sweeps ALL subgroups as one stacked round
+    on the group's device (:func:`repro_torch.core.sweep.stream_stacked`;
+    on the ``kernel`` backend that is one receive-kernel launch) and
+    copies the round's traces and watermarks to the host in ONE read,
+    returned as a :class:`StreamView` the caller can gate on.
+    :meth:`finish` drains to quiescence and post-processes the
+    accumulated round traces through the exact :class:`GraphBackend`
+    machinery scheduled runs use, so the resulting :class:`RunReport` and
+    delivery logs compare like-for-like with ``run``/``run_batch``
+    (``graph`` and ``kernel`` streams fed identical rounds are
+    bit-identical)."""
+
+    def __init__(self, group: Group, backend="kernel"):
+        be = get_backend(backend, group.device)
+        if not isinstance(be, GraphBackend):
+            raise ValueError(
+                "streaming runs on the stacked graph/kernel substrate; got "
+                f"{getattr(be, 'name', backend)!r}")
+        cfg = group.cfg
+        if not cfg.subgroups:
+            raise ValueError("no subgroups")
+        self.group = group
+        self.backend = be
+        self.device = be.device
+        self._n = tuple(len(s.members) for s in cfg.subgroups)
+        self._s = tuple(len(s.senders) for s in cfg.subgroups)
+        self._w = tuple(s.window for s in cfg.subgroups)
+        self.n_max, self.s_max = max(self._n), max(self._s)
+        g_n = len(self._n)
+        member_masks, sender_masks = _stack_masks(self._n, self._s)
+        self._masks = (None, None) if member_masks is None else (
+            torch.as_tensor(member_masks, device=self.device),
+            torch.as_tensor(sender_masks, device=self.device))
+        self._windows = torch.as_tensor(np.asarray(self._w, np.int32),
+                                        device=self.device)
+        self._null_send = cfg.flags.null_send
+        self._receive = be._receive_fn(max(self._w))
+        self._states = sweep_mod.batch_states(self.n_max, self.s_max, g_n,
+                                              self.device)
+        self._costs = np.stack([_cost_params(cfg, spec)
+                                for spec in cfg.subgroups]).astype(
+                                    np.float32)
+        self._enqueued = [np.zeros(s, np.int64) for s in self._s]
+        # virtual-synchrony epoch carry: the previous epoch's resend set
+        # starts out as this epoch's backlog and counts as enqueued here
+        self.carry = group.carry
+        backlogs0 = np.zeros((g_n, self.s_max), np.int32)
+        if self.carry is not None:
+            for g, resent in enumerate(self.carry.resend):
+                backlogs0[g, : len(resent)] = resent
+                self._enqueued[g] += resent.astype(np.int64)
+        self._backlogs = torch.as_tensor(backlogs0, device=self.device)
+        # host copy of (delivered_num, published, backlog), refreshed by
+        # each step's one device-to-host read
+        self._host = (np.full((g_n, self.n_max), -1, np.int32),
+                      np.zeros((g_n, self.s_max), np.int32), backlogs0)
+        # running per-sender publish totals, so watermark queries
+        # (app_publish_index) answer "not published yet" in O(1)
+        self._app_cum = np.zeros((g_n, self.s_max), np.int64)
+        self._pub_cum = np.zeros((g_n, self.s_max), np.int64)
+        self._batches: List[np.ndarray] = []
+        self._app_pub: List[np.ndarray] = []
+        self._nulls: List[np.ndarray] = []
+        self._wall0 = time.perf_counter()
+        self.rounds = 0
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """(G, S_max) — what :meth:`step` expects."""
+        return len(self._n), self.s_max
+
+    @property
+    def n_members(self) -> Tuple[int, ...]:
+        """Per-subgroup real member counts (lanes beyond are padding)."""
+        return self._n
+
+    @property
+    def n_senders(self) -> Tuple[int, ...]:
+        """Per-subgroup real sender counts (lanes beyond are padding)."""
+        return self._s
+
+    @property
+    def windows(self) -> Tuple[int, ...]:
+        """Per-subgroup SMC window (the backpressure bound an admission
+        policy throttles against)."""
+        return self._w
+
+    @property
+    def cost_params(self) -> np.ndarray:
+        """(G, 6) cost-model coefficients (see :func:`_cost_params`),
+        consumable by :func:`fold_cost_np` for host-side time folds."""
+        return self._costs.copy()
+
+    def traces(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The accumulated round traces, stacked: ``(batches (G, T, N),
+        app_pub (G, T, S), nulls (G, T, S))`` for the T rounds streamed
+        so far; empty T=0 arrays before any step."""
+        g, s = self.shape
+        if not self.rounds:
+            z = np.zeros((g, 0, self.n_max), np.int64)
+            return z, np.zeros((g, 0, s), np.int64), \
+                np.zeros((g, 0, s), np.int64)
+        return (np.stack(self._batches, axis=1),
+                np.stack(self._app_pub, axis=1),
+                np.stack(self._nulls, axis=1))
+
+    def absorb(self, *args, **kwargs) -> None:
+        raise not_ported("GroupStream.absorb", FUSED_ITEM)
+
+    def reconfigure(self, view) -> "GroupStream":
+        raise not_ported("GroupStream.reconfigure", CUT_ITEM)
+
+    def step(self, ready) -> StreamView:
+        """One protocol round: ``ready[g, s]`` app messages become ready
+        at sender rank ``s`` of subgroup ``g`` (padded lanes must be 0).
+        Window-throttled messages are carried in the backlog, exactly as
+        the scheduled loop does."""
+        ready = np.asarray(ready, np.int32)
+        if ready.shape != self.shape:
+            raise ValueError(f"ready must be {self.shape}, got "
+                             f"{ready.shape}")
+        for g, s_g in enumerate(self._s):
+            if ready[g, s_g:].any():
+                raise ValueError(
+                    f"subgroup {g} has {s_g} senders but ready names "
+                    f"padded lanes {np.nonzero(ready[g, s_g:])[0] + s_g}")
+            self._enqueued[g] += ready[g, :s_g].astype(np.int64)
+        (self._states, self._backlogs), (batch, pub, nulls) = \
+            sweep_mod.stream_stacked(
+                self._states, self._backlogs,
+                torch.as_tensor(ready, device=self.device),
+                windows=self._windows, null_send=self._null_send,
+                member_masks=self._masks[0], sender_masks=self._masks[1],
+                receive_fn=self._receive)
+        # the round's one device-to-host read: traces plus watermarks
+        parts = (batch, pub, nulls, self._states.delivered_num,
+                 self._states.published, self._backlogs)
+        flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+        batch, pub, nulls, deliv, published, backlog = np.split(
+            flat, np.cumsum([p.numel() for p in parts])[:-1])
+        g_n = len(self._n)
+        batch, deliv = (x.reshape(g_n, self.n_max) for x in (batch, deliv))
+        pub, nulls, published, backlog = (
+            x.reshape(g_n, self.s_max)
+            for x in (pub, nulls, published, backlog))
+        self._host = (deliv, published, backlog)
+        self._batches.append(batch)
+        self._app_pub.append(pub)
+        self._nulls.append(nulls)
+        self._app_cum += pub
+        self._pub_cum += pub + nulls
+        self.rounds += 1
+        return dataclasses.replace(self.view(), app_pub=pub, nulls=nulls)
+
+    def view(self) -> StreamView:
+        deliv, published, backlog = self._host
+        return StreamView(round=self.rounds, delivered_num=deliv,
+                          published=published, backlog=backlog,
+                          n_members=self._n, n_senders=self._s)
+
+    def app_publish_index(self, gid: int, rank: int,
+                          k: int) -> Optional[int]:
+        """Publish index (0-based, counting apps AND nulls) of sender
+        ``rank``'s ``k``-th app publish (1-based) in subgroup ``gid``,
+        from the accumulated round traces — or None if fewer than ``k``
+        apps have been published yet.  The serve fan-out pins its
+        slot-release watermarks on this (apps precede nulls within a
+        round).  The common "still window-throttled" answer is O(1); the
+        trace scan runs only once a hold's k-th app has published."""
+        if k <= 0 or self._app_cum[gid, rank] < k:
+            return None
+        apps = np.asarray([r[gid, rank] for r in self._app_pub], np.int64)
+        nulls = np.asarray([r[gid, rank] for r in self._nulls], np.int64)
+        app_cum = np.cumsum(apps)
+        r = int(np.searchsorted(app_cum, k))
+        pub_before = int(np.cumsum(apps + nulls)[r] - apps[r] - nulls[r])
+        return pub_before + int(k - (app_cum[r] - apps[r])) - 1
+
+    def quiescent(self, view: Optional[StreamView] = None) -> bool:
+        """No backlog anywhere and every PUBLISHED message delivered by
+        every real member (stricter than "the round-robin prefix is
+        delivered": a sender whose last window-throttled app publishes
+        just as delivery catches up sits beyond the prefix until the
+        null-send scheme covers the lagging ranks).  With null-send off
+        it may never hold, which :meth:`finish`'s fixed-point exit
+        handles."""
+        v = self.view() if view is None else view
+        for g, (n_g, s_g) in enumerate(zip(self._n, self._s)):
+            if v.backlog[g, :s_g].any():
+                return False
+            counts = v.published[g, :s_g].astype(np.int64)
+            if not counts.any():
+                continue
+            ranks = np.arange(s_g)
+            last_seq = (counts - 1) * s_g + ranks
+            need = int(last_seq[counts > 0].max())
+            if (v.delivered_num[g, :n_g] < need).any():
+                return False
+        return True
+
+    def _unchanged_since(self, states: sweep_mod.SweepState,
+                         backlogs: torch.Tensor) -> bool:
+        """Whether the last round left every state leaf and the backlog
+        as they were (one device-to-host read)."""
+        same = [(getattr(states, f.name) == getattr(self._states, f.name)
+                 ).all() for f in dataclasses.fields(states)]
+        same.append((backlogs == self._backlogs).all())
+        return bool(torch.stack(same).all())
+
+    def finish(self, settle_max: Optional[int] = None
+               ) -> Tuple[RunReport, Dict[int, DeliveryLog]]:
+        """Drain with zero-ready rounds until quiescent, then reconstruct
+        delivery logs and the unified report from the accumulated traces.
+        Also installs the logs on the owning Group and fires its delivery
+        upcalls, mirroring :meth:`Group.run`.
+
+        The drain runs until quiescence or a protocol FIXED POINT (a
+        zero-ready round that changes nothing can never be followed by
+        one that does — every predicate is monotone in the state), which
+        covers scenarios that never quiesce (``null_send=False`` with
+        uneven sender counts).  ``settle_max`` optionally caps the drain
+        (the capped-off remainder reports as ``stalled``)."""
+        zeros = np.zeros(self.shape, np.int32)
+        settled = 0
+        while not self.quiescent():
+            if settle_max is not None and settled >= settle_max:
+                break
+            prev = (self._states, self._backlogs)
+            self.step(zeros)
+            settled += 1
+            if settle_max is None and self._unchanged_since(*prev):
+                break                        # fixed point: done evolving
+        agg = self._aggregate()
+        if self.rounds and self._host[2].any():
+            agg.stalled = True                # gave up with work queued
+        report = self.backend._report(agg, self._wall0)
+        report.extras["streamed_rounds"] = self.rounds
+        self.group.delivery_logs = agg.logs
+        self.group.last_report = report
+        self.group._fire_upcalls()
+        return report, agg.logs
+
+    def _aggregate(self) -> _GraphAgg:
+        """Run the accumulated round traces through the exact
+        :class:`GraphBackend` post-processing a scheduled run uses (the
+        cost fold runs on the host copies)."""
+        agg = _GraphAgg()
+        if self.rounds:
+            batches, app_pub, nulls = self.traces()
+            round_t, round_w = _fold_cost_stacked(
+                torch.as_tensor(app_pub.astype(np.int32)),
+                torch.as_tensor(self._costs))
+            outs = [batches, app_pub, nulls, round_t.numpy(),
+                    round_w.numpy()]
+            counts = {g: self._enqueued[g] for g in range(len(self._s))}
+            self.backend._finalize(self.group.cfg, counts, outs,
+                                   (self.rounds,) * len(self._n), agg)
+        return agg
 
 
 register_backend("graph", GraphBackend)

@@ -1,14 +1,33 @@
-"""Public wrappers around the port's kernels: what the protocol core
-calls.  They adapt caller layouts (a bool validity mask) to the kernels'
-strict int32 lane contract; see :mod:`repro_torch.kernels.smc_sweep`."""
+"""Public wrappers around the port's kernels: what the protocol core and
+the model call.  Each takes CUDA tensors to its Hopper kernel and CPU
+tensors to its plain version (see the kernel modules); :data:`PLAIN`
+maps the model's kernel sites to the plain versions for
+``Runtime(kernels="plain")``."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import smc_sweep as _ss
+
+KERNEL_MODULES = (_ss, _fd, _rn)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of every CUDA/Triton kernel in this process, by name."""
+    counts: Dict[str, int] = {}
+    for mod in KERNEL_MODULES:
+        counts.update(mod.launch_counts())
+    return counts
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNEL_MODULES:
+        mod.reset_launch_counts()
 
 
 def smc_sweep(counters: torch.Tensor, processed: torch.Tensor
@@ -28,3 +47,43 @@ def smc_sweep_watermark(published: torch.Tensor, processed: torch.Tensor, *,
         valid = valid.to(torch.int32)
     return _ss.smc_sweep_watermark(published, processed, window=window,
                                    valid=valid)
+
+
+def _row_lengths(kv_len, q: torch.Tensor) -> torch.Tensor:
+    """A scalar or (B,) length as the (B,) int32 the kernel takes."""
+    kv_len = torch.as_tensor(kv_len, device=q.device)
+    if kv_len.dim() == 0:
+        kv_len = kv_len.expand(q.shape[0])
+    return kv_len.to(torch.int32).contiguous()
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, kv_len) -> torch.Tensor:
+    """q (B, Hq, D); caches (B, S_max, Hkv, D) in the model's layout,
+    read through their strides; kv_len (B,) -> (B, Hq, D).  A scalar
+    length is broadcast over the rows."""
+    return _fd.flash_decode(q, k_cache, v_cache, _row_lengths(kv_len, q))
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d) -> same shape."""
+    return _rn.rms_norm(x, weight, eps)
+
+
+def rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
+                      weight: torch.Tensor, eps: float = 1e-6):
+    """``r = residual + x`` -> ``(rms_norm(r), r)``."""
+    return _rn.rms_norm_residual(x, residual, weight, eps)
+
+
+def _flash_decode_plain(q, k_cache, v_cache, kv_len):
+    return _fd.flash_decode_plain(q, k_cache, v_cache,
+                                  _row_lengths(kv_len, q))
+
+
+PLAIN = {
+    "flash_decode": _flash_decode_plain,
+    "rms_norm": _rn.rms_norm_plain,
+    "rms_norm_residual": _rn.rms_norm_residual_plain,
+}

@@ -1,0 +1,143 @@
+"""Decoder-only LM, dense family, one-token decode.
+
+The layers' parameters are stacked (leading ``layers`` axis, as in the
+reference) and the decode step walks them in a Python loop.  The norm
+sites and the attention go through the :class:`Runtime`'s kernel sites:
+
+* layer 0's attention norm and the per-head q-/k-norms are ``rms_norm``;
+* every ``x = x + y; h = norm(x)`` — each FFN norm, the attention norm of
+  layers >= 1 (adding the previous layer's FFN output) and the final
+  norm — is one fused ``rms_norm_residual``;
+* the one-token attention is ``flash_decode`` with a per-row length.
+
+For qwen3-1.7b (28 layers, qk-norm) that is 57 ``rms_norm``, 56
+``rms_norm_residual`` and 28 ``flash_decode`` calls per step.  The big
+projections stay ``torch.matmul``, as the reference left them to XLA.
+The MoE family comes with a later slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models import attention, layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamSpec
+from repro_torch.models.masking import valid_rows
+from repro_torch.models.runtime import Runtime
+
+PyTree = Any
+
+FAMILIES_ITEM = "ROADMAP.md item 12 (the other model families)"
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.moe is not None or cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; it "
+            f"comes with {FAMILIES_ITEM}, a later slice of the port")
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    _dense_only(cfg)
+    return {
+        "attn_norm": layers.norm_specs(cfg.d_model),
+        "attn": attention.attn_specs(cfg),
+        "ffn_norm": layers.norm_specs(cfg.d_model),
+        "mlp": layers.mlp_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
+def stack_block_specs(cfg: ModelConfig, n_layers: int) -> Dict[str, Any]:
+    return layers.map_specs(lambda s: s.stack_layers(n_layers),
+                            block_specs(cfg))
+
+
+def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    specs = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                           ("vocab", "fsdp_embed")),
+        "layers": stack_block_specs(cfg, cfg.n_layers),
+        "final_norm": layers.norm_specs(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                     ("fsdp_embed", "vocab"))
+    return specs
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def layer_params(stacked: PyTree, i: int) -> PyTree:
+    """Layer ``i``'s slice of the stacked layer parameters (views)."""
+    if isinstance(stacked, torch.Tensor):
+        return stacked[i]
+    return {k: layer_params(v, i) for k, v in stacked.items()}
+
+
+def embed(params: PyTree, cfg: ModelConfig,
+          tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> (B, S, d) in the weights' dtype."""
+    return params["embed"][tokens.long()]
+
+
+def unembed(params: PyTree, cfg: ModelConfig,
+            h: torch.Tensor) -> torch.Tensor:
+    """Final-normed hidden (B, S, d) -> logits (B, S, V); tied weights
+    read the embedding (``x @ embed.T``)."""
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+def decode_block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
+                 x: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, position: torch.Tensor,
+                 rt: Runtime, rows=None, rope=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder block on the attention-normed input ``h`` and the
+    residual stream ``x`` (B, 1, d).  Returns ``(x, y)``: the residual
+    after the attention and the FFN output — the next norm site adds
+    ``y`` to ``x`` (the reference's ``x + y``) as it normalises."""
+    a = attention.decode_attention(p["attn"], cfg, h, k_cache, v_cache,
+                                   position, rt, rows, rope)
+    h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
+                                      cfg.norm_eps)
+    m = p["mlp"]
+    return x, layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+
+
+def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
+                tokens: torch.Tensor, position: torch.Tensor, rt: Runtime,
+                valid=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step.  tokens: (B, 1) int; position: (B,) int — each
+    row's write index; cache {k, v: (L, B, S_max, Hkv, D)}, updated IN
+    PLACE at the rows where the host-side ``(B,)`` bool ``valid`` holds
+    (every row for ``None``).  Returns ``(logits (B, V), cache)`` — the
+    same cache dict."""
+    _dense_only(cfg)
+    position = position.to(torch.int32)
+    rows = valid_rows(valid, position.device)
+    rope = layers.rope_cos_sin(position[:, None], cfg.head_dim_,
+                               cfg.rope_theta)
+    x = embed(params, cfg, tokens)
+    h = rt.op("rms_norm")(x, params["layers"]["attn_norm"]["scale"][0],
+                          cfg.norm_eps)
+    for i in range(cfg.n_layers):
+        p = layer_params(params["layers"], i)
+        if i:
+            h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
+                                              cfg.norm_eps)
+        x, y = decode_block(p, cfg, h, x, cache["k"][i], cache["v"][i],
+                            position, rt, rows, rope)
+    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
+                                      cfg.norm_eps)
+    return unembed(params, cfg, h)[:, 0], cache

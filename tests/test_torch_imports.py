@@ -4,6 +4,7 @@
 function counts too."""
 
 import ast
+import importlib
 from pathlib import Path
 
 import pytest
@@ -40,6 +41,34 @@ def test_port_has_modules():
                  "repro_torch/kernels/ops.py"):
         assert want in names
     assert (ROOT / "src/repro_torch/kernels/csrc/smc_sweep.cu").exists()
+
+
+SERVE_MODULES = (
+    "repro_torch.core.dds", "repro_torch.load.admission",
+    "repro_torch.models.config", "repro_torch.models.layers",
+    "repro_torch.models.runtime", "repro_torch.models.attention",
+    "repro_torch.models.masking", "repro_torch.models.transformer",
+    "repro_torch.models.registry", "repro_torch.models.convert",
+    "repro_torch.configs", "repro_torch.serve.engine",
+    "repro_torch.serve.fanout", "repro_torch.kernels.flash_decode",
+    "repro_torch.kernels.rmsnorm", "repro_torch.kernels.ref",
+    "repro_torch.api")
+
+
+@pytest.mark.parametrize("module", SERVE_MODULES)
+def test_serve_slice_modules_import_without_a_gpu(module):
+    """Every module of the serve slice imports on a CPU-only machine:
+    ``triton`` and the CUDA build are reached only inside launches."""
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+
+
+def test_serve_slice_has_its_kernel_sources():
+    assert (ROOT / "src/repro_torch/kernels/csrc/flash_decode.cu").exists()
+    src = (ROOT / "src/repro_torch/kernels/rmsnorm.py").read_text()
+    decorated = [ln for ln in src.splitlines()
+                 if ln.strip() == "@triton.jit"]
+    assert len(decorated) == 2
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
