@@ -6,11 +6,13 @@
 Builds every kernel of the port from ``src/repro_torch/kernels`` (the
 CUDA sources with ``nvcc``, all at once; the Triton kernels at their
 first launch), holds each against its plain PyTorch version on the card,
-then drives the port's two main paths: the multicast (``Group.run`` and
+then drives the port's three main paths: the multicast (``Group.run`` and
 ``Group.run_batch`` on the ``kernel`` backend, at the paper's deployment
 sizes, agreeing exactly with the card's ``graph`` and the CPU's ``graph``
-runs) and the serve plane (``ReplicatedEngine.run`` on a full-width
-qwen3-1.7b over the streamed multicast).
+runs), the serve plane (``ReplicatedEngine.run`` on a full-width
+qwen3-1.7b over the streamed multicast) and the full-sequence forward
+(``Arch.loss_fn`` / ``Arch.prefill_fn`` on a full-width qwen3-1.7b and
+``Arch.loss_fn`` on a full-width mamba2-2.7b).
 
 Phases (one JSON line each; any failure exits non-zero):
 
@@ -34,13 +36,29 @@ Phases (one JSON line each; any failure exits non-zero):
    ``Runtime(kernels="plain")`` over the ``graph`` backend: identical
    logs, round traces and tokens (a token may differ only where the
    plain run's top-2 logit margin is under 1e-4 relative);
-8. the ``kernels`` line: per kernel its launches on the main paths
-   (phases 2-4 and 6), its times and its bound.
+8. flash attention, the SSD scan and RMSNorm against their plain
+   versions at the forward path's shapes (attention: qwen3-1.7b's heads at
+   S=2048, causal and not, S=1000 ragged, MQA; the SSD scan at
+   mamba2-2.7b's H=80, P=64, N=128, chunk 256, S=2048; RMSNorm at widths
+   2560 and 5120), float32 and bfloat16, at the ``tests/test_kernels.py``
+   bars: times, plain and library times, the bound;
+9. the forward path at full width (bf16 weights from seed 0): qwen3-1.7b,
+   all 28 layers, ``loss_fn`` on 2 x 2048 tokens and ``prefill_fn`` on
+   4 x 512; mamba2-2.7b, all 64 layers, ``loss_fn`` on 1 x 2048: a finite
+   loss (or logits), exact launch counts per forward, tokens/s, wall,
+   device time and busy share, the forward's bound;
+10. the same forwards in float32 at 4 layers on the kernels and on
+   ``Runtime(kernels="plain")``: loss and last-position logits within the
+   stated tolerance, and prefill of S tokens then one decode step equal to
+   the prefill of S + 1 tokens;
+11. the ``kernels`` line: per kernel its launches on the main paths
+   (phases 2-4, 6 and 9), its times and its bound.
 
 The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
 inside it fails the run.  The last line is the device record.  Needs one
-CUDA GPU, ``nvcc`` and ``triton``; exits 2 without a GPU.
+CUDA GPU, ``nvcc`` and ``triton``; exits 2 without a GPU.  Matmuls run in
+full float32 (TF32 off) wherever float32 is compared.
 """
 
 from __future__ import annotations
@@ -63,10 +81,12 @@ from repro_torch import api  # noqa: E402
 from repro_torch.core.group import (GraphBackend, KernelBackend,  # noqa: E402
                                     _stack_masks)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import smc_sweep as ss  # noqa: E402
-from repro_torch.models import layers, registry  # noqa: E402
+from repro_torch.kernels import ssd_scan as sc  # noqa: E402
+from repro_torch.models import layers, registry, transformer  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -75,7 +95,13 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 # flash-decode and RMSNorm kernels compute in float32 outside the tensor
 # cores, so their operations are charged at the same peak.
 ALU_OPS_PER_S = 67e12
+# Matrix work in bf16 is charged at the bf16 tensor-core peak, whatever
+# the kernel uses; in float32 at the float32 peak above (TF32 would not
+# keep float32's digits).
+BF16_TC_OPS_PER_S = 989e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
+SSD_Y_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+SSD_STATE_TOL = 1e-3
 RTOL_FLOAT = 1e-6             # float report fields (FMA / summation order)
 
 INT_FIELDS = ("delivered_app_msgs", "delivered_null_msgs", "nulls_sent",
@@ -114,6 +140,12 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(e):
+    """Device time of one profiler event average, in µs."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
 def profiled_device_ms(fn, iters: int):
     """Mean time the device spent in kernels per ``fn()`` call, from the
     profiler's device-side trace (launch gaps excluded); None if the
@@ -125,9 +157,7 @@ def profiled_device_ms(fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-                   for e in prof.key_averages())
+    total_us = sum(device_us(e) for e in prof.key_averages())
     return total_us / iters / 1e3 if total_us > 0 else None
 
 
@@ -174,10 +204,13 @@ def phase0_identity():
     # kernel at its first launch
     with concurrent.futures.ThreadPoolExecutor() as pool:
         for fut in [pool.submit(_build.build, name)
-                    for name in ("smc_sweep", "flash_decode")]:
+                    for name in ("smc_sweep", "flash_decode",
+                                 "flash_attention", "ssd_scan")]:
             fut.result()
     ss.build()
     fd.build()
+    fa.build()
+    sc.build()
     rn.build()
     build_s = time.perf_counter() - t0
     emit({"phase": 0, "nvidia_smi": smi_line,
@@ -330,10 +363,6 @@ def profile_run(cfg):
         report, wall = timed_run(g, SyncCheckedKernelBackend("cuda"))
     events = prof.key_averages()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     busy_us = sum(device_us(e) for e in events)
     sweep = [e for e in events if "smc_sweep_watermark_kernel" in e.key]
     sweep_us = sum(device_us(e) for e in sweep)
@@ -442,28 +471,32 @@ def phase4_dds():
 # the serve plane's kernels and the serve plane itself
 # ---------------------------------------------------------------------------
 
-def within(got, want, dtype) -> float:
-    """Max |got - want|; fails unless allclose at the dtype's bar."""
+def within(got, want, dtype, tol=None, what: str = "") -> float:
+    """Max |got - want|; fails unless allclose at ``tol`` (the dtype's
+    bar by default)."""
     got, want = got.float(), want.float()
     err = float((got - want).abs().max().item())
-    tol = TOL[dtype]
+    tol = TOL[dtype] if tol is None else tol
     check(bool(((got - want).abs() <= tol + tol * want.abs()).all()),
-          f"max error {err} beyond the {dtype} tolerance {tol}")
+          f"{what}: max error {err} beyond the {dtype} tolerance {tol}")
     return err
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, ops_per_s: float = ALU_OPS_PER_S):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / ALU_OPS_PER_S * 1e3
+    ops_ms = flops / ops_per_s * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
 
 
-def time_case(kernel, plain, library):
-    return {"ms": cuda_ms(kernel, 200),
-            "device_ms": profiled_device_ms(kernel, 50),
-            "plain_ms": cuda_ms(plain, 20, warmup=2),
-            "library_ms": None if library is None else cuda_ms(library, 200)}
+def time_case(kernel, plain, library, iters: int = 200):
+    # the profiler reported no device time for windows of 5-12 launches
+    # on the card: profile at least 50
+    return {"ms": cuda_ms(kernel, iters),
+            "device_ms": profiled_device_ms(kernel, max(iters // 4, 50)),
+            "plain_ms": cuda_ms(plain, max(iters // 10, 5), warmup=2),
+            "library_ms": None if library is None
+            else cuda_ms(library, iters)}
 
 
 def sdpa_library(q, k, v, kv_len):
@@ -520,9 +553,20 @@ def phase5_kernels():
                          **time_case(kernel, plain,
                                      sdpa_library(q, k, v, kv_len)),
                          "bound_ms": bound_ms, "bound_by": bound_by})
+    rows += rmsnorm_rows(((8, 2048), (8 * 16, 128)), gen, 200)
+    for r in rows:
+        emit({"phase": 5, **r})
+    return rows
+
+
+def rmsnorm_rows(shapes, gen, iters: int):
+    """Both RMSNorm kernels against their plain versions at each (rows,
+    width) shape, float32 and bfloat16, with times and the bound."""
     F = torch.nn.functional
+    dev = torch.device("cuda")
+    rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((8, 2048), (8 * 16, 128)):
+        for shape in shapes:
             x, res = (torch.randn(shape, generator=gen, device=dev).to(dtype)
                       for _ in range(2))
             w = (1 + 0.1 * torch.randn(shape[-1:], generator=gen,
@@ -548,10 +592,8 @@ def phase5_kernels():
                 rows.append({"kernel": name, "dtype": str(dtype),
                              "shape": f"{shape[0]}x{shape[1]}",
                              "max_abs_err": err,
-                             **time_case(kernel, plain, library),
+                             **time_case(kernel, plain, library, iters),
                              "bound_ms": bound_ms, "bound_by": bound_by})
-    for r in rows:
-        emit({"phase": 5, **r})
     return rows
 
 
@@ -611,10 +653,6 @@ def serve_profile(rep, per_replica: int, seed: int):
         wall = time.perf_counter() - t0
     events = prof.key_averages()
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     busy_us = sum(device_us(e) for e in events)
     by_kernel = {}
     for label, key in (("flash_decode", "flash_decode_kernel"),
@@ -665,7 +703,7 @@ def phase6_serve():
             "rms_norm": (1 + 2 * cfg.n_layers) * steps,
             "rms_norm_residual": 2 * cfg.n_layers * steps,
             "smc_sweep_watermark": report.extras["streamed_rounds"],
-            "smc_sweep": 0}
+            "smc_sweep": 0, "flash_attention": 0, "ssd_scan": 0}
     check(launches == want, f"serve launches {launches}, want {want}")
     tokens = rep.completed()
     for stream in (t for per in tokens.values() for t in per):
@@ -807,6 +845,369 @@ def phase7_kernels_vs_plain():
           "plain_tokens_per_s": rp.extras["serve"]["tokens_per_s"]})
 
 
+# ---------------------------------------------------------------------------
+# the forward path's kernels and the forward path itself
+# ---------------------------------------------------------------------------
+
+def attention_flops(b: int, s: int, hq: int, d: int, causal: bool) -> int:
+    """QK^T and PV over the (query, key) pairs the mask keeps."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * hq * d * pairs
+
+
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, g: int,
+              chunk: int) -> int:
+    """The SSD scan's matrix work: the causal C B^T scores once per group
+    (every head of a group shares them), their product with x dt, and
+    the inbound-state and state-update terms per head."""
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = g * 2 * n * pairs + h * (2 * p * pairs + 4 * chunk * n * p)
+    return b * (s // chunk) * per_chunk
+
+
+def sdpa_causal_library(q, k, v, causal):
+    """One ``scaled_dot_product_attention`` call over the same inputs in
+    its (B, H, S, D) layout (timed as a yardstick; the port never calls
+    it)."""
+    F = torch.nn.functional
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal, enable_gqa=True)
+
+
+def ssd_inputs(b, s, h, p, n, g, dtype, gen):
+    """x, b, c in ``dtype``; dt in ``dtype`` too (the model slices it from
+    the same projection); a_log, d_skip, dt_bias float32 and drawn."""
+    dev = torch.device("cuda")
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    uni = lambda lo, hi: lo + (hi - lo) * torch.rand(h, generator=gen,
+                                                     device=dev)
+    return (rnd(b, s, h, p).to(dtype), (0.5 * rnd(b, s, h)).to(dtype),
+            uni(-1.0, 0.5), (0.3 * rnd(b, s, g, n)).to(dtype),
+            (0.3 * rnd(b, s, g, n)).to(dtype), uni(0.0, 1.0),
+            uni(-0.5, 0.5))
+
+
+def phase8_forward_kernels():
+    """The forward path's kernels against their plain versions."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = []
+    attn_shapes = (("qwen3 S=2048", 2, 2048, 16, 8, 128),
+                   ("ragged S=1000", 1, 1000, 16, 8, 128),
+                   ("MQA S=384", 1, 384, 8, 1, 128),
+                   ("group 3, D=32", 2, 128, 6, 2, 32),
+                   ("unpadded S=200, D=64", 2, 200, 4, 2, 64))
+    for dtype in (torch.float32, torch.bfloat16):
+        rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
+            else ALU_OPS_PER_S
+        for label, b, s, hq, hkv, d in attn_shapes:
+            q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+            for causal in (True, False):
+                kernel = lambda: fa.flash_attention(q, k, v, causal)
+                plain = lambda: fa.flash_attention_plain(q, k, v, causal)
+                err = within(kernel(), plain(), dtype)
+                nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+                bound_ms, bound_by = bound(
+                    nbytes, attention_flops(b, s, hq, d, causal), rate)
+                main = label.startswith("qwen3")
+                rows.append({
+                    "kernel": "flash_attention", "dtype": str(dtype),
+                    "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+                    f"causal={causal}", "label": label,
+                    "max_abs_err": err,
+                    **(time_case(kernel, plain,
+                                 sdpa_causal_library(q, k, v, causal), 20)
+                       if main else {}),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+    ssd_shapes = (("mamba2 S=2048", 1, 2048, 80, 64, 128, 1, 256),
+                  ("test 1", 1, 64, 2, 16, 16, 1, 16),
+                  ("test 2", 2, 128, 4, 32, 64, 2, 32),
+                  ("test 3", 1, 96, 2, 64, 128, 1, 32))
+    for dtype in (torch.float32, torch.bfloat16):
+        rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
+            else ALU_OPS_PER_S
+        for label, b, s, h, p, n, g, chunk in ssd_shapes:
+            args = ssd_inputs(b, s, h, p, n, g, dtype, gen)
+            kernel = lambda: sc.ssd_scan(*args, chunk)
+            plain = lambda: sc.ssd_scan_plain(*args, chunk)
+            (y, st), (y_want, st_want) = kernel(), plain()
+            err = within(y, y_want, dtype, SSD_Y_TOL[dtype])
+            st_err = within(st, st_want, torch.float32, SSD_STATE_TOL)
+            x, dt, _, bb, cc = args[:5]
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in (x, dt, bb, cc, y, st)) + 3 * 4 * h
+            bound_ms, bound_by = bound(
+                nbytes, ssd_flops(b, s, h, p, n, g, chunk), rate)
+            main = label.startswith("mamba2")
+            rows.append({"kernel": "ssd_scan", "dtype": str(dtype),
+                         "shape": f"B={b} S={s} H={h} P={p} N={n} G={g} "
+                         f"chunk={chunk}", "label": label,
+                         "max_abs_err": err, "state_max_abs_err": st_err,
+                         **(time_case(kernel, plain, None, 20)
+                            if main else {}),
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+    rows += rmsnorm_rows(((2048, 2560), (2048, 5120)), gen, 50)
+    for r in rows:
+        emit({"phase": 8, **r})
+    return rows
+
+
+FORWARD_KERNELS = (("flash_attention", "flash_attention_kernel"),
+                   ("ssd_scan", "ssd_scan_kernel"),
+                   ("rms_norm", "rms_kernel"),
+                   ("rms_norm_residual", "rms_residual_kernel"))
+
+
+def profile_forward(fn):
+    """Wall and device time of one warm ``fn()``, from the profiler's
+    device-side trace."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(device_us(e) for e in events)
+    by_kernel = {}
+    for label, key in FORWARD_KERNELS:
+        hits = [e for e in events if key in e.key
+                and not (label == "rms_norm" and "residual" in e.key)]
+        n = sum(e.count for e in hits)
+        by_kernel[label] = {"launches": n, "device_ms": sum(
+            device_us(e) for e in hits) / 1e3}
+    top = sorted(events, key=device_us, reverse=True)[:6]
+    return {"profiled_wall_s": wall, "device_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "kernels": by_kernel,
+            "top_device_ops_ms": {e.key[:60]: device_us(e) / 1e3
+                                  for e in top}}
+
+
+def matmul_params(cfg) -> int:
+    """Weights of the per-token projections of every layer (what each
+    token multiplies through), embedding and head excluded."""
+    specs = registry.param_specs(cfg)["layers"]
+    return sum(sp.numel() for sp in layers.spec_leaves(specs)
+               if len(sp.shape) >= 3 and sp.axes[1] != "conv")
+
+
+def forward_bound(cfg, params, tokens: int, logit_rows: int,
+                  extra_flops: int, out_bytes: int):
+    """The whole forward's least time: every weight read once plus the
+    outputs written once, against the bf16 matrix work (projections, the
+    head over ``logit_rows`` positions, and ``extra_flops``)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors(params)) + \
+        out_bytes
+    flops = 2 * tokens * matmul_params(cfg) + \
+        2 * logit_rows * cfg.d_model * cfg.vocab_size + extra_flops
+    bound_ms, bound_by = bound(nbytes, flops, BF16_TC_OPS_PER_S)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+            "bound_flops": flops}
+
+
+def run_counted(fn, want: dict, what: str):
+    """``fn()`` once, synchronised; checks the launches it made against
+    ``want`` (every other kernel: none).  Returns (result, wall_s)."""
+    before = ops.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = ops.launch_counts()
+    made = {k: after[k] - before[k] for k in after}
+    check(made == {k: want.get(k, 0) for k in made},
+          f"{what}: launches {made}, want {want}")
+    return out, wall
+
+
+def seeded_tokens(cfg, b: int, s: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, s))
+                            ).to("cuda")
+
+
+def phase9_forward():
+    """The forward path at full width; returns its launch counts."""
+    out = {}
+    ops.reset_launch_counts()                 # the forward path starts here
+    # qwen3-1.7b: loss over 2 x 2048 tokens and prefill of 4 x 512
+    arch = registry.get("qwen3-1.7b")
+    cfg = arch.cfg
+    t0 = time.perf_counter()
+    params = arch.init_params(0, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    per_fwd = {"flash_attention": cfg.n_layers,
+               "rms_norm": 1 + 2 * cfg.n_layers,
+               "rms_norm_residual": 2 * cfg.n_layers}
+    rt = Runtime()
+    for kind, b, s in (("loss", 2, 2048), ("prefill", 4, 512)):
+        batch = {"tokens": seeded_tokens(cfg, b, s, seed=90 + b)}
+        if kind == "loss":
+            fn = lambda: arch.loss_fn()(params, cfg, batch, rt)
+        else:
+            fn = lambda: arch.prefill_fn()(params, batch, rt)
+        cold, cold_s = run_counted(fn, per_fwd, f"qwen3 {kind} (cold)")
+        res, wall = run_counted(fn, per_fwd, f"qwen3 {kind}")
+        if kind == "loss":
+            check(res.dim() == 0 and bool(torch.isfinite(res)),
+                  f"qwen3 loss {res}")
+            value = float(res)
+            repeat = float(cold) == value
+            out_bytes = 4
+            logit_rows = b * (s - 1)
+        else:
+            logits, cache = res
+            check(logits.shape == (b, cfg.vocab_size)
+                  and bool(torch.isfinite(logits).all()),
+                  "qwen3 prefill logits")
+            check(cache["k"].shape == (cfg.n_layers, b, s, cfg.n_kv_heads,
+                                       cfg.head_dim_)
+                  and bool(torch.isfinite(cache["k"]).all()),
+                  "qwen3 prefill cache")
+            value = float(logits.float().abs().max())
+            repeat = torch.equal(logits, cold[0])
+            out_bytes = logits.numel() * logits.element_size() + 2 * \
+                cache["k"].numel() * cache["k"].element_size()
+            logit_rows = b
+            del logits, cache
+        del res, cold
+        prof = profile_forward(fn)
+        attn = attention_flops(b, s, cfg.n_heads, cfg.head_dim_, True) * \
+            cfg.n_layers
+        out[f"qwen3-1.7b {kind}"] = {
+            "batch": b, "seq": s, "layers": cfg.n_layers,
+            "value": value, "same_as_cold_run": repeat,
+            "launches_per_forward": per_fwd,
+            "cold_wall_s": cold_s, "wall_s": wall,
+            "tokens_per_s": b * s / wall, **prof,
+            **forward_bound(cfg, params, b * s, logit_rows, attn, out_bytes)}
+    out["qwen3-1.7b setup_s"] = setup_s
+    del params
+    torch.cuda.empty_cache()
+
+    # mamba2-2.7b: loss over 1 x 2048 tokens
+    arch = registry.get("mamba2-2.7b")
+    cfg = arch.cfg
+    params = arch.init_params(0, "cuda", torch.bfloat16)
+    d_inner = cfg.ssm.expand * cfg.d_model
+    per_fwd = {"ssd_scan": cfg.n_layers, "rms_norm": 1 + cfg.n_layers,
+               "rms_norm_residual": cfg.n_layers}
+    b, s = 1, 2048
+    batch = {"tokens": seeded_tokens(cfg, b, s, seed=93)}
+    fn = lambda: arch.loss_fn()(params, cfg, batch, rt)
+    cold, cold_s = run_counted(fn, per_fwd, "mamba2 loss (cold)")
+    res, wall = run_counted(fn, per_fwd, "mamba2 loss")
+    check(res.dim() == 0 and bool(torch.isfinite(res)), f"mamba2 loss {res}")
+    prof = profile_forward(fn)
+    scan = ssd_flops(b, s, d_inner // cfg.ssm.head_dim, cfg.ssm.head_dim,
+                     cfg.ssm.d_state, cfg.ssm.n_groups, cfg.ssm.chunk) * \
+        cfg.n_layers
+    out["mamba2-2.7b loss"] = {
+        "batch": b, "seq": s, "layers": cfg.n_layers, "value": float(res),
+        "same_as_cold_run": float(res) == float(cold),
+        "launches_per_forward": per_fwd, "cold_wall_s": cold_s,
+        "wall_s": wall, "tokens_per_s": b * s / wall, **prof,
+        **forward_bound(cfg, params, b * s, b * (s - 1), scan, 4)}
+    launches = ops.launch_counts()            # ... and ends here
+    emit({"phase": 9, "params_qwen3": registry.get("qwen3-1.7b").cfg
+          .param_count(), "params_mamba2": cfg.param_count(),
+          "launches": launches, **out})
+    del params, res, cold
+    torch.cuda.empty_cache()
+    return launches
+
+
+FORWARD_TOL = 5e-4      # logits, float32, 4 layers: kernels vs plain
+LOSS_RTOL = 1e-4
+
+
+def phase10_forward_vs_plain():
+    """The forwards in float32 at 4 layers, full width: kernels against
+    the plain versions, and prefill -> decode against a longer prefill."""
+    plain = Runtime(kernels="plain")
+    rt = Runtime()
+    res = {}
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg, n_layers=4)
+    arch = registry.Arch(cfg)
+    params = arch.init_params(2, "cuda", torch.float32)
+    b, s = 2, 512
+    batch = {"tokens": seeded_tokens(cfg, b, s, seed=100)}
+    loss_k, _ = run_counted(lambda: arch.loss_fn()(params, cfg, batch, rt),
+                            {"flash_attention": 4, "rms_norm": 9,
+                             "rms_norm_residual": 8}, "qwen3 f32 loss")
+    loss_p, _ = run_counted(lambda: arch.loss_fn()(params, cfg, batch,
+                                                   plain), {},
+                            "qwen3 f32 plain loss")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(rel <= LOSS_RTOL, f"qwen3 f32 loss {loss_k} vs plain {loss_p}")
+    (lk, ck), _ = run_counted(lambda: arch.prefill_fn()(params, batch, rt),
+                              {"flash_attention": 4, "rms_norm": 9,
+                               "rms_norm_residual": 8}, "qwen3 f32 prefill")
+    (lp, cp), _ = run_counted(lambda: arch.prefill_fn()(params, batch,
+                                                        plain), {},
+                              "qwen3 f32 plain prefill")
+    logit_err = within(lk, lp, torch.float32, FORWARD_TOL, "qwen3 logits")
+    cache_err = max(within(ck[k], cp[k], torch.float32, FORWARD_TOL,
+                           "qwen3 cache")
+                    for k in ("k", "v"))
+    # prefill of s - 1 tokens into an s-position cache, one decode step
+    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim_)
+    cache = {k: torch.zeros(shape, device="cuda") for k in ("k", "v")}
+    arch.prefill_fn()(params, {"tokens": batch["tokens"][:, :-1]}, rt,
+                      cache=cache)
+    step, _ = run_counted(
+        lambda: transformer.decode_step(
+            params, cfg, cache, batch["tokens"][:, -1:],
+            torch.full((b,), s - 1, dtype=torch.int32, device="cuda"), rt),
+        {"flash_decode": 4, "rms_norm": 9, "rms_norm_residual": 8},
+        "qwen3 f32 decode step")
+    decode_err = within(step[0], lk, torch.float32, FORWARD_TOL,
+                        "prefill -> decode vs prefill")
+    res["qwen3-1.7b"] = {"layers": 4, "batch": b, "seq": s,
+                         "loss_kernels": float(loss_k),
+                         "loss_plain": float(loss_p), "loss_rel_err": rel,
+                         "prefill_logits_max_abs_err": logit_err,
+                         "prefill_cache_max_abs_err": cache_err,
+                         "prefill_decode_max_abs_err": decode_err}
+    del params, ck, cp, cache
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(registry.get("mamba2-2.7b").cfg, n_layers=4)
+    arch = registry.Arch(cfg)
+    params = arch.init_params(3, "cuda", torch.float32)
+    b, s = 1, 2048
+    batch = {"tokens": seeded_tokens(cfg, b, s, seed=101)}
+    want = {"ssd_scan": 4, "rms_norm": 5, "rms_norm_residual": 4}
+    loss_k, _ = run_counted(lambda: arch.loss_fn()(params, cfg, batch, rt),
+                            want, "mamba2 f32 loss")
+    loss_p, _ = run_counted(lambda: arch.loss_fn()(params, cfg, batch,
+                                                   plain), {},
+                            "mamba2 f32 plain loss")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    check(rel <= LOSS_RTOL, f"mamba2 f32 loss {loss_k} vs plain {loss_p}")
+    last = {}
+    for key, r in (("kernels", rt), ("plain", plain)):
+        h = registry._ssm_hidden(params, cfg, batch["tokens"], r)
+        last[key] = h[:, -1] @ params["lm_head"]
+    logit_err = within(last["kernels"], last["plain"], torch.float32,
+                       FORWARD_TOL, "mamba2 last logits")
+    res["mamba2-2.7b"] = {"layers": 4, "batch": b, "seq": s,
+                          "loss_kernels": float(loss_k),
+                          "loss_plain": float(loss_p), "loss_rel_err": rel,
+                          "last_logits_max_abs_err": logit_err}
+    emit({"phase": 10, "dtype": "float32", "logits_tol": FORWARD_TOL,
+          "loss_rtol": LOSS_RTOL, **res})
+    del params
+    torch.cuda.empty_cache()
+
+
 KERNELS = (
     ("smc_sweep_watermark", "cuda", "src/repro_torch/kernels/csrc/smc_sweep.cu",
      "src/repro/kernels/smc_sweep.py:153 smc_sweep_watermark_pallas"),
@@ -818,14 +1219,22 @@ KERNELS = (
      "src/repro/kernels/rmsnorm.py:34 rms_norm_pallas"),
     ("rms_norm_residual", "triton", "src/repro_torch/kernels/rmsnorm.py",
      "src/repro/kernels/rmsnorm.py:52 rms_norm_residual_pallas"),
+    ("flash_attention", "cuda",
+     "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:69 flash_attention_flat"),
+    ("ssd_scan", "cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan.py:75 ssd_scan_pallas"),
 )
 # the shape each kernel's line reports: what its main path gives it
-# (bf16 for the serve kernels)
+# (bf16 for the model kernels)
 LINE_SHAPES = {
     "flash_decode": "B=8 Hq=16 Hkv=8 D=128 S_max=2048 lengths=serve",
     "rms_norm": "128x128",                    # the per-head q/k norms
     "rms_norm_residual": "8x2048",            # the hidden-state norms
+    "flash_attention": "B=2 S=2048 Hq=16 Hkv=8 D=128 causal=True",
+    "ssd_scan": "B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256",
 }
+PATHS = ("multicast", "serve", "forward")
 
 
 def main() -> int:
@@ -856,13 +1265,21 @@ def main() -> int:
           f"the serve path skipped a kernel: {serve}")
     phase7_kernels_vs_plain()
 
+    model_rows = serve_rows + phase8_forward_kernels()
+    forward = phase9_forward()                # counts of the forward path
+    check(all(forward[k] > 0 for k in ("flash_attention", "ssd_scan",
+                                       "rms_norm", "rms_norm_residual")),
+          f"the forward path skipped a kernel: {forward}")
+    phase10_forward_vs_plain()
+
+    by_path = dict(zip(PATHS, (multicast, serve, forward)))
     kernels = []
     for name, route, source, replaces in KERNELS:
         if name in LINE_SHAPES:
-            r = next(x for x in serve_rows if x["kernel"] == name
+            r = next(x for x in model_rows if x["kernel"] == name
                      and x["shape"] == LINE_SHAPES[name]
                      and x["dtype"] == str(torch.bfloat16))
-            errs = [x["max_abs_err"] for x in serve_rows
+            errs = [x["max_abs_err"] for x in model_rows
                     if x["kernel"] == name]
             shape = f"{r['shape']}, bf16"
         else:
@@ -875,10 +1292,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
-            "launches": multicast[name] + serve[name],
-            "launches_by_path": {"multicast": multicast[name],
-                                 "serve": serve[name]},
-            "on_main_path": multicast[name] + serve[name] > 0,
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {k: c[name] for k, c in by_path.items()},
+            "on_main_path": any(c[name] for c in by_path.values()),
             "max_abs_err": r["max_abs_err"], "max_abs_err_all_shapes":
             max(errs), "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

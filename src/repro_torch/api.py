@@ -12,8 +12,16 @@ The subset of ``repro.api`` that the port provides so far::
     # a parameter grid as ONE stacked round loop
     reports = g.run_batch(backend="kernel", windows=[5, 20, 100, 500])
 
-Streaming (``Group.stream``), view changes and the DES backends follow in
-later slices of the port.
+    # the full-sequence forward of a model (dense or ssm family)
+    arch = api.get_arch("qwen3-1.7b")    # or "mamba2-2.7b"
+    params = arch.init_params(seed=0, dtype=torch.bfloat16)  # device="cpu"
+    loss = arch.loss_fn()(params, arch.cfg, {"tokens": tokens}, api.Runtime())
+    logits, cache = arch.prefill_fn()(params, {"tokens": tokens},
+                                      api.Runtime())
+    step = api.make_serve_step(arch, api.Runtime(), "prefill")
+
+View changes, training and the DES backends follow in later slices of
+the port.
 """
 
 from repro_torch import resolve_device
@@ -29,16 +37,21 @@ from repro_torch.core.group import (BACKENDS, Delivery, DeliveryLog,
                                     get_backend, register_backend,
                                     single_group)
 from repro_torch.load.admission import ServeAdmission
+from repro_torch.models.registry import Arch
+from repro_torch.models.registry import get as get_arch
+from repro_torch.models.runtime import Runtime
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 from repro_torch.serve.fanout import ReplicatedEngine
+from repro_torch.train.steps import make_serve_step
 
 __all__ = [
-    "BACKENDS", "BoundDomain", "Delivery", "DeliveryLog", "Domain",
+    "Arch", "BACKENDS", "BoundDomain", "Delivery", "DeliveryLog", "Domain",
     "EngineConfig", "EpochCarry", "GraphBackend", "Group", "GroupConfig",
     "GroupStream", "HOST_X86", "KernelBackend", "ProtocolBackend", "QoS",
-    "RDMA_CX6", "ReplicatedEngine", "Request", "RunReport", "SenderPattern",
+    "RDMA_CX6", "ReplicatedEngine", "Request", "RunReport", "Runtime",
+    "SenderPattern",
     "ServeAdmission", "ServeEngine", "SpindleFlags", "StreamView",
-    "SubgroupHandle", "SubgroupSpec", "Topic", "get_backend",
-    "many_topic_domain", "register_backend", "resolve_device",
+    "SubgroupHandle", "SubgroupSpec", "Topic", "get_arch", "get_backend",
+    "make_serve_step", "many_topic_domain", "register_backend", "resolve_device",
     "single_group", "single_topic_domain",
 ]

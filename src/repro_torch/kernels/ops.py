@@ -10,11 +10,13 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import smc_sweep as _ss
+from repro_torch.kernels import ssd_scan as _sc
 
-KERNEL_MODULES = (_ss, _fd, _rn)
+KERNEL_MODULES = (_ss, _fd, _rn, _fa, _sc)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -77,6 +79,21 @@ def rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
     return _rn.rms_norm_residual(x, residual, weight, eps)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """q (B, S, Hq, D); k/v (B, S, Hkv, D) in the model's layout, read
+    through their strides -> (B, S, Hq, D)."""
+    return _fa.flash_attention(q, k, v, causal)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+             dt_bias: torch.Tensor, chunk: int):
+    """Mamba2 SSD scan; same signature as ``models.ssm.ssd_chunked`` ->
+    (y (B, S, H, P), final state (B, H, P, N) float32)."""
+    return _sc.ssd_scan(x, dt, a_log, b, c, d_skip, dt_bias, chunk)
+
+
 def _flash_decode_plain(q, k_cache, v_cache, kv_len):
     return _fd.flash_decode_plain(q, k_cache, v_cache,
                                   _row_lengths(kv_len, q))
@@ -86,4 +103,6 @@ PLAIN = {
     "flash_decode": _flash_decode_plain,
     "rms_norm": _rn.rms_norm_plain,
     "rms_norm_residual": _rn.rms_norm_residual_plain,
+    "flash_attention": _fa.flash_attention_plain,
+    "ssd_scan": _sc.ssd_scan_plain,
 }

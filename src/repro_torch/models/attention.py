@@ -1,11 +1,15 @@
-"""Grouped-query attention for KV-cache decode.
+"""Grouped-query attention: full sequence (forward / prefill) and
+KV-cache decode.
 
 Supports QKV bias (Qwen1.5/Qwen2), qk-norm (Qwen3), GQA with any
 n_kv_heads dividing n_heads, and RoPE.  :func:`_sdpa` is the plain
-oracle; :func:`decode_attention` runs the one-token attention through
-the flash-decode kernel site of the :class:`Runtime` with a per-row
-``(B,)`` length.  Full-sequence attention (train / prefill) comes with a
-later slice of the port.
+oracle.  :func:`full_attention` runs the attention of a whole sequence
+through the ``flash_attention`` kernel site of the :class:`Runtime`, and
+:func:`decode_attention` the one-token attention through the
+``flash_decode`` site with a per-row ``(B,)`` length.  The reference's
+pure-XLA blocked twin of the flash kernel, ``_sdpa_chunked``, is not
+ported: the tests hold the port against the reference's own kernel and
+its ``_sdpa``, and the port's kernel site has its plain version.
 """
 
 from __future__ import annotations
@@ -103,6 +107,38 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgst,bthd->bshgd", probs.to(v.dtype), v)
     return out.reshape(b, sq, hq, d)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention
+# ---------------------------------------------------------------------------
+
+def full_attention_kv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                      x: torch.Tensor, causal: bool = True,
+                      rt: Optional[Runtime] = None, rope=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`full_attention` that also returns the sequence's k and v
+    (B, S, Hkv, D), k rotated — what a prefill writes to the cache."""
+    rt = Runtime() if rt is None else rt
+    b, s, _ = x.shape
+    if rope is None:
+        rope = layers.rope_cos_sin(torch.arange(s, device=x.device)[None],
+                                   cfg.head_dim_, cfg.rope_theta)
+    q, k, v = _project_qkv(p, cfg, x, rt, rope)
+    out = rt.op("flash_attention")(q, k, v, causal)
+    hq, hd = cfg.n_heads, cfg.head_dim_
+    return out.reshape(b, s, hq * hd) @ p["wo"].reshape(hq * hd, -1), k, v
+
+
+def full_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   x: torch.Tensor, causal: bool = True,
+                   rt: Optional[Runtime] = None, rope=None) -> torch.Tensor:
+    """Self-attention over a full sequence (forward / prefill).  x (B, S,
+    d) at positions 0..S-1 -> (B, S, d); the inner attention runs through
+    the ``flash_attention`` site.  ``rope`` is the positions' ``(cos,
+    sin)`` when the caller has it (the decoder computes it once for all
+    layers)."""
+    return full_attention_kv(p, cfg, x, causal, rt, rope)[0]
 
 
 # ---------------------------------------------------------------------------

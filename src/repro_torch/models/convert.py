@@ -28,8 +28,11 @@ def _leaf(spec: layers.ParamSpec, x, device: torch.device,
     if tuple(arr.shape) != spec.shape:
         raise ValueError(f"{what}: shape {tuple(arr.shape)}, expected "
                          f"{spec.shape}")
-    return torch.from_numpy(arr).to(
-        device=device, dtype=spec.dtype if dtype is None else dtype)
+    # a float32 spec (the ssm family's a_log, dt_bias, d_skip) stays
+    # float32 whatever dtype is asked, as in the reference
+    keep = dtype is None or spec.dtype == torch.float32
+    return torch.from_numpy(arr).to(device=device,
+                                    dtype=spec.dtype if keep else dtype)
 
 
 def _convert(specs: PyTree, tree: Mapping, device, dtype, what) -> PyTree:
@@ -49,8 +52,8 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
                       dtype: Optional[torch.dtype] = None) -> PyTree:
     """The port's parameter tree for ``cfg`` from a same-keyed tree of
     host arrays, on ``device`` (the GPU unless ``"cpu"`` is named), in
-    ``dtype`` (each spec's own dtype when None).  Keys and shapes are
-    checked against the port's specs."""
+    ``dtype`` (each spec's own dtype when None; a float32 spec stays
+    float32).  Keys and shapes are checked against the port's specs."""
     return _convert(registry.param_specs(cfg), tree, resolve_device(device),
                     dtype, "params")
 

@@ -7,8 +7,9 @@ tensors with the reference's keys and shapes, so a parameter tree
 carries across (:mod:`repro_torch.models.convert`).
 
 The plain RMSNorm lives with its kernels and is re-exported here as
-:func:`rms_norm`; the decoder reaches the kernels through
-:class:`repro_torch.models.runtime.Runtime`.
+:func:`rms_norm`; the models reach the kernels through
+:class:`repro_torch.models.runtime.Runtime`.  :func:`cross_entropy_loss`
+is the loss of the full-sequence forward.
 """
 
 from __future__ import annotations
@@ -149,3 +150,19 @@ def norm_specs(d_model: int, ln: bool = False) -> Dict[str, ParamSpec]:
     if ln:
         out["bias"] = ParamSpec((d_model,), ("embed",), init="zeros")
     return out
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None,
+                       z_coef: float = 1e-4) -> torch.Tensor:
+    """Token-mean next-token cross entropy with the z-loss
+    ``z_coef * logsumexp^2``, accumulated in float32; logits (..., V),
+    labels (...) int, ``mask`` (...) marks the positions that count."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - gold + z_coef * lse.square()
+    if mask is not None:
+        mask = mask.to(loss.dtype)
+        return (loss * mask).sum() / mask.sum().clamp(min=1.0)
+    return loss.mean()

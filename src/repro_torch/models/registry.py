@@ -1,10 +1,13 @@
 """Architecture registry: an architecture name resolves here.
 
 For every architecture this module answers ``param_specs(cfg)`` (the full
-parameter tree of ParamSpec leaves), ``decode_fn()`` (the serving decode
-step) and ``cache_specs(cfg, shape)`` (the decode-state tree).  The port
-serves the ``dense`` family; the others raise, naming the slice that
-brings them.  The configs live in :mod:`repro_torch.configs`.
+parameter tree of ParamSpec leaves), ``loss_fn()`` (the full-sequence
+forward and its loss), ``prefill_fn()`` and ``decode_fn()`` (the serving
+entry points) and ``cache_specs(cfg, shape)`` (the decode-state tree).
+The port runs the ``dense`` family end to end and the ``ssm`` family
+(Mamba2) through its forward; every other entry point raises
+``NotImplementedError`` naming the ROADMAP item that brings it.  The
+configs live in :mod:`repro_torch.configs`.
 """
 
 from __future__ import annotations
@@ -12,11 +15,82 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
-from repro_torch.models import attention, transformer
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.models import attention, layers, ssm, transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
+from repro_torch.models.layers import ParamSpec
+from repro_torch.models.runtime import Runtime
 
 PyTree = Any
 
+SSM_SERVE_ITEM = "ROADMAP.md item 16 (serving the ssm family)"
+
+
+def _family(cfg: ModelConfig) -> str:
+    """``dense`` or ``ssm``; any other family raises."""
+    if cfg.family == "ssm" and cfg.ssm is not None:
+        return "ssm"
+    transformer._dense_only(cfg)
+    return "dense"
+
+
+# ---------------------------------------------------------------------------
+# ssm-family LM (mamba2): thin assembly over ssm.py blocks
+# ---------------------------------------------------------------------------
+
+def _ssm_lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    block = {"norm": layers.norm_specs(cfg.d_model),
+             "ssm": ssm.ssm_specs(cfg)}
+    return {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                           ("vocab", "fsdp_embed")),
+        "layers": layers.map_specs(lambda s: s.stack_layers(cfg.n_layers),
+                                   block),
+        "final_norm": layers.norm_specs(cfg.d_model),
+        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size),
+                             ("fsdp_embed", "vocab")),
+    }
+
+
+def _ssm_hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                rt: Runtime) -> torch.Tensor:
+    """The Mamba2 stack over ``tokens`` (B, S) -> the final-normed hidden
+    states (B, S, d).  Pre-norm residual blocks; each ``x = x + y; h =
+    norm(x)`` is one fused ``rms_norm_residual``, as in the dense
+    decoder: for mamba2-2.7b (64 layers) 65 ``rms_norm`` (the first norm
+    and each block's gated norm), 64 ``rms_norm_residual`` and 64
+    ``ssd_scan`` calls per forward."""
+    x = transformer.embed(params, cfg, tokens)
+    stacked = params["layers"]
+    h = rt.op("rms_norm")(x, stacked["norm"]["scale"][0], cfg.norm_eps)
+    for i in range(cfg.n_layers):
+        p = transformer.layer_params(stacked, i)
+        if i:
+            h, x = rt.op("rms_norm_residual")(y, x, p["norm"]["scale"],
+                                              cfg.norm_eps)
+        y = ssm.mamba_block(p["ssm"], cfg, h, rt)
+    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
+                                      cfg.norm_eps)
+    return h
+
+
+def _ssm_lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
+                 rt: Runtime) -> torch.Tensor:
+    """Next-token cross entropy of the Mamba2 LM, as
+    :func:`repro_torch.models.transformer.lm_loss` for the dense one."""
+    tokens = batch["tokens"]
+    h = _ssm_hidden(params, cfg, tokens, rt)
+    logits = h[:, :-1] @ params["lm_head"]
+    mask = batch.get("mask")
+    return layers.cross_entropy_loss(
+        logits, tokens[:, 1:], None if mask is None else mask[:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# Arch record
+# ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
@@ -25,8 +99,39 @@ class Arch:
     def param_specs(self) -> PyTree:
         return param_specs(self.cfg)
 
+    def init_params(self, seed: int, device: DeviceLike = None,
+                    dtype: Optional[torch.dtype] = None) -> PyTree:
+        """Random parameters from ``seed`` on ``device`` (the GPU unless
+        ``"cpu"`` is named), in ``dtype`` (each spec's own when None;
+        float32 specs stay float32)."""
+        dev = resolve_device(device)
+        specs = layers.map_specs(
+            lambda s: s if dtype is None or s.dtype == torch.float32
+            else dataclasses.replace(s, dtype=dtype), self.param_specs())
+        return layers.init_tree(specs,
+                                torch.Generator(device=dev).manual_seed(seed))
+
+    def loss_fn(self) -> Callable:
+        """``loss(params, cfg, batch, rt)`` -> float32 scalar."""
+        if _family(self.cfg) == "ssm":
+            return _ssm_lm_loss
+        return transformer.lm_loss
+
+    def prefill_fn(self) -> Optional[Callable]:
+        """``prefill(params, batch, rt, cache=None)`` -> (last-position
+        logits, KV cache); None for the ssm family, whose prefill is its
+        forward (see :func:`repro_torch.train.steps.make_serve_step`)."""
+        if _family(self.cfg) == "ssm":
+            return None
+        cfg = self.cfg
+        return lambda p, b, rt, cache=None: transformer.prefill(
+            p, cfg, b["tokens"], rt, cache)
+
     def decode_fn(self) -> Callable:
-        transformer._dense_only(self.cfg)
+        if _family(self.cfg) == "ssm":
+            raise NotImplementedError(
+                f"{self.cfg.name}: ssm decode is not ported yet; it comes "
+                f"with {SSM_SERVE_ITEM}")
         return transformer.decode_step
 
     def cache_specs(self, shape: ShapeConfig, *, batch_override=None
@@ -35,6 +140,8 @@ class Arch:
 
 
 def param_specs(cfg: ModelConfig) -> PyTree:
+    if _family(cfg) == "ssm":
+        return _ssm_lm_specs(cfg)
     return transformer.lm_specs(cfg)
 
 
@@ -42,7 +149,10 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
                 batch_override: Optional[int] = None) -> PyTree:
     """Decode-state ParamSpec tree sized for ``shape`` (cache of
     ``seq_len``)."""
-    transformer._dense_only(cfg)
+    if _family(cfg) == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the ssm decode state is not ported yet; it comes "
+            f"with {SSM_SERVE_ITEM}")
     b = batch_override if batch_override is not None else shape.global_batch
     return attention.kv_cache_specs(cfg, b, shape.seq_len)
 

@@ -1,4 +1,4 @@
-"""Runtime context: which implementation the decoder's kernel sites use.
+"""Runtime context: which implementation the models' kernel sites use.
 
 The reference threads a ``Runtime`` (mesh, sharding rules, ``attn_impl``)
 through every forward function.  One device serves here, so what is left
@@ -17,7 +17,8 @@ import dataclasses
 
 from repro_torch.kernels import ops
 
-KERNEL_SITES = ("flash_decode", "rms_norm", "rms_norm_residual")
+KERNEL_SITES = ("flash_decode", "rms_norm", "rms_norm_residual",
+                "flash_attention", "ssd_scan")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,198 @@
+"""Mamba2 — SSD (state-space duality) blocks, full-sequence forward.
+
+The chunked SSD algorithm (Dao & Gu, arXiv:2405.21060): within a chunk
+the output is computed in quadratic attention-like form; across chunks a
+linear recurrence carries the (H, P, N) state.  :func:`ssd_chunked` is
+the plain version (the SSD kernel's oracle), :func:`ssd_decode_step` the
+exact single-token recurrence (the definitional oracle of both), and
+:func:`mamba_block` the full block, whose scan goes through the
+``ssd_scan`` kernel site of the :class:`Runtime` and whose gated norm
+through ``rms_norm``.
+
+Layout follows the reference: d_inner = expand * d_model, H = d_inner /
+head_dim heads, scalar decay A per head, B/C shared across heads in
+``n_groups`` groups.  One-token decode of the ssm family
+(``mamba_decode_block``, ``ssm_cache_specs``) comes with the slice that
+serves it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamSpec
+from repro_torch.models.runtime import Runtime
+
+
+def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    n_heads = d_inner // s.head_dim
+    return d_inner, n_heads, s.head_dim, s.d_state, s.n_groups
+
+
+def ssm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    s = cfg.ssm
+    d_inner, nh, hp, dn, ng = _dims(cfg)
+    conv_dim = d_inner + 2 * ng * dn
+    return {
+        # fused input projection: [z, x, B, C, dt]
+        "w_in": ParamSpec((d, 2 * d_inner + 2 * ng * dn + nh),
+                          ("fsdp_embed", "ssm_inner")),
+        "conv_w": ParamSpec((s.conv_width, conv_dim), ("conv", "ssm_inner")),
+        "conv_b": ParamSpec((conv_dim,), ("ssm_inner",), init="zeros"),
+        "a_log": ParamSpec((nh,), ("ssm_heads",), init="ones",
+                           dtype=torch.float32),
+        "dt_bias": ParamSpec((nh,), ("ssm_heads",), init="zeros",
+                             dtype=torch.float32),
+        "d_skip": ParamSpec((nh,), ("ssm_heads",), init="ones",
+                            dtype=torch.float32),
+        "norm": ParamSpec((d_inner,), ("ssm_inner",), init="ones"),
+        "w_out": ParamSpec((d_inner, d), ("ssm_inner", "fsdp_embed")),
+    }
+
+
+def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
+    """``[z, xBC, dt]`` views of the fused input projection."""
+    d_inner, nh, hp, dn, ng = _dims(cfg)
+    return torch.split(zxbcdt, [d_inner, d_inner + 2 * ng * dn, nh], dim=-1)
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over (B, S, C) with kernel (W, C), then SiLU
+    in float32."""
+    width, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    out = pad[:, 0:s] * w[0]
+    for i in range(1, width):
+        out = out + pad[:, i:i + s] * w[i]
+    return F.silu((out + b).float()).to(xbc.dtype)
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """exp-stable segment sum: out[..., i, j] = sum_{j<k<=i} x[..., k]
+    (-inf above the diagonal)."""
+    t = x.shape[-1]
+    c = torch.cumsum(x, dim=-1)
+    diff = c[..., :, None] - c[..., None, :]
+    mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                dt_bias: torch.Tensor, chunk: int,
+                init_state: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan, in float32.
+
+    x: (B, S, H, P)  dt: (B, S, H)  b,c: (B, S, G, N)
+    a_log/dt_bias/d_skip: (H,).  Returns (y (B,S,H,P) in x's dtype,
+    final_state (B,H,P,N) float32).  The chunks' states are chained by a
+    loop over the chunks (the reference uses an associative scan; the
+    recurrence is the same)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the sequence "
+                         f"length {s}")
+    nc = s // chunk
+    rep = h // g
+
+    dt = F.softplus(dt.float() + dt_bias.float())               # (B,S,H)
+    a = -torch.exp(a_log.float())                               # (H,)
+    da = dt * a
+    xdt = x.float() * dt[..., None]                             # x_t dt
+
+    xc = xdt.reshape(bsz, nc, chunk, h, p)                      # (B,nc,L,H,P)
+    bheads = b.float().reshape(bsz, nc, chunk, g, n) \
+        .repeat_interleave(rep, dim=3)                          # (B,nc,L,H,N)
+    cheads = c.float().reshape(bsz, nc, chunk, g, n) \
+        .repeat_interleave(rep, dim=3)
+    dac = da.reshape(bsz, nc, chunk, h).permute(0, 3, 1, 2)    # (B,H,nc,L)
+    da_cs = torch.cumsum(dac, dim=-1)
+
+    # ---- intra-chunk (quadratic, attention-like) ----
+    lmat = torch.exp(_segsum(dac))                              # (B,H,nc,L,L)
+    scores = torch.einsum("bclhn,bcshn->bhcls", cheads, bheads)
+    y_diag = torch.einsum("bhcls,bcshp->bclhp", scores * lmat, xc)
+
+    # ---- chunk-final states ----
+    decay_states = torch.exp(da_cs[..., -1:] - da_cs)           # (B,H,nc,L)
+    states = torch.einsum("bclhn,bclhp->bchpn", bheads,
+                          xc * decay_states.permute(0, 2, 3, 1)[..., None])
+
+    # ---- inter-chunk linear recurrence ----
+    chunk_decay = torch.exp(da_cs[..., -1]).permute(0, 2, 1)    # (B,nc,H)
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device)
+             if init_state is None else init_state.float())
+    prev = []
+    for ci in range(nc):
+        prev.append(state)              # the state entering chunk ci
+        state = chunk_decay[:, ci, :, None, None] * state + states[:, ci]
+    prev = torch.stack(prev, dim=1)                             # (B,nc,H,P,N)
+
+    # ---- chunk-state contribution to outputs ----
+    state_decay = torch.exp(da_cs).permute(0, 2, 3, 1)          # (B,nc,L,H)
+    y_off = torch.einsum("bclhn,bchpn->bclhp", cheads, prev) * \
+        state_decay[..., None]
+
+    y = (y_diag + y_off).reshape(bsz, s, h, p)
+    y = y + d_skip.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+                    b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+                    dt_bias: torch.Tensor, state: torch.Tensor,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact single-token recurrence.
+
+    x: (B, H, P); dt: (B, H); b,c: (B, G, N); state: (B, H, P, N) float32.
+    Returns (y (B, H, P) in x's dtype, new state)."""
+    h = x.shape[1]
+    rep = h // b.shape[1]
+    dt = F.softplus(dt.float() + dt_bias.float())
+    a = -torch.exp(a_log.float())
+    decay = torch.exp(dt * a)                                   # (B,H)
+    bh = b.float().repeat_interleave(rep, dim=1)                # (B,H,N)
+    ch = c.float().repeat_interleave(rep, dim=1)
+    xf = x.float()
+    new_state = decay[..., None, None] * state + \
+        (dt[..., None] * xf)[..., None] * bh[:, :, None, :]
+    y = torch.einsum("bhn,bhpn->bhp", ch, new_state)
+    y = y + d_skip.float()[None, :, None] * xf
+    return y.to(x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# Full block (in_proj -> conv -> SSD -> gated norm -> out_proj)
+# ---------------------------------------------------------------------------
+
+def mamba_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                x: torch.Tensor, rt: Optional[Runtime] = None
+                ) -> torch.Tensor:
+    """Full-sequence Mamba2 block.  x: (B, S, d_model) -> same shape.
+    The scan runs through the ``ssd_scan`` site (from a zero state) and
+    the gated norm through ``rms_norm``; the projections stay
+    ``torch.matmul``."""
+    rt = Runtime() if rt is None else rt
+    d_inner, nh, hp, dn, ng = _dims(cfg)
+    bsz, s = x.shape[0], x.shape[1]
+    z, xbc, dt = _split_proj(cfg, x @ p["w_in"])
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xs, b, c = torch.split(xbc, [d_inner, ng * dn, ng * dn], dim=-1)
+    y, _ = rt.op("ssd_scan")(xs.reshape(bsz, s, nh, hp), dt, p["a_log"],
+                             b.reshape(bsz, s, ng, dn),
+                             c.reshape(bsz, s, ng, dn), p["d_skip"],
+                             p["dt_bias"], cfg.ssm.chunk)
+    y = y.reshape(bsz, s, d_inner)
+    gated = y * F.silu(z.float()).to(y.dtype)
+    return rt.op("rms_norm")(gated, p["norm"], cfg.norm_eps) @ p["w_out"]

@@ -1,24 +1,29 @@
-"""Decoder-only LM, dense family, one-token decode.
+"""Decoder-only LM, dense family: full-sequence forward, loss, prefill
+and one-token decode.
 
 The layers' parameters are stacked (leading ``layers`` axis, as in the
-reference) and the decode step walks them in a Python loop.  The norm
+reference) and every entry point walks them in a Python loop.  The norm
 sites and the attention go through the :class:`Runtime`'s kernel sites:
 
 * layer 0's attention norm and the per-head q-/k-norms are ``rms_norm``;
 * every ``x = x + y; h = norm(x)`` — each FFN norm, the attention norm of
   layers >= 1 (adding the previous layer's FFN output) and the final
   norm — is one fused ``rms_norm_residual``;
-* the one-token attention is ``flash_decode`` with a per-row length.
+* the attention of a whole sequence (:func:`forward`, :func:`lm_loss`,
+  :func:`prefill`) is ``flash_attention``, causal; the one-token
+  attention of :func:`decode_step` is ``flash_decode`` with a per-row
+  length.
 
 For qwen3-1.7b (28 layers, qk-norm) that is 57 ``rms_norm``, 56
-``rms_norm_residual`` and 28 ``flash_decode`` calls per step.  The big
-projections stay ``torch.matmul``, as the reference left them to XLA.
-The MoE family comes with a later slice of the port.
+``rms_norm_residual`` and 28 ``flash_attention`` (or ``flash_decode``)
+calls per forward (or step).  The big projections stay ``torch.matmul``,
+as the reference left them to XLA.  The MoE family comes with a later
+slice of the port.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -139,5 +144,107 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
         x, y = decode_block(p, cfg, h, x, cache["k"][i], cache["v"][i],
                             position, rt, rows, rope)
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
+                                      cfg.norm_eps)
+    return unembed(params, cfg, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward, loss and prefill
+# ---------------------------------------------------------------------------
+
+def block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
+          x: torch.Tensor, rt: Runtime, rope=None, cache=None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder block over a full sequence, on the attention-normed
+    input ``h`` and the residual stream ``x`` (B, S, d), positions
+    0..S-1.  Returns ``(x, y)`` as :func:`decode_block` does.  ``cache``
+    is a ``(k_cache, v_cache)`` pair of (B, S_max, Hkv, D) tensors whose
+    rows [0, S) receive the block's k and v (in place)."""
+    a, k, v = attention.full_attention_kv(p["attn"], cfg, h, True, rt, rope)
+    if cache is not None:
+        s = h.shape[1]
+        cache[0][:, :s] = k.to(cache[0].dtype)
+        cache[1][:, :s] = v.to(cache[1].dtype)
+    h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
+                                      cfg.norm_eps)
+    m = p["mlp"]
+    return x, layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+
+
+def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
+           cache: Optional[Dict[str, torch.Tensor]] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every block over the embedded x (B, S, d).  Returns ``(x, y)``: the
+    residual stream and the last block's FFN output, not yet added (the
+    final norm adds it as it normalises)."""
+    _dense_only(cfg)
+    rope = layers.rope_cos_sin(torch.arange(x.shape[1], device=x.device)[None],
+                               cfg.head_dim_, cfg.rope_theta)
+    h = rt.op("rms_norm")(x, params["layers"]["attn_norm"]["scale"][0],
+                          cfg.norm_eps)
+    for i in range(cfg.n_layers):
+        p = layer_params(params["layers"], i)
+        if i:
+            h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
+                                              cfg.norm_eps)
+        x, y = block(p, cfg, h, x, rt, rope,
+                     None if cache is None else (cache["k"][i],
+                                                 cache["v"][i]))
+    return x, y
+
+
+def forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder stack on embedded inputs x (B, S, d).  Returns (hidden
+    (B, S, d) before the final norm, the MoE aux loss — 0 for the dense
+    family), as the reference does."""
+    x, y = _stack(params, cfg, x, rt)
+    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
+            rt: Runtime) -> torch.Tensor:
+    """Next-token cross entropy (with the z-loss) over ``batch["tokens"]``
+    (B, S); ``batch["mask"]`` (B, S), when given, marks the valid target
+    positions.  Returns a float32 scalar."""
+    tokens = batch["tokens"]
+    x, y = _stack(params, cfg, embed(params, cfg, tokens), rt)
+    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
+                                      cfg.norm_eps)
+    logits = unembed(params, cfg, h[:, :-1])
+    mask = batch.get("mask")
+    return layers.cross_entropy_loss(
+        logits, tokens[:, 1:], None if mask is None else mask[:, 1:])
+
+
+def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            rt: Runtime, cache: Optional[Dict[str, torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full causal forward over ``tokens`` (B, S) that also fills the KV
+    cache.  Returns (last-position logits (B, V), cache {k, v: (L, B, S,
+    Hkv, D)}), as the reference does.
+
+    ``cache``, when given, is a preallocated {k, v: (L, B, S_max, Hkv,
+    D)} with S_max >= S: its rows [0, S) are written IN PLACE (the rest
+    is left as it is) and the same dict is returned, so that
+    :func:`decode_step` continues from position S.  This is the port's
+    in-place form of the reference's returned cache."""
+    _dense_only(cfg)
+    b, s = tokens.shape
+    x = embed(params, cfg, tokens)
+    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim_)
+    if cache is None:
+        cache = {k: torch.empty(shape, dtype=x.dtype, device=x.device)
+                 for k in ("k", "v")}
+    for k in ("k", "v"):
+        got = tuple(cache[k].shape)
+        if len(got) != 5 or got[:2] != shape[:2] or got[3:] != shape[3:] \
+                or got[2] < s:
+            raise ValueError(f"cache[{k!r}] is {got}; want (L, B, S_max, "
+                             f"Hkv, D) = {shape[:2]} + (>= {s},) + "
+                             f"{shape[3:]}")
+    x, y = _stack(params, cfg, x, rt, cache)
+    h, _ = rt.op("rms_norm_residual")(y[:, -1:], x[:, -1:],
+                                      params["final_norm"]["scale"],
                                       cfg.norm_eps)
     return unembed(params, cfg, h)[:, 0], cache

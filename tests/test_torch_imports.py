@@ -77,3 +77,23 @@ def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+FORWARD_MODULES = (
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
+    "repro_torch.kernels.selfcheck", "repro_torch.models.ssm",
+    "repro_torch.configs.mamba2_2_7b", "repro_torch.train.steps")
+
+
+@pytest.mark.parametrize("module", FORWARD_MODULES)
+def test_forward_slice_modules_import_without_a_gpu(module):
+    """The forward slice's modules import on a CPU-only machine: the CUDA
+    builds are reached only inside launches."""
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "ssd_scan"])
+def test_forward_slice_has_its_kernel_sources(name):
+    src = (ROOT / f"src/repro_torch/kernels/csrc/{name}.cu").read_text()
+    assert "__global__" in src and f'extern "C" int {name}_launch' in src
