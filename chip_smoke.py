@@ -6,13 +6,15 @@
 Builds every kernel of the port from ``src/repro_torch/kernels`` (the
 CUDA sources with ``nvcc``, all at once; the Triton kernels at their
 first launch), holds each against its plain PyTorch version on the card,
-then drives the port's three main paths: the multicast (``Group.run`` and
+then drives the port's four main paths: the multicast (``Group.run`` and
 ``Group.run_batch`` on the ``kernel`` backend, at the paper's deployment
 sizes, agreeing exactly with the card's ``graph`` and the CPU's ``graph``
 runs), the serve plane (``ReplicatedEngine.run`` on a full-width
-qwen3-1.7b over the streamed multicast) and the full-sequence forward
+qwen3-1.7b over the streamed multicast), the full-sequence forward
 (``Arch.loss_fn`` / ``Arch.prefill_fn`` on a full-width qwen3-1.7b and
-``Arch.loss_fn`` on a full-width mamba2-2.7b).
+``Arch.loss_fn`` on a full-width mamba2-2.7b) and the training plane
+(``Trainer`` on a full-width qwen3-1.7b with the compressed Spindle
+gradient reduction over two data-parallel workers).
 
 Phases (one JSON line each; any failure exits non-zero):
 
@@ -51,8 +53,31 @@ Phases (one JSON line each; any failure exits non-zero):
    ``Runtime(kernels="plain")``: loss and last-position logits within the
    stated tolerance, and prefill of S tokens then one decode step equal to
    the prefill of S + 1 tokens;
-11. the ``kernels`` line: per kernel its launches on the main paths
-   (phases 2-4, 6 and 9), its times and its bound.
+11. quantize and dequantize against their plain versions, bit for bit:
+   the ``tests/test_quantize_kernel.py`` shapes and 2**24 elements at
+   block 2048, float32 and bfloat16, zeros and exact .5 ties, and the
+   main path's largest bucket shard (qwen3-1.7b's plan, W = 2, float32):
+   CUDA-event and profiler times, the plain time, the byte bound;
+12. the training plane at full width: ``Trainer`` on qwen3-1.7b (28
+   layers, bf16 weights from seed 0, AdamW state in float32) with
+   ``Runtime(gradsync="spindle_compressed", dp_workers=2)``, 2 x 2048
+   tokens of the synthetic pipeline, 3 steps: finite losses near ln V,
+   exact launches per step (every forward site once per layer per worker;
+   one quantize and one dequantize per bucket), tokens/s, wall per step,
+   one warm step profiled (device time, busy share) and taken apart
+   (gradients, reduction, AdamW), peak memory, the step's bound, and one
+   warm step of the uncompressed ``spindle`` reduction;
+13. the train path in float32 at 4 layers, full width, on the kernels and
+   on the plain versions: qwen3-1.7b (``spindle_compressed``, W = 2,
+   2 x 512 tokens, three ``Trainer`` steps: losses within 1e-5 relative,
+   per-worker gradients within 1e-4 of each leaf's largest, master weights
+   after step 1 within 2 lr_1 + 1e-6, the compressed mean within 4
+   quantization steps of the exact mean, the plain run launching nothing,
+   and a restart from the step-2 checkpoint bit-equal to the uninterrupted
+   run) and mamba2-2.7b (``spindle``, W = 2, 2 x 1024 tokens, one step:
+   the SSD scan's gradient);
+14. the ``kernels`` line: per kernel its launches on the main paths
+   (phases 2-4, 6, 9 and 12), its times and its bound.
 
 The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
@@ -66,6 +91,8 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -78,16 +105,21 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
+from repro_torch import tree as tree_util  # noqa: E402
+from repro_torch.core import gradsync  # noqa: E402
 from repro_torch.core.group import (GraphBackend, KernelBackend,  # noqa: E402
                                     _stack_masks)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import smc_sweep as ss  # noqa: E402
 from repro_torch.kernels import ssd_scan as sc  # noqa: E402
 from repro_torch.models import layers, registry, transformer  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train import steps  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 # The card's table has no int32 ALU rate; slot checks are charged at the
@@ -205,12 +237,14 @@ def phase0_identity():
     with concurrent.futures.ThreadPoolExecutor() as pool:
         for fut in [pool.submit(_build.build, name)
                     for name in ("smc_sweep", "flash_decode",
-                                 "flash_attention", "ssd_scan")]:
+                                 "flash_attention", "ssd_scan",
+                                 "quantize")]:
             fut.result()
     ss.build()
     fd.build()
     fa.build()
     sc.build()
+    qz.build()
     rn.build()
     build_s = time.perf_counter() - t0
     emit({"phase": 0, "nvidia_smi": smi_line,
@@ -703,7 +737,8 @@ def phase6_serve():
             "rms_norm": (1 + 2 * cfg.n_layers) * steps,
             "rms_norm_residual": 2 * cfg.n_layers * steps,
             "smc_sweep_watermark": report.extras["streamed_rounds"],
-            "smc_sweep": 0, "flash_attention": 0, "ssd_scan": 0}
+            "smc_sweep": 0, "flash_attention": 0, "ssd_scan": 0,
+            "quantize": 0, "dequantize": 0}
     check(launches == want, f"serve launches {launches}, want {want}")
     tokens = rep.completed()
     for stream in (t for per in tokens.values() for t in per):
@@ -1208,6 +1243,421 @@ def phase10_forward_vs_plain():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the training plane (phases 11-13)
+# ---------------------------------------------------------------------------
+
+TRAIN_WORKERS = 2
+
+
+def train_plan(cfg, workers: int = TRAIN_WORKERS):
+    """The bucket plan of ``cfg``'s bf16 gradients (what the compressed
+    reduction of phase 12 cuts them into), from shapes alone; and the
+    largest bucket's per-worker shard length."""
+    specs = registry.param_specs(cfg)
+    like = layers.map_specs(lambda sp: torch.empty(
+        sp.shape, dtype=torch.bfloat16, device="meta"), specs)
+    plan = gradsync.make_plan(like, target_bytes=steps.BUCKET_BYTES)
+    shard = max(-(-plan.bucket_size(b) // workers)
+                for b in range(plan.n_buckets))
+    return plan, shard
+
+
+def quantize_row(x, block: int, label: str, out_dtype, iters: int):
+    """quantize and dequantize of ``x`` against their plain versions
+    (identical or fail), with times and byte bounds."""
+    n = x.numel()
+    q, s = qz.quantize(x, block)
+    q_p, s_p = qz.quantize_plain(x, block)
+    back = qz.dequantize(q, s, block, out_dtype)
+    back_p = qz.dequantize_plain(q, s, block, out_dtype)
+    torch.cuda.synchronize()
+    check(torch.equal(q, q_p) and torch.equal(s, s_p),
+          f"quantize {label}: not identical to the plain version (max |dq| "
+          f"{int((q.int() - q_p.int()).abs().max())}, max |ds| "
+          f"{float((s - s_p).abs().max())})")
+    check(torch.equal(back, back_p),
+          f"dequantize {label}: not identical to the plain version")
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    rows = []
+    for name, kernel, plain, nbytes in (
+            ("quantize", lambda: qz.quantize(x, block),
+             lambda: qz.quantize_plain(x, block),
+             n * x.element_size() + n + 4 * (n // block)),
+            ("dequantize", lambda: qz.dequantize(q, s, block, out_dtype),
+             lambda: qz.dequantize_plain(q, s, block, out_dtype),
+             n + 4 * (n // block) + n * out_size)):
+        bound_ms, bound_by = bound(nbytes, n)
+        rows.append({"kernel": name, "dtype": str(x.dtype)
+                     if name == "quantize" else str(out_dtype),
+                     "shape": label, "n": n, "block": block,
+                     "max_abs_err": 0, "identical": True,
+                     **time_case(kernel, plain, None, iters),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes})
+    return rows
+
+
+def phase11_quantize():
+    """Both quantize kernels against their plain versions, bit for bit:
+    the reference tests' shapes, 2**24 elements, zeros and .5 ties, and
+    the main path's largest bucket shard (qwen3-1.7b, W = 2)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
+    rows = []
+    for n, block in ((2048, 2048), (8192, 2048), (4096, 512),
+                     (1 << 24, 2048)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (3 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+            rows += quantize_row(x, block, f"n={n} block={block}", dtype,
+                                 200 if n < 1 << 20 else 50)
+            zeros = torch.zeros(n, dtype=dtype, device="cuda")
+            quantize_row(zeros, block, f"zeros n={n} block={block}", dtype,
+                         1)
+            # absmax 127 in every block (scale exactly 1), every .5 tie
+            ties = (torch.arange(n, device="cuda") % 509 - 254).float() / 2
+            ties.view(-1, block)[:, 0] = 127.0
+            quantize_row(ties.to(dtype), block, f"ties n={n} block={block}",
+                         dtype, 1)
+    n = TRAIN_WORKERS * shard
+    x = 1e-3 * torch.randn(n, generator=gen, device="cuda")
+    main = quantize_row(x, shard, f"n={n} block={shard}", torch.float32, 10)
+    rows += main
+    for r in rows:
+        emit({"phase": 11, **r})
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def train_launches(cfg, workers: int, buckets: int) -> dict:
+    """Launches per train step: every forward kernel site once per
+    layer per worker (the backward launches nothing); one quantize and
+    one dequantize per bucket when ``buckets``."""
+    if cfg.family == "ssm":
+        want = {"ssd_scan": cfg.n_layers, "rms_norm": 1 + cfg.n_layers,
+                "rms_norm_residual": cfg.n_layers}
+    else:
+        want = {"flash_attention": cfg.n_layers,
+                "rms_norm": 1 + 2 * cfg.n_layers,
+                "rms_norm_residual": 2 * cfg.n_layers}
+    want = {k: v * workers for k, v in want.items()}
+    if buckets:
+        want.update(quantize=buckets, dequantize=buckets)
+    return want
+
+
+def launches_since(before: dict) -> dict:
+    after = ops.launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] - before[k]}
+
+
+def timed(fn):
+    """(result, seconds) of ``fn()`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_bound(cfg, params, b: int, s: int) -> dict:
+    """A train step's least time: the matrix work (forward and backward,
+    3x the forward's: the per-token projections, the tied head and the
+    causal attention) at the bf16 peak, against the bytes AdamW must
+    move (gradients and parameters read and written once, the float32
+    master, m and v read and written once)."""
+    tokens = b * s
+    n_params = sum(t.numel() for t in tensors(params))
+    fwd = 2 * tokens * matmul_params(cfg) + \
+        2 * b * (s - 1) * cfg.d_model * cfg.vocab_size + \
+        attention_flops(b, s, cfg.n_heads, cfg.head_dim_, True) * \
+        cfg.n_layers
+    nbytes = n_params * (2 * 2 + 2 * 12)
+    bound_ms, bound_by = bound(nbytes, 3 * fwd, BF16_TC_OPS_PER_S)
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_flops": 3 * fwd, "bound_bytes": nbytes}
+
+
+# device kernels of each wrapper, by the names the profiler records
+TRAIN_KERNELS = tuple((label, (key,)) for label, key in FORWARD_KERNELS) + (
+    ("quantize", ("quantize_fused_kernel", "absmax_kernel",
+                  "quantize_tiles_kernel")),
+    ("dequantize", ("dequantize_kernel",)))
+
+
+def profile_step(fn):
+    """Device time and busy share of one warm ``fn()``, with the device
+    time of the port's kernels and the top operations."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(device_us(e) for e in events)
+    by_kernel = {}
+    for label, keys in TRAIN_KERNELS:
+        hits = [e for e in events if any(k in e.key for k in keys)
+                and not (label == "rms_norm" and "residual" in e.key)]
+        by_kernel[label] = {"launches": sum(e.count for e in hits),
+                            "device_ms": sum(device_us(e)
+                                             for e in hits) / 1e3}
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    return {"profiled_wall_s": wall, "device_s": busy_us / 1e6,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "kernels": by_kernel,
+            "top_device_ops_ms": {e.key[:60]: device_us(e) / 1e3
+                                  for e in top}}
+
+
+def phase12_train():
+    """The training plane at qwen3-1.7b's full width: ``Trainer`` with
+    the compressed Spindle reduction over W = 2 workers folded onto the
+    card, 3 steps; returns the train path's launch counts."""
+    arch = registry.get("qwen3-1.7b")
+    cfg = arch.cfg
+    b, s = 2, 2048
+    rt = Runtime(gradsync="spindle_compressed", dp_workers=TRAIN_WORKERS)
+    tcfg = api.TrainConfig(steps=3, seq_len=s, global_batch=b, log_every=1)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = api.Trainer("qwen3-1.7b", cfg, tcfg, rt, device="cuda")
+    (params, opt), setup_s = timed(lambda: trainer.init_state(0))
+    plan, shard = train_plan(cfg)
+    want = train_launches(cfg, TRAIN_WORKERS, plan.n_buckets)
+    walls, per_step = [], []
+    mark = {"t": None, "counts": None}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls.append(now - mark["t"])
+        per_step.append(launches_since(mark["counts"]))
+        mark["t"], mark["counts"] = time.perf_counter(), ops.launch_counts()
+
+    ops.reset_launch_counts()                 # the train path starts here
+    torch.cuda.synchronize()
+    mark["t"], mark["counts"] = time.perf_counter(), ops.launch_counts()
+    params, opt = trainer.run(params, opt, on_step=on_step)
+    launches = ops.launch_counts()            # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    for i, made in enumerate(per_step):
+        check(made == want, f"train step {i + 1}: launches {made}, want "
+              f"{want}")
+    losses = [h["loss"] for h in trainer.history]
+    check(len(losses) == 3 and all(math.isfinite(x) and 10.0 < x < 14.0
+                                   for x in losses),
+          f"train losses {losses} (want finite, near ln V = "
+          f"{math.log(cfg.vocab_size):.2f})")
+
+    # one warm step under the profiler, and the same step taken apart
+    step_fn = steps.make_train_step(arch, rt, param_dtype=torch.bfloat16,
+                                    donate=True)
+    batch = trainer._batch_for(3)
+    prof = profile_step(lambda: step_fn(params, opt, batch))
+    worker = steps.worker_grads(arch, rt)
+    (_, stacked), grads_s = timed(lambda: worker(params, batch))
+    mean, reduce_s = timed(lambda: steps.reduce_grads(stacked, rt))
+    spindle = Runtime(gradsync="spindle", dp_workers=TRAIN_WORKERS)
+    fused, fused_s = timed(lambda: steps.reduce_grads(stacked, spindle))
+    del stacked, fused
+    _, update_s = timed(lambda: adamw.update(tcfg.opt, mean, opt,
+                                             torch.bfloat16, params=params))
+    del mean
+    # and one warm step of the uncompressed fused-bucket reduction
+    spindle_step = steps.make_train_step(arch, spindle, donate=True)
+    (_, _, m), spindle_wall = timed(lambda: spindle_step(params, opt, batch))
+    check(math.isfinite(float(m["loss"])), "spindle step loss")
+    parts = grads_s + reduce_s + update_s
+    emit({"phase": 12, "model": "qwen3-1.7b", "layers": cfg.n_layers,
+          "batch": b, "seq": s, "workers": TRAIN_WORKERS,
+          "gradsync": rt.gradsync, "buckets": plan.n_buckets,
+          "largest_shard": shard, "setup_s": setup_s,
+          "losses": losses, "history": trainer.history,
+          "launches_per_step": want, "step_wall_s": walls,
+          "tokens_per_s": [b * s / w for w in walls],
+          "peak_memory_bytes": peak, **prof,
+          "warm_step_parts_s": {"worker_grads": grads_s,
+                                "reduce_compressed": reduce_s,
+                                "adamw_update": update_s},
+          "reduce_share": reduce_s / parts, "adamw_share": update_s / parts,
+          "reduce_fused_uncompressed_s": fused_s,
+          "spindle_step_wall_s": spindle_wall,
+          "spindle_step_loss": float(m["loss"]),
+          **train_bound(cfg, params, b, s)})
+    del params, opt, trainer, step_fn, spindle_step
+    torch.cuda.empty_cache()
+    return launches
+
+
+TRAIN_LOSS_RTOL = 1e-5
+# per-worker gradients, kernels vs plain, as a share of each leaf's
+# largest |g|: the dense family's bar; the ssm family's is the phase-10
+# bar of its forward (FORWARD_TOL), since the SSD kernel's float32 output
+# differs from the plain chunked scan at that kernel's own 1e-4 bar and
+# the gradient is taken at those different activations
+GRAD_TOL = {"dense": 1e-4, "ssm": FORWARD_TOL}
+
+
+def compare_worker_grads(arch, params, batch, rt, plain, what: str):
+    """Per-worker gradients on the kernels against the plain versions
+    (each leaf within GRAD_TOL of its largest entry); returns the kernel
+    run's stacked gradients and the largest relative error."""
+    want = train_launches(arch.cfg, rt.dp_workers, 0)
+    (loss_k, g_k), _ = run_counted(
+        lambda: steps.worker_grads(arch, rt)(params, batch), want,
+        f"{what} worker grads")
+    (loss_p, g_p), _ = run_counted(
+        lambda: steps.worker_grads(arch, plain)(params, batch), {},
+        f"{what} plain worker grads")
+    rel = float(((loss_k - loss_p).abs() / loss_p.abs()).max())
+    check(rel <= TRAIN_LOSS_RTOL, f"{what} worker losses {loss_k} vs "
+          f"{loss_p}")
+    errs = {}
+    for (path, a), c in zip(tree_util.paths(g_k), tree_util.leaves(g_p)):
+        errs[path] = float((a - c).abs().max()) / (float(c.abs().max())
+                                                    or 1.0)
+    del g_p
+    worst = max(errs, key=errs.get)
+    tol = GRAD_TOL[arch.cfg.family]
+    check(errs[worst] <= tol, f"{what} gradient {worst}: {errs[worst]} of "
+          f"its max (bar {tol}); every leaf: {errs}")
+    return g_k, {"max": errs[worst], "leaf": worst, "bar": tol,
+                 "per_leaf": errs}, rel
+
+
+def compare_first_step(arch, params, batch, rt, plain, opt_cfg, what):
+    """One train step on the kernels and on the plain versions: the loss
+    within TRAIN_LOSS_RTOL, the master weights within 2 lr_1 + 1e-6 (a
+    first AdamW step is a sign step: a gradient near zero may flip)."""
+    out = {}
+    for key, r in (("kernels", rt), ("plain", plain)):
+        p = tree_util.map(torch.clone, params)
+        _, o, m = steps.make_train_step(arch, r, opt_cfg,
+                                        param_dtype=torch.float32)(
+            p, adamw.init(p), batch)
+        out[key] = (o["master"], m)
+    (mk, met_k), (mp, met_p) = out["kernels"], out["plain"]
+    lr1 = float(met_k["lr"])
+    err = max(float((a - c).abs().max()) for a, c in
+              zip(tree_util.leaves(mk), tree_util.leaves(mp)))
+    check(err <= 2 * lr1 + 1e-6, f"{what} master after step 1: {err}")
+    rel = abs(float(met_k["loss"]) - float(met_p["loss"])) / \
+        abs(float(met_p["loss"]))
+    check(rel <= TRAIN_LOSS_RTOL, f"{what} step-1 loss {met_k['loss']} vs "
+          f"{met_p['loss']}")
+    return {"master_max_abs_err": err, "lr_1": lr1, "step1_loss_rel": rel}
+
+
+def phase13_train_vs_plain():
+    """The train path in float32 at 4 layers, full width, on the kernels
+    and on the plain versions: qwen3-1.7b with the compressed reduction
+    (3 Trainer steps, checkpoint restart), mamba2-2.7b with fused buckets
+    (one step, the SSD scan's gradient)."""
+    plain_of = lambda r: dataclasses.replace(r, kernels="plain")
+    res = {}
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg, n_layers=4)
+    arch = registry.Arch(cfg)
+    rt = Runtime(gradsync="spindle_compressed", dp_workers=TRAIN_WORKERS)
+    kw = dict(seq_len=512, global_batch=2, log_every=1,
+              param_dtype=torch.float32)
+    tcfg = api.TrainConfig(steps=3, **kw)
+    params = arch.init_params(13, "cuda", torch.float32)
+    trainer = api.Trainer("qwen3-1.7b", cfg, tcfg, rt, device="cuda")
+    batch = trainer._batch_for(0)
+    g_k, grad_err, wl_rel = compare_worker_grads(
+        arch, params, batch, rt, plain_of(rt), "qwen3 f32")
+    # the compressed mean against the exact fused mean, per worker shard
+    plan = gradsync.make_plan(tree_util.map(lambda g: g[0], g_k),
+                              target_bytes=steps.BUCKET_BYTES)
+    comp = steps.reduce_grads(g_k, rt)
+    exact = steps.reduce_grads(g_k, Runtime(gradsync="spindle",
+                                            dp_workers=TRAIN_WORKERS))
+    worst_steps = 0.0
+    for bk, (c, e) in enumerate(zip(gradsync.flatten_buckets(comp, plan),
+                                    gradsync.flatten_buckets(exact, plan))):
+        pad = (-c.numel()) % TRAIN_WORKERS
+        c, e = (torch.nn.functional.pad(t.float(), (0, pad)).view(
+            TRAIN_WORKERS, -1) for t in (c, e))
+        step_size = e.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-30
+        ratio = float(((c - e).abs() / step_size).max())
+        worst_steps = max(worst_steps, ratio)
+        check(ratio <= 4.0, f"compressed bucket {bk}: {ratio} quantization "
+              f"steps from the exact mean")
+    del g_k, comp, exact
+    first = compare_first_step(arch, params, batch, rt, plain_of(rt),
+                               tcfg.opt, "qwen3 f32")
+    # three Trainer steps on the kernels and on the plain versions
+    runs = {}
+    for key, r in (("kernels", rt), ("plain", plain_of(rt))):
+        tr = api.Trainer("qwen3-1.7b", cfg, tcfg, r, device="cuda")
+        p0 = tree_util.map(torch.clone, params)
+        ops.reset_launch_counts()
+        final, _ = timed(lambda: tr.run(p0, adamw.init(p0)))
+        made = {k: v for k, v in ops.launch_counts().items() if v}
+        if key == "plain":
+            check(not made, f"the plain train run launched {made}")
+        else:
+            per_step = train_launches(cfg, TRAIN_WORKERS, plan.n_buckets)
+            check(made == {k: 3 * v for k, v in per_step.items()},
+                  f"qwen3 f32 train launches {made}")
+        runs[key] = ([h["loss"] for h in tr.history],
+                     final if key == "kernels" else None)
+        del final, p0
+    loss_rel = [abs(a - c) / abs(c) for a, c in zip(runs["kernels"][0],
+                                                    runs["plain"][0])]
+    check(max(loss_rel) <= TRAIN_LOSS_RTOL,
+          f"qwen3 f32 losses {runs['kernels'][0]} vs {runs['plain'][0]}")
+    # checkpoint after step 2, restore into a fresh Trainer, step 3
+    ckpt = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ck = dict(kw, checkpoint_dir=str(ckpt), checkpoint_every=2)
+    p0 = tree_util.map(torch.clone, params)
+    api.Trainer("qwen3-1.7b", cfg, api.TrainConfig(steps=2, **ck), rt,
+                device="cuda").run(p0, adamw.init(p0))
+    resumed = api.Trainer("qwen3-1.7b", cfg, api.TrainConfig(steps=3, **ck),
+                          rt, device="cuda")
+    (p_re, o_re), restart_s = timed(lambda: resumed.run(p0, adamw.init(p0)))
+    full_p, full_o = runs["kernels"][1]
+    same = [h["loss"] for h in resumed.history] == runs["kernels"][0][2:] \
+        and all(torch.equal(a, c) for a, c in zip(
+            tree_util.leaves({"p": p_re, "o": o_re}),
+            tree_util.leaves({"p": full_p, "o": full_o})))
+    check(same and resumed.sync.delivered_step == 3,
+          "restart from the step-2 checkpoint is not bit-equal")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    res["qwen3-1.7b"] = {
+        "layers": 4, "batch": 2, "seq": 512, "gradsync": rt.gradsync,
+        "workers": TRAIN_WORKERS, "losses_kernels": runs["kernels"][0],
+        "losses_plain": runs["plain"][0], "loss_rel_err": loss_rel,
+        "worker_loss_rel_err": wl_rel, "grad_rel_err": grad_err,
+        "compressed_vs_exact_quant_steps": worst_steps, **first,
+        "restart_bit_equal": same, "restart_wall_s": restart_s}
+    del params, runs, p_re, o_re, full_p, full_o, p0
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(registry.get("mamba2-2.7b").cfg, n_layers=4)
+    arch = registry.Arch(cfg)
+    rt = Runtime(gradsync="spindle", dp_workers=TRAIN_WORKERS)
+    params = arch.init_params(14, "cuda", torch.float32)
+    batch = {"tokens": seeded_tokens(cfg, 2, 1024, seed=130)}
+    g_k, grad_err, wl_rel = compare_worker_grads(
+        arch, params, batch, rt, plain_of(rt), "mamba2 f32")
+    del g_k
+    first = compare_first_step(arch, params, batch, rt, plain_of(rt),
+                               adamw.OptConfig(), "mamba2 f32")
+    res["mamba2-2.7b"] = {"layers": 4, "batch": 2, "seq": 1024,
+                          "gradsync": rt.gradsync, "workers": TRAIN_WORKERS,
+                          "worker_loss_rel_err": wl_rel,
+                          "grad_rel_err": grad_err, **first}
+    emit({"phase": 13, "dtype": "float32", "loss_rtol": TRAIN_LOSS_RTOL,
+          **res})
+    del params
+    torch.cuda.empty_cache()
+
+
 KERNELS = (
     ("smc_sweep_watermark", "cuda", "src/repro_torch/kernels/csrc/smc_sweep.cu",
      "src/repro/kernels/smc_sweep.py:153 smc_sweep_watermark_pallas"),
@@ -1224,17 +1674,24 @@ KERNELS = (
      "src/repro/kernels/flash_attention.py:69 flash_attention_flat"),
     ("ssd_scan", "cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan.py:75 ssd_scan_pallas"),
+    ("quantize", "cuda", "src/repro_torch/kernels/csrc/quantize.cu",
+     "src/repro/kernels/quantize.py:32 quantize_pallas"),
+    ("dequantize", "cuda", "src/repro_torch/kernels/csrc/quantize.cu",
+     "src/repro/kernels/quantize.py:49 dequantize_pallas"),
 )
-# the shape each kernel's line reports: what its main path gives it
-# (bf16 for the model kernels)
+# the shape and dtype each kernel's line reports: what its main path gives
+# it (bf16 for the model kernels; the quantize kernels take the float32
+# shard of the train path's largest bucket, phase 11)
 LINE_SHAPES = {
-    "flash_decode": "B=8 Hq=16 Hkv=8 D=128 S_max=2048 lengths=serve",
-    "rms_norm": "128x128",                    # the per-head q/k norms
-    "rms_norm_residual": "8x2048",            # the hidden-state norms
-    "flash_attention": "B=2 S=2048 Hq=16 Hkv=8 D=128 causal=True",
-    "ssd_scan": "B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256",
+    "flash_decode": ("B=8 Hq=16 Hkv=8 D=128 S_max=2048 lengths=serve",
+                     torch.bfloat16),
+    "rms_norm": ("128x128", torch.bfloat16),    # the per-head q/k norms
+    "rms_norm_residual": ("8x2048", torch.bfloat16),  # hidden-state norms
+    "flash_attention": ("B=2 S=2048 Hq=16 Hkv=8 D=128 causal=True",
+                        torch.bfloat16),
+    "ssd_scan": ("B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256", torch.bfloat16),
 }
-PATHS = ("multicast", "serve", "forward")
+PATHS = ("multicast", "serve", "forward", "train")
 
 
 def main() -> int:
@@ -1272,16 +1729,28 @@ def main() -> int:
           f"the forward path skipped a kernel: {forward}")
     phase10_forward_vs_plain()
 
-    by_path = dict(zip(PATHS, (multicast, serve, forward)))
+    model_rows += phase11_quantize()
+    train = phase12_train()                   # counts of the train path
+    check(all(train[k] > 0 for k in ("flash_attention", "rms_norm",
+                                     "rms_norm_residual", "quantize",
+                                     "dequantize")),
+          f"the train path skipped a kernel: {train}")
+    phase13_train_vs_plain()
+
+    _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
+    line_shapes = dict(LINE_SHAPES, **{
+        name: (f"n={TRAIN_WORKERS * shard} block={shard}", torch.float32)
+        for name in ("quantize", "dequantize")})
+    by_path = dict(zip(PATHS, (multicast, serve, forward, train)))
     kernels = []
     for name, route, source, replaces in KERNELS:
-        if name in LINE_SHAPES:
+        if name in line_shapes:
+            label, dtype = line_shapes[name]
             r = next(x for x in model_rows if x["kernel"] == name
-                     and x["shape"] == LINE_SHAPES[name]
-                     and x["dtype"] == str(torch.bfloat16))
+                     and x["shape"] == label and x["dtype"] == str(dtype))
             errs = [x["max_abs_err"] for x in model_rows
                     if x["kernel"] == name]
-            shape = f"{r['shape']}, bf16"
+            shape = f"{r['shape']}, {str(dtype).split('.')[-1]}"
         else:
             r = next(x for x in rows
                      if x["kernel"] == name and x["shape"] == "group16")
@@ -1292,9 +1761,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
-            "launches": sum(c[name] for c in by_path.values()),
-            "launches_by_path": {k: c[name] for k, c in by_path.items()},
-            "on_main_path": any(c[name] for c in by_path.values()),
+            "launches": sum(c.get(name, 0) for c in by_path.values()),
+            "launches_by_path": {k: c.get(name, 0)
+                                 for k, c in by_path.items()},
+            "on_main_path": any(c.get(name, 0) for c in by_path.values()),
             "max_abs_err": r["max_abs_err"], "max_abs_err_all_shapes":
             max(errs), "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -3,12 +3,14 @@
 A second package beside :mod:`repro` (the JAX/Pallas reference), with the
 same module layout and names: ``core/`` holds the protocol (SST
 arithmetic, the fused predicate sweep, the ``Group`` API and its
-streams, DDS topics), ``models/`` and ``configs/`` the dense decoder and
-the Mamba2 forward, ``serve/`` the serve plane on the streamed multicast,
-``train/`` the serving steps, and ``kernels/`` the hand-written Hopper
-kernels (the SMC receive sweep, flash decode, flash attention and the SSD
-scan in CUDA, RMSNorm in Triton).  Nothing here imports ``jax`` or
-``repro``.
+streams, DDS topics) and the Spindle gradient reductions, ``models/``
+and ``configs/`` the dense decoder and the Mamba2 forward, ``serve/`` the
+serve plane on the streamed multicast, ``train/``, ``optim/`` and
+``data/`` the training plane (train and serve steps, the Trainer,
+checkpoints, AdamW, the token pipeline), and ``kernels/`` the
+hand-written Hopper kernels (the SMC receive sweep, flash decode, flash
+attention, the SSD scan and the int8 quantize pair in CUDA, RMSNorm in
+Triton).  Nothing here imports ``jax`` or ``repro``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 :func:`resolve_device` is the one place that decision is made.

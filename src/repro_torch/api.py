@@ -20,11 +20,20 @@ The subset of ``repro.api`` that the port provides so far::
                                       api.Runtime())
     step = api.make_serve_step(arch, api.Runtime(), "prefill")
 
-View changes, training and the DES backends follow in later slices of
-the port.
+    # the training plane: W data-parallel workers folded onto one device,
+    # gradients reduced by fused buckets with an int8 all-gather leg
+    rt = api.Runtime(gradsync="spindle_compressed", dp_workers=2)
+    trainer = api.Trainer("qwen3-1.7b", arch.cfg,
+                          api.TrainConfig(steps=3, seq_len=2048,
+                                          global_batch=2), rt)
+    params, opt_state = trainer.run()    # trainer.history: loss, grad_norm
+    step = api.make_train_step(arch, rt, api.OptConfig())
+
+View changes and the DES backends follow in later slices of the port.
 """
 
 from repro_torch import resolve_device
+from repro_torch.core import gradsync
 from repro_torch.core.costmodel import HOST_X86, RDMA_CX6
 from repro_torch.core.dds import (BoundDomain, Domain, QoS, Topic,
                                   many_topic_domain, single_topic_domain)
@@ -41,17 +50,20 @@ from repro_torch.models.registry import Arch
 from repro_torch.models.registry import get as get_arch
 from repro_torch.models.runtime import Runtime
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+from repro_torch.optim.adamw import OptConfig
 from repro_torch.serve.fanout import ReplicatedEngine
-from repro_torch.train.steps import make_serve_step
+from repro_torch.train.steps import make_serve_step, make_train_step
+from repro_torch.train.trainer import TrainConfig, Trainer
 
 __all__ = [
     "Arch", "BACKENDS", "BoundDomain", "Delivery", "DeliveryLog", "Domain",
     "EngineConfig", "EpochCarry", "GraphBackend", "Group", "GroupConfig",
-    "GroupStream", "HOST_X86", "KernelBackend", "ProtocolBackend", "QoS",
-    "RDMA_CX6", "ReplicatedEngine", "Request", "RunReport", "Runtime",
-    "SenderPattern",
-    "ServeAdmission", "ServeEngine", "SpindleFlags", "StreamView",
-    "SubgroupHandle", "SubgroupSpec", "Topic", "get_arch", "get_backend",
-    "make_serve_step", "many_topic_domain", "register_backend", "resolve_device",
-    "single_group", "single_topic_domain",
+    "GroupStream", "HOST_X86", "KernelBackend", "OptConfig",
+    "ProtocolBackend", "QoS", "RDMA_CX6", "ReplicatedEngine", "Request",
+    "RunReport", "Runtime", "SenderPattern", "ServeAdmission", "ServeEngine",
+    "SpindleFlags", "StreamView", "SubgroupHandle", "SubgroupSpec", "Topic",
+    "TrainConfig", "Trainer", "get_arch", "get_backend", "gradsync",
+    "make_serve_step", "make_train_step", "many_topic_domain",
+    "register_backend", "resolve_device", "single_group",
+    "single_topic_domain",
 ]

@@ -12,9 +12,11 @@ it through its strides, and masks the ragged last tile inside the kernel.
 The wrapper given CPU tensors runs :func:`flash_attention_plain`; given
 CUDA tensors it launches the kernel from ``csrc/flash_attention.cu``
 (built at first use) or raises.  There is no fallback from the card to
-the plain version.  The kernel is forward-only: with grad mode on and an
-input that requires a gradient the wrapper raises.  Each launch adds one
-to :data:`LAUNCHES`.
+the plain version.  With grad mode on and an input that requires a
+gradient, the kernel's output carries the plain version's gradient
+(:func:`repro_torch.kernels.autograd.kernel_with_plain_grad`; the
+backward recomputes the attention in plain float32).  Each launch adds
+one to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -26,9 +28,9 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.autograd import kernel_with_plain_grad
 
 NEG_INF = -1e30
-TRAINING_ITEM = "ROADMAP.md item 14 (the training plane, slice 4)"
 
 # Launches of the CUDA kernel in this process (the plain version counts
 # nothing).
@@ -82,15 +84,6 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
-def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels here are forward-only: raise rather than drop a
-    gradient silently."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} is forward-only in this port; its backward pass comes "
-            f"with {TRAINING_ITEM}")
-
-
 def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
@@ -111,21 +104,10 @@ def _check(q, k, v) -> None:
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True) -> torch.Tensor:
-    """Self-attention of every position over the sequence (over positions
-    <= its own when ``causal``).  q (B, S, Hq, D); k/v (B, S, Hkv, D),
-    each read through its strides (the head dim must be contiguous) ->
-    (B, S, Hq, D) in q's dtype, contiguous.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel on the current stream."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
     global LAUNCHES
-    _check(q, k, v)
-    refuse_grad("flash_attention", q, k, v)
     dev = q.device
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal)
-    if dev.type != "cuda":
-        raise ValueError(f"no flash_attention for device {dev}")
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     if d not in HEAD_DIMS:
@@ -146,3 +128,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention launch failed: cudaError {code}")
     LAUNCHES += 1
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Self-attention of every position over the sequence (over positions
+    <= its own when ``causal``).  q (B, S, Hq, D); k/v (B, S, Hkv, D),
+    each read through its strides (the head dim must be contiguous) ->
+    (B, S, Hq, D) in q's dtype, contiguous.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel on the current stream, with
+    the plain version's gradient where one is needed."""
+    _check(q, k, v)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    if dev.type != "cuda":
+        raise ValueError(f"no flash_attention for device {dev}")
+    return kernel_with_plain_grad(
+        lambda q_, k_, v_: _launch(q_, k_, v_, causal),
+        lambda q_, k_, v_: flash_attention_plain(q_, k_, v_, causal),
+        q, k, v)

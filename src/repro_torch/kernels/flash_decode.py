@@ -11,7 +11,9 @@ int32 ``kv_len``; a scalar length is the special case of equal rows.
 The wrapper given CPU tensors runs :func:`flash_decode_plain`; given
 CUDA tensors it launches the kernel from ``csrc/flash_decode.cu`` (built
 at first use) or raises.  There is no fallback from the card to the
-plain version.  Each launch adds one to :data:`LAUNCHES`.
+plain version.  One-token decode has no gradient (the reference does not
+differentiate it either): the wrapper raises rather than drop one.  Each
+launch adds one to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.autograd import refuse_grad
 
 NEG_INF = -1e30
 
@@ -115,9 +118,11 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     (B, S_max, Hkv, D), read through their strides (the head dim must be
     contiguous); kv_len (B,) int32 -> (B, Hq, D) in q's dtype.  CPU
     tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream."""
+    current stream.  There is no gradient: with grad mode on and an input
+    that requires one, it raises."""
     global LAUNCHES
     _check(q, k_cache, v_cache, kv_len)
+    refuse_grad("flash_decode", q, k_cache, v_cache)
     dev = q.device
     if dev.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, kv_len)

@@ -1,8 +1,8 @@
 """Public wrappers around the port's kernels: what the protocol core and
 the model call.  Each takes CUDA tensors to its Hopper kernel and CPU
 tensors to its plain version (see the kernel modules); :data:`PLAIN`
-maps the model's kernel sites to the plain versions for
-``Runtime(kernels="plain")``."""
+maps the kernel sites of the models and of the gradient reduction to
+the plain versions for ``Runtime(kernels="plain")``."""
 
 from __future__ import annotations
 
@@ -12,11 +12,12 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import flash_decode as _fd
+from repro_torch.kernels import quantize as _qz
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import smc_sweep as _ss
 from repro_torch.kernels import ssd_scan as _sc
 
-KERNEL_MODULES = (_ss, _fd, _rn, _fa, _sc)
+KERNEL_MODULES = (_ss, _fd, _rn, _fa, _sc, _qz)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -94,6 +95,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return _sc.ssd_scan(x, dt, a_log, b, c, d_skip, dt_bias, chunk)
 
 
+def quantize(x: torch.Tensor, block: int):
+    """Block-scaled int8 quantize: x (n,) -> (q (n,) int8, scales
+    (n / block,) float32)."""
+    return _qz.quantize(x, block)
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor, block: int,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The inverse of :func:`quantize`, in ``out_dtype``."""
+    return _qz.dequantize(q, scales, block, out_dtype)
+
+
 def _flash_decode_plain(q, k_cache, v_cache, kv_len):
     return _fd.flash_decode_plain(q, k_cache, v_cache,
                                   _row_lengths(kv_len, q))
@@ -105,4 +118,6 @@ PLAIN = {
     "rms_norm_residual": _rn.rms_norm_residual_plain,
     "flash_attention": _fa.flash_attention_plain,
     "ssd_scan": _sc.ssd_scan_plain,
+    "quantize": _qz.quantize_plain,
+    "dequantize": _qz.dequantize_plain,
 }

@@ -11,12 +11,16 @@ from repro_torch.kernels.flash_attention import \
     flash_attention_plain as flash_attention_ref
 from repro_torch.kernels.flash_decode import \
     flash_decode_plain as flash_decode_ref
+from repro_torch.kernels.quantize import \
+    dequantize_plain as dequantize_ref
+from repro_torch.kernels.quantize import quantize_plain as quantize_ref
 from repro_torch.kernels.rmsnorm import rms_norm_plain as rms_norm_ref
 from repro_torch.kernels.rmsnorm import \
     rms_norm_residual_plain as rms_norm_residual_ref
 from repro_torch.kernels.ssd_scan import ssd_scan_plain as ssd_scan_ref
 
-__all__ = ["flash_attention_ref", "flash_decode_ref", "rms_norm_ref",
+__all__ = ["dequantize_ref", "flash_attention_ref", "flash_decode_ref",
+           "quantize_ref", "rms_norm_ref",
            "rms_norm_residual_ref", "smc_sweep_ref", "ssd_scan_ref",
            "ssd_sequential_ref"]
 

@@ -19,8 +19,10 @@ separate add would cost.
 The wrappers take ``(..., d)`` tensors with a contiguous last dim.  Given
 CPU tensors they run the plain versions; given CUDA tensors they launch
 the Triton kernels (``triton`` is imported there, at the first launch) or
-raise.  Each launch adds one to :data:`RMS_LAUNCHES` or
-:data:`RESIDUAL_LAUNCHES`.
+raise.  Where grad mode is on and an input requires a gradient, the
+kernel's outputs carry the plain version's gradient
+(:func:`repro_torch.kernels.autograd.kernel_with_plain_grad`).  Each
+launch adds one to :data:`RMS_LAUNCHES` or :data:`RESIDUAL_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.autograd import kernel_with_plain_grad
 
 RMS_LAUNCHES = 0
 RESIDUAL_LAUNCHES = 0
@@ -162,15 +165,10 @@ def _check(weight: torch.Tensor, *xs: torch.Tensor) -> int:
     return d
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    """x (..., d), weight (d,) -> same shape and dtype as x."""
+def _rms_norm_launch(x: torch.Tensor, weight: torch.Tensor,
+                     eps: float) -> torch.Tensor:
     global RMS_LAUNCHES
-    d = _check(weight, x)
-    if x.device.type == "cpu":
-        return rms_norm_plain(x, weight, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no rms_norm for device {x.device}")
+    d = weight.shape[-1]
     xr = _rows("x", x, d)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     orows = out.view(-1, d)
@@ -185,20 +183,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return out
 
 
-def rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
-                      weight: torch.Tensor, eps: float = 1e-6
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused ``(residual + x) -> rmsnorm``.  x, residual (..., d) of one
-    shape and dtype, weight (d,) -> ``(normed, new_residual)``."""
+def _rms_norm_residual_launch(x: torch.Tensor, residual: torch.Tensor,
+                              weight: torch.Tensor, eps: float
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     global RESIDUAL_LAUNCHES
-    d = _check(weight, x, residual)
-    if x.shape != residual.shape:
-        raise ValueError(f"x {tuple(x.shape)} and residual "
-                         f"{tuple(residual.shape)} differ")
-    if x.device.type == "cpu":
-        return rms_norm_residual_plain(x, residual, weight, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no rms_norm_residual for device {x.device}")
+    d = weight.shape[-1]
     xr, rr = _rows("x", x, d), _rows("residual", residual, d)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     new_res = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -213,3 +202,38 @@ def rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
                                    BLOCK=block, num_warps=warps)
         RESIDUAL_LAUNCHES += 1
     return out, new_res
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """x (..., d), weight (d,) -> same shape and dtype as x.  On CUDA
+    tensors that need a gradient, the kernel's output carries the plain
+    version's gradient (:mod:`repro_torch.kernels.autograd`)."""
+    _check(weight, x)
+    if x.device.type == "cpu":
+        return rms_norm_plain(x, weight, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no rms_norm for device {x.device}")
+    return kernel_with_plain_grad(
+        lambda x_, w_: _rms_norm_launch(x_, w_, eps),
+        lambda x_, w_: rms_norm_plain(x_, w_, eps), x, weight)
+
+
+def rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
+                      weight: torch.Tensor, eps: float = 1e-6
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused ``(residual + x) -> rmsnorm``.  x, residual (..., d) of one
+    shape and dtype, weight (d,) -> ``(normed, new_residual)``, with the
+    plain version's gradient where one is needed, as :func:`rms_norm`."""
+    _check(weight, x, residual)
+    if x.shape != residual.shape:
+        raise ValueError(f"x {tuple(x.shape)} and residual "
+                         f"{tuple(residual.shape)} differ")
+    if x.device.type == "cpu":
+        return rms_norm_residual_plain(x, residual, weight, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no rms_norm_residual for device {x.device}")
+    return kernel_with_plain_grad(
+        lambda x_, r_, w_: _rms_norm_residual_launch(x_, r_, w_, eps),
+        lambda x_, r_, w_: rms_norm_residual_plain(x_, r_, w_, eps),
+        x, residual, weight)

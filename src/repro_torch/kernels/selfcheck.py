@@ -1,14 +1,26 @@
-"""Quick check of the forward path's CUDA kernels on one card.
+"""Quick check of the CUDA kernels of the forward and training paths on
+one card.
 
-    PYTHONPATH=src python -m repro_torch.kernels.selfcheck
+    PYTHONPATH=src python -m repro_torch.kernels.selfcheck [SECTION ...]
 
-Compiles ``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu`` with
-``nvcc -Xptxas -v`` and prints each kernel's registers and spills, then
-holds both kernels against their plain versions at the forward path's
-shapes and at the ``tests/test_kernels.py`` shapes, in float32 and
-bfloat16, printing the largest error and the CUDA-event time of each.
-It fails on a compile error or an error above the test bars.  Meant as
-the first, short call after a kernel changes, before a full
+Sections (all by default):
+
+* ``forward`` — compiles ``csrc/flash_attention.cu`` and
+  ``csrc/ssd_scan.cu`` with ``nvcc -Xptxas -v`` and prints each kernel's
+  registers and spills, then holds both kernels against their plain
+  versions at the forward path's shapes and at the
+  ``tests/test_kernels.py`` shapes, in float32 and bfloat16;
+* ``quantize`` — the same for ``csrc/quantize.cu``: quantize and
+  dequantize must equal their plain versions bit for bit (the
+  ``tests/test_quantize_kernel.py`` shapes, 2**24 elements, one block of
+  2**26, zeros and exact .5 ties);
+* ``grad`` — the gradient through each forward kernel site (RMSNorm,
+  fused residual RMSNorm, flash attention, SSD scan) against plain
+  autograd of its plain version, float32.
+
+It prints the largest error and the CUDA-event time of each case and
+fails on a compile error or an error above the bars.  Meant as the
+first, short call after a kernel changes, before a full
 ``chip_smoke.py`` run.  Needs a CUDA GPU and ``nvcc``; exits 2 without a
 GPU.
 """
@@ -23,6 +35,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import quantize as qz
+from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as sc
 
 ATTENTION_SHAPES = ((2, 2048, 16, 8, 128), (1, 1000, 16, 8, 128),
@@ -30,6 +44,8 @@ ATTENTION_SHAPES = ((2, 2048, 16, 8, 128), (1, 1000, 16, 8, 128),
                     (2, 200, 4, 2, 64), (4, 512, 16, 8, 128))
 SSD_SHAPES = ((1, 2048, 80, 64, 128, 1, 256), (1, 64, 2, 16, 16, 1, 16),
               (2, 128, 4, 32, 64, 2, 32), (1, 96, 2, 64, 128, 1, 32))
+QUANTIZE_SHAPES = ((2048, 2048), (8192, 2048), (4096, 512), (1 << 24, 2048),
+                   (1 << 26, 1 << 26), (3 * 5000, 5000))
 ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
@@ -69,16 +85,9 @@ def compile_report(name: str) -> None:
             print(f"{name}: {line.strip()}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("selfcheck: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(torch.__version__, torch.version.cuda,
-          torch.cuda.get_device_name(0))
+def check_forward(gen) -> None:
     for name in ("flash_attention", "ssd_scan"):
         compile_report(name)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     for b, s, hq, hkv, d in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -93,13 +102,7 @@ def main() -> int:
                       flush=True)
     for b, s, h, p, n, g, chunk in SSD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            x = rnd(b, s, h, p).to(dtype)
-            dt = 0.5 * rnd(b, s, h)
-            a_log = torch.rand(h, generator=gen, device="cuda") * 1.5 - 1
-            bb, cc = ((0.3 * rnd(b, s, g, n)).to(dtype) for _ in range(2))
-            d_skip = torch.rand(h, generator=gen, device="cuda")
-            dt_bias = torch.rand(h, generator=gen, device="cuda") - 0.5
-            args = (x, dt, a_log, bb, cc, d_skip, dt_bias, chunk)
+            args = ssd_args(gen, b, s, h, p, n, g, dtype) + (chunk,)
             (y, st), (y_want, st_want) = sc.ssd_scan(*args), \
                 sc.ssd_scan_plain(*args)
             err = close(y, y_want, SSD_TOL[dtype])
@@ -108,6 +111,112 @@ def main() -> int:
             print(f"ssd_scan B={b} S={s} H={h} P={p} N={n} G={g} "
                   f"chunk={chunk} {dtype}: y err {err:.3g}, state err "
                   f"{st_err:.3g}, {ms:.4f} ms", flush=True)
+
+
+def ssd_args(gen, b, s, h, p, n, g, dtype):
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    x = rnd(b, s, h, p).to(dtype)
+    dt = 0.5 * rnd(b, s, h)
+    a_log = torch.rand(h, generator=gen, device="cuda") * 1.5 - 1
+    bb, cc = ((0.3 * rnd(b, s, g, n)).to(dtype) for _ in range(2))
+    d_skip = torch.rand(h, generator=gen, device="cuda")
+    dt_bias = torch.rand(h, generator=gen, device="cuda") - 0.5
+    return x, dt, a_log, bb, cc, d_skip, dt_bias
+
+
+def tie_input(n: int, block: int) -> torch.Tensor:
+    """Blocks whose absmax is 127 (scale exactly 1) holding values at
+    every .5 tie in [-127, 127], plus zeros."""
+    ties = torch.arange(-254, 255, dtype=torch.float32) / 2
+    x = ties.repeat(n // ties.numel() + 1)[:n].clone()
+    x.view(-1, block)[:, 0] = 127.0
+    return x.cuda()
+
+
+def check_quantize(gen) -> None:
+    compile_report("quantize")
+    for n, block in QUANTIZE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            cases = {"random": (3 * torch.randn(n, generator=gen,
+                                                device="cuda")).to(dtype),
+                     "zeros": torch.zeros(n, dtype=dtype, device="cuda")}
+            if n <= 1 << 24:
+                cases["ties"] = tie_input(n, block).to(dtype)
+            for label, x in cases.items():
+                q, s = qz.quantize(x, block)
+                q_want, s_want = qz.quantize_plain(x, block)
+                back = qz.dequantize(q, s, block, dtype)
+                back_want = qz.dequantize_plain(q, s, block, dtype)
+                torch.cuda.synchronize()
+                same = (torch.equal(q, q_want) and torch.equal(s, s_want)
+                        and torch.equal(back, back_want))
+                if not same:
+                    bad = int((q.int() - q_want.int()).abs().max())
+                    raise AssertionError(
+                        f"quantize n={n} block={block} {dtype} {label}: not "
+                        f"bit-identical (max |dq| {bad})")
+                ms = event_ms(lambda: qz.quantize(x, block))
+                dms = event_ms(lambda: qz.dequantize(q, s, block, dtype))
+                print(f"quantize n={n} block={block} {dtype} {label}: "
+                      f"identical, quantize {ms:.4f} ms, dequantize "
+                      f"{dms:.4f} ms", flush=True)
+
+
+def grad_error(kernel_out, plain_out, inputs) -> float:
+    """Max |d| between the gradients of the kernel and plain outputs
+    (a fixed random cotangent) with respect to ``inputs``."""
+    outs_k = kernel_out if isinstance(kernel_out, tuple) else (kernel_out,)
+    outs_p = plain_out if isinstance(plain_out, tuple) else (plain_out,)
+    cots = [torch.randn_like(o) for o in outs_p]
+    gk = torch.autograd.grad(outs_k, inputs, cots)
+    gp = torch.autograd.grad(outs_p, inputs, cots)
+    for a in outs_k:
+        if a.grad_fn is None:
+            raise AssertionError("a kernel output has no grad_fn")
+    return max(float((a - b).abs().max() / (b.abs().max() + 1e-30))
+               for a, b in zip(gk, gp))
+
+
+def check_grad(gen) -> None:
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    x, r = rnd(64, 2048), rnd(64, 2048)
+    w = 1 + 0.1 * rnd(2048)
+    q, k, v = rnd(1, 256, 16, 128), rnd(1, 256, 8, 128), rnd(1, 256, 8, 128)
+    ssd = ssd_args(gen, 1, 512, 8, 64, 128, 1, torch.float32)
+    cases = {
+        "rms_norm": ((x, w), lambda x, w: rn.rms_norm(x, w),
+                     lambda x, w: rn.rms_norm_plain(x, w)),
+        "rms_norm_residual": ((x, r, w), rn.rms_norm_residual,
+                              rn.rms_norm_residual_plain),
+        "flash_attention": ((q, k, v), fa.flash_attention,
+                            fa.flash_attention_plain),
+        "ssd_scan": (ssd, lambda *t: sc.ssd_scan(*t, 256),
+                     lambda *t: sc.ssd_scan_plain(*t, 256)),
+    }
+    for name, (inputs, kernel, plain) in cases.items():
+        inputs = tuple(t.detach().requires_grad_() for t in inputs)
+        err = grad_error(kernel(*inputs), plain(*inputs), inputs)
+        if err > 1e-3:
+            raise AssertionError(f"{name} gradient off by {err:.3g} of max")
+        print(f"grad {name}: max error {err:.3g} of the largest gradient",
+              flush=True)
+
+
+SECTIONS = {"forward": check_forward, "quantize": check_quantize,
+            "grad": check_grad}
+
+
+def main(argv=None) -> int:
+    if not torch.cuda.is_available():
+        print("selfcheck: no CUDA device", file=sys.stderr)
+        return 2
+    names = (sys.argv[1:] if argv is None else argv) or list(SECTIONS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(torch.__version__, torch.version.cuda,
+          torch.cuda.get_device_name(0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name in names:
+        SECTIONS[name](gen)
     return 0
 
 

@@ -12,8 +12,9 @@ The plain version is the model's chunked algorithm,
 ``ref.ssd_scan_ref`` delegates to its own the same way).  The wrapper
 given CPU tensors runs it; given CUDA tensors it launches the kernel from
 ``csrc/ssd_scan.cu`` (built at first use) or raises.  There is no fallback
-from the card to the plain version.  The kernel is forward-only: with
-grad mode on and an input that requires a gradient the wrapper raises.
+from the card to the plain version.  With grad mode on and an input that
+requires a gradient, the kernel's outputs carry the plain version's
+gradient (:func:`repro_torch.kernels.autograd.kernel_with_plain_grad`).
 Each launch adds one to :data:`LAUNCHES`.
 """
 
@@ -25,7 +26,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import refuse_grad
+from repro_torch.kernels.autograd import kernel_with_plain_grad
 
 # Launches of the CUDA kernel in this process (the plain version counts
 # nothing).
@@ -109,15 +110,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     x, dt, b and c are read through their strides (the last dim must be
     contiguous).  Returns y (B, S, H, P) in x's dtype and the final state
     (B, H, P, N) in float32.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel on the current stream."""
-    global LAUNCHES
+    tensors launch the kernel on the current stream, with the plain
+    version's gradient where one is needed."""
     _check(x, dt, a_log, b, c, d_skip, dt_bias, chunk)
-    refuse_grad("ssd_scan", x, dt, a_log, b, c, d_skip, dt_bias)
     dev = x.device
     if dev.type == "cpu":
         return ssd_scan_plain(x, dt, a_log, b, c, d_skip, dt_bias, chunk)
     if dev.type != "cuda":
         raise ValueError(f"no ssd_scan for device {dev}")
+    return kernel_with_plain_grad(
+        lambda *t: _launch(*t, chunk),
+        lambda *t: ssd_scan_plain(*t, chunk),
+        x, dt, a_log, b, c, d_skip, dt_bias)
+
+
+def _launch(x, dt, a_log, b, c, d_skip, dt_bias, chunk: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    global LAUNCHES
+    dev = x.device
     bsz, s, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if (p, n) not in SHAPES_PN or chunk > MAX_CHUNK:

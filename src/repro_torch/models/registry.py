@@ -63,10 +63,9 @@ def _ssm_hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     and each block's gated norm), 64 ``rms_norm_residual`` and 64
     ``ssd_scan`` calls per forward."""
     x = transformer.embed(params, cfg, tokens)
-    stacked = params["layers"]
-    h = rt.op("rms_norm")(x, stacked["norm"]["scale"][0], cfg.norm_eps)
-    for i in range(cfg.n_layers):
-        p = transformer.layer_params(stacked, i)
+    per_layer = transformer.unstack_layers(params["layers"])
+    h = rt.op("rms_norm")(x, per_layer[0]["norm"]["scale"], cfg.norm_eps)
+    for i, p in enumerate(per_layer):
         if i:
             h, x = rt.op("rms_norm_residual")(y, x, p["norm"]["scale"],
                                               cfg.norm_eps)

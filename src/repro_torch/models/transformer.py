@@ -23,7 +23,7 @@ slice of the port.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -86,6 +86,19 @@ def layer_params(stacked: PyTree, i: int) -> PyTree:
     if isinstance(stacked, torch.Tensor):
         return stacked[i]
     return {k: layer_params(v, i) for k, v in stacked.items()}
+
+
+def unstack_layers(stacked: PyTree) -> List[PyTree]:
+    """Every layer's slice of the stacked layer parameters — the views of
+    :func:`layer_params` — with each leaf taken apart once by
+    ``torch.unbind``.  Under autograd its backward is one ``stack`` per
+    leaf, where one ``stacked[i]`` per layer would zero-fill and add into
+    a full-size gradient for every layer."""
+    if isinstance(stacked, torch.Tensor):
+        return list(torch.unbind(stacked))
+    per_key = {k: unstack_layers(v) for k, v in stacked.items()}
+    n = len(next(iter(per_key.values())))
+    return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
 def embed(params: PyTree, cfg: ModelConfig,
@@ -180,10 +193,10 @@ def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
     _dense_only(cfg)
     rope = layers.rope_cos_sin(torch.arange(x.shape[1], device=x.device)[None],
                                cfg.head_dim_, cfg.rope_theta)
-    h = rt.op("rms_norm")(x, params["layers"]["attn_norm"]["scale"][0],
+    per_layer = unstack_layers(params["layers"])
+    h = rt.op("rms_norm")(x, per_layer[0]["attn_norm"]["scale"],
                           cfg.norm_eps)
-    for i in range(cfg.n_layers):
-        p = layer_params(params["layers"], i)
+    for i, p in enumerate(per_layer):
         if i:
             h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
                                               cfg.norm_eps)

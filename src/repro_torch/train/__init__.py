@@ -1,1 +1,2 @@
-"""Step builders of the port (serving steps; training comes later)."""
+"""The training plane of the port: train and serve steps, checkpoints
+and the training loop."""

@@ -317,22 +317,46 @@ def test_unported_families_and_entry_points_raise():
                       other.param_specs):
             with pytest.raises(NotImplementedError, match="item 12"):
                 entry()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        steps.make_train_step(registry.get("qwen3-1.7b"), Runtime())
+    # training is ported (slice 4): make_train_step builds a step
+    assert callable(steps.make_train_step(registry.get("qwen3-1.7b"),
+                                          Runtime()))
     with pytest.raises(KeyError):
         steps.make_serve_step(registry.get("qwen3-1.7b"), Runtime(), "x")
 
 
+@pytest.mark.usefixtures("f32_reference")
 def test_forward_refuses_parameters_that_need_a_gradient():
+    """Parameters that need a gradient get one through every kernel site:
+    the loss's gradient with respect to the stacked ``wq``, the norms and
+    the embedding against ``jax.grad`` of the reference's ``lm_loss``
+    (XLA path), float32, 2e-5 of each leaf's largest entry; under
+    ``no_grad`` the loss is the same value."""
     ref_cfg, cfg = _dense("fan")
-    _, p = _both(ref_cfg, cfg, seed=16)
-    p["layers"]["attn"]["wq"].requires_grad_()
-    batch = {"tokens": torch.from_numpy(_tokens(cfg, 1, 8, seed=17))}
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        registry.Arch(cfg).loss_fn()(p, cfg, batch, Runtime())
+    ref_p, p = _both(ref_cfg, cfg, seed=16)
+    tokens = _tokens(cfg, 1, 8, seed=17)
+    keys = (("layers", "attn", "wq"), ("layers", "attn_norm", "scale"),
+            ("layers", "ffn_norm", "scale"), ("final_norm", "scale"),
+            ("embed",))
+
+    def leaf(tree, key):
+        for k in key:
+            tree = tree[k]
+        return tree
+
+    for key in keys:
+        leaf(p, key).requires_grad_()
+    batch = {"tokens": torch.from_numpy(tokens)}
+    loss = registry.Arch(cfg).loss_fn()(p, cfg, batch, Runtime())
+    grads = torch.autograd.grad(loss, [leaf(p, k) for k in keys])
+    want = jax.grad(lambda q: ref_transformer.lm_loss(
+        q, ref_cfg, {"tokens": jnp.asarray(tokens)}, RefRuntime()))(ref_p)
+    for key, g in zip(keys, grads):
+        w = np.asarray(leaf(want, key))
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=2e-5 * np.abs(w).max())
     with torch.no_grad():
-        assert torch.isfinite(
-            registry.Arch(cfg).loss_fn()(p, cfg, batch, Runtime()))
+        again = registry.Arch(cfg).loss_fn()(p, cfg, batch, Runtime())
+    assert float(again) == float(loss.detach())
 
 
 def test_api_exports_the_forward_entry_points():

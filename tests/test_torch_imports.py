@@ -97,3 +97,29 @@ def test_forward_slice_modules_import_without_a_gpu(module):
 def test_forward_slice_has_its_kernel_sources(name):
     src = (ROOT / f"src/repro_torch/kernels/csrc/{name}.cu").read_text()
     assert "__global__" in src and f'extern "C" int {name}_launch' in src
+
+
+TRAIN_MODULES = (
+    "repro_torch.tree", "repro_torch.kernels.quantize",
+    "repro_torch.kernels.autograd", "repro_torch.core.gradsync",
+    "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+    "repro_torch.train.checkpoint", "repro_torch.train.trainer")
+
+
+@pytest.mark.parametrize("module", TRAIN_MODULES)
+def test_train_slice_modules_import_without_a_gpu(module):
+    """The training slice's modules import on a CPU-only machine: the
+    quantize kernels' CUDA build is reached only inside launches."""
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+
+
+def test_train_slice_has_its_kernel_source():
+    src = (ROOT / "src/repro_torch/kernels/csrc/quantize.cu").read_text()
+    assert "__global__" in src
+    for fn in ("quantize_launch", "dequantize_launch"):
+        assert f'extern "C" int {fn}' in src
+    # exactness: no fast-math build flag, no approximate division
+    from repro_torch.kernels import _build
+    assert not any("fast" in f for f in _build.NVCC_FLAGS)
+    assert "__fdividef(" not in src and "rintf(" in src

@@ -137,12 +137,30 @@ def test_init_state_continues_a_split_sequence():
 
 
 def test_wrapper_refuses_gradients_and_bad_inputs():
-    t = _torch(_inputs(1, 32, 2, 16, 16, 1, seed=14), torch.float32)
+    """The wrapper gives a gradient (the plain version's) and refuses bad
+    inputs.  The gradients of every input through y and the final state,
+    under seeded cotangents, against ``jax.grad`` of the reference's
+    ``ssd_chunked`` (its XLA path): 1e-4 (float32, the SSD bar)."""
+    arrays = _inputs(1, 32, 2, 16, 16, 1, seed=14)
+    rng = np.random.default_rng(15)
+    cot_y = rng.normal(size=(1, 32, 2, 16)).astype(np.float32)
+    cot_s = rng.normal(size=(1, 2, 16, 16)).astype(np.float32)
+    t = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    y, st = ops.ssd_scan(*t, 16)
+    grads = torch.autograd.grad((y, st), t, (torch.from_numpy(cot_y),
+                                             torch.from_numpy(cot_s)))
+
+    def ref_fn(*xs):
+        y_, st_ = ref_ssm.ssd_chunked(*xs, 16)
+        return jnp.sum(y_ * cot_y) + jnp.sum(st_ * cot_s)
+
+    want = jax.grad(ref_fn, argnums=tuple(range(7)))(
+        *(jnp.asarray(a) for a in arrays))
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-4)
+    t = _torch(arrays, torch.float32)
     x, dt, a_log, b, c, d_skip, dt_bias = t
-    with pytest.raises(NotImplementedError, match="item 14"):
-        ops.ssd_scan(x, dt, a_log.requires_grad_(), b, c, d_skip, dt_bias,
-                     16)
-    a_log = a_log.detach()
     with pytest.raises(ValueError, match="dividing"):
         ops.ssd_scan(x, dt, a_log, b, c, d_skip, dt_bias, 12)
     with pytest.raises(ValueError, match="multiple of G"):
