@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port from ``src/repro_torch/kernels`` (the
-CUDA sources with ``nvcc``, all at once; the Triton kernels at their
-first launch), holds each against its plain PyTorch version on the card,
+CUDA sources with ``nvcc``, all at once; the Triton kernel at its first
+launch), holds each against its plain PyTorch version on the card,
 then drives the port's four main paths: the multicast (``Group.run`` and
 ``Group.run_batch`` on the ``kernel`` backend, at the paper's deployment
 sizes, agreeing exactly with the card's ``graph`` and the CPU's ``graph``
@@ -42,8 +42,12 @@ Phases (one JSON line each; any failure exits non-zero):
    versions at the forward path's shapes (attention: qwen3-1.7b's heads at
    S=2048, causal and not, S=1000 ragged, MQA; the SSD scan at
    mamba2-2.7b's H=80, P=64, N=128, chunk 256, S=2048; RMSNorm at widths
-   2560 and 5120), float32 and bfloat16, at the ``tests/test_kernels.py``
-   bars: times, plain and library times, the bound;
+   2560 and 5120), float32 (attention on the CUDA-core kernel) and
+   bfloat16 (attention on the tensor-core kernel), at the
+   ``tests/test_kernels.py`` bars: times, plain and library times, the
+   bound; the qwen3 rows also their TFLOP/s, share of the bound and ratio
+   to SDPA, and the bfloat16 ones the float32 kernel's time at the same
+   shape;
 9. the forward path at full width (bf16 weights from seed 0): qwen3-1.7b,
    all 28 layers, ``loss_fn`` on 2 x 2048 tokens and ``prefill_fn`` on
    4 x 512; mamba2-2.7b, all 64 layers, ``loss_fn`` on 1 x 2048: a finite
@@ -238,7 +242,7 @@ def phase0_identity():
         for fut in [pool.submit(_build.build, name)
                     for name in ("smc_sweep", "flash_decode",
                                  "flash_attention", "ssd_scan",
-                                 "quantize")]:
+                                 "quantize", "rmsnorm")]:
             fut.result()
     ss.build()
     fd.build()
@@ -690,7 +694,7 @@ def serve_profile(rep, per_replica: int, seed: int):
     busy_us = sum(device_us(e) for e in events)
     by_kernel = {}
     for label, key in (("flash_decode", "flash_decode_kernel"),
-                       ("rms_norm", "rms_kernel"),
+                       ("rms_norm", "rms_norm_kernel"),
                        ("rms_norm_residual", "rms_residual_kernel"),
                        ("smc_sweep_watermark",
                         "smc_sweep_watermark_kernel")):
@@ -948,15 +952,28 @@ def phase8_forward_kernels():
                 bound_ms, bound_by = bound(
                     nbytes, attention_flops(b, s, hq, d, causal), rate)
                 main = label.startswith("qwen3")
-                rows.append({
+                row = {
                     "kernel": "flash_attention", "dtype": str(dtype),
+                    "kernel_fn": fa.KERNEL_OF[dtype],
                     "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
                     f"causal={causal}", "label": label,
                     "max_abs_err": err,
                     **(time_case(kernel, plain,
                                  sdpa_causal_library(q, k, v, causal), 20)
                        if main else {}),
-                    "bound_ms": bound_ms, "bound_by": bound_by})
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+                if main:
+                    flops = attention_flops(b, s, hq, d, causal)
+                    row.update(tflops=flops / row["ms"] / 1e9,
+                               bound_share=bound_ms / row["ms"],
+                               library_ratio=row["ms"] / row["library_ms"])
+                    if dtype == torch.bfloat16:
+                        # the CUDA-core design at the same shape, this run
+                        f32_row = next(
+                            r for r in rows if r["shape"] == row["shape"]
+                            and r["dtype"] == str(torch.float32))
+                        row["f32_kernel_ms"] = f32_row["ms"]
+                rows.append(row)
     ssd_shapes = (("mamba2 S=2048", 1, 2048, 80, 64, 128, 1, 256),
                   ("test 1", 1, 64, 2, 16, 16, 1, 16),
                   ("test 2", 2, 128, 4, 32, 64, 2, 32),
@@ -992,7 +1009,7 @@ def phase8_forward_kernels():
 
 FORWARD_KERNELS = (("flash_attention", "flash_attention_kernel"),
                    ("ssd_scan", "ssd_scan_kernel"),
-                   ("rms_norm", "rms_kernel"),
+                   ("rms_norm", "rms_norm_kernel"),
                    ("rms_norm_residual", "rms_residual_kernel"))
 
 
@@ -1665,7 +1682,7 @@ KERNELS = (
      "src/repro/kernels/smc_sweep.py:127 smc_sweep_pallas"),
     ("flash_decode", "cuda", "src/repro_torch/kernels/csrc/flash_decode.cu",
      "src/repro/kernels/flash_decode.py:59 flash_decode_flat"),
-    ("rms_norm", "triton", "src/repro_torch/kernels/rmsnorm.py",
+    ("rms_norm", "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
      "src/repro/kernels/rmsnorm.py:34 rms_norm_pallas"),
     ("rms_norm_residual", "triton", "src/repro_torch/kernels/rmsnorm.py",
      "src/repro/kernels/rmsnorm.py:52 rms_norm_residual_pallas"),

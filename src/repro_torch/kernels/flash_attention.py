@@ -1,5 +1,5 @@
 """Flash attention (forward): causal or non-causal GQA attention over a
-full sequence — the Hopper kernel, its plain PyTorch version, and the
+full sequence — the Hopper kernels, their plain PyTorch version, and the
 wrapper that chooses between them.
 
 Replaces ``repro.kernels.flash_attention.flash_attention_flat`` (TPU) and
@@ -9,21 +9,31 @@ q, k, v to ``(B*H, S, D)`` and pad S to a multiple of 128,
 ``(B, S, Hq, D)``, k/v ``(B, S, Hkv, D)`` with ``Hq % Hkv == 0`` — reads
 it through its strides, and masks the ragged last tile inside the kernel.
 
+``csrc/flash_attention.cu`` holds two kernels behind one C entry point,
+chosen by dtype (:data:`KERNEL_OF`): bfloat16 runs on the tensor cores
+(``wgmma``, K/V tiles copied by TMA into a three-stage ring, 128 query
+rows a block, heaviest tiles first), float32 on the CUDA cores in full
+float32 (64 rows a block).  The bfloat16 kernel reads q in 16-byte
+copies and k/v through TMA maps, so it needs q, k and v at 16-byte
+aligned addresses with strides that are nonzero multiples of 8 elements
+(those of length-1 dims aside); the wrapper raises on anything else
+rather than copy.
+
 The wrapper given CPU tensors runs :func:`flash_attention_plain`; given
-CUDA tensors it launches the kernel from ``csrc/flash_attention.cu``
-(built at first use) or raises.  There is no fallback from the card to
-the plain version.  With grad mode on and an input that requires a
-gradient, the kernel's output carries the plain version's gradient
+CUDA tensors it launches the kernel (the library is built at first use)
+or raises.  There is no fallback from the card to the plain version.
+With grad mode on and an input that requires a gradient, the kernel's
+output carries the plain version's gradient
 (:func:`repro_torch.kernels.autograd.kernel_with_plain_grad`; the
-backward recomputes the attention in plain float32).  Each launch adds
-one to :data:`LAUNCHES`.
+backward recomputes the attention in plain float32).  Each launch of
+either kernel adds one to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -41,8 +51,14 @@ _SIGNATURES = {
     "flash_attention_launch": ([_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT,
                                 _INT, _INT, _INT, _INT, _PTR,
                                 ctypes.c_float, _PTR], _INT),
+    "flash_attention_tile_check": ([_PTR, _PTR, _PTR, _PTR, _PTR, _INT,
+                                    _PTR], _INT),
 }
+# the C entry point's dtype code, and the kernel it launches for it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_OF = {torch.float32: "flash_attention_kernel_f32",
+             torch.bfloat16: "flash_attention_kernel_bf16"}
+ROWS_PER_BLOCK = {torch.float32: 64, torch.bfloat16: 128}
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -84,6 +100,47 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 
+def launch_geometry(b: int, s: int, hkv: int, group: int,
+                    dtype: torch.dtype) -> Tuple[int, int, int]:
+    """The grid the kernel for ``dtype`` is launched on.  float32: one
+    block per (tile of 64 flattened query rows, kv head, batch row), as
+    ``(x, y, z)``; bfloat16: the same blocks for tiles of 128 rows,
+    numbered along x alone in the order :func:`block_tile` gives."""
+    n_qt = -(-s * group // ROWS_PER_BLOCK[dtype])
+    if dtype == torch.float32:
+        return n_qt, hkv, b
+    return n_qt * hkv * b, 1, 1
+
+
+def block_tile(block: int, b: int, s: int, hkv: int,
+               group: int) -> Tuple[int, int, int]:
+    """(query tile, kv head, batch row) of block ``block`` of the
+    bfloat16 kernel: all heads' last query tiles first, so the causal
+    tiles with the most keys start in the first wave (as in the kernel's
+    prologue)."""
+    n_qt = -(-s * group // ROWS_PER_BLOCK[torch.bfloat16])
+    hb = hkv * b
+    return n_qt - 1 - block // hb, block % hb % hkv, block % hb // hkv
+
+
+def _check_aligned(q, k, v) -> None:
+    """The bfloat16 kernel's 16-byte copies and TMA maps: every base
+    address 16-byte aligned, every stride of a dim longer than 1 a
+    nonzero multiple of 8 elements."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3])
+                   if n > 1]
+        if t.data_ptr() % 16 or any(st % 8 or not st for st in strides):
+            raise ValueError(
+                f"the bfloat16 flash_attention kernel needs {name} at a "
+                f"16-byte aligned address with strides that are nonzero "
+                f"multiples of 8 elements; got stride {tuple(t.stride())}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
@@ -114,6 +171,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}; got {d}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention needs a unit-stride head dim")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=dev)
     if b == 0 or s == 0:
         return out
@@ -123,11 +182,39 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hkv,
         hq // hkv, d, int(bool(causal)), _DTYPES[q.dtype],
         ctypes.cast(strides_arr, ctypes.c_void_p), 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _stream(dev))
     if code != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {code}")
     LAUNCHES += 1
     return out
+
+
+def tile_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block of the bfloat16 kernel's tensor-core steps alone: q
+    (128, D), k and v (64, D), contiguous bfloat16 on the card ->
+    ``(q k^T, bf16(q k^T) v)`` in float32, for checking the ``wgmma``
+    operand layouts against a plain product (``kernels/selfcheck.py``).
+    Counts no launch."""
+    d = q.shape[-1]
+    if (q.shape != (128, d) or k.shape != (64, d) or v.shape != (64, d)
+            or d not in HEAD_DIMS):
+        raise ValueError(f"tile_check takes q (128, D), k and v (64, D) "
+                         f"with D in {HEAD_DIMS}")
+    for t in (q, k, v):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device.type != "cuda":
+            raise ValueError("tile_check takes contiguous bfloat16 CUDA "
+                             "tensors")
+    s_out = torch.empty((128, 64), dtype=torch.float32, device=q.device)
+    o_out = torch.empty((128, d), dtype=torch.float32, device=q.device)
+    code = _lib().flash_attention_tile_check(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), s_out.data_ptr(),
+        o_out.data_ptr(), d, _stream(q.device))
+    if code != 0:
+        raise RuntimeError(f"flash_attention tile check failed: cudaError "
+                           f"{code}")
+    return s_out, o_out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

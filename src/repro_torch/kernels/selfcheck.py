@@ -5,11 +5,17 @@ one card.
 
 Sections (all by default):
 
-* ``forward`` — compiles ``csrc/flash_attention.cu`` and
-  ``csrc/ssd_scan.cu`` with ``nvcc -Xptxas -v`` and prints each kernel's
-  registers and spills, then holds both kernels against their plain
-  versions at the forward path's shapes and at the
-  ``tests/test_kernels.py`` shapes, in float32 and bfloat16;
+* ``forward`` — compiles ``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu``
+  and ``csrc/rmsnorm.cu`` with ``nvcc -Xptxas -v`` and prints each
+  kernel's registers and spills (and the count of ``HGMMA`` tensor-core
+  instructions in each attention kernel's machine code); checks one tile
+  of the bfloat16 attention kernel's tensor-core steps (``q k^T`` and
+  ``bf16(q k^T) v`` through the ``wgmma`` operand layouts) against plain
+  products at D = 32, 64 and 128; then holds flash attention, the SSD
+  scan and ``rms_norm`` against their plain versions at the forward and
+  serve paths' shapes and at the ``tests/test_kernels.py`` shapes, in
+  float32 and bfloat16, with the time of one library call beside each
+  attention and ``rms_norm`` case;
 * ``quantize`` — the same for ``csrc/quantize.cu``: quantize and
   dequantize must equal their plain versions bit for bit (the
   ``tests/test_quantize_kernel.py`` shapes, 2**24 elements, one block of
@@ -30,6 +36,7 @@ from __future__ import annotations
 import subprocess
 import sys
 import tempfile
+from pathlib import Path
 
 import torch
 
@@ -48,6 +55,15 @@ QUANTIZE_SHAPES = ((2048, 2048), (8192, 2048), (4096, 512), (1 << 24, 2048),
                    (1 << 26, 1 << 26), (3 * 5000, 5000))
 ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# (rows, width, how the rows are laid out): the serve and forward paths'
+# norms, and rows the kernel must read element by element
+RMS_SHAPES = ((128, 128, "contiguous"), (8, 2048, "contiguous"),
+              (2048, 2560, "contiguous"), (2048, 5120, "contiguous"),
+              (65536, 128, "contiguous"), (5, 200, "contiguous"),
+              (64, 1024, "row stride 1025"), (1, 1 << 16, "contiguous"))
+# q k^T and bf16(q k^T) v of one tile: bf16 products are exact in float32,
+# so only the order of the f32 sums differs
+TILE_TOL = 1e-4
 
 
 def event_ms(fn, iters: int = 5) -> float:
@@ -73,21 +89,86 @@ def close(got, want, tol: float) -> float:
 
 
 def compile_report(name: str) -> None:
+    """nvcc's -Xptxas -v lines (registers, spills) for ``csrc/<name>.cu``
+    and, where the toolkit has ``cuobjdump``, the count of HGMMA
+    (``wgmma``) instructions in each kernel's machine code."""
     with tempfile.TemporaryDirectory() as tmp:
+        lib = f"{tmp}/{name}.so"
         proc = subprocess.run(
             [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             f"{tmp}/{name}.so", str(_build.CSRC / f"{name}.cu")],
+             lib, str(_build.CSRC / f"{name}.cu")],
             capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
-    for line in (proc.stdout + proc.stderr).splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"{name}: {line.strip()}")
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"{name}: {line.strip()}")
+        cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+        if cuobjdump.exists():
+            sass = subprocess.run([str(cuobjdump), "-sass", lib],
+                                  capture_output=True, text=True).stdout
+            for fn, count in sass_opcode_counts(sass, "HGMMA").items():
+                print(f"{name}: {fn}: {count} HGMMA instructions")
+
+
+def sass_opcode_counts(sass: str, opcode: str) -> dict:
+    """Per function of a ``cuobjdump -sass`` listing, the count of
+    instructions with ``opcode``; functions without one are left out."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+        elif fn and (f" {opcode}." in line or f" {opcode} " in line):
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
+def check_tiles(gen) -> None:
+    """The bf16 kernel's two tensor-core steps on one tile, alone."""
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    for d in fa.HEAD_DIMS:
+        q = rnd(128, d).bfloat16()
+        k, v = rnd(64, d).bfloat16(), rnd(64, d).bfloat16()
+        s, o = fa.tile_check(q, k, v)
+        s_err = close(s, q.float() @ k.float().T, TILE_TOL)
+        o_err = close(o, s.bfloat16().float() @ v.float(), TILE_TOL)
+        print(f"flash_attention tile D={d}: q k^T err {s_err:.3g}, "
+              f"P v err {o_err:.3g}", flush=True)
+
+
+def sdpa(q, k, v, causal):
+    """One ``scaled_dot_product_attention`` call on the same inputs (a
+    yardstick; the port never calls it)."""
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    return torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal, enable_gqa=True)
+
+
+def rms_rows(gen, rows: int, d: int, layout: str, dtype):
+    x = torch.randn(rows, d + (layout != "contiguous"), generator=gen,
+                    device="cuda").to(dtype)[:, :d]
+    w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(dtype)
+    return x, w
+
+
+def check_rms_norm(gen) -> None:
+    F = torch.nn.functional
+    for rows, d, layout in RMS_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = rms_rows(gen, rows, d, layout, dtype)
+            err = close(rn.rms_norm(x, w), rn.rms_norm_plain(x, w),
+                        ATTENTION_TOL[dtype])
+            ms = event_ms(lambda: rn.rms_norm(x, w), 50)
+            lib_ms = event_ms(lambda: F.rms_norm(x, (d,), w, 1e-6), 50)
+            print(f"rms_norm {rows}x{d} {layout} {dtype}: err {err:.3g}, "
+                  f"{ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms", flush=True)
 
 
 def check_forward(gen) -> None:
-    for name in ("flash_attention", "ssd_scan"):
+    for name in ("flash_attention", "ssd_scan", "rmsnorm"):
         compile_report(name)
+    check_tiles(gen)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     for b, s, hq, hkv, d in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -97,9 +178,11 @@ def check_forward(gen) -> None:
                             fa.flash_attention_plain(q, k, v, causal),
                             ATTENTION_TOL[dtype])
                 ms = event_ms(lambda: fa.flash_attention(q, k, v, causal))
+                lib_ms = event_ms(lambda: sdpa(q, k, v, causal))
                 print(f"flash_attention B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
-                      f"{dtype} causal={causal}: err {err:.3g}, {ms:.4f} ms",
-                      flush=True)
+                      f"{dtype} causal={causal}: err {err:.3g}, {ms:.4f} ms, "
+                      f"SDPA {lib_ms:.4f} ms", flush=True)
+    check_rms_norm(gen)
     for b, s, h, p, n, g, chunk in SSD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             args = ssd_args(gen, b, s, h, p, n, g, dtype) + (chunk,)

@@ -11,7 +11,11 @@ version (the CUDA kernel is held against it on the card by
   ``attention._sdpa``, for the non-causal unpadded case, where the TPU
   kernel counts its zero-padded keys in the softmax (ROADMAP.md §3).
 
-Tolerances are the repo's kernel bars: float32 2e-5, bfloat16 2e-2.
+Tolerances are the repo's kernel bars: float32 2e-5, bfloat16 2e-2.  A
+numerics model of the bfloat16 tensor-core kernel (its tiles, exp2 and
+rounding of P) is held to the same oracles at the bfloat16 bar, and the
+wrapper's host logic (dtype dispatch, launch geometry, alignment checks)
+is checked against a stand-in for the CUDA library.
 """
 
 import jax
@@ -155,3 +159,152 @@ def test_wrapper_refuses_gradients_and_bad_inputs():
     ops.flash_attention(q, k, k)
     assert fa.LAUNCHES == before       # the plain version counts nothing
     assert "flash_attention" in ops.launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 tensor-core kernel: its numerics and its host logic
+# ---------------------------------------------------------------------------
+
+KEYS = 64                      # the bf16 kernel's key tile
+LOG2E = 1.4426950408889634
+
+
+def _tensor_core_model(q, k, v, causal):
+    """What the bf16 kernel computes, tile by tile, in float32 on the CPU:
+    rows flattened position-major per kv head, an online softmax over
+    tiles of 64 keys with the scale log2(e)/sqrt(D) on the f32 scores and
+    exp2, masked scores at -1e30, P rounded to bf16 before P V, the
+    max(l, 1e-30) floor, the result rounded to q's dtype."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, s, hkv, g, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, hkv, s * g, d)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
+    c = LOG2E / np.sqrt(d)
+    qpos = torch.arange(s * g) // g
+    m = torch.full((b, hkv, s * g), -1e30)
+    l = torch.zeros(b, hkv, s * g)
+    o = torch.zeros(b, hkv, s * g, d)
+    for k0 in range(0, s, KEYS):
+        kt, vt = kf[:, :, k0:k0 + KEYS], vf[:, :, k0:k0 + KEYS]
+        sc = qf @ kt.transpose(-1, -2)
+        if causal:
+            keys = torch.arange(k0, k0 + kt.shape[2])
+            sc = torch.where(keys[None, :] > qpos[:, None], -1e30, sc)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(sc * c - (m_new * c)[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + p.bfloat16().float() @ vt
+        m = m_new
+    out = o / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, hkv, s, g, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, s, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("s", [1024, 1000])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 3])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_numerics_fit_the_bf16_bar(causal, group, d, s):
+    """The bf16 kernel's roundings (P to bf16 before P V, exp2 of scaled
+    f32 scores, 64-key tiles) against the jnp oracle and, causal, the TPU
+    kernel in interpret mode: within the bf16 bar of 2e-2."""
+    hkv = 2
+    arrays = _inputs(1, s, hkv * group, hkv, d, seed=s + 10 * group + d)
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "bfloat16")
+    got = _tensor_core_model(tq, tk, tv, causal)
+    assert got.dtype == torch.bfloat16
+    flat = [x.transpose(0, 2, 1, 3).reshape(-1, s, d) for x in (jq, jk, jv)]
+    want = ref_kernels.flash_attention_ref(*flat, group=group, causal=causal)
+    _close(got, want.reshape(1, hkv * group, s, d).transpose(0, 2, 1, 3),
+           2e-2)
+    if causal:
+        _close(got, ref_ops.flash_attention(jq, jk, jv, causal=True), 2e-2)
+
+
+class _FakeLib:
+    """Records the C entry point's arguments in place of the card."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flash_attention_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    lib = _FakeLib()
+    monkeypatch.setattr(fa, "_lib", lambda: lib)
+    monkeypatch.setattr(fa, "_stream", lambda dev: 0)
+    return lib
+
+
+def test_dtype_picks_the_kernel(fake_lib):
+    """float32 goes to the CUDA-core kernel (code 0), bfloat16 to the
+    tensor-core kernel (code 1); both count in the one LAUNCHES."""
+    assert fa.KERNEL_OF == {torch.float32: "flash_attention_kernel_f32",
+                            torch.bfloat16: "flash_attention_kernel_bf16"}
+    before = fa.LAUNCHES
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        q = torch.zeros(2, 40, 6, 64, dtype=dtype)
+        k = torch.zeros(2, 40, 2, 64, dtype=dtype)
+        out = fa._launch(q, k, k, causal=True)
+        assert out.shape == q.shape and out.dtype == dtype
+        assert fake_lib.calls[-1][4:11] == (2, 40, 2, 3, 64, 1, code)
+    assert fa.LAUNCHES == before + 2
+
+
+@pytest.mark.parametrize("b,s,hkv,group", [
+    (2, 2048, 8, 2), (1, 1000, 8, 2), (1, 384, 1, 8), (2, 128, 2, 3),
+    (2, 200, 2, 2), (3, 1, 1, 1)])
+def test_launch_geometry_covers_every_tile_heaviest_first(b, s, hkv, group):
+    n_f32 = -(-s * group // 64)
+    assert fa.launch_geometry(b, s, hkv, group, torch.float32) == \
+        (n_f32, hkv, b)
+    n_qt = -(-s * group // 128)
+    blocks, y, z = fa.launch_geometry(b, s, hkv, group, torch.bfloat16)
+    assert (blocks, y, z) == (n_qt * hkv * b, 1, 1)
+    tiles = [fa.block_tile(i, b, s, hkv, group) for i in range(blocks)]
+    assert sorted(tiles) == [(t, h, r) for t in range(n_qt)
+                             for h in range(hkv) for r in range(b)]
+    first_tiles = [t for t, _, _ in tiles]
+    assert first_tiles == sorted(first_tiles, reverse=True)
+    # the first hkv * b blocks are every (head, row)'s last query tile
+    assert set(tiles[:hkv * b]) == {(n_qt - 1, h, r) for h in range(hkv)
+                                    for r in range(b)}
+
+
+def test_bf16_kernel_refuses_misaligned_inputs(fake_lib):
+    """16-byte copies and TMA maps: a bf16 base off 16 bytes, a stride
+    that is no multiple of 8 elements or a zero (broadcast) stride raises
+    before any launch; float32 takes both; a stride of a dim of length 1
+    does not matter."""
+    bf16 = torch.bfloat16
+    k = torch.zeros(1, 16, 1, 64, dtype=bf16)
+    odd_stride = torch.zeros(1, 16, 3, 65, dtype=bf16)[..., :64]
+    off_base = torch.zeros(16 * 3 * 64 + 4, dtype=bf16)[4:].view(1, 16, 3,
+                                                                  64)
+    before = fa.LAUNCHES
+    for q in (odd_stride, off_base):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fa._launch(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._launch(torch.zeros(1, 16, 3, 64, dtype=bf16), off_base[:, :, :1],
+                   k, causal=False)
+    with pytest.raises(ValueError, match="nonzero multiples"):
+        fa._launch(torch.zeros(1, 16, 2, 64, dtype=bf16),
+                   torch.zeros(1, 1, 1, 64, dtype=bf16).expand(1, 16, 1, 64),
+                   k, causal=True)
+    assert fa.LAUNCHES == before and not fake_lib.calls
+    odd_f32 = torch.zeros(1, 16, 3, 65)[..., :64]
+    fa._launch(odd_f32, k.float(), k.float(), causal=True)
+    fa._launch(torch.zeros(16 * 3 * 64 + 1)[1:].view(1, 16, 3, 64),
+               k.float(), k.float(), causal=True)
+    single = torch.zeros(16 * 3 * 64, dtype=bf16).as_strided(
+        (1, 16, 3, 64), (7, 192, 64, 1))
+    fa._launch(single, k, k, causal=True)
+    assert fa.LAUNCHES == before + 3

@@ -1,8 +1,9 @@
 """The RMSNorm kernels' plain versions against the reference.
 
 On the CPU :func:`repro_torch.kernels.ops.rms_norm` and
-``rms_norm_residual`` run the plain versions (the Triton kernels are held
-against them on the card by ``chip_smoke.py``).  The oracles are the TPU
+``rms_norm_residual`` run the plain versions (the CUDA and Triton kernels
+are held against them on the card by ``chip_smoke.py``; the CUDA
+kernel's launch geometry and packed arguments are checked here).  The oracles are the TPU
 kernels ``rms_norm_pallas`` / ``rms_norm_residual_pallas`` in interpret
 mode, through ``repro.kernels.ops``, at the repo's kernel bars: float32
 2e-5, bfloat16 2e-2.  The residual form normalises the float32 sum, as
@@ -101,3 +102,71 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
                                            (6144, 8192, 16)])
 def test_launch_shape(d, block, warps):
     assert rn._launch_shape(d) == (block, warps)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA rms_norm kernel's host logic
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d,dtype,vectorized,want", [
+    (128, torch.bfloat16, True, (8, 1, 16, 128)),     # serve q/k norms
+    (128, torch.float32, True, (4, 1, 32, 128)),
+    (2048, torch.bfloat16, True, (8, 1, 256, 256)),   # hidden rows
+    (2560, torch.bfloat16, True, (8, 2, 256, 256)),
+    (5120, torch.bfloat16, True, (8, 4, 256, 256)),
+    (200, torch.bfloat16, True, (8, 1, 32, 128)),
+    (200, torch.float32, False, (1, 1, 256, 256)),
+    (1 << 16, torch.float32, False, (1, 64, 1024, 1024)),
+    (1 << 16, torch.bfloat16, True, (8, 8, 1024, 1024)),
+    (1, torch.float32, True, (1, 1, 1, 128)),
+    (6, torch.bfloat16, True, (1, 1, 8, 128)),        # no whole vector
+], ids=str)
+def test_launch_geometry(d, dtype, vectorized, want):
+    assert rn.launch_geometry(d, dtype, vectorized) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_launch_geometry_holds_every_width(dtype):
+    """For every width up to MAX_D: whole vectors, a power-of-two team of
+    at most 1024 lanes (a block of 128 threads holds whole teams of up to
+    32, a wider team is its block), room for the row
+    in the team's registers, no lane holding more than 64 floats, and at
+    most a quarter of the slots empty beyond one vector a lane."""
+    for d in list(range(1, 600)) + list(range(600, rn.MAX_D + 1, 97)) + \
+            [rn.MAX_D]:
+        for vectorized in (True, False):
+            vec, vpt, team, threads = rn.launch_geometry(d, dtype,
+                                                         vectorized)
+            assert d % vec == 0 and vec in (1, 16 // torch.tensor(
+                [], dtype=dtype).element_size())
+            assert team & (team - 1) == 0 and 1 <= team <= 1024
+            assert threads == (team if team > 32 else 128)
+            assert team * vpt * vec >= d and vec * vpt <= 64
+            if vpt > 1:
+                assert team * (vpt // 2) * vec < d
+
+
+def test_launch_args_pick_vectors_and_weight_reads():
+    bf16 = torch.bfloat16
+    x = torch.zeros(6, 128, dtype=bf16)
+    w = torch.ones(128, dtype=bf16)
+    out = torch.empty_like(x)
+    args = rn.launch_args(x, w, out)
+    assert args[:3] == (x.data_ptr(), w.data_ptr(), out.data_ptr())
+    # rows, d, strides, dtype, weight kind, vec, vpt, team
+    assert args[3:] == (6, 128, 128, 128, 1, 0, 8, 1, 16)
+    # leading dims fold into rows
+    assert rn.launch_args(x.view(2, 3, 1, 128), w, out)[3:] == args[3:]
+    # a row stride of 129 elements is not 16-byte aligned: element loads
+    strided = torch.zeros(6, 129, dtype=bf16)[:, :128]
+    got = rn.launch_args(strided, w, out)
+    assert got[0] == strided.data_ptr() and got[3:7] == (6, 128, 129, 128)
+    assert got[-4:] == (0, 1, 1, 128)
+    # weights of another dtype, or of x's dtype at an unaligned address,
+    # are read element by element in their own dtype
+    assert rn.launch_args(x, w.float(), out)[8] == 1
+    assert rn.launch_args(x.float(), w, out.float())[8] == 2
+    assert rn.launch_args(x, torch.ones(129, dtype=bf16)[1:], out)[8] == 2
+    assert len(args) == rn._N_ARGS - 2      # the stream and eps come last
+    with pytest.raises(TypeError, match="float32 or bfloat16 weight"):
+        rn.launch_args(x, w.half(), out)
