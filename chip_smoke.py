@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds every kernel of the port from ``src/repro_torch/kernels`` (the
-CUDA sources with ``nvcc``, all at once; the Triton kernel at its first
-launch), holds each against its plain PyTorch version on the card,
+CUDA sources with ``nvcc``, all at once), holds each against its plain
+PyTorch version on the card,
 then drives the port's four main paths: the multicast (``Group.run`` and
 ``Group.run_batch`` on the ``kernel`` backend, at the paper's deployment
 sizes, agreeing exactly with the card's ``graph`` and the CPU's ``graph``
@@ -28,8 +28,11 @@ Phases (one JSON line each; any failure exits non-zero):
 4. a heterogeneous 64-topic DDS domain over 16 nodes (the masked kernel
    path);
 5. flash-decode and both RMSNorm kernels against their plain versions at
-   the serve shapes, float32 (2e-5) and bfloat16 (2e-2): CUDA-event and
-   profiler times, the plain and library times, the bound;
+   the serve shapes, float32 (2e-5) and bfloat16 (2e-2): flash decode at
+   B=8 Hq=16 Hkv=8 D=128 S_max=2048 with the serve run's, mixed and
+   all-2048 lengths, at zamba2's D=80 heads, at group 16 and on a
+   one-chunk cache (S_max=128); CUDA-event and profiler times, the plain
+   and library times, the bound;
 6. the serve plane at full width: qwen3-1.7b (28 layers, bf16 weights
    from seed 0), two replicas of 8 KV slots x 2048 positions, 16
    requests each, on the ``kernel`` backend: every kernel launched once
@@ -86,7 +89,7 @@ Phases (one JSON line each; any failure exits non-zero):
 The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
 inside it fails the run.  The last line is the device record.  Needs one
-CUDA GPU, ``nvcc`` and ``triton``; exits 2 without a GPU.  Matmuls run in
+CUDA GPU and ``nvcc``; exits 2 without a GPU.  Matmuls run in
 full float32 (TF32 off) wherever float32 is compared.
 """
 
@@ -236,8 +239,7 @@ def phase0_identity():
     smi_line = smi.stdout.strip().splitlines()[0]
     print(smi_line, flush=True)
     t0 = time.perf_counter()
-    # one nvcc per CUDA source, all started together; Triton compiles each
-    # kernel at its first launch
+    # one nvcc per CUDA source, all started together
     with concurrent.futures.ThreadPoolExecutor() as pool:
         for fut in [pool.submit(_build.build, name)
                     for name in ("smc_sweep", "flash_decode",
@@ -564,30 +566,43 @@ def phase5_kernels():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     rows = []
-    b, hq, hkv, d, s_max = 8, 16, 8, 128, 2048
-    lengths = {
-        "mixed": [1, 511, 512, 513, 2048, 37, 1024, 1500],
-        # what the serve run gives it: prompts of 8-24 tokens plus up
-        # to 16 generated ones
-        "serve": np.random.default_rng(6).integers(1, 41, b).tolist()}
+    mixed = [1, 511, 512, 513, 2048, 37, 1024, 1500]
+    serve = np.random.default_rng(6).integers(1, 41, 8).tolist()
+    # (label, B, Hq, Hkv, D, S_max, lengths): the serve plane's shape with
+    # the serve run's lengths (prompts of 8-24 tokens plus up to 16
+    # generated ones), mixed and full lengths; zamba2's attention heads
+    # (D=80, group 1); a group of 16; a cache of one chunk, where the
+    # split kernel writes the output and no merge runs
+    cases = (("serve", 8, 16, 8, 128, 2048, serve),
+             ("mixed", 8, 16, 8, 128, 2048, mixed),
+             ("all2048", 8, 16, 8, 128, 2048, [2048] * 8),
+             ("mixed D=80", 8, 32, 32, 80, 2048, mixed),
+             ("mixed group 16", 8, 16, 1, 128, 2048, mixed),
+             ("serve one chunk", 8, 16, 8, 128, 128, serve))
     for dtype in (torch.float32, torch.bfloat16):
-        q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
-        k = torch.randn(b, s_max, hkv, d, generator=gen, device=dev).to(dtype)
-        v = torch.randn(b, s_max, hkv, d, generator=gen, device=dev).to(dtype)
-        for label, lens in lengths.items():
+        for label, b, hq, hkv, d, s_max, lens in cases:
+            q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s_max, hkv, d, generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn(b, s_max, hkv, d, generator=gen,
+                            device=dev).to(dtype)
             kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
             kernel = lambda: fd.flash_decode(q, k, v, kv_len)
             plain = lambda: fd.flash_decode_plain(q, k, v, kv_len)
-            err = within(kernel(), plain(), dtype)
+            err = within(kernel(), plain(), dtype,
+                         what=f"flash_decode {label} {dtype}")
             keys = sum(lens)
             esize = q.element_size()
             nbytes = 2 * q.numel() * esize + 4 * b + \
                 2 * keys * hkv * d * esize
             bound_ms, bound_by = bound(nbytes, 4 * d * hq * keys)
+            chunk, n_chunks, tile = fd.launch_geometry(s_max, d, dtype)
             rows.append({"kernel": "flash_decode", "dtype": str(dtype),
                          "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} "
-                         f"S_max={s_max} lengths={label}",
-                         "lengths": lens, "max_abs_err": err,
+                         f"S_max={s_max} lengths={label.split()[0]}",
+                         "lengths": lens,
+                         "chunks": n_chunks, "chunk": chunk, "tile": tile,
+                         "max_abs_err": err,
                          **time_case(kernel, plain,
                                      sdpa_library(q, k, v, kv_len)),
                          "bound_ms": bound_ms, "bound_by": bound_by})
@@ -693,14 +708,16 @@ def serve_profile(rep, per_replica: int, seed: int):
 
     busy_us = sum(device_us(e) for e in events)
     by_kernel = {}
-    for label, key in (("flash_decode", "flash_decode_kernel"),
-                       ("rms_norm", "rms_norm_kernel"),
-                       ("rms_norm_residual", "rms_residual_kernel"),
-                       ("smc_sweep_watermark",
-                        "smc_sweep_watermark_kernel")):
-        hits = [e for e in events if key in e.key
-                and not (label == "rms_norm" and "residual" in e.key)]
-        n = sum(e.count for e in hits)
+    # device kernels of each wrapper; a call launches the first (and, for
+    # flash decode over more than one chunk, the merge kernel after it)
+    for label, keys in (("flash_decode", ("flash_decode_split_kernel",
+                                          "flash_decode_merge_kernel")),
+                        ("rms_norm", ("rms_norm_kernel",)),
+                        ("rms_norm_residual", ("rms_norm_residual_kernel",)),
+                        ("smc_sweep_watermark",
+                         ("smc_sweep_watermark_kernel",))):
+        hits = [e for e in events if any(k in e.key for k in keys)]
+        n = sum(e.count for e in hits if keys[0] in e.key)
         by_kernel[label] = {"launches": n, "device_us_per_launch":
                             sum(device_us(e) for e in hits) / n
                             if n else None}
@@ -1010,7 +1027,7 @@ def phase8_forward_kernels():
 FORWARD_KERNELS = (("flash_attention", "flash_attention_kernel"),
                    ("ssd_scan", "ssd_scan_kernel"),
                    ("rms_norm", "rms_norm_kernel"),
-                   ("rms_norm_residual", "rms_residual_kernel"))
+                   ("rms_norm_residual", "rms_norm_residual_kernel"))
 
 
 def profile_forward(fn):
@@ -1027,8 +1044,7 @@ def profile_forward(fn):
     busy_us = sum(device_us(e) for e in events)
     by_kernel = {}
     for label, key in FORWARD_KERNELS:
-        hits = [e for e in events if key in e.key
-                and not (label == "rms_norm" and "residual" in e.key)]
+        hits = [e for e in events if key in e.key]
         n = sum(e.count for e in hits)
         by_kernel[label] = {"launches": n, "device_ms": sum(
             device_us(e) for e in hits) / 1e3}
@@ -1417,8 +1433,7 @@ def profile_step(fn):
     busy_us = sum(device_us(e) for e in events)
     by_kernel = {}
     for label, keys in TRAIN_KERNELS:
-        hits = [e for e in events if any(k in e.key for k in keys)
-                and not (label == "rms_norm" and "residual" in e.key)]
+        hits = [e for e in events if any(k in e.key for k in keys)]
         by_kernel[label] = {"launches": sum(e.count for e in hits),
                             "device_ms": sum(device_us(e)
                                              for e in hits) / 1e3}
@@ -1684,7 +1699,7 @@ KERNELS = (
      "src/repro/kernels/flash_decode.py:59 flash_decode_flat"),
     ("rms_norm", "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
      "src/repro/kernels/rmsnorm.py:34 rms_norm_pallas"),
-    ("rms_norm_residual", "triton", "src/repro_torch/kernels/rmsnorm.py",
+    ("rms_norm_residual", "cuda", "src/repro_torch/kernels/csrc/rmsnorm.cu",
      "src/repro/kernels/rmsnorm.py:52 rms_norm_residual_pallas"),
     ("flash_attention", "cuda",
      "src/repro_torch/kernels/csrc/flash_attention.cu",

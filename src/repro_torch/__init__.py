@@ -8,9 +8,10 @@ and ``configs/`` the dense decoder and the Mamba2 forward, ``serve/`` the
 serve plane on the streamed multicast, ``train/``, ``optim/`` and
 ``data/`` the training plane (train and serve steps, the Trainer,
 checkpoints, AdamW, the token pipeline), and ``kernels/`` the
-hand-written Hopper kernels (the SMC receive sweep, flash decode, flash
-attention, the SSD scan and the int8 quantize pair in CUDA, RMSNorm in
-Triton).  Nothing here imports ``jax`` or ``repro``.
+hand-written Hopper kernels in CUDA (the SMC receive sweep, flash
+decode, flash attention, the SSD scan, RMSNorm with and without the
+residual add, and the int8 quantize pair).  Nothing here imports ``jax``
+or ``repro``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 :func:`resolve_device` is the one place that decision is made.

@@ -21,7 +21,7 @@ KERNEL_MODULES = (_ss, _fd, _rn, _fa, _sc, _qz)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Launches of every CUDA/Triton kernel in this process, by name."""
+    """Launches of every CUDA kernel in this process, by name."""
     counts: Dict[str, int] = {}
     for mod in KERNEL_MODULES:
         counts.update(mod.launch_counts())
@@ -53,7 +53,15 @@ def smc_sweep_watermark(published: torch.Tensor, processed: torch.Tensor, *,
 
 
 def _row_lengths(kv_len, q: torch.Tensor) -> torch.Tensor:
-    """A scalar or (B,) length as the (B,) int32 the kernel takes."""
+    """A scalar or (B,) length as the (B,) int32 the kernel takes.  A
+    contiguous (B,) int32 tensor on q's device (the decode step's
+    ``position + 1``) passes through with no ATen call."""
+    if isinstance(kv_len, torch.Tensor) and kv_len.dtype == torch.int32 \
+            and kv_len.dim() == 1 and kv_len.is_contiguous():
+        dev = q.get_device()
+        if kv_len.get_device() == dev and (dev >= 0
+                                           or kv_len.device == q.device):
+            return kv_len
     kv_len = torch.as_tensor(kv_len, device=q.device)
     if kv_len.dim() == 0:
         kv_len = kv_len.expand(q.shape[0])

@@ -17,9 +17,10 @@ that a separate add would cost.
   call with the arguments packed into one array.
 * ``rms_norm_residual(x, residual, w)``: ``r = residual + x`` in float32;
   ``new_residual = r`` stored in the input dtype, and the float32 ``r``
-  (not its rounded copy) is normalised — as the TPU kernel does.  A
-  Triton kernel: one program per row, ``BLOCK = next_pow2(d)`` lanes with
-  a mask (``triton`` is imported at its first launch).
+  (not its rounded copy) is normalised — as the TPU kernel does.  The
+  same CUDA kernel body with the residual added as the row is loaded
+  (``rms_norm_residual_kernel``), on the same launch path: one
+  allocation holds both outputs.
 
 The wrappers take ``(..., d)`` tensors with a contiguous last dim.  Given
 CPU tensors they run the plain versions; given CUDA tensors they launch
@@ -33,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
 import threading
 from typing import Dict, Tuple
 
@@ -47,11 +47,14 @@ RESIDUAL_LAUNCHES = 0
 
 MAX_D = 1 << 16
 
-# launch_args' 12 values, the stream, and eps (a double, in the last slot)
+# launch_args' 12 values (residual_launch_args' 14), the stream, and eps
+# (a double, in the last slot)
 _N_ARGS = 14
+_N_RESIDUAL_ARGS = 16
 # no argtypes: the packed array is passed as its pointer with no per-call
 # conversion of arguments
-_SIGNATURES = {"rms_norm_launch": (None, ctypes.c_int)}
+_SIGNATURES = {"rms_norm_launch": (None, ctypes.c_int),
+               "rms_norm_residual_launch": (None, ctypes.c_int)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # elements in one 16-byte vector
 _VEC = {torch.float32: 4, torch.bfloat16: 8}
@@ -88,7 +91,7 @@ def rms_norm_residual_plain(x: torch.Tensor, residual: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel (built at its first launch)
+# the CUDA kernels (built at their first launch)
 # ---------------------------------------------------------------------------
 
 def _pow2(n: int) -> int:
@@ -98,7 +101,8 @@ def _pow2(n: int) -> int:
 @functools.lru_cache(maxsize=None)
 def launch_geometry(d: int, dtype: torch.dtype,
                     vectorized: bool) -> Tuple[int, int, int, int]:
-    """``(vec, vpt, team, threads)`` of ``rms_norm_kernel`` for rows of
+    """``(vec, vpt, team, threads)`` of ``rms_norm_kernel`` (and of
+    ``rms_norm_residual_kernel``) for rows of
     width d: elements a vector (16 bytes' worth where ``vectorized`` and
     the width allow, else 1), vectors a lane holds, lanes a row (a power
     of two), threads a block (``threads // team`` rows a block).  Rows of
@@ -116,61 +120,14 @@ def launch_geometry(d: int, dtype: torch.dtype,
 
 
 @functools.lru_cache(maxsize=None)
-def _rms_fn():
-    return _build.load("rmsnorm", _SIGNATURES).rms_norm_launch
-
-
-# ---------------------------------------------------------------------------
-# the Triton kernel (built at its first launch)
-# ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def _kernels():
-    """The ``@triton.jit`` residual kernel.  Triton's compile cache goes
-    under the checkout's ``build/`` unless ``TRITON_CACHE_DIR`` names one.
-    ``triton`` and ``tl`` are bound as module globals, where Triton's
-    compiler looks the kernel's names up."""
-    global triton, tl
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          str(_build.BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def rms_residual_kernel(x_ptr, r_ptr, w_ptr, o_ptr, nr_ptr, stride_x,
-                            stride_r, stride_o, stride_nr, d, eps,
-                            BLOCK: tl.constexpr):
-        row = tl.program_id(0)
-        cols = tl.arange(0, BLOCK)
-        mask = cols < d
-        x = tl.load(x_ptr + row * stride_x + cols, mask=mask,
-                    other=0.0).to(tl.float32)
-        res = tl.load(r_ptr + row * stride_r + cols, mask=mask,
-                      other=0.0).to(tl.float32)
-        r = res + x
-        tl.store(nr_ptr + row * stride_nr + cols,
-                 r.to(nr_ptr.dtype.element_ty), mask=mask)
-        var = tl.sum(r * r, axis=0) / d
-        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
-        y = r * (1.0 / tl.sqrt(var + eps)) * w
-        tl.store(o_ptr + row * stride_o + cols,
-                 y.to(o_ptr.dtype.element_ty), mask=mask)
-
-    return rms_residual_kernel
+def _lib() -> ctypes.CDLL:
+    return _build.load("rmsnorm", _SIGNATURES)
 
 
 def build() -> None:
-    """Build and load the CUDA library and import Triton now (the Triton
-    kernel is compiled at its first launch for the dtype and width it
-    sees)."""
-    _rms_fn()
-    _kernels()
-
-
-def _launch_shape(d: int) -> Tuple[int, int]:
-    """(BLOCK, num_warps) of the Triton kernel for rows of width d."""
-    block = _pow2(d)
-    return block, max(1, min(16, block // 256))
+    """Build and load the CUDA library now (it is otherwise built at the
+    first launch)."""
+    _lib()
 
 
 def _rows(name: str, x: torch.Tensor, d: int) -> torch.Tensor:
@@ -226,6 +183,19 @@ def _config(d: int, dtype: torch.dtype, vectorized: bool,
     return _DTYPES[dtype], kind, vec, vpt, team
 
 
+def _row_view(name: str, x: torch.Tensor, d: int) -> Tuple[int, int, int]:
+    """(pointer, rows, row stride) of x (..., d) read as rows."""
+    if x.is_contiguous():
+        return x.data_ptr(), x.numel() // d, d
+    xr = _rows(name, x, d)
+    return xr.data_ptr(), xr.shape[0], xr.stride(0)
+
+
+def _aligned(ptr: int, rows: int, stride: int, esize: int) -> bool:
+    """Whether every row starts at a 16-byte aligned address."""
+    return ptr % 16 == 0 and (rows == 1 or stride * esize % 16 == 0)
+
+
 def launch_args(x: torch.Tensor, weight: torch.Tensor,
                 out: torch.Tensor) -> Tuple[int, ...]:
     """``rms_norm_launch``'s packed arguments for x (..., d) and ``out``
@@ -234,32 +204,78 @@ def launch_args(x: torch.Tensor, weight: torch.Tensor,
     16-byte vectors where its base and row stride are 16-byte aligned
     and the width is whole vectors, else element by element."""
     d = weight.shape[0]
-    if x.is_contiguous():
-        ptr, rows, stride = x.data_ptr(), x.numel() // d, d
-    else:
-        xr = _rows("x", x, d)
-        ptr, rows, stride = xr.data_ptr(), xr.shape[0], xr.stride(0)
+    ptr, rows, stride = _row_view("x", x, d)
     w_ptr = weight.data_ptr()
-    vectorized = ptr % 16 == 0 and (
-        rows == 1 or stride * x.element_size() % 16 == 0)
+    vectorized = _aligned(ptr, rows, stride, x.element_size())
     return (ptr, w_ptr, out.data_ptr(), rows, d, stride, d,
+            *_config(d, x.dtype, vectorized, weight.dtype, w_ptr % 16 == 0))
+
+
+def _contiguous(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``."""
+    strides, step = [], 1
+    for n in reversed(shape):
+        strides.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(strides))
+
+
+def residual_launch_args(x: torch.Tensor, residual: torch.Tensor,
+                         weight: torch.Tensor,
+                         out: torch.Tensor) -> Tuple[int, ...]:
+    """``rms_norm_residual_launch``'s packed arguments for x and residual
+    (..., d) and ``out``, a contiguous buffer of twice x's elements whose
+    halves take the normed rows and the new residual: pointers of x,
+    residual, weight and the two halves, rows, width, the row strides of
+    x and residual, then :func:`_config`.  Vectors where both inputs'
+    rows are 16-byte aligned (the halves then are: a row of whole
+    vectors is a multiple of 16 bytes)."""
+    d = weight.shape[0]
+    x_ptr, rows, x_stride = _row_view("x", x, d)
+    r_ptr, _, r_stride = _row_view("residual", residual, d)
+    esize = x.element_size()
+    vectorized = (_aligned(x_ptr, rows, x_stride, esize)
+                  and _aligned(r_ptr, rows, r_stride, esize))
+    w_ptr, o_ptr = weight.data_ptr(), out.data_ptr()
+    return (x_ptr, r_ptr, w_ptr, o_ptr, o_ptr + rows * d * esize, rows, d,
+            x_stride, r_stride,
             *_config(d, x.dtype, vectorized, weight.dtype, w_ptr % 16 == 0))
 
 
 _LOCAL = threading.local()
 
 
-def _caller():
-    """This thread's (argument array, a float64 view of its last slot, the
-    C function): the array is filled and read within one call, so each
-    thread has one."""
+def _callers():
+    """This thread's ``{n_args: (argument array, a float64 view of its
+    last slot, the C function)}`` for both entry points: an array is
+    filled and read within one call, so each thread has its own."""
     try:
-        return _LOCAL.caller
+        return _LOCAL.callers
     except AttributeError:
-        buf = (ctypes.c_longlong * _N_ARGS)()
-        eps = ctypes.c_double.from_buffer(buf, 8 * (_N_ARGS - 1))
-        _LOCAL.caller = buf, eps, _rms_fn()
-        return _LOCAL.caller
+        lib = _lib()
+        callers = {}
+        for n, fn in ((_N_ARGS, lib.rms_norm_launch),
+                      (_N_RESIDUAL_ARGS, lib.rms_norm_residual_launch)):
+            buf = (ctypes.c_longlong * n)()
+            callers[n] = (buf, ctypes.c_double.from_buffer(buf, 8 * (n - 1)),
+                          fn)
+        _LOCAL.callers = callers
+        return callers
+
+
+def _call(args: Tuple[int, ...], dev: int, eps: float, name: str) -> None:
+    """Pack ``args``, the current stream of CUDA device ``dev`` and eps,
+    and call the entry point that takes that many arguments."""
+    buf, eps_slot, fn = _callers()[len(args) + 2]
+    buf[:-1] = (*args, torch._C._cuda_getCurrentRawStream(dev))
+    eps_slot.value = eps
+    if dev == torch._C._cuda_getDevice():
+        code = fn(buf)
+    else:
+        with torch.cuda.device(dev):
+            code = fn(buf)
+    if code != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {code}")
 
 
 def _rms_norm_launch(x: torch.Tensor, weight: torch.Tensor,
@@ -270,42 +286,31 @@ def _rms_norm_launch(x: torch.Tensor, weight: torch.Tensor,
     out = (torch.empty_like(x) if x.is_contiguous() else
            torch.empty_like(x, memory_format=torch.contiguous_format))
     args = launch_args(x, weight, out)
-    if not args[3]:
-        return out
-    buf, eps_slot, fn = _caller()
-    dev = x.get_device()
-    buf[:-1] = (*args, torch._C._cuda_getCurrentRawStream(dev))
-    eps_slot.value = eps
-    if dev == torch._C._cuda_getDevice():
-        code = fn(buf)
-    else:
-        with torch.cuda.device(dev):
-            code = fn(buf)
-    if code != 0:
-        raise RuntimeError(f"rms_norm launch failed: cudaError {code}")
-    RMS_LAUNCHES += 1
+    if args[3]:
+        _call(args, x.get_device(), eps, "rms_norm")
+        RMS_LAUNCHES += 1
     return out
 
 
 def _rms_norm_residual_launch(x: torch.Tensor, residual: torch.Tensor,
                               weight: torch.Tensor, eps: float
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch path: one allocation for both outputs, two views of it
+    and one ctypes call (56 a decode step)."""
     global RESIDUAL_LAUNCHES
-    d = weight.shape[-1]
-    xr, rr = _rows("x", x, d), _rows("residual", residual, d)
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    new_res = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    orows, nrows = out.view(-1, d), new_res.view(-1, d)
-    if xr.shape[0]:
-        kernel = _kernels()
-        block, warps = _launch_shape(d)
-        with torch.cuda.device(x.device):
-            kernel[(xr.shape[0],)](xr, rr, weight, orows, nrows,
-                                   xr.stride(0), rr.stride(0),
-                                   orows.stride(0), nrows.stride(0), d, eps,
-                                   BLOCK=block, num_warps=warps)
+    n = x.numel()
+    buf = x.new_empty(2 * n)
+    # two contiguous views of x's shape (as_strided is the cheapest view
+    # to make: one allocation and two views cost less host time than two
+    # allocations or a (2, ...) buffer's unbind)
+    strides = x.stride() if x.is_contiguous() else _contiguous(x.shape)
+    normed = buf.as_strided(x.shape, strides)
+    new_res = buf.as_strided(x.shape, strides, n)
+    args = residual_launch_args(x, residual, weight, buf)
+    if args[5]:
+        _call(args, x.get_device(), eps, "rms_norm_residual")
         RESIDUAL_LAUNCHES += 1
-    return out, new_res
+    return normed, new_res
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -336,11 +341,15 @@ def rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
     if x.shape != residual.shape:
         raise ValueError(f"x {tuple(x.shape)} and residual "
                          f"{tuple(residual.shape)} differ")
+    if x.is_cuda:
+        if not (torch.is_grad_enabled() and (
+                x.requires_grad or residual.requires_grad
+                or weight.requires_grad)):
+            return _rms_norm_residual_launch(x, residual, weight, eps)
+        return kernel_with_plain_grad(
+            lambda x_, r_, w_: _rms_norm_residual_launch(x_, r_, w_, eps),
+            lambda x_, r_, w_: rms_norm_residual_plain(x_, r_, w_, eps),
+            x, residual, weight)
     if x.device.type == "cpu":
         return rms_norm_residual_plain(x, residual, weight, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no rms_norm_residual for device {x.device}")
-    return kernel_with_plain_grad(
-        lambda x_, r_, w_: _rms_norm_residual_launch(x_, r_, w_, eps),
-        lambda x_, r_, w_: rms_norm_residual_plain(x_, r_, w_, eps),
-        x, residual, weight)
+    raise ValueError(f"no rms_norm_residual for device {x.device}")

@@ -1,10 +1,20 @@
-"""Quick check of the CUDA kernels of the forward and training paths on
-one card.
+"""Quick check of the CUDA kernels of the serve, forward and training
+paths on one card.
 
     PYTHONPATH=src python -m repro_torch.kernels.selfcheck [SECTION ...]
 
 Sections (all by default):
 
+* ``decode`` — compiles ``csrc/flash_decode.cu`` and ``csrc/rmsnorm.cu``
+  with ``nvcc -Xptxas -v`` and prints the registers and spills of
+  ``flash_decode_split_kernel``, ``flash_decode_merge_kernel`` and
+  ``rms_norm_residual_kernel``; then holds flash decode against its plain
+  version at the serve shape (B=8 Hq=16 Hkv=8 D=128 S_max=2048) with the
+  serve run's lengths, mixed lengths and all lengths 2048, at D = 80,
+  D = 256 and group 16, and on caches of one and two chunks; and
+  ``rms_norm_residual`` at the serve and forward paths' rows and at
+  strided and misaligned rows, in float32 and bfloat16, with the time of
+  SDPA's call beside each flash-decode case;
 * ``forward`` — compiles ``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu``
   and ``csrc/rmsnorm.cu`` with ``nvcc -Xptxas -v`` and prints each
   kernel's registers and spills (and the count of ``HGMMA`` tensor-core
@@ -42,6 +52,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels import ssd_scan as sc
@@ -61,6 +72,25 @@ RMS_SHAPES = ((128, 128, "contiguous"), (8, 2048, "contiguous"),
               (2048, 2560, "contiguous"), (2048, 5120, "contiguous"),
               (65536, 128, "contiguous"), (5, 200, "contiguous"),
               (64, 1024, "row stride 1025"), (1, 1 << 16, "contiguous"))
+# (label, B, Hq, Hkv, D, S_max, lengths): the serve plane's shape with the
+# serve run's lengths (prompts of 8-24 tokens plus up to 16 generated),
+# mixed and full lengths, and the head dims and groups the kernel takes
+DECODE_CASES = (
+    ("serve", 8, 16, 8, 128, 2048, [9, 40, 17, 24, 31, 12, 38, 26]),
+    ("mixed", 8, 16, 8, 128, 2048, [1, 511, 512, 513, 2048, 37, 1024, 1500]),
+    ("all 2048", 8, 16, 8, 128, 2048, [2048] * 8),
+    ("D=80", 4, 32, 8, 80, 1024, [1024, 700, 3, 1]),
+    ("D=256", 2, 8, 2, 256, 600, [600, 257]),
+    ("group 16", 4, 16, 1, 128, 2048, [2048, 1000, 1, 513]),
+    ("one chunk", 3, 12, 4, 64, 100, [100, 64, 1]),
+    ("two chunks", 3, 12, 4, 64, 200, [200, 64, 129]))
+DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (rows, width, layout) of the residual norm: the serve plane's hidden
+# rows, the forward's, and rows it must read element by element
+RESIDUAL_SHAPES = ((8, 2048, "contiguous"), (4096, 2048, "contiguous"),
+                   (2048, 2560, "contiguous"), (5, 200, "contiguous"),
+                   (64, 1024, "row stride 1025"),
+                   (64, 1024, "residual one element off"))
 # q k^T and bf16(q k^T) v of one tile: bf16 products are exact in float32,
 # so only the order of the f32 sums differs
 TILE_TOL = 1e-4
@@ -88,10 +118,11 @@ def close(got, want, tol: float) -> float:
     return err
 
 
-def compile_report(name: str) -> None:
+def compile_report(name: str, keep=()) -> None:
     """nvcc's -Xptxas -v lines (registers, spills) for ``csrc/<name>.cu``
-    and, where the toolkit has ``cuobjdump``, the count of HGMMA
-    (``wgmma``) instructions in each kernel's machine code."""
+    (of the kernels whose names hold one of ``keep``, where given) and,
+    where the toolkit has ``cuobjdump``, the count of HGMMA (``wgmma``)
+    instructions in each kernel's machine code."""
     with tempfile.TemporaryDirectory() as tmp:
         lib = f"{tmp}/{name}.so"
         proc = subprocess.run(
@@ -100,8 +131,12 @@ def compile_report(name: str) -> None:
             capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        shown = True
         for line in (proc.stdout + proc.stderr).splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if "Compiling" in line:
+                shown = not keep or any(k in line for k in keep)
+            if shown and ("registers" in line or "spill" in line
+                          or "Compiling" in line):
                 print(f"{name}: {line.strip()}")
         cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
         if cuobjdump.exists():
@@ -163,6 +198,53 @@ def check_rms_norm(gen) -> None:
             lib_ms = event_ms(lambda: F.rms_norm(x, (d,), w, 1e-6), 50)
             print(f"rms_norm {rows}x{d} {layout} {dtype}: err {err:.3g}, "
                   f"{ms:.4f} ms, F.rms_norm {lib_ms:.4f} ms", flush=True)
+
+
+def sdpa_decode(q, k, v, kv_len):
+    """One ``scaled_dot_product_attention`` call over the same decode
+    inputs, with a boolean mask (a yardstick; the port never calls it)."""
+    s = k.shape[1]
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < kv_len[:, None])[:, None, None]
+    return torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=mask, enable_gqa=True)
+
+
+def check_decode(gen) -> None:
+    compile_report("flash_decode", ("flash_decode_split_kernel",
+                                    "flash_decode_merge_kernel"))
+    compile_report("rmsnorm", ("rms_norm_residual_kernel",))
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    for label, b, hq, hkv, d, s_max, lens in DECODE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rnd(b, hq, d).to(dtype)
+            k, v = (rnd(b, s_max, hkv, d).to(dtype) for _ in range(2))
+            kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            err = close(fd.flash_decode(q, k, v, kv_len),
+                        fd.flash_decode_plain(q, k, v, kv_len),
+                        DECODE_TOL[dtype])
+            ms = event_ms(lambda: fd.flash_decode(q, k, v, kv_len), 50)
+            lib_ms = event_ms(lambda: sdpa_decode(q, k, v, kv_len), 50)
+            chunk, n, tile = fd.launch_geometry(s_max, d, dtype)
+            print(f"flash_decode {label} B={b} Hq={hq} Hkv={hkv} D={d} "
+                  f"S_max={s_max} {dtype} ({n} chunks of {chunk}, tiles "
+                  f"of {tile}): err {err:.3g}, {ms:.4f} ms, SDPA "
+                  f"{lib_ms:.4f} ms", flush=True)
+    for rows, d, layout in RESIDUAL_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = rms_rows(gen, rows, d, "contiguous"
+                            if layout.startswith("residual") else layout,
+                            dtype)
+            res = rnd(rows * d + 1).to(dtype)[1:].view(rows, d) \
+                if layout.startswith("residual") else rnd(rows, d).to(dtype)
+            got = rn.rms_norm_residual(x, res, w)
+            want = rn.rms_norm_residual_plain(x, res, w)
+            err = max(close(g, w_, ATTENTION_TOL[dtype])
+                      for g, w_ in zip(got, want))
+            ms = event_ms(lambda: rn.rms_norm_residual(x, res, w), 50)
+            print(f"rms_norm_residual {rows}x{d} {layout} {dtype}: err "
+                  f"{err:.3g}, {ms:.4f} ms", flush=True)
 
 
 def check_forward(gen) -> None:
@@ -285,8 +367,8 @@ def check_grad(gen) -> None:
               flush=True)
 
 
-SECTIONS = {"forward": check_forward, "quantize": check_quantize,
-            "grad": check_grad}
+SECTIONS = {"decode": check_decode, "forward": check_forward,
+            "quantize": check_quantize, "grad": check_grad}
 
 
 def main(argv=None) -> int:

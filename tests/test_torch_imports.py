@@ -58,19 +58,25 @@ SERVE_MODULES = (
 @pytest.mark.parametrize("module", SERVE_MODULES)
 def test_serve_slice_modules_import_without_a_gpu(module):
     """Every module of the serve slice imports on a CPU-only machine:
-    ``triton`` and the CUDA build are reached only inside launches."""
+    the CUDA build is reached only inside launches."""
     mod = importlib.import_module(module)
     assert mod.__name__ == module
 
 
 def test_serve_slice_has_its_kernel_sources():
-    assert (ROOT / "src/repro_torch/kernels/csrc/flash_decode.cu").exists()
+    decode = (ROOT / "src/repro_torch/kernels/csrc/flash_decode.cu"
+              ).read_text()
+    for kernel in ("flash_decode_split_kernel", "flash_decode_merge_kernel"):
+        assert f"{kernel}(const Params p)" in decode
+    assert 'extern "C" int flash_decode_launch' in decode
     cuda = (ROOT / "src/repro_torch/kernels/csrc/rmsnorm.cu").read_text()
-    assert "__global__" in cuda and 'extern "C" int rms_norm_launch' in cuda
-    src = (ROOT / "src/repro_torch/kernels/rmsnorm.py").read_text()
-    decorated = [ln for ln in src.splitlines()
-                 if ln.strip() == "@triton.jit"]
-    assert len(decorated) == 1       # rms_norm_residual's
+    for fn in ("rms_norm_launch", "rms_norm_residual_launch"):
+        assert f'extern "C" int {fn}' in cuda
+    assert "rms_norm_residual_kernel(const Args a)" in cuda
+    # every kernel of the port is CUDA: no Triton anywhere
+    for path in PORT_FILES:
+        src = path.read_text()
+        assert "@triton.jit" not in src and "import triton" not in src, path
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

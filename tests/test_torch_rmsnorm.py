@@ -1,9 +1,9 @@
 """The RMSNorm kernels' plain versions against the reference.
 
 On the CPU :func:`repro_torch.kernels.ops.rms_norm` and
-``rms_norm_residual`` run the plain versions (the CUDA and Triton kernels
-are held against them on the card by ``chip_smoke.py``; the CUDA
-kernel's launch geometry and packed arguments are checked here).  The oracles are the TPU
+``rms_norm_residual`` run the plain versions (the CUDA kernels are held
+against them on the card by ``chip_smoke.py``; their launch geometry and
+packed arguments are checked here).  The oracles are the TPU
 kernels ``rms_norm_pallas`` / ``rms_norm_residual_pallas`` in interpret
 mode, through ``repro.kernels.ops``, at the repo's kernel bars: float32
 2e-5, bfloat16 2e-2.  The residual form normalises the float32 sum, as
@@ -97,15 +97,8 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
         rn.rms_norm(x.to("meta"), torch.ones(8, device="meta"))
 
 
-@pytest.mark.parametrize("d,block,warps", [(1, 1, 1), (96, 128, 1),
-                                           (128, 128, 1), (2048, 2048, 8),
-                                           (6144, 8192, 16)])
-def test_launch_shape(d, block, warps):
-    assert rn._launch_shape(d) == (block, warps)
-
-
 # ---------------------------------------------------------------------------
-# the CUDA rms_norm kernel's host logic
+# the CUDA kernels' host logic
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("d,dtype,vectorized,want", [
@@ -170,3 +163,56 @@ def test_launch_args_pick_vectors_and_weight_reads():
     assert len(args) == rn._N_ARGS - 2      # the stream and eps come last
     with pytest.raises(TypeError, match="float32 or bfloat16 weight"):
         rn.launch_args(x, w.half(), out)
+
+
+def _residual_case(case):
+    """(x, residual, weight) of one residual_launch_args case."""
+    bf16 = torch.bfloat16
+    rows = lambda width=128, dtype=bf16: torch.zeros(6, width, dtype=dtype)
+    w = torch.ones(128, dtype=bf16)
+    if case == "contiguous":
+        return rows(), rows(), w
+    if case == "leading dims":
+        return rows().view(2, 3, 128), rows().view(2, 3, 128), w
+    if case == "x row stride 129":
+        return rows(129)[:, :128], rows(), w
+    if case == "residual row stride 136":        # 272 bytes: aligned
+        return rows(), rows(136)[:, :128], w
+    if case == "residual one element off":
+        return rows(), torch.zeros(6 * 128 + 1, dtype=bf16)[1:].view(6, 128), w
+    if case == "float32 weight":
+        return rows(), rows(), w.float()
+    assert case == "float32 rows"
+    return rows(dtype=torch.float32), rows(dtype=torch.float32), w.float()
+
+
+@pytest.mark.parametrize("case,strides,config", [
+    # config: dtype, weight kind, vec, vpt, team
+    ("contiguous", (128, 128), (1, 0, 8, 1, 16)),
+    ("leading dims", (128, 128), (1, 0, 8, 1, 16)),
+    ("x row stride 129", (129, 128), (1, 0, 1, 1, 128)),
+    ("residual row stride 136", (128, 136), (1, 0, 8, 1, 16)),
+    ("residual one element off", (128, 128), (1, 0, 1, 1, 128)),
+    ("float32 weight", (128, 128), (1, 1, 8, 1, 16)),
+    ("float32 rows", (128, 128), (0, 0, 4, 1, 32)),
+])
+def test_residual_launch_args(case, strides, config):
+    """rms_norm_residual_launch's packed layout: the five pointers (the
+    two outputs are the halves of one buffer), rows, width, the input
+    row strides, then the config; vectors only where both inputs' rows
+    are 16-byte aligned."""
+    x, res, w = _residual_case(case)
+    out = torch.empty(2 * x.numel(), dtype=x.dtype)
+    args = rn.residual_launch_args(x, res, w, out)
+    assert len(args) == rn._N_RESIDUAL_ARGS - 2   # the stream, eps last
+    half = 6 * 128 * x.element_size()
+    assert args[:5] == (x.data_ptr(), res.data_ptr(), w.data_ptr(),
+                        out.data_ptr(), out.data_ptr() + half)
+    assert args[5:9] == (6, 128) + strides
+    assert args[9:] == config
+
+
+@pytest.mark.parametrize("shape", [(6, 128), (2, 3, 128), (1, 1, 5),
+                                   (0, 4), (4, 0, 3)], ids=str)
+def test_contiguous_strides(shape):
+    assert rn._contiguous(shape) == torch.empty(shape).stride()
