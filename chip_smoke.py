@@ -19,8 +19,11 @@ gradient reduction over two data-parallel workers).
 Phases (one JSON line each; any failure exits non-zero):
 
 0. card identity (``nvidia-smi`` name and power limit) and build time;
-1. both SMC kernels against their twins at the main path's lane counts
-   and at 2**20 lanes: exact equality, CUDA-event times, the byte bound;
+1. both SMC kernels against their twins at the main path's lane counts,
+   at 2**20 lanes and at lanes near INT32_MAX / INT32_MIN (the watermark
+   kernel also against its closed form): exact equality, CUDA-event
+   times, the byte bound, and the time of the three-op PyTorch closed
+   form beside them;
 2. the paper's testbed: 16 nodes, all senders, 10 KB messages, window
    100, 1000 messages per sender;
 3. the Fig. 6 window grid and the Fig. 11 null-send grid as one
@@ -43,14 +46,18 @@ Phases (one JSON line each; any failure exits non-zero):
    plain run's top-2 logit margin is under 1e-4 relative);
 8. flash attention, the SSD scan and RMSNorm against their plain
    versions at the forward path's shapes (attention: qwen3-1.7b's heads at
-   S=2048, causal and not, S=1000 ragged, MQA; the SSD scan at
-   mamba2-2.7b's H=80, P=64, N=128, chunk 256, S=2048; RMSNorm at widths
-   2560 and 5120), float32 (attention on the CUDA-core kernel) and
-   bfloat16 (attention on the tensor-core kernel), at the
+   S=2048, causal and not, S=1000 ragged, MQA, zamba2-2.7b's D=80 heads
+   and D=96; the SSD scan at mamba2-2.7b's H=80, P=64, N=128, chunk 256,
+   S=2048, at zamba2-2.7b's (P, N) = (64, 64), at (128, 256) with G=2
+   and chunk 64, and at a ragged chunk of 100 with P=48; RMSNorm at
+   widths 2560 and 5120), float32 (attention on the CUDA-core kernel)
+   and bfloat16 (attention on the tensor-core kernel), at the
    ``tests/test_kernels.py`` bars: times, plain and library times, the
-   bound; the qwen3 rows also their TFLOP/s, share of the bound and ratio
-   to SDPA, and the bfloat16 ones the float32 kernel's time at the same
-   shape;
+   bound; the qwen3 and zamba2 attention rows also their TFLOP/s, share
+   of the bound and ratio to SDPA, and the bfloat16 ones the float32
+   kernel's time at the same shape; and a bfloat16 q at a 2-byte offset,
+   which the attention kernel takes through a contiguous copy (the copy
+   count printed);
 9. the forward path at full width (bf16 weights from seed 0): qwen3-1.7b,
    all 28 layers, ``loss_fn`` on 2 x 2048 tokens and ``prefill_fn`` on
    4 x 512; mamba2-2.7b, all 64 layers, ``loss_fn`` on 1 x 2048: a finite
@@ -82,7 +89,8 @@ Phases (one JSON line each; any failure exits non-zero):
    quantization steps of the exact mean, the plain run launching nothing,
    and a restart from the step-2 checkpoint bit-equal to the uninterrupted
    run) and mamba2-2.7b (``spindle``, W = 2, 2 x 1024 tokens, one step:
-   the SSD scan's gradient);
+   the SSD scan's gradient, per-worker gradients within 5e-4, and the
+   error with only the SSD or only the RMSNorm sites on their kernels);
 14. the ``kernels`` line: per kernel its launches on the main paths
    (phases 2-4, 6, 9 and 12), its times and its bound.
 
@@ -129,8 +137,9 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
-# The card's table has no int32 ALU rate; slot checks are charged at the
-# fp32 non-tensor-core peak (67 TFLOP/s), one operation per check.  The
+# The card's table has no int32 ALU rate; the SMC kernels' integer
+# operations (the ring kernel's slot checks, the watermark kernel's closed
+# form) are charged at the fp32 non-tensor-core peak (67 TFLOP/s).  The
 # flash-decode and RMSNorm kernels compute in float32 outside the tensor
 # cores, so their operations are charged at the same peak.
 ALU_OPS_PER_S = 67e12
@@ -260,26 +269,50 @@ def phase0_identity():
     return smi_line
 
 
-def lane_inputs(n: int, window: int, seed: int):
+def lane_inputs(n: int, window: int, seed: int, extremes: bool = False):
     """Seeded lanes: half near a realistic receive (published within a
     window or two of processed), half arbitrary, with negative processed
-    counts among both; plus a random validity mask."""
+    counts among both; plus a random validity mask.  ``extremes``: lanes
+    within 2W of INT32_MAX, INT32_MIN and 0, published <= 0 and in
+    (0, W), and arbitrary int32 lanes (as tests/test_torch_smc_sweep.py
+    builds them), where the int32 adds wrap."""
     rng = np.random.default_rng(seed)
     processed = rng.integers(-2 * window, 4 * window, size=n)
     near = processed + rng.integers(-1, window + 2, size=n)
     wild = rng.integers(-window, 6 * window, size=n)
     published = np.where(rng.random(n) < 0.5, near, wild)
+    if extremes:
+        i32 = np.iinfo(np.int32)
+        base = rng.choice(np.array([i32.max, i32.min, 0], np.int64), size=n)
+        processed = base + rng.integers(-2 * window, 2 * window + 1, size=n)
+        published = base + rng.integers(-2 * window, 2 * window + 1, size=n)
+        small = rng.random(n) < 0.25
+        published = np.where(small, rng.integers(-window, window, size=n)
+                             + 1, published)
+        mix = rng.random(n) < 0.2
+        processed = np.where(mix, rng.integers(i32.min, i32.max, size=n),
+                             processed)
+        published = np.where(mix, rng.integers(i32.min, i32.max, size=n),
+                             published)
+        processed, published = (np.clip(x, i32.min, i32.max)
+                                for x in (processed, published))
     valid = rng.random(n) < 0.8
     dev = torch.device("cuda")
     as_dev = lambda x: torch.as_tensor(x.astype(np.int32), device=dev)
     return as_dev(published), as_dev(processed), as_dev(valid)
 
 
+# integer operations of one lane of the watermark kernel's closed form
+# (difference, max, two clamps, add, mask select)
+WATERMARK_OPS_PER_LANE = 6
+
+
 def phase1_kernels(shapes):
     """Each kernel against its twin on the card, exact; times per shape."""
     rows = []
     for label, n, window in shapes:
-        pub, proc, valid = lane_inputs(n, window, seed=n + window)
+        pub, proc, valid = lane_inputs(n, window, seed=n + window,
+                                       extremes=label == "extremes")
         counters = ss.counters_from_counts(pub, window).contiguous()
         cases = {
             "smc_sweep_watermark": (
@@ -294,6 +327,10 @@ def phase1_kernels(shapes):
                           lambda: ss.smc_sweep_plain(counters, proc)),
         }
         want_plain = None
+        closed = ss.smc_sweep_watermark_closed_form
+        forms = {"smc_sweep_watermark": lambda: closed(pub, proc, window),
+                 "smc_sweep_watermark_masked":
+                 lambda: closed(pub, proc, window, valid)}
         for name, (kernel, plain) in cases.items():
             got, want = kernel(), plain()
             torch.cuda.synchronize()
@@ -301,6 +338,9 @@ def phase1_kernels(shapes):
             check(err == 0 and got.dtype == torch.int32,
                   f"{name} at {label} ({n} lanes, W={window}) differs "
                   f"from its twin by {err}")
+            if name in forms:
+                check(torch.equal(got, forms[name]()),
+                      f"{name} at {label} differs from its closed form")
             if name == "smc_sweep_watermark":
                 want_plain = want
             if name == "smc_sweep":   # the ring oracle of the watermark form
@@ -310,25 +350,24 @@ def phase1_kernels(shapes):
             kernel_ms = cuda_ms(kernel, 50 if big else 200)
             kernel_device_ms = profiled_device_ms(kernel, 50)
             plain_ms = cuda_ms(plain, 5 if big else 50, warmup=2)
-            run = (want - proc).clamp(min=0)
-            if name == "smc_sweep_watermark_masked":
-                checks = int(torch.where(valid > 0,
-                                         (run + 1).clamp(max=window),
-                                         0).sum().item())
+            if name == "smc_sweep":
+                # the ring kernel's loop checks (run + 1) slots, at most W
+                run = (want.long() - proc.long()).clamp(min=0)
+                ops = int((run + 1).clamp(max=window).sum().item())
+                inputs = counters.numel() + n
             else:
-                checks = int((run + 1).clamp(max=window).sum().item())
-            inputs = counters.numel() + n if name == "smc_sweep" else \
-                (3 if name.endswith("masked") else 2) * n
+                ops = WATERMARK_OPS_PER_LANE * n
+                inputs = (3 if name.endswith("masked") else 2) * n
             nbytes = 4 * (inputs + n)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = checks / ALU_OPS_PER_S * 1e3
+            bound_ms, bound_by = bound(nbytes, ops)
             rows.append({"kernel": name, "shape": label, "lanes": n,
                          "window": window, "max_abs_err": err,
                          "ms": kernel_ms, "device_ms": kernel_device_ms,
-                         "plain_ms": plain_ms, "bytes": nbytes, "slot_checks": checks,
-                         "bound_ms": max(bytes_ms, ops_ms),
-                         "bound_by": "bytes" if bytes_ms >= ops_ms
-                         else "operations"})
+                         "plain_ms": plain_ms, "bytes": nbytes,
+                         "int_ops": ops, "bound_ms": bound_ms,
+                         "bound_by": bound_by})
+        # three PyTorch calls (not one: no library call computes the
+        # sweep), the closed form for non-negative inputs
         yard_ms = cuda_ms(lambda: proc + torch.clamp(pub - proc, 0, window),
                           50 if n >= 1 << 18 else 200)
         for r in rows[-len(cases):]:
@@ -453,6 +492,7 @@ def phase3_grids():
             same_report(report, solo_report, f"{label} point {value}")
         rows[label] = {"points": len(reports), "rounds": t_max,
                        "launches": launches, "batch_wall_s": wall,
+                       "per_round_ms": wall / t_max * 1e3,
                        "per_point": [r.summary() for r in reports]}
     emit({"phase": 3, "identical_to_sequential": True, **rows})
 
@@ -944,6 +984,30 @@ def ssd_inputs(b, s, h, p, n, g, dtype, gen):
             uni(-0.5, 0.5))
 
 
+def misaligned_attention_row(gen):
+    """A bfloat16 q sliced 2 bytes into its buffer: no 16-byte aligned
+    base, which the tensor-core kernel reads through a contiguous copy."""
+    dev = torch.device("cuda")
+    b, s, hq, hkv, d = 1, 512, 16, 8, 128
+    q = torch.randn(b * s * hq * d + 1, generator=gen, device=dev).to(
+        torch.bfloat16)[1:].view(b, s, hq, d)
+    k, v = (torch.randn(b, s, hkv, d, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    check(not fa.tma_layout_ok(q), "the sliced q is aligned after all")
+    before = fa.ALIGN_COPIES
+    err = within(fa.flash_attention(q, k, v, True),
+                 fa.flash_attention_plain(q, k, v, True), torch.bfloat16)
+    copies = fa.ALIGN_COPIES - before
+    check(copies == 1, f"misaligned q: {copies} copies, want 1")
+    print(f"flash_attention bf16 q at a 2-byte offset: {copies} copy, "
+          f"max error {err}", flush=True)
+    return {"kernel": "flash_attention", "dtype": str(torch.bfloat16),
+            "kernel_fn": fa.KERNEL_OF[torch.bfloat16],
+            "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} causal=True, "
+            f"q at a 2-byte offset", "label": "misaligned q",
+            "max_abs_err": err, "align_copies": copies}
+
+
 def phase8_forward_kernels():
     """The forward path's kernels against their plain versions."""
     dev = torch.device("cuda")
@@ -953,7 +1017,9 @@ def phase8_forward_kernels():
                    ("ragged S=1000", 1, 1000, 16, 8, 128),
                    ("MQA S=384", 1, 384, 8, 1, 128),
                    ("group 3, D=32", 2, 128, 6, 2, 32),
-                   ("unpadded S=200, D=64", 2, 200, 4, 2, 64))
+                   ("unpadded S=200, D=64", 2, 200, 4, 2, 64),
+                   ("zamba2 D=80", 1, 2048, 32, 32, 80),
+                   ("D=96", 2, 300, 8, 2, 96))
     for dtype in (torch.float32, torch.bfloat16):
         rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
             else ALU_OPS_PER_S
@@ -968,7 +1034,7 @@ def phase8_forward_kernels():
                 nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
                 bound_ms, bound_by = bound(
                     nbytes, attention_flops(b, s, hq, d, causal), rate)
-                main = label.startswith("qwen3")
+                main = label.startswith(("qwen3", "zamba2"))
                 row = {
                     "kernel": "flash_attention", "dtype": str(dtype),
                     "kernel_fn": fa.KERNEL_OF[dtype],
@@ -991,7 +1057,11 @@ def phase8_forward_kernels():
                             and r["dtype"] == str(torch.float32))
                         row["f32_kernel_ms"] = f32_row["ms"]
                 rows.append(row)
+    rows.append(misaligned_attention_row(gen))
     ssd_shapes = (("mamba2 S=2048", 1, 2048, 80, 64, 128, 1, 256),
+                  ("zamba2 (P, N) = (64, 64)", 1, 2048, 80, 64, 64, 1, 256),
+                  ("widest, G=2, chunk 64", 1, 1024, 16, 128, 256, 2, 64),
+                  ("ragged chunk 100, P=48", 1, 300, 4, 48, 32, 2, 100),
                   ("test 1", 1, 64, 2, 16, 16, 1, 16),
                   ("test 2", 2, 128, 4, 32, 64, 2, 32),
                   ("test 3", 1, 96, 2, 64, 128, 1, 32))
@@ -1024,8 +1094,11 @@ def phase8_forward_kernels():
     return rows
 
 
+# (label, a substring of the device kernels' names); a call of ssd_scan
+# launches its four kernels (csrc/ssd_scan.cu), so its device launches
+# are four a call
 FORWARD_KERNELS = (("flash_attention", "flash_attention_kernel"),
-                   ("ssd_scan", "ssd_scan_kernel"),
+                   ("ssd_scan", "ssd_scan_"),
                    ("rms_norm", "rms_norm_kernel"),
                    ("rms_norm_residual", "rms_norm_residual_kernel"))
 
@@ -1526,11 +1599,45 @@ def phase12_train():
 
 TRAIN_LOSS_RTOL = 1e-5
 # per-worker gradients, kernels vs plain, as a share of each leaf's
-# largest |g|: the dense family's bar; the ssm family's is the phase-10
-# bar of its forward (FORWARD_TOL), since the SSD kernel's float32 output
-# differs from the plain chunked scan at that kernel's own 1e-4 bar and
-# the gradient is taken at those different activations
+# largest |g|: 1e-4 for the dense family.  The ssm family's stays the
+# phase-10 bar of its forward (FORWARD_TOL): its backward amplifies the
+# forward kernels' last-bit differences to ~1e-4 of the embedding's
+# gradient even where those kernels match their plain versions to a few
+# ulps (the SSD scan's prefix sums bit for bit); phase 13 reports the
+# error with only the SSD or only the RMSNorm sites on their kernels.
 GRAD_TOL = {"dense": 1e-4, "ssm": FORWARD_TOL}
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteRuntime(Runtime):
+    """A Runtime whose kernel sites in ``on_kernels`` launch their kernels
+    and whose other sites run their plain versions."""
+    on_kernels: tuple = ()
+
+    def op(self, name):
+        kernels = "kernels" if name in self.on_kernels else "plain"
+        return Runtime.op(dataclasses.replace(self, kernels=kernels), name)
+
+
+def grad_errors_by_site(arch, params, batch, rt, sites: dict):
+    """For each ``{label: kernel sites}``, the largest per-worker gradient
+    error (a share of each leaf's largest |g|) against the plain run when
+    only those sites launch their kernels."""
+    _, g_p = steps.worker_grads(
+        arch, dataclasses.replace(rt, kernels="plain"))(params, batch)
+    out = {}
+    for label, on in sites.items():
+        site_rt = SiteRuntime(gradsync=rt.gradsync,
+                              dp_workers=rt.dp_workers, on_kernels=on)
+        _, g = steps.worker_grads(arch, site_rt)(params, batch)
+        errs = {path: float((a - c).abs().max()) / (float(c.abs().max())
+                                                    or 1.0)
+                for (path, a), c in zip(tree_util.paths(g),
+                                        tree_util.leaves(g_p))}
+        worst = max(errs, key=errs.get)
+        out[label] = {"max": errs[worst], "leaf": worst}
+        del g
+    return out
 
 
 def compare_worker_grads(arch, params, batch, rt, plain, what: str):
@@ -1678,12 +1785,18 @@ def phase13_train_vs_plain():
     g_k, grad_err, wl_rel = compare_worker_grads(
         arch, params, batch, rt, plain_of(rt), "mamba2 f32")
     del g_k
+    by_site = grad_errors_by_site(
+        arch, params, batch, rt,
+        {"ssd_scan": ("ssd_scan",),
+         "rms_norm": ("rms_norm", "rms_norm_residual")})
     first = compare_first_step(arch, params, batch, rt, plain_of(rt),
                                adamw.OptConfig(), "mamba2 f32")
     res["mamba2-2.7b"] = {"layers": 4, "batch": 2, "seq": 1024,
                           "gradsync": rt.gradsync, "workers": TRAIN_WORKERS,
                           "worker_loss_rel_err": wl_rel,
-                          "grad_rel_err": grad_err, **first}
+                          "grad_rel_err": grad_err,
+                          "grad_rel_err_one_site_on_kernels": by_site,
+                          **first}
     emit({"phase": 13, "dtype": "float32", "loss_rtol": TRAIN_LOSS_RTOL,
           **res})
     del params
@@ -1736,7 +1849,8 @@ def main() -> int:
     t_start = time.perf_counter()
     phase0_identity()
     shapes = (("group16", 16 * 16, 100), ("fig6_grid", 5 * 16 * 16, 1000),
-              ("dds_stack", dds_lanes(), 100), ("large", 1 << 20, 100))
+              ("dds_stack", dds_lanes(), 100), ("large", 1 << 20, 100),
+              ("extremes", 4099, 1000))
     rows = phase1_kernels(shapes)
 
     ops.reset_launch_counts()                 # the multicast path starts here

@@ -78,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -128,7 +130,9 @@ __global__ void __launch_bounds__(kThreads)
                                long long v_sh, float scale) {
   constexpr int QS = D + 1;      // row stride of the Q tile
   constexpr int KS = kKeys + 1;  // row stride of K^T and of P
-  constexpr int DC = D / 16;     // output columns per thread
+  // output columns per thread (tx + 16 c); where D is no multiple of 16
+  // the last column group is partial
+  constexpr int DC = (D + 15) / 16;
   extern __shared__ float smem[];
   float* qs = smem;              // [kRows][QS]
   float* kv = qs + kRows * QS;   // K^T [D][KS], then V [kKeys][D]
@@ -245,7 +249,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * KS + j];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vr[c] = kv[j * D + tx + 16 * c];
+      for (int c = 0; c < DC; ++c)
+        vr[c] = (D % 16 == 0 || tx + 16 * c < D) ? kv[j * D + tx + 16 * c]
+                                                  : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -264,7 +270,8 @@ __global__ void __launch_bounds__(kThreads)
                          head) * D;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = acc[i][c] / den;
+    for (int c = 0; c < DC; ++c)
+      if (D % 16 == 0 || tx + 16 * c < D) orow[tx + 16 * c] = acc[i][c] / den;
   }
 }
 
@@ -304,9 +311,17 @@ constexpr int kThreads = 256;  // two warpgroups
 constexpr int kStages = 3;     // K/V ring depth
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Q K^T steps its contraction 16 values at a time, so a tile holds D
+// rounded up to 16: where D is an odd number of 16-byte chunks, one zero
+// chunk follows the last (a zero column adds nothing to the scores).
+template <int D>
+__host__ __device__ constexpr int padded_d() {
+  return (D + 15) / 16 * 16;
+}
+
 template <int D>
 __host__ __device__ constexpr int tile_bytes(int rows) {
-  return rows * D * 2;
+  return rows * padded_d<D>() * 2;
 }
 
 template <int D>
@@ -452,8 +467,34 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d(64x8, f32) (+)= A(64x16, registers) * B(16x8, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n8(float* d, const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d(64x16, f32) (+)= A(64x16, registers) * B(16x16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float* d,
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // d(64x32, f32) (+)= A(64x16, registers) * B(16x32, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+__device__ __forceinline__ void wgmma_rs_n32(float* d,
                                              const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -472,7 +513,7 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
 }
 
 // d(64x64, f32) (+)= A(64x16, registers) * B(16x64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+__device__ __forceinline__ void wgmma_rs_n64(float* d,
                                              const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -495,7 +536,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 // d(64x128, f32) (+)= A(64x16, registers) * B(16x128, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+__device__ __forceinline__ void wgmma_rs_n128(float* d,
                                              const uint32_t (&a)[4],
                                              uint64_t db, int scale_d) {
   asm volatile(
@@ -551,7 +592,7 @@ __device__ __forceinline__ void qk_scores(float (&s)[kKeys / 2],
   for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < padded_d<D>() / 16; ++kk) {
     // a k16 step spans two 16-byte chunks: two core matrices along K
     const uint64_t da = smem_desc(q_s + 2 * kk * (kRows * 16) + wg * 64 * 16,
                                   kRows * 16, 128);
@@ -564,6 +605,32 @@ __device__ __forceinline__ void qk_scores(float (&s)[kKeys / 2],
   fence_regs(s);
 }
 
+// O[:, COL0:D] += P V[:, COL0:D] for one step of 16 keys, as wgmma
+// widths of 128, 64, 32, 16 and 8 columns (D = 80: n64 then n16), so the
+// tensor cores do D columns of work, not the next power of two.  The
+// output columns COL0 .. are the accumulator registers from COL0 / 2 on;
+// V's columns are core matrices kKeys * 16 bytes apart along N.
+template <int D, int COL0 = 0>
+__device__ __forceinline__ void pv_columns(float* o, const uint32_t (&p)[4],
+                                           uint32_t v_kt) {
+  constexpr int REST = D - COL0;
+  if constexpr (REST > 0) {
+    constexpr int W = REST >= 128 ? 128
+                      : REST >= 64 ? 64
+                      : REST >= 32 ? 32
+                      : REST >= 16 ? 16
+                                   : 8;
+    const uint64_t db =
+        smem_desc(v_kt + (COL0 / 8) * (kKeys * 16), 128, kKeys * 16);
+    if constexpr (W == 128) wgmma_rs_n128(o + COL0 / 2, p, db, 1);
+    if constexpr (W == 64) wgmma_rs_n64(o + COL0 / 2, p, db, 1);
+    if constexpr (W == 32) wgmma_rs_n32(o + COL0 / 2, p, db, 1);
+    if constexpr (W == 16) wgmma_rs_n16(o + COL0 / 2, p, db, 1);
+    if constexpr (W == 8) wgmma_rs_n8(o + COL0 / 2, p, db, 1);
+    pv_columns<D, COL0 + W>(o, p, v_kt);
+  }
+}
+
 // O (64 x D, f32) += P V: P (64 x kKeys) in registers as bf16 A fragments,
 // V (kKeys x D) from shared memory as the MN-major B operand.
 template <int D>
@@ -573,12 +640,8 @@ __device__ __forceinline__ void pv_accumulate(float (&o)[D / 2],
   wgmma_fence();
 #pragma unroll
   for (int kt = 0; kt < kKeys / 16; ++kt) {
-    // 16 keys: two core matrices along K (8 keys = 128 bytes apart); the
-    // D columns are core matrices kKeys * 16 bytes apart along N
-    const uint64_t db = smem_desc(v_s + kt * 16 * 16, 128, kKeys * 16);
-    if constexpr (D == 32) wgmma_rs_n32(o, p[kt], db, 1);
-    if constexpr (D == 64) wgmma_rs_n64(o, p[kt], db, 1);
-    if constexpr (D == 128) wgmma_rs_n128(o, p[kt], db, 1);
+    // 16 keys: two core matrices along K (8 keys = 128 bytes apart)
+    pv_columns<D>(o, p[kt], v_s + kt * 16 * 16);
   }
   wgmma_commit();
   wgmma_wait_all();
@@ -610,8 +673,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 long long q_sh, float scale_log2,
                                 const __grid_constant__ CUtensorMap tmap_k,
                                 const __grid_constant__ CUtensorMap tmap_v) {
-  constexpr int C = D / 8;  // 16-byte chunks per row
+  constexpr int C = D / 8;                 // 16-byte chunks of a row
+  constexpr int CK = padded_d<D>() / 8;    // ... of a tile row
   constexpr int TILE = tile_bytes<D>(kKeys);
+  constexpr int LOADED = kKeys * D * 2;    // bytes one TMA box brings
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t q_s = smem_u32(smem);
   const uint32_t kv_s = q_s + tile_bytes<D>(kRows);
@@ -631,14 +696,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = static_cast<int>(blockIdx.x % hb) / hkv;
   const long long f0 = static_cast<long long>(qt) * kRows;
 
-  // the Q tile, gathered row by row (G heads of each position)
-  for (int i = tid; i < kRows * C; i += kThreads) {
+  // the Q tile, gathered row by row (G heads of each position); the pad
+  // chunk, where there is one, is zero
+  for (int i = tid; i < kRows * CK; i += kThreads) {
     int r, c;
-    chunk_of<C>(i, r, c);
+    chunk_of<CK>(i, r, c);
     const long long f = f0 + r;
     const bf16* src = q;
     int bytes = 0;
-    if (f < n_rows) {
+    if (f < n_rows && c < C) {
       src = q + b * q_sb + (f / group) * q_ss +
             (h * group + f % group) * q_sh + 8 * c;
       bytes = 16;
@@ -654,7 +720,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int st = t % kStages;
     const uint32_t bar = bar_s + 8 * st;
     const uint32_t k_st = kv_s + st * 2 * TILE;
-    mbar_expect_tx(bar, 2 * TILE);
+    mbar_expect_tx(bar, 2 * LOADED);
     tma_load_5d(k_st, &tmap_k, 0, t * kKeys, 0, h, b, bar);
     tma_load_5d(k_st + TILE, &tmap_v, 0, t * kKeys, 0, h, b, bar);
   };
@@ -680,6 +746,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
+  if constexpr (CK > C) {
+    // the K/V tiles' pad chunk (TMA writes chunks 0 .. C - 1 only)
+    for (int i = tid; i < kStages * 2 * kKeys; i += kThreads)
+      *reinterpret_cast<uint4*>(smem + tile_bytes<D>(kRows) +
+                                (i / kKeys) * TILE + C * (kKeys * 16) +
+                                (i % kKeys) * 16) = make_uint4(0, 0, 0, 0);
+  }
   if (tid == 0) {
     for (int st = 0; st < kStages; ++st) mbar_init(bar_s + 8 * st, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -790,6 +863,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                       float* __restrict__ s_out,
                                       float* __restrict__ o_out) {
   constexpr int C = D / 8;
+  constexpr int CK = padded_d<D>() / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t q_s = smem_u32(smem);
   const uint32_t k_s = q_s + tile_bytes<D>(kRows);
@@ -798,16 +872,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int wg = tid / 128;
   const int warp = (tid % 128) / 32;
   const int lane = tid % 32;
-  for (int i = tid; i < kRows * C; i += kThreads) {
+  for (int i = tid; i < kRows * CK; i += kThreads) {
     int r, c;
-    chunk_of<C>(i, r, c);
-    cp_async16(q_s + c * (kRows * 16) + r * 16, q + r * D + 8 * c, 16);
+    chunk_of<CK>(i, r, c);
+    cp_async16(q_s + c * (kRows * 16) + r * 16, q + r * D + 8 * (c % C),
+               c < C ? 16 : 0);
   }
-  for (int i = tid; i < kKeys * C; i += kThreads) {
+  for (int i = tid; i < kKeys * CK; i += kThreads) {
     int j, c;
-    chunk_of<C>(i, j, c);
-    cp_async16(k_s + c * (kKeys * 16) + j * 16, k + j * D + 8 * c, 16);
-    cp_async16(v_s + c * (kKeys * 16) + j * 16, v + j * D + 8 * c, 16);
+    chunk_of<CK>(i, j, c);
+    cp_async16(k_s + c * (kKeys * 16) + j * 16, k + j * D + 8 * (c % C),
+               c < C ? 16 : 0);
+    cp_async16(v_s + c * (kKeys * 16) + j * 16, v + j * D + 8 * (c % C),
+               c < C ? 16 : 0);
   }
   cp_async_wait_all();
   fence_proxy_async();
@@ -926,15 +1003,19 @@ int tile_check(const void* q, const void* k, const void* v, void* s_out,
 
 }  // namespace tc
 
-template <typename Launch32, typename Launch64, typename Launch128>
-int by_head_dim(int head_dim, Launch32 l32, Launch64 l64, Launch128 l128) {
+// f(std::integral_constant<int, D>()) for the head dims the kernels take:
+// every multiple of 8 from 8 to 128
+template <typename F>
+int by_head_dim(int head_dim, F f) {
   switch (head_dim) {
-    case 32:
-      return l32();
-    case 64:
-      return l64();
-    case 128:
-      return l128();
+#define FA_HEAD_DIM(D) \
+  case D:              \
+    return f(std::integral_constant<int, D>());
+    FA_HEAD_DIM(8) FA_HEAD_DIM(16) FA_HEAD_DIM(24) FA_HEAD_DIM(32)
+    FA_HEAD_DIM(40) FA_HEAD_DIM(48) FA_HEAD_DIM(56) FA_HEAD_DIM(64)
+    FA_HEAD_DIM(72) FA_HEAD_DIM(80) FA_HEAD_DIM(88) FA_HEAD_DIM(96)
+    FA_HEAD_DIM(104) FA_HEAD_DIM(112) FA_HEAD_DIM(120) FA_HEAD_DIM(128)
+#undef FA_HEAD_DIM
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -946,8 +1027,9 @@ int by_head_dim(int head_dim, Launch32 l32, Launch64 l64, Launch128 l128) {
 // 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the wgmma kernel).
 // strides (9 values, in elements): q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
 // v_sb, v_ss, v_sh.  The Python wrapper checks shapes, dtypes, unit-stride
-// head dims, head_dim in {32, 64, 128}, b, s_len, hkv, group >= 1 and, for
-// bfloat16, 16-byte aligned bases and strides.
+// head dims, head_dim a multiple of 8 from 8 to 128, b, s_len, hkv,
+// group >= 1 and, for bfloat16, gives the kernel 16-byte aligned bases and
+// strides (a contiguous copy of an operand that has none).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b,
                                       int s_len, int hkv, int group,
@@ -956,23 +1038,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return by_head_dim(
-        head_dim,
-        [&] { return f32::launch<32>(q, k, v, out, b, s_len, hkv, group,
-                                     causal, strides, scale, s); },
-        [&] { return f32::launch<64>(q, k, v, out, b, s_len, hkv, group,
-                                     causal, strides, scale, s); },
-        [&] { return f32::launch<128>(q, k, v, out, b, s_len, hkv, group,
-                                      causal, strides, scale, s); });
+    return by_head_dim(head_dim, [&](auto d) {
+      return f32::launch<decltype(d)::value>(q, k, v, out, b, s_len, hkv,
+                                             group, causal, strides, scale,
+                                             s);
+    });
   if (dtype == 1)
-    return by_head_dim(
-        head_dim,
-        [&] { return tc::launch<32>(q, k, v, out, b, s_len, hkv, group,
-                                    causal, strides, scale, s); },
-        [&] { return tc::launch<64>(q, k, v, out, b, s_len, hkv, group,
-                                    causal, strides, scale, s); },
-        [&] { return tc::launch<128>(q, k, v, out, b, s_len, hkv, group,
-                                     causal, strides, scale, s); });
+    return by_head_dim(head_dim, [&](auto d) {
+      return tc::launch<decltype(d)::value>(q, k, v, out, b, s_len, hkv,
+                                            group, causal, strides, scale,
+                                            s);
+    });
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -984,9 +1060,7 @@ extern "C" int flash_attention_tile_check(const void* q, const void* k,
                                           void* o_out, int head_dim,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return by_head_dim(
-      head_dim,
-      [&] { return tc::tile_check<32>(q, k, v, s_out, o_out, s); },
-      [&] { return tc::tile_check<64>(q, k, v, s_out, o_out, s); },
-      [&] { return tc::tile_check<128>(q, k, v, s_out, o_out, s); });
+  return by_head_dim(head_dim, [&](auto d) {
+    return tc::tile_check<decltype(d)::value>(q, k, v, s_out, o_out, s);
+  });
 }

@@ -13,11 +13,14 @@ it through its strides, and masks the ragged last tile inside the kernel.
 chosen by dtype (:data:`KERNEL_OF`): bfloat16 runs on the tensor cores
 (``wgmma``, K/V tiles copied by TMA into a three-stage ring, 128 query
 rows a block, heaviest tiles first), float32 on the CUDA cores in full
-float32 (64 rows a block).  The bfloat16 kernel reads q in 16-byte
-copies and k/v through TMA maps, so it needs q, k and v at 16-byte
-aligned addresses with strides that are nonzero multiples of 8 elements
-(those of length-1 dims aside); the wrapper raises on anything else
-rather than copy.
+float32 (64 rows a block).  Both take every head dim that is a multiple
+of 8 from 8 to 128 (:func:`head_dim_ok`; zamba2's 80 among them).  The
+bfloat16 kernel reads q in 16-byte copies and k/v through TMA maps, so it
+needs q, k and v at 16-byte aligned addresses with strides that are
+nonzero multiples of 8 elements (those of length-1 dims aside); the
+wrapper gives it a fresh contiguous copy of an operand that is not laid
+out so (the same kernel runs on the copy) and counts those copies in
+:data:`ALIGN_COPIES`.
 
 The wrapper given CPU tensors runs :func:`flash_attention_plain`; given
 CUDA tensors it launches the kernel (the library is built at first use)
@@ -43,8 +46,10 @@ from repro_torch.kernels.autograd import kernel_with_plain_grad
 NEG_INF = -1e30
 
 # Launches of the CUDA kernel in this process (the plain version counts
-# nothing).
+# nothing), and operands the bfloat16 path copied to a layout its kernel
+# reads.
 LAUNCHES = 0
+ALIGN_COPIES = 0
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -59,7 +64,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_OF = {torch.float32: "flash_attention_kernel_f32",
              torch.bfloat16: "flash_attention_kernel_bf16"}
 ROWS_PER_BLOCK = {torch.float32: 64, torch.bfloat16: 128}
-HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = 128
+HEAD_DIM_RULE = f"a multiple of 8 from 8 to {MAX_HEAD_DIM}"
+
+
+def head_dim_ok(d: int) -> bool:
+    """Whether the kernels take head dim ``d`` (:data:`HEAD_DIM_RULE`)."""
+    return d % 8 == 0 and 8 <= d <= MAX_HEAD_DIM
 
 
 def launch_counts() -> Dict[str, int]:
@@ -67,8 +78,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    global LAUNCHES
+    global LAUNCHES, ALIGN_COPIES
     LAUNCHES = 0
+    ALIGN_COPIES = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -123,18 +135,23 @@ def block_tile(block: int, b: int, s: int, hkv: int,
     return n_qt - 1 - block // hb, block % hb % hkv, block % hb // hkv
 
 
-def _check_aligned(q, k, v) -> None:
-    """The bfloat16 kernel's 16-byte copies and TMA maps: every base
-    address 16-byte aligned, every stride of a dim longer than 1 a
-    nonzero multiple of 8 elements."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        strides = [st for st, n in zip(t.stride()[:3], t.shape[:3])
-                   if n > 1]
-        if t.data_ptr() % 16 or any(st % 8 or not st for st in strides):
-            raise ValueError(
-                f"the bfloat16 flash_attention kernel needs {name} at a "
-                f"16-byte aligned address with strides that are nonzero "
-                f"multiples of 8 elements; got stride {tuple(t.stride())}")
+def tma_layout_ok(t: torch.Tensor) -> bool:
+    """Whether the bfloat16 kernel's 16-byte copies and TMA maps read
+    ``t`` as it is: its base address 16-byte aligned, every stride of a
+    dim longer than 1 a nonzero multiple of 8 elements."""
+    return t.data_ptr() % 16 == 0 and all(
+        st % 8 == 0 and st for st, n in zip(t.stride()[:3], t.shape[:3])
+        if n > 1)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a fresh contiguous copy where :func:`tma_layout_ok`
+    fails (counted in :data:`ALIGN_COPIES`)."""
+    global ALIGN_COPIES
+    if tma_layout_ok(t):
+        return t
+    ALIGN_COPIES += 1
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _stream(dev: torch.device) -> int:
@@ -167,12 +184,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}; got {d}")
+    if not head_dim_ok(d):
+        raise ValueError(f"the kernel takes a head_dim that is "
+                         f"{HEAD_DIM_RULE}; got {d}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention needs a unit-stride head dim")
     if q.dtype == torch.bfloat16:
-        _check_aligned(q, k, v)
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=dev)
     if b == 0 or s == 0:
         return out
@@ -198,9 +216,9 @@ def tile_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     Counts no launch."""
     d = q.shape[-1]
     if (q.shape != (128, d) or k.shape != (64, d) or v.shape != (64, d)
-            or d not in HEAD_DIMS):
+            or not head_dim_ok(d)):
         raise ValueError(f"tile_check takes q (128, D), k and v (64, D) "
-                         f"with D in {HEAD_DIMS}")
+                         f"with D {HEAD_DIM_RULE}")
     for t in (q, k, v):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() \
                 or t.device.type != "cuda":

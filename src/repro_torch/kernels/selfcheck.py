@@ -17,22 +17,34 @@ Sections (all by default):
   SDPA's call beside each flash-decode case;
 * ``forward`` — compiles ``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu``
   and ``csrc/rmsnorm.cu`` with ``nvcc -Xptxas -v`` and prints each
-  kernel's registers and spills (and the count of ``HGMMA`` tensor-core
-  instructions in each attention kernel's machine code); checks one tile
-  of the bfloat16 attention kernel's tensor-core steps (``q k^T`` and
-  ``bf16(q k^T) v`` through the ``wgmma`` operand layouts) against plain
-  products at D = 32, 64 and 128; then holds flash attention, the SSD
+  kernel's registers and spills (the attention kernels at D = 80, 96 and
+  128) and the count of tensor-core instructions in its machine code
+  (``HGMMA`` for the attention kernels, ``HMMA`` for the four SSD
+  kernels); checks one tile of the bfloat16 attention kernel's
+  tensor-core steps (``q k^T`` and ``bf16(q k^T) v`` through the
+  ``wgmma`` operand layouts) against plain products at D = 32, 40, 64,
+  80, 96 and 128; checks each of the SSD scan's four steps (the scores,
+  the prefix sums, the chunks' own states, the states passed between
+  chunks) against plain products; then holds flash attention, the SSD
   scan and ``rms_norm`` against their plain versions at the forward and
-  serve paths' shapes and at the ``tests/test_kernels.py`` shapes, in
-  float32 and bfloat16, with the time of one library call beside each
-  attention and ``rms_norm`` case;
+  serve paths' shapes, zamba2's and the ``tests/test_kernels.py`` shapes,
+  in float32 and bfloat16, with the time of one library call beside each
+  attention and ``rms_norm`` case, and the profiler's device time of
+  each of the SSD scan's four kernels at mamba2-2.7b's and zamba2-2.7b's
+  shapes;
 * ``quantize`` — the same for ``csrc/quantize.cu``: quantize and
   dequantize must equal their plain versions bit for bit (the
   ``tests/test_quantize_kernel.py`` shapes, 2**24 elements, one block of
   2**26, zeros and exact .5 ties);
 * ``grad`` — the gradient through each forward kernel site (RMSNorm,
   fused residual RMSNorm, flash attention, SSD scan) against plain
-  autograd of its plain version, float32.
+  autograd of its plain version, float32;
+* ``smc`` — compiles ``csrc/smc_sweep.cu`` with ``-Xptxas -v``, then
+  holds the watermark kernel (its closed form) against the plain twin
+  and :func:`smc_sweep_watermark_closed_form`, exactly, at the multicast
+  path's lane counts, at 2**20 lanes and at lanes near INT32_MAX /
+  INT32_MIN, masked and not, with its CUDA-event time and the time of
+  the three-op PyTorch closed form beside each.
 
 It prints the largest error and the CUDA-event time of each case and
 fails on a compile error or an error above the bars.  Meant as the
@@ -43,6 +55,7 @@ GPU.
 
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 import tempfile
@@ -55,13 +68,22 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import quantize as qz
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import smc_sweep as ss
 from repro_torch.kernels import ssd_scan as sc
 
 ATTENTION_SHAPES = ((2, 2048, 16, 8, 128), (1, 1000, 16, 8, 128),
                     (1, 384, 8, 1, 128), (2, 128, 6, 2, 32),
-                    (2, 200, 4, 2, 64), (4, 512, 16, 8, 128))
-SSD_SHAPES = ((1, 2048, 80, 64, 128, 1, 256), (1, 64, 2, 16, 16, 1, 16),
-              (2, 128, 4, 32, 64, 2, 32), (1, 96, 2, 64, 128, 1, 32))
+                    (2, 200, 4, 2, 64), (4, 512, 16, 8, 128),
+                    (1, 2048, 32, 32, 80), (2, 300, 8, 2, 96),
+                    (1, 200, 4, 2, 40))
+# (B, S, H, P, N, G, chunk): mamba2-2.7b's scan, zamba2-2.7b's (P, N),
+# the widest shape the kernels take, a ragged chunk and P = 48, and the
+# tests/test_kernels.py shapes
+SSD_SHAPES = ((1, 2048, 80, 64, 128, 1, 256), (1, 2048, 80, 64, 64, 1, 256),
+              (1, 512, 8, 128, 256, 2, 64), (1, 300, 4, 48, 32, 2, 100),
+              (1, 64, 2, 16, 16, 1, 16), (2, 128, 4, 32, 64, 2, 32),
+              (1, 96, 2, 64, 128, 1, 32))
+TILE_HEAD_DIMS = (32, 40, 64, 80, 96, 128)
 QUANTIZE_SHAPES = ((2048, 2048), (8192, 2048), (4096, 512), (1 << 24, 2048),
                    (1 << 26, 1 << 26), (3 * 5000, 5000))
 ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -118,11 +140,12 @@ def close(got, want, tol: float) -> float:
     return err
 
 
-def compile_report(name: str, keep=()) -> None:
+def compile_report(name: str, keep=(), opcode: str = "HGMMA") -> None:
     """nvcc's -Xptxas -v lines (registers, spills) for ``csrc/<name>.cu``
     (of the kernels whose names hold one of ``keep``, where given) and,
-    where the toolkit has ``cuobjdump``, the count of HGMMA (``wgmma``)
-    instructions in each kernel's machine code."""
+    where the toolkit has ``cuobjdump``, the count of ``opcode``
+    instructions (HGMMA: ``wgmma``; HMMA: ``mma.sync``) in each kernel's
+    machine code."""
     with tempfile.TemporaryDirectory() as tmp:
         lib = f"{tmp}/{name}.so"
         proc = subprocess.run(
@@ -142,8 +165,9 @@ def compile_report(name: str, keep=()) -> None:
         if cuobjdump.exists():
             sass = subprocess.run([str(cuobjdump), "-sass", lib],
                                   capture_output=True, text=True).stdout
-            for fn, count in sass_opcode_counts(sass, "HGMMA").items():
-                print(f"{name}: {fn}: {count} HGMMA instructions")
+            for fn, count in sass_opcode_counts(sass, opcode).items():
+                if not keep or any(k in fn for k in keep):
+                    print(f"{name}: {fn}: {count} {opcode} instructions")
 
 
 def sass_opcode_counts(sass: str, opcode: str) -> dict:
@@ -162,7 +186,7 @@ def sass_opcode_counts(sass: str, opcode: str) -> dict:
 def check_tiles(gen) -> None:
     """The bf16 kernel's two tensor-core steps on one tile, alone."""
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
-    for d in fa.HEAD_DIMS:
+    for d in TILE_HEAD_DIMS:
         q = rnd(128, d).bfloat16()
         k, v = rnd(64, d).bfloat16(), rnd(64, d).bfloat16()
         s, o = fa.tile_check(q, k, v)
@@ -247,10 +271,94 @@ def check_decode(gen) -> None:
                   f"{err:.3g}, {ms:.4f} ms", flush=True)
 
 
+def check_ssd_steps(gen) -> None:
+    """Each step of the SSD kernels against plain products computed from
+    the same inputs (and, from step (ii) on, from the kernels' own prefix
+    sums), at mamba2's shape, a ragged chunk with P = 48 and the widest
+    shape, both dtypes."""
+    for b, s, h, p, n, g, chunk in (SSD_SHAPES[0], SSD_SHAPES[3],
+                                     SSD_SHAPES[2]):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a_log, bb, cc, d_skip, dt_bias = ssd_args(
+                gen, b, s, h, p, n, g, dtype)
+            ws = sc.stage_check(x, dt, a_log, bb, cc, d_skip, dt_bias, chunk)
+            torch.cuda.synchronize()
+            nc, rep = s // chunk, h // g
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            cf = cc.float().view(b, nc, chunk, g, n)
+            bf = bb.float().view(b, nc, chunk, g, n)
+            want = torch.einsum("bclgn,bcsgn->bcgls", cf, bf)
+            tri = torch.ones(chunk, chunk, device="cuda").tril().bool()
+            got = ws["scores"][..., :chunk, :chunk]
+            errs = {"scores": close(torch.where(tri, got.float(), 0),
+                                    torch.where(tri, want, 0),
+                                    1e-4 if dtype == torch.float32
+                                    else 1e-2)}
+            dts = torch.nn.functional.softplus(dt.float() + dt_bias)
+            da = (dts * -torch.exp(a_log)).view(b, nc, chunk, h)
+            # as the plain version scans: over the last dim of (B, H, nc, L)
+            cs = torch.cumsum(da.permute(0, 3, 1, 2), -1).reshape(b, h, s)
+            errs["dts"] = close(ws["dts"], dts.permute(0, 2, 1), 1e-5)
+            errs["cs"] = close(ws["cs"], cs, 1e-4)
+            kcs = ws["cs"].view(b, h, nc, chunk)
+            w = ws["dts"].view(b, h, nc, chunk) * torch.exp(
+                kcs[..., -1:] - kcs)
+            errs["w"] = close(ws["w"], w.reshape(b, h, s), 1e-5)
+            xw = x.float().view(b, nc, chunk, h, p) * \
+                w.permute(0, 2, 3, 1)[..., None]
+            bh = bf.repeat_interleave(rep, dim=3)
+            local = torch.einsum("bclhp,bclhn->bchpn", xw, bh)
+            errs["local"] = close(ws["local"], local, tol)
+            st, s_in = torch.zeros_like(local[:, 0]), []
+            for ci in range(nc):
+                s_in.append(st)
+                st = torch.exp(kcs[:, :, ci, -1])[..., None, None] * st + \
+                    ws["local"][:, ci]
+            errs["s_in"] = close(ws["s_in"].float(), torch.stack(s_in, 1),
+                                 tol)
+            errs["state"] = close(ws["state"], st, 1e-3)
+            y_want, _ = sc.ssd_scan_plain(x, dt, a_log, bb, cc, d_skip,
+                                          dt_bias, chunk)
+            errs["y"] = close(ws["y"], y_want, SSD_TOL[dtype])
+            print(f"ssd_scan steps B={b} S={s} H={h} P={p} N={n} G={g} "
+                  f"chunk={chunk} {dtype}: " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+
+
+def profile_ssd(gen) -> None:
+    """Device time a call of each of the SSD scan's kernels, from the
+    profiler over 20 warm calls, at mamba2-2.7b's and zamba2-2.7b's scan
+    shapes, dt in x's dtype as the model slices it."""
+    from torch.profiler import ProfilerActivity, profile
+    for b, s, h, p, n, g, chunk in SSD_SHAPES[:2]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, *rest = ssd_args(gen, b, s, h, p, n, g, dtype)
+            args = (x, dt.to(dtype), *rest, chunk)
+            for _ in range(3):
+                sc.ssd_scan(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    sc.ssd_scan(*args)
+                torch.cuda.synchronize()
+            times = {}
+            for e in prof.key_averages():
+                name = re.search(r"ssd_scan_[a-z]+_kernel", e.key)
+                if name:
+                    times[name.group()] = times.get(name.group(), 0.0) + \
+                        getattr(e, "self_device_time_total", 0) / 20
+            print(f"ssd_scan profile B={b} S={s} H={h} P={p} N={n} "
+                  f"chunk={chunk} {dtype}: " + ", ".join(
+                      f"{k} {v:.2f} us" for k, v in times.items())
+                  + f", total {sum(times.values()):.2f} us", flush=True)
+
+
 def check_forward(gen) -> None:
-    for name in ("flash_attention", "ssd_scan", "rmsnorm"):
-        compile_report(name)
+    compile_report("flash_attention", ("Li80E", "Li96E", "Li128E"))
+    compile_report("ssd_scan", opcode="HMMA")
+    compile_report("rmsnorm")
     check_tiles(gen)
+    check_ssd_steps(gen)
     rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
     for b, s, hq, hkv, d in ATTENTION_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -276,6 +384,7 @@ def check_forward(gen) -> None:
             print(f"ssd_scan B={b} S={s} H={h} P={p} N={n} G={g} "
                   f"chunk={chunk} {dtype}: y err {err:.3g}, state err "
                   f"{st_err:.3g}, {ms:.4f} ms", flush=True)
+    profile_ssd(gen)
 
 
 def ssd_args(gen, b, s, h, p, n, g, dtype):
@@ -367,8 +476,62 @@ def check_grad(gen) -> None:
               flush=True)
 
 
+def smc_extreme_lanes(n: int, window: int, seed: int):
+    """Lanes within 2W of INT32_MAX, INT32_MIN and 0, published <= 0 and
+    in (0, W), and arbitrary int32 lanes, with a validity mask (as
+    ``tests/test_torch_smc_sweep.py`` builds them)."""
+    g = torch.Generator().manual_seed(seed)
+    i32 = torch.iinfo(torch.int32)
+    base = torch.tensor([i32.max, i32.min, 0], dtype=torch.int64)[
+        torch.randint(0, 3, (n,), generator=g)]
+    near = lambda: base + torch.randint(-2 * window, 2 * window + 1, (n,),
+                                        generator=g)
+    wild = lambda: torch.randint(i32.min, i32.max, (n,), generator=g)
+    processed, published = near(), near()
+    small = torch.rand(n, generator=g) < 0.25
+    published = torch.where(small, torch.randint(-window, window, (n,),
+                                                 generator=g) + 1,
+                            published)
+    mix = torch.rand(n, generator=g) < 0.2
+    processed = torch.where(mix, wild(), processed)
+    published = torch.where(mix, wild(), published)
+    clip = lambda t: t.clamp(i32.min, i32.max).to(torch.int32).cuda()
+    valid = (torch.rand(n, generator=g) < 0.7).to(torch.int32).cuda()
+    return clip(published), clip(processed), valid
+
+
+def check_smc(gen) -> None:
+    compile_report("smc_sweep")
+    for label, n, window in (("group16", 256, 100), ("fig6_grid", 1280, 1000),
+                             ("large", 1 << 20, 100),
+                             ("extremes", 4099, 1000)):
+        pub, proc, valid = smc_extreme_lanes(n, window, n + window)
+        if label != "extremes":
+            proc = torch.randint(0, 4 * window, (n,), device="cuda",
+                                 generator=gen, dtype=torch.int32)
+            pub = proc + torch.randint(-1, window + 2, (n,), device="cuda",
+                                       generator=gen, dtype=torch.int32)
+        for mask in (None, valid):
+            got = ss.smc_sweep_watermark(pub, proc, window=window,
+                                         valid=mask)
+            twin = ss.smc_sweep_watermark_plain(pub, proc, window, mask)
+            form = ss.smc_sweep_watermark_closed_form(pub, proc, window,
+                                                      mask)
+            if not (torch.equal(got, twin) and torch.equal(got, form)):
+                raise AssertionError(f"smc_sweep_watermark {label} differs")
+            ms = event_ms(lambda: ss.smc_sweep_watermark(
+                pub, proc, window=window, valid=mask), 200)
+            yard = event_ms(lambda: proc + torch.clamp(pub - proc, 0,
+                                                       window), 200)
+            print(f"smc_sweep_watermark {label} {n} lanes W={window} "
+                  f"{'masked' if mask is not None else 'unmasked'}: exact, "
+                  f"{ms:.4f} ms, three-op closed form {yard:.4f} ms",
+                  flush=True)
+
+
 SECTIONS = {"decode": check_decode, "forward": check_forward,
-            "quantize": check_quantize, "grad": check_grad}
+            "quantize": check_quantize, "grad": check_grad,
+            "smc": check_smc}
 
 
 def main(argv=None) -> int:

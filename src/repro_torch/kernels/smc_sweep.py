@@ -7,9 +7,13 @@ Two functions, as in the reference's ``repro.kernels.smc_sweep``:
   SMC data structure, e.g. one built by :func:`repro_torch.core.smc.publish`
   or :func:`counters_from_counts`).
 * :func:`smc_sweep_watermark` sweeps from per-lane published watermarks
-  only: the counter each slot would hold is rebuilt inside the kernel, so
-  nothing (L, W)-shaped is ever materialized.  This is the receive
-  predicate of the ``kernel`` Group backend, launched once per round.
+  only.  The kernel computes the run in closed form
+  (:func:`smc_sweep_watermark_closed_form`, which the CPU tests hold
+  against the plain twin's loop over the materialized ring), so nothing
+  (L, W)-shaped exists and a lane's cost does not depend on W.  This is
+  the receive predicate of the ``kernel`` Group backend, launched once
+  per round; its launch path is one ``torch.empty_like`` and one ctypes
+  call with the arguments packed into one array.
 
 A wrapper given CPU tensors runs the plain twin; given CUDA tensors it
 launches the kernel from ``csrc/smc_sweep.cu`` (built at first use) or
@@ -20,6 +24,7 @@ one to the module's launch counter; twins count nothing.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -31,9 +36,12 @@ WATERMARK_LAUNCHES = 0
 RING_LAUNCHES = 0
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# the watermark entry point takes one packed int64 array (no argtypes: no
+# per-call conversion of arguments): published, processed, valid (0 = no
+# mask), out, lanes, window, stream
+_N_WATERMARK_ARGS = 7
 _SIGNATURES = {
-    "smc_sweep_watermark_launch": ([_PTR, _PTR, _PTR, _PTR, _INT, _INT,
-                                    _PTR], _INT),
+    "smc_sweep_watermark_launch": (None, _INT),
     "smc_sweep_ring_launch": ([_PTR, _PTR, _PTR, _INT, _INT, _PTR], _INT),
 }
 
@@ -97,6 +105,25 @@ def smc_sweep_plain(counters: torch.Tensor,
     return processed + _contiguous_run(counters, processed, counters.shape[1])
 
 
+def smc_sweep_watermark_closed_form(published: torch.Tensor,
+                                    processed: torch.Tensor, window: int,
+                                    valid: Optional[torch.Tensor] = None
+                                    ) -> torch.Tensor:
+    """What the watermark kernel computes, lane by lane: ``processed +
+    clamp(max(published, 0) - processed, 0, W)`` in 64-bit arithmetic,
+    wrapped to int32; ``processed`` where ``valid <= 0``.  Slot ``k`` is
+    visible iff ``k < max(published, 0)``, so the run is the count of
+    leading ``k = processed + j`` below that limit.  The tests hold it
+    against :func:`smc_sweep_watermark_plain` and the reference's Pallas
+    kernel; nothing on the main path calls it."""
+    pub, proc = published.long(), processed.long()
+    run = (pub.clamp(min=0) - proc).clamp(0, window)
+    if valid is not None:
+        run = torch.where(valid > 0, run, 0)
+    out = (proc + run + (1 << 31)) % (1 << 32) - (1 << 31)
+    return out.to(torch.int32)
+
+
 def smc_sweep_watermark_plain(published: torch.Tensor,
                               processed: torch.Tensor, window: int,
                               valid: Optional[torch.Tensor] = None
@@ -145,6 +172,40 @@ def _check_launch(code: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {code}")
 
 
+_LOCAL = threading.local()
+
+
+def _watermark_caller():
+    """This thread's (packed argument array, the C function): the array
+    is filled and read within one call, so each thread has its own."""
+    try:
+        return _LOCAL.caller
+    except AttributeError:
+        _LOCAL.caller = ((ctypes.c_longlong * _N_WATERMARK_ARGS)(),
+                         _lib().smc_sweep_watermark_launch)
+        return _LOCAL.caller
+
+
+def _lanes_match(t: torch.Tensor, like: torch.Tensor) -> bool:
+    """Whether ``t`` is a contiguous int32 tensor of ``like``'s shape on
+    its device (attribute reads only)."""
+    return (type(t) is torch.Tensor and t.dtype is torch.int32
+            and t.shape == like.shape and t.is_contiguous()
+            and t.get_device() == like.get_device())
+
+
+def _check_watermark(published, processed, valid) -> None:
+    """The watermark wrapper's operand checks, kept to attribute reads
+    (it runs once per protocol round); anything off re-runs the full
+    check for its message."""
+    if not (published.dim() == 1 and _lanes_match(published, published)
+            and _lanes_match(processed, published)
+            and (valid is None or _lanes_match(valid, published))
+            and published.device == processed.device):
+        _check_lanes(1, published=published, processed=processed,
+                     valid=valid)
+
+
 def smc_sweep_watermark(published: torch.Tensor, processed: torch.Tensor, *,
                         window: int, valid: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
@@ -152,24 +213,32 @@ def smc_sweep_watermark(published: torch.Tensor, processed: torch.Tensor, *,
     (L,) int32 -> visible counts (L,) int32.  CPU tensors run the plain
     twin; CUDA tensors launch the kernel on the current stream."""
     global WATERMARK_LAUNCHES
-    n = _check_lanes(window, published=published, processed=processed,
-                     valid=valid)
-    dev = published.device
-    if dev.type == "cpu":
-        return smc_sweep_watermark_plain(published, processed, window, valid)
-    if dev.type != "cuda":
-        raise ValueError(f"no smc_sweep_watermark for device {dev}")
-    out = torch.empty_like(processed)
-    if n == 0:
+    if not isinstance(window, int) or window < 1:
+        raise ValueError(f"window must be an int >= 1, got {window!r}")
+    if not isinstance(published, torch.Tensor):
+        raise TypeError("published must be a torch.Tensor")
+    _check_watermark(published, processed, valid)
+    if published.is_cuda:
+        out = torch.empty_like(processed)
+        n = out.shape[0]
+        if n:
+            args, fn = _watermark_caller()
+            dev = published.get_device()
+            args[:] = (published.data_ptr(), processed.data_ptr(),
+                       0 if valid is None else valid.data_ptr(),
+                       out.data_ptr(), n, window,
+                       torch._C._cuda_getCurrentRawStream(dev))
+            if dev == torch._C._cuda_getDevice():
+                code = fn(args)
+            else:
+                with torch.cuda.device(dev):
+                    code = fn(args)
+            _check_launch(code, "smc_sweep_watermark")
+            WATERMARK_LAUNCHES += 1
         return out
-    lib = _lib()
-    _check_launch(lib.smc_sweep_watermark_launch(
-        published.data_ptr(), processed.data_ptr(),
-        None if valid is None else valid.data_ptr(), out.data_ptr(), n,
-        window, torch.cuda.current_stream(dev).cuda_stream),
-        "smc_sweep_watermark")
-    WATERMARK_LAUNCHES += 1
-    return out
+    if published.device.type == "cpu":
+        return smc_sweep_watermark_plain(published, processed, window, valid)
+    raise ValueError(f"no smc_sweep_watermark for device {published.device}")
 
 
 def smc_sweep(counters: torch.Tensor, processed: torch.Tensor

@@ -75,6 +75,40 @@ def test_matches_the_tpu_kernel(b, s, hq, hkv, d, dtype, causal):
     _close(got, want, DTYPES[dtype][2])
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("d", [80, 96])
+def test_new_head_dims_match_the_reference(d, dtype, causal):
+    """Head dims the kernels now take (zamba2-2.7b's 80, and 96): the
+    plain version against the TPU kernel in interpret mode and against
+    the jnp oracle, at the kernel bars."""
+    b, s, hq, hkv = 1, 128, 4, 2
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(b, s, hq, hkv, d, seed=d),
+                                       dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    tol = DTYPES[dtype][2]
+    _close(got, ref_ops.flash_attention(jq, jk, jv, causal=causal), tol)
+    flat = [x.transpose(0, 2, 1, 3).reshape(-1, s, d) for x in (jq, jk, jv)]
+    want = ref_kernels.flash_attention_ref(*flat, group=hq // hkv,
+                                           causal=causal)
+    _close(got, want.reshape(b, hq, s, d).transpose(0, 2, 1, 3), tol)
+
+
+def test_head_dim_rule_takes_zamba2():
+    """The kernels' head-dim rule, read as the CPU sees it: every multiple
+    of 8 from 8 to 128, zamba2-2.7b's 80 and qwen3-1.7b's 128 among them;
+    other widths raise naming the rule before any launch."""
+    from repro.configs import qwen3_1_7b, zamba2_2_7b
+    for cfg in (zamba2_2_7b.build(), qwen3_1_7b.build()):
+        assert fa.head_dim_ok(cfg.head_dim)
+    assert [d for d in range(257) if fa.head_dim_ok(d)] == \
+        list(range(8, 129, 8))
+    assert "multiple of 8" in fa.HEAD_DIM_RULE
+    q = torch.zeros(1, 8, 2, 100)
+    with pytest.raises(ValueError, match="multiple of 8 from 8 to 128"):
+        fa._launch(q, q, q, causal=True)
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_unpadded_causal_matches_the_tpu_kernel(dtype):
     """S = 200 is no multiple of the TPU kernel's 128 tiles: its wrapper
@@ -279,32 +313,57 @@ def test_launch_geometry_covers_every_tile_heaviest_first(b, s, hkv, group):
 
 
 def test_bf16_kernel_refuses_misaligned_inputs(fake_lib):
-    """16-byte copies and TMA maps: a bf16 base off 16 bytes, a stride
-    that is no multiple of 8 elements or a zero (broadcast) stride raises
-    before any launch; float32 takes both; a stride of a dim of length 1
-    does not matter."""
+    """16-byte copies and TMA maps: a bf16 operand at a base off 16
+    bytes, with a stride that is no multiple of 8 elements or a zero
+    (broadcast) stride is no longer refused: the kernel is given a fresh
+    contiguous copy of it (counted in ALIGN_COPIES, its values equal),
+    and the operands already laid out so go as they are; float32 takes
+    every layout as it is; a stride of a dim of length 1 does not
+    matter."""
     bf16 = torch.bfloat16
     k = torch.zeros(1, 16, 1, 64, dtype=bf16)
-    odd_stride = torch.zeros(1, 16, 3, 65, dtype=bf16)[..., :64]
-    off_base = torch.zeros(16 * 3 * 64 + 4, dtype=bf16)[4:].view(1, 16, 3,
-                                                                  64)
-    before = fa.LAUNCHES
+    odd_stride = torch.randn(1, 16, 3, 65).to(bf16)[..., :64]
+    off_base = torch.randn(16 * 3 * 64 + 4).to(bf16)[4:].view(1, 16, 3, 64)
+    broadcast = torch.zeros(1, 1, 1, 64, dtype=bf16).expand(1, 16, 1, 64)
+    before, copies = fa.LAUNCHES, fa.ALIGN_COPIES
     for q in (odd_stride, off_base):
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            fa._launch(q, k, k, causal=True)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        fa._launch(torch.zeros(1, 16, 3, 64, dtype=bf16), off_base[:, :, :1],
-                   k, causal=False)
-    with pytest.raises(ValueError, match="nonzero multiples"):
-        fa._launch(torch.zeros(1, 16, 2, 64, dtype=bf16),
-                   torch.zeros(1, 1, 1, 64, dtype=bf16).expand(1, 16, 1, 64),
-                   k, causal=True)
-    assert fa.LAUNCHES == before and not fake_lib.calls
+        assert not fa.tma_layout_ok(q)
+        fa._launch(q, k, k, causal=True)
+        ptr = fake_lib.calls[-1][0]
+        assert ptr != q.data_ptr() and ptr % 16 == 0
+    fa._launch(torch.zeros(1, 16, 3, 64, dtype=bf16), off_base[:, :, :1],
+               k, causal=False)
+    fa._launch(torch.zeros(1, 16, 2, 64, dtype=bf16), broadcast, k,
+               causal=True)
+    assert fake_lib.calls[-1][1] != broadcast.data_ptr()
+    assert fake_lib.calls[-1][2] == k.data_ptr()      # aligned: as it is
+    assert fa.ALIGN_COPIES == copies + 4
+    assert fa.LAUNCHES == before + 4
     odd_f32 = torch.zeros(1, 16, 3, 65)[..., :64]
     fa._launch(odd_f32, k.float(), k.float(), causal=True)
+    assert fake_lib.calls[-1][0] == odd_f32.data_ptr()
     fa._launch(torch.zeros(16 * 3 * 64 + 1)[1:].view(1, 16, 3, 64),
                k.float(), k.float(), causal=True)
     single = torch.zeros(16 * 3 * 64, dtype=bf16).as_strided(
         (1, 16, 3, 64), (7, 192, 64, 1))
     fa._launch(single, k, k, causal=True)
-    assert fa.LAUNCHES == before + 3
+    assert fake_lib.calls[-1][0] == single.data_ptr()
+    assert fa.ALIGN_COPIES == copies + 4
+    assert fa.LAUNCHES == before + 7
+
+
+def test_misaligned_copy_keeps_the_values():
+    """The copy the bf16 path takes is the operand's values in a layout
+    the kernel reads: the plain version gives the same result on it."""
+    rng = np.random.default_rng(43)
+    base = torch.from_numpy(rng.normal(size=16 * 3 * 64 + 4).astype(
+        np.float32)).bfloat16()
+    q = base[4:].view(1, 16, 3, 64)
+    kv = torch.from_numpy(rng.normal(size=(1, 16, 1, 65)).astype(
+        np.float32)).bfloat16()[..., :64]
+    before = fa.ALIGN_COPIES
+    q2, k2 = fa._aligned(q), fa._aligned(kv)
+    assert fa.ALIGN_COPIES == before + 2
+    assert fa.tma_layout_ok(q2) and fa.tma_layout_ok(k2)
+    assert torch.equal(fa.flash_attention_plain(q2, k2, k2),
+                       fa.flash_attention_plain(q, kv, kv))

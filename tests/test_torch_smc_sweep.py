@@ -172,6 +172,68 @@ def test_closed_form_identity_for_nonnegative_inputs(w):
     np.testing.assert_array_equal(_np(got), want)
 
 
+def _extreme_lanes(rng, w, n):
+    """Lanes within 2W of INT32_MAX, INT32_MIN and 0, published in (0, W)
+    and <= 0, and arbitrary int32 values: where the int32 adds wrap and
+    the counters go negative."""
+    i32 = np.iinfo(np.int32)
+    quarter = n // 4
+    base = np.concatenate([np.full(quarter, i32.max, np.int64),
+                           np.full(quarter, i32.min, np.int64),
+                           np.zeros(n - 2 * quarter, np.int64)])
+    processed = base + rng.integers(-2 * w, 2 * w + 1, size=n)
+    published = base + rng.integers(-2 * w, 2 * w + 1, size=n)
+    small = rng.random(n) < 0.25          # published in (0, W) or <= 0
+    published = np.where(small, rng.integers(-w, w, size=n) + (w > 1),
+                         published)
+    wild = rng.random(n) < 0.2
+    processed = np.where(wild, rng.integers(i32.min, i32.max, size=n),
+                         processed)
+    published = np.where(wild, rng.integers(i32.min, i32.max, size=n),
+                         published)
+    clip = lambda x: np.clip(x, i32.min, i32.max).astype(np.int32)
+    return clip(published), clip(processed), rng.random(n) < 0.7
+
+
+@pytest.mark.parametrize("w", [1, 3, 100, 1000])
+def test_closed_form_matches_the_twin_and_pallas_at_the_extremes(w):
+    """The kernel's closed form, processed + clamp(max(published, 0) -
+    processed, 0, W) wrapped to int32, equals the plain twin's loop over
+    the materialized ring and the reference's Pallas kernel exactly, with
+    and without a mask, at INT32_MAX / INT32_MIN +- 2W, published <= 0
+    and in (0, W), and arbitrary int32 lanes."""
+    rng = np.random.default_rng(200 + w)
+    published, processed, valid = _extreme_lanes(rng, w, 64)
+    for v in (None, valid):
+        mask = None if v is None else _t(v)
+        got = ss.smc_sweep_watermark_closed_form(_t(published),
+                                                 _t(processed), w, mask)
+        assert got.dtype == torch.int32
+        twin = ss.smc_sweep_watermark_plain(_t(published), _t(processed), w,
+                                            mask)
+        np.testing.assert_array_equal(_np(got), _np(twin))
+        want = ref_ss.smc_sweep_watermark_pallas(
+            jnp.asarray(published), jnp.asarray(processed), window=w,
+            valid=None if v is None else jnp.asarray(v), interpret=True)
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
+        np.testing.assert_array_equal(
+            _np(_watermark_everywhere(published, processed, w, v)),
+            _np(got))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_closed_form_equals_the_twin_on_many_lanes(seed):
+    """The same identity over 20k lanes a window, W in {1, 2, 7, 257}."""
+    rng = np.random.default_rng(300 + seed)
+    for w in (1, 2, 7, 257):
+        published, processed, valid = _extreme_lanes(rng, w, 20000)
+        pub, proc, mask = _t(published), _t(processed), _t(valid)
+        for v in (None, mask):
+            np.testing.assert_array_equal(
+                _np(ss.smc_sweep_watermark_closed_form(pub, proc, w, v)),
+                _np(ss.smc_sweep_watermark_plain(pub, proc, w, v)))
+
+
 def test_ops_wrapper_takes_a_bool_mask():
     rng = np.random.default_rng(29)
     published, processed = _lanes(rng, 12, 8)

@@ -81,6 +81,111 @@ def test_matches_the_tpu_kernel(b, s, h, p, n, g, chunk, dtype):
                                rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk", [
+    (1, 64, 4, 64, 64, 1, 32),     # zamba2-2.7b's (P, N)
+    (1, 96, 4, 48, 32, 2, 32),     # P no power-of-two multiple of 16
+])
+def test_new_kernel_shapes_match_the_reference(b, s, h, p, n, g, chunk,
+                                               dtype):
+    """The plain version at shapes the kernels now take, against
+    ``repro.kernels.ops.ssd_scan`` (its Pallas kernel in interpret mode),
+    at the tests/test_kernels.py bars."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _inputs(b, s, h, p, n, g, seed=7 * p + n)
+    y_want, st_want = ref_ops.ssd_scan(*_jax(arrays, jdt), chunk)
+    y_got, st_got = ops.ssd_scan(*_torch(arrays, tdt), chunk)
+    np.testing.assert_allclose(y_got.float().numpy(),
+                               np.asarray(y_want, np.float32), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(st_got.numpy(), np.asarray(st_want),
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_kernel_shape_rule_takes_zamba2():
+    """The kernels' shape rule: P and N multiples of 16 up to 128 and 256,
+    any chunk up to 4096; zamba2-2.7b's (64, 64), mamba2-2.7b's (64, 128)
+    and the reference tests' shapes are in, others raise naming the
+    rule."""
+    from repro.configs import mamba2_2_7b, zamba2_2_7b
+    for cfg in (zamba2_2_7b.build(), mamba2_2_7b.build()):
+        assert sc.kernel_shape_ok(cfg.ssm.head_dim, cfg.ssm.d_state,
+                                  cfg.ssm.chunk)
+    for p, n in ((16, 16), (32, 64), (64, 128), (48, 32), (128, 256)):
+        assert sc.kernel_shape_ok(p, n, 256)
+    for p, n, chunk in ((24, 16, 64), (16, 264, 64), (144, 16, 64),
+                        (64, 64, 4097)):
+        assert not sc.kernel_shape_ok(p, n, chunk)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        sc.check_kernel_shape(24, 16, 64)
+
+
+def test_workspace_layout_parts_are_aligned_and_disjoint():
+    """One buffer holds y, the state and the four steps' intermediates,
+    each 256-byte aligned, none overlapping; the scores' tiles are the
+    chunk rounded up to 64."""
+    for dtype in (torch.float32, torch.bfloat16):
+        layout = sc.workspace_layout(2, 300, 4, 48, 32, 2, 100, dtype)
+        total = layout.pop("total")[0]
+        assert list(layout) == ["y", "state", "scores", "cs", "dts", "w",
+                                "local", "s_in"]
+        assert layout["scores"][1] == (2, 3, 2, 128, 128)
+        assert layout["y"][2] == layout["s_in"][2] == dtype
+        spans = sorted((off, off + sc._bytes(shape, dt))
+                       for off, shape, dt in layout.values())
+        assert all(off % 256 == 0 for off, _ in spans)
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        assert spans[-1][1] <= total
+
+
+class _FakeLib:
+    """Records the packed arguments in place of the card."""
+
+    def __init__(self):
+        self.calls = []
+
+    def ssd_scan_launch(self, args):
+        self.calls.append(list(args))
+        return 0
+
+
+def test_launch_packs_every_argument(monkeypatch):
+    """The wrapper's launch path on CPU tensors with a stand-in library:
+    one allocation whose parts sit where the packed pointers say, the
+    strides of x, dt, b and c as given, dt's own dtype, and a contiguous
+    copy of an operand whose rows are not 16-byte aligned."""
+    lib = _FakeLib()
+    monkeypatch.setattr(sc, "_caller",
+                        lambda: ([0] * sc._N_ARGS, lib.ssd_scan_launch))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda dev: 7, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: None,
+                        raising=False)
+    b, s, h, p, n, g, chunk = 1, 64, 4, 32, 16, 2, 32
+    t = _torch(_inputs(b, s, h, p, n, g, seed=5), torch.bfloat16)
+    x, dt, a_log, bb, cc, d_skip, dt_bias = t
+    wide = torch.zeros(b, s, g * n + 3, dtype=torch.bfloat16)
+    c_odd = wide[..., 3:].view(b, s, g, n)       # rows 6 bytes off
+    before = sc.LAUNCHES
+    y, st = sc._launch(x, dt.bfloat16(), a_log, bb, c_odd, d_skip, dt_bias,
+                       chunk)
+    args = lib.calls[-1]
+    assert sc.LAUNCHES == before + 1
+    assert args[15:24] == [b, s, h, g, p, n, chunk, 1, 1]
+    assert args[24:27] == list(x.stride()[:3])
+    assert args[30:33] == list(bb.stride()[:3])
+    assert args[33:36] == [s * g * n, g * n, n]   # the copy, contiguous
+    assert args[4] != c_odd.data_ptr() and args[36] == 7
+    layout = sc.workspace_layout(b, s, h, p, n, g, chunk, torch.bfloat16)
+    assert args[7] == y.data_ptr() and args[8] == st.data_ptr()
+    assert args[9] - args[7] == layout["scores"][0]
+    assert args[12] - args[7] == layout["w"][0]
+    assert args[14] - args[7] == layout["s_in"][0]
+    assert y.shape == (b, s, h, p) and st.shape == (b, h, p, n)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        sc._launch(x[..., :24], dt, a_log, bb, cc, d_skip, dt_bias, chunk)
+
+
 @pytest.mark.parametrize("chunk", [8, 16, 48])
 def test_chunked_matches_the_sequential_recurrence(chunk):
     """The port's chunked plain version == its own step-by-step
