@@ -21,9 +21,11 @@ Phases (one JSON line each; any failure exits non-zero):
 0. card identity (``nvidia-smi`` name and power limit) and build time;
 1. both SMC kernels against their twins at the main path's lane counts,
    at 2**20 lanes and at lanes near INT32_MAX / INT32_MIN (the watermark
-   kernel also against its closed form): exact equality, CUDA-event
-   times, the byte bound, and the time of the three-op PyTorch closed
-   form beside them;
+   kernel also against its closed form, the ring kernel against the
+   watermark kernel): exact equality, CUDA-event and profiler times,
+   device operations a call, the byte bound (for the ring, the counters
+   the runs of these inputs need: run + 1 slots a row, at most W), and
+   the time of the three-op PyTorch closed form beside them;
 2. the paper's testbed: 16 nodes, all senders, 10 KB messages, window
    100, 1000 messages per sender;
 3. the Fig. 6 window grid and the Fig. 11 null-send grid as one
@@ -69,9 +71,12 @@ Phases (one JSON line each; any failure exits non-zero):
    the prefill of S + 1 tokens;
 11. quantize and dequantize against their plain versions, bit for bit:
    the ``tests/test_quantize_kernel.py`` shapes and 2**24 elements at
-   block 2048, float32 and bfloat16, zeros and exact .5 ties, and the
-   main path's largest bucket shard (qwen3-1.7b's plan, W = 2, float32):
-   CUDA-event and profiler times, the plain time, the byte bound;
+   block 2048, a block of 100,003 (no multiple of 4 or 8; also from an x
+   that is not 16-byte aligned), 2 x 40,000 (fewer tiles than the
+   persistent grid's CTAs), float32 and bfloat16, zeros and exact .5
+   ties, and the main path's largest bucket shard (qwen3-1.7b's plan,
+   W = 2, float32): CUDA-event and profiler times, device operations a
+   call, the plain time, the byte bound;
 12. the training plane at full width: ``Trainer`` on qwen3-1.7b (28
    layers, bf16 weights from seed 0, AdamW state in float32) with
    ``Runtime(gradsync="spindle_compressed", dp_workers=2)``, 2 x 2048
@@ -91,6 +96,10 @@ Phases (one JSON line each; any failure exits non-zero):
    run) and mamba2-2.7b (``spindle``, W = 2, 2 x 1024 tokens, one step:
    the SSD scan's gradient, per-worker gradients within 5e-4, and the
    error with only the SSD or only the RMSNorm sites on their kernels);
+   for both, the float64 yardstick: the plain path's gradients in
+   float64 against each float32 run, per leaf as a share of its largest
+   entry (``e_kernel``, ``e_plain``), with e_kernel <= 2 e_plain + 1e-6
+   on every leaf;
 14. the ``kernels`` line: per kernel its launches on the main paths
    (phases 2-4, 6, 9 and 12), its times and its bound.
 
@@ -194,9 +203,10 @@ def device_us(e):
                    getattr(e, "self_cuda_time_total", 0))
 
 
-def profiled_device_ms(fn, iters: int):
-    """Mean time the device spent in kernels per ``fn()`` call, from the
-    profiler's device-side trace (launch gaps excluded); None if the
+def profiled_device(fn, iters: int):
+    """(mean time the device spent in kernels per ``fn()`` call, device
+    operations (kernels, memsets, copies) per call), from the profiler's
+    device-side trace (launch gaps excluded); (None, None) if the
     profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -205,8 +215,17 @@ def profiled_device_ms(fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(device_us(e) for e in prof.key_averages())
-    return total_us / iters / 1e3 if total_us > 0 else None
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    total_us = sum(device_us(e) for e in events)
+    if total_us <= 0:
+        return None, None
+    return total_us / iters / 1e3, sum(e.count for e in events) / iters
+
+
+def profiled_device_ms(fn, iters: int):
+    """Mean time the device spent in kernels per ``fn()`` call (see
+    :func:`profiled_device`); None if the profiler recorded none."""
+    return profiled_device(fn, iters)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -348,24 +367,29 @@ def phase1_kernels(shapes):
                       f"ring sweep != watermark sweep at {label}")
             big = n >= 1 << 18
             kernel_ms = cuda_ms(kernel, 50 if big else 200)
-            kernel_device_ms = profiled_device_ms(kernel, 50)
+            kernel_device_ms, ops_per_call = profiled_device(kernel, 50)
             plain_ms = cuda_ms(plain, 5 if big else 50, warmup=2)
+            extra = {}
             if name == "smc_sweep":
-                # the ring kernel's loop checks (run + 1) slots, at most W
+                # the ring kernel checks (run + 1) slots of a row, at most
+                # W: those counters are what these inputs need read, with
+                # processed read and the count written (bytes_whole_ring:
+                # what a bound that ignores the early exit would charge)
                 run = (want.long() - proc.long()).clamp(min=0)
                 ops = int((run + 1).clamp(max=window).sum().item())
-                inputs = counters.numel() + n
+                nbytes = 4 * (ops + 2 * n)
+                extra = {"bytes_whole_ring": 4 * (counters.numel() + 2 * n)}
             else:
                 ops = WATERMARK_OPS_PER_LANE * n
-                inputs = (3 if name.endswith("masked") else 2) * n
-            nbytes = 4 * (inputs + n)
+                nbytes = 4 * ((3 if name.endswith("masked") else 2) * n + n)
             bound_ms, bound_by = bound(nbytes, ops)
             rows.append({"kernel": name, "shape": label, "lanes": n,
                          "window": window, "max_abs_err": err,
                          "ms": kernel_ms, "device_ms": kernel_device_ms,
+                         "device_ops_per_call": ops_per_call,
                          "plain_ms": plain_ms, "bytes": nbytes,
                          "int_ops": ops, "bound_ms": bound_ms,
-                         "bound_by": bound_by})
+                         "bound_by": bound_by, **extra})
         # three PyTorch calls (not one: no library call computes the
         # sweep), the closed form for non-negative inputs
         yard_ms = cuda_ms(lambda: proc + torch.clamp(pub - proc, 0, window),
@@ -572,8 +596,9 @@ def bound(nbytes: float, flops: float, ops_per_s: float = ALU_OPS_PER_S):
 def time_case(kernel, plain, library, iters: int = 200):
     # the profiler reported no device time for windows of 5-12 launches
     # on the card: profile at least 50
-    return {"ms": cuda_ms(kernel, iters),
-            "device_ms": profiled_device_ms(kernel, max(iters // 4, 50)),
+    device_ms, ops_per_call = profiled_device(kernel, max(iters // 4, 50))
+    return {"ms": cuda_ms(kernel, iters), "device_ms": device_ms,
+            "device_ops_per_call": ops_per_call,
             "plain_ms": cuda_ms(plain, max(iters // 10, 5), warmup=2),
             "library_ms": None if library is None
             else cuda_ms(library, iters)}
@@ -1371,7 +1396,8 @@ def train_plan(cfg, workers: int = TRAIN_WORKERS):
 
 def quantize_row(x, block: int, label: str, out_dtype, iters: int):
     """quantize and dequantize of ``x`` against their plain versions
-    (identical or fail), with times and byte bounds."""
+    (identical or fail), with times, device operations a call and byte
+    bounds."""
     n = x.numel()
     q, s = qz.quantize(x, block)
     q_p, s_p = qz.quantize_plain(x, block)
@@ -1406,13 +1432,16 @@ def quantize_row(x, block: int, label: str, out_dtype, iters: int):
 
 def phase11_quantize():
     """Both quantize kernels against their plain versions, bit for bit:
-    the reference tests' shapes, 2**24 elements, zeros and .5 ties, and
+    the reference tests' shapes, 2**24 elements, a block of 100,003 (no
+    multiple of 4 or 8; also from an x that is not 16-byte aligned),
+    fewer tiles than the persistent grid's CTAs, zeros and .5 ties, and
     the main path's largest bucket shard (qwen3-1.7b, W = 2)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
     rows = []
     for n, block in ((2048, 2048), (8192, 2048), (4096, 512),
-                     (1 << 24, 2048)):
+                     (1 << 24, 2048), (3 * 100_003, 100_003),
+                     (2 * 40_000, 40_000)):
         for dtype in (torch.float32, torch.bfloat16):
             x = (3 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
             rows += quantize_row(x, block, f"n={n} block={block}", dtype,
@@ -1425,10 +1454,15 @@ def phase11_quantize():
             ties.view(-1, block)[:, 0] = 127.0
             quantize_row(ties.to(dtype), block, f"ties n={n} block={block}",
                          dtype, 1)
+            if block == 100_003:      # x 2 or 4 bytes past 16-byte alignment
+                buf = (3 * torch.randn(n + 1, generator=gen,
+                                       device="cuda")).to(dtype)
+                rows += quantize_row(buf[1:], block,
+                                     f"misaligned n={n} block={block}",
+                                     dtype, 50)
     n = TRAIN_WORKERS * shard
     x = 1e-3 * torch.randn(n, generator=gen, device="cuda")
-    main = quantize_row(x, shard, f"n={n} block={shard}", torch.float32, 10)
-    rows += main
+    rows += quantize_row(x, shard, f"n={n} block={shard}", torch.float32, 10)
     for r in rows:
         emit({"phase": 11, **r})
     del x
@@ -1487,8 +1521,7 @@ def train_bound(cfg, params, b: int, s: int) -> dict:
 
 # device kernels of each wrapper, by the names the profiler records
 TRAIN_KERNELS = tuple((label, (key,)) for label, key in FORWARD_KERNELS) + (
-    ("quantize", ("quantize_fused_kernel", "absmax_kernel",
-                  "quantize_tiles_kernel")),
+    ("quantize", ("quantize_fused_kernel", "quantize_cooperative_kernel")),
     ("dequantize", ("dequantize_kernel",)))
 
 
@@ -1604,7 +1637,9 @@ TRAIN_LOSS_RTOL = 1e-5
 # forward kernels' last-bit differences to ~1e-4 of the embedding's
 # gradient even where those kernels match their plain versions to a few
 # ulps (the SSD scan's prefix sums bit for bit); phase 13 reports the
-# error with only the SSD or only the RMSNorm sites on their kernels.
+# error with only the SSD or only the RMSNorm sites on their kernels, and
+# holds both float32 runs against the plain path in float64 (the plain
+# float32 path is itself that far from float64: float64_yardstick).
 GRAD_TOL = {"dense": 1e-4, "ssm": FORWARD_TOL}
 
 
@@ -1658,13 +1693,56 @@ def compare_worker_grads(arch, params, batch, rt, plain, what: str):
     for (path, a), c in zip(tree_util.paths(g_k), tree_util.leaves(g_p)):
         errs[path] = float((a - c).abs().max()) / (float(c.abs().max())
                                                     or 1.0)
-    del g_p
     worst = max(errs, key=errs.get)
     tol = GRAD_TOL[arch.cfg.family]
     check(errs[worst] <= tol, f"{what} gradient {worst}: {errs[worst]} of "
           f"its max (bar {tol}); every leaf: {errs}")
-    return g_k, {"max": errs[worst], "leaf": worst, "bar": tol,
-                 "per_leaf": errs}, rel
+    return g_k, g_p, {"max": errs[worst], "leaf": worst, "bar": tol,
+                      "per_leaf": errs}, rel
+
+
+# the float64 yardstick: a float32 path's gradients are no further from
+# float64 than twice the plain float32 path's, plus this share of each
+# leaf's largest |g| (float32 rounding of a gradient far below its leaf's
+# largest entry)
+YARDSTICK_FLOOR = 1e-6
+
+
+def float64_yardstick(arch, params, batch, rt, g_k, g_p, what: str):
+    """The plain path's per-worker gradients in float64 (the weights cast
+    up; every step of the plain path then computes in float64) against
+    both float32 runs, per leaf as a share of the leaf's largest float64
+    |g|: ``e_kernel`` for the kernels, ``e_plain`` for the plain
+    versions.  Fails unless e_kernel <= 2 e_plain + YARDSTICK_FLOOR on
+    every leaf."""
+    p64 = tree_util.map(lambda t: t.double(), params)
+    (loss64, g64), wall = run_counted(
+        lambda: steps.worker_grads(
+            arch, dataclasses.replace(rt, kernels="plain"))(p64, batch), {},
+        f"{what} float64 plain worker grads")
+    del p64
+    e_kernel, e_plain = {}, {}
+    for (path, a), c, y in zip(tree_util.paths(g_k), tree_util.leaves(g_p),
+                               tree_util.leaves(g64)):
+        check(y.dtype == torch.float64, f"{what} float64 gradient {path} "
+              f"is {y.dtype}")
+        top = float(y.abs().max()) or 1.0
+        e_kernel[path] = float((a.double() - y).abs().max()) / top
+        e_plain[path] = float((c.double() - y).abs().max()) / top
+    del g64
+    broken = {k: (e_kernel[k], e_plain[k]) for k in e_kernel
+              if e_kernel[k] > 2 * e_plain[k] + YARDSTICK_FLOOR}
+    check(not broken, f"{what}: the kernels' gradients are further from "
+          f"float64 than twice the plain path's at {broken} (e_kernel, "
+          f"e_plain)")
+    worst = max(e_kernel, key=e_kernel.get)
+    return {"e_kernel": e_kernel, "e_plain": e_plain,
+            "max_e_kernel": e_kernel[worst], "max_e_kernel_leaf": worst,
+            "max_e_plain": max(e_plain.values()),
+            "max_ratio": max(e_kernel[k] / e_plain[k] for k in e_kernel
+                             if e_plain[k] > 0),
+            "floor": YARDSTICK_FLOOR, "loss_float64": loss64.tolist(),
+            "wall_s": wall}
 
 
 def compare_first_step(arch, params, batch, rt, plain, opt_cfg, what):
@@ -1706,8 +1784,10 @@ def phase13_train_vs_plain():
     params = arch.init_params(13, "cuda", torch.float32)
     trainer = api.Trainer("qwen3-1.7b", cfg, tcfg, rt, device="cuda")
     batch = trainer._batch_for(0)
-    g_k, grad_err, wl_rel = compare_worker_grads(
+    g_k, g_p, grad_err, wl_rel = compare_worker_grads(
         arch, params, batch, rt, plain_of(rt), "qwen3 f32")
+    yard = float64_yardstick(arch, params, batch, rt, g_k, g_p, "qwen3")
+    del g_p
     # the compressed mean against the exact fused mean, per worker shard
     plan = gradsync.make_plan(tree_util.map(lambda g: g[0], g_k),
                               target_bytes=steps.BUCKET_BYTES)
@@ -1772,6 +1852,7 @@ def phase13_train_vs_plain():
         "workers": TRAIN_WORKERS, "losses_kernels": runs["kernels"][0],
         "losses_plain": runs["plain"][0], "loss_rel_err": loss_rel,
         "worker_loss_rel_err": wl_rel, "grad_rel_err": grad_err,
+        "float64_yardstick": yard,
         "compressed_vs_exact_quant_steps": worst_steps, **first,
         "restart_bit_equal": same, "restart_wall_s": restart_s}
     del params, runs, p_re, o_re, full_p, full_o, p0
@@ -1782,9 +1863,10 @@ def phase13_train_vs_plain():
     rt = Runtime(gradsync="spindle", dp_workers=TRAIN_WORKERS)
     params = arch.init_params(14, "cuda", torch.float32)
     batch = {"tokens": seeded_tokens(cfg, 2, 1024, seed=130)}
-    g_k, grad_err, wl_rel = compare_worker_grads(
+    g_k, g_p, grad_err, wl_rel = compare_worker_grads(
         arch, params, batch, rt, plain_of(rt), "mamba2 f32")
-    del g_k
+    yard = float64_yardstick(arch, params, batch, rt, g_k, g_p, "mamba2")
+    del g_k, g_p
     by_site = grad_errors_by_site(
         arch, params, batch, rt,
         {"ssd_scan": ("ssd_scan",),
@@ -1795,6 +1877,7 @@ def phase13_train_vs_plain():
                           "gradsync": rt.gradsync, "workers": TRAIN_WORKERS,
                           "worker_loss_rel_err": wl_rel,
                           "grad_rel_err": grad_err,
+                          "float64_yardstick": yard,
                           "grad_rel_err_one_site_on_kernels": by_site,
                           **first}
     emit({"phase": 13, "dtype": "float32", "loss_rtol": TRAIN_LOSS_RTOL,

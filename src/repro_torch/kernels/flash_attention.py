@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.autograd import kernel_with_plain_grad
+from repro_torch.precision import compute
 
 NEG_INF = -1e30
 
@@ -102,13 +103,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     masked scores at -1e30."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    qg = q.float().reshape(b, s, hkv, hq // hkv, d)
-    scores = torch.einsum("bshgd,bthd->bhgst", qg, k.float()) / math.sqrt(d)
+    qg = compute(q).reshape(b, s, hkv, hq // hkv, d)
+    scores = torch.einsum("bshgd,bthd->bhgst", qg,
+                          compute(k)) / math.sqrt(d)
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+    out = torch.einsum("bhgst,bthd->bshgd", probs, compute(v))
     return out.reshape(b, s, hq, d).to(q.dtype)
 
 

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.autograd import kernel_with_plain_grad
+from repro_torch.precision import compute
 
 RMS_LAUNCHES = 0
 RESIDUAL_LAUNCHES = 0
@@ -76,17 +77,17 @@ def reset_launch_counts() -> None:
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    xf = compute(x)
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * compute(weight)).to(x.dtype)
 
 
 def rms_norm_residual_plain(x: torch.Tensor, residual: torch.Tensor,
                             weight: torch.Tensor, eps: float = 1e-6
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    r = residual.float() + x.float()
+    r = compute(residual) + compute(x)
     var = r.square().mean(dim=-1, keepdim=True)
-    out = (r * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    out = (r * torch.rsqrt(var + eps) * compute(weight)).to(x.dtype)
     return out, r.to(x.dtype)
 
 

@@ -32,10 +32,18 @@ Sections (all by default):
   attention and ``rms_norm`` case, and the profiler's device time of
   each of the SSD scan's four kernels at mamba2-2.7b's and zamba2-2.7b's
   shapes;
-* ``quantize`` — the same for ``csrc/quantize.cu``: quantize and
-  dequantize must equal their plain versions bit for bit (the
-  ``tests/test_quantize_kernel.py`` shapes, 2**24 elements, one block of
-  2**26, zeros and exact .5 ties);
+* ``quantize`` — compiles ``csrc/quantize.cu`` with ``-Xptxas -v`` and
+  prints each kernel's registers, spills and shared memory, and the CTAs
+  of the cooperative kernel resident an SM (the occupancy API's figure;
+  achieved occupancy needs a profiler this machine may lack); then
+  quantize and dequantize must equal their plain versions bit for bit
+  (the ``tests/test_quantize_kernel.py`` shapes, 2**24 elements, one
+  block of 2**26, a block of 100,003 (no multiple of 4 or 8) f32 and
+  bf16, fewer tiles than CTAs, a block just over one tile, an input that
+  is not 16-byte aligned, zeros and exact .5 ties); and at the train
+  path's largest bucket shard (qwen3-1.7b at W = 2: 2 x 176,218,112
+  float32) the profiler's device time of each kernel of a call and the
+  device operations a call;
 * ``grad`` — the gradient through each forward kernel site (RMSNorm,
   fused residual RMSNorm, flash attention, SSD scan) against plain
   autograd of its plain version, float32;
@@ -44,7 +52,9 @@ Sections (all by default):
   and :func:`smc_sweep_watermark_closed_form`, exactly, at the multicast
   path's lane counts, at 2**20 lanes and at lanes near INT32_MAX /
   INT32_MIN, masked and not, with its CUDA-event time and the time of
-  the three-op PyTorch closed form beside each.
+  the three-op PyTorch closed form beside each; and the ring kernel
+  against its plain twin and the watermark sweep at the same lanes,
+  with its profiler device time.
 
 It prints the largest error and the CUDA-event time of each case and
 fails on a compile error or an error above the bars.  Meant as the
@@ -85,7 +95,11 @@ SSD_SHAPES = ((1, 2048, 80, 64, 128, 1, 256), (1, 2048, 80, 64, 64, 1, 256),
               (1, 96, 2, 64, 128, 1, 32))
 TILE_HEAD_DIMS = (32, 40, 64, 80, 96, 128)
 QUANTIZE_SHAPES = ((2048, 2048), (8192, 2048), (4096, 512), (1 << 24, 2048),
-                   (1 << 26, 1 << 26), (3 * 5000, 5000))
+                   (1 << 26, 1 << 26), (3 * 5000, 5000),
+                   (3 * 100_003, 100_003), (2 * 40_000, 40_000),
+                   (5 * 4099, 4099))
+# qwen3-1.7b's largest bucket shard at W = 2 (chip_smoke.py train_plan)
+QUANTIZE_MAIN = (2 * 176_218_112, 176_218_112)
 ATTENTION_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # (rows, width, how the rows are laid out): the serve and forward paths'
@@ -407,16 +421,49 @@ def tie_input(n: int, block: int) -> torch.Tensor:
     return x.cuda()
 
 
+def device_ops(fn, iters: int = 50):
+    """(device ms by kernel name, device operations a call) of ``fn()``
+    from the profiler over ``iters`` warm calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0) > 0]
+    by_name = {}
+    for e in events:
+        name = re.search(r"\w+_kernel|Memset|Memcpy", e.key)
+        name = name.group() if name else e.key[:48]
+        by_name[name] = by_name.get(name, 0.0) + \
+            e.self_device_time_total / iters / 1e3
+    return by_name, sum(e.count for e in events) / iters
+
+
+def quantize_cases(gen, n: int, block: int, dtype):
+    cases = {"random": (3 * torch.randn(n, generator=gen,
+                                        device="cuda")).to(dtype),
+             "zeros": torch.zeros(n, dtype=dtype, device="cuda")}
+    if n <= 1 << 24:
+        cases["ties"] = tie_input(n, block).to(dtype)
+    if block == 100_003:          # x one element past 16-byte alignment
+        buf = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+        cases["misaligned"] = buf[1:]
+    return cases
+
+
 def check_quantize(gen) -> None:
     compile_report("quantize")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        grid = qz._max_grid(torch.device("cuda", 0), qz._DTYPES[dtype], True)
+        print(f"quantize cooperative kernel {dtype}: {grid // sms} CTAs "
+              f"resident an SM, grid up to {grid}", flush=True)
     for n, block in QUANTIZE_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            cases = {"random": (3 * torch.randn(n, generator=gen,
-                                                device="cuda")).to(dtype),
-                     "zeros": torch.zeros(n, dtype=dtype, device="cuda")}
-            if n <= 1 << 24:
-                cases["ties"] = tie_input(n, block).to(dtype)
-            for label, x in cases.items():
+            for label, x in quantize_cases(gen, n, block, dtype).items():
                 q, s = qz.quantize(x, block)
                 q_want, s_want = qz.quantize_plain(x, block)
                 back = qz.dequantize(q, s, block, dtype)
@@ -434,6 +481,20 @@ def check_quantize(gen) -> None:
                 print(f"quantize n={n} block={block} {dtype} {label}: "
                       f"identical, quantize {ms:.4f} ms, dequantize "
                       f"{dms:.4f} ms", flush=True)
+    n, block = QUANTIZE_MAIN
+    x = 1e-3 * torch.randn(n, generator=gen, device="cuda")
+    q, s = qz.quantize(x, block)
+    q_want, s_want = qz.quantize_plain(x, block)
+    torch.cuda.synchronize()
+    if not (torch.equal(q, q_want) and torch.equal(s, s_want)):
+        raise AssertionError("quantize at the main shape: not bit-identical")
+    by_name, per_call = device_ops(lambda: qz.quantize(x, block))
+    ms = event_ms(lambda: qz.quantize(x, block), 20)
+    print(f"quantize n={n} block={block} float32: identical, {ms:.4f} ms, "
+          f"{per_call:g} device ops a call, device "
+          f"{sum(by_name.values()):.4f} ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in by_name.items()),
+          flush=True)
 
 
 def grad_error(kernel_out, plain_out, inputs) -> float:
@@ -527,6 +588,18 @@ def check_smc(gen) -> None:
                   f"{'masked' if mask is not None else 'unmasked'}: exact, "
                   f"{ms:.4f} ms, three-op closed form {yard:.4f} ms",
                   flush=True)
+        counters = ss.counters_from_counts(pub, window).contiguous()
+        got = ss.smc_sweep(counters, proc)
+        if not (torch.equal(got, ss.smc_sweep_plain(counters, proc))
+                and torch.equal(got, ss.smc_sweep_watermark(
+                    pub, proc, window=window))):
+            raise AssertionError(f"smc_sweep (ring) {label} differs")
+        by_name, per_call = device_ops(lambda: ss.smc_sweep(counters, proc),
+                                       50)
+        print(f"smc_sweep ring {label} {n} rows W={window}: exact, "
+              f"{event_ms(lambda: ss.smc_sweep(counters, proc), 200):.4f} "
+              f"ms, device {sum(by_name.values()) * 1e3:.2f} us, "
+              f"{per_call:g} device ops a call", flush=True)
 
 
 SECTIONS = {"decode": check_decode, "forward": check_forward,

@@ -23,6 +23,7 @@ from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.runtime import Runtime
+from repro_torch.precision import compute, compute_dtype
 
 NEG_INF = -1e30
 
@@ -88,7 +89,7 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     skv, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
     qg = q.reshape(b, sq, hkv, group, d)
-    scores = torch.einsum("bshgd,bthd->bhgst", qg, k).float()
+    scores = compute(torch.einsum("bshgd,bthd->bhgst", qg, k))
     scores = scores / math.sqrt(d)
     kpos = torch.arange(skv, device=q.device)
     mask = torch.ones((1, sq, skv), dtype=torch.bool, device=q.device)
@@ -123,7 +124,8 @@ def full_attention_kv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     b, s, _ = x.shape
     if rope is None:
         rope = layers.rope_cos_sin(torch.arange(s, device=x.device)[None],
-                                   cfg.head_dim_, cfg.rope_theta)
+                                   cfg.head_dim_, cfg.rope_theta,
+                                   compute_dtype(x.dtype))
     q, k, v = _project_qkv(p, cfg, x, rt, rope)
     out = rt.op("flash_attention")(q, k, v, causal)
     hq, hd = cfg.n_heads, cfg.head_dim_

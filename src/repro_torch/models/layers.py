@@ -21,6 +21,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 
 from repro_torch.kernels.rmsnorm import rms_norm_plain as rms_norm  # noqa: F401
+from repro_torch.precision import compute, compute_dtype
 
 PyTree = Any
 
@@ -98,26 +99,28 @@ def init_tree(specs: PyTree, generator: torch.Generator) -> PyTree:
 # Primitive layers
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float,
-               device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+def rope_freqs(head_dim: int, theta: float, device=None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=dtype,
                                          device=device) / head_dim))
 
 
-def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 dtype: torch.dtype = torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin of the rotation angles, (..., S, 1, D/2) in float32, for
-    positions (..., S)."""
-    freqs = rope_freqs(head_dim, theta, positions.device)
-    angles = positions[..., None].float() * freqs          # (..., S, D/2)
+    """cos/sin of the rotation angles, (..., S, 1, D/2) in ``dtype``
+    (float32, or float64 for the float64 yardstick), for positions
+    (..., S)."""
+    freqs = rope_freqs(head_dim, theta, positions.device, dtype)
+    angles = positions[..., None].to(dtype) * freqs        # (..., S, D/2)
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 
 def rotate(x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor) -> torch.Tensor:
     """The split-half rotation of :func:`apply_rope` with precomputed
-    cos/sin, in float32 and cast back."""
-    x1, x2 = x.float().chunk(2, dim=-1)
+    cos/sin, in float32 (float64 for float64) and cast back."""
+    x1, x2 = compute(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -126,14 +129,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, D); positions: broadcastable to (..., S).  Rotates
     the two halves of the head dimension (not interleaved pairs)."""
-    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+    return rotate(x, *rope_cos_sin(positions, x.shape[-1], theta,
+                                   compute_dtype(x.dtype)))
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     g = x @ w_gate
     u = x @ w_up
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    h = torch.nn.functional.silu(compute(g)).to(x.dtype) * u
     return h @ w_down
 
 
@@ -156,9 +160,10 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
                        z_coef: float = 1e-4) -> torch.Tensor:
     """Token-mean next-token cross entropy with the z-loss
-    ``z_coef * logsumexp^2``, accumulated in float32; logits (..., V),
+    ``z_coef * logsumexp^2``, accumulated in float32 (float64 for
+    float64 logits); logits (..., V),
     labels (...) int, ``mask`` (...) marks the positions that count."""
-    logits = logits.float()
+    logits = compute(logits)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = lse - gold + z_coef * lse.square()

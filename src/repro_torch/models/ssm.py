@@ -23,6 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.precision import compute
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.runtime import Runtime
@@ -72,7 +73,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
     out = pad[:, 0:s] * w[0]
     for i in range(1, width):
         out = out + pad[:, i:i + s] * w[i]
-    return F.silu((out + b).float()).to(xbc.dtype)
+    return F.silu(compute(out + b)).to(xbc.dtype)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -105,15 +106,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     nc = s // chunk
     rep = h // g
 
-    dt = F.softplus(dt.float() + dt_bias.float())               # (B,S,H)
-    a = -torch.exp(a_log.float())                               # (H,)
+    dt = F.softplus(compute(dt) + compute(dt_bias))             # (B,S,H)
+    a = -torch.exp(compute(a_log))                              # (H,)
     da = dt * a
-    xdt = x.float() * dt[..., None]                             # x_t dt
+    xdt = compute(x) * dt[..., None]                            # x_t dt
 
     xc = xdt.reshape(bsz, nc, chunk, h, p)                      # (B,nc,L,H,P)
-    bheads = b.float().reshape(bsz, nc, chunk, g, n) \
+    bheads = compute(b).reshape(bsz, nc, chunk, g, n) \
         .repeat_interleave(rep, dim=3)                          # (B,nc,L,H,N)
-    cheads = c.float().reshape(bsz, nc, chunk, g, n) \
+    cheads = compute(c).reshape(bsz, nc, chunk, g, n) \
         .repeat_interleave(rep, dim=3)
     dac = da.reshape(bsz, nc, chunk, h).permute(0, 3, 1, 2)    # (B,H,nc,L)
     da_cs = torch.cumsum(dac, dim=-1)
@@ -130,9 +131,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
     # ---- inter-chunk linear recurrence ----
     chunk_decay = torch.exp(da_cs[..., -1]).permute(0, 2, 1)    # (B,nc,H)
-    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
-                         device=x.device)
-             if init_state is None else init_state.float())
+    state = (torch.zeros((bsz, h, p, n), dtype=xdt.dtype, device=x.device)
+             if init_state is None else init_state.to(xdt.dtype))
     prev = []
     for ci in range(nc):
         prev.append(state)              # the state entering chunk ci
@@ -145,7 +145,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         state_decay[..., None]
 
     y = (y_diag + y_off).reshape(bsz, s, h, p)
-    y = y + d_skip.float()[None, None, :, None] * x.float()
+    y = y + compute(d_skip)[None, None, :, None] * compute(x)
     return y.to(x.dtype), state
 
 
@@ -159,16 +159,16 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     Returns (y (B, H, P) in x's dtype, new state)."""
     h = x.shape[1]
     rep = h // b.shape[1]
-    dt = F.softplus(dt.float() + dt_bias.float())
-    a = -torch.exp(a_log.float())
+    dt = F.softplus(compute(dt) + compute(dt_bias))
+    a = -torch.exp(compute(a_log))
     decay = torch.exp(dt * a)                                   # (B,H)
-    bh = b.float().repeat_interleave(rep, dim=1)                # (B,H,N)
-    ch = c.float().repeat_interleave(rep, dim=1)
-    xf = x.float()
+    bh = compute(b).repeat_interleave(rep, dim=1)               # (B,H,N)
+    ch = compute(c).repeat_interleave(rep, dim=1)
+    xf = compute(x)
     new_state = decay[..., None, None] * state + \
         (dt[..., None] * xf)[..., None] * bh[:, :, None, :]
     y = torch.einsum("bhn,bhpn->bhp", ch, new_state)
-    y = y + d_skip.float()[None, :, None] * xf
+    y = y + compute(d_skip)[None, :, None] * xf
     return y.to(x.dtype), new_state
 
 
@@ -194,5 +194,5 @@ def mamba_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                              c.reshape(bsz, s, ng, dn), p["d_skip"],
                              p["dt_bias"], cfg.ssm.chunk)
     y = y.reshape(bsz, s, d_inner)
-    gated = y * F.silu(z.float()).to(y.dtype)
+    gated = y * F.silu(compute(z)).to(y.dtype)
     return rt.op("rms_norm")(gated, p["norm"], cfg.norm_eps) @ p["w_out"]

@@ -32,6 +32,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.masking import valid_rows
 from repro_torch.models.runtime import Runtime
+from repro_torch.precision import compute_dtype
 
 PyTree = Any
 
@@ -192,7 +193,8 @@ def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
     final norm adds it as it normalises)."""
     _dense_only(cfg)
     rope = layers.rope_cos_sin(torch.arange(x.shape[1], device=x.device)[None],
-                               cfg.head_dim_, cfg.rope_theta)
+                               cfg.head_dim_, cfg.rope_theta,
+                               compute_dtype(x.dtype))
     per_layer = unstack_layers(params["layers"])
     h = rt.op("rms_norm")(x, per_layer[0]["attn_norm"]["scale"],
                           cfg.norm_eps)

@@ -135,7 +135,7 @@ def test_ties_round_half_to_even():
                                       jnp.asarray(x), block=512)[0]))
 
 
-@pytest.mark.parametrize("n", [2048, 3000, 4096 * 3])
+@pytest.mark.parametrize("n", [2048, 3000, 4096 * 3, 4097, 40_000, 100_003])
 def test_block_of_the_whole_input_is_the_gradsync_quantizer(n):
     """``block = n`` is the reference's in-graph ``_quantize_int8`` (one
     scale per worker shard) — the call the port's compressed reduction
@@ -176,3 +176,151 @@ def test_wrappers_check_inputs_and_count_nothing_on_the_cpu():
         ops.dequantize(q, s, 1024, torch.float16)
     with pytest.raises(ValueError, match="no quantize"):
         qz.quantize(x.to("meta"), 1024)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's launch geometry (kernels/quantize.py launch_geometry), and
+# the two passes of csrc/quantize.cu replayed on it step by step
+# ---------------------------------------------------------------------------
+
+# (n, block, resident CTAs): the main path's shard (qwen3-1.7b, W = 2), a
+# block of 100,003 (no multiple of 4 or 8), fewer tiles than CTAs, a block
+# just over one tile, one CTA for everything, and fused blocks (one tile
+# each, blocks the 16-byte chunks straddle, tiny blocks)
+GEOMETRIES = [(2 * 176_218_112, 176_218_112, 528),
+              (3 * 100_003, 100_003, 528), (2 * 40_000, 40_000, 528),
+              (5 * 4099, 4099, 528), (5 * 4099, 4099, 1),
+              (3 * 100_003, 100_003, 7), (4096, 4096, 528),
+              (3 * 4095, 4095, 528), (3 * 2050, 2050, 528), (7 * 5, 5, 528)]
+SIMULATED = [g for g in GEOMETRIES if g[0] < 1 << 20]
+
+
+@pytest.mark.parametrize("n,block,max_grid", GEOMETRIES)
+def test_launch_geometry_covers_every_element_once(n, block, max_grid):
+    geo = qz.launch_geometry(n, block, max_grid)
+    assert geo.fused == (block <= qz.TILE)
+    if geo.fused:
+        # a CTA of THREADS a block; thread t takes the groups (aligned to
+        # the input) t, t + THREADS, ...; each thread gets a whole group
+        # and divides at most twice block / THREADS elements, plus the
+        # group the block starts inside
+        g = geo.group
+        assert geo.grid == n // block and geo.partials == 1
+        assert g in (2, 4, 8, 16) and (g == 2 or g * qz.THREADS <= block)
+        covered = np.zeros(n, np.int32)
+        for b in range(geo.blocks):
+            start, end = b * block, (b + 1) * block
+            groups = range(start // g * g, end, g)
+            for g0 in groups:
+                covered[max(g0, start):min(g0 + g, end)] += 1
+            per_thread = -(-len(groups) // qz.THREADS) * g
+            assert per_thread <= max(2 * block // qz.THREADS, 2) + g
+        assert (covered == 1).all()
+        return
+    assert 1 <= geo.grid <= max_grid and geo.span % qz.TILE == 0
+    tiles = [t for c in range(geo.grid) for t in geo.tiles(c)]
+    assert all(geo.span_of(c)[0] < geo.span_of(c)[1]
+               for c in range(geo.grid))          # no CTA idles
+    assert tiles[0][0] == 0 and tiles[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+    assert all(ts % qz.TILE == 0 and 0 < te - ts <= qz.TILE
+               for ts, te in tiles)
+    if max_grid >= -(-n // qz.TILE):
+        assert geo.span == qz.TILE                # a tile a CTA
+
+
+@pytest.mark.parametrize("n,block,max_grid",
+                         [g for g in GEOMETRIES if g[1] > qz.TILE])
+def test_partials_are_one_slot_per_cta_and_block(n, block, max_grid):
+    """Pass 1 writes slot c + b for every block b CTA c's span meets;
+    the slots are distinct and fit the workspace, and pass 2 reads for
+    block b exactly the slots of the CTAs that wrote one for it."""
+    geo = qz.launch_geometry(n, block, max_grid)
+    pieces = [(c, b) for c in range(geo.grid) for b in geo.blocks_of(c)]
+    slots = [geo.slot(c, b) for c, b in pieces]
+    assert len(set(slots)) == len(slots)
+    assert max(slots) < geo.partials == geo.grid + geo.blocks - 1
+    for b in range(geo.blocks):
+        assert list(geo.ctas_of(b)) == [c for c, bb in pieces if bb == b]
+    for c in (0, geo.grid // 2, geo.grid - 1):
+        assert list(geo.tiles(c, reverse=True)) == \
+            list(geo.tiles(c))[::-1]
+
+
+def _simulate(x: torch.Tensor, block: int, max_grid: int):
+    """The persistent passes of ``csrc/quantize.cu`` replayed on the CPU,
+    tile by tile and CTA by CTA as the kernels walk them: pass 1 writes
+    each piece's absmax to its slot (the workspace starts as NaN, so a
+    slot read before it is written shows), pass 2 walks each span's
+    tiles in reverse, reduces the block's slots when it enters a block,
+    and quantizes; the scale of a block is written by the CTA holding its
+    first element."""
+    n = x.numel()
+    geo = qz.launch_geometry(n, block, max_grid)
+    xf = x.float()
+    partials = torch.full((geo.partials,), float("nan"))
+    for c in range(geo.grid):
+        lo, hi = geo.span_of(c)
+        b = lo // block
+        bend = (b + 1) * block
+        m = torch.tensor(0.0)
+        for ts, te in geo.tiles(c):
+            a = xf[ts:te].abs()
+            if te <= bend:
+                m = torch.maximum(m, a.max())
+            else:
+                cut = max(bend - ts, 0)
+                if cut:
+                    m = torch.maximum(m, a[:cut].max())
+                partials[geo.slot(c, b)] = m
+                m = a[cut:].max()
+                b, bend = b + 1, bend + block
+        partials[geo.slot(c, b)] = m
+    q = torch.zeros(n, dtype=torch.int8)
+    scales = torch.full((geo.blocks,), float("nan"))
+
+    def block_scale(b, c):
+        got = partials[[geo.slot(cc, b) for cc in geo.ctas_of(b)]]
+        assert not got.isnan().any()
+        absmax = torch.clamp(got.max(), min=1e-12)
+        scale = absmax / torch.full_like(absmax, 127.0)
+        if c == geo.ctas_of(b)[0]:
+            scales[b] = scale
+        return scale
+
+    for c in range(geo.grid):
+        lo, hi = geo.span_of(c)
+        b = (hi - 1) // block
+        bstart = b * block
+        scale = block_scale(b, c)
+        for ts, te in geo.tiles(c, reverse=True):
+            per = torch.full((te - ts,), float(scale))
+            if ts < bstart:
+                prev = block_scale(b - 1, c)
+                per[:bstart - ts] = prev
+                b, bstart, scale = b - 1, bstart - block, prev
+            q[ts:te] = torch.clamp(torch.round(xf[ts:te] / per), -127,
+                                   127).to(torch.int8)
+    return q, scales
+
+
+@pytest.mark.parametrize("n,block,max_grid",
+                         [g for g in SIMULATED if g[1] > qz.TILE])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_the_kernels_two_passes_give_the_plain_bits(n, block, max_grid,
+                                                    dtype):
+    """Replayed on the geometry, the kernel's passes give q and the
+    scales of the plain version bit for bit, with one block's values
+    much larger than the others' (so a wrong slot shows) and a large
+    value and a small one on the two sides of each block boundary (so an
+    element given its neighbour block's scale shows)."""
+    x = _input(n, seed=n + max_grid)
+    x[block: 2 * block] *= 50.0
+    for b in range(1, n // block):
+        x[b * block - 1: b * block + 1] = [63.5, -0.5]
+    _, xt = _both(x, dtype)
+    q, s = _simulate(xt, block, max_grid)
+    q_p, s_p = qz.quantize_plain(xt, block)
+    assert torch.equal(s, s_p)
+    assert torch.equal(q, q_p)
+

@@ -61,10 +61,36 @@ def _ring_everywhere(counters, processed):
     return cpu
 
 
-@pytest.mark.parametrize("s,w", [(8, 16), (16, 100), (5, 64)])
-def test_ring_sweep_matches_pallas(s, w):
+# (processed, run) rows: runs that end just before, at and just after the
+# ring kernel's 32-slot chunks (whole rows at W = 32 and 64 too), W = 1,
+# and runs that wrap across slot 0 of the ring, at widths the kernel reads
+# in slot order (W % 4 == 0) and walks in j order
+_RUNS = {
+    "runs 31-33": (64, [(0, 31), (5, 32), (70, 33), (64, 64), (1, 0),
+                        (31, 63)]),
+    "runs at W=32": (32, [(0, 31), (3, 32), (40, 0), (31, 1)]),
+    "W=1": (1, [(0, 0), (0, 1), (7, 1), (9, 0), (3, 1)]),
+    "wrap W=16": (16, [(13, 10), (15, 16), (31, 2), (14, 5), (0, 16),
+                       (7, 9), (8, 8), (12, 4)]),
+    "wrap W=40": (40, [(35, 33), (39, 40), (79, 1), (20, 25)]),
+    "wrap W=5": (5, [(4, 3), (3, 5), (9, 1), (1, 4), (0, 0), (2, 2),
+                     (8, 5)]),
+}
+
+
+@pytest.mark.parametrize("s,w,runs", [
+    pytest.param(8, 16, None, id="8-16"),
+    pytest.param(16, 100, None, id="16-100"),
+    pytest.param(5, 64, None, id="5-64")] + [
+    pytest.param(len(rows), w, rows, id=label)
+    for label, (w, rows) in _RUNS.items()])
+def test_ring_sweep_matches_pallas(s, w, runs):
     rng = np.random.default_rng(7)
-    published, processed = _lanes(rng, s, w)
+    if runs is None:
+        published, processed = _lanes(rng, s, w)
+    else:
+        processed = np.array([p for p, _ in runs], np.int32)
+        published = processed + np.array([r for _, r in runs], np.int32)
     counters = np.asarray(ref_ss.counters_from_counts(published, w))
     got = _ring_everywhere(counters, processed)
     want = ref_ops.smc_sweep(jnp.asarray(counters), jnp.asarray(processed))
@@ -290,3 +316,36 @@ def test_build_is_keyed_on_source_and_flags():
     assert path.name.startswith("smc_sweep-") and path.suffix == ".so"
     assert path == _build.library_path("smc_sweep")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("w", [32, 33, 100, 256])
+def test_ring_run_read_in_slot_order_equals_the_walk(w):
+    """The ring kernel reads a row of W <= 256 slots whole, in slot order:
+    slot s holds k with j = (s - r0) mod W (r0 = processed mod W) and
+    needs floor(processed / W) + (s < r0), so the run is the first miss at
+    or after slot r0, else the first before it, rotated by W.  That
+    equals the walk over j on arbitrary rings, negative counts and counts
+    near INT32_MIN (rows whose processed + W - 1 passes INT32_MAX walk in
+    j order instead)."""
+    rng = np.random.default_rng(w)
+    i32 = np.iinfo(np.int32)
+    n = 600
+    base = rng.choice(np.array([i32.min, 0, 1000], np.int64), size=n)
+    processed = base + rng.integers(-3 * w, 3 * w, size=n)
+    processed = np.clip(processed, i32.min, i32.max - w).astype(np.int32)
+    published = np.clip(processed + rng.integers(-1, w + 2, size=n),
+                        i32.min, i32.max).astype(np.int32)
+    counters = ss.counters_from_counts(_t(published), w).numpy()
+    wild = rng.random(n) < 0.3            # arbitrary rings
+    counters[wild] = (processed[wild, None].astype(np.int64) // w
+                      + rng.integers(-3, 3, size=(wild.sum(), w)))
+    p = processed.astype(np.int64)
+    q0, r0 = p // w, p % w
+    s = np.arange(w)[None, :]
+    miss = counters < q0[:, None] + (s < r0[:, None])
+    after = np.where(miss & (s >= r0[:, None]), s, w).min(axis=1)
+    before = np.where(miss & (s < r0[:, None]), s, w).min(axis=1)
+    run = np.where(after < w, after - r0,
+                   np.where(before < w, before + w - r0, w))
+    want = ss.smc_sweep_plain(_t(counters), _t(processed))
+    np.testing.assert_array_equal(p + run, _np(want).astype(np.int64))
