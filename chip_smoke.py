@@ -6,15 +6,18 @@
 Builds every kernel of the port from ``src/repro_torch/kernels`` (the
 CUDA sources with ``nvcc``, all at once), holds each against its plain
 PyTorch version on the card,
-then drives the port's four main paths: the multicast (``Group.run`` and
+then drives the port's five main paths: the multicast (``Group.run`` and
 ``Group.run_batch`` on the ``kernel`` backend, at the paper's deployment
 sizes, agreeing exactly with the card's ``graph`` and the CPU's ``graph``
 runs), the serve plane (``ReplicatedEngine.run`` on a full-width
 qwen3-1.7b over the streamed multicast), the full-sequence forward
 (``Arch.loss_fn`` / ``Arch.prefill_fn`` on a full-width qwen3-1.7b and
-``Arch.loss_fn`` on a full-width mamba2-2.7b) and the training plane
+``Arch.loss_fn`` on a full-width mamba2-2.7b), the training plane
 (``Trainer`` on a full-width qwen3-1.7b with the compressed Spindle
-gradient reduction over two data-parallel workers).
+gradient reduction over two data-parallel workers) and the
+virtual-synchrony cut (``MembershipService.reconfigure_stream``,
+``BoundDomain.reconfigure``, ``ReplicatedEngine.run(fail_at=)``,
+``ElasticRuntime`` with a ``BucketSyncStream`` and ``chaos_soak``).
 
 Phases (one JSON line each; any failure exits non-zero):
 
@@ -100,8 +103,39 @@ Phases (one JSON line each; any failure exits non-zero):
    float64 against each float32 run, per leaf as a share of its largest
    entry (``e_kernel``, ``e_plain``), with e_kernel <= 2 e_plain + 1e-6
    on every leaf;
-14. the ``kernels`` line: per kernel its launches on the main paths
-   (phases 2-4, 6, 9 and 12), its times and its bound.
+14. the cut on the multicast: the testbed of phase 2 streamed (one
+   message per sender per round for 1000 rounds) through a cascading cut
+   at round 300 (sender 5 suspected, receiver 11 while the wedge is open)
+   and a joining cut at round 600, and phase 4's DDS domain through
+   ``BoundDomain.reconfigure`` with nodes 3 and 9 failing at round 100 of
+   200: every epoch's logs, ``EpochCarry`` and ``extras["view_change"]``
+   identical on the card's ``kernel``, the card's ``graph`` and the CPU's
+   ``graph``, one receive-kernel launch per streamed round in every epoch,
+   every survivor holding the same epoch log, each closed epoch delivering
+   exactly its stable prefix and every live sender delivered exactly
+   once: the cut's host wall time and the ms per round of each epoch;
+15. the serve plane of phase 6 (qwen3-1.7b at full width, bf16) through
+   two cuts (``SERVE_FAIL_AT``: a subscriber at round 7; a slot node of
+   replica 0 at round 20, with a wave during the wedge that kills a
+   subscriber of replica 1): drained, logs agreeing at every surviving
+   subscriber, each epoch delivering its stable prefix, completed and
+   shed requests partitioning the submitted ones, exact launches:
+   tokens/s, decode steps, ``cut_walls``; then the same cuts in float32
+   at 4 layers on the kernels and on the plain versions: tokens, logs,
+   the view log and the slot failures exactly equal;
+16. ``ElasticRuntime`` with a ``BucketSyncStream`` on the card at W = 3:
+   each worker's float32 fused bucket set for full-width qwen3-1.7b
+   (``gradsync.make_plan``), seeded once on the card; 6 rounds, worker 2
+   failing in round 3 and node 3 joining in round 5: the applied ledger
+   in step order with no gap, only the dead worker voided, ``app_base``
+   monotone, every applied update bit-equal to the plain mean of its
+   contributors on the card; peak memory;
+17. ``chaos_soak`` on the testbed stream, the serve plane at 4 layers in
+   float32 and a ``BucketSyncStream`` at seeds 11, 23 and 47: the card's
+   ``kernel`` runs and the CPU's ``graph`` runs give equal digests, and
+   no invariant breaks;
+18. the ``kernels`` line: per kernel its launches on the main paths
+   (phases 2-4, 6, 9, 12 and 14-17), its times and its bound.
 
 The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
@@ -1886,6 +1920,604 @@ def phase13_train_vs_plain():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the virtual-synchrony cut: multicast, DDS, serve, gradients, chaos
+# ---------------------------------------------------------------------------
+
+# (key, device, backend) of the three runs every cut is held across
+CUT_RUNS = (("kernel_cuda", "cuda", "kernel"), ("graph_cuda", "cuda", "graph"),
+            ("graph_cpu", "cpu", "graph"))
+
+
+def closed_epoch(old_group, alive, carry, rounds, launches, wall):
+    """What one epoch of a stream leaves at its cut (or at the end)."""
+    report = old_group.last_report
+    return {"subgroups": old_group.cfg.subgroups, "alive": set(alive),
+            "logs": old_group.delivery_logs, "carry": carry,
+            "report": report, "rounds": rounds, "launches": launches,
+            "wall": wall, "view_change": report.extras.get("view_change")}
+
+
+def same_carry(a, b, what: str) -> None:
+    check((a is None) == (b is None), f"{what}: carry present on one side")
+    if a is None:
+        return
+    check(a.from_epoch == b.from_epoch and a.cut_seq == b.cut_seq,
+          f"{what}: carry cut {a.cut_seq} != {b.cut_seq}")
+    for field in ("resend", "stable_apps", "app_base"):
+        x, y = getattr(a, field), getattr(b, field)
+        check(len(x) == len(y) and all(np.array_equal(p, q)
+                                       for p, q in zip(x, y)),
+              f"{what}: carry {field} differs")
+
+
+def same_view_change(a, b, what: str) -> None:
+    check((a is None) == (b is None), f"{what}: view_change on one side")
+    if a is None:
+        return
+    check(a["cut_seq"] == b["cut_seq"]
+          and a["resend_msgs"] == b["resend_msgs"],
+          f"{what}: view_change {a['cut_seq']} != {b['cut_seq']}")
+    sa, sb = a["stable_apps_by_old_rank"], b["stable_apps_by_old_rank"]
+    check(sa.keys() == sb.keys() and all(np.array_equal(sa[g], sb[g])
+                                         for g in sa),
+          f"{what}: stable_apps_by_old_rank differs")
+
+
+def same_epochs(ea, eb, what: str) -> None:
+    check(len(ea) == len(eb), f"{what}: {len(ea)} epochs != {len(eb)}")
+    for i, (a, b) in enumerate(zip(ea, eb)):
+        w = f"{what} epoch {i}"
+        check(a["subgroups"] == b["subgroups"] and a["alive"] == b["alive"]
+              and a["rounds"] == b["rounds"], f"{w}: shape differs")
+        same_logs(a["logs"], b["logs"], w)
+        same_carry(a["carry"], b["carry"], w)
+        same_view_change(a["view_change"], b["view_change"], w)
+        same_report(a["report"], b["report"], w)
+
+
+def check_stable_log(log, survivors, stable, what: str):
+    """Every survivor holds the same sequence of ``log``, and an epoch
+    that closed at a cut (``stable``: its apps per old sender rank, None
+    for the drained epoch) delivered exactly that prefix.  Returns the
+    apps delivered per sender rank."""
+    if not survivors:
+        return {}
+    seqs = [log.sequence(m) if log else [] for m in survivors]
+    check(all(s == seqs[0] for s in seqs[1:]), f"{what}: survivors disagree")
+    per_rank = {}
+    for rank, _, _ in seqs[0]:
+        per_rank[rank] = per_rank.get(rank, 0) + 1
+    if stable is not None:
+        check([per_rank.get(r, 0) for r in range(len(stable))]
+              == [int(x) for x in stable],
+              f"{what}: delivered other than its stable prefix")
+    return per_rank
+
+
+def check_everywhere(epochs, what: str):
+    """``check_stable_log`` on every subgroup of every epoch.  Returns the
+    apps delivered per (subgroup, sender node) over all epochs, read at a
+    surviving member."""
+    delivered = {}
+    for i, ep in enumerate(epochs):
+        for gid, spec in enumerate(ep["subgroups"]):
+            stable = None if ep["view_change"] is None else \
+                ep["view_change"]["stable_apps_by_old_rank"][gid]
+            per_rank = check_stable_log(
+                ep["logs"].get(gid),
+                [m for m in spec.members if m in ep["alive"]], stable,
+                f"{what} epoch {i} subgroup {gid}")
+            for rank, c in per_rank.items():
+                key = (gid, spec.senders[rank])
+                delivered[key] = delivered.get(key, 0) + c
+    return delivered
+
+
+def check_exactly_once(delivered, enqueued, dead, what: str) -> None:
+    for key, total in enqueued.items():
+        got = delivered.get(key, 0)
+        if key[1] in dead:
+            check(got <= total, f"{what}: dead sender {key} delivered "
+                  f"{got} > {total}")
+        else:
+            check(got == total, f"{what}: live sender {key} delivered "
+                  f"{got} of {total}")
+
+
+def drive_cut_stream(handle, feed, cuts, ms, enqueued):
+    """Stream rounds into ``handle`` (a ``GroupStream`` or a bound DDS
+    domain) until ``feed(stream, round, enqueued)`` returns None, which
+    counts what it feeds into ``enqueued``; after round r in ``cuts``
+    cross the cut ``cuts[r](ms, handle) -> (view, next handle)``.
+    Returns the epochs (the last one drained) and the cuts' host wall
+    times."""
+    def stream_of(h):
+        return getattr(h, "stream", h)
+
+    epochs, cut_walls = [], []
+    rnd = 0
+    t_epoch, l_epoch, r_epoch = time.perf_counter(), ss.WATERMARK_LAUNCHES, 0
+    while True:
+        ready = feed(stream_of(handle), rnd, enqueued)
+        if ready is None:
+            break
+        stream_of(handle).step(ready)
+        r_epoch += 1
+        if rnd in cuts:
+            wall = time.perf_counter() - t_epoch
+            launches = ss.WATERMARK_LAUNCHES - l_epoch
+            old = stream_of(handle).group
+            t0 = time.perf_counter()
+            view, handle = cuts[rnd](ms, handle)
+            cut_walls.append(time.perf_counter() - t0)
+            epochs.append(closed_epoch(old, view.members,
+                                       stream_of(handle).carry, r_epoch,
+                                       launches, wall))
+            t_epoch, l_epoch = time.perf_counter(), ss.WATERMARK_LAUNCHES
+            r_epoch = 0
+        rnd += 1
+    report, _ = handle.finish()
+    check(not report.stalled, "the drained epoch stalled")
+    group = stream_of(handle).group
+    epochs.append(closed_epoch(
+        group, group.cfg.members, None, report.extras["streamed_rounds"],
+        ss.WATERMARK_LAUNCHES - l_epoch, time.perf_counter() - t_epoch))
+    return epochs, cut_walls
+
+
+def testbed_cuts():
+    """Round 300: sender 5 is suspected, and receiver 11 while the wedge
+    is open (one cut over the final survivors); round 600: node 16 joins
+    (outside the subgroup: the epoch rolls, the stack keeps its shape)."""
+    def cascade(ms, stream):
+        ms.suspect(0, 5)
+        return ms.reconfigure_stream(
+            stream, {}, during_wedge=lambda svc, attempt:
+            svc.suspect(0, 11) if attempt == 0 else None)
+
+    def join(ms, stream):
+        ms.request_join(16)
+        return ms.reconfigure_stream(stream, {})
+
+    return {300: cascade, 600: join}
+
+
+def dds_cuts(at: int):
+    """Nodes 3 and 9 fail in one wave at round ``at``, through
+    ``BoundDomain.reconfigure``."""
+    def fail(ms, bound):
+        ms.suspect(0, 3)
+        ms.suspect(0, 9)
+        view = ms.propose_and_install({})
+        new_bound, _, _ = bound.reconfigure(view)
+        return view, new_bound
+
+    return {at: fail}
+
+
+def testbed_feed(n_messages: int):
+    """One message per live sender per round for ``n_messages`` rounds."""
+    def feed(stream, rnd, enqueued):
+        if rnd >= n_messages:
+            return None
+        ready = np.zeros(stream.shape, np.int32)
+        for rank, node in enumerate(stream.group.cfg.subgroups[0].senders):
+            ready[0, rank] = 1
+            enqueued[(0, node)] = enqueued.get((0, node), 0) + 1
+        return ready
+    return feed
+
+
+def dds_cut_feed(n_samples: int, publishers0):
+    """One sample per round from every live original publisher of every
+    topic for ``n_samples`` rounds (a silent publisher a cut installed
+    publishes nothing)."""
+    def feed(stream, rnd, enqueued):
+        if rnd >= n_samples:
+            return None
+        ready = np.zeros(stream.shape, np.int32)
+        for gid, spec in enumerate(stream.group.cfg.subgroups):
+            for rank, node in enumerate(spec.senders):
+                if node in publishers0[gid]:
+                    ready[gid, rank] = 1
+                    enqueued[(gid, node)] = enqueued.get((gid, node), 0) + 1
+        return ready
+    return feed
+
+
+def cut_runs(make_handle, feed, cuts, members, dead, what: str):
+    """One cut scenario on each of ``CUT_RUNS``: the epochs identical
+    across them, one receive-kernel launch per streamed round on the
+    card's ``kernel`` (none on ``graph``), everywhere-or-nowhere and
+    exactly-once.  Returns the per-run timings and the CPU run's epochs."""
+    out, rows = {}, {}
+    for key, device, backend in CUT_RUNS:
+        enqueued = {}
+        epochs, cut_walls = drive_cut_stream(
+            make_handle(device, backend), feed, cuts,
+            api.MembershipService(members), enqueued)
+        for i, ep in enumerate(epochs):
+            want = ep["rounds"] if backend == "kernel" else 0
+            check(ep["launches"] == want,
+                  f"{what} {key} epoch {i}: {ep['launches']} launches for "
+                  f"{ep['rounds']} rounds (want {want})")
+        delivered = check_everywhere(epochs, f"{what} {key}")
+        check_exactly_once(delivered, enqueued, dead, f"{what} {key}")
+        out[key] = epochs
+        rows[key] = {
+            "cut_wall_s": cut_walls,
+            "epoch_rounds": [ep["rounds"] for ep in epochs],
+            "epoch_launches": [ep["launches"] for ep in epochs],
+            "ms_per_round_by_epoch": [ep["wall"] / ep["rounds"] * 1e3
+                                      if ep["rounds"] else None
+                                      for ep in epochs],
+            "resend_msgs": [ep["view_change"]["resend_msgs"]
+                            for ep in epochs[:-1]]}
+    base = CUT_RUNS[-1][0]
+    for key, _, _ in CUT_RUNS[:-1]:
+        same_epochs(out[key], out[base], f"{what} {key} vs {base}")
+    return rows, out[base]
+
+
+def phase14_multicast_cut():
+    """The testbed stream through a cascading cut and a joining cut, and
+    the 64-topic DDS domain through ``BoundDomain.reconfigure`` with two
+    nodes failing; every epoch identical on the card's ``kernel``, the
+    card's ``graph`` and the CPU's ``graph``."""
+    n_messages, dds_samples = 1000, 200
+    cfg = api.single_group(16, msg_size=10240, window=100, n_messages=0)
+    testbed, epochs = cut_runs(
+        lambda device, backend: api.Group(cfg, device=device).stream(
+            backend=backend),
+        testbed_feed(n_messages), testbed_cuts(), cfg.members, {5, 11},
+        "testbed cut")
+    check([len(ep["subgroups"][0].members) for ep in epochs] == [16, 14, 14],
+          "testbed cut: wrong epoch memberships")
+    publishers0 = [set(t.publishers) for t in dds_domain().topics]
+    dds, _ = cut_runs(
+        lambda device, backend: dds_domain().bind(backend=backend,
+                                                  device=device),
+        dds_cut_feed(dds_samples, publishers0), dds_cuts(dds_samples // 2),
+        tuple(range(16)), {3, 9}, "DDS cut")
+    emit({"phase": 14, "testbed": {
+        "scenario": "single_group(16, msg_size=10240, window=100), one "
+        f"message per sender per round for {n_messages} rounds; round 300: "
+        "sender 5 suspected, receiver 11 during the wedge; round 600: node "
+        "16 joins", "identical": True, **testbed},
+        "dds": {"scenario": f"64 topics over 16 nodes, {dds_samples} "
+                "samples per publisher; nodes 3 and 9 fail at round "
+                f"{dds_samples // 2}", "identical": True, **dds}})
+
+
+def serve_cut_checks(rep, report, submitted, killed, what: str) -> None:
+    """The serve plane through a cut: drained; every surviving subscriber
+    of a topic holds the same log in every epoch; each closed epoch
+    delivered exactly its stable prefix; completed and shed requests
+    partition the submitted ones."""
+    serve = report.extras["serve"]
+    check(serve["drained"] and not report.stalled,
+          f"{what}: did not drain: {serve}")
+    alive = set(range(rep.domain.n_nodes)) - set(killed)
+    epochs = [(old_logs, old_report)
+              for _, _, old_report, old_logs in rep.view_log]
+    epochs.append((report.extras["delivery_logs"], None))
+    for e, (logs, old_report) in enumerate(epochs):
+        for g, topic in enumerate(rep.topics):
+            if topic.name not in logs:
+                continue
+            stable = None if old_report is None else old_report.extras[
+                "view_change"]["stable_apps_by_old_rank"][g]
+            check_stable_log(logs[topic.name],
+                             [s for s in topic.subscribers if s in alive],
+                             stable, f"{what}: epoch {e} of {topic.name}")
+    done = {r.rid for eng in rep.engines for r in eng.completed}
+    shed = {rid for rid, _ in rep.shed_log}
+    check(not done & shed and done | shed == set(submitted),
+          f"{what}: completed and shed do not partition the requests")
+
+
+# engine round -> failing nodes of phase 15 (replica 0: slot nodes 0-7,
+# subscribers 8-9; replica 1: slot nodes 10-17, subscribers 18-19)
+SERVE_FAIL_AT = {7: [9], 20: [[3], [19]]}
+
+
+def serve_cut_run(rep, per_replica: int, seed: int, fail_at):
+    rep.reset()
+    submitted = []
+    for g, reqs in enumerate(serve_requests(
+            api.Request, rep.engines[0].cfg.vocab_size, per_replica, seed)):
+        for req in reqs:
+            rep.submit(g, req)
+            submitted.append(req.rid)
+    torch.cuda.synchronize()
+    report = rep.run(fail_at=fail_at)
+    torch.cuda.synchronize()
+    return report, submitted
+
+
+def phase15_serve_cut():
+    """The serve plane at qwen3-1.7b's full width through two cuts: a
+    subscriber kill, then a slot node of replica 0 with a cascade wave
+    that kills a subscriber of replica 1.  Returns the launches of the
+    run."""
+    cfg = registry.get("qwen3-1.7b").cfg
+    params, rep = serve_setup(cfg, torch.bfloat16, seed=0)
+    killed = [n for w in SERVE_FAIL_AT.values()
+              for n in (w if not isinstance(w[0], list)
+                        else [x for wave in w for x in wave])]
+    before = ops.launch_counts()
+    report, submitted = serve_cut_run(rep, 16, 1, SERVE_FAIL_AT)
+    launches = launches_since(before)
+    serve = report.extras["serve"]
+    serve_cut_checks(rep, report, submitted, killed, "serve cut")
+    check(serve["view_changes"] == 2 and serve["slot_failures"] == 1
+          and serve["requeued_requests"] == 1
+          and serve["fail_at_unreached"] == [],
+          f"serve cut: {serve['view_changes']} views, "
+          f"{serve['slot_failures']} slot failures, "
+          f"{serve['requeued_requests']} requeued, unreached "
+          f"{serve['fail_at_unreached']}")
+    check(serve["requests"] == 32 and serve["tokens"] == 32 * 16,
+          f"serve cut: {serve['requests']} requests, {serve['tokens']} "
+          "tokens")
+    steps = serve["decode_steps"]
+    rounds = sum(r.extras["streamed_rounds"] for _, _, r, _ in rep.view_log)
+    rounds += report.extras["streamed_rounds"]
+    want = {"flash_decode": cfg.n_layers * steps,
+            "rms_norm": (1 + 2 * cfg.n_layers) * steps,
+            "rms_norm_residual": 2 * cfg.n_layers * steps,
+            "smc_sweep_watermark": rounds}
+    check(launches == want, f"serve cut launches {launches}, want {want}")
+    for stream in (t for per in rep.completed().values() for t in per):
+        check(len(stream) == 16 and all(0 <= x < cfg.vocab_size
+                                        for x in stream),
+              f"serve cut: bad token stream {stream}")
+    emit({"phase": 15, "part": "full_width", "model": cfg.name,
+          "layers": cfg.n_layers, "replicas": 2, "slots": 8,
+          "max_len": 2048, "fail_at": {str(k): v for k, v in
+                                       SERVE_FAIL_AT.items()},
+          "launches": launches, **{k: serve[k] for k in (
+              "requests", "tokens", "tokens_per_s", "wall_s",
+              "engine_rounds", "decode_steps", "view_changes",
+              "slot_failures", "voided_requests", "requeued_requests",
+              "host_hops")},
+          "slot_failure_log": serve["slot_failure_log"],
+          "cut_walls_s": rep.cut_walls, "streamed_rounds": rounds,
+          "resend_msgs": [r.extras["view_change"]["resend_msgs"]
+                          for _, _, r, _ in rep.view_log]})
+    del params, rep
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase15_f32_vs_plain():
+    """The same cuts in float32 at 4 layers on the kernels and on the
+    plain versions over the graph backend: tokens, logs, the view log and
+    the slot failures exactly equal."""
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg, n_layers=4)
+    out = {}
+    for key, rt, backend in (("kernels", Runtime(), "kernel"),
+                             ("plain", Runtime(kernels="plain"), "graph")):
+        _, rep = serve_setup(cfg, torch.float32, seed=2, rt=rt,
+                             backend=backend)
+        before = ops.launch_counts()
+        report, submitted = serve_cut_run(rep, 16, 4, SERVE_FAIL_AT)
+        launched = launches_since(before)
+        if key == "plain":
+            check(not launched, f"the plain cut run launched {launched}")
+        out[key] = (rep, report)
+    (rk, repk), (rp, repp) = out["kernels"], out["plain"]
+    check(rk.completed() == rp.completed(), "phase 15 f32: tokens differ")
+    same_logs(repk.extras["delivery_logs"], repp.extras["delivery_logs"],
+              "phase 15 f32 logs")
+    for f in INT_FIELDS:
+        check(getattr(repk, f) == getattr(repp, f), f"phase 15 f32: {f}")
+    sk, sp = repk.extras["serve"], repp.extras["serve"]
+    for key in ("engine_rounds", "decode_steps", "requests", "tokens",
+                "view_changes", "slot_failures", "voided_requests",
+                "requeued_requests", "slot_failure_log",
+                "fail_at_unreached", "host_hops"):
+        check(sk[key] == sp[key], f"phase 15 f32: serve {key} differs")
+    check(rk.slot_failures == rp.slot_failures
+          and len(rk.view_log) == len(rp.view_log) == 2,
+          "phase 15 f32: slot failures or view count differ")
+    for (ra, va, oa, la), (rb, vb, ob, lb) in zip(rk.view_log, rp.view_log):
+        check(ra == rb and va == vb, "phase 15 f32: views differ")
+        same_logs(la, lb, "phase 15 f32 cut logs")
+        same_view_change(oa.extras["view_change"], ob.extras["view_change"],
+                         "phase 15 f32")
+    emit({"phase": 15, "part": "f32_vs_plain", "layers": cfg.n_layers,
+          "dtype": "float32", "identical": True,
+          "requests": sk["requests"], "tokens": sk["tokens"],
+          "view_changes": sk["view_changes"],
+          "slot_failures": sk["slot_failures"],
+          "kernels_wall_s": sk["wall_s"], "plain_wall_s": sp["wall_s"]})
+    torch.cuda.empty_cache()
+
+
+GRAD_WORKERS = 3
+# (step, contributors, voided) of phase 16's applied ledger: worker 2's
+# round-1 contribution is stable and applied; its round-2 one is not, so
+# step 1 voids it and takes the mean over the survivors; the joiner
+# contributes from round 6 (step 5)
+GRAD_APPLIED = [(0, (0, 1, 2), ()), (1, (0, 1), (2,)), (2, (0, 1), ()),
+                (3, (0, 1), ()), (4, (0, 1), ()), (5, (0, 1, 3), ())]
+
+
+def phase16_gradsync_cut():
+    """``ElasticRuntime`` with a ``BucketSyncStream`` at W = 3: each
+    worker contributes its float32 fused bucket set for qwen3-1.7b's
+    parameters at full width, seeded once on the card and reused every
+    round; 6 rounds, worker 2 fails in round 3, node 3 joins in round 5.
+    The applied ledger is ``GRAD_APPLIED``, and every applied update is
+    held bit-equal to the plain mean of its contributors on the card,
+    then dropped."""
+    from repro_torch.train.elastic import ElasticConfig, ElasticRuntime
+    cfg = registry.get("qwen3-1.7b").cfg
+    specs = registry.param_specs(cfg)
+    like = layers.map_specs(lambda sp: torch.empty(
+        sp.shape, dtype=torch.float32, device="meta"), specs)
+    plan = gradsync.make_plan(like, target_bytes=steps.BUCKET_BYTES)
+    sizes = [plan.bucket_size(b) for b in range(plan.n_buckets)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    buckets = {}
+    for node in range(GRAD_WORKERS + 1):          # node 3 is the joiner
+        gen = torch.Generator(device="cuda").manual_seed(100 + node)
+        buckets[node] = [torch.randn(n, generator=gen, device="cuda",
+                                     dtype=torch.float32) for n in sizes]
+    rt = ElasticRuntime(list(range(GRAD_WORKERS)), ElasticConfig())
+    # a worker's ring holds one round's bucket set: a round publishes in
+    # one multicast round and applies a few rounds later
+    gs = gradsync.BucketSyncStream(list(range(GRAD_WORKERS)),
+                                   n_buckets=plan.n_buckets,
+                                   window=plan.n_buckets,
+                                   backend="kernel", device="cuda")
+    rt.attach_gradient_stream(gs, lambda node, rnd: buckets[node])
+    checked, walls, bases = [], [], []
+
+    def check_applied():
+        for i, a in enumerate(rt.gradsync.applied):
+            if a.update is None or i in checked:
+                continue
+            for b, got in enumerate(a.update):
+                acc = buckets[a.contributors[0]][b].clone()
+                for n in a.contributors[1:]:
+                    acc.add_(buckets[n][b])
+                acc.div_(len(a.contributors))
+                check(torch.equal(got, acc), f"gradsync cut: round "
+                      f"{a.step} bucket {b} differs from the plain mean")
+            checked.append(i)
+            rt.gradsync.applied[i] = dataclasses.replace(a, update=None)
+
+    records = []
+    for rnd in range(1, 7):
+        if rnd == 3:
+            rt.fail(GRAD_WORKERS - 1)
+        if rnd == 5:
+            rt.join(GRAD_WORKERS)          # contributes from round 6 on
+        t0 = time.perf_counter()
+        res = rt.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check_applied()
+        bases.append(dict(rt.gradsync._base))
+        records.append(res)
+    # drain one multicast round at a time, so each applied update is
+    # checked and dropped before the next (memory stays bounded)
+    t0 = time.perf_counter()
+    drain = 0
+    while rt.gradsync._ledger and drain < 64:
+        rt.gradsync.contribute({})
+        check_applied()
+        drain += 1
+    rt.gradsync.finish()
+    finish_s = time.perf_counter() - t0
+    check_applied()
+    applied = rt.gradsync.applied
+    ledger = [(a.step, tuple(a.contributors), tuple(a.voided))
+              for a in applied]
+    check(ledger == GRAD_APPLIED, f"gradsync cut: applied ledger {ledger}")
+    for prev, cur in zip(bases, bases[1:]):
+        check(all(cur.get(n, 0) >= v for n, v in prev.items()),
+              "gradsync cut: app_base rolled back")
+    check(len(rt.view_changes) == 2, f"gradsync cut: "
+          f"{len(rt.view_changes)} view changes")
+    peak = torch.cuda.max_memory_allocated()
+    emit({"phase": 16, "model": cfg.name, "workers": GRAD_WORKERS,
+          "buckets": plan.n_buckets,
+          "bucket_elements": sum(sizes),
+          "contribution_bytes": 4 * sum(sizes),
+          "rounds": [{k: r[k] for k in ("round", "contributed",
+                                         "view_change", "dp_size",
+                                         "applied_step")}
+                     for r in records],
+          "applied": [(a.step, list(a.contributors), list(a.voided))
+                      for a in applied],
+          "step_wall_s": walls, "drain_rounds": drain,
+          "drain_s": finish_s,
+          "peak_memory_gb": (peak - mem0) / 1e9,
+          "peak_memory_allocated_gb": peak / 1e9})
+    del buckets, rt, gs
+    torch.cuda.empty_cache()
+
+
+CHAOS_SEEDS = (11, 23, 47)
+# (device, backend) of the two runs each soak is held across
+CHAOS_RUNS = (("cuda", "kernel"), ("cpu", "graph"))
+
+
+def phase17_chaos():
+    """``chaos_soak`` over the three targets at three seeds: the testbed
+    stream, the serve plane at 4 layers in float32 (the engines on the
+    card; the multicast on the card's ``kernel`` or the CPU's ``graph``)
+    and a ``BucketSyncStream`` of two buckets a round.  The ``kernel``
+    runs on the card and the ``graph`` runs on the CPU give equal
+    digests; no invariant breaks (a break raises)."""
+    from repro_torch.chaos import FaultSpec, chaos_soak
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg, n_layers=4)
+    specs = {
+        "stream": FaultSpec(rounds=24, suspect_rate=0.25, cascade_prob=0.5,
+                            join_rate=0.15, stall_rate=0.15),
+        "serve": FaultSpec(rounds=14, suspect_rate=0.2, cascade_prob=0.5,
+                           slot_kill_rate=0.2, stall_rate=0.1),
+        "gradsync": FaultSpec(rounds=20, suspect_rate=0.2, cascade_prob=0.5,
+                              join_rate=0.2, stall_rate=0.1)}
+    testbed = api.single_group(16, msg_size=10240, window=100, n_messages=0)
+    params = layers.init_tree(
+        layers.map_specs(lambda sp: dataclasses.replace(
+            sp, dtype=torch.float32), registry.param_specs(cfg)),
+        torch.Generator(device="cuda").manual_seed(5))
+    engines = [api.ServeEngine(cfg.name, params, cfg,
+                               api.EngineConfig(max_batch=4, max_len=256),
+                               device="cuda") for _ in range(2)]
+    rows = {}
+    for seed in CHAOS_SEEDS:
+        reports = {}
+        for device, backend in CHAOS_RUNS:
+            rep = {}
+            rep["stream"] = chaos_soak(api.Group(testbed, device=device),
+                                       specs["stream"], seed=seed,
+                                       backend=backend)
+            eng = api.ReplicatedEngine(engines, subscribers_per_replica=2,
+                                       window=4, backend=backend,
+                                       device=device)
+            eng.reset()
+            rng = np.random.default_rng(3)
+            for g in range(2):
+                for i in range(3):
+                    eng.submit(g, api.Request(
+                        rid=g * 10 + i, prompt=rng.integers(
+                            0, cfg.vocab_size, 5, dtype=np.int32),
+                        max_new_tokens=4))
+            rep["serve"] = chaos_soak(eng, specs["serve"], seed=seed)
+            gs = gradsync.BucketSyncStream([0, 1, 2, 3], n_buckets=2,
+                                           window=6, backend=backend,
+                                           device=device)
+            rep["gradsync"] = chaos_soak(gs, specs["gradsync"], seed=seed)
+            reports[(device, backend)] = rep
+        (ka, a), (kb, b) = reports.items()
+        for target in specs:
+            ra, rb = a[target], b[target]
+            check(ra.extras == rb.extras and ra.killed == rb.killed
+                  and ra.joined == rb.joined and ra.checks == rb.checks
+                  and ra.views_installed == rb.views_installed,
+                  f"chaos {target} seed {seed}: {ka} and {kb} differ")
+        rows[str(seed)] = {t: {"views": a[t].views_installed,
+                               "wedge_retries": a[t].wedge_retries,
+                               "killed": list(a[t].killed),
+                               "joined": list(a[t].joined),
+                               "checks": a[t].checks,
+                               "rounds": a[t].rounds} for t in specs}
+    emit({"phase": 17, "seeds": list(CHAOS_SEEDS),
+          "runs": [f"{b} on {d}" for d, b in CHAOS_RUNS],
+          "identical_digests": True, **rows})
+    del params, engines
+
+
 KERNELS = (
     ("smc_sweep_watermark", "cuda", "src/repro_torch/kernels/csrc/smc_sweep.cu",
      "src/repro/kernels/smc_sweep.py:153 smc_sweep_watermark_pallas"),
@@ -1919,7 +2551,7 @@ LINE_SHAPES = {
                         torch.bfloat16),
     "ssd_scan": ("B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256", torch.bfloat16),
 }
-PATHS = ("multicast", "serve", "forward", "train")
+PATHS = ("multicast", "serve", "forward", "train", "cut")
 
 
 def main() -> int:
@@ -1966,11 +2598,27 @@ def main() -> int:
           f"the train path skipped a kernel: {train}")
     phase13_train_vs_plain()
 
+    # the cut path: each part counted from zero just before it and read
+    # just after; the float32 comparison against the plain versions sits
+    # outside the counts
+    cut = {}
+    for part in (phase14_multicast_cut, phase15_serve_cut,
+                 phase16_gradsync_cut, phase17_chaos):
+        ops.reset_launch_counts()
+        part()
+        for k, v in ops.launch_counts().items():
+            cut[k] = cut.get(k, 0) + v
+        if part is phase15_serve_cut:
+            phase15_f32_vs_plain()
+    check(all(cut[k] > 0 for k in ("smc_sweep_watermark", "flash_decode",
+                                   "rms_norm", "rms_norm_residual")),
+          f"the cut path skipped a kernel: {cut}")
+
     _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
     line_shapes = dict(LINE_SHAPES, **{
         name: (f"n={TRAIN_WORKERS * shard} block={shard}", torch.float32)
         for name in ("quantize", "dequantize")})
-    by_path = dict(zip(PATHS, (multicast, serve, forward, train)))
+    by_path = dict(zip(PATHS, (multicast, serve, forward, train, cut)))
     kernels = []
     for name, route, source, replaces in KERNELS:
         if name in line_shapes:

@@ -29,7 +29,14 @@ The subset of ``repro.api`` that the port provides so far::
     params, opt_state = trainer.run()    # trainer.history: loss, grad_norm
     step = api.make_train_step(arch, rt, api.OptConfig())
 
-View changes and the DES backends follow in later slices of the port.
+    # a view change mid-stream: the virtual-synchrony cut
+    ms = api.MembershipService(cfg.members)
+    stream = g.stream(backend="kernel")
+    stream.step(ready)                   # (G, S_max) counts this round
+    ms.suspect(0, 3)
+    view, stream = ms.reconfigure_stream(stream, {})   # next epoch
+
+The DES backends follow in a later slice of the port.
 """
 
 from repro_torch import resolve_device
@@ -45,6 +52,7 @@ from repro_torch.core.group import (BACKENDS, Delivery, DeliveryLog,
                                     SubgroupHandle, SubgroupSpec,
                                     get_backend, register_backend,
                                     single_group)
+from repro_torch.core.views import MembershipService, View
 from repro_torch.load.admission import ServeAdmission
 from repro_torch.models.registry import Arch
 from repro_torch.models.registry import get as get_arch
@@ -58,11 +66,11 @@ from repro_torch.train.trainer import TrainConfig, Trainer
 __all__ = [
     "Arch", "BACKENDS", "BoundDomain", "Delivery", "DeliveryLog", "Domain",
     "EngineConfig", "EpochCarry", "GraphBackend", "Group", "GroupConfig",
-    "GroupStream", "HOST_X86", "KernelBackend", "OptConfig",
-    "ProtocolBackend", "QoS", "RDMA_CX6", "ReplicatedEngine", "Request",
-    "RunReport", "Runtime", "SenderPattern", "ServeAdmission", "ServeEngine",
-    "SpindleFlags", "StreamView", "SubgroupHandle", "SubgroupSpec", "Topic",
-    "TrainConfig", "Trainer", "get_arch", "get_backend", "gradsync",
+    "GroupStream", "HOST_X86", "KernelBackend", "MembershipService",
+    "OptConfig", "ProtocolBackend", "QoS", "RDMA_CX6", "ReplicatedEngine",
+    "Request", "RunReport", "Runtime", "SenderPattern", "ServeAdmission",
+    "ServeEngine", "SpindleFlags", "StreamView", "SubgroupHandle",
+    "SubgroupSpec", "Topic", "TrainConfig", "Trainer", "View", "get_arch", "get_backend", "gradsync",
     "make_serve_step", "make_train_step", "many_topic_domain",
     "register_backend", "resolve_device", "single_group",
     "single_topic_domain",

@@ -212,9 +212,38 @@ class BoundDomain:
         return report, named
 
     def reconfigure(self, view):
-        from repro_torch.core import group as group_mod
-        raise group_mod.not_ported("BoundDomain.reconfigure",
-                                   group_mod.CUT_ITEM)
+        """Drive a mid-stream view change through the virtual-synchrony
+        cut (DESIGN.md Sec. 7): topics are restricted to the surviving
+        members — a topic every member of which failed is dropped; a
+        topic whose publishers all failed keeps its first member as a
+        silent publisher slot, mirroring
+        :meth:`repro_torch.core.group.Group.reconfigure` so topic indices
+        stay aligned with the stream's subgroup ids — and the in-flight
+        samples cross the cut exactly as
+        :meth:`repro_torch.core.group.GroupStream.reconfigure` decides
+        (delivered everywhere at the ragged trim, or resent by their
+        surviving publishers in the new view's stream).
+
+        Returns ``(new_bound, old_report, {topic_name: DeliveryLog})``:
+        the re-bound domain to continue pushing rounds into, plus the
+        closing epoch's report and cut-clipped per-topic logs."""
+        alive = set(view.members)
+        new_domain = Domain(n_nodes=self.domain.n_nodes)
+        for t in self.domain.topics:
+            members = [m for m in t.members if m in alive]
+            if not members:
+                continue                 # every member failed: topic dies
+            pubs = tuple(p for p in t.publishers if p in alive) \
+                or (members[0],)
+            subs = tuple(s for s in t.subscribers if s in alive)
+            new_domain.topics.append(dataclasses.replace(
+                t, publishers=pubs, subscribers=subs))
+        new_stream = self.stream.reconfigure(view)
+        old_report = self.stream.group.last_report
+        old_named = {t.name: self.stream.group.delivery_logs[g]
+                     for g, t in enumerate(self.domain.topics)
+                     if g in self.stream.group.delivery_logs}
+        return BoundDomain(new_domain, new_stream), old_report, old_named
 
 
 def single_topic_domain(n_nodes: int, n_subscribers: int,

@@ -28,24 +28,28 @@ sum over dim 0; ``psum_scatter`` of a ``(W, L)`` bucket is a reshape to
 ``(W, W, L / W)`` followed by a sum over dim 0 (worker ``j`` owns row
 ``j`` of the result); ``all_gather`` is the identity of that gathered
 layout.  A mean is the same on every worker, so it comes back once,
-unstacked (each leaf ``shape``).  ``BucketSyncStream`` (bucket reduction
-through the multicast cut) comes with the cut, ROADMAP item 5.
+unstacked (each leaf ``shape``).  :class:`BucketSyncStream` routes a
+bucket reduction through a live multicast stream, so that an elastic
+resize crosses the virtual-synchrony cut.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import DeviceLike
 from repro_torch import tree as tree_util
+from repro_torch.core import delivery as delivery_mod
+from repro_torch.core import group as group_mod
+from repro_torch.core import simulator as sim
 from repro_torch.models.runtime import Runtime
 
 PyTree = Any
-
-CUT_ITEM = "ROADMAP.md item 5 (the virtual-synchrony cut)"
 
 
 # ---------------------------------------------------------------------------
@@ -277,14 +281,260 @@ def compressed_psum_mean(grads: PyTree, plan: BucketPlan,
 # The multicast-routed stream and the SyncState watermarks
 # ---------------------------------------------------------------------------
 
-class BucketSyncStream:
-    """Bucket reduction routed through a live multicast stream, so that an
-    elastic view change crosses the virtual-synchrony cut.  Not ported
-    yet: it exists to cross a view change, which comes with the cut."""
+@dataclasses.dataclass(frozen=True)
+class AppliedRound:
+    """One optimizer round applied in delivery order.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"BucketSyncStream crosses view changes; it comes with {CUT_ITEM}")
+    ``contributors`` are the nodes whose full bucket set went stable (the
+    round's mean is over exactly these); ``voided`` are dead contributors
+    whose buckets died beyond their final stable watermark — the
+    null-round rescaling of :func:`psum_with_validity`, applied at the
+    cut instead of at publish time.  ``update`` is the mean over
+    contributors' update trees (None when every contributor voided).
+    """
+
+    step: int
+    contributors: Tuple[int, ...]
+    voided: Tuple[int, ...] = ()
+    update: Any = None
+
+
+class BucketSyncStream:
+    """Bucket reduction routed through a live multicast
+    :class:`~repro_torch.core.group.GroupStream`, so an elastic-training
+    view change exercises the SAME wedge / ragged trim /
+    :class:`~repro_torch.core.group.EpochCarry` algorithm as the stream
+    and serve planes (DESIGN.md Sec. 7).
+
+    Mapping: workers are the one subgroup's members AND senders; one
+    optimizer round = one :meth:`contribute` call publishing
+    ``n_buckets`` app messages per contributing worker (one message per
+    fused bucket).  A round's update applies — identically at every
+    worker, in ledger (total) order — once every contributor's full
+    bucket set is DELIVERED at every member, read off the stream's
+    delivery watermark exactly like a serve slot release.  Across a view
+    change the cut decides each in-flight round: a surviving
+    contributor's unstable buckets ride the resend backlog into the new
+    view (the round applies later, unchanged); a FAILED contributor's
+    unstable tail dies with it and the round applies with that
+    contribution voided — the mean rescales over the survivors.
+    ``app_base`` stays monotone per worker across consecutive cuts, so
+    the applied watermark never rolls back.
+
+    The stream runs on ``backend`` (``"kernel"``: one receive-kernel
+    launch a round) on ``device`` (the GPU unless ``"cpu"`` is named);
+    the update mean is computed where the contributions are.  Duck-types
+    the stream side of
+    :meth:`repro_torch.core.views.MembershipService.reconfigure_stream`
+    (``reconfigure(view)``), which is how
+    :class:`repro_torch.train.elastic.ElasticRuntime` drives it.
+    """
+
+    def __init__(self, members: Sequence[int], *, n_buckets: int,
+                 window: int = 8, backend: str = "kernel",
+                 msg_size: int = 1 << 20, device: DeviceLike = None):
+        if n_buckets < 1:
+            raise ValueError("need at least one bucket per round")
+        members = tuple(sorted(members))
+        self.n_buckets = int(n_buckets)
+        self.backend = backend
+        spec = sim.SubgroupSpec(members=members, senders=members,
+                                msg_size=msg_size, window=window,
+                                n_messages=0)
+        cfg = group_mod.GroupConfig(members=members, subgroups=(spec,))
+        self._stream = group_mod.Group(cfg, device=device).stream(
+            backend=backend)
+        # cumulative (cross-epoch) per-node app accounting: enq = buckets
+        # ever contributed, base = stable at the last cut, dead = a dead
+        # node's final deliverable cap (its stable count at its cut)
+        self._enq: Dict[int, int] = {m: 0 for m in members}
+        self._base: Dict[int, int] = {m: 0 for m in members}
+        self._dead: Dict[int, int] = {}
+        # FIFO ledger of pending rounds: {"step", "targets": {node:
+        # cumulative enq after this round}, "updates": {node: tree}}
+        self._ledger: List[Dict[str, Any]] = []
+        self._next_step = 0
+        self.applied: List[AppliedRound] = []
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def members(self) -> Tuple[int, ...]:
+        return self._stream.group.cfg.subgroups[0].members
+
+    @property
+    def _senders(self) -> Tuple[int, ...]:
+        return self._stream.group.cfg.subgroups[0].senders
+
+    @property
+    def applied_step(self) -> int:
+        """Rounds applied everywhere — the monotone watermark the
+        elastic runtime exposes as every live worker's
+        ``delivered_step``."""
+        return len(self.applied)
+
+    @property
+    def group(self):
+        return self._stream.group
+
+    # -- the contribution plane ---------------------------------------------
+
+    def contribute(self, contributions: Mapping[int, PyTree]) -> None:
+        """One optimizer round: each contributing worker publishes its
+        ``n_buckets`` bucket messages.  Workers absent from
+        ``contributions`` publish nothing this round (nulls cover their
+        ranks — the straggler case); an empty mapping is a pure drain
+        round that only advances delivery.  Newly applied rounds land in
+        :attr:`applied` (see :meth:`poll`)."""
+        senders = self._senders
+        rank = {m: r for r, m in enumerate(senders)}
+        g, s_max = self._stream.shape
+        ready = np.zeros((g, s_max), np.int64)
+        targets: Dict[int, int] = {}
+        updates: Dict[int, PyTree] = {}
+        for node in sorted(contributions):
+            if node not in rank:
+                raise ValueError(
+                    f"node {node} is not a live member of the current "
+                    "view (dead contributors cannot publish)")
+            ready[0, rank[node]] = self.n_buckets
+            self._enq[node] += self.n_buckets
+            targets[node] = self._enq[node]
+            updates[node] = contributions[node]
+        if targets:
+            self._ledger.append({"step": self._next_step,
+                                 "targets": targets, "updates": updates})
+            self._next_step += 1
+        self._stream.step(ready)
+        self.poll()
+
+    def _delivered_apps(self) -> Dict[int, int]:
+        """Cumulative app messages delivered everywhere per node: the
+        cross-epoch base plus the current epoch's in-protocol apps (the
+        delivery watermark converted through the publish traces, apps
+        before nulls — the same arithmetic as the cut's stable count)."""
+        out = dict(self._dead)
+        senders = self._senders
+        d = self._stream.view().sender_delivered(0)
+        if self._stream.rounds:
+            _, app_pub, nulls = self._stream.traces()
+        for r, node in enumerate(senders):
+            apps = 0
+            if self._stream.rounds:
+                apps = delivery_mod.apps_in_publish_prefix(
+                    app_pub[0, :, r], nulls[0, :, r], int(d[r]))
+            out[node] = self._base[node] + apps
+        return out
+
+    def poll(self) -> List[AppliedRound]:
+        """Apply every head-of-ledger round whose contributors are all
+        accounted for — delivered everywhere, or dead with the target
+        beyond their final stable cap (voided).  Rounds apply strictly
+        in ledger order: the multicast total order IS the optimizer
+        order.  The update is ``sum(xs) / len(xs)`` leaf by leaf over the
+        contributors in ledger order, on the contributions' device.
+        Returns the newly applied rounds."""
+        newly: List[AppliedRound] = []
+        delivered = self._delivered_apps()
+        while self._ledger:
+            head = self._ledger[0]
+            voided, pending = [], False
+            for node, tgt in head["targets"].items():
+                if delivered.get(node, 0) >= tgt:
+                    continue              # full bucket set stable
+                if node in self._dead:
+                    voided.append(node)   # tail died at the cut
+                    continue
+                pending = True
+                break
+            if pending:
+                break
+            contributors = tuple(n for n in head["targets"]
+                                 if n not in voided)
+            update = None
+            if contributors:
+                trees = [head["updates"][n] for n in contributors]
+                update = tree_util.map(
+                    lambda *xs: sum(xs) / len(xs), *trees)
+            newly.append(AppliedRound(step=head["step"],
+                                      contributors=contributors,
+                                      voided=tuple(sorted(voided)),
+                                      update=update))
+            self._ledger.pop(0)
+        self.applied.extend(newly)
+        return newly
+
+    # -- the cut --------------------------------------------------------------
+
+    def reconfigure(self, view) -> "BucketSyncStream":
+        """Carry the reduction across a virtual-synchrony cut.
+
+        The inner stream wedges and trims exactly as any stream
+        (:meth:`~repro_torch.core.group.GroupStream.reconfigure`):
+        survivors' unstable buckets become resend backlog, their
+        ``app_base`` advances by what went stable, and a dead worker's
+        stable count at the cut (the closing report's
+        ``stable_apps_by_old_rank``) becomes its final deliverable CAP:
+        ledger rounds needing more than the cap apply with that
+        contribution voided.  Joiners in ``view`` become senders of the
+        new epoch with zero base and backlog (``Group.reconfigure`` only
+        shrinks subgroups, so the joined epoch's group is rebuilt here
+        with the carry expanded onto the wider rank space).  Mutates in
+        place and returns ``self``."""
+        old_senders = self._senders
+        old_stream = self._stream
+        new_stream = old_stream.reconfigure(view)
+        vc = old_stream.group.last_report.extras["view_change"]
+        stable_old = vc["stable_apps_by_old_rank"][0]
+        alive = set(view.members)
+        for old_rank, node in enumerate(old_senders):
+            cum_stable = self._base[node] + int(stable_old[old_rank])
+            self._base[node] = cum_stable
+            if node not in alive:
+                self._dead[node] = cum_stable
+        joiners = [m for m in view.members
+                   if m not in self._enq and m not in self._dead]
+        for m in joiners:
+            self._enq[m] = self._base[m] = 0
+        if joiners:
+            surv_group = new_stream.group
+            carry = surv_group.carry
+            surv_senders = surv_group.cfg.subgroups[0].senders
+            spec = surv_group.cfg.subgroups[0]
+            all_members = tuple(sorted(set(spec.members) | set(joiners)))
+            cfg = dataclasses.replace(
+                surv_group.cfg, members=all_members,
+                subgroups=(dataclasses.replace(spec, members=all_members,
+                                               senders=all_members),))
+            expanded = group_mod.Group(cfg, device=surv_group.device)
+            k = len(all_members)
+            resend = np.zeros(k, np.int64)
+            stb = np.zeros(k, np.int64)
+            base = np.zeros(k, np.int64)
+            pos = {m: i for i, m in enumerate(all_members)}
+            for r, node in enumerate(surv_senders):
+                resend[pos[node]] = carry.resend[0][r]
+                stb[pos[node]] = carry.stable_apps[0][r]
+                base[pos[node]] = carry.app_base[0][r]
+            expanded.carry = group_mod.EpochCarry(
+                from_epoch=carry.from_epoch, cut_seq=carry.cut_seq,
+                resend=(resend,), stable_apps=(stb,), app_base=(base,))
+            new_stream = expanded.stream(backend=new_stream.backend)
+        self._stream = new_stream
+        # the cut may itself have advanced delivery to the trim
+        self.poll()
+        return self
+
+    def finish(self):
+        """Drain the stream to quiescence and apply every remaining
+        ledger round.  Returns the final epoch's
+        :class:`~repro_torch.core.group.RunReport`."""
+        report, _logs = self._stream.finish()
+        self.poll()
+        assert not self._ledger, (
+            "quiescent stream left unapplied rounds: a live "
+            "contributor's buckets never delivered")
+        return report
 
 
 @dataclasses.dataclass

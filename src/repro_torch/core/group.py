@@ -32,8 +32,11 @@ Usage::
 
 ``Group.stream`` opens a :class:`GroupStream`: the same stacked round,
 fed one round of message counts at a time (the serve plane's entry
-point).  View changes (``Group.reconfigure``, the cut) follow in a later
-slice of the port.
+point).  A view change (:meth:`Group.reconfigure`,
+:meth:`GroupStream.reconfigure`, driven by
+:class:`repro_torch.core.views.MembershipService`) crosses the
+virtual-synchrony cut: messages underway are delivered everywhere at the
+ragged trim or resent in the next view (:class:`EpochCarry`).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core import costmodel, delivery as delivery_mod
 from repro_torch.core import simulator as sim
+from repro_torch.core import sst
 from repro_torch.core import sweep as sweep_mod
 from repro_torch.kernels import ops
 
@@ -79,6 +83,7 @@ class GroupConfig:
     target_delivered: Optional[int] = None
     # graph/kernel round budget; None = auto (max sends + settle rounds)
     rounds: Optional[int] = None
+    epoch: int = 0                               # bumped by reconfigure()
 
     def __post_init__(self):
         members = set(self.members)
@@ -257,7 +262,8 @@ def get_backend(backend, device: DeviceLike = None) -> ProtocolBackend:
             raise ValueError(
                 f"unknown backend {backend!r}; the port has "
                 f"{sorted(BACKENDS)} ('kernel' is the counterpart of the "
-                "reference's 'pallas'; the DES backends come later)")
+                "reference's 'pallas'; the DES backends come with "
+                "ROADMAP.md item 13)")
         return BACKENDS[backend](resolve_device(device))
     return backend
 
@@ -352,6 +358,10 @@ class Group:
         # virtual-synchrony epoch carry (DESIGN.md Sec. 7): resends of the
         # previous epoch, added to every run's counts
         self.carry: Optional[EpochCarry] = None
+        # old gid -> new gid / old->new sender rank maps, set by
+        # reconfigure() on the group it RETURNS (None on fresh groups)
+        self._gid_map: Optional[Dict[int, int]] = None
+        self._sender_maps: Optional[Dict[int, List[Tuple[int, int]]]] = None
 
     def subgroup(self, gid: int) -> SubgroupHandle:
         if not 0 <= gid < len(self.cfg.subgroups):
@@ -499,6 +509,64 @@ class Group:
                                  sender_rank=rank, sender_index=idx)
                     for fn in fns:
                         fn(member, d)
+
+    # -- reconfiguration (virtual synchrony) ---------------------------------
+
+    def reconfigure(self, view) -> "Group":
+        """Install a new membership ``view``
+        (:class:`repro_torch.core.views.View`): every subgroup is
+        restricted to the surviving members (failed senders drop out; a
+        subgroup whose senders all failed keeps its first member as a
+        silent sender; one whose members all failed is dropped).  Returns
+        a fresh ``Group`` for the new epoch on the same device.
+
+        What crosses the epoch boundary (DESIGN.md Sec. 7): upcall
+        registrations, and QUEUED explicit sends — messages handed to
+        ``send()`` but never yet underway are the head of the resend set,
+        remapped to the surviving sender ranks (a failed sender's queue
+        dies with it).  Delivery logs do NOT carry: each epoch's log is
+        its own total order.  In-flight state is carried by the streaming
+        path (:meth:`GroupStream.reconfigure`), which installs its resend
+        decision as ``carry`` on the Group it hands back."""
+        alive = set(view.members)
+        new_specs = []
+        gid_map: Dict[int, int] = {}     # old gid -> new gid
+        sender_maps: Dict[int, List[Tuple[int, int]]] = {}
+        for gid, spec in enumerate(self.cfg.subgroups):
+            members = tuple(m for m in spec.members if m in alive)
+            senders = tuple(s for s in spec.senders if s in alive)
+            if not members:
+                continue                 # every member failed: subgroup dies
+            sender_maps[gid] = [(spec.senders.index(s), new_rank)
+                                for new_rank, s in enumerate(senders)]
+            if not senders:
+                senders = (members[0],)
+            gid_map[gid] = len(new_specs)
+            new_specs.append(dataclasses.replace(
+                spec, members=members, senders=senders))
+        patterns = tuple(((gid_map[g], n), p)
+                         for (g, n), p in self.cfg.patterns
+                         if g in gid_map and n in alive)
+        cfg = dataclasses.replace(
+            self.cfg, members=tuple(view.members),
+            subgroups=tuple(new_specs), patterns=patterns,
+            epoch=self.cfg.epoch + 1)
+        g = Group(cfg, device=self.device)
+        g._upcalls = {gid_map[gid]: list(fns)
+                      for gid, fns in self._upcalls.items()
+                      if gid in gid_map}
+        for gid, new_gid in gid_map.items():
+            queued = self._explicit.get(gid)
+            if queued is None:
+                continue
+            remapped = np.zeros(len(new_specs[new_gid].senders), np.int64)
+            for old_rank, new_rank in sender_maps[gid]:
+                remapped[new_rank] = queued[old_rank]
+            if remapped.any():
+                g._explicit[new_gid] = remapped
+        g._gid_map = gid_map
+        g._sender_maps = sender_maps
+        return g
 
 
 # ---------------------------------------------------------------------------
@@ -986,8 +1054,7 @@ class KernelBackend(GraphBackend):
 # already takes G as a leading dimension.
 _fold_cost_stacked = _fold_cost
 
-# ROADMAP.md items that bring what a stream does not do yet.
-CUT_ITEM = "ROADMAP.md item 5 (the virtual-synchrony cut)"
+# The ROADMAP.md item that brings what a stream does not do yet.
 FUSED_ITEM = "ROADMAP.md item 9 (the fused serve program)"
 
 
@@ -1057,7 +1124,9 @@ class GroupStream:
     machinery scheduled runs use, so the resulting :class:`RunReport` and
     delivery logs compare like-for-like with ``run``/``run_batch``
     (``graph`` and ``kernel`` streams fed identical rounds are
-    bit-identical)."""
+    bit-identical).  :meth:`reconfigure` closes the stream at a view
+    change's cut and hands its in-flight state to the next epoch's
+    stream."""
 
     def __init__(self, group: Group, backend="kernel"):
         be = get_backend(backend, group.device)
@@ -1091,8 +1160,11 @@ class GroupStream:
                                     np.float32)
         self._enqueued = [np.zeros(s, np.int64) for s in self._s]
         # virtual-synchrony epoch carry: the previous epoch's resend set
-        # starts out as this epoch's backlog and counts as enqueued here
+        # starts out as this epoch's backlog — the undelivered tail
+        # re-publishes ahead of new traffic, per-sender FIFO intact — and
+        # counts as enqueued here (it must deliver in THIS view)
         self.carry = group.carry
+        self.closed = False
         backlogs0 = np.zeros((g_n, self.s_max), np.int32)
         if self.carry is not None:
             for g, resent in enumerate(self.carry.resend):
@@ -1156,14 +1228,15 @@ class GroupStream:
     def absorb(self, *args, **kwargs) -> None:
         raise not_ported("GroupStream.absorb", FUSED_ITEM)
 
-    def reconfigure(self, view) -> "GroupStream":
-        raise not_ported("GroupStream.reconfigure", CUT_ITEM)
-
     def step(self, ready) -> StreamView:
         """One protocol round: ``ready[g, s]`` app messages become ready
         at sender rank ``s`` of subgroup ``g`` (padded lanes must be 0).
         Window-throttled messages are carried in the backlog, exactly as
         the scheduled loop does."""
+        if self.closed:
+            raise RuntimeError(
+                "stream closed by a view change; continue on the stream "
+                "reconfigure() returned")
         ready = np.asarray(ready, np.int32)
         if ready.shape != self.shape:
             raise ValueError(f"ready must be {self.shape}, got "
@@ -1269,6 +1342,10 @@ class GroupStream:
         covers scenarios that never quiesce (``null_send=False`` with
         uneven sender counts).  ``settle_max`` optionally caps the drain
         (the capped-off remainder reports as ``stalled``)."""
+        if self.closed:
+            raise RuntimeError(
+                "stream closed by a view change; finish the stream "
+                "reconfigure() returned")
         zeros = np.zeros(self.shape, np.int32)
         settled = 0
         while not self.quiescent():
@@ -1289,13 +1366,20 @@ class GroupStream:
         self.group._fire_upcalls()
         return report, agg.logs
 
-    def _aggregate(self) -> _GraphAgg:
+    def _aggregate(self, app_pub=None, nulls=None) -> _GraphAgg:
         """Run the accumulated round traces through the exact
         :class:`GraphBackend` post-processing a scheduled run uses (the
-        cost fold runs on the host copies)."""
+        cost fold runs on the host copies).  ``app_pub``/``nulls`` take
+        already-stacked (G, T, S) traces, so the cut path, which needs
+        them for the stable-apps count anyway, does not stack them
+        twice."""
         agg = _GraphAgg()
         if self.rounds:
-            batches, app_pub, nulls = self.traces()
+            batches = np.stack(self._batches, axis=1)       # (G, T, N)
+            if app_pub is None:
+                app_pub = np.stack(self._app_pub, axis=1)   # (G, T, S)
+            if nulls is None:
+                nulls = np.stack(self._nulls, axis=1)
             round_t, round_w = _fold_cost_stacked(
                 torch.as_tensor(app_pub.astype(np.int32)),
                 torch.as_tensor(self._costs))
@@ -1305,6 +1389,127 @@ class GroupStream:
             self.backend._finalize(self.group.cfg, counts, outs,
                                    (self.rounds,) * len(self._n), agg)
         return agg
+
+    # -- the virtual-synchrony cut (view changes mid-stream) -----------------
+
+    def reconfigure(self, view) -> "GroupStream":
+        """Close this epoch at the virtual-synchrony cut and hand its
+        in-flight state to a new stream for ``view`` (DESIGN.md Sec. 7).
+
+        Wedge semantics: no settle rounds run — the cut is taken from the
+        SST watermarks exactly as they stand.  Per subgroup the ragged
+        trim is the highest seq received by every SURVIVING member
+        (:func:`repro_torch.core.sst.ragged_trim` over ``received_num``,
+        read from the device once, here); every surviving member's
+        delivery advances exactly TO the trim, so the closing epoch's log
+        is identical at every survivor (*everywhere*), while everything
+        beyond the trim is delivered *nowhere*.  Undelivered app messages
+        of surviving senders — published-but-unstable plus the
+        window-throttled backlog — become the new stream's initial
+        backlog: the FIFO tail, resent in the new view.  A failed
+        sender's unstable messages die with it.
+
+        The closing epoch's cut-clipped logs and report are installed on
+        the owning Group and its upcalls fire, mirroring :meth:`finish`
+        (the report carries ``extras["view_change"]``).  The returned
+        stream belongs to ``self.group.reconfigure(view)``, carries an
+        :class:`EpochCarry` and runs on the same backend and device; a
+        change that keeps the padded stack shape keeps the same round
+        (one receive-kernel launch a round on ``kernel``)."""
+        if self.closed:
+            raise RuntimeError("stream already closed by a view change")
+        cfg = self.group.cfg
+        alive = set(view.members)
+        new_group = self.group.reconfigure(view)
+        gid_map, sender_maps = new_group._gid_map, new_group._sender_maps
+        # the cut's one device-to-host read
+        received = self._states.received_num.cpu().numpy()  # (G, N_max)
+        _, app_pub, nulls = self.traces()                    # (G, T, S)
+        cut_seqs: Dict[int, int] = {}
+        stable: Dict[int, np.ndarray] = {}
+        for gid, spec in enumerate(cfg.subgroups):
+            n_g, s_g = self._n[gid], self._s[gid]
+            alive_pos = np.asarray([m in alive for m in spec.members])
+            cut = sst.ragged_trim(received[gid, :n_g], alive_pos)
+            pubs_at_cut = sst.sender_counts(cut + 1, s_g).numpy()
+            stable[gid] = np.asarray(
+                [delivery_mod.apps_in_publish_prefix(
+                    app_pub[gid, :, s], nulls[gid, :, s],
+                    int(pubs_at_cut[s])) for s in range(s_g)], np.int64)
+            cut_seqs[gid] = cut
+        resend_t, stable_t, base_t, cut_t = [], [], [], []
+        for old_gid in sorted(gid_map):
+            new_gid = gid_map[old_gid]
+            s_new = len(new_group.cfg.subgroups[new_gid].senders)
+            resend = np.zeros(s_new, np.int64)
+            stb = np.zeros(s_new, np.int64)
+            base = np.zeros(s_new, np.int64)
+            for old_rank, new_rank in sender_maps[old_gid]:
+                stb[new_rank] = stable[old_gid][old_rank]
+                resend[new_rank] = (self._enqueued[old_gid][old_rank]
+                                    - stb[new_rank])
+                prev = (int(self.carry.app_base[old_gid][old_rank])
+                        if self.carry is not None else 0)
+                base[new_rank] = prev + stb[new_rank]
+            resend_t.append(resend)
+            stable_t.append(stb)
+            base_t.append(base)
+            cut_t.append(cut_seqs[old_gid])
+        new_group.carry = EpochCarry(
+            from_epoch=cfg.epoch, cut_seq=tuple(cut_t),
+            resend=tuple(resend_t), stable_apps=tuple(stable_t),
+            app_base=tuple(base_t))
+        self._close_at_cut(cut_seqs, alive, new_group.carry,
+                           app_pub, nulls, stable)
+        return new_group.stream(backend=self.backend)
+
+    def _close_at_cut(self, cut_seqs: Dict[int, int], alive,
+                      carry: EpochCarry, app_pub, nulls,
+                      stable_by_old_rank: Dict[int, np.ndarray]) -> None:
+        """Finalize the closing epoch's logs and report with every
+        surviving member's delivery advanced to the ragged trim."""
+        cfg = self.group.cfg
+        agg = self._aggregate(app_pub, nulls)
+        for gid, spec in enumerate(cfg.subgroups):
+            log = agg.logs.get(gid)
+            if log is None:
+                continue
+            for node in spec.members:
+                if node in alive:
+                    log.delivered_seq[node] = cut_seqs[gid]
+        # re-derive the log-dependent accounting after the cut advance
+        # (latency samples keep their in-protocol rounds: cut-advanced
+        # deliveries have no delivery round to sample)
+        agg.delivered_app = agg.delivered_null = 0
+        agg.per_node_bytes = {}
+        for gid, spec in enumerate(cfg.subgroups):
+            log = agg.logs.get(gid)
+            if log is None:
+                continue
+            for node in spec.members:
+                n_app, n_null = log.app_null_counts(node)
+                agg.delivered_app += n_app
+                agg.delivered_null += n_null
+                agg.per_node_bytes[node] = \
+                    agg.per_node_bytes.get(node, 0.0) + \
+                    n_app * spec.msg_size
+        report = self.backend._report(agg, self._wall0)
+        report.extras["streamed_rounds"] = self.rounds
+        report.extras["view_change"] = {
+            "cut_seq": {g: int(c) for g, c in cut_seqs.items()},
+            "resend_msgs": carry.total_resend(),
+            # stable app counts in the OLD view's rank space (the carry's
+            # stable_apps are remapped to the new view and drop failed
+            # senders): a failed sender's stable prefix is only visible
+            # here.  The serve plane accounts a dead slot's delivered
+            # apps with it; gradsync caps a dead contributor with it.
+            "stable_apps_by_old_rank": {
+                g: s.copy() for g, s in stable_by_old_rank.items()},
+        }
+        self.group.delivery_logs = agg.logs
+        self.group.last_report = report
+        self.group._fire_upcalls()
+        self.closed = True
 
 
 register_backend("graph", GraphBackend)

@@ -25,8 +25,11 @@ The slot ring IS the SMC ring:
 :meth:`ReplicatedEngine.run` returns the multicast
 :class:`~repro_torch.core.group.RunReport` merged with serving metrics
 (``extras["serve"]``: tokens/s, decode steps, stall rounds, host hops).
-Mid-run failures (``fail_at``) and the fused one-program loop
-(``fused=True``) come with later slices of the port and raise here.
+Mid-run failures (``fail_at``) cross the virtual-synchrony cut: in-flight
+messages are delivered everywhere at the ragged trim or resent in the
+next view, and a dead slot's in-flight decode is voided and re-admitted.
+The fused one-program loop (``fused=True``) comes with a later slice of
+the port and raises here.
 """
 
 from __future__ import annotations
@@ -40,8 +43,8 @@ import numpy as np
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core import dds
-from repro_torch.core.group import (CUT_ITEM, FUSED_ITEM, RunReport,
-                                    not_ported)
+from repro_torch.core import views as views_mod
+from repro_torch.core.group import FUSED_ITEM, RunReport, not_ported
 from repro_torch.load.admission import ServeAdmission
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -51,6 +54,23 @@ StallFn = Callable[[int, int], Sequence[int]]
 # arrive_fn(replica, engine_round) -> requests arriving open-loop that
 # round
 ArriveFn = Callable[[int, int], Sequence[Request]]
+
+
+def _as_waves(spec) -> List[List[int]]:
+    """Normalize one ``fail_at`` value: a flat node sequence is a single
+    suspicion batch; a sequence of sequences is a CASCADE — later waves
+    land while the wedge for the first is in progress and fold into the
+    same installed view (DESIGN.md Sec. 7).  Mixing the two shapes in
+    one value is ambiguous and raises."""
+    spec = list(spec)
+    nested = [isinstance(w, (list, tuple, set, frozenset)) for w in spec]
+    if all(nested) and spec:
+        return [sorted(int(n) for n in w) for w in spec if w]
+    if any(nested):
+        raise ValueError(
+            "fail_at value mixes node ids and waves: use either a flat "
+            "sequence of nodes or a sequence of waves")
+    return [sorted(int(n) for n in spec)] if spec else []
 
 
 @dataclasses.dataclass
@@ -100,6 +120,7 @@ class ReplicatedEngine:
         self.domain = dds.Domain(n_nodes=0)
         self.topics: List[dds.Topic] = []
         self._slot_nodes: List[List[int]] = []   # replica -> slot -> node
+        self._node_to_slot: Dict[int, Tuple[int, int]] = {}  # node -> (g, s)
         for g, b in enumerate(self._slots):
             slot_nodes = list(range(node, node + b))
             subs = list(range(node + b,
@@ -110,6 +131,8 @@ class ReplicatedEngine:
                 f"replica-{g}", publishers=slot_nodes, subscribers=subs,
                 sample_size=sample_size, qos=qos, window=window))
             self._slot_nodes.append(slot_nodes)
+            for s, n in enumerate(slot_nodes):
+                self._node_to_slot[n] = (g, s)
         self._reset_run_state()
         self.last_report: Optional[RunReport] = None
 
@@ -133,6 +156,25 @@ class ReplicatedEngine:
         self.queue_depth_log: List[int] = []         # total queued / rnd
         self.backlog_log: List[int] = []             # stream backlog / rnd
         self._last_view = None
+        # mid-run view changes (fail_at): one entry per installed view —
+        # (engine round, View, closing-epoch report, {topic: cut log})
+        self.view_log: List[Tuple[int, views_mod.View, RunReport,
+                                  Dict[str, object]]] = []
+        # slot-node failure state: dead engine slots per replica, and the
+        # live slot <-> sender-rank maps of the CURRENT view (a cut that
+        # removes a slot node compacts the surviving slots, in slot
+        # order, onto sender ranks 0..k-1 — dds reconfigure keeps the
+        # declaration order, so rank order == slot order)
+        self._dead_slots: List[set] = [set() for _ in range(g_n)]
+        self._rank_slot: List[List[int]] = [list(range(b))
+                                            for b in self._slots]
+        self._slot_rank: List[Dict[int, int]] = [
+            {s: s for s in range(b)} for b in self._slots]
+        self.slot_failures: List[Dict[str, object]] = []
+        self.cut_walls: List[float] = []   # per installed view (wall s)
+        # failures drive a real membership service so cascading waves
+        # fold into ONE installed view (views.propose_and_install)
+        self._ms = views_mod.MembershipService(range(self.domain.n_nodes))
 
     def _sync_holds(self, stream, view, round_no: int):
         """Pin each pending hold to its last app message's publish index
@@ -143,13 +185,132 @@ class ReplicatedEngine:
             watermark = view.sender_delivered(g)
             for slot in list(self._holds[g]):
                 hold = self._holds[g][slot]
+                rank = self._slot_rank[g][slot]   # holds live on live slots
                 if hold.last_idx is None:
                     hold.last_idx = stream.app_publish_index(
-                        g, slot, hold.target_apps)
+                        g, rank, hold.target_apps)
                 if hold.last_idx is not None and \
-                        watermark[slot] > hold.last_idx:
+                        watermark[rank] > hold.last_idx:
                     del self._holds[g][slot]
                     self.free_rounds.append((g, slot, round_no))
+
+    def _fail_nodes(self, bound: dds.BoundDomain,
+                    waves: Sequence[Sequence[int]], round_no: int,
+                    admission: Optional[ServeAdmission]
+                    ) -> dds.BoundDomain:
+        """Install ONE new view without the given nodes — subscribers
+        and/or slot (publisher) nodes, possibly in cascading suspicion
+        waves — and carry the serve state across the cut.
+
+        **Cascade folding.**  ``waves[0]`` is the suspicion batch that
+        triggers the wedge; each later wave lands *while the wedge is in
+        progress* and folds into the same pending cut via
+        :meth:`views.MembershipService.propose_and_install`'s
+        ``during_wedge`` hook — exactly one view installs for the whole
+        cascade, its trim computed over the final survivors.
+
+        **Surviving slots.**  The cut restarts per-sender publish
+        numbering, so a hold's ``target_apps`` is rebased by the apps
+        that went STABLE at the cut (``EpochCarry.stable_apps``): if its
+        last message was already delivered everywhere the hold frees
+        here; otherwise the remainder rides the resend backlog and the
+        hold re-pins from the new epoch's traces.  The engine-side
+        enqueued counters rebase identically.
+
+        **Dead slots.**  A failed slot node's messages up to the ragged
+        trim were delivered at every survivor (the closing report's
+        ``stable_apps_by_old_rank``); its unstable tail dies with it.
+        Its hold is dropped.  An in-flight decode is VOIDED
+        (:meth:`ServeEngine.evict`): the request re-enters the head of
+        the replica's queue to restart from its prompt on a surviving
+        slot, or is shed if the queue is at ``queue_cap``.  Surviving
+        slots compact, in slot order, onto the new view's sender ranks.
+        Raises if a replica would lose its last live slot.
+
+        Every event lands in :attr:`slot_failures`; each installed view
+        is appended to :attr:`view_log` and its wall clock to
+        :attr:`cut_walls`."""
+        t0 = time.perf_counter()
+        waves = [sorted(set(w)) for w in waves if w]
+        failing = set().union(*[set(w) for w in waves])
+        dead_by_g: Dict[int, set] = {}
+        for n in failing:
+            if n in self._node_to_slot:
+                g, s = self._node_to_slot[n]
+                dead_by_g.setdefault(g, set()).add(s)
+        for g, dead in dead_by_g.items():
+            if len(self._dead_slots[g] | dead) >= self._slots[g]:
+                raise ValueError(
+                    f"fail_at round {round_no} would kill every slot "
+                    f"node of replica {g}: the engine would have no "
+                    "publisher lane left — a full-replica failure is a "
+                    "domain teardown, not a view change")
+        ms = self._ms
+        reporter = next((m for m in ms.view.members if m not in failing),
+                        ms.view.members[0])
+        for n in waves[0]:
+            ms.suspect(reporter, n)
+
+        def _during_wedge(svc, attempt):
+            nxt = attempt + 1
+            if nxt < len(waves):
+                for n in waves[nxt]:
+                    svc.suspect(reporter, n)
+
+        old_rank_slot = [list(r) for r in self._rank_slot]
+        view = ms.propose_and_install(
+            {}, during_wedge=_during_wedge if len(waves) > 1 else None)
+        new_bound, old_report, old_logs = bound.reconfigure(view)
+        carry = new_bound.stream.carry
+        stable_old = \
+            old_report.extras["view_change"]["stable_apps_by_old_rank"]
+        for g, eng in enumerate(self.engines):
+            # dead slots first: account their stable prefix, void the
+            # in-flight decode, drop their hold
+            for slot in sorted(dead_by_g.get(g, ())):
+                old_rank = old_rank_slot[g].index(slot)
+                stable_cnt = int(stable_old[g][old_rank])
+                rec = {"round": round_no, "replica": g, "slot": slot,
+                       "node": self._slot_nodes[g][slot],
+                       "stable_apps": stable_cnt,
+                       "lost_apps":
+                           int(self._apps_enqueued[g][slot]) - stable_cnt,
+                       "voided_rid": None, "requeued": False,
+                       "hold_dropped": slot in self._holds[g]}
+                self._holds[g].pop(slot, None)
+                req = eng.evict(slot)
+                if req is not None:
+                    rec["voided_rid"] = req.rid
+                    if (admission is not None
+                            and admission.queue_cap is not None
+                            and len(eng.queue) >= admission.queue_cap):
+                        self.shed_log.append((req.rid, round_no))
+                    else:
+                        eng.queue.appendleft(req)  # oldest work first
+                        rec["requeued"] = True
+                self._apps_enqueued[g][slot] = 0
+                self._dead_slots[g].add(slot)
+                self.slot_failures.append(rec)
+            self._rank_slot[g] = [s for s in range(self._slots[g])
+                                  if s not in self._dead_slots[g]]
+            self._slot_rank[g] = {s: r for r, s in
+                                  enumerate(self._rank_slot[g])}
+            # surviving slots: rebase by what went stable at the cut
+            stable = carry.stable_apps[g]
+            for new_rank, slot in enumerate(self._rank_slot[g]):
+                d = int(stable[new_rank])
+                self._apps_enqueued[g][slot] -= d
+                hold = self._holds[g].get(slot)
+                if hold is not None:
+                    hold.target_apps -= d
+                    hold.last_idx = None        # old-epoch index is void
+                    if hold.target_apps <= 0:   # stable at the cut: free
+                        del self._holds[g][slot]
+                        self.free_rounds.append((g, slot, round_no))
+        self.view_log.append((round_no, view, old_report, old_logs))
+        self.cut_walls.append(time.perf_counter() - t0)
+        self._last_view = None       # old-epoch watermarks are void
+        return new_bound
 
     # -- the serve+multicast loop --------------------------------------------
 
@@ -185,11 +346,25 @@ class ReplicatedEngine:
         flight (read off the previous round's watermarks) decodes a null
         round.
 
-        ``fail_at`` (mid-run node failures through the virtual-synchrony
-        cut) and ``fused=True`` (the whole run as one device program)
-        raise ``NotImplementedError``: they come with later slices."""
-        if fail_at:
-            raise not_ported("ReplicatedEngine.run(fail_at=...)", CUT_ITEM)
+        ``fail_at`` maps an engine round to node ids that fail after
+        that round's multicast round — SUBSCRIBER nodes and/or SLOT
+        (publisher) nodes, in any mix: the serve plane survives the
+        mid-stream view change through the virtual-synchrony cut
+        (:meth:`_fail_nodes`).  In-flight admissions/tokens are delivered
+        everywhere at the ragged trim or resent in the new view's
+        stream; every pending slot hold is re-pinned against the new
+        epoch's watermarks; a dead slot node's unstable tail dies with
+        it, its in-flight decode is voided and the request re-admitted
+        or shed.  A value may also be a sequence of node sequences —
+        *cascading suspicion waves* that land while the wedge is in
+        progress and fold into ONE installed view.  Each installed view
+        is recorded in :attr:`view_log` with the closing epoch's report
+        and cut-clipped per-topic logs; slot-kill events in
+        :attr:`slot_failures`.  Scheduled rounds the run never reaches
+        surface in ``extras["serve"]["fail_at_unreached"]``.
+
+        ``fused=True`` (the whole run as one device program) raises
+        ``NotImplementedError``: it comes with a later slice."""
         if fused:
             raise not_ported("ReplicatedEngine.run(fused=True)", FUSED_ITEM)
         if arrive_schedule is not None and arrive_fn is not None:
@@ -198,6 +373,9 @@ class ReplicatedEngine:
                 "a schedule IS the precomputed form of the callback")
         if arrive_schedule is not None and arrive_rounds <= 0:
             arrive_rounds = len(arrive_schedule)
+        fail_at = {int(r): _as_waves(spec)
+                   for r, spec in (fail_at or {}).items()}
+        fail_at = {r: w for r, w in fail_at.items() if w}
         # a precomputed schedule / stall mask is just the tabulated form
         # of the callback
         if arrive_schedule is not None:
@@ -243,24 +421,30 @@ class ReplicatedEngine:
                 if (admission is not None
                         and admission.stall_backlog is not None
                         and self._last_view is not None):
-                    v, k = self._last_view, self._slots[g]
+                    v, k = self._last_view, len(self._rank_slot[g])
                     inflight = (v.published[g, :k]
                                 - v.sender_delivered(g)[:k]
                                 + v.backlog[g, :k])
-                    stalled |= {int(s) for s in np.nonzero(
-                        inflight > admission.stall_backlog)[0]}
+                    stalled |= {self._rank_slot[g][int(r)] for r in
+                                np.nonzero(inflight
+                                           > admission.stall_backlog)[0]}
                 held = self._holds[g]
-                mask = [s not in held for s in range(self._slots[g])]
+                dead = self._dead_slots[g]
+                mask = [s not in held and s not in dead
+                        for s in range(self._slots[g])]
                 info = eng.step(stalled=tuple(sorted(stalled)),
                                 admit_mask=mask)
                 self.stall_rounds += len(info.stalled)
-                c = np.zeros(self._slots[g], np.int64)
+                # counts are indexed by the CURRENT view's sender ranks
+                # (surviving slots compacted in slot order)
+                c = np.zeros(len(self._rank_slot[g]), np.int64)
+                rank = self._slot_rank[g]
                 for slot, rid in zip(info.admitted, info.admitted_rids):
-                    c[slot] += 1               # the admitted-request batch
+                    c[rank[slot]] += 1         # the admitted-request batch
                     self.admit_rounds[rid] = round_no
                     self.admit_slots[rid] = (g, slot)
                 for slot in info.emitted:
-                    c[slot] += 1               # the emitted token
+                    c[rank[slot]] += 1         # the emitted token
                     self._apps_enqueued[g][slot] += 1
                 for slot in info.admitted:
                     self._apps_enqueued[g][slot] += 1
@@ -275,10 +459,16 @@ class ReplicatedEngine:
             view = bound.push_round(counts_by_topic)
             self._last_view = view
             self.backlog_log.append(int(sum(
-                int(view.backlog[g, :self._slots[g]].sum())
+                int(view.backlog[g, :len(self._rank_slot[g])].sum())
                 for g in range(len(self.engines)))))
             self._sync_holds(bound.stream, view, round_no)
+            if round_no in fail_at:
+                bound = self._fail_nodes(bound, fail_at[round_no],
+                                         round_no, admission)
             round_no += 1
+        # a scheduled failure the run never reached became moot (an
+        # earlier cut or the drain landed first): surface it, not raise
+        unreached = sorted(r for r in fail_at if r >= round_no)
         report, logs = bound.finish(settle_max=settle_max)
         # release holds the settle rounds delivered — including holds
         # whose last app message was still window-throttled when the
@@ -302,14 +492,14 @@ class ReplicatedEngine:
             "tokens_per_s": tokens / wall if wall > 0 else 0.0,
             "stall_rounds": self.stall_rounds,
             "held_slots": sum(len(h) for h in self._holds),
-            # view changes and slot failures come with the cut
-            # (ROADMAP.md item 5): none can happen in this loop
-            "view_changes": 0,
-            "slot_failures": 0,
-            "voided_requests": 0,
-            "requeued_requests": 0,
-            "slot_failure_log": [],
-            "fail_at_unreached": [],
+            "view_changes": len(self.view_log),
+            "slot_failures": len(self.slot_failures),
+            "voided_requests": sum(1 for r in self.slot_failures
+                                   if r["voided_rid"] is not None),
+            "requeued_requests": sum(1 for r in self.slot_failures
+                                     if r["requeued"]),
+            "slot_failure_log": list(self.slot_failures),
+            "fail_at_unreached": unreached,
             "shed_requests": len(self.shed_log),
             "max_queue_depth": max(self.queue_depth_log, default=0),
             "max_backlog": max(self.backlog_log, default=0),

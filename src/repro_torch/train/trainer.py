@@ -10,8 +10,8 @@ feeds it the deterministic token stream of
 :mod:`repro_torch.train.checkpoint`, advancing the ``SyncState``
 watermarks as the reference does.  The step updates the parameters and
 the optimizer state in place (the reference donates them to its jitted
-step).  Elastic view changes (``repro.train.elastic``) come with the
-cut, ROADMAP item 5.
+step).  Elastic view changes run in
+:class:`repro_torch.train.elastic.ElasticRuntime`.
 """
 
 from __future__ import annotations

@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from repro.core import gradsync as ref_gradsync
+from repro.core import views as ref_views
 from repro_torch import tree as tree_util
-from repro_torch.core import gradsync
+from repro_torch.core import gradsync, views
 from repro_torch.models.runtime import Runtime
 
 pytestmark = pytest.mark.fast
@@ -233,5 +234,26 @@ def test_sync_state_monotone():
 
 
 def test_bucket_sync_stream_waits_for_the_cut():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        gradsync.BucketSyncStream([0, 1], n_buckets=2)
+    """A round applies once its buckets are delivered everywhere, and a
+    cut that kills a contributor voids only that contributor: the same
+    ledger as the reference's (tests/test_torch_elastic.py holds the
+    elastic runtime)."""
+    out = []
+    for gs, view_cls in (
+            (gradsync.BucketSyncStream([0, 1, 2], n_buckets=3, window=4,
+                                       device="cpu"), views.View),
+            (ref_gradsync.BucketSyncStream([0, 1, 2], n_buckets=3,
+                                           window=4), ref_views.View)):
+        pending = []
+        for rnd in range(3):
+            gs.contribute({m: {"w": float(m + rnd)} for m in (0, 1, 2)})
+            pending.append(gs.applied_step)
+        gs = gs.reconfigure(view_cls(vid=1, members=(0, 1),
+                                     senders=(0, 1)))
+        gs.contribute({0: {"w": 5.0}, 1: {"w": 6.0}})
+        gs.finish()
+        out.append((pending, [(a.step, a.contributors, a.voided,
+                               a.update["w"]) for a in gs.applied]))
+    assert out[0] == out[1]
+    assert out[0][0][0] == 0                 # round 0 waits for delivery
+    assert [a[0] for a in out[0][1]] == [0, 1, 2, 3]

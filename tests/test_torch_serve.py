@@ -215,8 +215,15 @@ def test_replicated_engine_matches_the_reference(
 
 def test_unported_options_raise(port_engines):
     rep = api.ReplicatedEngine(port_engines, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        rep.run(fail_at={1: [0]})
+    # fail_at crosses the cut now (tests/test_torch_serve_cut.py): node 0,
+    # replica 0's first slot, dies after round 1; its request restarts
+    rep.reset()
+    for g, reqs in enumerate(_requests(api.Request, 2, seed=0)):
+        for req in reqs:
+            rep.submit(g, req)
+    serve = rep.run(fail_at={1: [0]}).extras["serve"]
+    assert serve["drained"] and serve["view_changes"] == 1
+    assert serve["slot_failures"] == 1 and serve["requests"] == 4
     with pytest.raises(NotImplementedError, match="item 9"):
         rep.run(fused=True)
 

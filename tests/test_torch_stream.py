@@ -273,8 +273,13 @@ def test_stream_and_bind_validate_inputs():
         stream.step(np.zeros((2, 2), np.int32))
     with pytest.raises(NotImplementedError, match="item 9"):
         stream.absorb(None, None, [], [], [], [])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        stream.reconfigure(None)
+    # a view change closes the stream: it refuses further rounds and
+    # hands on a stream of the next epoch on the same device
+    s2 = stream.reconfigure(port_api.View(vid=1, members=(0, 1),
+                                          senders=(0, 1)))
+    assert s2.n_members == (2,) and s2.device == stream.device
+    with pytest.raises(RuntimeError, match="closed"):
+        stream.step(np.zeros(stream.shape, np.int32))
     d = _hetero_domain(port_api)
     bound = d.bind(device="cpu")
     with pytest.raises(ValueError, match="padded lanes"):
@@ -285,8 +290,13 @@ def test_stream_and_bind_validate_inputs():
         bound.push_round({"no-such-topic": 1})
     with pytest.raises(ValueError, match="publishers"):
         bound.push_round({"topic-0": [1, 1]})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        bound.reconfigure(None)
+    new_bound, old_report, old_logs = bound.reconfigure(
+        port_api.View(vid=1, members=tuple(range(1, 7)),
+                      senders=tuple(range(1, 7))))
+    assert old_report.extras["view_change"]["cut_seq"]
+    assert set(old_logs) <= {t.name for t in d.topics}
+    assert [t.name for t in new_bound.domain.topics] == \
+        [t.name for t in d.topics]
 
 
 def test_stream_wants_the_gpu_unless_told():
