@@ -6,7 +6,7 @@
 Builds every kernel of the port from ``src/repro_torch/kernels`` (the
 CUDA sources with ``nvcc``, all at once), holds each against its plain
 PyTorch version on the card,
-then drives the port's five main paths: the multicast (``Group.run`` and
+then drives the port's main paths: the multicast (``Group.run`` and
 ``Group.run_batch`` on the ``kernel`` backend, at the paper's deployment
 sizes, agreeing exactly with the card's ``graph`` and the CPU's ``graph``
 runs), the serve plane (``ReplicatedEngine.run`` on a full-width
@@ -17,7 +17,9 @@ qwen3-1.7b over the streamed multicast), the full-sequence forward
 gradient reduction over two data-parallel workers) and the
 virtual-synchrony cut (``MembershipService.reconfigure_stream``,
 ``BoundDomain.reconfigure``, ``ReplicatedEngine.run(fail_at=)``,
-``ElasticRuntime`` with a ``BucketSyncStream`` and ``chaos_soak``).
+``ElasticRuntime`` with a ``BucketSyncStream`` and ``chaos_soak``), the
+fused serve program (``ReplicatedEngine.run(fused=True)``) and the load
+plane (``run_profile``).
 
 Phases (one JSON line each; any failure exits non-zero):
 
@@ -134,8 +136,32 @@ Phases (one JSON line each; any failure exits non-zero):
    float32 and a ``BucketSyncStream`` at seeds 11, 23 and 47: the card's
    ``kernel`` runs and the CPU's ``graph`` runs give equal digests, and
    no invariant breaks;
-18. the ``kernels`` line: per kernel its launches on the main paths
-   (phases 2-4, 6, 9, 12 and 14-17), its times and its bound.
+18. the fused serve program (``ReplicatedEngine.run(fused=True)``: each
+   epoch one round captured as a CUDA graph, its control flow in IF
+   nodes) on phase 6's setup, card ``kernel`` and card ``graph``: tokens,
+   per-topic logs, free / finish / admit rounds and the report identical
+   to the per-round loop's; host_hops 0; one capture cold, none warm;
+   flag reads within ceil(rounds / 32) + 2; tokens/s cold and warm,
+   wall per round, capture seconds, graph nodes and pool bytes; then,
+   from a traced warm ``kernel`` run, 28 / 57 / 56 device kernels per
+   device decode step, one watermark kernel a round, device time and
+   busy share;
+19. the fused program through the cut: ``FUSED_FAIL_AT`` (homogeneous
+   cuts, three epochs) at full width, cold and warm, identical to the
+   per-round loop; phase 15's ``SERVE_FAIL_AT`` (heterogeneous) falling
+   back with the reference's reason to identical results at 4 layers;
+   ``chaos_soak(fused=True)`` at seeds 11, 23 and 47 with the unfused
+   soak's digests;
+20. the load plane: ``run_profile`` on phase 2's testbed and phase 4's
+   64-topic bound domain under ``AdmitAll``, ``WindowSlack`` and
+   ``TokenBucket`` (fused and host loop, card ``kernel`` and ``graph``,
+   CPU ``graph``) and on phase 6's serve plane under ``ServeAdmission``
+   (fused and host loop on both card backends): identical
+   ``LoadReport`` JSON, rounds/s; traced fused ``kernel`` runs give one
+   watermark kernel a streamed round;
+21. the ``kernels`` line: per kernel its launches on the main paths
+   (phases 2-4, 6, 9, 12, 14-17 and, from the device traces, 18 and
+   20), its times and its bound.
 
 The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
@@ -164,7 +190,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
-from repro_torch.core import gradsync  # noqa: E402
+from repro_torch.core import gradsync, graphloop  # noqa: E402
 from repro_torch.core.group import (GraphBackend, KernelBackend,  # noqa: E402
                                     _stack_masks)
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -300,13 +326,24 @@ def phase0_identity():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
     print(smi_line, flush=True)
+    build_s = build_kernels()
+    emit({"phase": 0, "nvidia_smi": smi_line,
+          "device": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": build_s})
+    return smi_line
+
+
+def build_kernels() -> float:
+    """Build and load every CUDA source of the port (an unchanged source
+    is loaded from ``build/``); returns the seconds it took."""
     t0 = time.perf_counter()
     # one nvcc per CUDA source, all started together
     with concurrent.futures.ThreadPoolExecutor() as pool:
         for fut in [pool.submit(_build.build, name)
                     for name in ("smc_sweep", "flash_decode",
                                  "flash_attention", "ssd_scan",
-                                 "quantize", "rmsnorm")]:
+                                 "quantize", "rmsnorm", "graph_cond")]:
             fut.result()
     ss.build()
     fd.build()
@@ -314,12 +351,8 @@ def phase0_identity():
     sc.build()
     qz.build()
     rn.build()
-    build_s = time.perf_counter() - t0
-    emit({"phase": 0, "nvidia_smi": smi_line,
-          "device": torch.cuda.get_device_name(0),
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s})
-    return smi_line
+    graphloop.build()
+    return time.perf_counter() - t0
 
 
 def lane_inputs(n: int, window: int, seed: int, extremes: bool = False):
@@ -2518,6 +2551,580 @@ def phase17_chaos():
     del params, engines
 
 
+
+# ---------------------------------------------------------------------------
+# the fused serve program and the load plane (CUDA graphs, IF nodes)
+# ---------------------------------------------------------------------------
+
+# device kernels of each wrapper in a profiler trace (a flash-decode call
+# launches its split kernel and, over more than one chunk, the merge)
+DEVICE_KERNELS = (("flash_decode", "flash_decode_split_kernel"),
+                  ("rms_norm", "rms_norm_kernel"),
+                  ("rms_norm_residual", "rms_norm_residual_kernel"),
+                  ("smc_sweep_watermark", "smc_sweep_watermark_kernel"))
+
+
+def device_trace(fn):
+    """``fn()`` under the profiler: (its result, the trace's figures).
+    All from that one run: its wall, the device's busy time (the union
+    of its device records' intervals, so records that overlap count
+    once and the share stays <= 1), the busy share, the device launches
+    of each wrapper's kernel, and the device time of ``masked_fill``
+    kernels (the fused prefill's admission reset).  Read from the raw
+    device records: a fused serve run leaves ~10^5 of them, too many to
+    build the profiler's per-event summaries in reasonable time.  The
+    profiler stays attached after its session, so every timed run of
+    phases 18-20 comes before the first of these traces
+    (:func:`fused_phases`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = []
+    fill_ns = 0
+    counts = {label: 0 for label, _ in DEVICE_KERNELS}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        spans.append((e.start_ns(), e.end_ns()))
+        name = e.name()
+        if "masked_fill" in name:
+            fill_ns += e.duration_ns()
+        for label, key in DEVICE_KERNELS:
+            if key in name:
+                counts[label] += 1
+    busy_ns, end = 0, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            busy_ns += hi - lo
+            end = hi
+        elif hi > end:
+            busy_ns += hi - end
+            end = hi
+    check(busy_ns > 0, "the profiler recorded no device time")
+    return out, {"traced_wall_s": wall, "device_busy_s": busy_ns / 1e9,
+                 "device_busy_share": busy_ns / 1e9 / wall,
+                 "masked_fill_s": fill_ns / 1e9, "launches": counts}
+
+
+def fused_device_steps(rep, requests) -> int:
+    """Decode steps the fused program ran on the device in a stall-free
+    run: per replica, one main decode in each round a slot emitted (from
+    its admission round to its finish round), plus, in each round that
+    admitted, the longest admitted prompt's positions."""
+    plen = {r.rid: len(r.prompt) for per in requests for r in per}
+    emit_rounds = [set() for _ in rep.engines]
+    prefill: dict = {}
+    for rid, (g, _s) in rep.admit_slots.items():
+        a = rep.admit_rounds[rid]
+        emit_rounds[g] |= set(range(a, rep.finish_round_by_rid[rid] + 1))
+        prefill[(g, a)] = max(prefill.get((g, a), 0), plen[rid])
+    return sum(len(r) for r in emit_rounds) + sum(prefill.values())
+
+
+def serve_traces(rep, report):
+    """What a per-round and a fused serve run must agree on."""
+    return {"tokens": rep.completed(),
+            "logs": report.extras["delivery_logs"],
+            "free_rounds": list(rep.free_rounds),
+            "finish_rounds": list(rep.finish_rounds),
+            "admit_rounds": dict(rep.admit_rounds),
+            "admit_slots": dict(rep.admit_slots),
+            "queue_depth_log": list(rep.queue_depth_log),
+            "backlog_log": list(rep.backlog_log),
+            "view_log": [(rnd, v.members) for rnd, v, _, _ in rep.view_log],
+            "slot_failures": list(rep.slot_failures),
+            "serve": {k: report.extras["serve"][k] for k in (
+                "engine_rounds", "decode_steps", "requests", "tokens",
+                "drained", "held_slots", "stall_rounds", "view_changes",
+                "slot_failures", "voided_requests", "requeued_requests",
+                "fail_at_unreached", "shed_requests", "max_queue_depth",
+                "max_backlog")}}
+
+
+def same_serve(a, b, ra, rb, what: str) -> None:
+    for k in a:
+        if k == "logs":
+            check(a[k].keys() == b[k].keys(), f"{what}: topics differ")
+            same_logs({i: a[k][n] for i, n in enumerate(sorted(a[k]))},
+                      {i: b[k][n] for i, n in enumerate(sorted(b[k]))},
+                      what)
+        else:
+            check(a[k] == b[k], f"{what}: {k} differs: {a[k]} != {b[k]}")
+    same_report(ra, rb, what)
+
+
+def submit_all(rep, requests) -> None:
+    rep.reset()
+    for g, reqs in enumerate(requests):
+        for req in reqs:
+            rep.submit(g, dataclasses.replace(req, tokens_out=[],
+                                              finished_at=None))
+    torch.cuda.synchronize()
+
+
+def round_run(rep, requests, fail_at=None):
+    submit_all(rep, requests)
+    report = rep.run(fail_at=fail_at)
+    torch.cuda.synchronize()
+    return report
+
+
+def fused_run(rep, requests, fail_at=None):
+    """One fused serve run of ``requests``: (report, flag reads, new
+    captures)."""
+    submit_all(rep, requests)
+    reads0, caps0 = graphloop.STATS["flag_reads"], \
+        graphloop.STATS["captures"]
+    report = rep.run(fail_at=fail_at, fused=True)
+    torch.cuda.synchronize()
+    serve = report.extras["serve"]
+    check(serve["fused"] is True,
+          f"fused run fell back: {serve.get('fused_fallback')}")
+    check(serve["host_hops"] == 0, f"fused run took {serve['host_hops']} "
+          "host hops")
+    return (report, graphloop.STATS["flag_reads"] - reads0,
+            graphloop.STATS["captures"] - caps0)
+
+
+def fused_setup():
+    """Phase 6's serve setup (qwen3-1.7b at full width, bf16, seed 0),
+    one ``ReplicatedEngine`` per backend over the same two engines, and
+    its 16 requests a replica."""
+    cfg = registry.get("qwen3-1.7b").cfg
+    params, rep_k = serve_setup(cfg, torch.bfloat16, seed=0)
+    rep_g = api.ReplicatedEngine(rep_k.engines, subscribers_per_replica=2,
+                                 window=8, backend="graph", device="cuda")
+    requests = serve_requests(api.Request, cfg.vocab_size, 16, seed=1)
+    return cfg, params, {"kernel": rep_k, "graph": rep_g}, requests
+
+
+def phase18_fused_serve(cfg, params, reps, requests):
+    """Phase 6's serve plane as the fused program on card ``kernel`` and
+    card ``graph``: bit-identical to the per-round loop (tokens, logs,
+    free / finish / admit rounds, the report); one capture for the epoch
+    shape cold, none warm; flag reads within ceil(rounds / K) + 2.
+    Returns the rows the device trace completes
+    (:func:`fused_device_phase`)."""
+    param_bytes = sum(t.numel() * t.element_size() for t in
+                      tensors(params))
+    rows = {}
+    for backend, rep in reps.items():
+        t0 = time.perf_counter()
+        per_round = round_run(rep, requests)
+        want = serve_traces(rep, per_round)
+        t1 = time.perf_counter()
+        cold, cold_reads, cold_caps = fused_run(rep, requests)
+        same_serve(serve_traces(rep, cold), want, cold, per_round,
+                   f"fused {backend} cold vs per-round")
+        t2 = time.perf_counter()
+        warm, reads, caps = fused_run(rep, requests)
+        same_serve(serve_traces(rep, warm), want, warm, per_round,
+                   f"fused {backend} warm vs per-round")
+        t3 = time.perf_counter()
+        serve, fserve = warm.extras["serve"], cold.extras["serve"]
+        check(cold_caps == 1 and caps == 0,
+              f"fused {backend}: {cold_caps} captures cold, {caps} warm "
+              "(want 1, 0)")
+        bound_reads = math.ceil(serve["fused_rounds"] / graphloop.CHUNK) + 2
+        check(reads <= bound_reads and cold_reads <= bound_reads,
+              f"fused {backend}: {cold_reads} / {reads} flag reads for "
+              f"{serve['fused_rounds']} rounds (at most {bound_reads})")
+        (prog,) = rep._fused_programs.values()
+        rows[backend] = {
+            "per_round": {k: per_round.extras["serve"][k] for k in (
+                "tokens_per_s", "wall_s", "engine_rounds",
+                "decode_steps", "host_hops")},
+            "fused_cold": {k: fserve[k] for k in (
+                "tokens_per_s", "wall_s", "fused_rounds", "fused_epochs")},
+            "fused_warm": {k: serve[k] for k in (
+                "tokens", "tokens_per_s", "wall_s", "engine_rounds",
+                "fused_rounds", "fused_round_budget", "host_hops")},
+            "warm_wall_ms_per_engine_round":
+                serve["wall_s"] / serve["engine_rounds"] * 1e3,
+            "warm_wall_ms_per_fused_round":
+                serve["wall_s"] / serve["fused_rounds"] * 1e3,
+            "flag_reads": {"cold": cold_reads, "warm": reads,
+                           "bound": bound_reads},
+            "captures": {"cold": cold_caps, "warm": caps},
+            "capture_s": prog.capture_s, "graph_nodes": prog.nodes,
+            "graph_pool_bytes": prog.pool_bytes,
+            "speedup_tokens_per_s": serve["tokens_per_s"]
+            / per_round.extras["serve"]["tokens_per_s"],
+            "phase_s": {"per_round": t1 - t0, "cold": t2 - t1,
+                        "warm": t3 - t2}}
+    emit({"phase": 18, "part": "timing", "model": cfg.name,
+          "layers": cfg.n_layers, "replicas": 2, "slots": 8,
+          "max_len": 2048, "window": 8, "requests_per_replica": 16,
+          "identical_to_per_round": True, "chunk": graphloop.CHUNK,
+          "decode_step_bound_ms": param_bytes / HBM_BYTES_PER_S * 1e3,
+          **rows})
+    return rows
+
+
+def fused_device_phase(cfg, reps, requests, rows):
+    """The device side of phase 18, from one traced warm fused run on
+    ``kernel`` (the trace of ~10^5 device records takes about a minute
+    to collect, so the ``graph`` run, whose device work is the same but
+    for the watermark kernel, is not traced): 28 / 57 / 56 kernel
+    launches per device decode step, one watermark kernel a round,
+    device time per round and step and the busy share of the traced
+    run; beside them, labelled, the untraced warm run's wall per round
+    (phase 18's timing: a second run).  Returns the run's device
+    launches."""
+    rep = reps["kernel"]
+    (traced, _, _), trace = device_trace(lambda: fused_run(rep, requests))
+    counts = trace["launches"]
+    serve = traced.extras["serve"]
+    steps = fused_device_steps(rep, requests)
+    per_step = {k: counts[k] / steps for k in
+                ("flash_decode", "rms_norm", "rms_norm_residual")}
+    check(per_step == {"flash_decode": cfg.n_layers,
+                       "rms_norm": 1 + 2 * cfg.n_layers,
+                       "rms_norm_residual": 2 * cfg.n_layers},
+          f"fused kernel: {counts} kernel launches for {steps} device "
+          "decode steps")
+    check(counts["smc_sweep_watermark"] == serve["fused_rounds"],
+          f"fused kernel: {counts['smc_sweep_watermark']} watermark "
+          f"kernels for {serve['fused_rounds']} rounds")
+    busy = trace["device_busy_s"]
+    emit({"phase": 18, "part": "device", "backend": "kernel", **trace,
+          "device_ms_per_round": busy * 1e3 / serve["fused_rounds"],
+          "device_decode_steps": steps,
+          "device_ms_per_decode_step": busy * 1e3 / steps,
+          "kernel_launches_per_decode_step": per_step,
+          "untraced_run_wall_ms_per_round":
+              rows["kernel"]["warm_wall_ms_per_fused_round"]})
+    return counts
+
+
+# homogeneous cuts for the fused wedge (replica 0: slot nodes 0-7,
+# subscribers 8-9; replica 1: slot nodes 10-17, subscribers 18-19): a
+# subscriber of each replica at round 7; at round 20 a slot node of
+# replica 0, and of replica 1 in a wave during the wedge.  Phase 15's
+# SERVE_FAIL_AT kills subscribers of one replica only: heterogeneous,
+# so the fused path falls back for it (checked at 4 layers).
+FUSED_FAIL_AT = {7: [9, 19], 20: [[3], [13]]}
+
+
+def phase19_fused_wedge(cfg, reps, requests):
+    """The fused serve program through the cut: FUSED_FAIL_AT at full
+    width, three epochs, identical to the per-round loop; SERVE_FAIL_AT
+    falls back with the reference's reason, identical; then
+    ``chaos_soak(fused=True)`` at phase 17's seeds with digests equal to
+    the unfused soak's but for ``fused`` and ``fused_fallback``."""
+    from repro_torch.chaos import FaultSpec, chaos_soak
+    rep = reps["kernel"]
+    per_round = round_run(rep, requests, FUSED_FAIL_AT)
+    want = serve_traces(rep, per_round)
+    fused, reads, caps = fused_run(rep, requests, FUSED_FAIL_AT)
+    same_serve(serve_traces(rep, fused), want, fused, per_round,
+               "fused wedge vs per-round")
+    warm, warm_reads, warm_caps = fused_run(rep, requests, FUSED_FAIL_AT)
+    same_serve(serve_traces(rep, warm), want, warm, per_round,
+               "warm fused wedge vs per-round")
+    check(warm_caps == 0, f"warm fused wedge: {warm_caps} captures")
+    serve = fused.extras["serve"]
+    # the first epoch has phase 18's shape: its program is warm
+    check(serve["fused_epochs"] == 3 and serve["view_changes"] == 2
+          and caps == 2,
+          f"fused wedge: {serve['fused_epochs']} epochs, "
+          f"{serve['view_changes']} views, {caps} captures (want 3, 2, 2)")
+    killed = [9, 19, 3, 13]
+    serve_cut_checks(rep, fused, [r.rid for per in requests for r in per],
+                     killed, "fused wedge")
+    full = {"fail_at": {str(k): v for k, v in FUSED_FAIL_AT.items()},
+            "per_round": {k: per_round.extras["serve"][k] for k in (
+                "tokens_per_s", "wall_s", "engine_rounds")},
+            "fused": {k: serve[k] for k in (
+                "tokens_per_s", "wall_s", "engine_rounds", "fused_rounds",
+                "fused_epochs", "host_hops", "view_changes",
+                "slot_failures", "voided_requests", "requeued_requests")},
+            "fused_warm": {k: warm.extras["serve"][k] for k in (
+                "tokens_per_s", "wall_s")},
+            "captures": {"cold": caps, "warm": warm_caps},
+            "flag_reads": {"cold": reads, "warm": warm_reads},
+            "cut_walls_s": rep.cut_walls}
+
+    # 4 layers, float32: phase 15's heterogeneous cuts fall back,
+    # explicitly, to identical results
+    small = dataclasses.replace(cfg, n_layers=4)
+    params, srep = serve_setup(small, torch.float32, seed=0)
+    srequests = serve_requests(api.Request, small.vocab_size, 6, seed=2,
+                               new_tokens=6)
+    per_round = round_run(srep, srequests, SERVE_FAIL_AT)
+    want = serve_traces(srep, per_round)
+    submit_all(srep, srequests)
+    back = srep.run(fail_at=SERVE_FAIL_AT, fused=True)
+    reason = back.extras["serve"].get("fused_fallback") or ""
+    check(back.extras["serve"]["fused"] is False
+          and reason.startswith("fail_at cut at round 7 leaves "
+                                "heterogeneous replicas"),
+          f"SERVE_FAIL_AT fused: fallback {reason!r}")
+    same_serve(serve_traces(srep, back), want, back, per_round,
+               "SERVE_FAIL_AT fallback vs per-round")
+    del params, srep
+
+    # chaos_soak's fused leg (phase 17's serve setup, card kernel)
+    spec = FaultSpec(rounds=14, suspect_rate=0.2, cascade_prob=0.5,
+                     slot_kill_rate=0.2, stall_rate=0.1)
+    params = layers.init_tree(
+        layers.map_specs(lambda sp: dataclasses.replace(
+            sp, dtype=torch.float32), registry.param_specs(small)),
+        torch.Generator(device="cuda").manual_seed(5))
+    engines = [api.ServeEngine(small.name, params, small,
+                               api.EngineConfig(max_batch=4, max_len=256),
+                               device="cuda") for _ in range(2)]
+    chaos = {}
+    for seed in CHAOS_SEEDS:
+        out = {}
+        for fused_leg in (False, True):
+            eng = api.ReplicatedEngine(engines, subscribers_per_replica=2,
+                                       window=4, backend="kernel",
+                                       device="cuda")
+            eng.reset()
+            rng = np.random.default_rng(3)
+            for g in range(2):
+                for i in range(3):
+                    eng.submit(g, api.Request(
+                        rid=g * 10 + i, prompt=rng.integers(
+                            0, small.vocab_size, 5, dtype=np.int32),
+                        max_new_tokens=4))
+            out[fused_leg] = chaos_soak(eng, spec, seed=seed,
+                                        fused=fused_leg)
+        u, f = out[False], out[True]
+        strip = ("fused", "fused_fallback")
+        check({k: v for k, v in u.extras.items() if k not in strip}
+              == {k: v for k, v in f.extras.items() if k not in strip}
+              and u.killed == f.killed
+              and u.views_installed == f.views_installed
+              and u.rounds == f.rounds and u.stall_rounds == f.stall_rounds,
+              f"chaos fused seed {seed}: digests differ from the unfused "
+              "soak")
+        fb = f.extras["fused_fallback"]
+        check(fb is None or "heterogeneous" in fb or "overflow" in fb,
+              f"chaos fused seed {seed}: fallback {fb!r}")
+        chaos[str(seed)] = {"fused": f.extras["fused"],
+                            "fused_fallback": fb,
+                            "views": f.views_installed}
+    emit({"phase": 19, "full_width": full, "identical_to_per_round": True,
+          "serve_fail_at_fallback": reason, "chaos_fused": chaos})
+    del params, engines
+
+
+# The repo's own load shapes (benchmarks/loadtest.py, copied: this script
+# imports nothing of the reference): FULL's ramp and policy on the
+# stream targets, SERVE_FULL's open-loop points on the serve plane (its
+# prompt, new tokens, rate, stages and queue cap; the lanes are phase
+# 6's 8 slots a replica).  JSON identity and the rates come from the
+# same runs; every timed run is warm, each side run LOAD_REPEATS times.
+LOAD_RAMP = dict(rate=0.4, warmup=40, steps=(1.0, 2.0),
+                 rounds_per_stage=60, overload=8.0, seed=7)
+LOAD_SERVE = dict(rate=0.5, warmup=6, measure=24, scales=(0.5, 1.5, 3.0),
+                  queue_cap=6, prompt=3, new_tokens=4, seed=7)
+LOAD_POLICIES = ("admit_all", "window_slack", "token_bucket")
+LOAD_REPEATS = 3
+# (device, backend, fused) of each stream-target run; the card `kernel`
+# sides are timed
+LOAD_RUNS = (("cuda", "kernel", True), ("cuda", "kernel", False),
+             ("cuda", "graph", True), ("cpu", "graph", False))
+
+
+def load_stream_run(target: str, policy: str, dev: str, backend: str,
+                    fused: bool):
+    """LOAD_RAMP on phase 2's testbed or phase 4's 64-topic domain:
+    (LoadReport, wall s of ``run_profile``)."""
+    from repro_torch.load import (AdmitAll, Poisson, TokenBucket,
+                                  WindowSlack, run_profile, staged_ramp)
+    make = {"admit_all": AdmitAll,
+            "window_slack": lambda: WindowSlack(inflight_limit=8,
+                                                queue_cap=32),
+            "token_bucket": lambda: TokenBucket(rate=0.6, burst=4.0,
+                                                queue_cap=32)}[policy]
+    if target == "testbed":
+        tgt = api.Group(api.single_group(16, msg_size=10240, window=100,
+                                         n_messages=0), device=dev)
+    else:
+        tgt = dds_domain().bind(backend=backend, device=dev)
+    r = LOAD_RAMP
+    profile = staged_ramp(Poisson(rate=r["rate"]), warmup=r["warmup"],
+                          steps=r["steps"],
+                          rounds_per_stage=r["rounds_per_stage"],
+                          overload=r["overload"], seed=r["seed"])
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = run_profile(tgt, profile, make(), backend=backend, fused=fused)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return rep, time.perf_counter() - t0
+
+
+def load_serve_run(rep, scale: float, fused: bool):
+    """One LOAD_SERVE point on phase 6's serve plane: (LoadReport, wall
+    s of ``run_profile``)."""
+    from repro_torch.load import Poisson, Profile, ServeAdmission, Stage
+    from repro_torch.load import run_profile
+    sh = LOAD_SERVE
+    profile = Profile(arrivals=Poisson(rate=sh["rate"]), seed=sh["seed"],
+                      stages=(Stage("warmup", sh["warmup"], scale),
+                              Stage("measure", sh["measure"], scale)))
+    rep.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = run_profile(rep, profile, ServeAdmission(
+        queue_cap=sh["queue_cap"]), max_new_tokens=sh["new_tokens"],
+        prompt_len=sh["prompt"], fused=fused)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(report.run_report.extras["serve"]["fused"] is fused,
+          f"load serve x{scale}: fused={fused} took the other path")
+    return report, wall
+
+
+def spread(walls, rounds: int) -> dict:
+    """Warm walls of one side and the rounds/s they give (rounds are the
+    same in every repeat)."""
+    return {"rounds": rounds, "wall_s": walls,
+            "rounds_per_s": [rounds / w for w in walls],
+            "rounds_per_s_min": rounds / max(walls),
+            "rounds_per_s_max": rounds / min(walls)}
+
+
+def phase20_load(reps):
+    """``run_profile`` on phase 2's testbed group and phase 4's 64-topic
+    bound domain (LOAD_RAMP under ``AdmitAll``, ``WindowSlack`` and
+    ``TokenBucket``) and on phase 6's serve plane (LOAD_SERVE's points
+    under ``ServeAdmission``): each ``LoadReport``'s JSON identical fused
+    and host loop, card ``kernel`` and card ``graph``, and (stream
+    targets) card and CPU ``graph``; rounds/s of the warm card
+    ``kernel`` runs, fused and host loop, LOAD_REPEATS each."""
+    rows = {}
+    for target in ("testbed", "dds64"):
+        for policy in LOAD_POLICIES:
+            got, row = {}, {}
+            for dev, be, fused in LOAD_RUNS:
+                if fused:
+                    load_stream_run(target, policy, dev, be, fused)  # cold
+                rep, _ = load_stream_run(target, policy, dev, be, fused)
+                got[(dev, be, fused)] = rep.json_str()
+            check(len(set(got.values())) == 1,
+                  f"load {target} {policy}: LoadReports differ across "
+                  f"{list(got)}")
+            for fused in (True, False):
+                walls = []
+                for _ in range(LOAD_REPEATS):
+                    rep, wall = load_stream_run(target, policy, "cuda",
+                                                "kernel", fused)
+                    check(rep.json_str() == got[LOAD_RUNS[0]],
+                          f"load {target} {policy}: a repeat differs")
+                    walls.append(wall)
+                row["fused" if fused else "host"] = spread(
+                    walls, rep.run_report.extras["streamed_rounds"])
+            rows[f"{target}/{policy}"] = row
+    for scale in LOAD_SERVE["scales"]:
+        got, row = {}, {}
+        for fused in (True, False):
+            if fused:
+                load_serve_run(reps["kernel"], scale, True)    # cold
+            walls = []
+            for _ in range(LOAD_REPEATS if fused else 2):
+                report, wall = load_serve_run(reps["kernel"], scale, fused)
+                got.setdefault(("kernel", fused), report.json_str())
+                check(report.json_str() == got[("kernel", fused)],
+                      f"load serve x{scale}: a repeat differs")
+                walls.append(wall)
+            serve = report.run_report.extras["serve"]
+            row["fused" if fused else "host"] = dict(
+                spread(walls, serve["engine_rounds"]),
+                tokens=serve["tokens"], requests=serve["requests"],
+                shed=serve["shed_requests"],
+                tokens_per_s=[serve["tokens"] / w for w in walls])
+        if scale == LOAD_SERVE["scales"][1]:
+            load_serve_run(reps["graph"], scale, True)         # cold
+            for fused in (True, False):
+                got[("graph", fused)] = load_serve_run(
+                    reps["graph"], scale, fused)[0].json_str()
+        check(len(set(got.values())) == 1,
+              f"load serve x{scale}: LoadReports differ across "
+              f"{list(got)}")
+        rows[f"serve/x{scale}"] = row
+    emit({"phase": 20, "part": "timing", "ramp": LOAD_RAMP,
+          "serve_points": LOAD_SERVE, "repeats": LOAD_REPEATS,
+          "identical_json": True, **rows})
+
+
+def load_device_phase(reps):
+    """The device side of phase 20: one traced warm fused ``kernel`` run
+    per target (``AdmitAll`` on the stream targets, LOAD_SERVE's middle
+    point on the serve plane): one watermark kernel a streamed round,
+    busy share of the traced run.  Returns their device launches."""
+    launches = {k: 0 for k, _ in DEVICE_KERNELS}
+    out = {}
+    runs = {t: (lambda t=t: load_stream_run(t, "admit_all", "cuda",
+                                            "kernel", True)[0])
+            for t in ("testbed", "dds64")}
+    runs["serve"] = lambda: load_serve_run(
+        reps["kernel"], LOAD_SERVE["scales"][1], True)[0]
+    for target, fn in runs.items():
+        report, trace = device_trace(fn)
+        counts = trace["launches"]
+        streamed = report.run_report.extras["streamed_rounds"]
+        check(counts["smc_sweep_watermark"] == streamed,
+              f"load {target}: {counts['smc_sweep_watermark']} watermark "
+              f"kernels for {streamed} rounds")
+        for k, v in counts.items():
+            launches[k] += v
+        out[target] = dict(trace, streamed_rounds=streamed)
+    emit({"phase": 20, "part": "device", **out})
+    return launches
+
+
+FUSED_PHASES_FLAG = "--fused-phases"
+
+
+def fused_phases() -> int:
+    """Phases 18-20 in a process of their own (``chip_smoke.py
+    --fused-phases``, started by the full run): every timed replay first,
+    the device traces last.  A profiler session leaves the profiler
+    attached in its process, and every later launch and graph replay
+    pays for it (``PERF.md`` §6), so the timing needs a process that has
+    not profiled yet; the earlier phases profile.  The last line is the
+    fused and load paths' device launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    cfg, params, reps, requests = fused_setup()
+    rows = phase18_fused_serve(cfg, params, reps, requests)
+    phase19_fused_wedge(cfg, reps, requests)
+    phase20_load(reps)
+    fused = fused_device_phase(cfg, reps, requests, rows)
+    load = load_device_phase(reps)
+    emit({"fused": fused, "load": load})
+    return 0
+
+
+def run_fused_phases():
+    """Run :func:`fused_phases` in a child process on the same card,
+    relay its lines, and return its (fused, load) device launches."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           FUSED_PHASES_FLAG], capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    sys.stderr.write(proc.stderr)
+    check(proc.returncode == 0 and lines,
+          f"the fused phases failed (exit {proc.returncode})")
+    last = json.loads(lines[-1])
+    return last["fused"], last["load"]
+
+
 KERNELS = (
     ("smc_sweep_watermark", "cuda", "src/repro_torch/kernels/csrc/smc_sweep.cu",
      "src/repro/kernels/smc_sweep.py:153 smc_sweep_watermark_pallas"),
@@ -2551,7 +3158,7 @@ LINE_SHAPES = {
                         torch.bfloat16),
     "ssd_scan": ("B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256", torch.bfloat16),
 }
-PATHS = ("multicast", "serve", "forward", "train", "cut")
+PATHS = ("multicast", "serve", "forward", "train", "cut", "fused", "load")
 
 
 def main() -> int:
@@ -2559,6 +3166,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
         return 2
+    if FUSED_PHASES_FLAG in sys.argv[1:]:
+        return fused_phases()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2614,11 +3223,21 @@ def main() -> int:
                                    "rms_norm", "rms_norm_residual")),
           f"the cut path skipped a kernel: {cut}")
 
+    # the fused serve program and the load plane replay captured graphs:
+    # their launches are the kernels of the profiler's device trace over
+    # warm runs (a wrapper's count sees only the capture), taken in a
+    # process of their own after every timed replay
+    fused, load = run_fused_phases()
+    for name, counts in (("fused", fused), ("load", load)):
+        check(all(counts[k] > 0 for k, _ in DEVICE_KERNELS),
+              f"the {name} path skipped a kernel: {counts}")
+
     _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
     line_shapes = dict(LINE_SHAPES, **{
         name: (f"n={TRAIN_WORKERS * shard} block={shard}", torch.float32)
         for name in ("quantize", "dequantize")})
-    by_path = dict(zip(PATHS, (multicast, serve, forward, train, cut)))
+    by_path = dict(zip(PATHS, (multicast, serve, forward, train, cut,
+                               fused, load)))
     kernels = []
     for name, route, source, replaces in KERNELS:
         if name in line_shapes:

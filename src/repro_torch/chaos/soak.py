@@ -294,7 +294,8 @@ def _soak_stream(target, spec: FaultSpec, seed: int,
 # serve soak
 # ---------------------------------------------------------------------------
 
-def _soak_serve(engine, spec: FaultSpec, seed: int) -> ChaosReport:
+def _soak_serve(engine, spec: FaultSpec, seed: int,
+                fused: bool = False) -> ChaosReport:
     rng = np.random.default_rng(seed)
     check = _Checker(seed)
     submitted = [req.rid for eng in engine.engines for req in eng.queue]
@@ -325,8 +326,10 @@ def _soak_serve(engine, spec: FaultSpec, seed: int) -> ChaosReport:
     old_stall = engine.stall_fn
     stall_rounds_set = {r + k for r, ln in stall_at.items()
                         for k in range(ln)}
-    # stall bursts as a precomputed (rounds, G, slots) mask, the form
-    # the reference's fused program scans in its loop
+    # stall bursts as a precomputed (rounds, G, slots) mask — the form
+    # the fused program reads on the device (a host closure would force
+    # the per-round loop); the unfused loop reads the same mask, so the
+    # two paths see identical stall sets
     if stall_rounds_set:
         b_max = max(engine._slots)
         stall_mask = np.zeros((max(stall_rounds_set) + 1,
@@ -338,7 +341,7 @@ def _soak_serve(engine, spec: FaultSpec, seed: int) -> ChaosReport:
     else:
         engine.stall_fn = None
     try:
-        report = engine.run(fail_at=fail_at)
+        report = engine.run(fail_at=fail_at, fused=fused)
     finally:
         engine.stall_fn = old_stall
     serve = report.extras["serve"]
@@ -537,14 +540,15 @@ def chaos_soak(target, spec: FaultSpec, *, seed: int = 0,
     and device that is bit-identical (``graph`` and ``kernel``, the card
     and the CPU).
 
-    ``fused=True`` (the reference's one-device-program serve loop) and
-    ``backend="des"`` are not ported yet: the first raises
-    ``NotImplementedError`` naming ROADMAP.md item 9, the second the
+    ``fused=True`` (serve targets only) asks the run for the
+    wedge-capable fused path: schedules whose cuts stay homogeneous run
+    as one device program per membership epoch; heterogeneous draws
+    fall back to the per-round loop with the reason recorded — either
+    way the report is bit-identical, and
+    ``extras['fused']``/``extras['fused_fallback']`` say which path
+    actually ran.  ``backend="des"`` is not ported yet: it raises the
     ``ValueError`` of :func:`repro_torch.core.group.get_backend`, which
     names item 13."""
-    if fused:
-        raise group_mod.not_ported("chaos_soak(fused=True)",
-                                   group_mod.FUSED_ITEM)
     if isinstance(target, BucketSyncStream):
         return _soak_gradsync(target, spec, seed)
     if isinstance(target, (group_mod.Group, group_mod.GroupStream)):
@@ -552,7 +556,7 @@ def chaos_soak(target, spec: FaultSpec, *, seed: int = 0,
     # by name: the serve plane pulls in the model zoo
     cls = type(target).__name__
     if cls == "ReplicatedEngine":
-        return _soak_serve(target, spec, seed)
+        return _soak_serve(target, spec, seed, fused=fused)
     raise TypeError(
         f"chaos_soak does not know how to drive a {cls}: expected a "
         "Group, GroupStream, ReplicatedEngine, or BucketSyncStream")

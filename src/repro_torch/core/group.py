@@ -41,10 +41,11 @@ ragged trim or resent in the next view (:class:`EpochCarry`).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
-from typing import (Any, Callable, Dict, List, Mapping, Optional, Protocol,
-                    Tuple)
+from typing import (Any, Callable, Deque, Dict, List, Mapping, Optional,
+                    Protocol, Tuple)
 
 import numpy as np
 import torch
@@ -1054,14 +1055,49 @@ class KernelBackend(GraphBackend):
 # already takes G as a leading dimension.
 _fold_cost_stacked = _fold_cost
 
-# The ROADMAP.md item that brings what a stream does not do yet.
-FUSED_ITEM = "ROADMAP.md item 9 (the fused serve program)"
+# Fused round programs: loops that EMBED the stream round body on the
+# device (the fused serve plane, repro_torch.serve.fused, and the fused
+# load profile, repro_torch.load.harness), each one round captured as a
+# CUDA graph (repro_torch.core.graphloop.RoundProgram).  Keyed by the
+# caller's full static tuple: scenario shape AND whatever the round body
+# closes over (model config, round budgets, the buffers it writes in
+# place), so a warm run of the same shape on the same engines is pure
+# replay.  Each build appends one TRACE_EVENTS entry (on the card, the
+# build is the capture), so "how many programs did this run build" is a
+# delta of trace_snapshot().  The history is bounded, as the
+# reference's.
+TRACE_MAXLEN = 4096
+TRACE_EVENTS: Deque[Tuple[Tuple[int, ...], Tuple[int, ...], str]] = \
+    collections.deque(maxlen=TRACE_MAXLEN)
+_FUSED_PROGRAMS: Dict[Tuple, Any] = {}
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with {item}, a later slice "
-        "of the port")
+def trace_snapshot() -> Tuple[Tuple[Tuple[int, ...], Tuple[int, ...], str],
+                              ...]:
+    """Immutable copy of the program-build history (newest last): take a
+    snapshot before, subtract its length after."""
+    return tuple(TRACE_EVENTS)
+
+
+def trace_reset() -> int:
+    """Clear the program-build history; returns how many entries were
+    dropped.  Does NOT evict built programs."""
+    n = len(TRACE_EVENTS)
+    TRACE_EVENTS.clear()
+    return n
+
+
+def fused_stream_program(key: Tuple, build: Callable[[], Any]):
+    """Compile-once cache for stream-composed fused programs that own
+    all their buffers (the load plane's; a fused serve program holds its
+    engines' caches and is kept on its ``ReplicatedEngine``).  ``key``
+    must be a hashable static description of everything ``build()``'s
+    program closes over; ``build`` is called once per key and appends its
+    own TRACE_EVENTS entry."""
+    prog = _FUSED_PROGRAMS.get(key)
+    if prog is None:
+        prog = _FUSED_PROGRAMS[key] = build()
+    return prog
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1225,8 +1261,64 @@ class GroupStream:
                 np.stack(self._app_pub, axis=1),
                 np.stack(self._nulls, axis=1))
 
-    def absorb(self, *args, **kwargs) -> None:
-        raise not_ported("GroupStream.absorb", FUSED_ITEM)
+    def absorb(self, states, backlogs, batches, app_pub, nulls,
+               enqueued) -> None:
+        """Install round traces that were executed OUTSIDE this stream —
+        inside a fused round program that embedded the stream round body
+        (:func:`repro_torch.core.sweep.step_backlog` via
+        :func:`fused_stream_program`; the fused serve plane and the fused
+        load profile) — as if :meth:`step` had streamed them.
+
+        ``states``/``backlogs`` are the post-run carry (a
+        :class:`~repro_torch.core.sweep.SweepState` of (G, …) tensors or
+        arrays, and a (G, S_max) backlog; copied, on the stream's
+        device); ``batches``/``app_pub``/``nulls`` the per-round traces
+        as ``(T, G, ...)`` arrays or length-T lists of per-round
+        ``(G, ...)`` rows; ``enqueued`` the per-subgroup per-rank app
+        totals the rounds enqueued.  After absorbing, :meth:`finish`
+        post-processes through the exact :class:`GraphBackend` machinery
+        — a fused run's report and delivery logs are the per-round loop's
+        by construction.  Only valid on a stream with no rounds streamed
+        yet; an epoch CARRY is fine — the fused serve plane absorbs each
+        post-cut epoch into the reconfigured stream, whose carry-seeded
+        backlog/enqueued state the fused program took as its initial
+        operands (``enqueued`` must then count only the absorbed rounds'
+        events, which add onto the carry seed)."""
+        if self.rounds or self.closed:
+            raise RuntimeError("absorb needs a stream with no rounds "
+                               "streamed (fresh or carry-seeded)")
+        g, s_max = self.shape
+        batches = [np.asarray(b, np.int64) for b in batches]
+        app_pub = [np.asarray(p, np.int64) for p in app_pub]
+        nulls = [np.asarray(x, np.int64) for x in nulls]
+        if len(batches) != len(app_pub) or len(batches) != len(nulls):
+            raise ValueError("trace lengths disagree")
+        for b, p, x in zip(batches, app_pub, nulls):
+            if b.shape != (g, self.n_max) or p.shape != (g, s_max) \
+                    or x.shape != (g, s_max):
+                raise ValueError("trace rows must be (G, N_max)/"
+                                 "(G, S_max) shaped")
+
+        def own(x) -> torch.Tensor:
+            return torch.as_tensor(x).to(self.device, torch.int32,
+                                         copy=True)
+
+        self._states = sweep_mod.SweepState(**{
+            f.name: own(getattr(states, f.name))
+            for f in dataclasses.fields(sweep_mod.SweepState)})
+        self._backlogs = own(backlogs)
+        self._host = (self._states.delivered_num.cpu().numpy(),
+                      self._states.published.cpu().numpy(),
+                      self._backlogs.cpu().numpy())
+        self._batches, self._app_pub, self._nulls = batches, app_pub, \
+            nulls
+        for p, x in zip(app_pub, nulls):
+            self._app_cum += p
+            self._pub_cum += p + x
+        for gid, s_g in enumerate(self._s):
+            self._enqueued[gid] += np.asarray(enqueued[gid],
+                                              np.int64)[:s_g]
+        self.rounds = len(batches)
 
     def step(self, ready) -> StreamView:
         """One protocol round: ``ready[g, s]`` app messages become ready

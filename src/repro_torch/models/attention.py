@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, masking
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.runtime import Runtime
@@ -166,9 +166,10 @@ def decode_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     x: (B, 1, d); k_cache/v_cache: (B, S_max, Hkv, D); position: (B,)
     int — the index each row's token writes (its cache is valid in
     [0, position]).  The new K/V rows are written at
-    ``(row, position[row])`` for the rows in ``rows`` (a 1-D index
-    tensor; ``None`` means every row); the other rows of the cache are
-    left bit-unchanged.  Then the attention runs through the
+    ``(row, position[row])`` for the rows in ``rows``: a 1-D index
+    tensor, or a ``(B,)`` bool device mask (every row is then written as
+    ``where(rows, new, old)``, with no host read); ``None`` means every
+    row.  The other rows of the cache are left bit-unchanged.  Then the attention runs through the
     flash-decode site with ``kv_len = position + 1``.  ``rope`` is the
     positions' ``(cos, sin)`` when the caller has it (the decoder computes
     it once per step for all layers).  Returns the attention output
@@ -180,11 +181,20 @@ def decode_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
         rope = layers.rope_cos_sin(position[:, None], cfg.head_dim_,
                                    cfg.rope_theta)
     q, k, v = _project_qkv(p, cfg, x, rt, rope)
-    if rows is None:
-        rows = torch.arange(b, device=x.device)
-    at = position[rows].long()
-    k_cache[rows, at] = k[rows, 0].to(k_cache.dtype)
-    v_cache[rows, at] = v[rows, 0].to(v_cache.dtype)
+    if masking.is_device_mask(rows):
+        every = torch.arange(b, device=x.device)
+        at = position.long()
+        keep = rows[:, None, None]
+        k_cache[every, at] = torch.where(keep, k[:, 0].to(k_cache.dtype),
+                                         k_cache[every, at])
+        v_cache[every, at] = torch.where(keep, v[:, 0].to(v_cache.dtype),
+                                         v_cache[every, at])
+    else:
+        if rows is None:
+            rows = torch.arange(b, device=x.device)
+        at = position[rows].long()
+        k_cache[rows, at] = k[rows, 0].to(k_cache.dtype)
+        v_cache[rows, at] = v[rows, 0].to(v_cache.dtype)
     out = rt.op("flash_decode")(q[:, 0], k_cache, v_cache, position + 1)
     hq, hd = cfg.n_heads, cfg.head_dim_
     return (out.reshape(b, 1, hq * hd) @ p["wo"].reshape(hq * hd, -1))

@@ -15,8 +15,15 @@ they change, along each leaf's ``"batch"`` axis:
   rows in place already (:func:`repro_torch.models.attention.
   decode_attention`).
 
-``valid`` is a host-side ``(B,)`` bool vector (numpy, a list or a CPU
-tensor), so picking the rows costs no device synchronisation.
+``valid`` comes in two forms:
+
+* host rows: a ``(B,)`` bool vector in numpy or a list, so picking the
+  rows costs no device synchronisation (the per-round serve loop);
+* a device mask: a ``(B,)`` bool tensor, read only by device operations,
+  so a step can be captured into a CUDA graph (the fused serve program,
+  :mod:`repro_torch.serve.fused`).  Every row is then written as
+  ``where(valid, new, old)``; the values of the valid rows, and the
+  untouched bits of the others, are those of the host-row form.
 """
 
 from __future__ import annotations
@@ -38,16 +45,39 @@ def batch_axis(spec: ParamSpec) -> int:
     return spec.axes.index("batch")
 
 
+def is_device_mask(valid) -> bool:
+    """Whether ``valid`` (or the rows :func:`valid_rows` made of it) is
+    the device-mask form: a bool tensor."""
+    return isinstance(valid, torch.Tensor) and valid.dtype == torch.bool
+
+
 def valid_rows(valid, device) -> Optional[torch.Tensor]:
-    """The indices where a host-side ``(B,)`` bool ``valid`` holds, as a
-    1-D int64 tensor on ``device`` (``None`` for ``valid=None``, meaning
-    every row)."""
+    """The rows to write: for host rows, the indices where the ``(B,)``
+    bool ``valid`` holds, as a 1-D int64 tensor on ``device``; a device
+    mask is returned as it is (``None`` for ``valid=None``, meaning every
+    row).  A tensor must be a bool mask on ``device``: anything else
+    raises rather than being read on the host or taken for row
+    indices."""
     if valid is None:
         return None
     if isinstance(valid, torch.Tensor):
-        valid = valid.cpu().numpy()
+        if valid.dtype != torch.bool:
+            raise TypeError(f"a tensor valid must be a bool device mask, "
+                            f"not {valid.dtype}")
+        if valid.device != torch.device(device):
+            raise ValueError(f"the valid mask is on {valid.device}, the "
+                             f"rows it masks on {device}")
+        return valid
     idx = np.flatnonzero(np.asarray(valid, bool))
     return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+def _row_mask(spec: ParamSpec, c: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """A device mask shaped to broadcast along ``c``'s batch axis."""
+    shape = [1] * c.dim()
+    shape[batch_axis(spec)] = c.shape[batch_axis(spec)]
+    return valid_rows(valid, c.device).reshape(shape)
 
 
 def reset_rows(specs: PyTree, cache: PyTree, valid) -> PyTree:
@@ -55,8 +85,24 @@ def reset_rows(specs: PyTree, cache: PyTree, valid) -> PyTree:
     admission reset.  Returns ``cache``."""
 
     def leaf(spec, c):
-        rows = valid_rows(valid, c.device)
-        c.index_fill_(batch_axis(spec), rows, 0)
+        if is_device_mask(valid):
+            c.masked_fill_(_row_mask(spec, c, valid), 0)
+        else:
+            c.index_fill_(batch_axis(spec), valid_rows(valid, c.device), 0)
+        return c
+
+    return map_specs(leaf, specs, cache)
+
+
+def reset_slot(specs: PyTree, cache: PyTree, b: int) -> PyTree:
+    """Zero, in place, slot ``b``'s cache rows: the admission reset of
+    one slot, for a caller that decides on the device whether it runs
+    (the fused serve program: an IF node a slot, so a round writes only
+    the rows it admits, not the whole cache a masked fill reads and
+    writes).  Returns ``cache``."""
+
+    def leaf(spec, c):
+        c.select(batch_axis(spec), b).zero_()
         return c
 
     return map_specs(leaf, specs, cache)
@@ -70,7 +116,11 @@ def masked_update(specs: PyTree, old: PyTree, new: PyTree,
     decoder) is left as it is.  Returns ``old``."""
 
     def leaf(spec, o, n):
-        if n is not o:
+        if n is o:
+            return o
+        if is_device_mask(valid):
+            o.copy_(torch.where(_row_mask(spec, o, valid), n, o))
+        else:
             ax = batch_axis(spec)
             rows = valid_rows(valid, o.device)
             o.index_copy_(ax, rows, n.index_select(ax, rows))

@@ -139,8 +139,9 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
                 valid=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode step.  tokens: (B, 1) int; position: (B,) int — each
     row's write index; cache {k, v: (L, B, S_max, Hkv, D)}, updated IN
-    PLACE at the rows where the host-side ``(B,)`` bool ``valid`` holds
-    (every row for ``None``).  Returns ``(logits (B, V), cache)`` — the
+    PLACE at the rows where the ``(B,)`` bool ``valid`` holds (every row
+    for ``None``): host rows (numpy) or a device mask (a bool tensor; no
+    host read, see :mod:`repro_torch.models.masking`).  Returns ``(logits (B, V), cache)`` — the
     same cache dict."""
     _dense_only(cfg)
     position = position.to(torch.int32)

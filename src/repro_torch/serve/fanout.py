@@ -28,15 +28,15 @@ The slot ring IS the SMC ring:
 Mid-run failures (``fail_at``) cross the virtual-synchrony cut: in-flight
 messages are delivered everywhere at the ragged trim or resent in the
 next view, and a dead slot's in-flight decode is voided and re-admitted.
-The fused one-program loop (``fused=True``) comes with a later slice of
-the port and raises here.
+``fused=True`` runs each membership epoch as one device program
+(:mod:`repro_torch.serve.fused`) with zero host hops between cuts.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
                     Tuple)
 
 import numpy as np
@@ -44,7 +44,7 @@ import numpy as np
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core import dds
 from repro_torch.core import views as views_mod
-from repro_torch.core.group import FUSED_ITEM, RunReport, not_ported
+from repro_torch.core.group import RunReport
 from repro_torch.load.admission import ServeAdmission
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -135,6 +135,10 @@ class ReplicatedEngine:
                 self._node_to_slot[n] = (g, s)
         self._reset_run_state()
         self.last_report: Optional[RunReport] = None
+        # fused round programs (serve/fused.py), built once per epoch
+        # shape; they hold the engines' caches, so they live on this
+        # object and go with it
+        self._fused_programs: Dict[Tuple, Any] = {}
 
     # -- bookkeeping ---------------------------------------------------------
 
@@ -363,10 +367,21 @@ class ReplicatedEngine:
         :attr:`slot_failures`.  Scheduled rounds the run never reaches
         surface in ``extras["serve"]["fail_at_unreached"]``.
 
-        ``fused=True`` (the whole run as one device program) raises
-        ``NotImplementedError``: it comes with a later slice."""
-        if fused:
-            raise not_ported("ReplicatedEngine.run(fused=True)", FUSED_ITEM)
+        ``fused=True`` executes each membership epoch as one device
+        program (:mod:`repro_torch.serve.fused`: one round captured as a
+        CUDA graph and replayed, its control flow decided on the device),
+        with zero host hops between rounds
+        (``extras["serve"]["host_hops"] == 0``).  ``fail_at`` stops the
+        fused loop at the failure round, performs the SAME host-side cut
+        as this loop (:meth:`_fail_nodes`), and runs the next epoch's
+        program with the resend as its initial backlog.  Precomputed
+        dynamics stay fused: ``arrive_schedule``, ``ServeAdmission``,
+        ndarray stall masks and homogeneous cuts.  Arbitrary
+        ``arrive_fn`` / ``stall_fn`` callbacks, ``settle_max``,
+        heterogeneous replicas or cuts, and a first epoch that overflows
+        the fused round budget run this per-round loop instead (results
+        identical); then ``extras["serve"]["fused"]`` is False and
+        ``extras["serve"]["fused_fallback"]`` names the reason."""
         if arrive_schedule is not None and arrive_fn is not None:
             raise ValueError(
                 "arrive_schedule and arrive_fn are mutually exclusive: "
@@ -376,6 +391,26 @@ class ReplicatedEngine:
         fail_at = {int(r): _as_waves(spec)
                    for r, spec in (fail_at or {}).items()}
         fail_at = {r: w for r, w in fail_at.items() if w}
+        fused_fallback: Optional[str] = None
+        if fused:
+            from repro_torch.serve import fused as fused_mod
+            fused_fallback = fused_mod.fused_fallback_reason(
+                self, fail_at=fail_at, arrive_fn=arrive_fn,
+                arrive_schedule=arrive_schedule, admission=admission,
+                settle_max=settle_max)
+            if fused_fallback is None:
+                try:
+                    report = fused_mod.run_fused(
+                        self, max_rounds=max_rounds, fail_at=fail_at,
+                        arrive_schedule=arrive_schedule,
+                        arrive_rounds=arrive_rounds,
+                        admission=admission)
+                except fused_mod.FusedUnsupported as e:
+                    report, fused_fallback = None, str(e)
+                if report is not None:
+                    return report
+                fused_fallback = fused_fallback or (
+                    "run overflowed the fused round budget")
         # a precomputed schedule / stall mask is just the tabulated form
         # of the callback
         if arrive_schedule is not None:
@@ -511,6 +546,8 @@ class ReplicatedEngine:
             "host_hops": (sum(eng.host_syncs for eng in self.engines)
                           - syncs0) + round_no,
         }
+        if fused_fallback is not None:
+            report.extras["serve"]["fused_fallback"] = fused_fallback
         self.last_report = report
         return report
 

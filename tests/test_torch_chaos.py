@@ -12,6 +12,7 @@ per-node app counts, trims, completed tokens, applied rounds) exactly.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ from repro.chaos import FaultSpec as RefFaultSpec
 from repro.chaos import chaos_soak as ref_chaos_soak
 from repro.core.gradsync import BucketSyncStream as RefBucketSyncStream
 from repro.models import layers as ref_layers
+from repro.models.runtime import Runtime as RefRuntime
 from repro.serve import engine as ref_engine
 from repro.serve.fanout import ReplicatedEngine as RefReplicatedEngine
 from repro_torch import api
@@ -29,7 +31,8 @@ from repro_torch.chaos import (ChaosReport, FaultEvent, FaultSpec,
                                events_by_round)
 from repro_torch.chaos.soak import _Checker
 from repro_torch.core.gradsync import BucketSyncStream
-from test_torch_serve import params, port_engines, ref_engines  # noqa: F401
+from test_torch_serve import (REF_FAN, params, port_engines,  # noqa: F401
+                              ref_engines)
 
 pytestmark = pytest.mark.fast
 
@@ -138,11 +141,35 @@ def test_soak_is_deterministic_and_checks_its_targets():
 
 
 def test_fused_and_des_are_not_ported_yet(port_engines):
-    rep = api.ReplicatedEngine(port_engines, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        chaos_soak(rep, FaultSpec(), fused=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        chaos_soak(_chaos_group(api), FaultSpec(), fused=True)
+    """The fused leg is ported: ``chaos_soak(fused=True)`` on a serve
+    target drives the fused path where the drawn cuts stay homogeneous
+    and falls back, saying so, where they do not — either way the report
+    is the unfused soak's but for the path markers; a stream target
+    ignores ``fused``, as the reference does.  The DES is not ported:
+    ``backend="des"`` raises naming item 13."""
+    spec = FaultSpec(**SERVE_SPEC)
+    reports = {}
+    for fused in (False, True):
+        rep = api.ReplicatedEngine(port_engines, subscribers_per_replica=2,
+                                   window=4, backend="graph", device="cpu")
+        rep.reset()
+        rng = np.random.default_rng(3)
+        for g in range(2):
+            for i in range(3):
+                rep.submit(g, api.Request(
+                    rid=g * 10 + i,
+                    prompt=rng.integers(0, 512, 3, dtype=np.int32),
+                    max_new_tokens=4))
+        reports[fused] = chaos_soak(rep, spec, seed=23, fused=fused)
+    u, f = reports[False], reports[True]
+    strip = ("fused", "fused_fallback")
+    assert {k: v for k, v in u.extras.items() if k not in strip} == \
+        {k: v for k, v in f.extras.items() if k not in strip}
+    assert u.killed == f.killed and u.rounds == f.rounds
+    assert "heterogeneous" in f.extras["fused_fallback"]
+    a = chaos_soak(_chaos_group(api), FaultSpec(), fused=True)
+    b = chaos_soak(_chaos_group(api), FaultSpec())
+    assert a.extras == b.extras
     with pytest.raises(ValueError, match="item 13"):
         chaos_soak(_chaos_group(api), FaultSpec(), backend="des")
 
@@ -153,3 +180,94 @@ def test_a_failed_check_raises_an_invariant_violation():
     with pytest.raises(InvariantViolation, match=r"\[seed=5\] broke"):
         check(False, "broke", 1, 2)
     assert issubclass(InvariantViolation, AssertionError) and check.n == 2
+
+
+@pytest.fixture(scope="module")
+def ref_shared_engines(params):
+    """``test_torch_serve``'s reference engines sharing ONE parameter
+    tree, as the reference's fused path requires."""
+    shared = jax.tree.map(jnp.asarray, params)
+    engines = []
+    for _ in range(2):
+        eng = ref_engine.ServeEngine(
+            "fanout-test", shared, REF_FAN,
+            ref_engine.EngineConfig(max_batch=2, max_len=48), RefRuntime())
+        eng.cache = jax.tree.map(lambda x: x.astype(jnp.float32), eng.cache)
+        engines.append(eng)
+    return engines
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fused_serve_soak_matches_the_reference(monkeypatch, port_engines,
+                                                ref_shared_engines, seed):
+    """``chaos_soak(fused=True)`` on the serve plane: the port's report,
+    its path markers included, is the reference's fused soak's."""
+    monkeypatch.setattr(ref_layers, "DEFAULT_DTYPE", jnp.float32)
+    ref_engines = ref_shared_engines
+    reports = []
+    for rep_cls, engines, request_cls, soak, spec, kw in (
+            (api.ReplicatedEngine, port_engines, api.Request, chaos_soak,
+             FaultSpec, dict(backend="kernel", device="cpu")),
+            (RefReplicatedEngine, ref_engines, ref_engine.Request,
+             ref_chaos_soak, RefFaultSpec, dict(backend="graph"))):
+        rep = rep_cls(engines, subscribers_per_replica=2, window=4, **kw)
+        rep.reset()
+        rng = np.random.default_rng(3)
+        for g in range(2):
+            for i in range(3):
+                rep.submit(g, request_cls(
+                    rid=g * 10 + i,
+                    prompt=rng.integers(0, 512, 3, dtype=np.int32),
+                    max_new_tokens=4))
+        reports.append(soak(rep, spec(**SERVE_SPEC), seed=seed,
+                            fused=True))
+    got, want = reports
+    assert _report(got) == _report(want)
+    fb = got.extras["fused_fallback"]
+    assert fb is None or "heterogeneous" in fb or "overflow" in fb
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_chaos_fused_serve_real_wedge(port_engines, seed):
+    """A HOMOGENEOUS mid-run cut (one slot node per replica) stops the
+    fused program, cuts on the host and runs a second program: two
+    epochs, no fallback, zero host hops, the per-round loop's results.
+    A heterogeneous cut (one replica's subscriber) falls back,
+    explicitly, to the same results."""
+    fail_round = 1 + seed % 3
+
+    def drive(fused, fail_nodes):
+        rep = api.ReplicatedEngine(port_engines, subscribers_per_replica=2,
+                                   window=4, backend="graph", device="cpu")
+        rep.reset()
+        rng = np.random.default_rng(seed)
+        for g in range(2):
+            for i in range(3):
+                rep.submit(g, api.Request(
+                    rid=g * 10 + i,
+                    prompt=rng.integers(0, 512, 3, dtype=np.int32),
+                    max_new_tokens=4))
+        report = rep.run(fail_at={fail_round: fail_nodes(rep)},
+                         fused=fused)
+        return rep.completed(), report
+
+    def homogeneous(rep):
+        return [rep._slot_nodes[0][1], rep._slot_nodes[1][1]]
+
+    done_u, rep_u = drive(False, homogeneous)
+    done_f, rep_f = drive(True, homogeneous)
+    serve = rep_f.extras["serve"]
+    assert serve["fused"] is True, serve.get("fused_fallback")
+    assert serve["fused_epochs"] == 2 and serve["host_hops"] == 0
+    assert serve["view_changes"] == 1 and serve["drained"]
+    assert done_f == done_u
+    su = rep_u.extras["serve"]
+    for k in ("engine_rounds", "view_changes", "voided_requests",
+              "requeued_requests", "slot_failures", "fail_at_unreached"):
+        assert su[k] == serve[k], k
+    # replica 0's nodes: slots 0-1, subscribers 2-3
+    done_hu, _ = drive(False, lambda r: [2])
+    done_hf, rep_hf = drive(True, lambda r: [2])
+    s_het = rep_hf.extras["serve"]
+    assert s_het["fused"] is False and "fail_at" in s_het["fused_fallback"]
+    assert s_het["view_changes"] == 1 and done_hf == done_hu

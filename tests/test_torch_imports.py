@@ -131,3 +131,26 @@ def test_train_slice_has_its_kernel_source():
     from repro_torch.kernels import _build
     assert not any("fast" in f for f in _build.NVCC_FLAGS)
     assert "__fdividef(" not in src and "rintf(" in src
+
+
+FUSED_MODULES = (
+    "repro_torch.core.graphloop", "repro_torch.serve.fused",
+    "repro_torch.load", "repro_torch.load.arrivals",
+    "repro_torch.load.profiles", "repro_torch.load.metrics",
+    "repro_torch.load.harness")
+
+
+@pytest.mark.parametrize("module", FUSED_MODULES)
+def test_fused_slice_modules_import_without_a_gpu(module):
+    """The fused serve program's and the load plane's modules import on a
+    CPU-only machine: the IF-node helper's CUDA build is reached only
+    inside a capture."""
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+
+
+def test_fused_slice_has_its_graph_source():
+    src = (ROOT / "src/repro_torch/kernels/csrc/graph_cond.cu").read_text()
+    assert "cudaGraphSetConditional" in src and "__global__" in src
+    for fn in ("graph_if_begin", "graph_if_end", "graph_body_stream"):
+        assert f'extern "C" int {fn}' in src

@@ -267,3 +267,96 @@ def test_unported_families_and_bad_runtime_raise():
         Runtime(kernels="cuda")
     with pytest.raises(KeyError, match="no-such-model"):
         registry.get("no-such-model")
+
+
+@pytest.mark.parametrize("key", sorted(SHAPES))
+@pytest.mark.parametrize("kernels", ["kernels", "plain"])
+def test_device_mask_branch_equals_host_rows(key, kernels):
+    """The device-mask form of ``valid`` (a bool tensor: every row
+    written as ``where(valid, new, old)``, no host read — what the fused
+    serve program captures) against the host-row form, replayed on CPU
+    tensors: logits, caches, the admission reset and the masked update
+    bit for bit over several steps."""
+    ref_cfg, cfg = _configs(key)
+    b, s_max = 4, 24
+    rng = np.random.default_rng(5)
+    params = convert.params_from_numpy(_ref_params(ref_cfg, seed=1), cfg,
+                                       "cpu", torch.float32)
+    shape = (cfg.n_layers, b, s_max, cfg.n_kv_heads, cfg.head_dim_)
+    host = {k: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+            for k in ("k", "v")}
+    dev = {k: v.clone() for k, v in host.items()}
+    specs = attention.kv_cache_specs(cfg, b, s_max)
+    rt = Runtime(kernels=kernels)
+    for step in range(3):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, 1))
+                                  .astype(np.int32))
+        pos = torch.from_numpy(rng.integers(0, s_max, b).astype(np.int32))
+        valid = rng.random(b) < 0.5
+        valid[step % b] = True
+        if step == 1:      # the admission reset, both forms
+            masking.reset_rows(specs, host, valid)     # in place
+            masking.reset_rows(specs, dev, torch.from_numpy(valid))
+            for k in ("k", "v"):
+                assert not host[k][:, valid].any()
+        got_h, host = transformer.decode_step(params, cfg, host, tokens,
+                                              pos, rt, valid=valid)
+        got_d, dev = transformer.decode_step(params, cfg, dev, tokens, pos,
+                                             rt,
+                                             valid=torch.from_numpy(valid))
+        assert torch.equal(got_h, got_d)
+        for k in ("k", "v"):
+            assert torch.equal(host[k], dev[k]), k
+    new = {k: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+           for k in ("k", "v")}
+    valid = np.array([False, True, True, False])
+    masking.masked_update(specs, host, new, valid)
+    masking.masked_update(specs, dev, new, torch.from_numpy(valid))
+    for k in ("k", "v"):
+        assert torch.equal(host[k], dev[k]), k
+    assert masking.is_device_mask(torch.from_numpy(valid))
+    assert not masking.is_device_mask(valid)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (torch.tensor([1, 0, 1, 0]), TypeError),
+    (torch.tensor([0, 2]), TypeError),
+    (torch.zeros(4, dtype=torch.bool, device="meta"), ValueError),
+])
+def test_valid_tensor_must_be_a_bool_mask_on_the_rows_device(bad, err):
+    """A tensor ``valid`` is only ever a bool device mask on the cache's
+    device: integer tensors and masks on another device raise in every
+    consumer instead of being read on the host or taken for indices."""
+    cfg = _configs("fan")[1]
+    specs = attention.kv_cache_specs(cfg, 4, 6)
+    cache = {k: torch.zeros(s.shape) for k, s in specs.items()}
+    with pytest.raises(err):
+        masking.valid_rows(bad, torch.device("cpu"))
+    with pytest.raises(err):
+        masking.reset_rows(specs, cache, bad)
+    with pytest.raises(err):
+        masking.masked_update(specs, cache,
+                              {k: v.clone() for k, v in cache.items()}, bad)
+    good = torch.tensor([True, False, True, False])
+    assert masking.valid_rows(good, torch.device("cpu")) is good
+    assert masking.valid_rows(np.asarray(good), "cpu").tolist() == [0, 2]
+
+
+@pytest.mark.parametrize("slot", [0, 2, 3])
+def test_reset_slot_equals_reset_rows_of_that_slot(slot):
+    """The fused program's one-slot admission reset zeroes exactly the
+    rows the host-row reset zeroes for that slot, in place."""
+    cfg = _configs("fan")[1]
+    specs = attention.kv_cache_specs(cfg, 4, 6)
+    rng = np.random.default_rng(9)
+    host = {k: torch.from_numpy(rng.normal(size=s.shape).astype(np.float32))
+            for k, s in specs.items()}
+    one = {k: v.clone() for k, v in host.items()}
+    ptrs = {k: v.data_ptr() for k, v in one.items()}
+    valid = np.zeros(4, bool)
+    valid[slot] = True
+    masking.reset_rows(specs, host, valid)
+    got = masking.reset_slot(specs, one, slot)
+    for k in specs:
+        assert got[k].data_ptr() == ptrs[k]
+        assert torch.equal(got[k], host[k]), k

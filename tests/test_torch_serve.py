@@ -224,8 +224,38 @@ def test_unported_options_raise(port_engines):
     serve = rep.run(fail_at={1: [0]}).extras["serve"]
     assert serve["drained"] and serve["view_changes"] == 1
     assert serve["slot_failures"] == 1 and serve["requests"] == 4
-    with pytest.raises(NotImplementedError, match="item 9"):
-        rep.run(fused=True)
+    done = rep.completed()
+    # fused=True is ported (tests/test_torch_serve_fused.py): this cut
+    # leaves the replicas unequal, so the run falls back to the per-round
+    # loop and says so, with the same results
+    rep.reset()
+    for g, reqs in enumerate(_requests(api.Request, 2, seed=0)):
+        for req in reqs:
+            rep.submit(g, req)
+    fused = rep.run(fail_at={1: [0]}, fused=True).extras["serve"]
+    assert fused["fused"] is False
+    assert fused["fused_fallback"].startswith(
+        "fail_at cut at round 1 leaves heterogeneous replicas")
+    assert rep.completed() == done
+    assert {k: fused[k] for k in SERVE_KEYS if k != "host_hops"} == \
+        {k: serve[k] for k in SERVE_KEYS if k != "host_hops"}
+    # ... and without the cut it takes the fused path, equal to the loop
+    rep.reset()
+    for g, reqs in enumerate(_requests(api.Request, 2, seed=0)):
+        for req in reqs:
+            rep.submit(g, req)
+    loop = rep.run().extras["serve"]
+    done = rep.completed()
+    rep.reset()
+    for g, reqs in enumerate(_requests(api.Request, 2, seed=0)):
+        for req in reqs:
+            rep.submit(g, req)
+    fused = rep.run(fused=True).extras["serve"]
+    assert fused["fused"] is True and fused["host_hops"] == 0
+    assert rep.completed() == done
+    assert {k: fused[k] for k in SERVE_KEYS if k not in ("fused",
+                                                         "host_hops")} == \
+        {k: loop[k] for k in SERVE_KEYS if k not in ("fused", "host_hops")}
 
 
 def test_entry_points_want_the_gpu_unless_told(params, port_engines):

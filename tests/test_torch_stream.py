@@ -271,8 +271,11 @@ def test_stream_and_bind_validate_inputs():
     stream = port_api.Group(cfg, device="cpu").stream()
     with pytest.raises(ValueError, match="ready must be"):
         stream.step(np.zeros((2, 2), np.int32))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        stream.absorb(None, None, [], [], [], [])
+    # absorb is ported (test_absorb_onto_an_epoch_carry_and_its_checks):
+    # it checks the traces it installs
+    with pytest.raises(ValueError, match="lengths disagree"):
+        stream.absorb(stream._states, stream._backlogs, [],
+                      [np.zeros(stream.shape)], [], [np.zeros(2)])
     # a view change closes the stream: it refuses further rounds and
     # hands on a stream of the next epoch on the same device
     s2 = stream.reconfigure(port_api.View(vid=1, members=(0, 1),
@@ -306,3 +309,111 @@ def test_stream_wants_the_gpu_unless_told():
         port_api.many_topic_domain(4, 3).bind()
     with pytest.raises(RuntimeError, match="CUDA"):
         port_group.Group(port_api.single_group(3)).stream()
+
+
+def _absorb_source(backend, g, rounds):
+    """Step a stream through ``rounds`` ready rows; returns what a fused
+    program hands ``absorb``: the final carry, the per-round traces and
+    the per-rank enqueued totals."""
+    src = g.stream(backend=backend)
+    for ready in rounds:
+        src.step(ready)
+    batches, app_pub, nulls = src.traces()
+    enq = np.sum(rounds, axis=0).astype(np.int64)
+    return (src._states, src._backlogs, list(batches.swapaxes(0, 1)),
+            list(app_pub.swapaxes(0, 1)), list(nulls.swapaxes(0, 1)),
+            [enq[gid] for gid in range(enq.shape[0])])
+
+
+@pytest.mark.parametrize("port_backend,ref_backend", BACKENDS)
+@pytest.mark.parametrize("domain", ["single", "hetero"])
+def test_absorbed_rounds_finish_like_stepped_ones(port_backend, ref_backend,
+                                                  domain):
+    """Rounds run outside a stream and absorbed into a fresh one finish
+    exactly as if ``step`` had streamed them (report, logs, traces,
+    watermarks, ``app_publish_index``), and as the reference's absorbed
+    stream."""
+    rng = np.random.default_rng(11)
+    if domain == "single":
+        cfg = port_api.single_group(4, n_senders=3, msg_size=1024,
+                                    window=3, n_messages=0)
+        make = (lambda api: api.Group(cfg, device="cpu") if api is port_api
+                else ref_api.Group(ref_api.single_group(
+                    4, n_senders=3, msg_size=1024, window=3,
+                    n_messages=0)))
+    else:
+        def make(api):
+            d = api.Domain(n_nodes=6)
+            d.create_topic("a", publishers=[0, 1, 2], subscribers=[3, 4],
+                           window=4)
+            d.create_topic("b", publishers=[2], subscribers=[5, 0],
+                           window=2)
+            kw = {"device": "cpu"} if api is port_api else {}
+            return d.group(samples_per_publisher=0, **kw)
+    shape = make(port_api).stream(backend=port_backend).shape
+    mask = np.zeros(shape, bool)
+    for gid, s_g in enumerate(make(port_api).stream(
+            backend=port_backend).n_senders):
+        mask[gid, :s_g] = True
+    rounds = [np.where(mask, rng.integers(0, 3, shape), 0).astype(np.int32)
+              for _ in range(7)]
+    stepped = make(port_api).stream(backend=port_backend)
+    for ready in rounds:
+        stepped.step(ready)
+    absorbed = make(port_api).stream(backend=port_backend)
+    absorbed.absorb(*_absorb_source(port_backend, make(port_api), rounds))
+    assert absorbed.rounds == stepped.rounds == len(rounds)
+    _assert_streams_equal(absorbed, stepped)
+    ref = make(ref_api).stream(backend=ref_backend)
+    src = _absorb_source(ref_backend, make(ref_api), rounds)
+    ref.absorb(*src)
+    got, want, ref_out = absorbed.finish(), stepped.finish(), ref.finish()
+    _assert_streams_equal(absorbed, stepped)
+    for other in (want, ref_out):
+        _assert_reports_equal(got[0], other[0])
+        _assert_logs_equal(got[1], other[1])
+    _assert_streams_equal(absorbed, ref)
+
+
+def test_absorb_onto_an_epoch_carry_and_its_checks():
+    """A carry-seeded stream takes absorbed rounds on top of its resend
+    backlog; absorb refuses a used stream and mis-shaped traces."""
+    cfg_args = dict(n_senders=2, msg_size=512, window=3, n_messages=0)
+    streams = []
+    for _ in range(2):
+        g = port_api.Group(port_api.single_group(3, **cfg_args),
+                           device="cpu")
+        g.carry = port_api.EpochCarry(
+            from_epoch=0, cut_seq=(5,), resend=(np.array([4, 1]),),
+            stable_apps=(np.array([2, 2]),), app_base=(np.array([2, 2]),))
+        streams.append(g.stream("graph"))
+    stepped, absorbed = streams
+    rounds = [np.array([[1, 0]], np.int32), np.array([[0, 2]], np.int32)]
+    src = port_api.Group(port_api.single_group(3, **cfg_args),
+                         device="cpu")
+    src.carry = stepped.group.carry
+    src_stream = src.stream("graph")
+    for ready in rounds:
+        stepped.step(ready)
+        src_stream.step(ready)
+    batches, app_pub, nulls = src_stream.traces()
+    absorbed.absorb(src_stream._states, src_stream._backlogs,
+                    batches.swapaxes(0, 1), app_pub.swapaxes(0, 1),
+                    nulls.swapaxes(0, 1), [np.array([1, 2])])
+    _assert_streams_equal(absorbed, stepped)
+    got, want = absorbed.finish(), stepped.finish()
+    _assert_reports_equal(got[0], want[0])
+    _assert_logs_equal(got[1], want[1])
+    with pytest.raises(RuntimeError, match="no rounds streamed"):
+        stepped.absorb(src_stream._states, src_stream._backlogs, [], [], [],
+                       [np.zeros(2)])
+    fresh = port_api.Group(port_api.single_group(3, **cfg_args),
+                           device="cpu").stream("graph")
+    with pytest.raises(ValueError, match="lengths disagree"):
+        fresh.absorb(src_stream._states, src_stream._backlogs,
+                     batches.swapaxes(0, 1), app_pub.swapaxes(0, 1)[:1],
+                     nulls.swapaxes(0, 1), [np.zeros(2)])
+    with pytest.raises(ValueError, match="shaped"):
+        fresh.absorb(src_stream._states, src_stream._backlogs,
+                     [np.zeros((1, 2))], [np.zeros((1, 2))],
+                     [np.zeros((1, 2))], [np.zeros(2)])
