@@ -18,8 +18,10 @@ gradient reduction over two data-parallel workers) and the
 virtual-synchrony cut (``MembershipService.reconfigure_stream``,
 ``BoundDomain.reconfigure``, ``ReplicatedEngine.run(fail_at=)``,
 ``ElasticRuntime`` with a ``BucketSyncStream`` and ``chaos_soak``), the
-fused serve program (``ReplicatedEngine.run(fused=True)``) and the load
-plane (``run_profile``).
+fused serve program (``ReplicatedEngine.run(fused=True)``), the load
+plane (``run_profile``) and the recurrent families (``Arch.loss_fn`` on
+a full-width zamba2-2.7b, ``ReplicatedEngine.run`` per round and fused
+on full-width mamba2-2.7b and zamba2-2.7b).
 
 Phases (one JSON line each; any failure exits non-zero):
 
@@ -40,9 +42,11 @@ Phases (one JSON line each; any failure exits non-zero):
 5. flash-decode and both RMSNorm kernels against their plain versions at
    the serve shapes, float32 (2e-5) and bfloat16 (2e-2): flash decode at
    B=8 Hq=16 Hkv=8 D=128 S_max=2048 with the serve run's, mixed and
-   all-2048 lengths, at zamba2's D=80 heads, at group 16 and on a
-   one-chunk cache (S_max=128); CUDA-event and profiler times, the plain
-   and library times, the bound;
+   all-2048 lengths, at zamba2's D=80 heads (group 1; mixed lengths and
+   the recurrent serve's), at group 16 and on a one-chunk cache
+   (S_max=128); the RMSNorm kernels also at the recurrent decode's rows
+   (8 x 2560 and the gated 8 x 5120); CUDA-event and profiler times, the
+   plain and library times, the bound;
 6. the serve plane at full width: qwen3-1.7b (28 layers, bf16 weights
    from seed 0), two replicas of 8 KV slots x 2048 positions, 16
    requests each, on the ``kernel`` backend: every kernel launched once
@@ -159,9 +163,37 @@ Phases (one JSON line each; any failure exits non-zero):
    (fused and host loop on both card backends): identical
    ``LoadReport`` JSON, rounds/s; traced fused ``kernel`` runs give one
    watermark kernel a streamed round;
-21. the ``kernels`` line: per kernel its launches on the main paths
-   (phases 2-4, 6, 9, 12, 14-17 and, from the device traces, 18 and
-   20), its times and its bound.
+21. zamba2-2.7b's forward at full width (54 layers, bf16 weights from
+   seed 0, ``loss_fn`` on 1 x 2048): a finite loss near ln V, exactly
+   9 / 54 / 55 / 72 flash-attention / SSD / RMSNorm / residual-norm
+   calls a forward, tokens/s, the bound;
+22. the recurrent serve plane at full width: mamba2-2.7b and
+   zamba2-2.7b (bf16 weights from seed 0, two replicas of 8 slots x
+   2048 positions, 12 requests each with 2-4-token prompts, ``kernel``
+   backend): drained, exact launches a decode step (mamba2 65 / 64,
+   zamba2 9 flash decode / 55 / 72), ``ssm_state`` float32 beside bf16
+   leaves in every engine; tokens/s, wall a decode step, the step's
+   computed byte bound;
+23. the same runs fused on card ``kernel`` and card ``graph``:
+   identical to the per-round loop (tokens, logs, round traces, the
+   report), host_hops 0, one capture cold and none warm, flag reads
+   within ceil(rounds / 32) + 2; warm tokens/s, capture seconds, graph
+   nodes, pool bytes;
+24. both recurrent families in float32 at 4 layers (zamba2 with its
+   shared block every 2): serve on the kernels against the plain
+   versions under phase 7's rule, every request's batched tokens equal
+   to the same request served alone, and the forward over 512 tokens
+   against 512 decode steps (equal in float64 on the plain versions
+   within 1e-9; the float32 decode within 1e-4 of the float64 forward
+   and within 5e-4 of the float32 forward);
+25. the profiled figures of phases 21-22: zamba2's forward (device
+   time, busy share, per kernel) and one decode step of each model
+   (device time, device operations, the leading device ops) beside its
+   bound; phases 21-25 run in a child process of their own
+   (``--recurrent-phases``), timed runs before profiled ones;
+26. the ``kernels`` line: per kernel its launches on the main paths
+   (phases 2-4, 6, 9, 12, 14-17, 21-22 and, from the device traces, 18
+   and 20), its times and its bound.
 
 The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
@@ -200,7 +232,9 @@ from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import smc_sweep as ss  # noqa: E402
 from repro_torch.kernels import ssd_scan as sc  # noqa: E402
-from repro_torch.models import layers, registry, transformer  # noqa: E402
+from repro_torch.models import (hybrid, layers, registry,  # noqa: E402
+                                transformer)
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
@@ -700,15 +734,20 @@ def phase5_kernels():
     rows = []
     mixed = [1, 511, 512, 513, 2048, 37, 1024, 1500]
     serve = np.random.default_rng(6).integers(1, 41, 8).tolist()
+    # the recurrent serve's lengths (prompts of 2-4 tokens plus up to 16
+    # generated ones; phases 22-23)
+    recurrent = np.random.default_rng(7).integers(3, 21, 8).tolist()
     # (label, B, Hq, Hkv, D, S_max, lengths): the serve plane's shape with
     # the serve run's lengths (prompts of 8-24 tokens plus up to 16
     # generated ones), mixed and full lengths; zamba2's attention heads
-    # (D=80, group 1); a group of 16; a cache of one chunk, where the
-    # split kernel writes the output and no merge runs
+    # (D=80, group 1), also at the recurrent serve's lengths (zamba2's
+    # shared block, phases 22-23); a group of 16; a cache of one chunk,
+    # where the split kernel writes the output and no merge runs
     cases = (("serve", 8, 16, 8, 128, 2048, serve),
              ("mixed", 8, 16, 8, 128, 2048, mixed),
              ("all2048", 8, 16, 8, 128, 2048, [2048] * 8),
              ("mixed D=80", 8, 32, 32, 80, 2048, mixed),
+             ("recurrent D=80", 8, 32, 32, 80, 2048, recurrent),
              ("mixed group 16", 8, 16, 1, 128, 2048, mixed),
              ("serve one chunk", 8, 16, 8, 128, 128, serve))
     for dtype in (torch.float32, torch.bfloat16):
@@ -738,7 +777,10 @@ def phase5_kernels():
                          **time_case(kernel, plain,
                                      sdpa_library(q, k, v, kv_len)),
                          "bound_ms": bound_ms, "bound_by": bound_by})
-    rows += rmsnorm_rows(((8, 2048), (8 * 16, 128)), gen, 200)
+    # the dense decode's hidden and per-head norms, then the recurrent
+    # decode's hidden (2560) and gated (5120) norms
+    rows += rmsnorm_rows(((8, 2048), (8 * 16, 128), (8, 2560), (8, 5120)),
+                         gen, 200)
     for r in rows:
         emit({"phase": 5, **r})
     return rows
@@ -803,12 +845,10 @@ def tensors(tree):
 
 
 def serve_setup(cfg, dtype, seed: int, rt=Runtime(), backend="kernel"):
-    """Two replicas sharing one random parameter set."""
-    specs = layers.map_specs(lambda sp: dataclasses.replace(sp, dtype=dtype),
-                             registry.param_specs(cfg))
-    params = layers.init_tree(specs, torch.Generator(
-        device="cuda").manual_seed(seed))
-    engines = [api.ServeEngine("qwen3-1.7b", params, cfg,
+    """Two replicas sharing one random parameter set (``init_params``:
+    float32 specs, the ssm's per-head vectors, stay float32)."""
+    params = registry.Arch(cfg).init_params(seed, "cuda", dtype)
+    engines = [api.ServeEngine(cfg.name, params, cfg,
                                api.EngineConfig(max_batch=8, max_len=2048),
                                rt=rt, device="cuda") for _ in range(2)]
     rep = api.ReplicatedEngine(engines, subscribers_per_replica=2,
@@ -961,6 +1001,20 @@ def phase7_kernels_vs_plain():
     """The serve scenario in float32 at 4 layers on the kernels and on
     the plain versions (over the graph backend)."""
     cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg, n_layers=4)
+    record, _ = serve_kernels_vs_plain(
+        cfg, lambda rep: serve_run(rep, 16, seed=4),
+        {"flash_decode": cfg.n_layers}, "phase 7")
+    emit({"phase": 7, **record})
+
+
+def serve_kernels_vs_plain(cfg, run, per_step: dict, what: str):
+    """``run(rep)`` in float32 on two replicas of ``cfg`` on the kernels
+    (``kernel`` backend) and on the plain versions (``graph`` backend):
+    identical logs, counters and round traces, and tokens that differ
+    only where the plain run's top-2 logit margin is under 1e-4
+    relative; the kernel run launching ``per_step`` a decode step, the
+    plain run nothing.  Returns the comparison's record and the kernel
+    run's tokens by request."""
     out = {}
     margins = {}
     for key, rt, backend in (("kernels", Runtime(), "kernel"),
@@ -970,7 +1024,7 @@ def phase7_kernels_vs_plain():
         records = record_margins(rep) if key == "plain" else None
         before = ops.launch_counts()
         t0 = time.perf_counter()
-        report = serve_run(rep, 16, seed=4)
+        report = run(rep)
         wall = time.perf_counter() - t0
         after = ops.launch_counts()
         launched = {k: after[k] - before[k] for k in after}
@@ -978,38 +1032,40 @@ def phase7_kernels_vs_plain():
             check(all(launched[k] == 0 for k in
                       ("flash_decode", "rms_norm", "rms_norm_residual",
                        "smc_sweep_watermark")),
-                  f"the plain run launched kernels: {launched}")
+                  f"{what}: the plain run launched kernels: {launched}")
             for rows, top in records:
                 top = top.cpu().numpy()
                 for i, rid, j in rows:
                     t1, t2 = top[i]
                     margins[(rid, j)] = (t1 - t2) / max(abs(t1), 1e-30)
         else:
-            check(launched["flash_decode"] == cfg.n_layers
-                  * report.extras["serve"]["decode_steps"],
-                  f"kernel run launches {launched}")
+            steps_ = report.extras["serve"]["decode_steps"]
+            check(all(launched[k] == n * steps_
+                      for k, n in per_step.items()),
+                  f"{what}: kernel run launches {launched}, want "
+                  f"{per_step} x {steps_} decode steps")
         out[key] = (report, rep, wall)
         del rep
         torch.cuda.empty_cache()
     (rk, repk, wk), (rp, repp, wp) = out["kernels"], out["plain"]
     same_logs({k: v for k, v in rk.extras["delivery_logs"].items()},
-              rp.extras["delivery_logs"], "phase 7 logs")
+              rp.extras["delivery_logs"], f"{what} logs")
     for f in INT_FIELDS:
-        check(getattr(rk, f) == getattr(rp, f), f"phase 7: {f} differs")
+        check(getattr(rk, f) == getattr(rp, f), f"{what}: {f} differs")
     for key in ("engine_rounds", "decode_steps", "requests", "tokens",
                 "host_hops", "stall_rounds", "max_backlog"):
         check(rk.extras["serve"][key] == rp.extras["serve"][key],
-              f"phase 7: serve {key} differs")
+              f"{what}: serve {key} differs")
     for name in ("admit_rounds", "admit_slots", "finish_rounds",
                  "free_rounds"):
         check(getattr(repk, name) == getattr(repp, name),
-              f"phase 7: {name} differs")
+              f"{what}: {name} differs")
     near_ties, compared = [], 0
     by_rid_k = {r.rid: r.tokens_out for e in repk.engines
                 for r in e.completed}
     by_rid_p = {r.rid: r.tokens_out for e in repp.engines
                 for r in e.completed}
-    check(by_rid_k.keys() == by_rid_p.keys(), "phase 7: requests differ")
+    check(by_rid_k.keys() == by_rid_p.keys(), f"{what}: requests differ")
     for rid in sorted(by_rid_p):
         a, b = by_rid_k[rid], by_rid_p[rid]
         compared += len(b)
@@ -1019,18 +1075,19 @@ def phase7_kernels_vs_plain():
             continue
         m = margins.get((rid, diff))
         check(m is not None and m < 1e-4,
-              f"phase 7: request {rid} differs at token {diff} where the "
+              f"{what}: request {rid} differs at token {diff} where the "
               f"plain run's top-2 margin is {m}")
         near_ties.append({"rid": rid, "token": diff, "margin": float(m)})
-    emit({"phase": 7, "model": cfg.name, "layers": cfg.n_layers,
-          "dtype": "float32", "requests": rp.extras["serve"]["requests"],
-          "tokens_compared": compared, "identical_logs": True,
-          "identical_round_traces": True,
-          "differing_tokens_at_near_ties": near_ties,
-          "min_plain_margin": float(min(margins.values())),
-          "kernels_wall_s": wk, "plain_wall_s": wp,
-          "kernels_tokens_per_s": rk.extras["serve"]["tokens_per_s"],
-          "plain_tokens_per_s": rp.extras["serve"]["tokens_per_s"]})
+    return {"model": cfg.name, "layers": cfg.n_layers,
+            "dtype": "float32", "requests": rp.extras["serve"]["requests"],
+            "tokens_compared": compared, "identical_logs": True,
+            "identical_round_traces": True,
+            "differing_tokens_at_near_ties": near_ties,
+            "min_plain_margin": float(min(margins.values())),
+            "kernels_wall_s": wk, "plain_wall_s": wp,
+            "kernels_tokens_per_s": rk.extras["serve"]["tokens_per_s"],
+            "plain_tokens_per_s": rp.extras["serve"]["tokens_per_s"]}, \
+        by_rid_k
 
 
 # ---------------------------------------------------------------------------
@@ -1223,9 +1280,18 @@ def profile_forward(fn):
 
 def matmul_params(cfg) -> int:
     """Weights of the per-token projections of every layer (what each
-    token multiplies through), embedding and head excluded."""
-    specs = registry.param_specs(cfg)["layers"]
-    return sum(sp.numel() for sp in layers.spec_leaves(specs)
+    token multiplies through), embedding and head excluded; the hybrid's
+    shared block counts once an invocation."""
+    specs = registry.param_specs(cfg)
+    if cfg.family == "hybrid":
+        mamba = sum(sp.numel() for sp in
+                    layers.spec_leaves(specs["mamba_layers"])
+                    if len(sp.shape) >= 4 and sp.axes[2] != "conv")
+        shared = sum(sp.numel() for sp in
+                     layers.spec_leaves(specs["shared_block"])
+                     if len(sp.shape) >= 2)
+        return mamba + shared * (cfg.n_layers // cfg.hybrid.attn_every)
+    return sum(sp.numel() for sp in layers.spec_leaves(specs["layers"])
                if len(sp.shape) >= 3 and sp.axes[1] != "conv")
 
 
@@ -3108,21 +3174,472 @@ def fused_phases() -> int:
     return 0
 
 
-def run_fused_phases():
-    """Run :func:`fused_phases` in a child process on the same card,
-    relay its lines, and return its (fused, load) device launches."""
+def run_child(flag: str, timeout: int):
+    """Run this script with ``flag`` in a child process on the same
+    card, relay its lines, and return its last line's JSON."""
     torch.cuda.empty_cache()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           FUSED_PHASES_FLAG], capture_output=True,
-                          text=True, timeout=900)
+                           flag], capture_output=True, text=True,
+                          timeout=timeout)
     lines = proc.stdout.strip().splitlines()
     for line in lines[:-1]:
         print(line, flush=True)
     sys.stderr.write(proc.stderr)
     check(proc.returncode == 0 and lines,
-          f"the fused phases failed (exit {proc.returncode})")
-    last = json.loads(lines[-1])
+          f"the {flag} phases failed (exit {proc.returncode})")
+    return json.loads(lines[-1])
+
+
+def run_fused_phases():
+    """Run :func:`fused_phases` in a child process on the same card and
+    return its (fused, load) device launches."""
+    last = run_child(FUSED_PHASES_FLAG, 900)
     return last["fused"], last["load"]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: zamba2's forward, mamba2 and zamba2 serving
+# ---------------------------------------------------------------------------
+
+RECURRENT = ("mamba2-2.7b", "zamba2-2.7b")
+RECURRENT_PER_REPLICA = 12
+RECURRENT_PHASES_FLAG = "--recurrent-phases"
+
+
+def shared_groups(cfg) -> int:
+    """Invocations of the hybrid's shared block (0 for the ssm family)."""
+    if cfg.family != "hybrid":
+        return 0
+    return cfg.n_layers // cfg.hybrid.attn_every
+
+
+def recurrent_step_launches(cfg) -> dict:
+    """Kernel launches of one recurrent decode step, by wrapper: the
+    first norm and each Mamba block's gated norm ``rms_norm``; every
+    later norm site (each Mamba block's but the first, the shared
+    block's two a group, the final norm) one ``rms_norm_residual``; one
+    ``flash_decode`` a shared-block invocation.  mamba2-2.7b: 65 / 64;
+    zamba2-2.7b: 9 / 55 / 72."""
+    g = shared_groups(cfg)
+    want = {"rms_norm": 1 + cfg.n_layers,
+            "rms_norm_residual": cfg.n_layers + 2 * g}
+    if g:
+        want["flash_decode"] = g
+    return want
+
+
+def recurrent_forward_launches(cfg) -> dict:
+    """Kernel launches of one recurrent forward: the decode step's norms,
+    one ``ssd_scan`` a Mamba block and one ``flash_attention`` a
+    shared-block invocation (zamba2-2.7b: 9 / 54 / 55 / 72)."""
+    want = recurrent_step_launches(cfg)
+    g = want.pop("flash_decode", 0)
+    want["ssd_scan"] = cfg.n_layers
+    if g:
+        want["flash_attention"] = g
+    return want
+
+
+def recurrent_requests(vocab: int, per_replica: int, seed: int,
+                       replicas: int = 2):
+    """Seeded requests with short prompts (2-4 tokens: the fused program
+    unrolls one decode a prompt position, ROADMAP item 21) and 8-16 new
+    tokens, so slots free at different rounds and later requests are
+    admitted beside busy slots."""
+    rng = np.random.default_rng(seed)
+    return [[api.Request(rid=g * 1000 + i,
+                         prompt=rng.integers(0, vocab, int(rng.integers(
+                             2, 5)), dtype=np.int32),
+                         max_new_tokens=int(rng.integers(8, 17)))
+             for i in range(per_replica)] for g in range(replicas)]
+
+
+def recurrent_cfg_4(cfg):
+    """``cfg`` cut to 4 layers at full width; the hybrid keeps its shared
+    block every 2 (two invocations: 4 is no multiple of 6)."""
+    if cfg.family == "hybrid":
+        return dataclasses.replace(
+            cfg, n_layers=4,
+            hybrid=dataclasses.replace(cfg.hybrid, attn_every=2))
+    return dataclasses.replace(cfg, n_layers=4)
+
+
+def state_bytes(eng) -> int:
+    return sum(eng.cache[k].numel() * eng.cache[k].element_size()
+               for k in ("ssm_state", "conv_state"))
+
+
+def decode_step_bound(cfg, params, eng, kv_lens) -> dict:
+    """The least time of one decode step of ``eng``'s B rows, computed
+    (not measured): every weight read once but the embedding (B rows
+    gathered) and the hybrid's shared block (read at each of its G
+    invocations), the recurrent state read and written once, the shared
+    block's K/V read over ``kv_lens`` and one row written a group;
+    against the bf16 matrix work."""
+    b = eng.ecfg.max_batch
+    esize = params["embed"].element_size()
+    weights = sum(t.numel() * t.element_size() for t in tensors(params)) \
+        - params["embed"].numel() * esize + b * cfg.d_model * esize
+    g = shared_groups(cfg)
+    if g:
+        weights += (g - 1) * sum(t.numel() * t.element_size()
+                                 for t in tensors(params["shared_block"]))
+    state = 2 * state_bytes(eng)
+    kv = 2 * g * (sum(kv_lens) + b) * cfg.n_kv_heads * cfg.head_dim_ * \
+        esize
+    flops = 2 * b * (matmul_params(cfg) + cfg.d_model * cfg.vocab_size)
+    bound_ms, bound_by = bound(weights + state + kv, flops,
+                               BF16_TC_OPS_PER_S)
+    return {"bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_weight_bytes": weights, "bound_state_bytes": state,
+            "bound_kv_bytes": kv, "bound_flops": flops}
+
+
+def step_inputs(eng, at: int):
+    """One all-valid decode step's inputs for ``eng``'s B rows, at
+    positions ``at`` .. ``at`` + B - 1."""
+    b = eng.ecfg.max_batch
+    tokens = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+    pos = torch.arange(b, dtype=torch.int32, device="cuda") + at
+    return tokens, pos, np.ones(b, bool)
+
+
+def phase21_zamba2_forward():
+    """zamba2-2.7b's forward at full width: all 54 layers, bf16 weights
+    from seed 0, ``loss_fn`` on 1 x 2048 tokens: a finite loss near ln V,
+    exact launches per forward, tokens/s and the forward's bound (its
+    device time comes from :func:`recurrent_device_phase`).  Returns the
+    launches."""
+    arch = registry.get("zamba2-2.7b")
+    cfg = arch.cfg
+    t0 = time.perf_counter()
+    params = arch.init_params(0, "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    want = recurrent_forward_launches(cfg)
+    b, s = 1, 2048
+    batch = {"tokens": seeded_tokens(cfg, b, s, seed=94)}
+    rt = Runtime()
+    fn = lambda: arch.loss_fn()(params, cfg, batch, rt)
+    ops.reset_launch_counts()                 # the forward starts here
+    cold, cold_s = run_counted(fn, want, "zamba2 loss (cold)")
+    res, wall = run_counted(fn, want, "zamba2 loss")
+    launches = ops.launch_counts()            # ... and ends here
+    value = float(res)
+    check(res.dim() == 0 and math.isfinite(value)
+          and abs(value - math.log(cfg.vocab_size)) < 2.0,
+          f"zamba2 loss {value}, want near ln V = "
+          f"{math.log(cfg.vocab_size)}")
+    g, d_inner = shared_groups(cfg), cfg.ssm.expand * cfg.d_model
+    extra = attention_flops(b, s, cfg.n_heads, cfg.head_dim_, True) * g + \
+        ssd_flops(b, s, d_inner // cfg.ssm.head_dim, cfg.ssm.head_dim,
+                  cfg.ssm.d_state, cfg.ssm.n_groups, cfg.ssm.chunk) * \
+        cfg.n_layers
+    emit({"phase": 21, "model": cfg.name, "layers": cfg.n_layers,
+          "shared_block_every": cfg.hybrid.attn_every,
+          "params": cfg.param_count(), "batch": b, "seq": s,
+          "setup_s": setup_s, "loss": value,
+          "ln_vocab": math.log(cfg.vocab_size),
+          "same_as_cold_run": float(cold) == value,
+          "launches_per_forward": want, "launches": launches,
+          "cold_wall_s": cold_s, "wall_s": wall,
+          "tokens_per_s": b * s / wall,
+          **forward_bound(cfg, params, b * s, b * (s - 1), extra, 4)})
+    del params, res, cold
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_cache_dtypes(rep, name: str) -> None:
+    """``ssm_state`` float32 in every engine, the rest in bf16."""
+    for eng in rep.engines:
+        dtypes = {k: v.dtype for k, v in eng.cache.items()}
+        check(dtypes["ssm_state"] == torch.float32
+              and all(v == torch.bfloat16 for k, v in dtypes.items()
+                      if k != "ssm_state"),
+              f"{name}: engine cache dtypes {dtypes} (want ssm_state "
+              "float32, the rest bfloat16)")
+
+
+def recurrent_serve(name: str):
+    """Phases 22 and 23 for one recurrent model at full width (bf16 from
+    seed 0, 2 replicas x 8 slots x 2048 positions, window 8): the
+    per-round loop on the ``kernel`` backend with its launches counted,
+    then the fused program on card ``kernel`` and card ``graph`` against
+    the per-round loop.  Returns the per-round run's launches."""
+    cfg = registry.get(name).cfg
+    t0 = time.perf_counter()
+    params, rep_k = serve_setup(cfg, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check_cache_dtypes(rep_k, name)
+    rep_g = api.ReplicatedEngine(rep_k.engines, subscribers_per_replica=2,
+                                 window=8, backend="graph", device="cuda")
+    requests = recurrent_requests(cfg.vocab_size, RECURRENT_PER_REPLICA,
+                                  seed=21)
+    per_step = recurrent_step_launches(cfg)
+
+    # phase 22: the per-round loop, counted
+    ops.reset_launch_counts()                 # the serve path starts here
+    report = round_run(rep_k, requests)
+    launches = ops.launch_counts()            # ... and ends here
+    serve = report.extras["serve"]
+    n_req = 2 * RECURRENT_PER_REPLICA
+    want_tokens = sum(r.max_new_tokens for per in requests for r in per)
+    check(serve["drained"] and serve["requests"] == n_req
+          and serve["tokens"] == want_tokens, f"{name} serve: {serve}")
+    steps_ = serve["decode_steps"]
+    want = {k: 0 for k in launches}
+    want.update({k: n * steps_ for k, n in per_step.items()})
+    want["smc_sweep_watermark"] = report.extras["streamed_rounds"]
+    check(launches == want,
+          f"{name} serve launches {launches}, want {want}")
+    for stream in (t for per in rep_k.completed().values() for t in per):
+        check(all(0 <= x < cfg.vocab_size for x in stream),
+              f"{name}: bad token stream {stream}")
+    per_round = {"kernel": (report, serve_traces(rep_k, report))}
+    # the decode step alone, all 8 rows valid: its host wall
+    eng = rep_k.engines[0]
+    tokens, pos, valid = step_inputs(eng, 16)
+    logits, _ = eng.decode(params, eng.cache, tokens, pos, valid)
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{name}: non-finite logits")
+    n = 10
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n):
+        eng.decode(params, eng.cache, tokens, pos, valid)
+    torch.cuda.synchronize()
+    step_wall_ms = (time.perf_counter() - t1) / n * 1e3
+    emit({"phase": 22, "model": name, "layers": cfg.n_layers,
+          "params": cfg.param_count(), "replicas": 2, "slots": 8,
+          "max_len": 2048, "window": 8, "backend": "kernel",
+          "requests": n_req, "setup_s": setup_s,
+          "ssm_state_dtype": str(eng.cache["ssm_state"].dtype),
+          "state_bytes_per_replica": state_bytes(eng),
+          "launches": launches, "launches_per_decode_step": per_step,
+          "decode_steps": steps_, "tokens": serve["tokens"],
+          "tokens_per_s": serve["tokens_per_s"], "wall_s": serve["wall_s"],
+          "wall_ms_per_decode_step": serve["wall_s"] / steps_ * 1e3,
+          "engine_rounds": serve["engine_rounds"],
+          "decode_step_alone_wall_ms": step_wall_ms,
+          "decode_step_bound_computed": decode_step_bound(
+              cfg, params, eng, (pos + 1).tolist())})
+
+    # phase 23: the fused program against the per-round loop
+    rows = {}
+    for backend, rep in (("kernel", rep_k), ("graph", rep_g)):
+        if backend not in per_round:
+            r = round_run(rep, requests)
+            per_round[backend] = (r, serve_traces(rep, r))
+        r_round, want_traces = per_round[backend]
+        t1 = time.perf_counter()
+        cold, cold_reads, cold_caps = fused_run(rep, requests)
+        same_serve(serve_traces(rep, cold), want_traces, cold, r_round,
+                   f"{name} fused {backend} cold vs per-round")
+        t2 = time.perf_counter()
+        warm, reads, caps = fused_run(rep, requests)
+        same_serve(serve_traces(rep, warm), want_traces, warm, r_round,
+                   f"{name} fused {backend} warm vs per-round")
+        wserve = warm.extras["serve"]
+        check(cold_caps == 1 and caps == 0,
+              f"{name} fused {backend}: {cold_caps} captures cold, {caps} "
+              "warm (want 1, 0)")
+        bound_reads = math.ceil(wserve["fused_rounds"]
+                                / graphloop.CHUNK) + 2
+        check(reads <= bound_reads and cold_reads <= bound_reads,
+              f"{name} fused {backend}: {cold_reads} / {reads} flag reads "
+              f"for {wserve['fused_rounds']} rounds (at most "
+              f"{bound_reads})")
+        (prog,) = rep._fused_programs.values()
+        rows[backend] = {
+            "per_round_tokens_per_s":
+                r_round.extras["serve"]["tokens_per_s"],
+            "cold": {"tokens_per_s": cold.extras["serve"]["tokens_per_s"],
+                     "wall_s": t2 - t1},
+            "warm": {k: wserve[k] for k in (
+                "tokens", "tokens_per_s", "wall_s", "engine_rounds",
+                "fused_rounds", "host_hops")},
+            "warm_wall_ms_per_fused_round":
+                wserve["wall_s"] / wserve["fused_rounds"] * 1e3,
+            "flag_reads": {"cold": cold_reads, "warm": reads,
+                           "bound": bound_reads},
+            "captures": {"cold": cold_caps, "warm": caps},
+            "capture_s": prog.capture_s, "graph_nodes": prog.nodes,
+            "graph_pool_bytes": prog.pool_bytes,
+            "speedup_tokens_per_s": wserve["tokens_per_s"]
+            / r_round.extras["serve"]["tokens_per_s"]}
+    emit({"phase": 23, "model": name, "layers": cfg.n_layers,
+          "identical_to_per_round": True, "host_hops": 0,
+          "chunk": graphloop.CHUNK, **rows})
+    del params, rep_k, rep_g, eng, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tokens_of(rep, rid: int):
+    return next(r.tokens_out for e in rep.engines for r in e.completed
+                if r.rid == rid)
+
+
+F64_TOL = 1e-9          # float64: the forward and the decode, one function
+
+
+def forward_and_decode(cfg, params, tokens, rt, decode: bool = True):
+    """The last position's logits of the full-sequence forward over
+    ``tokens`` (B, S) and of S decode steps from a zero state (None with
+    ``decode=False``)."""
+    if cfg.family == "hybrid":
+        h = hybrid.hidden(params, cfg, tokens, rt)
+    else:
+        h = registry._ssm_hidden(params, cfg, tokens, rt)
+    full = h[:, -1] @ params["lm_head"]
+    del h
+    if not decode:
+        return full, None
+    b, s = tokens.shape
+    arch = registry.Arch(cfg)
+    dtype = params["embed"].dtype
+    cache = layers.map_specs(
+        lambda sp: torch.zeros(sp.shape, dtype=torch.float64
+                               if dtype == torch.float64
+                               else torch.float32, device="cuda"),
+        arch.cache_specs(ShapeConfig("x", s, b, "decode")))
+    decode = arch.decode_fn()
+    for t in range(s):
+        logits, cache = decode(params, cfg, cache, tokens[:, t:t + 1],
+                               torch.full((b,), t, dtype=torch.int32,
+                                          device="cuda"), rt)
+    return full, logits
+
+
+def phase24_recurrent_f32():
+    """Both recurrent families in float32 at 4 layers, full width: the
+    serve plane on the kernels against ``Runtime(kernels="plain")``
+    (phase 7's rule), each request's batched tokens against the same
+    request served alone, and the forward over S + 1 = 512 tokens
+    against 512 decode steps from a zero state: in float64 on the plain
+    versions the two are one function (last logits within 1e-9); the
+    float32 decode on the kernels is within 1e-4 (the SSD bar) of the
+    float64 forward and within 5e-4 (phase 10's bar) of the float32
+    forward, whose own float32 error is printed beside it."""
+    out = {}
+    for name in RECURRENT:
+        cfg = recurrent_cfg_4(registry.get(name).cfg)
+        requests = recurrent_requests(cfg.vocab_size, 8, seed=24)
+        record, batched = serve_kernels_vs_plain(
+            cfg, lambda rep: round_run(rep, requests),
+            recurrent_step_launches(cfg), f"phase 24 {name}")
+        # batched against solo, on the kernels
+        params, rep = serve_setup(cfg, torch.float32, seed=2)
+        for g, per in enumerate(requests):
+            for req in per:
+                solo = [[] for _ in requests]
+                solo[g] = [req]
+                round_run(rep, solo)
+                got = tokens_of(rep, req.rid)
+                check(got == batched[req.rid],
+                      f"phase 24 {name}: request {req.rid} batched "
+                      f"{batched[req.rid]} != solo {got}")
+        del rep
+        # the forward over S + 1 tokens against S + 1 decode steps, on
+        # the kernels in float32 and on the plain versions in float64
+        b, s1 = 2, 512
+        tokens = seeded_tokens(cfg, b, s1, seed=124)
+        p64 = tree_util.map(lambda t: t.double(), params)
+        fwd, dec = forward_and_decode(cfg, params, tokens, Runtime())
+        fwd64, dec64 = forward_and_decode(cfg, p64, tokens,
+                                          Runtime(kernels="plain"))
+        fwd_plain, _ = forward_and_decode(cfg, params, tokens,
+                                          Runtime(kernels="plain"), False)
+        tol = SSD_Y_TOL[torch.float32]
+        diag = {"batch": b, "seq": s1, "max_abs_logit":
+                float(fwd64.abs().max()),
+                "f32_forward_vs_f64": float((fwd.double() - fwd64).abs()
+                                            .max()),
+                "f32_plain_forward_vs_f64":
+                    float((fwd_plain.double() - fwd64).abs().max()),
+                "f32_decode_vs_f64": float((dec.double() - fwd64).abs()
+                                           .max())}
+        # the two orders are the same function: equal in float64
+        e64 = float((dec64 - fwd64).abs().max())
+        check(e64 <= F64_TOL * max(1.0, diag["max_abs_logit"]),
+              f"phase 24 {name}: float64 decode vs forward {e64}")
+        diag["f64_decode_vs_forward"] = e64
+        # the float32 decode (the exact recurrence) at the SSD bar of
+        # the float64 forward; the float32 forward at phase 10's
+        # full-width bar of the decode (its own float32 error vs float64
+        # is the larger, f32_forward_vs_f64)
+        within(dec, fwd64.float(), torch.float32, tol,
+               f"phase 24 {name}: float32 decode vs the float64 forward")
+        diag["f32_decode_vs_forward"] = within(
+            dec, fwd, torch.float32, FORWARD_TOL,
+            f"phase 24 {name}: {s1} decode steps vs the forward")
+        out[name] = {**record, "shared_block_every":
+                     cfg.hybrid.attn_every if cfg.hybrid else None,
+                     "batched_equals_solo": True,
+                     "solo_requests": sum(len(p) for p in requests),
+                     "forward_vs_decode": diag}
+        del params, p64
+        torch.cuda.empty_cache()
+    emit({"phase": 24, **out})
+
+
+def recurrent_device_phase():
+    """The profiled figures of phases 21-22, after every timed run of
+    this process: zamba2-2.7b's forward (device time, busy share, per
+    kernel) and one full-width decode step of each recurrent model at
+    B = 8 (device time and device operations a step) beside its computed
+    bound."""
+    arch = registry.get("zamba2-2.7b")
+    cfg = arch.cfg
+    params = arch.init_params(0, "cuda", torch.bfloat16)
+    batch = {"tokens": seeded_tokens(cfg, 1, 2048, seed=94)}
+    prof = profile_forward(lambda: arch.loss_fn()(params, cfg, batch,
+                                                  Runtime()))
+    del params
+    torch.cuda.empty_cache()
+    steps_ = {}
+    for name in RECURRENT:
+        cfg = registry.get(name).cfg
+        params = registry.Arch(cfg).init_params(0, "cuda", torch.bfloat16)
+        eng = api.ServeEngine(name, params, cfg,
+                              api.EngineConfig(max_batch=8, max_len=2048),
+                              device="cuda")
+        tokens, pos, valid = step_inputs(eng, 16)
+        step = lambda: eng.decode(params, eng.cache, tokens, pos, valid)
+        dev_ms, dev_ops = profiled_device(step, 5)
+        check(dev_ms is not None, f"{name}: no device time profiled")
+        top = profile_forward(step)["top_device_ops_ms"]
+        b = decode_step_bound(cfg, params, eng, (pos + 1).tolist())
+        steps_[name] = {"device_ms_per_decode_step": dev_ms,
+                        "device_ops_per_decode_step": dev_ops,
+                        "top_device_ops_ms_one_step": top,
+                        "bound_ms_computed": b["bound_ms"],
+                        "device_over_bound": dev_ms / b["bound_ms"]}
+        del params, eng
+        torch.cuda.empty_cache()
+    emit({"phase": 25, "zamba2_forward": prof, "decode_steps": steps_})
+
+
+def recurrent_phases() -> int:
+    """Phases 21-25 in a process of their own (``chip_smoke.py
+    --recurrent-phases``, started by the full run): every timed run
+    first, the profiled ones last (a profiler session stays attached in
+    its process, see :func:`fused_phases`).  The last line is the
+    recurrent path's launches: zamba2's forward and both models'
+    per-round serve."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    counts = phase21_zamba2_forward()
+    for name in RECURRENT:
+        for k, v in recurrent_serve(name).items():
+            counts[k] = counts.get(k, 0) + v
+    phase24_recurrent_f32()
+    recurrent_device_phase()
+    emit({"recurrent": counts})
+    return 0
 
 
 KERNELS = (
@@ -3158,7 +3675,8 @@ LINE_SHAPES = {
                         torch.bfloat16),
     "ssd_scan": ("B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256", torch.bfloat16),
 }
-PATHS = ("multicast", "serve", "forward", "train", "cut", "fused", "load")
+PATHS = ("multicast", "serve", "forward", "train", "cut", "fused", "load",
+         "recurrent")
 
 
 def main() -> int:
@@ -3168,6 +3686,8 @@ def main() -> int:
         return 2
     if FUSED_PHASES_FLAG in sys.argv[1:]:
         return fused_phases()
+    if RECURRENT_PHASES_FLAG in sys.argv[1:]:
+        return recurrent_phases()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3232,12 +3752,22 @@ def main() -> int:
         check(all(counts[k] > 0 for k, _ in DEVICE_KERNELS),
               f"the {name} path skipped a kernel: {counts}")
 
+    # the recurrent families (zamba2's forward, mamba2 and zamba2 served
+    # per round and fused), in a process of their own: their launches
+    # are the wrappers' counts over zamba2's forward and the per-round
+    # serve runs
+    recurrent = run_child(RECURRENT_PHASES_FLAG, 900)["recurrent"]
+    check(all(recurrent.get(k, 0) > 0 for k in (
+        "flash_decode", "flash_attention", "ssd_scan", "rms_norm",
+        "rms_norm_residual", "smc_sweep_watermark")),
+        f"the recurrent path skipped a kernel: {recurrent}")
+
     _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
     line_shapes = dict(LINE_SHAPES, **{
         name: (f"n={TRAIN_WORKERS * shard} block={shard}", torch.float32)
         for name in ("quantize", "dequantize")})
     by_path = dict(zip(PATHS, (multicast, serve, forward, train, cut,
-                               fused, load)))
+                               fused, load, recurrent)))
     kernels = []
     for name, route, source, replaces in KERNELS:
         if name in line_shapes:

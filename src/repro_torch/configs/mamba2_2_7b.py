@@ -1,8 +1,8 @@
 """mamba2-2.7b [ssm] — 64L d_model=2560 attention-free, ssm_state=128,
 vocab=50280; SSD (state-space duality).  [arXiv:2405.21060; unverified]
 
-The port runs its full-sequence forward (``loss_fn``); its decode comes
-with the slice that serves the ssm family.
+The port runs its full-sequence forward (``loss_fn``, also its prefill)
+and its one-token decode (``decode_fn``, the serve plane).
 """
 
 from repro_torch.models import registry

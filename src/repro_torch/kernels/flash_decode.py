@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.autograd import refuse_grad
+from repro_torch.precision import compute
 
 NEG_INF = -1e30
 
@@ -83,18 +84,18 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor,
                        kv_len: torch.Tensor) -> torch.Tensor:
     """The masked softmax of the reference's ``_sdpa`` decode case,
-    accumulated in float32: q (B, Hq, D), caches (B, S, Hkv, D), kv_len
-    (B,) -> (B, Hq, D) in q's dtype."""
+    accumulated in float32 (float64 for float64 inputs): q (B, Hq, D),
+    caches (B, S, Hkv, D), kv_len (B,) -> (B, Hq, D) in q's dtype."""
     b, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    qg = q.float().reshape(b, hkv, hq // hkv, d)
-    scores = torch.einsum("bhgd,bthd->bhgt", qg, k_cache.float())
+    qg = compute(q).reshape(b, hkv, hq // hkv, d)
+    scores = torch.einsum("bhgd,bthd->bhgt", qg, compute(k_cache))
     scores = scores / math.sqrt(d)
     mask = torch.arange(s, device=q.device)[None, :] < \
         kv_len.to(q.device)[:, None]                          # (B, S)
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgt,bthd->bhgd", probs, v_cache.float())
+    out = torch.einsum("bhgt,bthd->bhgd", probs, compute(v_cache))
     return out.reshape(b, hq, d).to(q.dtype)
 
 

@@ -2,8 +2,10 @@
 
 One frozen dataclass tree describes an architecture completely; the
 builders in :mod:`repro_torch.configs` instantiate the published
-hyperparameters.  The port serves the ``dense`` family; the family
-sub-configs are here as plain data so every config loads.
+hyperparameters; ``reduced()`` shrinks any config to a CPU-testable size
+while keeping its family.  The port runs the ``dense``, ``ssm`` and
+``hybrid`` families; the other families' sub-configs are here as plain
+data so every config loads.
 """
 
 from __future__ import annotations
@@ -88,6 +90,38 @@ class ModelConfig:
         from repro_torch.models import layers, registry  # avoids a cycle
         return sum(spec.numel() for spec in
                    layers.spec_leaves(registry.param_specs(self)))
+
+    def reduced(self) -> "ModelConfig":
+        """A tiny same-family config for CPU tests (the reference's
+        ``reduced()`` presets): a hybrid keeps 4 layers at
+        ``attn_every=2``, an ssm ``d_state=16, head_dim=16, chunk=32``."""
+        changes = dict(
+            n_layers=min(self.n_layers, 2 if self.hybrid is None else 4),
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
+            d_ff=256,
+            vocab_size=512,
+            head_dim=32,
+        )
+        if self.moe:
+            changes["moe"] = dataclasses.replace(
+                self.moe, n_routed=8, top_k=2,
+                n_shared=min(self.moe.n_shared, 2), d_ff_expert=64,
+                ep_pad_to=None)
+        if self.ssm:
+            changes["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=16, chunk=32)
+        if self.encdec:
+            changes["encdec"] = dataclasses.replace(
+                self.encdec, n_encoder_layers=2, n_decoder_layers=2)
+        if self.hybrid:
+            changes["hybrid"] = dataclasses.replace(self.hybrid,
+                                                    attn_every=2)
+        if self.vlm:
+            changes["vlm"] = dataclasses.replace(
+                self.vlm, n_patches=8, vision_dim=64)
+        return dataclasses.replace(self, **changes)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,7 @@
 The JAX package keeps parameters as a nested dict of arrays with the
 same keys and shapes as the port's (:func:`repro_torch.models.registry.
 param_specs`).  Given that tree as numpy arrays — a bfloat16 leaf goes
-through ``np.asarray(x, np.float32)``, which is exact, since
+through ``np.array(x, np.float32)``, which is exact, since
 ``torch.from_numpy`` cannot read ``ml_dtypes.bfloat16`` — these
 functions build the port's tree of tensors on a device.
 """
@@ -16,23 +16,22 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import attention, layers, registry
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import layers, registry
+from repro_torch.models.config import ModelConfig, ShapeConfig
 
 PyTree = Any
 
 
 def _leaf(spec: layers.ParamSpec, x, device: torch.device,
           dtype: Optional[torch.dtype], what: str) -> torch.Tensor:
-    arr = np.asarray(x, np.float32)
+    # a fresh, writable copy: the tree's arrays never alias the port's
+    # tensors (a cache is written in place)
+    arr = np.array(x, np.float32)
     if tuple(arr.shape) != spec.shape:
         raise ValueError(f"{what}: shape {tuple(arr.shape)}, expected "
                          f"{spec.shape}")
-    # a float32 spec (the ssm family's a_log, dt_bias, d_skip) stays
-    # float32 whatever dtype is asked, as in the reference
-    keep = dtype is None or spec.dtype == torch.float32
     return torch.from_numpy(arr).to(device=device,
-                                    dtype=spec.dtype if keep else dtype)
+                                    dtype=spec.dtype_for(dtype))
 
 
 def _convert(specs: PyTree, tree: Mapping, device, dtype, what) -> PyTree:
@@ -61,7 +60,12 @@ def params_from_numpy(tree: Mapping, cfg: ModelConfig,
 def cache_from_numpy(tree: Mapping, cfg: ModelConfig, batch: int,
                      max_len: int, device: DeviceLike = None,
                      dtype: Optional[torch.dtype] = None) -> PyTree:
-    """A KV cache {k, v: (L, B, S_max, Hkv, D)} from host arrays, as
-    :func:`params_from_numpy` does for parameters."""
-    return _convert(attention.kv_cache_specs(cfg, batch, max_len), tree,
+    """The decode state of ``cfg``'s family for ``batch`` rows and
+    ``max_len`` positions (:func:`repro_torch.models.registry.
+    cache_specs`: a KV cache {k, v: (L, B, S_max, Hkv, D)}, the ssm
+    family's {ssm_state, conv_state}, the hybrid's all four) from host
+    arrays, as :func:`params_from_numpy` does for parameters (a float32
+    spec, the ``ssm_state``, stays float32)."""
+    shape = ShapeConfig("cache", max_len, batch, "decode")
+    return _convert(registry.cache_specs(cfg, shape), tree,
                     resolve_device(device), dtype, "cache")

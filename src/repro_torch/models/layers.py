@@ -43,6 +43,15 @@ class ParamSpec:
     def numel(self) -> int:
         return math.prod(self.shape)
 
+    def dtype_for(self, dtype: Optional[torch.dtype]) -> torch.dtype:
+        """The dtype a leaf of this spec takes when ``dtype`` is asked:
+        the spec's own when None, and float32 where the spec says float32
+        (the ssm's per-head vectors, its ``ssm_state``) whatever is asked,
+        as the reference keeps them."""
+        if dtype is None or self.dtype == torch.float32:
+            return self.dtype
+        return dtype
+
     def stack_layers(self, n: int) -> "ParamSpec":
         return ParamSpec((n,) + self.shape, ("layers",) + self.axes,
                          self.dtype, self.init)

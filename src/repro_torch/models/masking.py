@@ -13,7 +13,8 @@ they change, along each leaf's ``"batch"`` axis:
 * :func:`masked_update` copies the valid rows of ``new`` into ``old``
   and is a no-op when ``new`` IS ``old`` — the decoder writes the valid
   rows in place already (:func:`repro_torch.models.attention.
-  decode_attention`).
+  decode_attention` for K/V, :func:`write_rows` for the recurrent
+  families' states).
 
 ``valid`` comes in two forms:
 
@@ -78,6 +79,20 @@ def _row_mask(spec: ParamSpec, c: torch.Tensor,
     shape = [1] * c.dim()
     shape[batch_axis(spec)] = c.shape[batch_axis(spec)]
     return valid_rows(valid, c.device).reshape(shape)
+
+
+def write_rows(dst: torch.Tensor, new: torch.Tensor, rows) -> None:
+    """Write ``new``'s rows into ``dst`` (same shape, batch axis 0) in
+    place, at ``rows`` as :func:`valid_rows` gives them: index rows are
+    copied and no other row is touched; a device mask writes
+    ``where(rows, new, dst)``; ``None`` writes every row."""
+    if rows is None:
+        dst.copy_(new)
+    elif is_device_mask(rows):
+        mask = rows.reshape(-1, *[1] * (dst.dim() - 1))
+        dst.copy_(torch.where(mask, new.to(dst.dtype), dst))
+    else:
+        dst.index_copy_(0, rows, new.index_select(0, rows).to(dst.dtype))
 
 
 def reset_rows(specs: PyTree, cache: PyTree, valid) -> PyTree:

@@ -4,9 +4,11 @@ For every architecture this module answers ``param_specs(cfg)`` (the full
 parameter tree of ParamSpec leaves), ``loss_fn()`` (the full-sequence
 forward and its loss), ``prefill_fn()`` and ``decode_fn()`` (the serving
 entry points) and ``cache_specs(cfg, shape)`` (the decode-state tree).
-The port runs the ``dense`` family end to end and the ``ssm`` family
-(Mamba2) through its forward; every other entry point raises
-``NotImplementedError`` naming the ROADMAP item that brings it.  The
+The port runs three families end to end: ``dense``
+(:mod:`~repro_torch.models.transformer`), ``ssm`` (Mamba2, assembled
+here over :mod:`~repro_torch.models.ssm`) and ``hybrid`` (Zamba2,
+:mod:`~repro_torch.models.hybrid`).  The other families raise
+``NotImplementedError`` naming the ROADMAP item that brings them.  The
 configs live in :mod:`repro_torch.configs`.
 """
 
@@ -18,20 +20,22 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import attention, layers, ssm, transformer
+from repro_torch.models import attention, hybrid, layers, ssm, transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.layers import ParamSpec
+from repro_torch.models.masking import valid_rows
 from repro_torch.models.runtime import Runtime
 
 PyTree = Any
 
-SSM_SERVE_ITEM = "ROADMAP.md item 16 (serving the ssm family)"
-
 
 def _family(cfg: ModelConfig) -> str:
-    """``dense`` or ``ssm``; any other family raises."""
+    """``dense``, ``ssm`` or ``hybrid``; any other family raises."""
     if cfg.family == "ssm" and cfg.ssm is not None:
         return "ssm"
+    if cfg.family == "hybrid" and cfg.hybrid is not None \
+            and cfg.ssm is not None:
+        return "hybrid"
     transformer._dense_only(cfg)
     return "dense"
 
@@ -75,6 +79,34 @@ def _ssm_hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     return h
 
 
+def _ssm_decode_step(params: PyTree, cfg: ModelConfig,
+                     cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                     position: torch.Tensor, rt: Runtime, valid=None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step of the Mamba2 LM.  tokens: (B, 1) int; position:
+    (B,) int (unused: the state is the sequence so far); cache
+    {ssm_state (L, B, H, P, N) float32, conv_state (L, B, W-1, C)},
+    updated IN PLACE at the rows where ``valid`` holds (every row for
+    ``None``; host rows or a device mask, see
+    :mod:`repro_torch.models.masking`).  The norm sites fuse as in
+    :func:`_ssm_hidden`: for mamba2-2.7b 65 ``rms_norm`` and 64
+    ``rms_norm_residual`` calls a step.  Returns ``(logits (B, V),
+    cache)`` — the same cache dict."""
+    rows = valid_rows(valid, position.device)
+    x = transformer.embed(params, cfg, tokens)
+    per_layer = transformer.unstack_layers(params["layers"])
+    h = rt.op("rms_norm")(x, per_layer[0]["norm"]["scale"], cfg.norm_eps)
+    for i, p in enumerate(per_layer):
+        if i:
+            h, x = rt.op("rms_norm_residual")(y, x, p["norm"]["scale"],
+                                              cfg.norm_eps)
+        y = ssm.mamba_decode_block(p["ssm"], cfg, h, cache["ssm_state"][i],
+                                   cache["conv_state"][i], rt, rows)
+    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
+                                      cfg.norm_eps)
+    return (h @ params["lm_head"])[:, 0], cache
+
+
 def _ssm_lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
                  rt: Runtime) -> torch.Tensor:
     """Next-token cross entropy of the Mamba2 LM, as
@@ -105,33 +137,32 @@ class Arch:
         float32 specs stay float32)."""
         dev = resolve_device(device)
         specs = layers.map_specs(
-            lambda s: s if dtype is None or s.dtype == torch.float32
-            else dataclasses.replace(s, dtype=dtype), self.param_specs())
+            lambda s: dataclasses.replace(s, dtype=s.dtype_for(dtype)),
+            self.param_specs())
         return layers.init_tree(specs,
                                 torch.Generator(device=dev).manual_seed(seed))
 
     def loss_fn(self) -> Callable:
         """``loss(params, cfg, batch, rt)`` -> float32 scalar."""
-        if _family(self.cfg) == "ssm":
-            return _ssm_lm_loss
-        return transformer.lm_loss
+        return {"dense": transformer.lm_loss, "ssm": _ssm_lm_loss,
+                "hybrid": hybrid.lm_loss}[_family(self.cfg)]
 
     def prefill_fn(self) -> Optional[Callable]:
         """``prefill(params, batch, rt, cache=None)`` -> (last-position
-        logits, KV cache); None for the ssm family, whose prefill is its
-        forward (see :func:`repro_torch.train.steps.make_serve_step`)."""
-        if _family(self.cfg) == "ssm":
+        logits, KV cache); None for the recurrent families, whose
+        prefill is their forward (see
+        :func:`repro_torch.train.steps.make_serve_step`)."""
+        if _family(self.cfg) != "dense":
             return None
         cfg = self.cfg
         return lambda p, b, rt, cache=None: transformer.prefill(
             p, cfg, b["tokens"], rt, cache)
 
     def decode_fn(self) -> Callable:
-        if _family(self.cfg) == "ssm":
-            raise NotImplementedError(
-                f"{self.cfg.name}: ssm decode is not ported yet; it comes "
-                f"with {SSM_SERVE_ITEM}")
-        return transformer.decode_step
+        """``decode(params, cfg, cache, tokens, position, rt, valid=None)``
+        -> (logits (B, V), the same cache updated in place)."""
+        return {"dense": transformer.decode_step, "ssm": _ssm_decode_step,
+                "hybrid": hybrid.decode_step}[_family(self.cfg)]
 
     def cache_specs(self, shape: ShapeConfig, *, batch_override=None
                     ) -> PyTree:
@@ -139,8 +170,11 @@ class Arch:
 
 
 def param_specs(cfg: ModelConfig) -> PyTree:
-    if _family(cfg) == "ssm":
+    f = _family(cfg)
+    if f == "ssm":
         return _ssm_lm_specs(cfg)
+    if f == "hybrid":
+        return hybrid.hybrid_specs(cfg)
     return transformer.lm_specs(cfg)
 
 
@@ -148,11 +182,12 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
                 batch_override: Optional[int] = None) -> PyTree:
     """Decode-state ParamSpec tree sized for ``shape`` (cache of
     ``seq_len``)."""
-    if _family(cfg) == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the ssm decode state is not ported yet; it comes "
-            f"with {SSM_SERVE_ITEM}")
+    f = _family(cfg)
     b = batch_override if batch_override is not None else shape.global_batch
+    if f == "ssm":
+        return ssm.ssm_cache_specs(cfg, b)
+    if f == "hybrid":
+        return hybrid.cache_specs(cfg, b, shape.seq_len)
     return attention.kv_cache_specs(cfg, b, shape.seq_len)
 
 

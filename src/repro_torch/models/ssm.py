@@ -9,11 +9,18 @@ exact single-token recurrence (the definitional oracle of both), and
 ``ssd_scan`` kernel site of the :class:`Runtime` and whose gated norm
 through ``rms_norm``.
 
+One-token decode: :func:`ssm_cache_specs` declares the decode state (a
+float32 ``ssm_state`` and a ``conv_state`` of the last W-1 conv inputs a
+layer), and :func:`mamba_decode_block` advances it by one token, writing
+both states in place at the valid rows (as
+:func:`repro_torch.models.attention.decode_attention` writes K/V), so a
+masked step never copies the state.  Its recurrence is plain PyTorch, as
+the reference computes it outside any kernel; its gated norm goes
+through ``rms_norm``.
+
 Layout follows the reference: d_inner = expand * d_model, H = d_inner /
 head_dim heads, scalar decay A per head, B/C shared across heads in
-``n_groups`` groups.  One-token decode of the ssm family
-(``mamba_decode_block``, ``ssm_cache_specs``) comes with the slice that
-serves it.
+``n_groups`` groups.
 """
 
 from __future__ import annotations
@@ -23,10 +30,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.precision import compute
+from repro_torch.models import masking
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.runtime import Runtime
+from repro_torch.precision import compute
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int, int, int]:
@@ -64,16 +72,24 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [d_inner, d_inner + 2 * ng * dn, nh], dim=-1)
 
 
+def _conv_window(window: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 s: int) -> torch.Tensor:
+    """``sum_i window[:, i:i+s] * w[i] + b`` over a (B, S + W - 1, C)
+    window with kernel (W, C), then SiLU in float32: the conv of
+    :func:`_causal_conv` and of one decode step, in one summation
+    order."""
+    out = window[:, 0:s] * w[0]
+    for i in range(1, w.shape[0]):
+        out = out + window[:, i:i + s] * w[i]
+    return F.silu(compute(out + b)).to(window.dtype)
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over (B, S, C) with kernel (W, C), then SiLU
     in float32."""
-    width, s = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
-    out = pad[:, 0:s] * w[0]
-    for i in range(1, width):
-        out = out + pad[:, i:i + s] * w[i]
-    return F.silu(compute(out + b)).to(xbc.dtype)
+    pad = F.pad(xbc, (0, 0, w.shape[0] - 1, 0))
+    return _conv_window(pad, w, b, xbc.shape[1])
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -196,3 +212,58 @@ def mamba_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     y = y.reshape(bsz, s, d_inner)
     gated = y * F.silu(compute(z)).to(y.dtype)
     return rt.op("rms_norm")(gated, p["norm"], cfg.norm_eps) @ p["w_out"]
+
+
+# ---------------------------------------------------------------------------
+# One-token decode
+# ---------------------------------------------------------------------------
+
+def ssm_cache_specs(cfg: ModelConfig, batch: int,
+                    n_layers: Optional[int] = None) -> Dict[str, ParamSpec]:
+    """The ssm family's decode state: ``ssm_state`` (L, B, H, P, N)
+    float32 and ``conv_state`` (L, B, W-1, conv_dim) in the weights'
+    dtype."""
+    d_inner, nh, hp, dn, ng = _dims(cfg)
+    nl = n_layers if n_layers is not None else cfg.n_layers
+    conv_dim = d_inner + 2 * ng * dn
+    return {
+        "ssm_state": ParamSpec((nl, batch, nh, hp, dn),
+                               ("layers", "batch", "ssm_heads",
+                                "head_dim", "ssm_state"),
+                               dtype=torch.float32),
+        "conv_state": ParamSpec((nl, batch, cfg.ssm.conv_width - 1,
+                                 conv_dim),
+                                ("layers", "batch", None, "ssm_inner")),
+    }
+
+
+def mamba_decode_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                       x: torch.Tensor, ssm_state: torch.Tensor,
+                       conv_state: torch.Tensor,
+                       rt: Optional[Runtime] = None, rows=None
+                       ) -> torch.Tensor:
+    """One-token Mamba2 step.  x: (B, 1, d_model); ssm_state (B, H, P,
+    N) float32 and conv_state (B, W-1, conv_dim), both updated IN PLACE
+    at ``rows`` (:func:`repro_torch.models.masking.valid_rows`: index
+    rows, a ``(B,)`` bool device mask, or ``None`` for every row); the
+    other rows stay bit-unchanged.  Every row is computed, so a row's
+    result does not depend on which rows are valid.  Returns the block's
+    output (B, 1, d_model)."""
+    rt = Runtime() if rt is None else rt
+    d_inner, nh, hp, dn, ng = _dims(cfg)
+    bsz = x.shape[0]
+    z, xbc, dt = _split_proj(cfg, (x @ p["w_in"])[:, 0])
+    window = torch.cat([conv_state, xbc[:, None].to(conv_state.dtype)],
+                       dim=1)                                   # (B, W, C)
+    conv_out = _conv_window(window, p["conv_w"], p["conv_b"], 1)[:, 0]
+    xs, b, c = torch.split(conv_out.to(x.dtype), [d_inner, ng * dn,
+                                                  ng * dn], dim=-1)
+    y, new_state = ssd_decode_step(xs.reshape(bsz, nh, hp), dt, p["a_log"],
+                                   b.reshape(bsz, ng, dn),
+                                   c.reshape(bsz, ng, dn), p["d_skip"],
+                                   p["dt_bias"], ssm_state)
+    masking.write_rows(ssm_state, new_state, rows)
+    masking.write_rows(conv_state, window[:, 1:], rows)
+    gated = y.reshape(bsz, d_inner) * F.silu(compute(z)).to(y.dtype)
+    out = rt.op("rms_norm")(gated, p["norm"], cfg.norm_eps) @ p["w_out"]
+    return out[:, None]

@@ -17,8 +17,10 @@ sites and the attention go through the :class:`Runtime`'s kernel sites:
 For qwen3-1.7b (28 layers, qk-norm) that is 57 ``rms_norm``, 56
 ``rms_norm_residual`` and 28 ``flash_attention`` (or ``flash_decode``)
 calls per forward (or step).  The big projections stay ``torch.matmul``,
-as the reference left them to XLA.  The MoE family comes with a later
-slice of the port.
+as the reference left them to XLA.  The ssm and hybrid families have
+their own stacks (:mod:`~repro_torch.models.registry`,
+:mod:`~repro_torch.models.hybrid`); the MoE, vlm and encdec families
+come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ FAMILIES_ITEM = "ROADMAP.md item 12 (the other model families)"
 
 
 def _dense_only(cfg: ModelConfig) -> None:
+    """Refuse every config but the dense family's: the MoE, vlm and
+    encdec families (and a family name without its sub-config) are not
+    ported yet."""
     if cfg.moe is not None or cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet; it "

@@ -72,8 +72,10 @@ class ServeEngine:
     """Continuous-batching decode engine over a fixed slot ring.
 
     ``params`` is the architecture's parameter tree on ``device`` (the
-    GPU unless ``"cpu"`` is named); the KV cache is allocated there in
-    the weights' dtype.  ``rt`` picks the kernel sites' implementation
+    GPU unless ``"cpu"`` is named); the decode cache is allocated there
+    in the weights' dtype, a float32 spec in float32
+    (:meth:`~repro_torch.models.layers.ParamSpec.dtype_for`).  ``rt``
+    picks the kernel sites' implementation
     (:class:`repro_torch.models.runtime.Runtime`)."""
 
     def __init__(self, arch_name: str, params, cfg: ModelConfig,
@@ -94,7 +96,8 @@ class ServeEngine:
         self.cache_specs = registry.cache_specs(cfg, shape,
                                                 batch_override=b)
         self.cache: Dict[str, Any] = layers.map_specs(
-            lambda sp: torch.zeros(sp.shape, dtype=embed.dtype,
+            lambda sp: torch.zeros(sp.shape,
+                                   dtype=sp.dtype_for(embed.dtype),
                                    device=self.device), self.cache_specs)
         decode_fn, specs = self.arch.decode_fn(), self.cache_specs
 

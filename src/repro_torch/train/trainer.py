@@ -96,8 +96,8 @@ class Trainer:
 
     def _batch_for(self, step: int) -> Dict[str, torch.Tensor]:
         """Step ``step``'s token batch on the device (the dense and ssm
-        families; a trainer of another family raises at construction,
-        naming ROADMAP item 12)."""
+        families; a trainer of the hybrid family raises at construction,
+        naming ROADMAP item 22, and of another family naming item 12)."""
         raw = self.loader.batch(step)
         return {"tokens": torch.from_numpy(raw["tokens"]).to(self.device)}
 

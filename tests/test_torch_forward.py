@@ -301,16 +301,32 @@ def test_convert_keeps_float32_specs():
 # ---------------------------------------------------------------------------
 
 def test_unported_families_and_entry_points_raise():
+    """The ssm family serves (its decode entry points work); the moe,
+    encdec and vlm families raise naming ROADMAP item 12 and a hybrid's
+    training naming item 22."""
     _, ssm_cfg = _ssm()
     arch = registry.Arch(ssm_cfg)
     assert arch.prefill_fn() is None
-    with pytest.raises(NotImplementedError, match="item 16"):
-        arch.decode_fn()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        registry.cache_specs(ssm_cfg, ShapeConfig("x", 8, 2, "decode"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        steps.make_serve_step(arch, Runtime(), "decode")
-    for family in ("moe", "hybrid", "encdec", "vlm"):
+    assert arch.decode_fn() is registry._ssm_decode_step
+    specs = registry.cache_specs(ssm_cfg, ShapeConfig("x", 8, 2, "decode"))
+    assert specs["ssm_state"].shape == (3, 2, 8, 16, 16)
+    assert specs["conv_state"].shape == (3, 2, 3, 128 + 2 * 2 * 16)
+    step = steps.make_serve_step(arch, Runtime(), "decode")
+    p = arch.init_params(0, "cpu", torch.float32)
+    cache = layers.map_specs(
+        lambda sp: torch.zeros(sp.shape, dtype=torch.float32), specs)
+    logits, same = step(p, cache, {"tokens": torch.zeros((2, 1),
+                                                         dtype=torch.int32)},
+                        torch.zeros(2, dtype=torch.int32))
+    assert logits.shape == (2, ssm_cfg.vocab_size) and same is cache
+    assert cache["ssm_state"].abs().sum() > 0
+    hybrid_arch = registry.get("zamba2-2.7b")
+    with pytest.raises(NotImplementedError, match="item 22"):
+        steps.make_train_step(hybrid_arch, Runtime())
+    with pytest.raises(NotImplementedError, match="item 22"):
+        api.Trainer("zamba2-2.7b", hybrid_arch.cfg.reduced(),
+                    api.TrainConfig(steps=1), device="cpu")
+    for family in ("moe", "encdec", "vlm"):
         other = registry.Arch(dataclasses.replace(_dense("fan")[1],
                                                   family=family))
         for entry in (other.loss_fn, other.prefill_fn, other.decode_fn,
