@@ -19,9 +19,13 @@ virtual-synchrony cut (``MembershipService.reconfigure_stream``,
 ``BoundDomain.reconfigure``, ``ReplicatedEngine.run(fail_at=)``,
 ``ElasticRuntime`` with a ``BucketSyncStream`` and ``chaos_soak``), the
 fused serve program (``ReplicatedEngine.run(fused=True)``), the load
-plane (``run_profile``) and the recurrent families (``Arch.loss_fn`` on
+plane (``run_profile``), the recurrent families (``Arch.loss_fn`` on
 a full-width zamba2-2.7b, ``ReplicatedEngine.run`` per round and fused
-on full-width mamba2-2.7b and zamba2-2.7b).
+on full-width mamba2-2.7b and zamba2-2.7b) and the moe, vlm and encdec
+families (loss, prefill and decode of qwen2-moe-a2.7b, deepseek-moe-16b,
+internvl2-26b and seamless-m4t-medium at full width,
+``ReplicatedEngine.run`` per round and fused on qwen2-moe-a2.7b and per
+round on seamless-m4t-medium).
 
 Phases (one JSON line each; any failure exits non-zero):
 
@@ -191,9 +195,44 @@ Phases (one JSON line each; any failure exits non-zero):
    (device time, device operations, the leading device ops) beside its
    bound; phases 21-25 run in a child process of their own
    (``--recurrent-phases``), timed runs before profiled ones;
-26. the ``kernels`` line: per kernel its launches on the main paths
-   (phases 2-4, 6, 9, 12, 14-17, 21-22 and, from the device traces, 18
-   and 20), its times and its bound.
+26. qwen2-moe-a2.7b's loss at full width (24 layers, bf16 weights from
+   seed 0, 2 x 2048 tokens): 1 / 48 / 24 RMSNorm / residual-norm /
+   flash-attention calls, the loss beside ln V, the aux term, the routes
+   dropped and the smallest router gap, tokens/s, and a computed bound
+   that counts the E x C capacity slots the program runs;
+27. qwen2-moe-a2.7b served on phase 6's layout, per round (1 / 48 / 24
+   calls a decode step, C = 8 >= 8 rows: nothing drops) and
+   ``run(fused=True)`` (identical, host_hops 0, one capture cold and
+   none warm): tokens/s, wall a step, graph nodes, capture seconds, pool
+   bytes, the fused run's wall a device step, one traced decode step's
+   device ms beside the step's byte bound (every expert's weights:
+   ROADMAP item 25) and a traced short fused epoch's device ms a device
+   step;
+28. deepseek-moe-16b at full width: loss on 1 x 2048 (1 / 56 / 28), a
+   prefill of 64 tokens and 8 decode steps continuing it, the router
+   margin;
+29. internvl2-26b at full width: ``vlm_loss`` on 256 patches + 1792 text
+   tokens (2 / 96 / 48), a prefill of 256 + 64 positions and 8 decode
+   steps, the bound;
+30. seamless-m4t-medium at full width: ``seq2seq_loss`` on 2 x (1024
+   frames + 1024 tokens) (12 non-causal and 12 causal flash attention,
+   2 / 60 norms), the encoder as ``prefill_fn``, and serving on phase 6's
+   layout per round (12 self and 12 cross flash decode a step);
+31. the families in float32 at 4 layers (encdec 2 + 2), full width:
+   serving on the kernels against the plain versions (phase 7's rule),
+   the MoE's batched tokens equal to each request served alone, every
+   forward's loss and logits kernels against plain with the launches
+   counted, prefill then decode against the forward (the MoE at
+   ``capacity_factor = E / K``) within 1e-4, the router margins (the
+   MoE forwards' over 1e-5, its seed chosen by ``--moe-seed-search``);
+   and the kernels against their plain versions at this slice's new
+   shapes (non-causal attention at D = 64, the MoE losses' 16 / 16 heads
+   at D = 128, internvl2's group of 6, RMSNorm at width 3200 and 6144).
+   Phases 26-31 run in a child process of their own
+   (``--families-phases``), timed runs before profiled ones;
+32. the ``kernels`` line: per kernel its launches on the main paths
+   (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30 and, from the device
+   traces, 18 and 20), its times and its bound.
 
 The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
@@ -204,6 +243,7 @@ full float32 (TF32 off) wherever float32 is compared.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import json
@@ -232,8 +272,8 @@ from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import smc_sweep as ss  # noqa: E402
 from repro_torch.kernels import ssd_scan as sc  # noqa: E402
-from repro_torch.models import (hybrid, layers, registry,  # noqa: E402
-                                transformer)
+from repro_torch.models import (attention, encdec, hybrid,  # noqa: E402
+                                layers, moe, registry, transformer)
 from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -3642,6 +3682,974 @@ def recurrent_phases() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the moe, vlm and encdec families (phases 26-31)
+# ---------------------------------------------------------------------------
+
+FAMILIES_PHASES_FLAG = "--families-phases"
+MOE_SERVED = "qwen2-moe-a2.7b"
+SEAMLESS = "seamless-m4t-medium"
+INTERNVL = "internvl2-26b"
+DEEPSEEK = "deepseek-moe-16b"
+FAMILIES_PER_REPLICA = 16
+# flash_attention calls by their causal flag, flash_decode calls by
+# whether every row reads its whole cache (the encdec's cross attention)
+SPLIT = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitCountRuntime(Runtime):
+    """The kernels, with :data:`SPLIT` counting the attention calls by
+    kind (a host read a ``flash_decode`` call: single passes only)."""
+
+    def op(self, name):
+        fn = Runtime.op(self, name)
+        if name == "flash_attention":
+            def counted(q, k, v, causal=True):
+                SPLIT["causal" if causal else "non_causal"] += 1
+                return fn(q, k, v, causal)
+            return counted
+        if name == "flash_decode":
+            def counted(q, k, v, kv_len):
+                whole = bool((kv_len == k.shape[1]).all())
+                SPLIT["cross" if whole else "self"] += 1
+                return fn(q, k, v, kv_len)
+            return counted
+        return fn
+
+
+def split_counts(fn):
+    """``fn()`` on a :class:`SplitCountRuntime`: (result, the split)."""
+    SPLIT.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(SPLIT)
+
+
+def decoder_launches(cfg, attn: str) -> dict:
+    """Launches of one pass of a decoder-only stack (``attn`` is
+    ``flash_attention`` for a forward, ``flash_decode`` for a step): the
+    first norm (and the q-/k-norms) ``rms_norm``, two fused residual
+    norms a layer; the vlm's forward adds its projector's norm.
+    qwen2-moe-a2.7b 1 / 48 / 24, deepseek-moe-16b 1 / 56 / 28."""
+    n = cfg.n_layers
+    return {attn: n, "rms_norm": 1 + (2 * n if cfg.qk_norm else 0),
+            "rms_norm_residual": 2 * n}
+
+
+def encdec_launches(cfg, step: bool) -> dict:
+    """Launches of a seq2seq loss (seamless-m4t-medium: 24 attention, 2
+    / 60 norms) or of one decode step (24 flash decode: 12 self, 12
+    cross; 1 / 36 norms)."""
+    e, d = cfg.encdec.n_encoder_layers, cfg.encdec.n_decoder_layers
+    if step:
+        return {"flash_decode": 2 * d, "rms_norm": 1,
+                "rms_norm_residual": 3 * d}
+    return {"flash_attention": e + d, "rms_norm": 2,
+            "rms_norm_residual": 2 * e + 3 * d}
+
+
+def encoder_launches(cfg) -> dict:
+    e = cfg.encdec.n_encoder_layers
+    return {"flash_attention": e, "rms_norm": 1, "rms_norm_residual": 2 * e}
+
+
+class RouterProbe:
+    """While entered, every router call's smallest gap between a token's
+    K-th and (K+1)-th probability and every dispatch's dropped routes,
+    kept on the device and read on exit (diagnostic passes only)."""
+
+    def __enter__(self):
+        self.gaps, self.drops, self.routes = [], [], 0
+        self._route, self._dispatch = moe.route, moe._dispatch
+
+        def route(p, cfg, x):
+            probs = torch.softmax(x.to(p["router"].dtype) @ p["router"], -1)
+            top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+            self.gaps.append((top[:, -2] - top[:, -1]).min())
+            return self._route(p, cfg, x)
+
+        def dispatch(idx, weights, e, c, t):
+            out = self._dispatch(idx, weights, e, c, t)
+            self.drops.append(idx.numel() - out[2].sum())
+            self.routes += idx.numel()
+            return out
+
+        moe.route, moe._dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        moe.route, moe._dispatch = self._route, self._dispatch
+        self.stats = {
+            "min_router_gap": float(torch.stack(self.gaps).min())
+            if self.gaps else None,
+            "routes": self.routes,
+            "routes_dropped": int(torch.stack(self.drops).sum())
+            if self.drops else 0}
+        return False
+
+
+def moe_flops(cfg, tokens: int) -> int:
+    """The matrix work of one MoE stack pass over ``tokens`` routing
+    together, as the program does it: per token the attention
+    projections, the router and the shared experts; per expert its E x C
+    capacity slots (C from :func:`repro_torch.models.moe._capacity`),
+    not the routes the tokens take."""
+    m, d = cfg.moe, cfg.d_model
+    specs = registry.param_specs(cfg)["layers"]
+    attn = sum(sp.numel() for sp in layers.spec_leaves(specs["attn"])
+               if len(sp.shape) >= 4) // cfg.n_layers
+    per_token = attn + d * m.n_routed + 3 * d * m.n_shared * m.d_ff_expert
+    slots = moe._padded_experts(cfg) * moe._capacity(tokens, cfg)
+    return 2 * cfg.n_layers * (tokens * per_token +
+                               slots * 3 * d * m.d_ff_expert)
+
+
+def param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors(params))
+
+
+def moe_loss_bound(cfg, params, b: int, s: int) -> dict:
+    """A loss's least time: every weight read once, against the bf16
+    matrix work of :func:`moe_flops` over the B x S tokens (which route
+    together), the head over B (S - 1) positions and the causal
+    attention."""
+    flops = moe_flops(cfg, b * s) + \
+        2 * b * (s - 1) * cfg.d_model * cfg.vocab_size + \
+        attention_flops(b, s, cfg.n_heads, cfg.head_dim_, True) * \
+        cfg.n_layers
+    bound_ms, bound_by = bound(param_bytes(params) + 4, flops,
+                               BF16_TC_OPS_PER_S)
+    return {"bound_ms_computed": bound_ms, "bound_by": bound_by,
+            "bound_counts": "E x C capacity slots a layer, not active "
+            "tokens", "bound_flops": flops}
+
+
+def moe_step_bound(cfg, params, b: int, kv_lens) -> dict:
+    """One MoE decode step's least time: every weight but the embedding
+    read once (the capacity dispatch runs every expert on its C slots,
+    so it reads every expert's weights; ROADMAP item 25), the K/V read
+    over ``kv_lens`` and one row written a layer, against the bf16
+    matrix work of :func:`moe_flops` over the B rows."""
+    esize = params["embed"].element_size()
+    weights = param_bytes(params) - params["embed"].numel() * esize + \
+        b * cfg.d_model * esize
+    kv = 2 * cfg.n_layers * (sum(kv_lens) + b) * cfg.n_kv_heads * \
+        cfg.head_dim_ * esize
+    flops = moe_flops(cfg, b) + 2 * b * cfg.d_model * cfg.vocab_size
+    bound_ms, bound_by = bound(weights + kv, flops, BF16_TC_OPS_PER_S)
+    return {"bound_ms_computed": bound_ms, "bound_by": bound_by,
+            "bound_weight_bytes": weights, "bound_kv_bytes": kv,
+            "bound_flops": flops}
+
+
+def check_loss(value: float, cfg, what: str, slack: float = 2.0) -> None:
+    check(math.isfinite(value)
+          and abs(value - math.log(cfg.vocab_size)) < slack,
+          f"{what}: loss {value}, want near ln V = "
+          f"{math.log(cfg.vocab_size)}")
+
+
+def family_kernel_rows():
+    """The kernels against their plain versions at this slice's new
+    shapes (bf16, as the full-width phases run them, and float32):
+    attention at seamless-m4t-medium's encoder (non-causal) and decoder
+    (causal), at the MoE losses' heads (qwen2-moe-a2.7b's B = 2; deepseek
+    runs B = 1 at the same heads) and at internvl2-26b's heads; flash
+    decode at the MoE serve,
+    seamless's self and cross caches and internvl2's group of 6; RMSNorm
+    at the widths 1024, 3200 (the vlm projector), 2048 and 6144."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rows = []
+    serve = np.random.default_rng(6).integers(9, 41, 8).tolist()
+    for dtype in (torch.float32, torch.bfloat16):
+        rate = BF16_TC_OPS_PER_S if dtype == torch.bfloat16 \
+            else ALU_OPS_PER_S
+        for label, b, s, hq, hkv, d, causal in (
+                ("seamless encoder", 2, 1024, 16, 16, 64, False),
+                ("seamless decoder", 2, 1023, 16, 16, 64, True),
+                ("qwen2-moe / deepseek", 2, 2048, 16, 16, 128, True),
+                ("internvl2", 1, 2048, 48, 8, 128, True)):
+            q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+            v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype)
+            kernel = lambda: fa.flash_attention(q, k, v, causal)
+            plain = lambda: fa.flash_attention_plain(q, k, v, causal)
+            err = within(kernel(), plain(), dtype)
+            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            flops = attention_flops(b, s, hq, d, causal)
+            bound_ms, bound_by = bound(nbytes, flops, rate)
+            row = {"kernel": "flash_attention", "dtype": str(dtype),
+                   "shape": f"B={b} S={s} Hq={hq} Hkv={hkv} D={d} "
+                   f"causal={causal}", "label": label, "max_abs_err": err,
+                   **time_case(kernel, plain,
+                               sdpa_causal_library(q, k, v, causal), 20),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            row["tflops"] = flops / row["ms"] / 1e9
+            rows.append(row)
+        for label, b, hq, hkv, d, s_max, lens in (
+                ("moe serve", 8, 16, 16, 128, 2048, serve),
+                ("seamless self", 8, 16, 16, 64, 2048, serve),
+                ("seamless cross", 8, 16, 16, 64, 2048, [2048] * 8),
+                ("internvl2 decode", 1, 48, 8, 128, 2048, [328])):
+            q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
+            k = torch.randn(b, s_max, hkv, d, generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn(b, s_max, hkv, d, generator=gen,
+                            device=dev).to(dtype)
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+            kernel = lambda: fd.flash_decode(q, k, v, kv_len)
+            plain = lambda: fd.flash_decode_plain(q, k, v, kv_len)
+            err = within(kernel(), plain(), dtype)
+            keys = sum(lens)
+            esize = q.element_size()
+            bound_ms, bound_by = bound(
+                2 * q.numel() * esize + 4 * b + 2 * keys * hkv * d * esize,
+                4 * d * hq * keys)
+            rows.append({"kernel": "flash_decode", "dtype": str(dtype),
+                         "shape": f"B={b} Hq={hq} Hkv={hkv} D={d} "
+                         f"S_max={s_max}", "label": label, "lengths": lens,
+                         "max_abs_err": err,
+                         **time_case(kernel, plain,
+                                     sdpa_library(q, k, v, kv_len)),
+                         "bound_ms": bound_ms, "bound_by": bound_by})
+    rows += rmsnorm_rows(((2048, 1024), (256, 3200), (8, 2048),
+                          (2048, 6144)), gen, 50)
+    for r in rows:
+        emit({"phase": 31, "part": "kernels", **r})
+    return rows
+
+
+def phase28_deepseek():
+    """deepseek-moe-16b at full width (28 layers, bf16 weights from seed
+    0): ``loss_fn`` on 1 x 2048 tokens, then ``prefill_fn`` of 1 x 64
+    into a preallocated cache and 8 decode steps continuing it, launches
+    counted; the router margin of a diagnostic forward.  Returns the
+    launches."""
+    arch = registry.get(DEEPSEEK)
+    cfg = arch.cfg
+    params = arch.init_params(0, "cuda", torch.bfloat16)
+    rt = Runtime()
+    b, s = 1, 2048
+    batch = {"tokens": seeded_tokens(cfg, b, s, seed=128)}
+    fwd = decoder_launches(cfg, "flash_attention")
+    step = decoder_launches(cfg, "flash_decode")
+    fn = lambda: arch.loss_fn()(params, cfg, batch, rt)
+    ops.reset_launch_counts()                 # the path starts here
+    cold, cold_s = run_counted(fn, fwd, "deepseek loss (cold)")
+    res, wall = run_counted(fn, fwd, "deepseek loss")
+    n_p, n_d = 64, 8
+    cache = layers.map_specs(
+        lambda sp: torch.zeros(sp.shape, dtype=torch.bfloat16,
+                               device="cuda"),
+        arch.cache_specs(ShapeConfig("x", n_p + n_d, b, "decode")))
+    prompt = {"tokens": batch["tokens"][:, :n_p]}
+    (logits, _), prefill_s = run_counted(
+        lambda: arch.prefill_fn()(params, prompt, rt, cache), fwd,
+        "deepseek prefill")
+    decode = arch.decode_fn()
+
+    def decode_steps():
+        out = []
+        for t in range(n_d):
+            out.append(decode(params, cfg, cache,
+                              batch["tokens"][:, n_p + t:n_p + t + 1],
+                              torch.full((b,), n_p + t, dtype=torch.int32,
+                                         device="cuda"), rt)[0])
+        return out
+
+    outs, decode_s = run_counted(
+        decode_steps, {k: v * n_d for k, v in step.items()},
+        "deepseek decode")
+    launches = ops.launch_counts()            # ... and ends here
+    value = float(res)
+    check_loss(value, cfg, "deepseek")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in [logits, *outs]),
+          "deepseek: non-finite logits")
+    with RouterProbe() as probe:
+        transformer.forward(params, cfg, transformer.embed(
+            params, cfg, batch["tokens"]), rt)
+    emit({"phase": 28, "model": cfg.name, "layers": cfg.n_layers,
+          "params": cfg.param_count(),
+          "active_params": cfg.active_param_count(), "batch": b, "seq": s,
+          "loss": value, "ln_vocab": math.log(cfg.vocab_size),
+          "same_as_cold_run": float(cold) == value,
+          "launches_per_forward": fwd, "launches_per_decode_step": step,
+          "launches": launches, "cold_wall_s": cold_s, "wall_s": wall,
+          "tokens_per_s": b * s / wall, "prefill_tokens": n_p,
+          "prefill_wall_s": prefill_s, "decode_steps": n_d,
+          "decode_wall_ms_per_step": decode_s / n_d * 1e3,
+          "router": probe.stats, **moe_loss_bound(cfg, params, b, s)})
+    del params, cache, res, cold, logits, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vlm_patches(cfg, b: int, seed: int) -> torch.Tensor:
+    """Seeded patch embeddings at ``input_specs``' shape and dtype."""
+    spec = registry.input_specs(cfg, ShapeConfig("x", 2048, b, "train"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(spec["patches"].shape, generator=gen,
+                       device="cuda").to(spec["patches"].dtype)
+
+
+def phase29_internvl2():
+    """internvl2-26b at full width (48 layers, bf16 weights from seed 0):
+    ``vlm_loss`` on 1 x (256 patches + 1792 text tokens) at
+    ``input_specs``' shapes, then the prefill of 256 + 64 positions into
+    a preallocated cache and 8 decode steps, launches counted (2 / 96 /
+    48 a forward).  Returns the launches."""
+    arch = registry.get(INTERNVL)
+    cfg = arch.cfg
+    params = arch.init_params(0, "cuda", torch.bfloat16)
+    rt = Runtime()
+    b, s = 1, 2048
+    specs = arch.input_specs(ShapeConfig("x", s, b, "train"))
+    n_p = cfg.vlm.n_patches
+    check(tuple(specs["tokens"].shape) == (b, s - n_p),
+          f"internvl2 input_specs {specs}")
+    batch = {"patches": vlm_patches(cfg, b, seed=129),
+             "tokens": seeded_tokens(cfg, b, s - n_p, seed=129)
+             .to(torch.int32)}
+    fwd = decoder_launches(cfg, "flash_attention")
+    fwd["rms_norm"] += 1                      # the projector's norm
+    step = decoder_launches(cfg, "flash_decode")
+    fn = lambda: arch.loss_fn()(params, cfg, batch, rt)
+    ops.reset_launch_counts()
+    cold, cold_s = run_counted(fn, fwd, "internvl2 loss (cold)")
+    res, wall = run_counted(fn, fwd, "internvl2 loss")
+    value = float(res)
+    check_loss(value, cfg, "internvl2")
+    n_t, n_d = 64, 8
+    cache = layers.map_specs(
+        lambda sp: torch.zeros(sp.shape, dtype=torch.bfloat16,
+                               device="cuda"),
+        arch.cache_specs(ShapeConfig("x", n_p + n_t + n_d, b, "decode")))
+    prompt = {"patches": batch["patches"],
+              "tokens": batch["tokens"][:, :n_t]}
+    (logits, _), prefill_s = run_counted(
+        lambda: arch.prefill_fn()(params, prompt, rt, cache), fwd,
+        "internvl2 prefill")
+    decode = arch.decode_fn()
+
+    def decode_steps():
+        return [decode(params, cfg, cache,
+                       batch["tokens"][:, n_t + t:n_t + t + 1],
+                       torch.full((b,), n_p + n_t + t, dtype=torch.int32,
+                                  device="cuda"), rt)[0]
+                for t in range(n_d)]
+
+    outs, decode_s = run_counted(
+        decode_steps, {k: v * n_d for k, v in step.items()},
+        "internvl2 decode")
+    launches = ops.launch_counts()
+    check(all(bool(torch.isfinite(o.float()).all()) for o in [logits, *outs]),
+          "internvl2: non-finite logits")
+    projector = 2 * b * n_p * (cfg.vlm.vision_dim + cfg.d_model) * \
+        cfg.d_model
+    extra = attention_flops(b, s, cfg.n_heads, cfg.head_dim_, True) * \
+        cfg.n_layers + projector
+    emit({"phase": 29, "model": cfg.name, "layers": cfg.n_layers,
+          "params": cfg.param_count(), "batch": b, "patches": n_p,
+          "text": s - n_p, "loss": value,
+          "ln_vocab": math.log(cfg.vocab_size),
+          "same_as_cold_run": float(cold) == value,
+          "launches_per_forward": fwd, "launches_per_decode_step": step,
+          "launches": launches, "cold_wall_s": cold_s, "wall_s": wall,
+          "tokens_per_s": b * s / wall, "prefill_positions": n_p + n_t,
+          "prefill_wall_s": prefill_s, "decode_steps": n_d,
+          "decode_wall_ms_per_step": decode_s / n_d * 1e3,
+          **forward_bound(cfg, params, b * s, b * (s - n_p), extra, 4)})
+    del params, cache, res, cold, logits, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def seamless_batch(cfg, b: int, half: int, seed: int) -> dict:
+    """Seeded frames and tokens at ``input_specs``' shapes and dtypes."""
+    spec = registry.input_specs(cfg, ShapeConfig("x", 2 * half, b, "train"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {"frames": torch.randn(spec["frames"].shape, generator=gen,
+                                  device="cuda").to(spec["frames"].dtype),
+            "tokens": seeded_tokens(cfg, b, half, seed).to(torch.int32)}
+
+
+def check_serve(rep, report, requests, per_step: dict, launches: dict,
+                what: str) -> None:
+    """Drained with every token, the launches exactly ``per_step`` a
+    decode step and one watermark kernel a streamed round."""
+    serve = report.extras["serve"]
+    n_req = sum(len(r) for r in requests)
+    want_tokens = sum(r.max_new_tokens for per in requests for r in per)
+    check(serve["drained"] and serve["requests"] == n_req
+          and serve["tokens"] == want_tokens, f"{what}: {serve}")
+    want = {k: 0 for k in launches}
+    want.update({k: n * serve["decode_steps"] for k, n in per_step.items()})
+    want["smc_sweep_watermark"] = report.extras["streamed_rounds"]
+    check(launches == want, f"{what}: launches {launches}, want {want}")
+    vocab = rep.engines[0].cfg.vocab_size
+    for stream in (t for per in rep.completed().values() for t in per):
+        check(all(0 <= x < vocab for x in stream),
+              f"{what}: bad token stream {stream}")
+
+
+def phase30_seamless():
+    """seamless-m4t-medium at full width (12 + 12 layers, bf16 weights
+    from seed 0): ``seq2seq_loss`` on 2 x (1024 frames + 1024 tokens)
+    (12 non-causal and 12 causal flash attention, 2 / 60 norms),
+    ``prefill_fn`` (the encoder) on the frames, and serving on phase 6's
+    layout per round (12 self and 12 cross flash decode a step).
+    Returns the launches and the serve setup (for the device part)."""
+    cfg = registry.get(SEAMLESS).cfg
+    params, rep = serve_setup(cfg, torch.bfloat16, seed=0)
+    arch = registry.Arch(cfg)
+    for eng in rep.engines:
+        check(all(v.dtype == torch.bfloat16 for v in eng.cache.values())
+              and sorted(eng.cache) == ["cross_k", "cross_v", "k", "v"],
+              f"seamless engine cache {[(k, v.dtype) for k, v in eng.cache.items()]}")
+    b, half = 2, 1024
+    batch = seamless_batch(cfg, b, half, seed=130)
+    loss_want = encdec_launches(cfg, step=False)
+    step_want = encdec_launches(cfg, step=True)
+    fn = lambda: arch.loss_fn()(params, cfg, batch, Runtime())
+    ops.reset_launch_counts()
+    cold, cold_s = run_counted(fn, loss_want, "seamless loss (cold)")
+    res, wall = run_counted(fn, loss_want, "seamless loss")
+    (memory, empty), enc_s = run_counted(
+        lambda: arch.prefill_fn()(params, batch, Runtime()),
+        encoder_launches(cfg), "seamless encode")
+    check(memory.shape == (b, half, cfg.d_model) and empty == {}
+          and bool(torch.isfinite(memory.float()).all()),
+          "seamless encode: bad memory")
+    launches = ops.launch_counts()
+    value = float(res)
+    check_loss(value, cfg, "seamless")
+    _, split = split_counts(lambda: arch.loss_fn()(params, cfg, batch,
+                                                   SplitCountRuntime()))
+    e, d = cfg.encdec.n_encoder_layers, cfg.encdec.n_decoder_layers
+    check(split == {"non_causal": e, "causal": d},
+          f"seamless loss attention calls {split}")
+    requests = serve_requests(api.Request, cfg.vocab_size,
+                              FAMILIES_PER_REPLICA, seed=1)
+    ops.reset_launch_counts()
+    report = round_run(rep, requests)
+    serve_launches = ops.launch_counts()
+    check_serve(rep, report, requests, step_want, serve_launches,
+                "seamless serve")
+    eng = rep.engines[0]
+    tokens, pos, valid = step_inputs(eng, 16)
+    _, step_split = split_counts(lambda: encdec.decode_step(
+        params, cfg, eng.cache, tokens, pos, SplitCountRuntime(), valid))
+    check(step_split == {"self": d, "cross": d},
+          f"seamless decode step attention calls {step_split}")
+    serve = report.extras["serve"]
+    emit({"phase": 30, "model": cfg.name,
+          "layers": [e, d], "params": cfg.param_count(), "batch": b,
+          "frames": half, "tokens": half, "loss": value,
+          "ln_vocab": math.log(cfg.vocab_size),
+          "same_as_cold_run": float(cold) == value,
+          "launches_per_loss": loss_want, "attention_split_loss": split,
+          "launches_per_decode_step": step_want,
+          "attention_split_decode_step": step_split,
+          "cold_wall_s": cold_s, "wall_s": wall,
+          "tokens_per_s": b * 2 * half / wall, "encode_wall_s": enc_s,
+          "serve": {"replicas": 2, "slots": 8, "max_len": 2048,
+                    "window": 8, "backend": "kernel",
+                    "requests": serve["requests"],
+                    "tokens": serve["tokens"],
+                    "tokens_per_s": serve["tokens_per_s"],
+                    "wall_s": serve["wall_s"],
+                    "decode_steps": serve["decode_steps"],
+                    "wall_ms_per_decode_step":
+                        serve["wall_s"] / serve["decode_steps"] * 1e3,
+                    "launches": serve_launches}})
+    for k, v in serve_launches.items():
+        launches[k] = launches.get(k, 0) + v
+    del res, cold, memory
+    torch.cuda.empty_cache()
+    return launches, (cfg, params, rep)
+
+
+def phase26_moe_loss(cfg, params):
+    """qwen2-moe-a2.7b's loss at full width (24 layers, bf16 weights from
+    seed 0) on 2 x 2048 tokens: 1 / 48 / 24 launches a forward, the loss
+    beside ln V, the aux term and the routes dropped (a diagnostic
+    forward), tokens/s and the computed bound.  Returns the launches."""
+    arch = registry.Arch(cfg)
+    rt = Runtime()
+    b, s = 2, 2048
+    batch = {"tokens": seeded_tokens(cfg, b, s, seed=126)}
+    want = decoder_launches(cfg, "flash_attention")
+    fn = lambda: arch.loss_fn()(params, cfg, batch, rt)
+    ops.reset_launch_counts()
+    cold, cold_s = run_counted(fn, want, "qwen2-moe loss (cold)")
+    res, wall = run_counted(fn, want, "qwen2-moe loss")
+    launches = ops.launch_counts()
+    value = float(res)
+    check_loss(value, cfg, "qwen2-moe")
+    with RouterProbe() as probe:
+        _, aux = transformer.forward(params, cfg, transformer.embed(
+            params, cfg, batch["tokens"]), rt)
+    emit({"phase": 26, "model": cfg.name, "layers": cfg.n_layers,
+          "params": cfg.param_count(),
+          "active_params": cfg.active_param_count(),
+          "experts": [cfg.moe.n_routed, moe._padded_experts(cfg)],
+          "capacity": moe._capacity(b * s, cfg), "batch": b, "seq": s,
+          "loss": value, "ln_vocab": math.log(cfg.vocab_size),
+          "aux": float(aux), "router": probe.stats,
+          "same_as_cold_run": float(cold) == value,
+          "launches_per_forward": want, "launches": launches,
+          "cold_wall_s": cold_s, "wall_s": wall,
+          "tokens_per_s": b * s / wall,
+          **moe_loss_bound(cfg, params, b, s)})
+    del res, cold
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase27_moe_serve(cfg, params, rep_k):
+    """qwen2-moe-a2.7b served on phase 6's layout (2 replicas x 8 slots x
+    2048 positions, window 8, 16 requests a replica): per round on the
+    ``kernel`` backend with 1 / 48 / 24 launches a decode step, then
+    ``run(fused=True)`` identical to it, host_hops 0, one capture cold
+    and none warm.  C = 8 >= T = 8, so no route drops.  Returns the
+    per-round run's launches and the fused run's figures."""
+    check(moe._capacity(8, cfg) >= 8,
+          f"serve capacity {moe._capacity(8, cfg)} < 8 rows")
+    requests = serve_requests(api.Request, cfg.vocab_size,
+                              FAMILIES_PER_REPLICA, seed=1)
+    per_step = decoder_launches(cfg, "flash_decode")
+    ops.reset_launch_counts()
+    report = round_run(rep_k, requests)
+    launches = ops.launch_counts()
+    check_serve(rep_k, report, requests, per_step, launches,
+                "qwen2-moe serve")
+    want_traces = serve_traces(rep_k, report)
+    serve = report.extras["serve"]
+    eng = rep_k.engines[0]
+    tokens, pos, valid = step_inputs(eng, 16)
+    logits, _ = eng.decode(params, eng.cache, tokens, pos, valid)
+    check(bool(torch.isfinite(logits.float()).all()),
+          "qwen2-moe: non-finite logits")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(10):
+        eng.decode(params, eng.cache, tokens, pos, valid)
+    torch.cuda.synchronize()
+    step_wall_ms = (time.perf_counter() - t1) / 10 * 1e3
+    t1 = time.perf_counter()
+    cold, cold_reads, cold_caps = fused_run(rep_k, requests)
+    same_serve(serve_traces(rep_k, cold), want_traces, cold, report,
+               "qwen2-moe fused cold vs per-round")
+    t2 = time.perf_counter()
+    warm, reads, caps = fused_run(rep_k, requests)
+    same_serve(serve_traces(rep_k, warm), want_traces, warm, report,
+               "qwen2-moe fused warm vs per-round")
+    check(cold_caps == 1 and caps == 0,
+          f"qwen2-moe fused: {cold_caps} captures cold, {caps} warm "
+          "(want 1, 0)")
+    wserve = warm.extras["serve"]
+    (prog,) = rep_k._fused_programs.values()
+    device_steps = fused_device_steps(rep_k, requests)
+    fused_row = {"device_decode_steps": device_steps,
+                 "warm_wall_ms_per_device_step":
+                     wserve["wall_s"] / device_steps * 1e3}
+    emit({"phase": 27, "model": cfg.name, "layers": cfg.n_layers,
+          "replicas": 2, "slots": 8, "max_len": 2048, "window": 8,
+          "backend": "kernel", "requests": serve["requests"],
+          "capacity_at_8_rows": moe._capacity(8, cfg),
+          "launches": launches, "launches_per_decode_step": per_step,
+          "per_round": {k: serve[k] for k in (
+              "tokens", "tokens_per_s", "wall_s", "engine_rounds",
+              "decode_steps", "host_hops")},
+          "wall_ms_per_decode_step": serve["wall_s"]
+          / serve["decode_steps"] * 1e3,
+          "decode_step_alone_wall_ms": step_wall_ms,
+          "fused": {"identical_to_per_round": True,
+                    "cold_wall_s": t2 - t1,
+                    "cold_tokens_per_s": cold.extras["serve"][
+                        "tokens_per_s"],
+                    "warm": {k: wserve[k] for k in (
+                        "tokens", "tokens_per_s", "wall_s",
+                        "fused_rounds", "host_hops")},
+                    "flag_reads": {"cold": cold_reads, "warm": reads},
+                    "captures": {"cold": cold_caps, "warm": caps},
+                    "capture_s": prog.capture_s, "graph_nodes": prog.nodes,
+                    "graph_pool_bytes": prog.pool_bytes, **fused_row},
+          "decode_step_bound": moe_step_bound(
+              cfg, params, 8, (pos + 1).tolist())})
+    return launches, fused_row
+
+
+def families_device_phase(cfg, params, rep_k, fused_row, seamless):
+    """The profiled figures of phases 26-30, after every timed run of
+    this process: one qwen2-moe-a2.7b decode step traced (the body the
+    fused program replays; device time and operations beside the byte
+    bound, and beside the untraced fused run's wall a device step), each
+    full-width forward profiled (device time, busy share, per kernel)
+    and one seamless decode step.  Phase 27's fused run is not traced
+    (its 36 replays of a 156k-node graph crash the profiler's
+    collection); a short fused epoch is (:func:`fused_short_trace`)."""
+    eng = rep_k.engines[0]
+    tokens, pos, valid = step_inputs(eng, 16)
+    dev_ms, dev_ops = profiled_device(
+        lambda: eng.decode(params, eng.cache, tokens, pos, valid), 5)
+    check(dev_ms is not None, "qwen2-moe: no device time profiled")
+    top = profile_forward(lambda: eng.decode(params, eng.cache, tokens,
+                                             pos, valid))[
+        "top_device_ops_ms"]
+    b = moe_step_bound(cfg, params, 8, (pos + 1).tolist())
+    emit({"phase": 27, "part": "device",
+          "one_step_device_ms": dev_ms, "one_step_device_ops": dev_ops,
+          "top_device_ops_ms_one_step": top,
+          "bound_ms_computed": b["bound_ms_computed"],
+          "one_step_device_over_bound": dev_ms / b["bound_ms_computed"],
+          "fused_warm_wall_ms_per_device_step":
+              fused_row["warm_wall_ms_per_device_step"]})
+    emit({"phase": 27, "part": "fused device",
+          **fused_short_trace(rep_k, cfg)})
+    batch = {"tokens": seeded_tokens(cfg, 2, 2048, seed=126)}
+    emit({"phase": 26, "part": "device", **profile_forward(
+        lambda: registry.Arch(cfg).loss_fn()(params, cfg, batch,
+                                             Runtime()))})
+    scfg, sparams, srep = seamless
+    eng = srep.engines[0]
+    tokens, pos, valid = step_inputs(eng, 16)
+    dev_ms, dev_ops = profiled_device(
+        lambda: eng.decode(sparams, eng.cache, tokens, pos, valid), 5)
+    sbatch = seamless_batch(scfg, 2, 1024, seed=130)
+    emit({"phase": 30, "part": "device", "loss": profile_forward(
+        lambda: registry.Arch(scfg).loss_fn()(sparams, scfg, sbatch,
+                                              Runtime())),
+        "decode_step_device_ms": dev_ms, "decode_step_device_ops": dev_ops})
+
+
+def fused_short_trace(rep, cfg) -> dict:
+    """A short fused epoch traced: one request a replica (a program of its
+    own epoch shape, captured and run once untraced first), its device
+    time and operations a device decode step beside its wall a device
+    step, the run identical to the per-round loop's."""
+    from torch.profiler import ProfilerActivity, profile
+    requests = serve_requests(api.Request, cfg.vocab_size, 1, seed=27)
+    base = round_run(rep, requests)
+    want = serve_traces(rep, base)
+    fused_run(rep, requests)
+    submit_all(rep, requests)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        report = rep.run(fused=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(report.extras["serve"]["fused"] is True
+          and report.extras["serve"]["host_hops"] == 0,
+          f"short fused epoch: {report.extras['serve']}")
+    same_serve(serve_traces(rep, report), want, report, base,
+               "short fused epoch vs per-round")
+    steps_ = fused_device_steps(rep, requests)
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    busy_us = sum(device_us(e) for e in events)
+    check(busy_us > 0, "short fused epoch: no device time profiled")
+    top = sorted(events, key=device_us, reverse=True)[:6]
+    return {"requests_per_replica": 1,
+            "fused_rounds": report.extras["serve"]["fused_rounds"],
+            "device_decode_steps": steps_, "wall_s": wall,
+            "device_ms_per_device_step": busy_us / 1e3 / steps_,
+            "device_ops_per_device_step":
+                sum(e.count for e in events) / steps_,
+            "wall_ms_per_device_step": wall / steps_ * 1e3,
+            "device_busy_share": busy_us / 1e6 / wall,
+            "top_device_ops_ms": {e.key[:60]: device_us(e) / 1e3
+                                  for e in top}}
+
+
+def families_forward_profiles():
+    """Device time of the deepseek-moe-16b and internvl2-26b losses of
+    phases 28-29 (weights re-made from seed 0)."""
+    for phase, name in ((28, DEEPSEEK), (29, INTERNVL)):
+        arch = registry.get(name)
+        cfg = arch.cfg
+        params = arch.init_params(0, "cuda", torch.bfloat16)
+        if name == DEEPSEEK:
+            batch = {"tokens": seeded_tokens(cfg, 1, 2048, seed=128)}
+        else:
+            batch = {"patches": vlm_patches(cfg, 1, seed=129),
+                     "tokens": seeded_tokens(cfg, 1, 2048 - 256, seed=129)
+                     .to(torch.int32)}
+        emit({"phase": phase, "part": "device", **profile_forward(
+            lambda: arch.loss_fn()(params, cfg, batch, Runtime()))})
+        del params
+        torch.cuda.empty_cache()
+
+
+def cut_layers(cfg):
+    """``cfg`` at full width with 4 layers (encdec: 2 + 2)."""
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=4, encdec=dataclasses.replace(
+            cfg.encdec, n_encoder_layers=2, n_decoder_layers=2))
+    return dataclasses.replace(cfg, n_layers=4)
+
+
+def relative(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+# a router gap under this makes a kernels-vs-plain or a path comparison
+# one of tie-breaking, not of the port
+TIE_GAP = 1e-5
+# phase 31's token (and patch, frame) seeds; the MoE's chosen by the
+# printed router margin (:func:`moe_seed_search`)
+F32_FORWARD_SEEDS = {MOE_SERVED: 337, INTERNVL: 131, SEAMLESS: 131}
+MOE_SEED_SEARCH_FLAG = "--moe-seed-search"
+
+
+def check_margin(stats: dict, what: str) -> None:
+    check(stats["min_router_gap"] > TIE_GAP,
+          f"{what}: smallest router gap {stats['min_router_gap']} is a "
+          f"near tie (<= {TIE_GAP}); the seed must be chosen by it")
+
+
+def phase31_families_f32():
+    """The families in float32 at 4 layers (encdec 2 + 2), full width:
+    serving on the kernels against the plain versions (phase 7's rule)
+    for qwen2-moe-a2.7b and seamless-m4t-medium, the MoE's batched
+    tokens against each request served alone, every forward's loss and
+    logits on the kernels against the plain versions, the MoE forward
+    against prefill then decode with ``capacity_factor = E / K`` and the
+    vlm's likewise, within 1e-4; every forward, prefill and decode step
+    launch-counted (the kernels on the kernel side, none on the plain
+    side); the router margins printed, the MoE forwards' held over
+    :data:`TIE_GAP`."""
+    out = {}
+    rt, plain = Runtime(), Runtime(kernels="plain")
+    per_replica = 6
+    # serving: the MoE and the encdec
+    for name in (MOE_SERVED, SEAMLESS):
+        cfg = cut_layers(registry.get(name).cfg)
+        per_step = {"flash_decode": 4} if cfg.family == "encdec" \
+            else {"flash_decode": cfg.n_layers}
+        with RouterProbe() as probe:
+            record, batched = serve_kernels_vs_plain(
+                cfg, lambda rep: serve_run(rep, per_replica, seed=4),
+                per_step, f"phase 31 {name}")
+        out[f"{name} serve"] = {**record, "router": probe.stats}
+        if cfg.family == "moe":
+            check(probe.stats["routes_dropped"] == 0,
+                  f"phase 31 {name}: the serve dropped routes")
+            params, rep = serve_setup(cfg, torch.float32, seed=2)
+            requests = serve_requests(api.Request, cfg.vocab_size,
+                                      per_replica, seed=4)
+            for g, per in enumerate(requests):
+                for req in per:
+                    solo = [[] for _ in requests]
+                    solo[g] = [req]
+                    round_run(rep, solo)
+                    got = tokens_of(rep, req.rid)
+                    check(got == batched[req.rid],
+                          f"phase 31 {name}: request {req.rid} batched "
+                          f"{batched[req.rid]} != solo {got}")
+            out[f"{name} serve"]["batched_equals_solo"] = True
+            del params, rep
+            torch.cuda.empty_cache()
+    # the forwards on the kernels against the plain versions, each run
+    # counted: the kernel runs launch the kernels, the plain runs none
+    b, s = 2, 256
+    for name in (MOE_SERVED, INTERNVL, SEAMLESS):
+        cfg = cut_layers(registry.get(name).cfg)
+        arch = registry.Arch(cfg)
+        params = arch.init_params(3, "cuda", torch.float32)
+        seed = F32_FORWARD_SEEDS[name]
+        if cfg.family == "encdec":
+            batch = seamless_batch(cfg, b, s // 2, seed=seed)
+            batch["frames"] = batch["frames"].float()
+            fwd, pre = encdec_launches(cfg, False), encoder_launches(cfg)
+            step_want = encdec_launches(cfg, True)
+        else:
+            if cfg.family == "vlm":
+                batch = {"patches": vlm_patches(cfg, b, seed=seed).float(),
+                         "tokens": seeded_tokens(cfg, b, s, seed=seed)
+                         .to(torch.int32)}
+            else:
+                batch = {"tokens": seeded_tokens(cfg, b, s, seed=seed)}
+            fwd = decoder_launches(cfg, "flash_attention")
+            if cfg.family == "vlm":
+                fwd["rms_norm"] += 1              # the projector's norm
+            pre, step_want = fwd, decoder_launches(cfg, "flash_decode")
+        what = f"phase 31 {name}"
+        with RouterProbe() as probe:
+            loss_k, _ = run_counted(
+                lambda: arch.loss_fn()(params, cfg, batch, rt), fwd,
+                f"{what} loss")
+            loss_p, _ = run_counted(
+                lambda: arch.loss_fn()(params, cfg, batch, plain), {},
+                f"{what} plain loss")
+            (first, _), _ = run_counted(
+                lambda: arch.prefill_fn()(params, batch, rt), pre,
+                f"{what} prefill")
+            (want, _), _ = run_counted(
+                lambda: arch.prefill_fn()(params, batch, plain), {},
+                f"{what} plain prefill")
+        rel = relative(loss_k, loss_p)
+        check(rel <= LOSS_RTOL, f"{what}: loss {float(loss_k)} "
+              f"vs plain {float(loss_p)}")
+        row = {"seed": seed, "loss_kernels": float(loss_k),
+               "loss_plain": float(loss_p), "loss_rel_err": rel,
+               "launches_per_forward": fwd, "launches_per_prefill": pre,
+               "launches_per_decode_step": step_want}
+        if cfg.moe is not None:
+            row["router"] = probe.stats
+            check_margin(probe.stats, what)
+        row["prefill_max_abs_err"] = within(
+            first, want, torch.float32, FORWARD_TOL, f"{what} prefill")
+        if cfg.family == "encdec":
+            # one decode step over the encoder's memory as the cross cache
+            spec = arch.cache_specs(ShapeConfig("x", s, b, "decode"))
+            logits = {}
+            for key, r, launched in (("kernels", rt, step_want),
+                                     ("plain", plain, {})):
+                cache = layers.map_specs(
+                    lambda sp: torch.zeros(sp.shape, device="cuda"), spec)
+                for i in range(cfg.encdec.n_decoder_layers):
+                    lp = transformer.layer_params(params["decoder"], i)
+                    for leaf, w in (("cross_k", "wk"), ("cross_v", "wv")):
+                        cache[leaf][i, :, :s // 2] = attention._heads(
+                            first, lp["cross"][w])
+                (logits[key], _), _ = run_counted(
+                    lambda: encdec.decode_step(
+                        params, cfg, cache, batch["tokens"][:, :1],
+                        torch.zeros(b, dtype=torch.int32, device="cuda"),
+                        r), launched, f"{what} {key} decode step")
+            row["decode_step_max_abs_err"] = within(
+                logits["kernels"], logits["plain"], torch.float32,
+                FORWARD_TOL, f"{what} decode step")
+        else:
+            # prefill of S - 1 then one decode step against the forward
+            # (the MoE with capacity_factor = E / K: C >= T, no drops)
+            if cfg.moe is not None:
+                m = cfg.moe
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    m, capacity_factor=moe._padded_experts(cfg) / m.top_k))
+                arch = registry.Arch(cfg)
+                check(moe._capacity(b * s, cfg) >= b * s,
+                      "phase 31: capacity below the tokens")
+            n = s + (cfg.vlm.n_patches if cfg.vlm else 0)
+            cache = layers.map_specs(
+                lambda sp: torch.zeros(sp.shape, device="cuda"),
+                arch.cache_specs(ShapeConfig("x", n, b, "decode")))
+            short = dict(batch, tokens=batch["tokens"][:, :-1])
+            with RouterProbe() as probe:
+                (full, _), _ = run_counted(
+                    lambda: arch.prefill_fn()(params, batch, rt), pre,
+                    f"{what} prefill at capacity_factor E / K")
+                run_counted(lambda: arch.prefill_fn()(params, short, rt,
+                                                      cache),
+                            pre, f"{what} prefill of S - 1")
+                (step, _), _ = run_counted(
+                    lambda: arch.decode_fn()(
+                        params, cfg, cache, batch["tokens"][:, -1:],
+                        torch.full((b,), n - 1, dtype=torch.int32,
+                                   device="cuda"), rt),
+                    step_want, f"{what} decode step")
+            row["prefill_decode_vs_forward_max_abs_err"] = within(
+                step, full, torch.float32, 1e-4,
+                f"{what} prefill -> decode vs forward")
+            if cfg.moe is not None:
+                check(probe.stats["routes_dropped"] == 0,
+                      "phase 31: routes dropped at capacity_factor E / K")
+                check_margin(probe.stats, f"{what} prefill -> decode")
+                row["capacity_factor_e_over_k"] = cfg.moe.capacity_factor
+                row["router_prefill_decode"] = probe.stats
+        out[f"{name} forward"] = row
+        del params
+        torch.cuda.empty_cache()
+    emit({"phase": 31, "dtype": "float32", "layers": "4 (encdec 2 + 2)",
+          "logits_tol": FORWARD_TOL, "loss_rtol": LOSS_RTOL,
+          "path_tol": 1e-4, **out})
+
+
+def moe_seed_search(first: int = 131, wanted: int = 3) -> int:
+    """How phase 31's MoE token seed is chosen (``chip_smoke.py
+    --moe-seed-search``): from ``first`` up, each seed's smallest router
+    gap over phase 31's MoE forwards (the kernels' loss first; where that
+    is over :data:`TIE_GAP`, the plain loss and both prefills at capacity
+    factor 1.25, then at E / K the prefill, the prefill of S - 1 and the
+    decode step), printed, until ``wanted`` seeds have every gap over it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_kernels()
+    cfg = cut_layers(registry.get(MOE_SERVED).cfg)
+    arch = registry.Arch(cfg)
+    params = arch.init_params(3, "cuda", torch.float32)
+    m = cfg.moe
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        m, capacity_factor=moe._padded_experts(cfg) / m.top_k))
+    arch_w = registry.Arch(wide)
+    rt, plain = Runtime(), Runtime(kernels="plain")
+    b, s = 2, 256
+    found, tried, seed = [], 0, first
+    while len(found) < wanted and tried < 5000:
+        batch = {"tokens": seeded_tokens(cfg, b, s, seed)}
+        short = dict(batch, tokens=batch["tokens"][:, :-1])
+        cache = layers.map_specs(
+            lambda sp: torch.zeros(sp.shape, device="cuda"),
+            arch_w.cache_specs(ShapeConfig("x", s, b, "decode")))
+        runs = (lambda: arch.loss_fn()(params, cfg, batch, rt),
+                lambda: (arch.loss_fn()(params, cfg, batch, plain),
+                         arch.prefill_fn()(params, batch, rt),
+                         arch.prefill_fn()(params, batch, plain)),
+                lambda: (arch_w.prefill_fn()(params, batch, rt),
+                         arch_w.prefill_fn()(params, short, rt, cache),
+                         arch_w.decode_fn()(
+                             params, wide, cache, batch["tokens"][:, -1:],
+                             torch.full((b,), s - 1, dtype=torch.int32,
+                                        device="cuda"), rt)))
+        gaps = []
+        for run in runs:
+            with RouterProbe() as probe:
+                run()
+            gaps.append(probe.stats["min_router_gap"])
+            if gaps[-1] <= TIE_GAP:
+                break
+        tried += 1
+        if min(gaps) > TIE_GAP:
+            found.append(seed)
+        emit({"seed": seed, "min_router_gaps": gaps})
+        seed += 1
+    emit({"moe_seed_search": {"first": first, "tried": tried,
+                              "found": found, "tie_gap": TIE_GAP}})
+    return 0
+
+
+def families_phases() -> int:
+    """Phases 26-31 in a process of their own (``chip_smoke.py
+    --families-phases``, started by the full run): every timed run
+    first, the profiled ones after (a profiler session stays attached in
+    its process, see :func:`fused_phases`), the float32 checks last.
+    One model's weights at a time.  The last line is the families path's
+    launches: each model's forward, prefill and decode and the per-round
+    serve runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    family_kernel_rows()
+    counts = collections.Counter()
+    counts.update(phase28_deepseek())
+    counts.update(phase29_internvl2())
+    launches, seamless = phase30_seamless()
+    counts.update(launches)
+    cfg = registry.get(MOE_SERVED).cfg
+    params, rep_k = serve_setup(cfg, torch.bfloat16, seed=0)
+    counts.update(phase26_moe_loss(cfg, params))
+    launches, fused_row = phase27_moe_serve(cfg, params, rep_k)
+    counts.update(launches)
+    families_device_phase(cfg, params, rep_k, fused_row, seamless)
+    del params, rep_k, seamless
+    torch.cuda.empty_cache()
+    families_forward_profiles()
+    phase31_families_f32()
+    emit({"families": dict(counts)})
+    return 0
+
+
 KERNELS = (
     ("smc_sweep_watermark", "cuda", "src/repro_torch/kernels/csrc/smc_sweep.cu",
      "src/repro/kernels/smc_sweep.py:153 smc_sweep_watermark_pallas"),
@@ -3676,7 +4684,7 @@ LINE_SHAPES = {
     "ssd_scan": ("B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256", torch.bfloat16),
 }
 PATHS = ("multicast", "serve", "forward", "train", "cut", "fused", "load",
-         "recurrent")
+         "recurrent", "families")
 
 
 def main() -> int:
@@ -3688,6 +4696,10 @@ def main() -> int:
         return fused_phases()
     if RECURRENT_PHASES_FLAG in sys.argv[1:]:
         return recurrent_phases()
+    if MOE_SEED_SEARCH_FLAG in sys.argv[1:]:
+        return moe_seed_search()
+    if FAMILIES_PHASES_FLAG in sys.argv[1:]:
+        return families_phases()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3762,12 +4774,20 @@ def main() -> int:
         "rms_norm_residual", "smc_sweep_watermark")),
         f"the recurrent path skipped a kernel: {recurrent}")
 
+    # the moe, vlm and encdec families (each model's forward, prefill and
+    # decode, the per-round serve runs), in a process of their own
+    families = run_child(FAMILIES_PHASES_FLAG, 900)["families"]
+    check(all(families.get(k, 0) > 0 for k in (
+        "flash_decode", "flash_attention", "rms_norm", "rms_norm_residual",
+        "smc_sweep_watermark")),
+        f"the families path skipped a kernel: {families}")
+
     _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
     line_shapes = dict(LINE_SHAPES, **{
         name: (f"n={TRAIN_WORKERS * shard} block={shard}", torch.float32)
         for name in ("quantize", "dequantize")})
     by_path = dict(zip(PATHS, (multicast, serve, forward, train, cut,
-                               fused, load, recurrent)))
+                               fused, load, recurrent, families)))
     kernels = []
     for name, route, source, replaces in KERNELS:
         if name in line_shapes:

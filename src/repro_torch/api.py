@@ -12,13 +12,24 @@ The subset of ``repro.api`` that the port provides so far::
     # a parameter grid as ONE stacked round loop
     reports = g.run_batch(backend="kernel", windows=[5, 20, 100, 500])
 
-    # the full-sequence forward of a model (dense or ssm family)
-    arch = api.get_arch("qwen3-1.7b")    # or "mamba2-2.7b"
+    # the full-sequence forward of a model: every family (dense, moe,
+    # ssm, hybrid, encdec, vlm)
+    arch = api.get_arch("qwen3-1.7b")    # or "qwen2-moe-a2.7b", ...
     params = arch.init_params(seed=0, dtype=torch.bfloat16)  # device="cpu"
     loss = arch.loss_fn()(params, arch.cfg, {"tokens": tokens}, api.Runtime())
     logits, cache = arch.prefill_fn()(params, {"tokens": tokens},
                                       api.Runtime())
     step = api.make_serve_step(arch, api.Runtime(), "prefill")
+    # the vlm's batch: {"patches", "tokens"}; the encdec's {"frames",
+    # "tokens"} (its prefill is the encoder); shapes from
+    # arch.input_specs(shape) (meta tensors)
+
+    # serving any family: engines sharing one parameter set
+    engines = [api.ServeEngine("qwen2-moe-a2.7b", params, arch.cfg,
+                               api.EngineConfig(max_batch=8, max_len=2048))
+               for _ in range(2)]
+    rep = api.ReplicatedEngine(engines, window=8)
+    report = rep.run()                   # or rep.run(fused=True)
 
     # the training plane: W data-parallel workers folded onto one device,
     # gradients reduced by fused buckets with an int8 all-gather leg
@@ -68,9 +79,10 @@ __all__ = [
     "EngineConfig", "EpochCarry", "GraphBackend", "Group", "GroupConfig",
     "GroupStream", "HOST_X86", "KernelBackend", "MembershipService",
     "OptConfig", "ProtocolBackend", "QoS", "RDMA_CX6", "ReplicatedEngine",
-    "Request", "RunReport", "Runtime", "SenderPattern", "ServeAdmission",
-    "ServeEngine", "SpindleFlags", "StreamView", "SubgroupHandle",
-    "SubgroupSpec", "Topic", "TrainConfig", "Trainer", "View", "get_arch", "get_backend", "gradsync",
+    "Request", "RunReport", "Runtime", "SenderPattern",
+    "ServeAdmission", "ServeEngine", "SpindleFlags", "StreamView",
+    "SubgroupHandle", "SubgroupSpec", "Topic", "TrainConfig", "Trainer",
+    "View", "get_arch", "get_backend", "gradsync",
     "make_serve_step", "make_train_step", "many_topic_domain",
     "register_backend", "resolve_device", "single_group",
     "single_topic_domain",

@@ -6,7 +6,10 @@ n_kv_heads dividing n_heads, and RoPE.  :func:`_sdpa` is the plain
 oracle.  :func:`full_attention` runs the attention of a whole sequence
 through the ``flash_attention`` kernel site of the :class:`Runtime`, and
 :func:`decode_attention` the one-token attention through the
-``flash_decode`` site with a per-row ``(B,)`` length.  The reference's
+``flash_decode`` site with a per-row ``(B,)`` length.
+:func:`cross_attention` (the encoder-decoder's, queries over a memory of
+another length) stays the plain :func:`_sdpa`, as the reference leaves
+it to XLA.  The reference's
 pure-XLA blocked twin of the flash kernel, ``_sdpa_chunked``, is not
 ported: the tests hold the port against the reference's own kernel and
 its ``_sdpa``, and the port's kernel site has its plain version.
@@ -141,6 +144,26 @@ def full_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     sin)`` when the caller has it (the decoder computes it once for all
     layers)."""
     return full_attention_kv(p, cfg, x, causal, rt, rope)[0]
+
+
+def cross_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    x: torch.Tensor, memory: torch.Tensor,
+                    rope) -> torch.Tensor:
+    """Encoder-decoder cross attention: x (B, S, d) over ``memory`` (B,
+    S_mem, d), no mask.  q is rotated by ``rope``, the ``(cos, sin)`` of
+    positions 0..S-1; k and v are not rotated.  Returns (B, S, d)."""
+    b, s, _ = x.shape
+    q = _heads(x, p["wq"])
+    k = _heads(memory, p["wk"])
+    v = _heads(memory, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = layers.rotate(q, *rope)
+    out = _sdpa(q, k, v, causal=False)
+    hq, hd = cfg.n_heads, cfg.head_dim_
+    return out.reshape(b, s, hq * hd) @ p["wo"].reshape(hq * hd, -1)
 
 
 # ---------------------------------------------------------------------------

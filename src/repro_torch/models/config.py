@@ -3,9 +3,10 @@
 One frozen dataclass tree describes an architecture completely; the
 builders in :mod:`repro_torch.configs` instantiate the published
 hyperparameters; ``reduced()`` shrinks any config to a CPU-testable size
-while keeping its family.  The port runs the ``dense``, ``ssm`` and
-``hybrid`` families; the other families' sub-configs are here as plain
-data so every config loads.
+while keeping its family.  The port runs all six families: ``dense``,
+``moe``, ``ssm``, ``hybrid``, ``encdec`` and ``vlm``.  :data:`SHAPES`
+are the reference's (input shape x step kind) cells, which
+:func:`repro_torch.models.registry.input_specs` sizes.
 """
 
 from __future__ import annotations
@@ -85,11 +86,26 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
 
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def param_count(self) -> int:
         """Parameter count of the port's own specs (exact)."""
         from repro_torch.models import layers, registry  # avoids a cycle
         return sum(spec.numel() for spec in
                    layers.spec_leaves(registry.param_specs(self)))
+
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: the shared experts and top_k
+        of the routed ones; the routed experts' pad slots count as
+        inactive only through ``n_routed``, as in the reference)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        per_expert = 3 * self.d_model * m.d_ff_expert
+        return self.param_count() - \
+            self.n_layers * (m.n_routed - m.top_k) * per_expert
 
     def reduced(self) -> "ModelConfig":
         """A tiny same-family config for CPU tests (the reference's
@@ -136,3 +152,18 @@ class ShapeConfig:
     @property
     def is_decode(self) -> bool:
         return self.kind == "decode"
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4096, 256, "train"),
+    ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32768, 128, "decode"),
+    ShapeConfig("long_500k", 524288, 1, "decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)

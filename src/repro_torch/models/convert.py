@@ -62,9 +62,10 @@ def cache_from_numpy(tree: Mapping, cfg: ModelConfig, batch: int,
                      dtype: Optional[torch.dtype] = None) -> PyTree:
     """The decode state of ``cfg``'s family for ``batch`` rows and
     ``max_len`` positions (:func:`repro_torch.models.registry.
-    cache_specs`: a KV cache {k, v: (L, B, S_max, Hkv, D)}, the ssm
-    family's {ssm_state, conv_state}, the hybrid's all four) from host
-    arrays, as :func:`params_from_numpy` does for parameters (a float32
+    cache_specs`: a KV cache {k, v: (L, B, S_max, Hkv, D)} for the
+    dense, moe and vlm families, the encdec's {k, v, cross_k, cross_v},
+    the ssm family's {ssm_state, conv_state}, the hybrid's {k, v,
+    ssm_state, conv_state}) from host arrays, as :func:`params_from_numpy` does for parameters (a float32
     spec, the ``ssm_state``, stays float32)."""
     shape = ShapeConfig("cache", max_len, batch, "decode")
     return _convert(registry.cache_specs(cfg, shape), tree,

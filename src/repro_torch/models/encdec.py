@@ -1,0 +1,214 @@
+"""Encoder-decoder transformer (the SeamlessM4T-medium backbone).
+
+The port of ``repro.models.encdec``.  The speech/text frontend is a
+stub, as in the reference: the encoder takes precomputed frame
+embeddings (B, S_src, d_model), cast to the weights' dtype.  The encoder
+is a non-causal stack; the decoder a causal stack with cross attention
+over the encoder's output.  RoPE and RMSNorm, as in the reference.
+
+The norm sites fuse as in :mod:`~repro_torch.models.transformer`: each
+stack's first norm is ``rms_norm``, every later one (with the
+residual add before it) and the stack's final norm one
+``rms_norm_residual``.  Self attention over a whole sequence is
+``flash_attention`` (non-causal in the encoder, causal in the decoder);
+the cross attention of :func:`decode_train` is the plain
+:func:`repro_torch.models.attention.cross_attention`.  For
+seamless-m4t-medium (12 + 12 layers) a loss makes 2 ``rms_norm``, 60
+``rms_norm_residual`` and 24 ``flash_attention`` calls (12 of them
+non-causal).
+
+:func:`decode_step` runs the decoder one token against its self-KV cache
+(``flash_decode`` with a per-row length) and the precomputed cross
+cache (``flash_decode`` over all ``src_len`` positions of every row: the
+same function as the reference's unmasked one-query attention): 24
+``flash_decode`` calls a step.  The cross q is rotated at each row's own
+position; the reference takes one scalar position for the whole batch.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models import attention, layers, transformer
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ParamSpec
+from repro_torch.models.masking import valid_rows
+from repro_torch.models.runtime import Runtime
+from repro_torch.precision import compute_dtype
+
+PyTree = Any
+
+
+def _enc_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "attn_norm": layers.norm_specs(cfg.d_model),
+        "attn": attention.attn_specs(cfg),
+        "ffn_norm": layers.norm_specs(cfg.d_model),
+        "mlp": layers.mlp_specs(cfg.d_model, cfg.d_ff),
+    }
+
+
+def _dec_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    specs = _enc_block_specs(cfg)
+    specs["cross_norm"] = layers.norm_specs(cfg.d_model)
+    specs["cross"] = attention.attn_specs(cfg)
+    return specs
+
+
+def encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    e = cfg.encdec
+    return {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
+                           ("vocab", "fsdp_embed")),
+        "encoder": layers.map_specs(
+            lambda s: s.stack_layers(e.n_encoder_layers),
+            _enc_block_specs(cfg)),
+        "decoder": layers.map_specs(
+            lambda s: s.stack_layers(e.n_decoder_layers),
+            _dec_block_specs(cfg)),
+        "enc_norm": layers.norm_specs(cfg.d_model),
+        "final_norm": layers.norm_specs(cfg.d_model),
+        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size),
+                             ("fsdp_embed", "vocab")),
+    }
+
+
+def _rope(cfg: ModelConfig, x: torch.Tensor):
+    return layers.rope_cos_sin(torch.arange(x.shape[1], device=x.device)[None],
+                               cfg.head_dim_, cfg.rope_theta,
+                               compute_dtype(x.dtype))
+
+
+def _swiglu(p: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:
+    m = p["mlp"]
+    return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+
+
+def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
+           rt: Runtime) -> torch.Tensor:
+    """frames (B, S_src, d_model), the stubbed frontend's output -> the
+    normed memory (B, S_src, d_model)."""
+    x = frames.to(params["embed"].dtype)
+    rope = _rope(cfg, x)
+    per_layer = transformer.unstack_layers(params["encoder"])
+    h = rt.op("rms_norm")(x, per_layer[0]["attn_norm"]["scale"],
+                          cfg.norm_eps)
+    for i, p in enumerate(per_layer):
+        if i:
+            h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
+                                              cfg.norm_eps)
+        a = attention.full_attention(p["attn"], cfg, h, False, rt, rope)
+        h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
+                                          cfg.norm_eps)
+        y = _swiglu(p, h)
+    return rt.op("rms_norm_residual")(y, x, params["enc_norm"]["scale"],
+                                      cfg.norm_eps)[0]
+
+
+def _decoder(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+             memory: torch.Tensor, rt: Runtime
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder stack over ``tokens`` (B, S): (the residual stream,
+    the last block's FFN output not yet added)."""
+    x = transformer.embed(params, cfg, tokens)
+    rope = _rope(cfg, x)
+    per_layer = transformer.unstack_layers(params["decoder"])
+    h = rt.op("rms_norm")(x, per_layer[0]["attn_norm"]["scale"],
+                          cfg.norm_eps)
+    for i, p in enumerate(per_layer):
+        if i:
+            h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
+                                              cfg.norm_eps)
+        a = attention.full_attention(p["attn"], cfg, h, True, rt, rope)
+        h, x = rt.op("rms_norm_residual")(a, x, p["cross_norm"]["scale"],
+                                          cfg.norm_eps)
+        c = attention.cross_attention(p["cross"], cfg, h, memory, rope)
+        h, x = rt.op("rms_norm_residual")(c, x, p["ffn_norm"]["scale"],
+                                          cfg.norm_eps)
+        y = _swiglu(p, h)
+    return x, y
+
+
+def decode_train(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                 memory: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The decoder over ``tokens`` (B, S) and ``memory``: its hidden
+    states (B, S, d) before the final norm, as the reference's."""
+    x, y = _decoder(params, cfg, tokens, memory, rt)
+    return x + y
+
+
+def seq2seq_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
+                 rt: Runtime) -> torch.Tensor:
+    """batch: frames (B, S_src, d), tokens (B, S_tgt) targets, optionally
+    mask (B, S_tgt).  The decoder reads tokens[:, :-1] and predicts
+    tokens[:, 1:].  Returns a float32 scalar."""
+    memory = encode(params, cfg, batch["frames"], rt)
+    tokens = batch["tokens"]
+    x, y = _decoder(params, cfg, tokens[:, :-1], memory, rt)
+    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
+                                      cfg.norm_eps)
+    mask = batch.get("mask")
+    return layers.cross_entropy_loss(
+        h @ params["lm_head"], tokens[:, 1:],
+        None if mask is None else mask[:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# Decode with the self-KV cache and the precomputed cross cache
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, src_len: int
+                ) -> Dict[str, ParamSpec]:
+    nl = cfg.encdec.n_decoder_layers
+    kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    self_kv = (nl, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    cross = (nl, batch, src_len, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": ParamSpec(self_kv, kv), "v": ParamSpec(self_kv, kv),
+            "cross_k": ParamSpec(cross, kv), "cross_v": ParamSpec(cross, kv)}
+
+
+def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
+                tokens: torch.Tensor, position: torch.Tensor, rt: Runtime,
+                valid=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decoder step.  tokens (B, 1) int; position (B,) int, each
+    row's write index; cache {k, v: (L, B, S_max, Hkv, D), cross_k,
+    cross_v: (L, B, S_src, Hkv, D)}: the self cache is updated IN PLACE
+    at the valid rows (as :func:`repro_torch.models.transformer.
+    decode_step`), the cross cache only read.  Returns ``(logits (B, V),
+    cache)`` — the same cache dict."""
+    position = position.to(torch.int32)
+    rows = valid_rows(valid, position.device)
+    rope = layers.rope_cos_sin(position[:, None], cfg.head_dim_,
+                               cfg.rope_theta)
+    b = tokens.shape[0]
+    src_len = torch.full((b,), cache["cross_k"].shape[2], dtype=torch.int32,
+                         device=position.device)
+    hq, hd = cfg.n_heads, cfg.head_dim_
+    x = transformer.embed(params, cfg, tokens)
+    h = rt.op("rms_norm")(x, params["decoder"]["attn_norm"]["scale"][0],
+                          cfg.norm_eps)
+    for i in range(cfg.encdec.n_decoder_layers):
+        p = transformer.layer_params(params["decoder"], i)
+        if i:
+            h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
+                                              cfg.norm_eps)
+        a = attention.decode_attention(p["attn"], cfg, h, cache["k"][i],
+                                       cache["v"][i], position, rt, rows,
+                                       rope)
+        h, x = rt.op("rms_norm_residual")(a, x, p["cross_norm"]["scale"],
+                                          cfg.norm_eps)
+        q = attention._heads(h, p["cross"]["wq"])
+        if cfg.qkv_bias:
+            q = q + p["cross"]["bq"]
+        q = layers.rotate(q, *rope)
+        o = rt.op("flash_decode")(q[:, 0], cache["cross_k"][i],
+                                  cache["cross_v"][i], src_len)
+        c = o.reshape(b, 1, hq * hd) @ p["cross"]["wo"].reshape(hq * hd, -1)
+        h, x = rt.op("rms_norm_residual")(c, x, p["ffn_norm"]["scale"],
+                                          cfg.norm_eps)
+        y = _swiglu(p, h)
+    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
+                                      cfg.norm_eps)
+    return (h @ params["lm_head"])[:, 0], cache

@@ -6,7 +6,9 @@ through bit-unchanged (the null-round no-op).  The reference expresses
 that as ``where(valid, new, old)`` over the whole cache, which copies the
 cache every step — at 8 slots x 2048 positions of qwen3-1.7b that is
 1.9 GB per replica per step.  Here both operations touch only the rows
-they change, along each leaf's ``"batch"`` axis:
+they change, along each leaf's ``"batch"`` axis (every family's cache
+leaves name it: the KV caches, the encdec's cross caches, the recurrent
+states):
 
 * :func:`reset_rows` zeroes the admitted slots' rows (the admission
   reset);
@@ -14,7 +16,8 @@ they change, along each leaf's ``"batch"`` axis:
   and is a no-op when ``new`` IS ``old`` — the decoder writes the valid
   rows in place already (:func:`repro_torch.models.attention.
   decode_attention` for K/V, :func:`write_rows` for the recurrent
-  families' states).
+  families' states); the encdec's cross caches are only read by a
+  decode step, so they keep what :func:`reset_rows` left.
 
 ``valid`` comes in two forms:
 

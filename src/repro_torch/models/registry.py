@@ -3,13 +3,16 @@
 For every architecture this module answers ``param_specs(cfg)`` (the full
 parameter tree of ParamSpec leaves), ``loss_fn()`` (the full-sequence
 forward and its loss), ``prefill_fn()`` and ``decode_fn()`` (the serving
-entry points) and ``cache_specs(cfg, shape)`` (the decode-state tree).
-The port runs three families end to end: ``dense``
-(:mod:`~repro_torch.models.transformer`), ``ssm`` (Mamba2, assembled
-here over :mod:`~repro_torch.models.ssm`) and ``hybrid`` (Zamba2,
-:mod:`~repro_torch.models.hybrid`).  The other families raise
-``NotImplementedError`` naming the ROADMAP item that brings them.  The
-configs live in :mod:`repro_torch.configs`.
+entry points), ``input_specs(cfg, shape)`` (shape-and-dtype stand-ins
+for every input, as ``meta`` tensors) and ``cache_specs(cfg, shape)``
+(the decode-state tree).  The port runs all six families: ``dense`` and
+``moe`` (:mod:`~repro_torch.models.transformer`,
+:mod:`~repro_torch.models.moe`), ``ssm`` (Mamba2, assembled here over
+:mod:`~repro_torch.models.ssm`), ``hybrid`` (Zamba2,
+:mod:`~repro_torch.models.hybrid`), ``encdec``
+(:mod:`~repro_torch.models.encdec`) and ``vlm``
+(:mod:`~repro_torch.models.vlm`).  The configs live in
+:mod:`repro_torch.configs`.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import attention, hybrid, layers, ssm, transformer
+from repro_torch.models import (attention, encdec, hybrid, layers, ssm,
+                                transformer, vlm)
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.masking import valid_rows
@@ -29,15 +33,25 @@ from repro_torch.models.runtime import Runtime
 PyTree = Any
 
 
+# the sub-configs each family needs
+SUB_CONFIGS = {"dense": (), "moe": ("moe",), "ssm": ("ssm",),
+               "hybrid": ("hybrid", "ssm"), "encdec": ("encdec",),
+               "vlm": ("vlm",)}
+
+
 def _family(cfg: ModelConfig) -> str:
-    """``dense``, ``ssm`` or ``hybrid``; any other family raises."""
-    if cfg.family == "ssm" and cfg.ssm is not None:
-        return "ssm"
-    if cfg.family == "hybrid" and cfg.hybrid is not None \
-            and cfg.ssm is not None:
-        return "hybrid"
-    transformer._dense_only(cfg)
-    return "dense"
+    """``cfg.family``, one of :data:`SUB_CONFIGS`; a family named
+    without its sub-config raises ``ValueError``, an unknown one
+    ``KeyError``."""
+    if cfg.family not in SUB_CONFIGS:
+        raise KeyError(f"{cfg.name}: unknown family {cfg.family!r}; have "
+                       f"{sorted(SUB_CONFIGS)}")
+    missing = [k for k in SUB_CONFIGS[cfg.family]
+               if getattr(cfg, k) is None]
+    if missing:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs its "
+                         f"sub-config {', '.join(f'cfg.{k}' for k in missing)}")
+    return cfg.family
 
 
 # ---------------------------------------------------------------------------
@@ -144,25 +158,41 @@ class Arch:
 
     def loss_fn(self) -> Callable:
         """``loss(params, cfg, batch, rt)`` -> float32 scalar."""
-        return {"dense": transformer.lm_loss, "ssm": _ssm_lm_loss,
-                "hybrid": hybrid.lm_loss}[_family(self.cfg)]
+        return {"dense": transformer.lm_loss, "moe": transformer.lm_loss,
+                "ssm": _ssm_lm_loss, "hybrid": hybrid.lm_loss,
+                "encdec": encdec.seq2seq_loss,
+                "vlm": vlm.vlm_loss}[_family(self.cfg)]
 
     def prefill_fn(self) -> Optional[Callable]:
         """``prefill(params, batch, rt, cache=None)`` -> (last-position
-        logits, KV cache); None for the recurrent families, whose
-        prefill is their forward (see
+        logits, KV cache); for encdec the encoder, ``(memory, {})``, as
+        the reference's; None for the recurrent families, whose prefill
+        is their forward (see
         :func:`repro_torch.train.steps.make_serve_step`)."""
-        if _family(self.cfg) != "dense":
-            return None
+        f = _family(self.cfg)
         cfg = self.cfg
-        return lambda p, b, rt, cache=None: transformer.prefill(
-            p, cfg, b["tokens"], rt, cache)
+        if f in ("dense", "moe"):
+            return lambda p, b, rt, cache=None: transformer.prefill(
+                p, cfg, b["tokens"], rt, cache)
+        if f == "vlm":
+            return lambda p, b, rt, cache=None: vlm.prefill(p, cfg, b, rt,
+                                                            cache)
+        if f == "encdec":
+            return lambda p, b, rt, cache=None: (
+                encdec.encode(p, cfg, b["frames"], rt), {})
+        return None
 
     def decode_fn(self) -> Callable:
         """``decode(params, cfg, cache, tokens, position, rt, valid=None)``
         -> (logits (B, V), the same cache updated in place)."""
-        return {"dense": transformer.decode_step, "ssm": _ssm_decode_step,
-                "hybrid": hybrid.decode_step}[_family(self.cfg)]
+        return {"dense": transformer.decode_step,
+                "moe": transformer.decode_step, "vlm": vlm.decode_step,
+                "ssm": _ssm_decode_step, "hybrid": hybrid.decode_step,
+                "encdec": encdec.decode_step}[_family(self.cfg)]
+
+    def input_specs(self, shape: ShapeConfig, *, batch_override=None
+                    ) -> Dict[str, torch.Tensor]:
+        return input_specs(self.cfg, shape, batch_override=batch_override)
 
     def cache_specs(self, shape: ShapeConfig, *, batch_override=None
                     ) -> PyTree:
@@ -175,19 +205,57 @@ def param_specs(cfg: ModelConfig) -> PyTree:
         return _ssm_lm_specs(cfg)
     if f == "hybrid":
         return hybrid.hybrid_specs(cfg)
+    if f == "encdec":
+        return encdec.encdec_specs(cfg)
+    if f == "vlm":
+        return vlm.vlm_specs(cfg)
     return transformer.lm_specs(cfg)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
+                batch_override: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Every input of ``shape``'s step as a ``meta`` tensor (shape and
+    dtype, no storage): decode ``tokens (B, 1)``; encdec ``frames (B,
+    S/2, d)`` and ``tokens (B, S/2)``; vlm ``patches (B, n_p,
+    vision_dim)`` and ``tokens (B, S - n_p)``; otherwise ``tokens (B,
+    S)``.  Token ids are int32, the stubbed frontends' embeddings
+    bfloat16, as the reference's."""
+    f = _family(cfg)
+    b = batch_override if batch_override is not None else shape.global_batch
+    s = shape.seq_len
+
+    def meta(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": meta((b, 1), torch.int32)}
+    if f == "encdec":
+        half = s // 2
+        return {"frames": meta((b, half, cfg.d_model), layers.DEFAULT_DTYPE),
+                "tokens": meta((b, half), torch.int32)}
+    if f == "vlm":
+        n_p = cfg.vlm.n_patches
+        return {"patches": meta((b, n_p, cfg.vlm.vision_dim),
+                                layers.DEFAULT_DTYPE),
+                "tokens": meta((b, s - n_p), torch.int32)}
+    return {"tokens": meta((b, s), torch.int32)}
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
                 batch_override: Optional[int] = None) -> PyTree:
     """Decode-state ParamSpec tree sized for ``shape`` (cache of
-    ``seq_len``)."""
+    ``seq_len``; the encdec's cross cache of ``seq_len`` source
+    positions too, as the reference's)."""
     f = _family(cfg)
     b = batch_override if batch_override is not None else shape.global_batch
     if f == "ssm":
         return ssm.ssm_cache_specs(cfg, b)
     if f == "hybrid":
         return hybrid.cache_specs(cfg, b, shape.seq_len)
+    if f == "encdec":
+        return encdec.cache_specs(cfg, b, shape.seq_len,
+                                  src_len=shape.seq_len)
     return attention.kv_cache_specs(cfg, b, shape.seq_len)
 
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM, dense family: full-sequence forward, loss, prefill
-and one-token decode.
+"""Decoder-only LM, dense and MoE families (and the vlm's backbone):
+full-sequence forward, loss, prefill and one-token decode.
 
 The layers' parameters are stacked (leading ``layers`` axis, as in the
 reference) and every entry point walks them in a Python loop.  The norm
@@ -16,11 +16,15 @@ sites and the attention go through the :class:`Runtime`'s kernel sites:
 
 For qwen3-1.7b (28 layers, qk-norm) that is 57 ``rms_norm``, 56
 ``rms_norm_residual`` and 28 ``flash_attention`` (or ``flash_decode``)
-calls per forward (or step).  The big projections stay ``torch.matmul``,
-as the reference left them to XLA.  The ssm and hybrid families have
-their own stacks (:mod:`~repro_torch.models.registry`,
-:mod:`~repro_torch.models.hybrid`); the MoE, vlm and encdec families
-come with a later slice of the port.
+calls per forward (or step); qwen2-moe-a2.7b 1 / 48 / 24 and
+deepseek-moe-16b 1 / 56 / 28.  The FFN is a SwiGLU, or for the MoE
+family :func:`repro_torch.models.moe.moe_block`, whose aux loss the
+forward sums over the layers and :func:`lm_loss` adds.  The big
+projections stay ``torch.matmul``, as the reference left them to XLA.
+The ssm, hybrid and encdec families have their own stacks
+(:mod:`~repro_torch.models.registry`, :mod:`~repro_torch.models.hybrid`,
+:mod:`~repro_torch.models.encdec`); :mod:`~repro_torch.models.vlm`
+prepends projected patches to this stack.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.masking import valid_rows
@@ -38,17 +42,15 @@ from repro_torch.precision import compute_dtype
 
 PyTree = Any
 
-FAMILIES_ITEM = "ROADMAP.md item 12 (the other model families)"
+DECODER_FAMILIES = ("dense", "moe", "vlm")
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    """Refuse every config but the dense family's: the MoE, vlm and
-    encdec families (and a family name without its sub-config) are not
-    ported yet."""
-    if cfg.moe is not None or cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; it "
-            f"comes with {FAMILIES_ITEM}, a later slice of the port")
+def _decoder_only(cfg: ModelConfig) -> None:
+    """Refuse a config whose family has no decoder-only stack here (the
+    ssm, hybrid and encdec families have their own)."""
+    if cfg.family not in DECODER_FAMILIES:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family has no "
+                         f"decoder-only stack (one of {DECODER_FAMILIES})")
 
 
 # ---------------------------------------------------------------------------
@@ -56,13 +58,17 @@ def _dense_only(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    _dense_only(cfg)
-    return {
+    _decoder_only(cfg)
+    specs = {
         "attn_norm": layers.norm_specs(cfg.d_model),
         "attn": attention.attn_specs(cfg),
         "ffn_norm": layers.norm_specs(cfg.d_model),
-        "mlp": layers.mlp_specs(cfg.d_model, cfg.d_ff),
     }
+    if cfg.moe is not None:
+        specs["moe"] = moe.moe_specs(cfg)
+    else:
+        specs["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff)
+    return specs
 
 
 def stack_block_specs(cfg: ModelConfig, n_layers: int) -> Dict[str, Any]:
@@ -84,8 +90,18 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# Decode
+# Blocks and decode
 # ---------------------------------------------------------------------------
+
+def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's FFN on the normed h (B, S, d): (y, the MoE aux loss —
+    None for a SwiGLU)."""
+    if cfg.moe is None:
+        m = p["mlp"]
+        return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), None
+    return moe.moe_block(p["moe"], cfg, h)
+
 
 def layer_params(stacked: PyTree, i: int) -> PyTree:
     """Layer ``i``'s slice of the stacked layer parameters (views)."""
@@ -130,13 +146,13 @@ def decode_block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
     """One decoder block on the attention-normed input ``h`` and the
     residual stream ``x`` (B, 1, d).  Returns ``(x, y)``: the residual
     after the attention and the FFN output — the next norm site adds
-    ``y`` to ``x`` (the reference's ``x + y``) as it normalises."""
+    ``y`` to ``x`` (the reference's ``x + y``) as it normalises.  The
+    MoE aux loss is dropped, as in the reference."""
     a = attention.decode_attention(p["attn"], cfg, h, k_cache, v_cache,
                                    position, rt, rows, rope)
     h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
                                       cfg.norm_eps)
-    m = p["mlp"]
-    return x, layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+    return x, _ffn(p, cfg, h)[0]
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
@@ -146,9 +162,10 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
     row's write index; cache {k, v: (L, B, S_max, Hkv, D)}, updated IN
     PLACE at the rows where the ``(B,)`` bool ``valid`` holds (every row
     for ``None``): host rows (numpy) or a device mask (a bool tensor; no
-    host read, see :mod:`repro_torch.models.masking`).  Returns ``(logits (B, V), cache)`` — the
-    same cache dict."""
-    _dense_only(cfg)
+    host read, see :mod:`repro_torch.models.masking`).  Returns
+    ``(logits (B, V), cache)`` — the same cache dict.  An MoE step routes
+    its B rows together (capacity of B tokens), valid or not."""
+    _decoder_only(cfg)
     position = position.to(torch.int32)
     rows = valid_rows(valid, position.device)
     rope = layers.rope_cos_sin(position[:, None], cfg.head_dim_,
@@ -174,12 +191,13 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
 
 def block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
           x: torch.Tensor, rt: Runtime, rope=None, cache=None
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
+          ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """One decoder block over a full sequence, on the attention-normed
     input ``h`` and the residual stream ``x`` (B, S, d), positions
-    0..S-1.  Returns ``(x, y)`` as :func:`decode_block` does.  ``cache``
-    is a ``(k_cache, v_cache)`` pair of (B, S_max, Hkv, D) tensors whose
-    rows [0, S) receive the block's k and v (in place)."""
+    0..S-1.  Returns ``(x, y, aux)``: as :func:`decode_block` does, and
+    the MoE aux loss (None for a SwiGLU).  ``cache`` is a ``(k_cache,
+    v_cache)`` pair of (B, S_max, Hkv, D) tensors whose rows [0, S)
+    receive the block's k and v (in place)."""
     a, k, v = attention.full_attention_kv(p["attn"], cfg, h, True, rt, rope)
     if cache is not None:
         s = h.shape[1]
@@ -187,55 +205,61 @@ def block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
         cache[1][:, :s] = v.to(cache[1].dtype)
     h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
                                       cfg.norm_eps)
-    m = p["mlp"]
-    return x, layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+    return (x, *_ffn(p, cfg, h))
 
 
 def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
            cache: Optional[Dict[str, torch.Tensor]] = None
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Every block over the embedded x (B, S, d).  Returns ``(x, y)``: the
-    residual stream and the last block's FFN output, not yet added (the
-    final norm adds it as it normalises)."""
-    _dense_only(cfg)
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every block over the embedded x (B, S, d).  Returns ``(x, y,
+    aux)``: the residual stream, the last block's FFN output, not yet
+    added (the final norm adds it as it normalises), and the MoE aux
+    loss summed over the layers (None without MoE)."""
+    _decoder_only(cfg)
     rope = layers.rope_cos_sin(torch.arange(x.shape[1], device=x.device)[None],
                                cfg.head_dim_, cfg.rope_theta,
                                compute_dtype(x.dtype))
     per_layer = unstack_layers(params["layers"])
     h = rt.op("rms_norm")(x, per_layer[0]["attn_norm"]["scale"],
                           cfg.norm_eps)
+    aux = None
     for i, p in enumerate(per_layer):
         if i:
             h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
                                               cfg.norm_eps)
-        x, y = block(p, cfg, h, x, rt, rope,
-                     None if cache is None else (cache["k"][i],
-                                                 cache["v"][i]))
-    return x, y
+        x, y, a = block(p, cfg, h, x, rt, rope,
+                        None if cache is None else (cache["k"][i],
+                                                    cache["v"][i]))
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, y, aux
 
 
 def forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decoder stack on embedded inputs x (B, S, d).  Returns (hidden
-    (B, S, d) before the final norm, the MoE aux loss — 0 for the dense
-    family), as the reference does."""
-    x, y = _stack(params, cfg, x, rt)
-    return x + y, torch.zeros((), dtype=torch.float32, device=x.device)
+    (B, S, d) before the final norm, the MoE aux loss summed over the
+    layers — 0 for the dense family), as the reference does."""
+    x, y, aux = _stack(params, cfg, x, rt)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
             rt: Runtime) -> torch.Tensor:
     """Next-token cross entropy (with the z-loss) over ``batch["tokens"]``
-    (B, S); ``batch["mask"]`` (B, S), when given, marks the valid target
-    positions.  Returns a float32 scalar."""
+    (B, S), plus the MoE aux loss; ``batch["mask"]`` (B, S), when given,
+    marks the valid target positions.  Returns a float32 scalar."""
     tokens = batch["tokens"]
-    x, y = _stack(params, cfg, embed(params, cfg, tokens), rt)
+    x, y, aux = _stack(params, cfg, embed(params, cfg, tokens), rt)
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
                                       cfg.norm_eps)
     logits = unembed(params, cfg, h[:, :-1])
     mask = batch.get("mask")
-    return layers.cross_entropy_loss(
+    loss = layers.cross_entropy_loss(
         logits, tokens[:, 1:], None if mask is None else mask[:, 1:])
+    return loss if aux is None else loss + aux
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
@@ -250,9 +274,18 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     is left as it is) and the same dict is returned, so that
     :func:`decode_step` continues from position S.  This is the port's
     in-place form of the reference's returned cache."""
-    _dense_only(cfg)
-    b, s = tokens.shape
-    x = embed(params, cfg, tokens)
+    return prefill_embedded(params, cfg, embed(params, cfg, tokens), rt,
+                            cache)
+
+
+def prefill_embedded(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
+                     rt: Runtime,
+                     cache: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`prefill` over the embedded positions x (B, S, d) (the vlm
+    prepends its projected patches)."""
+    _decoder_only(cfg)
+    b, s = x.shape[:2]
     shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim_)
     if cache is None:
         cache = {k: torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -264,7 +297,7 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             raise ValueError(f"cache[{k!r}] is {got}; want (L, B, S_max, "
                              f"Hkv, D) = {shape[:2]} + (>= {s},) + "
                              f"{shape[3:]}")
-    x, y = _stack(params, cfg, x, rt, cache)
+    x, y, _ = _stack(params, cfg, x, rt, cache)
     h, _ = rt.op("rms_norm_residual")(y[:, -1:], x[:, -1:],
                                       params["final_norm"]["scale"],
                                       cfg.norm_eps)

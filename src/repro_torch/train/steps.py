@@ -43,19 +43,24 @@ from repro_torch.optim import adamw
 PyTree = Any
 BUCKET_BYTES = 32 << 20
 HYBRID_TRAIN_ITEM = "ROADMAP.md item 22 (training the hybrid family)"
+FAMILIES_TRAIN_ITEM = ("ROADMAP.md item 24 (training the moe, vlm and "
+                       "encdec families)")
 
 
 def value_and_grad(arch: Arch, rt: Runtime) -> Callable:
     """``fn(params, batch) -> (loss, grads)``: the loss (detached) and
     its gradient with respect to every parameter leaf, in the leaves'
-    dtypes.  The parameters are not modified.  The hybrid family serves
-    but does not train yet: its gradients are not held against the
-    reference, so it raises here."""
+    dtypes.  The parameters are not modified.  The hybrid, moe, vlm and
+    encdec families serve but do not train yet: their gradients are not
+    held against the reference, so they raise here."""
     cfg = arch.cfg
-    if cfg.family == "hybrid":
+    item = {"hybrid": HYBRID_TRAIN_ITEM, "moe": FAMILIES_TRAIN_ITEM,
+            "vlm": FAMILIES_TRAIN_ITEM,
+            "encdec": FAMILIES_TRAIN_ITEM}.get(cfg.family)
+    if item is not None:
         raise NotImplementedError(
-            f"{cfg.name}: training the hybrid family is not ported yet; "
-            f"it comes with {HYBRID_TRAIN_ITEM}")
+            f"{cfg.name}: training the {cfg.family} family is not ported "
+            f"yet; it comes with {item}")
     loss_fn = arch.loss_fn()
 
     def fn(params: PyTree, batch: Dict[str, torch.Tensor]):
@@ -151,8 +156,10 @@ def make_train_step(arch: Arch, rt: Runtime,
 
 def make_serve_step(arch: Arch, rt: Runtime, kind: str) -> Callable:
     """``"prefill"`` -> ``step(params, batch)``; ``"decode"`` ->
-    ``step(params, cache, batch, position)`` (every family the port runs:
-    dense, ssm and hybrid)."""
+    ``step(params, cache, batch, position)``, for every family: the vlm's
+    prefill takes ``batch["patches"]`` too, the encdec's is its encoder
+    (``batch["frames"]`` -> ``(memory, {})``), the recurrent families'
+    their forward."""
     cfg = arch.cfg
     if kind == "prefill":
         fn = arch.prefill_fn()

@@ -302,8 +302,10 @@ def test_convert_keeps_float32_specs():
 
 def test_unported_families_and_entry_points_raise():
     """The ssm family serves (its decode entry points work); the moe,
-    encdec and vlm families raise naming ROADMAP item 12 and a hybrid's
-    training naming item 22."""
+    vlm and encdec families' entry points run on their reduced configs
+    and their training raises naming ROADMAP item 24, a hybrid's naming
+    item 22; a family named without its sub-config raises
+    ``ValueError``."""
     _, ssm_cfg = _ssm()
     arch = registry.Arch(ssm_cfg)
     assert arch.prefill_fn() is None
@@ -326,12 +328,30 @@ def test_unported_families_and_entry_points_raise():
     with pytest.raises(NotImplementedError, match="item 22"):
         api.Trainer("zamba2-2.7b", hybrid_arch.cfg.reduced(),
                     api.TrainConfig(steps=1), device="cpu")
+    for name in ("qwen2-moe-a2.7b", "internvl2-26b", "seamless-m4t-medium"):
+        arch = registry.get(name)
+        small = registry.Arch(arch.cfg.reduced())
+        p = small.init_params(0, "cpu", torch.float32)
+        specs = small.input_specs(ShapeConfig("x", 24, 2, "train"))
+        batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+                 for k, v in specs.items()}
+        assert small.loss_fn()(p, small.cfg, batch, Runtime()).dim() == 0
+        assert steps.make_serve_step(small, Runtime(), "prefill")(p, batch)
+        cache = layers.map_specs(lambda sp: torch.zeros(sp.shape),
+                                 small.cache_specs(ShapeConfig("x", 8, 2,
+                                                               "decode")))
+        logits, same = steps.make_serve_step(small, Runtime(), "decode")(
+            p, cache, {"tokens": torch.zeros((2, 1), dtype=torch.int32)},
+            torch.zeros(2, dtype=torch.int32))
+        assert logits.shape == (2, small.cfg.vocab_size) and same is cache
+        with pytest.raises(NotImplementedError, match="item 24"):
+            steps.make_train_step(arch, Runtime())
     for family in ("moe", "encdec", "vlm"):
         other = registry.Arch(dataclasses.replace(_dense("fan")[1],
                                                   family=family))
         for entry in (other.loss_fn, other.prefill_fn, other.decode_fn,
                       other.param_specs):
-            with pytest.raises(NotImplementedError, match="item 12"):
+            with pytest.raises(ValueError, match=f"cfg.{family}"):
                 entry()
     # training is ported (slice 4): make_train_step builds a step
     assert callable(steps.make_train_step(registry.get("qwen3-1.7b"),

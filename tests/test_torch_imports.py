@@ -90,7 +90,12 @@ def test_no_jax_or_reference_imports(path):
 FORWARD_MODULES = (
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.ssd_scan",
     "repro_torch.kernels.selfcheck", "repro_torch.models.ssm",
-    "repro_torch.configs.mamba2_2_7b", "repro_torch.train.steps")
+    "repro_torch.configs.mamba2_2_7b", "repro_torch.train.steps",
+    "repro_torch.models.moe", "repro_torch.models.vlm",
+    "repro_torch.models.encdec", "repro_torch.configs.qwen2_moe_a2_7b",
+    "repro_torch.configs.deepseek_moe_16b",
+    "repro_torch.configs.internvl2_26b",
+    "repro_torch.configs.seamless_m4t_medium")
 
 
 @pytest.mark.parametrize("module", FORWARD_MODULES)

@@ -258,11 +258,18 @@ def test_convert_checks_keys_and_shapes():
 
 
 def test_unported_families_and_bad_runtime_raise():
+    """Every family's specs resolve on its reduced config; a family named
+    without its sub-config raises ``ValueError`` naming it."""
+    shape = ShapeConfig("x", 8, 2, "decode")
+    for name in ("qwen2-moe-a2.7b", "internvl2-26b", "seamless-m4t-medium"):
+        cfg = registry.get(name).cfg.reduced()
+        assert registry.param_specs(cfg)
+        assert registry.cache_specs(cfg, shape)["k"].shape[1] == 2
     cfg = dataclasses.replace(_configs("fan")[1], family="moe")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="cfg.moe"):
         registry.param_specs(cfg)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        registry.cache_specs(cfg, ShapeConfig("x", 8, 2, "decode"))
+    with pytest.raises(ValueError, match="cfg.moe"):
+        registry.cache_specs(cfg, shape)
     with pytest.raises(ValueError, match="kernels"):
         Runtime(kernels="cuda")
     with pytest.raises(KeyError, match="no-such-model"):
