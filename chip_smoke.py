@@ -25,7 +25,9 @@ on full-width mamba2-2.7b and zamba2-2.7b) and the moe, vlm and encdec
 families (loss, prefill and decode of qwen2-moe-a2.7b, deepseek-moe-16b,
 internvl2-26b and seamless-m4t-medium at full width,
 ``ReplicatedEngine.run`` per round and fused on qwen2-moe-a2.7b and per
-round on seamless-m4t-medium).
+round on seamless-m4t-medium) and their training (``Trainer`` on
+zamba2-2.7b, qwen2-moe-a2.7b, deepseek-moe-16b, internvl2-26b and
+seamless-m4t-medium at full width).
 
 Phases (one JSON line each; any failure exits non-zero):
 
@@ -146,12 +148,13 @@ Phases (one JSON line each; any failure exits non-zero):
    no invariant breaks;
 18. the fused serve program (``ReplicatedEngine.run(fused=True)``: each
    epoch one round captured as a CUDA graph, its control flow in IF
-   nodes) on phase 6's setup, card ``kernel`` and card ``graph``: tokens,
+   nodes) on phase 6's setup cut to FUSED_LAYERS (8) layers, card
+   ``kernel`` and card ``graph``: tokens,
    per-topic logs, free / finish / admit rounds and the report identical
    to the per-round loop's; host_hops 0; one capture cold, none warm;
    flag reads within ceil(rounds / 32) + 2; tokens/s cold and warm,
    wall per round, capture seconds, graph nodes and pool bytes; then,
-   from a traced warm ``kernel`` run, 28 / 57 / 56 device kernels per
+   from a traced warm ``kernel`` run, 8 / 17 / 16 device kernels per
    device decode step, one watermark kernel a round, device time and
    busy share;
 19. the fused program through the cut: ``FUSED_FAIL_AT`` (homogeneous
@@ -230,9 +233,43 @@ Phases (one JSON line each; any failure exits non-zero):
    at D = 128, internvl2's group of 6, RMSNorm at width 3200 and 6144).
    Phases 26-31 run in a child process of their own
    (``--families-phases``), timed runs before profiled ones;
-32. the ``kernels`` line: per kernel its launches on the main paths
-   (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30 and, from the device
-   traces, 18 and 20), its times and its bound.
+32. the quantize pair bit for bit against its plain version at each
+   trained model's largest bucket (W x shard float32, up to 1.45 G
+   elements); zamba2-2.7b trained at full width and depth (54 layers, bf16
+   weights from seed 0): ``Trainer`` with ``spindle_compressed`` over
+   W = 2 workers folded onto the card, 2 x 2048 tokens of the stream, 3
+   steps: finite losses near ln V, exact launches a step (each forward's
+   counts x W, one quantize and one dequantize a bucket), the attention
+   calls by causal flag, tokens/s, wall a step, peak memory, the bound
+   (3x the forward's matrix work against AdamW's bytes), one warm step
+   taken apart (``worker_grads``, the reduction, ``adamw.update``), and
+   a profiled warm step (device time, busy share, the port's kernels);
+33. qwen2-moe-a2.7b and deepseek-moe-16b trained likewise, depth cut
+   to what one card's 80 GB holds beside the optimizer state: also the
+   bound over the E x C capacity slots with the routed-only one beside
+   it, and from a second, untimed run under a router probe the routes
+   dropped, the aux term and the smallest router gap a step;
+34. internvl2-26b (depth cut likewise; 256 one-hot patches + 1792 text
+   tokens from the stub frontend) and seamless-m4t-medium (12 + 12
+   layers; 1024 one-hot frames + 1024 tokens, 12 non-causal flash
+   attention calls a forward) trained likewise;
+35. the four families' train path in float32 at full width on the
+   kernels and on the plain versions (``spindle``, W = 2): zamba2 at 4
+   layers (its shared block every 2), seamless at 2 + 2, internvl2 and
+   qwen2-moe at 2 layers (a first step at 4 would need ~88-97 GB), each
+   worker's gradients against the plain run (the family's bar) and
+   against the plain run in float64 (e_kernel <= 2 e_ref + 1e-6 on
+   every leaf, e_ref the plain path's distance, or for zamba2 and
+   internvl2 the furthest of it and two pure PyTorch RMSNorm variants';
+   zamba2 at params seeds 35, 36 and 37), the error with one kind of
+   site on its kernels (zamba2 and internvl2 also from float64), one
+   train step, every MoE router gap over 1e-5 (its seed
+   from ``--moe-seed-search 35``).  Phases 32-35 run in a child
+   process of their own (``--families-train-phases``), timed runs
+   before profiled ones;
+36. the ``kernels`` line: per kernel its launches on the main paths
+   (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34 and, from the
+   device traces, 18 and 20), its times and its bound.
 
 The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
@@ -258,6 +295,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
@@ -312,6 +350,10 @@ def check(cond, msg: str) -> None:
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries ``t_s``, the seconds
+    since its process started (where the run's time limit goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1643,18 +1685,26 @@ def phase11_quantize():
     return rows
 
 
+def forward_launches(cfg) -> dict:
+    """Launches of one loss forward of any family: the recurrent
+    families' (:func:`recurrent_forward_launches`), the encdec's
+    (:func:`encdec_launches`), a decoder stack's
+    (:func:`decoder_launches`; the vlm adds its projector's norm)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return recurrent_forward_launches(cfg)
+    if cfg.family == "encdec":
+        return encdec_launches(cfg, False)
+    want = decoder_launches(cfg, "flash_attention")
+    if cfg.family == "vlm":
+        want["rms_norm"] += 1
+    return want
+
+
 def train_launches(cfg, workers: int, buckets: int) -> dict:
     """Launches per train step: every forward kernel site once per
     layer per worker (the backward launches nothing); one quantize and
     one dequantize per bucket when ``buckets``."""
-    if cfg.family == "ssm":
-        want = {"ssd_scan": cfg.n_layers, "rms_norm": 1 + cfg.n_layers,
-                "rms_norm_residual": cfg.n_layers}
-    else:
-        want = {"flash_attention": cfg.n_layers,
-                "rms_norm": 1 + 2 * cfg.n_layers,
-                "rms_norm_residual": 2 * cfg.n_layers}
-    want = {k: v * workers for k, v in want.items()}
+    want = {k: v * workers for k, v in forward_launches(cfg).items()}
     if buckets:
         want.update(quantize=buckets, dequantize=buckets)
     return want
@@ -1812,8 +1862,59 @@ TRAIN_LOSS_RTOL = 1e-5
 # ulps (the SSD scan's prefix sums bit for bit); phase 13 reports the
 # error with only the SSD or only the RMSNorm sites on their kernels, and
 # holds both float32 runs against the plain path in float64 (the plain
-# float32 path is itself that far from float64: float64_yardstick).
-GRAD_TOL = {"dense": 1e-4, "ssm": FORWARD_TOL}
+# float32 path is itself that far from float64: float64_yardstick).  The
+# hybrid family's is the same bar for the same reason: zamba2's plain
+# float32 gradient at 4 layers is 1.17e-4 of its embedding's largest |g|
+# from float64 in phase 35, over the dense bar.
+GRAD_TOL = {"dense": 1e-4, "ssm": FORWARD_TOL, "hybrid": FORWARD_TOL}
+
+
+def grad_tol(cfg) -> float:
+    """The family's GRAD_TOL; a family without an entry takes the dense
+    bar."""
+    return GRAD_TOL.get(cfg.family, GRAD_TOL["dense"])
+
+
+def rms_norm_variant(order: str):
+    """``(rms_norm, rms_norm_residual)`` in plain float32 that round
+    differently from the plain versions: the sum of squares in 16 blocks
+    and then across them with ``rsqrt`` as the plain versions
+    (``"blocked"``), or serially, divided by the width as a tensor and
+    inverted as ``1 / sqrt`` as the kernels do (``"serial"``).  Plain
+    float32 implementations for :func:`float64_yardstick`'s band."""
+    def inv_rms(r, eps):
+        sq = r.square()
+        if order == "serial":
+            total = sq.cumsum(-1)[..., -1:]
+        else:
+            blocks = 16 if sq.shape[-1] % 16 == 0 else 1
+            total = sq.unflatten(-1, (blocks, -1)).sum(-1).sum(
+                -1, keepdim=True)
+        var = total / torch.full_like(total, r.shape[-1])
+        if order == "serial":
+            return 1 / torch.sqrt(var + eps)
+        return torch.rsqrt(var + eps)
+
+    def norm(x, w, eps=1e-6):
+        xf = x.float()
+        return (xf * inv_rms(xf, eps) * w.float()).to(x.dtype)
+
+    def norm_residual(x, res, w, eps=1e-6):
+        r = res.float() + x.float()
+        return (r * inv_rms(r, eps) * w.float()).to(x.dtype), r.to(x.dtype)
+    return norm, norm_residual
+
+
+@dataclasses.dataclass(frozen=True)
+class VariantRuntime(Runtime):
+    """The plain versions everywhere, the RMSNorm sites on
+    :func:`rms_norm_variant` (``order``)."""
+    order: str = "blocked"
+
+    def op(self, name):
+        if name in ("rms_norm", "rms_norm_residual"):
+            return rms_norm_variant(self.order)[name == "rms_norm_residual"]
+        return ops.PLAIN[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1848,16 +1949,33 @@ def grad_errors_by_site(arch, params, batch, rt, sites: dict):
     return out
 
 
-def compare_worker_grads(arch, params, batch, rt, plain, what: str):
-    """Per-worker gradients on the kernels against the plain versions
-    (each leaf within GRAD_TOL of its largest entry); returns the kernel
-    run's stacked gradients and the largest relative error."""
-    want = train_launches(arch.cfg, rt.dp_workers, 0)
+def grads_of(arch, rt, params, batch, worker=None):
+    """``(losses, gradients)``: every worker's, stacked
+    (``steps.worker_grads``), or worker ``worker``'s alone
+    (``steps.value_and_grad`` on its rows, the w-th slice of
+    ``worker_grads``: for a model whose W stacked trees do not fit on the
+    card beside each other)."""
+    if worker is None:
+        return steps.worker_grads(arch, rt)(params, batch)
+    rows = {k: v.tensor_split(rt.dp_workers)[worker]
+            for k, v in batch.items()}
+    return steps.value_and_grad(arch, rt)(params, rows)
+
+
+def compare_worker_grads(arch, params, batch, rt, plain, what: str,
+                         worker=None):
+    """Per-worker gradients (every worker's, or worker ``worker``'s: see
+    :func:`grads_of`) on the kernels against the plain versions (each
+    leaf within GRAD_TOL of its largest entry); returns both runs'
+    gradients, the largest relative error and the losses' relative
+    error."""
+    want = (train_launches(arch.cfg, rt.dp_workers, 0) if worker is None
+            else forward_launches(arch.cfg))
     (loss_k, g_k), _ = run_counted(
-        lambda: steps.worker_grads(arch, rt)(params, batch), want,
+        lambda: grads_of(arch, rt, params, batch, worker), want,
         f"{what} worker grads")
     (loss_p, g_p), _ = run_counted(
-        lambda: steps.worker_grads(arch, plain)(params, batch), {},
+        lambda: grads_of(arch, plain, params, batch, worker), {},
         f"{what} plain worker grads")
     rel = float(((loss_k - loss_p).abs() / loss_p.abs()).max())
     check(rel <= TRAIN_LOSS_RTOL, f"{what} worker losses {loss_k} vs "
@@ -1867,7 +1985,7 @@ def compare_worker_grads(arch, params, batch, rt, plain, what: str):
         errs[path] = float((a - c).abs().max()) / (float(c.abs().max())
                                                     or 1.0)
     worst = max(errs, key=errs.get)
-    tol = GRAD_TOL[arch.cfg.family]
+    tol = grad_tol(arch.cfg)
     check(errs[worst] <= tol, f"{what} gradient {worst}: {errs[worst]} of "
           f"its max (bar {tol}); every leaf: {errs}")
     return g_k, g_p, {"max": errs[worst], "leaf": worst, "bar": tol,
@@ -1879,59 +1997,110 @@ def compare_worker_grads(arch, params, batch, rt, plain, what: str):
 # leaf's largest |g| (float32 rounding of a gradient far below its leaf's
 # largest entry)
 YARDSTICK_FLOOR = 1e-6
+# plain float32 implementations that round differently from the plain
+# path (:class:`VariantRuntime`): with a band, the rule's reference is the
+# furthest of them and the plain path from float64, leaf by leaf
+YARDSTICK_BAND = {"rms_blocked": VariantRuntime(order="blocked"),
+                  "rms_serial": VariantRuntime(order="serial")}
 
 
-def float64_yardstick(arch, params, batch, rt, g_k, g_p, what: str):
-    """The plain path's per-worker gradients in float64 (the weights cast
-    up; every step of the plain path then computes in float64) against
-    both float32 runs, per leaf as a share of the leaf's largest float64
-    |g|: ``e_kernel`` for the kernels, ``e_plain`` for the plain
-    versions.  Fails unless e_kernel <= 2 e_plain + YARDSTICK_FLOOR on
-    every leaf."""
+def float64_yardstick(arch, params, batch, rt, g_k, g_p, what: str,
+                      worker=None, band: bool = False, sites=None):
+    """The plain path's per-worker gradients (``worker`` as in
+    :func:`grads_of`) in float64 (the weights cast up; every step of the
+    plain path then computes in float64) against both float32 runs, per
+    leaf as a share of the leaf's largest float64 |g|: ``e_kernel`` for
+    the kernels, ``e_plain`` for the plain versions.  Fails unless
+    e_kernel <= 2 e_ref + YARDSTICK_FLOOR on every leaf, where e_ref is
+    e_plain, or with ``band`` the largest of e_plain and the distances of
+    YARDSTICK_BAND's plain float32 implementations (reported beside the
+    rule against e_plain alone, and the leaves where the band's members
+    break that rule themselves).  ``sites`` ({label: kernel sites}): the
+    distances with only those sites on their kernels, reported."""
     p64 = tree_util.map(lambda t: t.double(), params)
+    plain = dataclasses.replace(rt, kernels="plain")
     (loss64, g64), wall = run_counted(
-        lambda: steps.worker_grads(
-            arch, dataclasses.replace(rt, kernels="plain"))(p64, batch), {},
+        lambda: grads_of(arch, plain, p64, batch, worker), {},
         f"{what} float64 plain worker grads")
     del p64
-    e_kernel, e_plain = {}, {}
-    for (path, a), c, y in zip(tree_util.paths(g_k), tree_util.leaves(g_p),
-                               tree_util.leaves(g64)):
+    paths = [path for path, _ in tree_util.paths(g64)]
+    tops = []
+    for path, y in zip(paths, tree_util.leaves(g64)):
         check(y.dtype == torch.float64, f"{what} float64 gradient {path} "
               f"is {y.dtype}")
-        top = float(y.abs().max()) or 1.0
-        e_kernel[path] = float((a.double() - y).abs().max()) / top
-        e_plain[path] = float((c.double() - y).abs().max()) / top
+        tops.append(float(y.abs().max()) or 1.0)
+
+    def distance(g) -> dict:
+        return {path: float((a.double() - y).abs().max()) / top
+                for path, a, y, top in zip(paths, tree_util.leaves(g),
+                                           tree_util.leaves(g64), tops)}
+
+    def rule(e, ref) -> dict:
+        return {k: (e[k], ref[k]) for k in e
+                if e[k] > 2 * ref[k] + YARDSTICK_FLOOR}
+
+    e_kernel, e_plain = distance(g_k), distance(g_p)
+    runs = {label: dataclasses.replace(v, gradsync=rt.gradsync,
+                                       dp_workers=rt.dp_workers)
+            for label, v in YARDSTICK_BAND.items()} if band else {}
+    runs.update({label: SiteRuntime(gradsync=rt.gradsync,
+                                    dp_workers=rt.dp_workers, on_kernels=on)
+                 for label, on in (sites or {}).items()})
+    extra = {}
+    for label, r in runs.items():
+        _, g = grads_of(arch, r, params, batch, worker)
+        extra[label] = distance(g)
+        del g
     del g64
-    broken = {k: (e_kernel[k], e_plain[k]) for k in e_kernel
-              if e_kernel[k] > 2 * e_plain[k] + YARDSTICK_FLOOR}
+    e_ref = {k: max([e_plain[k]] + [extra[b][k] for b in YARDSTICK_BAND
+                                     if b in extra]) for k in e_plain}
+    broken = rule(e_kernel, e_ref)
     check(not broken, f"{what}: the kernels' gradients are further from "
-          f"float64 than twice the plain path's at {broken} (e_kernel, "
-          f"e_plain)")
+          f"float64 than twice the {'band' if band else 'plain path'}'s at "
+          f"{broken} (e_kernel, e_ref)")
     worst = max(e_kernel, key=e_kernel.get)
-    return {"e_kernel": e_kernel, "e_plain": e_plain,
-            "max_e_kernel": e_kernel[worst], "max_e_kernel_leaf": worst,
-            "max_e_plain": max(e_plain.values()),
-            "max_ratio": max(e_kernel[k] / e_plain[k] for k in e_kernel
-                             if e_plain[k] > 0),
-            "floor": YARDSTICK_FLOOR, "loss_float64": loss64.tolist(),
-            "wall_s": wall}
+    out = {"e_kernel": e_kernel, "e_plain": e_plain,
+           "max_e_kernel": e_kernel[worst], "max_e_kernel_leaf": worst,
+           "max_e_plain": max(e_plain.values()),
+           "max_ratio": max(e_kernel[k] / e_plain[k] for k in e_kernel
+                            if e_plain[k] > 0),
+           "floor": YARDSTICK_FLOOR, "loss_float64": loss64.tolist(),
+           "wall_s": wall}
+    if band:
+        out["band"] = {b: extra[b] for b in YARDSTICK_BAND}
+        out["rule_against_plain_alone_broken_by"] = {
+            label: rule(e, e_plain) for label, e in
+            (("kernels", e_kernel), *((b, extra[b]) for b in YARDSTICK_BAND))}
+    for label in sites or {}:
+        e = extra[label]
+        top = max(e, key=e.get)
+        out.setdefault("one_site_on_kernels", {})[label] = {
+            "max": e[top], "leaf": top,
+            "rule_against_plain_alone_broken_at": sorted(rule(e, e_plain))}
+    return out
 
 
 def compare_first_step(arch, params, batch, rt, plain, opt_cfg, what):
     """One train step on the kernels and on the plain versions: the loss
     within TRAIN_LOSS_RTOL, the master weights within 2 lr_1 + 1e-6 (a
-    first AdamW step is a sign step: a gradient near zero may flip)."""
+    first AdamW step is a sign step: a gradient near zero may flip).
+    Each step updates a copy of the parameters in place, and the kernel
+    step's master weights wait on the host during the plain step, so a
+    2 B-parameter model's two steps fit on the card."""
     out = {}
     for key, r in (("kernels", rt), ("plain", plain)):
         p = tree_util.map(torch.clone, params)
         _, o, m = steps.make_train_step(arch, r, opt_cfg,
-                                        param_dtype=torch.float32)(
-            p, adamw.init(p), batch)
-        out[key] = (o["master"], m)
+                                        param_dtype=torch.float32,
+                                        donate=True)(p, adamw.init(p), batch)
+        master = o["master"]
+        if key == "kernels":
+            master = tree_util.map(lambda t: t.cpu(), master)
+        out[key] = (master, m)
+        del p, o
     (mk, met_k), (mp, met_p) = out["kernels"], out["plain"]
     lr1 = float(met_k["lr"])
-    err = max(float((a - c).abs().max()) for a, c in
+    err = max(float((a.to(c.device) - c).abs().max()) for a, c in
               zip(tree_util.leaves(mk), tree_util.leaves(mp)))
     check(err <= 2 * lr1 + 1e-6, f"{what} master after step 1: {err}")
     rel = abs(float(met_k["loss"]) - float(met_p["loss"])) / \
@@ -2797,11 +2966,19 @@ def fused_run(rep, requests, fail_at=None):
             graphloop.STATS["captures"] - caps0)
 
 
+# the fused child's serve plane: qwen3-1.7b at full width and this many of
+# its 28 layers (the depth cut that keeps the whole run well inside its
+# time limit: the device trace's records and the captured graphs' nodes
+# grow with the layers, and nothing in phases 18-20 depends on depth)
+FUSED_LAYERS = 8
+
+
 def fused_setup():
-    """Phase 6's serve setup (qwen3-1.7b at full width, bf16, seed 0),
-    one ``ReplicatedEngine`` per backend over the same two engines, and
-    its 16 requests a replica."""
-    cfg = registry.get("qwen3-1.7b").cfg
+    """Phase 6's serve setup (qwen3-1.7b at full width, cut to
+    FUSED_LAYERS layers, bf16, seed 0), one ``ReplicatedEngine`` per
+    backend over the same two engines, and its 16 requests a replica."""
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg,
+                              n_layers=FUSED_LAYERS)
     params, rep_k = serve_setup(cfg, torch.bfloat16, seed=0)
     rep_g = api.ReplicatedEngine(rep_k.engines, subscribers_per_replica=2,
                                  window=8, backend="graph", device="cuda")
@@ -2874,14 +3051,14 @@ def phase18_fused_serve(cfg, params, reps, requests):
 
 def fused_device_phase(cfg, reps, requests, rows):
     """The device side of phase 18, from one traced warm fused run on
-    ``kernel`` (the trace of ~10^5 device records takes about a minute
-    to collect, so the ``graph`` run, whose device work is the same but
-    for the watermark kernel, is not traced): 28 / 57 / 56 kernel
-    launches per device decode step, one watermark kernel a round,
-    device time per round and step and the busy share of the traced
-    run; beside them, labelled, the untraced warm run's wall per round
-    (phase 18's timing: a second run).  Returns the run's device
-    launches."""
+    ``kernel`` (collecting the trace's device records takes tens of
+    seconds, so the ``graph`` run, whose device work is the same but for
+    the watermark kernel, is not traced): L / 2L + 1 / 2L kernel
+    launches per device decode step (8 / 17 / 16 at FUSED_LAYERS), one
+    watermark kernel a round, device time per round and step and the
+    busy share of the traced run; beside them, labelled, the untraced
+    warm run's wall per round (phase 18's timing: a second run).
+    Returns the run's device launches."""
     rep = reps["kernel"]
     (traced, _, _), trace = device_trace(lambda: fused_run(rep, requests))
     counts = trace["launches"]
@@ -3218,6 +3395,7 @@ def run_child(flag: str, timeout: int):
     """Run this script with ``flag`` in a child process on the same
     card, relay its lines, and return its last line's JSON."""
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                            flag], capture_output=True, text=True,
                           timeout=timeout)
@@ -3227,6 +3405,7 @@ def run_child(flag: str, timeout: int):
     sys.stderr.write(proc.stderr)
     check(proc.returncode == 0 and lines,
           f"the {flag} phases failed (exit {proc.returncode})")
+    emit({"child": flag, "wall_s": time.perf_counter() - t0})
     return json.loads(lines[-1])
 
 
@@ -3756,18 +3935,22 @@ def encoder_launches(cfg) -> dict:
 
 class RouterProbe:
     """While entered, every router call's smallest gap between a token's
-    K-th and (K+1)-th probability and every dispatch's dropped routes,
-    kept on the device and read on exit (diagnostic passes only)."""
+    K-th and (K+1)-th probability, its aux term and every dispatch's
+    dropped routes, kept on the device and read on exit (diagnostic
+    passes, and the train steps of phase 33)."""
 
     def __enter__(self):
-        self.gaps, self.drops, self.routes = [], [], 0
+        self.gaps, self.drops, self.aux, self.routes = [], [], [], 0
         self._route, self._dispatch = moe.route, moe._dispatch
 
         def route(p, cfg, x):
-            probs = torch.softmax(x.to(p["router"].dtype) @ p["router"], -1)
-            top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
-            self.gaps.append((top[:, -2] - top[:, -1]).min())
-            return self._route(p, cfg, x)
+            with torch.no_grad():
+                probs = torch.softmax(moe.router_logits(p, x), -1)
+                top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
+                self.gaps.append((top[:, -2] - top[:, -1]).min())
+            out = self._route(p, cfg, x)
+            self.aux.append(out[2].detach())
+            return out
 
         def dispatch(idx, weights, e, c, t):
             out = self._dispatch(idx, weights, e, c, t)
@@ -3780,27 +3963,29 @@ class RouterProbe:
 
     def __exit__(self, *exc):
         moe.route, moe._dispatch = self._route, self._dispatch
+        # a run may route on the card and on the CPU
         self.stats = {
-            "min_router_gap": float(torch.stack(self.gaps).min())
+            "min_router_gap": min(float(g) for g in self.gaps)
             if self.gaps else None,
             "routes": self.routes,
-            "routes_dropped": int(torch.stack(self.drops).sum())
-            if self.drops else 0}
+            "routes_dropped": sum(int(d) for d in self.drops)}
         return False
 
 
-def moe_flops(cfg, tokens: int) -> int:
+def moe_flops(cfg, tokens: int, routed: bool = False) -> int:
     """The matrix work of one MoE stack pass over ``tokens`` routing
     together, as the program does it: per token the attention
     projections, the router and the shared experts; per expert its E x C
     capacity slots (C from :func:`repro_torch.models.moe._capacity`),
-    not the routes the tokens take."""
+    not the routes the tokens take (``routed``: the T K routes
+    instead)."""
     m, d = cfg.moe, cfg.d_model
     specs = registry.param_specs(cfg)["layers"]
     attn = sum(sp.numel() for sp in layers.spec_leaves(specs["attn"])
                if len(sp.shape) >= 4) // cfg.n_layers
     per_token = attn + d * m.n_routed + 3 * d * m.n_shared * m.d_ff_expert
-    slots = moe._padded_experts(cfg) * moe._capacity(tokens, cfg)
+    slots = tokens * m.top_k if routed else \
+        moe._padded_experts(cfg) * moe._capacity(tokens, cfg)
     return 2 * cfg.n_layers * (tokens * per_token +
                                slots * 3 * d * m.d_ff_expert)
 
@@ -4567,15 +4752,11 @@ def phase31_families_f32():
           "path_tol": 1e-4, **out})
 
 
-def moe_seed_search(first: int = 131, wanted: int = 3) -> int:
-    """How phase 31's MoE token seed is chosen (``chip_smoke.py
-    --moe-seed-search``): from ``first`` up, each seed's smallest router
-    gap over phase 31's MoE forwards (the kernels' loss first; where that
-    is over :data:`TIE_GAP`, the plain loss and both prefills at capacity
-    factor 1.25, then at E / K the prefill, the prefill of S - 1 and the
-    decode step), printed, until ``wanted`` seeds have every gap over it."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    build_kernels()
+def phase31_seed_runs():
+    """Phase 31's MoE forwards for one token seed, in the order the
+    search tries them: the kernels' loss; the plain loss and both
+    prefills at capacity factor 1.25; at E / K the prefill, the prefill
+    of S - 1 and the decode step."""
     cfg = cut_layers(registry.get(MOE_SERVED).cfg)
     arch = registry.Arch(cfg)
     params = arch.init_params(3, "cuda", torch.float32)
@@ -4585,14 +4766,14 @@ def moe_seed_search(first: int = 131, wanted: int = 3) -> int:
     arch_w = registry.Arch(wide)
     rt, plain = Runtime(), Runtime(kernels="plain")
     b, s = 2, 256
-    found, tried, seed = [], 0, first
-    while len(found) < wanted and tried < 5000:
+
+    def runs(seed: int):
         batch = {"tokens": seeded_tokens(cfg, b, s, seed)}
         short = dict(batch, tokens=batch["tokens"][:, :-1])
         cache = layers.map_specs(
             lambda sp: torch.zeros(sp.shape, device="cuda"),
             arch_w.cache_specs(ShapeConfig("x", s, b, "decode")))
-        runs = (lambda: arch.loss_fn()(params, cfg, batch, rt),
+        return (lambda: arch.loss_fn()(params, cfg, batch, rt),
                 lambda: (arch.loss_fn()(params, cfg, batch, plain),
                          arch.prefill_fn()(params, batch, rt),
                          arch.prefill_fn()(params, batch, plain)),
@@ -4602,9 +4783,44 @@ def moe_seed_search(first: int = 131, wanted: int = 3) -> int:
                              params, wide, cache, batch["tokens"][:, -1:],
                              torch.full((b,), s - 1, dtype=torch.int32,
                                         device="cuda"), rt)))
+    return runs
+
+
+def phase35_seed_runs():
+    """Phase 35's MoE forwards for one token seed: each worker's loss on
+    its rows on the kernels, then on the plain versions, then in
+    float64."""
+    name, n_layers, s = next(r for r in TRAIN_F32_RUNS if r[0] == MOE_SERVED)
+    cfg = train_f32_cfg(name, n_layers)
+    arch = registry.Arch(cfg)
+    params = arch.init_params(35, "cuda", torch.float32)
+    p64 = tree_util.map(lambda t: t.double(), params)
+    loss = arch.loss_fn()
+
+    def runs(seed: int):
+        rows = seeded_tokens(cfg, 2, s, seed).tensor_split(TRAIN_WORKERS)
+        return tuple(
+            (lambda p=p, r=r: [loss(p, cfg, {"tokens": t}, r) for t in rows])
+            for p, r in ((params, Runtime()), (params, Runtime(
+                kernels="plain")), (p64, Runtime(kernels="plain"))))
+    return runs
+
+
+def moe_seed_search(phase: int, first: int = 131, wanted: int = 3) -> int:
+    """How phase 31's or phase 35's MoE token seed is chosen
+    (``chip_smoke.py --moe-seed-search [31|35]``): from ``first`` up, each
+    seed's smallest router gap over the phase's MoE runs
+    (:func:`phase31_seed_runs`, :func:`phase35_seed_runs`), stopping at
+    the first run with a gap at or under :data:`TIE_GAP`, printed, until
+    ``wanted`` seeds have every gap over it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_kernels()
+    runs_of = {31: phase31_seed_runs, 35: phase35_seed_runs}[phase]()
+    found, tried, seed = [], 0, first
+    while len(found) < wanted and tried < 5000:
         gaps = []
-        for run in runs:
-            with RouterProbe() as probe:
+        for run in runs_of(seed):
+            with torch.no_grad(), RouterProbe() as probe:
                 run()
             gaps.append(probe.stats["min_router_gap"])
             if gaps[-1] <= TIE_GAP:
@@ -4614,8 +4830,9 @@ def moe_seed_search(first: int = 131, wanted: int = 3) -> int:
             found.append(seed)
         emit({"seed": seed, "min_router_gaps": gaps})
         seed += 1
-    emit({"moe_seed_search": {"first": first, "tried": tried,
-                              "found": found, "tie_gap": TIE_GAP}})
+    emit({"moe_seed_search": {"phase": phase, "first": first,
+                              "tried": tried, "found": found,
+                              "tie_gap": TIE_GAP}})
     return 0
 
 
@@ -4647,6 +4864,435 @@ def families_phases() -> int:
     families_forward_profiles()
     phase31_families_f32()
     emit({"families": dict(counts)})
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# training the hybrid, moe, vlm and encdec families (phases 32-35)
+# ---------------------------------------------------------------------------
+
+FAMILIES_TRAIN_PHASES_FLAG = "--families-train-phases"
+ZAMBA2 = "zamba2-2.7b"
+TRAIN_SEQ = 2048
+TRAIN_STEPS = 3
+# a train step holds about this many bytes a parameter: bf16 weights 2;
+# float32 master, m and v 12; the W = 2 stacked bf16 gradients 4; their
+# mean and the compressed reduction's float32 bucket about 4
+TRAIN_BYTES_PER_PARAM = 22
+# (phase, model, layers run) at full width; None is full depth.  Depth is
+# cut only where one card's 80 GB forces it (TRAIN_BYTES_PER_PARAM at
+# full depth is printed beside each run).
+TRAIN_FAMILY_RUNS = ((32, ZAMBA2, None), (33, MOE_SERVED, 4),
+                     (33, DEEPSEEK, 4), (34, INTERNVL, 5),
+                     (34, SEAMLESS, None))
+
+
+def train_cfg(name: str, n_layers):
+    """``name``'s config at full width and ``n_layers`` layers (None:
+    every layer)."""
+    cfg = registry.get(name).cfg
+    if n_layers is None or n_layers == cfg.n_layers:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def attention_split(cfg, workers: int) -> dict:
+    """The flash-attention calls of one train step by causal flag: every
+    forward's self attention, the encdec's encoder non-causal."""
+    if cfg.family == "encdec":
+        e = cfg.encdec
+        return {"causal": workers * e.n_decoder_layers,
+                "non_causal": workers * e.n_encoder_layers}
+    n = shared_groups(cfg) if cfg.family == "hybrid" else cfg.n_layers
+    return {"causal": workers * n}
+
+
+def family_forward_flops(cfg, b: int, s: int, workers: int,
+                         routed: bool = False) -> int:
+    """The matrix work of one loss forward over ``b`` rows of the
+    ``s``-token stream as the program does it, each of the ``workers``
+    routing its own rows: the per-token projections, the head over the
+    predicted positions and the attention the masks keep; the hybrid's
+    SSD scans; the MoE's E x C capacity slots (``routed``: the T K routes
+    alone); the vlm's projector over its patches; the encdec's encoder
+    over the S/2 frames, its decoder over S/2 - 1 tokens and the cross
+    attention between them."""
+    d, vocab = cfg.d_model, cfg.vocab_size
+    hq, hd = cfg.n_heads, cfg.head_dim_
+    if cfg.family == "encdec":
+        half, t = s // 2, s // 2 - 1
+        specs = registry.param_specs(cfg)
+        mats = lambda tree: sum(sp.numel() for sp in layers.spec_leaves(tree)
+                                if len(sp.shape) >= 3)
+        cross_kv = sum(specs["decoder"]["cross"][k].numel()
+                       for k in ("wk", "wv"))
+        e, dl = cfg.encdec.n_encoder_layers, cfg.encdec.n_decoder_layers
+        return (2 * b * half * mats(specs["encoder"])
+                + 2 * b * t * (mats(specs["decoder"]) - cross_kv)
+                + 2 * b * half * cross_kv + 2 * b * t * d * vocab
+                + attention_flops(b, half, hq, hd, False) * e
+                + attention_flops(b, t, hq, hd, True) * dl
+                + 4 * b * hq * hd * t * half * dl)
+    attn = attention_flops(b, s, hq, hd, True)
+    if cfg.family == "vlm":
+        n_p = cfg.vlm.n_patches
+        return (2 * b * s * matmul_params(cfg) + 2 * b * (s - n_p) * d * vocab
+                + attn * cfg.n_layers
+                + 2 * b * n_p * (cfg.vlm.vision_dim + d) * d)
+    head = 2 * b * (s - 1) * d * vocab
+    if cfg.family == "hybrid":
+        m = cfg.ssm
+        return (2 * b * s * matmul_params(cfg) + head
+                + attn * shared_groups(cfg)
+                + ssd_flops(b, s, m.expand * d // m.head_dim, m.head_dim,
+                            m.d_state, m.n_groups, m.chunk) * cfg.n_layers)
+    return (workers * moe_flops(cfg, b // workers * s, routed) + head
+            + attn * cfg.n_layers)
+
+
+def family_train_bound(cfg, params, b: int, s: int, workers: int) -> dict:
+    """A train step's least time: its matrix work (forward and backward,
+    3x :func:`family_forward_flops`) at the bf16 peak, against the bytes
+    AdamW must move (the mean gradient read and the parameters written
+    in their dtype; the float32 master, m and v read and written once).
+    The MoE's bound counts its capacity slots, with the routed-only
+    figure beside it."""
+    nbytes = sum(t.numel() * (2 * t.element_size() + 24)
+                 for t in tensors(params))
+    fwd = family_forward_flops(cfg, b, s, workers)
+    bound_ms, bound_by = bound(nbytes, 3 * fwd, BF16_TC_OPS_PER_S)
+    out = {"bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_flops": 3 * fwd, "bound_bytes": nbytes}
+    if cfg.moe is not None:
+        routed = 3 * family_forward_flops(cfg, b, s, workers, routed=True)
+        r_ms, r_by = bound(nbytes, routed, BF16_TC_OPS_PER_S)
+        out.update(bound_counts="E x C capacity slots a layer a worker",
+                   bound_ms_routed_only=r_ms, bound_by_routed_only=r_by,
+                   bound_flops_routed_only=routed)
+    return out
+
+
+def families_quantize():
+    """The quantize pair bit for bit against its plain version at the
+    largest bucket of each model :func:`train_family` trains: W x shard
+    float32 elements with one block a worker's shard, as the compressed
+    reduction gives them (``gradsync.compressed_psum_mean``); run while
+    no model's state is on the card.  These shards are the path's
+    largest: a full-depth stacked leaf is a bucket of its own, past
+    2**31 bytes in float32."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    shards = collections.defaultdict(list)
+    for _, name, n_layers in TRAIN_FAMILY_RUNS:
+        shards[train_plan(train_cfg(name, n_layers))[1]].append(name)
+    for shard, names in sorted(shards.items()):
+        n = TRAIN_WORKERS * shard
+        x = 1e-3 * torch.randn(n, generator=gen, device="cuda")
+        for r in quantize_row(x, shard, f"n={n} block={shard}",
+                              torch.float32, 4):
+            emit({"phase": 32, "part": "quantize", "models": names,
+                  "bytes_in": 4 * n, **r})
+        del x
+        torch.cuda.empty_cache()
+
+
+def family_trainer(name: str, n_layers, rt):
+    cfg = train_cfg(name, n_layers)
+    tcfg = api.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                           global_batch=2, log_every=1)
+    return cfg, api.Trainer(name, cfg, tcfg, rt, device="cuda")
+
+
+def train_family(phase: int, name: str, n_layers):
+    """One family's ``Trainer`` at full width (phases 32-34): bf16
+    weights from seed 0, ``spindle_compressed`` over W = 2 workers
+    folded onto the card, 2 x 2048 tokens of the stream (the vlm's 256
+    patches and the encdec's 1024 frames cut from it by the stub
+    frontends), 3 steps: finite losses near ln V, exact launches a step
+    (each forward's counts x W, one quantize and one dequantize a
+    bucket) and attention calls by causal flag, tokens/s, wall a step,
+    peak memory, the bound, the MoE's routes dropped and aux term a
+    step (:func:`train_routing`, untimed), and one warm step taken apart
+    (``worker_grads``, the reduction, ``adamw.update``).  Returns (the
+    launches, the split)."""
+    rt = SplitCountRuntime(gradsync="spindle_compressed",
+                           dp_workers=TRAIN_WORKERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    free_at_start = torch.cuda.mem_get_info()[0]
+    cfg, trainer = family_trainer(name, n_layers, rt)
+    b, s = 2, TRAIN_SEQ
+    (params, opt), setup_s = timed(lambda: trainer.init_state(0))
+    plan, shard = train_plan(cfg)
+    want = train_launches(cfg, TRAIN_WORKERS, plan.n_buckets)
+    split_want = attention_split(cfg, TRAIN_WORKERS)
+    walls, per_step, splits = [], [], []
+    mark = {}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - mark["t"])
+        per_step.append(launches_since(mark["counts"]))
+        splits.append(dict(SPLIT))
+        SPLIT.clear()
+        mark["t"], mark["counts"] = time.perf_counter(), ops.launch_counts()
+
+    ops.reset_launch_counts()                 # the path starts here
+    SPLIT.clear()
+    torch.cuda.synchronize()
+    mark["t"], mark["counts"] = time.perf_counter(), ops.launch_counts()
+    params, opt = trainer.run(params, opt, on_step=on_step)
+    launches = ops.launch_counts()            # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    what = f"phase {phase} {name}"
+    for i, (made, split) in enumerate(zip(per_step, splits)):
+        check(made == want, f"{what} step {i + 1}: launches {made}, want "
+              f"{want}")
+        check(split == split_want, f"{what} step {i + 1}: attention calls "
+              f"{split}, want {split_want}")
+    losses = [h["loss"] for h in trainer.history]
+    check(len(losses) == TRAIN_STEPS, f"{what}: {len(losses)} steps logged")
+    for x in losses:
+        check_loss(x, cfg, what)
+    # one warm step taken apart: the workers' gradients, the compressed
+    # reduction, AdamW in place
+    batch = trainer._batch_for(TRAIN_STEPS)
+    arch = registry.Arch(cfg)
+    (_, stacked), grads_s = timed(
+        lambda: steps.worker_grads(arch, rt)(params, batch))
+    mean, reduce_s = timed(lambda: steps.reduce_grads(stacked, rt))
+    del stacked
+    _, update_s = timed(lambda: adamw.update(
+        trainer.tcfg.opt, mean, opt, torch.bfloat16, params=params))
+    del mean
+    SPLIT.clear()
+    parts = grads_s + reduce_s + update_s
+    full = registry.get(name).cfg
+    emit({"phase": phase, "model": name, "family": cfg.family,
+          "layers": cfg.n_layers if cfg.encdec is None else
+          [cfg.encdec.n_encoder_layers, cfg.encdec.n_decoder_layers],
+          "full_layers": full.n_layers, "params": cfg.param_count(),
+          "full_depth_bytes_at_22_per_param":
+              TRAIN_BYTES_PER_PARAM * full.param_count(),
+          "batch": b, "seq": s, "batch_keys": sorted(batch),
+          "workers": TRAIN_WORKERS, "gradsync": rt.gradsync,
+          "buckets": plan.n_buckets, "largest_shard": shard,
+          "setup_s": setup_s, "losses": losses, "history": trainer.history,
+          "ln_vocab": math.log(cfg.vocab_size),
+          "launches_per_step": want, "attention_split_per_step": split_want,
+          "step_wall_s": walls, "tokens_per_s": [b * s / w for w in walls],
+          "peak_memory_bytes": peak,
+          "peak_bytes_per_param": peak / cfg.param_count(),
+          "card_free_bytes_at_start": free_at_start,
+          "warm_step_parts_s": {"worker_grads": grads_s,
+                                "reduce_compressed": reduce_s,
+                                "adamw_update": update_s},
+          "reduce_share": reduce_s / parts, "adamw_share": update_s / parts,
+          **family_train_bound(cfg, params, b, s, TRAIN_WORKERS)})
+    split = collections.Counter()
+    for x in splits:
+        split.update(x)
+    del params, opt, trainer
+    torch.cuda.empty_cache()
+    return launches, split
+
+
+def train_routing(phase: int, name: str, n_layers) -> None:
+    """The MoE's routing a step, from a second, untimed run of
+    :func:`train_family`'s Trainer (the same seed, batches and steps)
+    under :class:`RouterProbe`, whose extra router product and drop
+    counts stay out of the timed run: routes, routes dropped, the aux
+    term (the workers' mean) and the smallest router gap."""
+    rt = Runtime(gradsync="spindle_compressed", dp_workers=TRAIN_WORKERS)
+    _, trainer = family_trainer(name, n_layers, rt)
+    params, opt = trainer.init_state(0)
+    routing, mark = [], {"probed": 0, "routes": 0}
+    with RouterProbe() as probe:
+        def on_step(step, metrics):
+            n = mark["probed"]
+            routing.append({
+                "routes": probe.routes - mark["routes"],
+                "routes_dropped": int(torch.stack(probe.drops[n:]).sum()),
+                "aux": float(torch.stack(probe.aux[n:]).sum())
+                / TRAIN_WORKERS,
+                "min_router_gap": float(torch.stack(probe.gaps[n:]).min())})
+            mark["probed"], mark["routes"] = len(probe.drops), probe.routes
+
+        trainer.run(params, opt, on_step=on_step)
+    del params, opt, trainer
+    torch.cuda.empty_cache()
+    emit({"phase": phase, "part": "routing", "model": name,
+          "routing_per_step": routing})
+
+
+def train_family_profile(phase: int, name: str, n_layers):
+    """One warm train step of :func:`train_family`'s setup under the
+    profiler (after a cold one): device time, busy share, the port's
+    kernels and the leading device operations."""
+    rt = Runtime(gradsync="spindle_compressed", dp_workers=TRAIN_WORKERS)
+    cfg, trainer = family_trainer(name, n_layers, rt)
+    params, opt = trainer.init_state(0)
+    step_fn = steps.make_train_step(registry.Arch(cfg), rt, donate=True)
+    step_fn(params, opt, trainer._batch_for(0))
+    batch = trainer._batch_for(1)
+    prof = profile_step(lambda: step_fn(params, opt, batch))
+    emit({"phase": phase, "part": "device", "model": name,
+          "tokens_per_profiled_s": 2 * TRAIN_SEQ / prof["profiled_wall_s"],
+          **prof})
+    del params, opt, trainer, step_fn
+    torch.cuda.empty_cache()
+
+
+# phase 35: (model, layers, rows x stream length) in float32, full width.
+# qwen2-moe-a2.7b and internvl2-26b run 2 layers: a first train step holds
+# the parameters, their copy, the float32 master, m and v, the W = 2
+# stacked gradients and their mean, about 8 parameter sets, and at 4
+# layers (3.0 and 2.7 B parameters) that is 97 and 88 GB.
+TRAIN_F32_RUNS = ((ZAMBA2, 4, 1024), (SEAMLESS, 4, 512), (INTERNVL, 2, 512),
+                  (MOE_SERVED, 2, 256))
+# the families whose float64 yardstick takes the band (YARDSTICK_BAND),
+# with their distances from float64 when one kind of site is on its
+# kernels: one draw of the plain path is no fair measure of float32
+# rounding for them.  On the card (phase 35, params seeds 35-37 x 2
+# workers for zamba2), the rule against the plain path alone broke for
+# the kernels on 2 of zamba2's 6 draws (12 and 4 leaves) and on one of
+# internvl2's 2 (its projector norm), and for the pure PyTorch RMSNorm
+# variants too: on zamba2's seed 35, worker 1, on 3 ("rms_blocked") and 7
+# ("rms_serial") leaves, the serial one 2.28e-4 from float64 at the
+# embedding against the plain path's 4.86e-5 and the kernels' 2.71e-4.
+YARDSTICK_BAND_FAMILIES = ("hybrid", "vlm")
+# zamba2's params seeds in phase 35: the first with every check, each
+# with its own batch of the stream; the rule is held on every draw
+ZAMBA2_F32_SEEDS = (35, 36, 37)
+# phase 35's MoE token seed, chosen by the printed router margins
+# (``chip_smoke.py --moe-seed-search 35``)
+MOE_TRAIN_F32_SEED = 134
+
+
+def train_f32_cfg(name: str, n_layers: int):
+    """Phase 35's config: ``name`` at full width, ``n_layers`` layers
+    (the encdec 2 + 2, the hybrid with its shared block every 2)."""
+    cfg = registry.get(name).cfg
+    if cfg.family == "hybrid":
+        return recurrent_cfg_4(cfg)
+    if cfg.family == "encdec":
+        return cut_layers(cfg)
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def train_f32_batch(cfg, name: str, s: int, rt, step: int = 0):
+    """Phase 35's batch of 2 rows: the MoE's seeded tokens, every other
+    family's the Trainer's batch of ``step`` (the stub frontends' frames
+    and patches in float32)."""
+    if cfg.moe is not None:
+        return {"tokens": seeded_tokens(cfg, 2, s, MOE_TRAIN_F32_SEED)}
+    tcfg = api.TrainConfig(seq_len=s, global_batch=2,
+                           param_dtype=torch.float32)
+    return api.Trainer(name, cfg, tcfg, rt, device="cuda")._batch_for(step)
+
+
+def yardstick_draw(arch, params, batch, rt, what: str, sites) -> dict:
+    """One draw of phase 35's gradient checks, one worker at a time (three
+    stacked trees of a 2 B-parameter model do not fit beside each
+    other): :func:`compare_worker_grads` and :func:`float64_yardstick`,
+    with the band for the families in YARDSTICK_BAND_FAMILIES."""
+    plain = dataclasses.replace(rt, kernels="plain")
+    band = arch.cfg.family in YARDSTICK_BAND_FAMILIES
+    out = {"yardstick_band": band}
+    for w in range(rt.dp_workers):
+        g_k, g_p, err, rel = compare_worker_grads(
+            arch, params, batch, rt, plain, f"{what} worker {w}", worker=w)
+        yard = float64_yardstick(arch, params, batch, rt, g_k, g_p,
+                                 f"{what} worker {w}", worker=w, band=band,
+                                 sites=sites)
+        del g_k, g_p
+        out[f"worker_{w}"] = {"worker_loss_rel_err": rel,
+                              "grad_rel_err": err, "float64_yardstick": yard}
+    return out
+
+
+def phase35_families_train_f32():
+    """The families' train path in float32 at full width on the kernels
+    and on the plain versions, ``spindle`` over W = 2 workers:
+    zamba2-2.7b at 4 layers (its shared block every 2) on 2 x 1024
+    tokens, seamless-m4t-medium at 2 + 2 and internvl2-26b at 2 layers
+    on 2 x 512 of the stream (their stub frontends), qwen2-moe-a2.7b at
+    2 layers on 2 x 256 seeded tokens: :func:`yardstick_draw` at params
+    seed 35 (zamba2 also at ZAMBA2_F32_SEEDS' other seeds, each with the
+    Trainer's next batch; zamba2 and internvl2 with their distances
+    from float64 when one kind of site is on its kernels); at seed 35
+    the error with one kind of site on its kernels against plain
+    (zamba2, seamless), one train step (:func:`compare_first_step`);
+    every MoE router gap of every run over TIE_GAP."""
+    out = {}
+    for name, n_layers, s in TRAIN_F32_RUNS:
+        cfg = train_f32_cfg(name, n_layers)
+        arch = registry.Arch(cfg)
+        rt = Runtime(gradsync="spindle", dp_workers=TRAIN_WORKERS)
+        what = f"phase 35 {name}"
+        sites = {"flash_attention": ("flash_attention",),
+                 "rms_norm": ("rms_norm", "rms_norm_residual")}
+        if cfg.family == "hybrid":
+            sites["ssd_scan"] = ("ssd_scan",)
+        row = {"layers": cfg.n_layers if cfg.encdec is None else
+               [cfg.encdec.n_encoder_layers, cfg.encdec.n_decoder_layers],
+               "batch": 2, "seq": s, "gradsync": rt.gradsync,
+               "workers": TRAIN_WORKERS}
+        seeds = ZAMBA2_F32_SEEDS if cfg.family == "hybrid" else (35,)
+        with RouterProbe() as probe:
+            for step, seed in enumerate(seeds):
+                params = arch.init_params(seed, "cuda", torch.float32)
+                batch = train_f32_batch(cfg, name, s, rt, step)
+                row[f"params_seed_{seed}"] = yardstick_draw(
+                    arch, params, batch, rt, f"{what} seed {seed}",
+                    sites if cfg.family in YARDSTICK_BAND_FAMILIES
+                    else None)
+                if step:
+                    del params, batch
+                    continue
+                row["batch_keys"] = sorted(batch)
+                row.update(compare_first_step(
+                    arch, params, batch, rt,
+                    dataclasses.replace(rt, kernels="plain"),
+                    adamw.OptConfig(), what))
+                if cfg.family in ("hybrid", "encdec"):
+                    row["grad_rel_err_one_site_on_kernels"] = \
+                        grad_errors_by_site(arch, params, batch, rt, sites)
+                del params, batch
+        if cfg.moe is not None:
+            check_margin(probe.stats, what)
+            row["router"] = probe.stats
+            row["seed"] = MOE_TRAIN_F32_SEED
+        out[name] = row
+        torch.cuda.empty_cache()
+    emit({"phase": 35, "dtype": "float32", "loss_rtol": TRAIN_LOSS_RTOL,
+          **out})
+
+
+def families_train_phases() -> int:
+    """Phases 32-35 in a process of their own (``chip_smoke.py
+    --families-train-phases``, started by the full run): every timed
+    Trainer run first, the profiled steps after (a profiler session
+    stays attached in its process, see :func:`fused_phases`), the
+    float32 checks last; one model's state at a time.  The last line is
+    the families' train path launches (the timed runs' 3 steps a model),
+    the attention calls by causal flag beside them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_kernels()
+    families_quantize()
+    counts, split = collections.Counter(), collections.Counter()
+    for phase, name, n_layers in TRAIN_FAMILY_RUNS:
+        launches, calls = train_family(phase, name, n_layers)
+        counts.update(launches)
+        split.update(calls)
+        if registry.get(name).cfg.moe is not None:
+            train_routing(phase, name, n_layers)
+    for phase, name, n_layers in TRAIN_FAMILY_RUNS:
+        train_family_profile(phase, name, n_layers)
+    phase35_families_train_f32()
+    counts["flash_attention_causal"] = split["causal"]
+    counts["flash_attention_non_causal"] = split["non_causal"]
+    emit({"families_train": dict(counts)})
     return 0
 
 
@@ -4684,7 +5330,7 @@ LINE_SHAPES = {
     "ssd_scan": ("B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256", torch.bfloat16),
 }
 PATHS = ("multicast", "serve", "forward", "train", "cut", "fused", "load",
-         "recurrent", "families")
+         "recurrent", "families", "families_train")
 
 
 def main() -> int:
@@ -4697,9 +5343,12 @@ def main() -> int:
     if RECURRENT_PHASES_FLAG in sys.argv[1:]:
         return recurrent_phases()
     if MOE_SEED_SEARCH_FLAG in sys.argv[1:]:
-        return moe_seed_search()
+        rest = sys.argv[sys.argv.index(MOE_SEED_SEARCH_FLAG) + 1:]
+        return moe_seed_search(int(rest[0]) if rest else 31)
     if FAMILIES_PHASES_FLAG in sys.argv[1:]:
         return families_phases()
+    if FAMILIES_TRAIN_PHASES_FLAG in sys.argv[1:]:
+        return families_train_phases()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -4782,12 +5431,22 @@ def main() -> int:
         "smc_sweep_watermark")),
         f"the families path skipped a kernel: {families}")
 
+    # training the hybrid, moe, vlm and encdec families (3 steps of each
+    # at full width), in a process of their own
+    families_train = run_child(FAMILIES_TRAIN_PHASES_FLAG, 900)[
+        "families_train"]
+    check(all(families_train.get(k, 0) > 0 for k in (
+        "flash_attention_causal", "flash_attention_non_causal", "ssd_scan",
+        "rms_norm", "rms_norm_residual", "quantize", "dequantize")),
+        f"the families_train path skipped a kernel: {families_train}")
+
     _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
     line_shapes = dict(LINE_SHAPES, **{
         name: (f"n={TRAIN_WORKERS * shard} block={shard}", torch.float32)
         for name in ("quantize", "dequantize")})
     by_path = dict(zip(PATHS, (multicast, serve, forward, train, cut,
-                               fused, load, recurrent, families)))
+                               fused, load, recurrent, families,
+                               families_train)))
     kernels = []
     for name, route, source, replaces in KERNELS:
         if name in line_shapes:

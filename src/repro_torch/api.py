@@ -31,8 +31,10 @@ The subset of ``repro.api`` that the port provides so far::
     rep = api.ReplicatedEngine(engines, window=8)
     report = rep.run()                   # or rep.run(fused=True)
 
-    # the training plane: W data-parallel workers folded onto one device,
-    # gradients reduced by fused buckets with an int8 all-gather leg
+    # the training plane, every family: W data-parallel workers folded
+    # onto one device, gradients reduced by fused buckets with an int8
+    # all-gather leg (the vlm's and encdec's batches from the stub
+    # frontends over the token stream)
     rt = api.Runtime(gradsync="spindle_compressed", dp_workers=2)
     trainer = api.Trainer("qwen3-1.7b", arch.cfg,
                           api.TrainConfig(steps=3, seq_len=2048,

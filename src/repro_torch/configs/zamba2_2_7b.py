@@ -4,8 +4,9 @@ vocab=32000.  [arXiv:2411.15242; hf]
 
 The shared block consumes the running hidden state (no embedding concat
 or per-invocation LoRA), the reference's simplification.  The port runs
-its full-sequence forward and its decode; its training is refused
-(:mod:`repro_torch.train.steps`).
+its full-sequence forward, its decode and its training
+(:mod:`repro_torch.train.steps`; the shared block's gradient sums over
+its sites).
 """
 
 from repro_torch.models import registry

@@ -72,16 +72,28 @@ def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
     return max(8, math.ceil(c / 8) * 8)
 
 
+def router_logits(p: Dict[str, torch.Tensor], x: torch.Tensor
+                  ) -> torch.Tensor:
+    """x (T, d) -> (T, n_routed) router logits, a float32 product whatever
+    the router's dtype, as the reference's promotion of
+    ``x.astype(float32) @ router`` gives: an update casts the float32
+    router to bf16, so from the second train step on it arrives in
+    bf16."""
+    return compute(x) @ compute(p["router"])
+
+
 def route(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router: top-k experts a token with normalised weights.
 
-    x (T, d) -> (idx (T, K) int64, weights (T, K) float32, aux scalar).
-    Equal probabilities rank the lower expert first, as
-    ``jax.lax.top_k`` does (a stable descending sort)."""
+    x (T, d) -> (idx (T, K) int64, weights (T, K) float32, aux scalar),
+    the logits from :func:`router_logits`.  Equal probabilities rank the
+    lower expert first, as ``jax.lax.top_k`` does (a stable descending
+    sort).  The aux term is differentiable through the mean router
+    probability and the z-loss; the first-choice fractions carry no
+    gradient, as in the reference."""
     m = cfg.moe
-    router = p["router"]
-    logits = x.to(router.dtype) @ router
+    logits = router_logits(p, x)
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, idx = weights[:, :m.top_k], idx[:, :m.top_k]

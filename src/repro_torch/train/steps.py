@@ -42,25 +42,14 @@ from repro_torch.optim import adamw
 
 PyTree = Any
 BUCKET_BYTES = 32 << 20
-HYBRID_TRAIN_ITEM = "ROADMAP.md item 22 (training the hybrid family)"
-FAMILIES_TRAIN_ITEM = ("ROADMAP.md item 24 (training the moe, vlm and "
-                       "encdec families)")
 
 
 def value_and_grad(arch: Arch, rt: Runtime) -> Callable:
     """``fn(params, batch) -> (loss, grads)``: the loss (detached) and
     its gradient with respect to every parameter leaf, in the leaves'
-    dtypes.  The parameters are not modified.  The hybrid, moe, vlm and
-    encdec families serve but do not train yet: their gradients are not
-    held against the reference, so they raise here."""
+    dtypes, for every family (the MoE's loss includes its aux term).  The
+    parameters are not modified."""
     cfg = arch.cfg
-    item = {"hybrid": HYBRID_TRAIN_ITEM, "moe": FAMILIES_TRAIN_ITEM,
-            "vlm": FAMILIES_TRAIN_ITEM,
-            "encdec": FAMILIES_TRAIN_ITEM}.get(cfg.family)
-    if item is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported "
-            f"yet; it comes with {item}")
     loss_fn = arch.loss_fn()
 
     def fn(params: PyTree, batch: Dict[str, torch.Tensor]):
@@ -75,9 +64,12 @@ def value_and_grad(arch: Arch, rt: Runtime) -> Callable:
 
 def worker_grads(arch: Arch, rt: Runtime) -> Callable:
     """``fn(params, batch) -> (losses (W,), stacked grads)``: each of the
-    ``rt.dp_workers`` workers' loss and gradients on its rows of the
-    batch, the gradients stacked along a leading worker dim (each leaf
-    ``(W, *shape)``)."""
+    ``rt.dp_workers`` workers' loss and gradients on its rows of every
+    batch leaf (tokens, and the vlm's patches or the encdec's frames),
+    the gradients stacked along a leading worker dim (each leaf
+    ``(W, *shape)``).  A worker's forward sees only its rows, so an MoE
+    layer's capacity comes from the worker's own (B/W) S tokens, as
+    inside the reference's ``shard_map``."""
     vg = value_and_grad(arch, rt)
     w_count = rt.dp_workers
 

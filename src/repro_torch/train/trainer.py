@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch import tree as tree_util
 from repro_torch.core.gradsync import SyncState
 from repro_torch.data import pipeline
 from repro_torch.models import registry
@@ -84,23 +85,53 @@ class Trainer:
         return params, adamw.init(params)
 
     def maybe_restore(self, params, opt_state):
+        """The latest checkpoint's step and state, or ``(0, params,
+        opt_state)`` without one.  A checkpoint holds the state after an
+        update, which casts every parameter to ``param_dtype`` (a float32
+        spec such as the MoE router included), so the parameters come
+        back in ``param_dtype`` whatever ``params``' dtypes: a resumed
+        run then takes the same steps as an unbroken one, bit for bit.
+        (The reference restores into ``params``' dtypes: a float32
+        router it resumes in float32.)"""
         d = self.tcfg.checkpoint_dir
         if not d or checkpoint.latest_step(d) is None:
             return 0, params, opt_state
         step, tree, _extra = checkpoint.restore(
             d, {"params": params, "opt": opt_state})
         self.sync = SyncState(delivered_step=step, sent_step=step)
-        return step, tree["params"], tree["opt"]
+        restored = tree_util.map(lambda t: t.to(self.tcfg.param_dtype),
+                                 tree["params"])
+        return step, restored, tree["opt"]
 
     # -- the loop --------------------------------------------------------------
 
     def _batch_for(self, step: int) -> Dict[str, torch.Tensor]:
-        """Step ``step``'s token batch on the device (the dense and ssm
-        families; a trainer of the hybrid family raises at construction,
-        naming ROADMAP item 22, and of the moe, vlm and encdec families
-        naming item 24)."""
+        """Step ``step``'s batch on the trainer's device: the token
+        stream, and for the encdec and vlm families the reference's stub
+        frontends over it (``src/repro/train/trainer.py``): the encdec
+        takes ``frames = one_hot(tokens[:, :S/2] % d_model)`` and the
+        targets ``tokens[:, S/2:]``, the vlm ``patches =
+        one_hot(tokens[:, :n_patches] % vision_dim)`` and the text
+        ``tokens[:, n_patches:]``.  The one-hot inputs are in the
+        weights' dtype (``param_dtype``), where the reference's are
+        bfloat16 (the same values)."""
         raw = self.loader.batch(step)
-        return {"tokens": torch.from_numpy(raw["tokens"]).to(self.device)}
+        toks = torch.from_numpy(raw["tokens"]).to(self.device)
+        if self.cfg.family == "encdec":
+            half = toks.shape[1] // 2
+            return {"frames": self._one_hot(toks[:, :half],
+                                            self.cfg.d_model),
+                    "tokens": toks[:, half:]}
+        if self.cfg.family == "vlm":
+            n_p = self.cfg.vlm.n_patches
+            return {"patches": self._one_hot(toks[:, :n_p],
+                                             self.cfg.vlm.vision_dim),
+                    "tokens": toks[:, n_p:]}
+        return {"tokens": toks}
+
+    def _one_hot(self, tokens: torch.Tensor, width: int) -> torch.Tensor:
+        return torch.nn.functional.one_hot(
+            (tokens % width).long(), width).to(self.tcfg.param_dtype)
 
     def run(self, params=None, opt_state=None,
             on_step: Optional[Callable[[int, Dict], None]] = None):

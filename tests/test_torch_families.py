@@ -75,7 +75,7 @@ def router_margins(monkeypatch):
     route = moe.route
 
     def recording(p, cfg, x):
-        probs = torch.softmax(x.to(p["router"].dtype) @ p["router"], -1)
+        probs = torch.softmax(moe.router_logits(p, x), -1)
         top = torch.sort(probs, -1, descending=True).values
         k = cfg.moe.top_k
         gaps.append(float((top[:, k - 1] - top[:, k]).min()))

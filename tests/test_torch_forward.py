@@ -30,9 +30,11 @@ from repro.models.config import ModelConfig as RefModelConfig
 from repro.models.config import SSMConfig as RefSSMConfig
 from repro.models.runtime import Runtime as RefRuntime
 from repro_torch import api
+from repro_torch import tree as tree_util
 from repro_torch.models import convert, layers, registry, transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig, SSMConfig
 from repro_torch.models.runtime import Runtime
+from repro_torch.optim import adamw
 from repro_torch.train import steps
 
 pytestmark = pytest.mark.fast
@@ -302,10 +304,10 @@ def test_convert_keeps_float32_specs():
 
 def test_unported_families_and_entry_points_raise():
     """The ssm family serves (its decode entry points work); the moe,
-    vlm and encdec families' entry points run on their reduced configs
-    and their training raises naming ROADMAP item 24, a hybrid's naming
-    item 22; a family named without its sub-config raises
-    ``ValueError``."""
+    vlm and encdec families' entry points run on their reduced configs,
+    and they and the hybrid train (a step of each runs, every new leaf
+    bf16 and finite); a family named without its sub-config
+    raises ``ValueError``."""
     _, ssm_cfg = _ssm()
     arch = registry.Arch(ssm_cfg)
     assert arch.prefill_fn() is None
@@ -323,11 +325,13 @@ def test_unported_families_and_entry_points_raise():
     assert logits.shape == (2, ssm_cfg.vocab_size) and same is cache
     assert cache["ssm_state"].abs().sum() > 0
     hybrid_arch = registry.get("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        steps.make_train_step(hybrid_arch, Runtime())
-    with pytest.raises(NotImplementedError, match="item 22"):
-        api.Trainer("zamba2-2.7b", hybrid_arch.cfg.reduced(),
-                    api.TrainConfig(steps=1), device="cpu")
+    assert callable(steps.make_train_step(hybrid_arch, Runtime()))
+    trainer = api.Trainer("zamba2-2.7b", hybrid_arch.cfg.reduced(),
+                          api.TrainConfig(steps=1, seq_len=32,
+                                          global_batch=2, log_every=1),
+                          device="cpu")
+    trainer.run()
+    assert np.isfinite(trainer.history[0]["loss"])
     for name in ("qwen2-moe-a2.7b", "internvl2-26b", "seamless-m4t-medium"):
         arch = registry.get(name)
         small = registry.Arch(arch.cfg.reduced())
@@ -344,8 +348,13 @@ def test_unported_families_and_entry_points_raise():
             p, cache, {"tokens": torch.zeros((2, 1), dtype=torch.int32)},
             torch.zeros(2, dtype=torch.int32))
         assert logits.shape == (2, small.cfg.vocab_size) and same is cache
-        with pytest.raises(NotImplementedError, match="item 24"):
-            steps.make_train_step(arch, Runtime())
+        new_p, new_o, metrics = steps.make_train_step(small, Runtime())(
+            p, adamw.init(p), batch)
+        assert np.isfinite(float(metrics["loss"]))
+        assert float(metrics["grad_norm"]) > 0
+        assert all(a.dtype == torch.bfloat16 and bool(torch.isfinite(
+            a.float()).all()) for a in tree_util.leaves(new_p))
+        assert int(new_o["step"]) == 1
     for family in ("moe", "encdec", "vlm"):
         other = registry.Arch(dataclasses.replace(_dense("fan")[1],
                                                   family=family))

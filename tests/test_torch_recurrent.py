@@ -480,8 +480,8 @@ def test_engine_keeps_the_ssm_state_in_float32(preset):
 def test_recurrent_entry_points_work():
     """``decode_fn``, ``cache_specs`` and ``make_serve_step("decode")``
     of both recurrent families; their ``prefill_fn`` is None (the
-    forward is the prefill); a hybrid's training raises naming ROADMAP
-    item 22."""
+    forward is the prefill); both train (a hybrid Trainer takes a
+    step)."""
     for preset in PRESETS:
         arch = registry.get(preset)
         assert arch.prefill_fn() is None
@@ -493,12 +493,14 @@ def test_recurrent_entry_points_work():
     full = zamba.cache_specs(ShapeConfig("x", 2048, 8, "decode"))
     assert full["ssm_state"].shape == (9, 6, 8, 80, 64, 64)
     assert full["k"].shape == (9, 8, 2048, 32, 80)
-    with pytest.raises(NotImplementedError, match="item 22"):
-        steps.make_train_step(zamba, Runtime())
-    with pytest.raises(NotImplementedError, match="item 22"):
-        api.Trainer("zamba2-2.7b", zamba.cfg.reduced(),
-                    api.TrainConfig(steps=1), device="cpu")
-    # the ssm family still trains: a step builds
+    assert callable(steps.make_train_step(zamba, Runtime()))
+    trainer = api.Trainer("zamba2-2.7b", zamba.cfg.reduced(),
+                          api.TrainConfig(steps=1, seq_len=32,
+                                          global_batch=2, log_every=1),
+                          device="cpu")
+    params, _ = trainer.run()
+    assert np.isfinite(trainer.history[0]["loss"])
+    assert params["shared_block"]["attn"]["wq"].dtype == torch.bfloat16
     assert callable(steps.make_train_step(registry.get("mamba2-2.7b"),
                                           Runtime()))
 

@@ -254,14 +254,15 @@ def test_latest_prune_and_errors(tmp_path):
 
 def _ref_spindle_step(ref_arch, mode, workers, bucket_bytes, opt_cfg):
     """The reference's ``_manual_grads`` local step over a vmapped worker
-    axis, then its ``adamw.update``."""
+    axis (each worker its rows of every batch leaf), then its
+    ``adamw.update``."""
     loss_fn = ref_arch.loss_fn()
     cfg = ref_arch.cfg
     rt = RefRuntime()
 
-    def local(params, tokens):
+    def local(params, batch):
         loss, grads = jax.value_and_grad(
-            lambda p: loss_fn(p, cfg, {"tokens": tokens}, rt))(params)
+            lambda p: loss_fn(p, cfg, batch, rt))(params)
         loss = jax.lax.psum(loss, "w") / workers
         if mode == "spindle_per_tensor":
             grads = ref_gradsync.per_tensor_psum_mean(grads, "w")
@@ -276,8 +277,9 @@ def _ref_spindle_step(ref_arch, mode, workers, bucket_bytes, opt_cfg):
         return loss, grads
 
     @jax.jit
-    def step(params, opt_state, tokens):
-        shards = tokens.reshape(workers, -1, tokens.shape[-1])
+    def step(params, opt_state, batch):
+        shards = jax.tree.map(
+            lambda x: x.reshape(workers, -1, *x.shape[1:]), batch)
         loss, grads = jax.vmap(local, in_axes=(None, 0),
                                axis_name="w")(params, shards)
         grads = jax.tree.map(lambda g: g[0], grads)
@@ -333,7 +335,8 @@ def test_worker_reductions_match_the_reference(mode, workers):
     ref_step = _ref_spindle_step(ref_registry.Arch(ref_cfg), mode, workers,
                                  bucket, ref_adamw.OptConfig())
     got = step(p, adamw.init(p), {"tokens": torch.from_numpy(tokens)})
-    want = ref_step(ref_p, ref_adamw.init(ref_p), jnp.asarray(tokens))
+    want = ref_step(ref_p, ref_adamw.init(ref_p),
+                    {"tokens": jnp.asarray(tokens)})
     _check_step(got, want)
     losses, stacked = steps.worker_grads(registry.Arch(cfg), rt)(
         p, {"tokens": torch.from_numpy(tokens)})
@@ -360,7 +363,8 @@ def test_mamba2_step_matches_the_reference(mode, workers):
         ref_step = _ref_spindle_step(ref_registry.Arch(ref_cfg), mode,
                                      workers, steps.BUCKET_BYTES,
                                      ref_adamw.OptConfig())
-        want = ref_step(ref_p, ref_adamw.init(ref_p), jnp.asarray(tokens))
+        want = ref_step(ref_p, ref_adamw.init(ref_p),
+                        {"tokens": jnp.asarray(tokens)})
     got = step(p, adamw.init(p), {"tokens": torch.from_numpy(tokens)})
     _check_step(got, want)
 
@@ -465,11 +469,29 @@ def test_trainer_batches_and_devices():
     assert all(x.dtype == torch.bfloat16 for x in tree_util.leaves(p))
     assert all(x.dtype == torch.float32
                for x in tree_util.leaves(o["master"]))
+    # the stub frontends: the encdec's frames and targets, the vlm's
+    # patches and text, cut from the same token stream, one-hot in the
+    # weights' dtype
     for name in ("qwen2-moe-a2.7b", "internvl2-26b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 24"):
-            api.Trainer(name, registry.get(name).cfg.reduced(),
-                        api.TrainConfig(seq_len=16, global_batch=2),
-                        device="cpu")
+        small = registry.get(name).cfg.reduced()
+        fam = api.Trainer(name, small,
+                          api.TrainConfig(seq_len=16, global_batch=2),
+                          device="cpu")
+        toks = pipeline.global_batch(fam.data_cfg, 3)["tokens"]
+        batch = fam._batch_for(3)
+        cut = {"encdec": 8, "vlm": small.vlm.n_patches if small.vlm
+               else 0}.get(small.family, 0)
+        assert np.array_equal(batch["tokens"].numpy(), toks[:, cut:])
+        stub = batch.get("frames", batch.get("patches"))
+        if small.family == "moe":
+            assert stub is None
+            continue
+        width = stub.shape[-1]
+        assert stub.dtype == torch.bfloat16
+        assert stub.shape == (2, cut, width)
+        assert torch.equal(stub.argmax(-1), torch.from_numpy(
+            toks[:, :cut] % width).long())
+        assert torch.equal(stub.float().sum(-1), torch.ones(2, cut))
     with pytest.raises(KeyError):
         api.Trainer("no-such-arch", cfg, api.TrainConfig(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
