@@ -283,6 +283,8 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
+import gc
+import hashlib
 import json
 import math
 import shutil
@@ -604,6 +606,9 @@ def timed_run(group, backend):
 
 
 def phase2_testbed():
+    """The paper's testbed on card ``kernel``, card ``graph`` and CPU
+    ``graph``, identical; returns the card ``kernel`` run (report,
+    logs)."""
     cfg = api.single_group(16, msg_size=10240, window=100, n_messages=1000)
     out = {}
     walls = {}
@@ -637,6 +642,7 @@ def phase2_testbed():
           "identical": True, **walls,
           "profile_kernel_cuda": profile_run(cfg),
           "summary": ref_report.summary()})
+    return out["kernel_cuda"]
 
 
 def profile_run(cfg):
@@ -2237,13 +2243,16 @@ CUT_RUNS = (("kernel_cuda", "cuda", "kernel"), ("graph_cuda", "cuda", "graph"),
             ("graph_cpu", "cpu", "graph"))
 
 
-def closed_epoch(old_group, alive, carry, rounds, launches, wall):
-    """What one epoch of a stream leaves at its cut (or at the end)."""
+def closed_epoch(old_group, alive, carry, rounds, launches, wall, views):
+    """What one epoch of a stream leaves at its cut (or at the end);
+    ``views`` is the digest of its streamed rounds' ``StreamView``
+    watermarks."""
     report = old_group.last_report
     return {"subgroups": old_group.cfg.subgroups, "alive": set(alive),
             "logs": old_group.delivery_logs, "carry": carry,
             "report": report, "rounds": rounds, "launches": launches,
-            "wall": wall, "view_change": report.extras.get("view_change")}
+            "wall": wall, "views": views,
+            "view_change": report.extras.get("view_change")}
 
 
 def same_carry(a, b, what: str) -> None:
@@ -2278,6 +2287,7 @@ def same_epochs(ea, eb, what: str) -> None:
         w = f"{what} epoch {i}"
         check(a["subgroups"] == b["subgroups"] and a["alive"] == b["alive"]
               and a["rounds"] == b["rounds"], f"{w}: shape differs")
+        check(a["views"] == b["views"], f"{w}: StreamView watermarks differ")
         same_logs(a["logs"], b["logs"], w)
         same_carry(a["carry"], b["carry"], w)
         same_view_change(a["view_change"], b["view_change"], w)
@@ -2346,11 +2356,15 @@ def drive_cut_stream(handle, feed, cuts, ms, enqueued):
     epochs, cut_walls = [], []
     rnd = 0
     t_epoch, l_epoch, r_epoch = time.perf_counter(), ss.WATERMARK_LAUNCHES, 0
+    views = hashlib.sha256()
     while True:
         ready = feed(stream_of(handle), rnd, enqueued)
         if ready is None:
             break
-        stream_of(handle).step(ready)
+        v = stream_of(handle).step(ready)
+        for x in (v.delivered_num, v.published, v.backlog, v.app_pub,
+                  v.nulls):
+            views.update(np.ascontiguousarray(x, np.int64).tobytes())
         r_epoch += 1
         if rnd in cuts:
             wall = time.perf_counter() - t_epoch
@@ -2361,16 +2375,18 @@ def drive_cut_stream(handle, feed, cuts, ms, enqueued):
             cut_walls.append(time.perf_counter() - t0)
             epochs.append(closed_epoch(old, view.members,
                                        stream_of(handle).carry, r_epoch,
-                                       launches, wall))
+                                       launches, wall, views.hexdigest()))
             t_epoch, l_epoch = time.perf_counter(), ss.WATERMARK_LAUNCHES
             r_epoch = 0
+            views = hashlib.sha256()
         rnd += 1
     report, _ = handle.finish()
     check(not report.stalled, "the drained epoch stalled")
     group = stream_of(handle).group
     epochs.append(closed_epoch(
         group, group.cfg.members, None, report.extras["streamed_rounds"],
-        ss.WATERMARK_LAUNCHES - l_epoch, time.perf_counter() - t_epoch))
+        ss.WATERMARK_LAUNCHES - l_epoch, time.perf_counter() - t_epoch,
+        views.hexdigest()))
     return epochs, cut_walls
 
 
@@ -2438,7 +2454,7 @@ def cut_runs(make_handle, feed, cuts, members, dead, what: str):
     """One cut scenario on each of ``CUT_RUNS``: the epochs identical
     across them, one receive-kernel launch per streamed round on the
     card's ``kernel`` (none on ``graph``), everywhere-or-nowhere and
-    exactly-once.  Returns the per-run timings and the CPU run's epochs."""
+    exactly-once.  Returns the per-run timings and each run's epochs."""
     out, rows = {}, {}
     for key, device, backend in CUT_RUNS:
         enqueued = {}
@@ -2465,23 +2481,25 @@ def cut_runs(make_handle, feed, cuts, members, dead, what: str):
     base = CUT_RUNS[-1][0]
     for key, _, _ in CUT_RUNS[:-1]:
         same_epochs(out[key], out[base], f"{what} {key} vs {base}")
-    return rows, out[base]
+    return rows, out
 
 
 def phase14_multicast_cut():
     """The testbed stream through a cascading cut and a joining cut, and
     the 64-topic DDS domain through ``BoundDomain.reconfigure`` with two
     nodes failing; every epoch identical on the card's ``kernel``, the
-    card's ``graph`` and the CPU's ``graph``."""
+    card's ``graph`` and the CPU's ``graph``.  Returns the testbed
+    stream's card ``kernel`` epochs."""
     n_messages, dds_samples = 1000, 200
     cfg = api.single_group(16, msg_size=10240, window=100, n_messages=0)
-    testbed, epochs = cut_runs(
+    testbed, runs = cut_runs(
         lambda device, backend: api.Group(cfg, device=device).stream(
             backend=backend),
         testbed_feed(n_messages), testbed_cuts(), cfg.members, {5, 11},
         "testbed cut")
-    check([len(ep["subgroups"][0].members) for ep in epochs] == [16, 14, 14],
-          "testbed cut: wrong epoch memberships")
+    check([len(ep["subgroups"][0].members) for ep in runs["graph_cpu"]]
+          == [16, 14, 14], "testbed cut: wrong epoch memberships")
+
     publishers0 = [set(t.publishers) for t in dds_domain().topics]
     dds, _ = cut_runs(
         lambda device, backend: dds_domain().bind(backend=backend,
@@ -2496,6 +2514,7 @@ def phase14_multicast_cut():
         "dds": {"scenario": f"64 topics over 16 nodes, {dds_samples} "
                 "samples per publisher; nodes 3 and 9 fail at round "
                 f"{dds_samples // 2}", "identical": True, **dds}})
+    return runs["kernel_cuda"]
 
 
 def serve_cut_checks(rep, report, submitted, killed, what: str) -> None:
@@ -2756,6 +2775,8 @@ def phase16_gradsync_cut():
 CHAOS_SEEDS = (11, 23, 47)
 # (device, backend) of the two runs each soak is held across
 CHAOS_RUNS = (("cuda", "kernel"), ("cpu", "graph"))
+CHAOS_STREAM_SPEC = dict(rounds=24, suspect_rate=0.25, cascade_prob=0.5,
+                         join_rate=0.15, stall_rate=0.15)
 
 
 def phase17_chaos():
@@ -2764,12 +2785,12 @@ def phase17_chaos():
     card; the multicast on the card's ``kernel`` or the CPU's ``graph``)
     and a ``BucketSyncStream`` of two buckets a round.  The ``kernel``
     runs on the card and the ``graph`` runs on the CPU give equal
-    digests; no invariant breaks (a break raises)."""
+    digests; no invariant breaks (a break raises).  Returns the testbed
+    stream's card ``kernel`` soak report by seed."""
     from repro_torch.chaos import FaultSpec, chaos_soak
     cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg, n_layers=4)
     specs = {
-        "stream": FaultSpec(rounds=24, suspect_rate=0.25, cascade_prob=0.5,
-                            join_rate=0.15, stall_rate=0.15),
+        "stream": FaultSpec(**CHAOS_STREAM_SPEC),
         "serve": FaultSpec(rounds=14, suspect_rate=0.2, cascade_prob=0.5,
                            slot_kill_rate=0.2, stall_rate=0.1),
         "gradsync": FaultSpec(rounds=20, suspect_rate=0.2, cascade_prob=0.5,
@@ -2782,7 +2803,7 @@ def phase17_chaos():
     engines = [api.ServeEngine(cfg.name, params, cfg,
                                api.EngineConfig(max_batch=4, max_len=256),
                                device="cuda") for _ in range(2)]
-    rows = {}
+    rows, stream_soaks = {}, {}
     for seed in CHAOS_SEEDS:
         reports = {}
         for device, backend in CHAOS_RUNS:
@@ -2807,6 +2828,7 @@ def phase17_chaos():
                                            device=device)
             rep["gradsync"] = chaos_soak(gs, specs["gradsync"], seed=seed)
             reports[(device, backend)] = rep
+        stream_soaks[seed] = reports[("cuda", "kernel")]["stream"]
         (ka, a), (kb, b) = reports.items()
         for target in specs:
             ra, rb = a[target], b[target]
@@ -2824,7 +2846,318 @@ def phase17_chaos():
           "runs": [f"{b} on {d}" for d, b in CHAOS_RUNS],
           "identical_digests": True, **rows})
     del params, engines
+    return stream_soaks
 
+
+
+# ---------------------------------------------------------------------------
+# the discrete-event simulator: host code, held to the card's runs
+# ---------------------------------------------------------------------------
+
+DES_PHASE_FLAG = "--des-phase"
+DES_MODEL = ("modelled by the DES of the paper's 100 Gb/s testbed "
+             "(costmodel.RDMA_CX6), not measured on the card")
+# BENCH_desscale.json's fleet points: (nodes, senders, messages a sender,
+# window), 4 KB messages
+DES_FLEET = ((64, 8, 32, 32), (256, 8, 32, 32))
+
+
+class NothingOnTheCard:
+    """Holds the code inside to the DES's rule: no kernel launch (the
+    wrappers' counts unchanged) and no card allocation (the allocator's
+    count of allocations and its allocated bytes unchanged; the
+    collector is held so that no earlier tensor is freed meanwhile)."""
+
+    def __init__(self, what: str):
+        self.what = what
+
+    @staticmethod
+    def state():
+        torch.cuda.synchronize()
+        return (ops.launch_counts(), torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats().get("allocation.all.allocated",
+                                              0))
+
+    def __enter__(self):
+        gc.collect()
+        gc.disable()
+        self.before = self.state()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        gc.enable()
+        if exc_type is None:
+            after = self.state()
+            check(after == self.before, f"des {self.what}: the card was "
+                  f"touched: {self.before} -> {after}")
+        return False
+
+
+def delivery_digest(logs):
+    """Order-sensitive per-member delivery digest: each member's delivered
+    (rank, idx, is_app) sequence (``tests/test_des_scale.py::_digest``)."""
+    return {(gid, node): log.sequence(node)
+            for gid, log in sorted(logs.items())
+            for node in sorted(log.delivered_seq)}
+
+
+def apps_per_sender(logs, what: str):
+    """Per (subgroup, member) the apps delivered per sender rank; checks
+    per-sender FIFO and that every member of a subgroup delivered one
+    sequence (the total order)."""
+    out = {}
+    for gid, log in logs.items():
+        seqs = {node: log.sequence(node) for node in log.delivered_seq}
+        first = next(iter(seqs.values()), [])
+        check(all(q == first for q in seqs.values()),
+              f"{what}: members of subgroup {gid} disagree on the order")
+        for node, seq in seqs.items():
+            last, per = {}, {}
+            for rank, idx, _ in seq:
+                check(idx > last.get(rank, -1),
+                      f"{what}: per-sender FIFO broken at node {node}")
+                last[rank] = idx
+                per[rank] = per.get(rank, 0) + 1
+            out[(gid, node)] = per
+    return out
+
+
+def des_fields(report) -> dict:
+    """A report's fields but the backend's name, floats exact."""
+    out = dataclasses.asdict(report)
+    out.pop("backend")
+    return out
+
+
+def modelled(report) -> dict:
+    return {"model": DES_MODEL, "GBps": report.throughput_GBps,
+            "mean_latency_us": report.mean_latency_us,
+            "p99_latency_us": report.p99_latency_us,
+            "duration_us": report.duration_us}
+
+
+def fleet_cfg(n: int, senders: int, messages: int, window: int,
+              msg_size: int = 4096, rounds=None):
+    spec = api.SubgroupSpec(members=tuple(range(n)),
+                            senders=tuple(range(senders)), window=window,
+                            msg_size=msg_size, n_messages=messages)
+    return api.GroupConfig(members=tuple(range(n)), subgroups=(spec,),
+                           rounds=rounds)
+
+
+def des_and_loop(make_group, what: str):
+    """``des`` and ``des-loop`` on fresh groups: reports and logs bit
+    for bit.  Returns (report, logs, des host s, des-loop host s)."""
+    runs = {}
+    for be in ("des", "des-loop"):
+        g = make_group()
+        t0 = time.perf_counter()
+        report = g.run(backend=be)
+        runs[be] = (report, g.delivery_logs, time.perf_counter() - t0)
+    (rd, ld, wd), (rl, ll, wl) = runs["des"], runs["des-loop"]
+    check(des_fields(rd) == des_fields(rl),
+          f"{what}: des and des-loop reports differ")
+    same_logs(ld, ll, f"{what}: des vs des-loop")
+    return rd, ld, wd, wl
+
+
+def phase36_des(testbed, testbed_cut, soaks):
+    """The discrete-event simulator (``des``: phase 1 ``desgraph`` then
+    phase 2 ``desreplay``; ``des-loop``: the legacy loop) held to itself
+    and to the card's ``kernel`` runs of phases 2, 14 and 17 (their
+    returns: ``testbed`` the run's (report, logs), ``testbed_cut`` the
+    stream's epochs, ``soaks`` the stream soak by seed), and the
+    planes that stream on it: (a) phase 2's testbed, (b) Fig. 5's
+    endpoints, (c) BENCH_desscale.json's fleet points and the N = 256
+    conformance, (d) phase 14's testbed stream through its cuts, (e)
+    phase 17's stream soaks, (f) phase 20's testbed load profile on the
+    host loop.  Every des and des-loop run is held to launch nothing and
+    allocate nothing on the card."""
+    from repro_torch.chaos import FaultSpec, chaos_soak
+    from repro_torch.configs.spindle_smc import PAPER
+    from repro_torch.core import desgraph, desreplay
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.group import DESLoopBackend
+
+    # (a) phase 2's scenario
+    cfg = api.single_group(16, msg_size=10240, window=100, n_messages=1000)
+    k_report, k_logs = testbed
+    with NothingOnTheCard("testbed"):
+        g = api.Group(cfg, device="cuda")
+        t0 = time.perf_counter()
+        report = g.run(backend="des")
+        host_s = time.perf_counter() - t0
+    check(not report.stalled, "des testbed stalled")
+    check(report.delivered_app_msgs == k_report.delivered_app_msgs,
+          f"des testbed: {report.delivered_app_msgs} app deliveries, the "
+          f"card's kernel {k_report.delivered_app_msgs}")
+    check(apps_per_sender(g.delivery_logs, "des testbed")
+          == apps_per_sender(k_logs, "kernel testbed"),
+          "des testbed: apps per sender differ from the card's kernel run")
+    exact = delivery_digest(g.delivery_logs) == delivery_digest(k_logs)
+    emit({"phase": 36, "part": "a_testbed",
+          "scenario": "single_group(16, msg_size=10240, window=100, "
+          "n_messages=1000), as phase 2", "host_s": host_s,
+          "modelled": modelled(report),
+          "delivered_app_msgs": report.delivered_app_msgs,
+          "apps_per_sender_equal_kernel": True,
+          "digest_equal_kernel": exact,
+          "nulls_sent": {"des": report.nulls_sent,
+                         "kernel": k_report.nulls_sent},
+          "digest_note": None if exact else
+          "the DES's timed sweeps publish nulls the round model does not "
+          "(nulls_sent above); a null takes a slot of the round-robin "
+          "order, so the two total orders differ while the apps each "
+          "member delivers per sender, their FIFO order and every "
+          "member's agreement on one order are equal"})
+
+    # (b) Fig. 5's endpoints, 100 messages a sender
+    fig5 = {}
+    for name, flags in (("baseline", api.SpindleFlags.baseline()),
+                        ("spindle", api.SpindleFlags.spindle())):
+        pc = PAPER.config(n_messages=100, flags=flags)
+        with NothingOnTheCard(f"fig5 {name}"):
+            rd, _, wd, wl = des_and_loop(
+                lambda: api.Group.from_sim_config(pc, device="cuda"),
+                f"fig5 {name}")
+        check(not rd.stalled, f"des fig5 {name} stalled")
+        fig5[name] = {"host_s_des": wd, "host_s_des_loop": wl,
+                      "modelled": modelled(rd), "nulls_sent": rd.nulls_sent,
+                      "rdma_writes": rd.rdma_writes}
+    emit({"phase": 36, "part": "b_fig5",
+          "scenario": "PAPER.config(n_messages=100): 16 nodes, 10 KB, "
+          "window 100", "bit_identical": True, **fig5,
+          "modelled_GBps_ratio_spindle_over_baseline":
+          fig5["spindle"]["modelled"]["GBps"]
+          / fig5["baseline"]["modelled"]["GBps"]})
+
+    # (c) the fleet points, then the N = 256 conformance
+    fleet = {}
+    with NothingOnTheCard("fleet"):
+        for n, s_, m, w in DES_FLEET:
+            fc = fleet_cfg(n, s_, m, w)
+            sim_cfg = DESLoopBackend._lower(
+                fc, {0: np.full(s_, m, np.int64)})
+            row = {}
+            if n == 64:
+                t0 = time.perf_counter()
+                legacy = sim.Simulator(sim_cfg).run()
+                row["legacy_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            graph = desgraph.simulate(sim_cfg)
+            row["phase1_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result = desreplay.replay(graph)
+            row["phase2_s"] = time.perf_counter() - t0
+            check(not result.stalled
+                  and result.delivered_app_msgs == n * s_ * m,
+                  f"des fleet N={n}: {result.delivered_app_msgs} apps")
+            if n == 64:
+                check(dataclasses.asdict(legacy)
+                      == dataclasses.asdict(result),
+                      "des fleet N=64: phase 1 + 2 differ from the loop")
+                des_and_loop(lambda: api.Group(fc, device="cuda"),
+                             "fleet N=64")
+            fleet[f"n{n}"] = dict(row, senders=s_, messages=m, window=w,
+                                  delivered_app_msgs=
+                                  result.delivered_app_msgs)
+        conf = fleet_cfg(256, 8, 4, 16, msg_size=1024, rounds=24)
+        g_des = api.Group(conf, device="cuda")
+        t0 = time.perf_counter()
+        r_des = g_des.run(backend="des")
+        conf_s = time.perf_counter() - t0
+    g_k = api.Group(conf, device="cuda")
+    r_k = g_k.run(backend="kernel")
+    check(not r_des.stalled and not r_k.stalled
+          and r_des.delivered_app_msgs == r_k.delivered_app_msgs
+          and delivery_digest(g_des.delivery_logs)
+          == delivery_digest(g_k.delivery_logs),
+          "des N=256 conformance: digests differ from the card's kernel")
+    emit({"phase": 36, "part": "c_fleet", "msg_size": 4096, **fleet,
+          "conformance_n256": {
+              "scenario": "256 nodes, 8 senders, 4 messages, window 16, "
+              "1 KB, 24 rounds", "digest_equal_kernel": True,
+              "des_host_s": conf_s,
+              "delivered_app_msgs": r_des.delivered_app_msgs}})
+
+    # (d) phase 14's testbed stream through its cuts
+    cfg0 = api.single_group(16, msg_size=10240, window=100, n_messages=0)
+    enqueued = {}
+    t0 = time.perf_counter()
+    with NothingOnTheCard("testbed stream"):
+        epochs, cut_walls = drive_cut_stream(
+            api.Group(cfg0, device="cuda").stream(backend="des"),
+            testbed_feed(1000), testbed_cuts(),
+            api.MembershipService(cfg0.members), enqueued)
+    stream_s = time.perf_counter() - t0
+    check(all(ep["launches"] == 0 for ep in epochs),
+          "des testbed stream launched the kernel")
+    check_exactly_once(check_everywhere(epochs, "des testbed stream"),
+                       enqueued, {5, 11}, "des testbed stream")
+    same_epochs(epochs, testbed_cut,
+                "des testbed stream vs the card's kernel")
+    emit({"phase": 36, "part": "d_stream_cut",
+          "scenario": "phase 14's testbed stream: 1000 rounds, a "
+          "cascading cut at round 300, a join at 600",
+          "identical_to_kernel": True, "host_s": stream_s,
+          "cut_wall_s": cut_walls,
+          "epoch_rounds": [ep["rounds"] for ep in epochs]})
+
+    # (e) phase 17's stream soaks
+    testbed = api.single_group(16, msg_size=10240, window=100, n_messages=0)
+    soak_rows = {}
+    for seed in CHAOS_SEEDS:
+        t0 = time.perf_counter()
+        with NothingOnTheCard(f"chaos {seed}"):
+            d = chaos_soak(api.Group(testbed, device="cuda"),
+                           FaultSpec(**CHAOS_STREAM_SPEC), seed=seed,
+                           backend="des")
+        k = soaks[seed]
+        check(d.backend == "des" and des_fields(d) == des_fields(k),
+              f"des chaos seed {seed}: differs from the card's kernel soak")
+        soak_rows[str(seed)] = {"host_s": time.perf_counter() - t0,
+                                "views": d.views_installed,
+                                "checks": d.checks}
+    emit({"phase": 36, "part": "e_chaos", "identical_to_kernel": True,
+          **soak_rows})
+
+    # (f) phase 20's testbed profile, host loop
+    loads = {}
+    for policy in LOAD_POLICIES:
+        rk, wk = load_stream_run("testbed", policy, "cuda", "kernel", False)
+        with NothingOnTheCard(f"load {policy}"):
+            rd, wd = load_stream_run("testbed", policy, "cuda", "des", False)
+            rf, _ = load_stream_run("testbed", policy, "cuda", "des", True)
+        check("load_fused" not in rf.run_report.extras
+              and rf.json_str() == rd.json_str(),
+              f"des load {policy}: fused=True left the host loop")
+        jk, jd = json.loads(rk.json_str()), json.loads(rd.json_str())
+        differ = sorted(k for k in set(jk) | set(jd)
+                        if jk.get(k) != jd.get(k))
+        check(not differ, f"des load {policy}: LoadReport fields {differ} "
+              "differ from the card's kernel host loop")
+        rounds = rd.run_report.extras["streamed_rounds"]
+        loads[policy] = {"host_s_des": wd, "host_s_kernel": wk,
+                         "rounds": rounds, "rounds_per_s_des": rounds / wd,
+                         "rounds_per_s_kernel": rounds / wk}
+    emit({"phase": 36, "part": "f_load", "ramp": LOAD_RAMP,
+          "identical_json_to_kernel": True, **loads})
+
+
+def des_phase() -> int:
+    """Phase 36 alone, with the card runs it is held to (phases 2, 14 and
+    17; the kernels built first)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase0_identity()
+    testbed = phase2_testbed()
+    testbed_cut = phase14_multicast_cut()
+    soaks = phase17_chaos()
+    phase36_des(testbed, testbed_cut, soaks)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -5349,6 +5682,8 @@ def main() -> int:
         return families_phases()
     if FAMILIES_TRAIN_PHASES_FLAG in sys.argv[1:]:
         return families_train_phases()
+    if DES_PHASE_FLAG in sys.argv[1:]:
+        return des_phase()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -5359,7 +5694,7 @@ def main() -> int:
     rows = phase1_kernels(shapes)
 
     ops.reset_launch_counts()                 # the multicast path starts here
-    phase2_testbed()
+    testbed = phase2_testbed()
     phase3_grids()
     phase4_dds()
     multicast = ops.launch_counts()           # ... and ends here
@@ -5391,11 +5726,11 @@ def main() -> int:
     # the cut path: each part counted from zero just before it and read
     # just after; the float32 comparison against the plain versions sits
     # outside the counts
-    cut = {}
+    cut, returned = {}, {}
     for part in (phase14_multicast_cut, phase15_serve_cut,
                  phase16_gradsync_cut, phase17_chaos):
         ops.reset_launch_counts()
-        part()
+        returned[part] = part()
         for k, v in ops.launch_counts().items():
             cut[k] = cut.get(k, 0) + v
         if part is phase15_serve_cut:
@@ -5403,6 +5738,12 @@ def main() -> int:
     check(all(cut[k] > 0 for k in ("smc_sweep_watermark", "flash_decode",
                                    "rms_norm", "rms_norm_residual")),
           f"the cut path skipped a kernel: {cut}")
+
+    # the discrete-event simulator: host code, held to the card runs of
+    # phases 2, 14 and 17 (it launches nothing: no path of the kernels
+    # line counts it)
+    phase36_des(testbed, returned[phase14_multicast_cut],
+                returned[phase17_chaos])
 
     # the fused serve program and the load plane replay captured graphs:
     # their launches are the kernels of the profiler's device trace over

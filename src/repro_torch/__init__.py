@@ -2,8 +2,9 @@
 
 A second package beside :mod:`repro` (the JAX/Pallas reference), with the
 same module layout and names: ``core/`` holds the protocol (SST
-arithmetic, the fused predicate sweep, the ``Group`` API and its
-streams, DDS topics) and the Spindle gradient reductions, ``models/``
+arithmetic, the fused predicate sweep, the discrete-event simulator of
+the paper's testbed, the ``Group`` API and its streams, DDS topics) and
+the Spindle gradient reductions, ``models/``
 and ``configs/`` the dense decoder and the Mamba2 forward, ``serve/`` the
 serve plane on the streamed multicast, ``train/``, ``optim/`` and
 ``data/`` the training plane (train and serve steps, the Trainer,

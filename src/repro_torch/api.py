@@ -7,7 +7,12 @@ The subset of ``repro.api`` that the port provides so far::
     cfg = api.single_group(16, n_messages=1000)
     g = api.Group(cfg)                   # GPU; api.Group(cfg, device="cpu")
     g.subgroup(0).on_delivery(lambda member, msg: ...)
-    report = g.run(backend="kernel")     # or "graph"
+    report = g.run(backend="kernel")     # or "graph", "des", "des-loop"
+
+    # the discrete-event simulator of the paper's 100 Gb/s testbed (host
+    # code: modelled times, nothing on the device)
+    report = api.Group.from_sim_config(api.PAPER.config(n_messages=100),
+                                       device="cpu").run(backend="des")
 
     # a parameter grid as ONE stacked round loop
     reports = g.run_batch(backend="kernel", windows=[5, 20, 100, 500])
@@ -48,16 +53,16 @@ The subset of ``repro.api`` that the port provides so far::
     stream.step(ready)                   # (G, S_max) counts this round
     ms.suspect(0, 3)
     view, stream = ms.reconfigure_stream(stream, {})   # next epoch
-
-The DES backends follow in a later slice of the port.
 """
 
 from repro_torch import resolve_device
-from repro_torch.core import gradsync
+from repro_torch.configs.spindle_smc import PAPER
+from repro_torch.core import gradsync, simulator
 from repro_torch.core.costmodel import HOST_X86, RDMA_CX6
 from repro_torch.core.dds import (BoundDomain, Domain, QoS, Topic,
                                   many_topic_domain, single_topic_domain)
 from repro_torch.core.group import (BACKENDS, Delivery, DeliveryLog,
+                                    DESBackend, DESLoopBackend,
                                     EpochCarry, GraphBackend, Group,
                                     GroupConfig, GroupStream, KernelBackend,
                                     ProtocolBackend, RunReport,
@@ -77,15 +82,16 @@ from repro_torch.train.steps import make_serve_step, make_train_step
 from repro_torch.train.trainer import TrainConfig, Trainer
 
 __all__ = [
-    "Arch", "BACKENDS", "BoundDomain", "Delivery", "DeliveryLog", "Domain",
+    "Arch", "BACKENDS", "BoundDomain", "DESBackend", "DESLoopBackend",
+    "Delivery", "DeliveryLog", "Domain",
     "EngineConfig", "EpochCarry", "GraphBackend", "Group", "GroupConfig",
     "GroupStream", "HOST_X86", "KernelBackend", "MembershipService",
-    "OptConfig", "ProtocolBackend", "QoS", "RDMA_CX6", "ReplicatedEngine",
+    "OptConfig", "PAPER", "ProtocolBackend", "QoS", "RDMA_CX6", "ReplicatedEngine",
     "Request", "RunReport", "Runtime", "SenderPattern",
     "ServeAdmission", "ServeEngine", "SpindleFlags", "StreamView",
     "SubgroupHandle", "SubgroupSpec", "Topic", "TrainConfig", "Trainer",
     "View", "get_arch", "get_backend", "gradsync",
     "make_serve_step", "make_train_step", "many_topic_domain",
-    "register_backend", "resolve_device", "single_group",
+    "register_backend", "resolve_device", "simulator", "single_group",
     "single_topic_domain",
 ]

@@ -56,8 +56,8 @@ class InvariantViolation(AssertionError):
 class ChaosReport:
     """What one soak did and verified.  ``extras`` holds plain-data
     digests (delivery sequences, per-node app counts, applied rounds)
-    that must be bit-identical for the same seed across ``graph`` and
-    ``kernel``, on any device."""
+    that must be bit-identical for the same seed across ``graph``,
+    ``kernel`` and ``des``, on any device."""
 
     target: str                       # "stream" | "serve" | "gradsync"
     seed: int
@@ -210,7 +210,7 @@ def _soak_stream(target, spec: FaultSpec, seed: int,
         # exercise the cascade trim arithmetic against the live SST
         # snapshot: each wave only shrinks survivors, so the staged
         # trims are monotone non-decreasing (sst.cascading_trim)
-        received = stream._states.received_num.cpu().numpy()
+        received = group_mod.host_array(stream._states.received_num)
         alive_now = set(ms.view.members)
         for g, sg in enumerate(stream.group.cfg.subgroups):
             dead_acc: set = set()
@@ -537,8 +537,9 @@ def chaos_soak(target, spec: FaultSpec, *, seed: int = 0,
     a backend (``GroupStream`` / ``ReplicatedEngine`` /
     ``BucketSyncStream``) use their own.  Deterministic: same target
     shape + spec + seed => same schedule, same report, on every backend
-    and device that is bit-identical (``graph`` and ``kernel``, the card
-    and the CPU).
+    and device that is bit-identical (``graph``, ``kernel`` and ``des``,
+    whose numpy round mirror replays the same int32 arithmetic on the
+    host; the card and the CPU).
 
     ``fused=True`` (serve targets only) asks the run for the
     wedge-capable fused path: schedules whose cuts stay homogeneous run
@@ -546,9 +547,8 @@ def chaos_soak(target, spec: FaultSpec, *, seed: int = 0,
     fall back to the per-round loop with the reason recorded — either
     way the report is bit-identical, and
     ``extras['fused']``/``extras['fused_fallback']`` say which path
-    actually ran.  ``backend="des"`` is not ported yet: it raises the
-    ``ValueError`` of :func:`repro_torch.core.group.get_backend`, which
-    names item 13."""
+    actually ran.  ``backend="des-loop"`` does not stream: it raises the
+    ``ValueError`` of :class:`repro_torch.core.group.GroupStream`."""
     if isinstance(target, BucketSyncStream):
         return _soak_gradsync(target, spec, seed)
     if isinstance(target, (group_mod.Group, group_mod.GroupStream)):

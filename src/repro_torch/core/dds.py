@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -104,6 +105,16 @@ class Domain:
         global)."""
         from repro_torch.core import group as group_mod
 
+        return group_mod.Group(
+            self._group_config(samples_per_publisher, spindle,
+                               target_delivered, **kw), device=device)
+
+    def _group_config(self, samples_per_publisher: int, spindle: bool,
+                      target_delivered: Optional[int], **kw):
+        """The :class:`repro_torch.core.group.GroupConfig` :meth:`group`
+        runs."""
+        from repro_torch.core import group as group_mod
+
         if not self.topics:
             raise ValueError("no topics")
         qos = self.topics[0].qos
@@ -117,10 +128,9 @@ class Domain:
                              msg_size=t.sample_size, window=t.window,
                              n_messages=samples_per_publisher)
             for t in self.topics)
-        cfg = group_mod.GroupConfig(
+        return group_mod.GroupConfig(
             members=tuple(range(self.n_nodes)), subgroups=subgroups,
             flags=flags, target_delivered=target_delivered, **kw)
-        return group_mod.Group(cfg, device=device)
 
     def bind(self, *, backend: str = "kernel", spindle: bool = True,
              device: DeviceLike = None, **kw) -> "BoundDomain":
@@ -137,6 +147,26 @@ class Domain:
         g = self.group(samples_per_publisher=0, spindle=spindle,
                        device=device, **kw)
         return BoundDomain(self, g.stream(backend=backend))
+
+    def sim_config(self, *, samples_per_publisher: int = 1000,
+                   spindle: bool = True,
+                   target_delivered: Optional[int] = None,
+                   **kw) -> sim.SimConfig:
+        """Deprecated: use ``domain.group(...).run(backend="des")``.
+
+        A thin shim over the Group API: it returns the same SimConfig the
+        des backend would lower to, and needs no device.  The deprecation
+        warns once per process."""
+        global _SIM_CONFIG_WARNED
+        if not _SIM_CONFIG_WARNED:
+            _SIM_CONFIG_WARNED = True
+            warnings.warn(
+                "Domain.sim_config is deprecated; use Domain.group() and "
+                "Group.run(backend=...) instead", DeprecationWarning,
+                stacklevel=2)
+        cfg = self._group_config(samples_per_publisher, spindle,
+                                 target_delivered)
+        return cfg.to_sim_config(**kw)
 
 
 @dataclasses.dataclass
@@ -277,3 +307,7 @@ def many_topic_domain(n_nodes: int, n_topics: int, *,
         d.create_topic(f"topic-{t}", publishers=[pub], subscribers=subs,
                        sample_size=sample_size, qos=qos, window=window)
     return d
+
+
+# Module-level so the once-ness survives Domain instances; tests reset it.
+_SIM_CONFIG_WARNED = False

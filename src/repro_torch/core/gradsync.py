@@ -322,7 +322,8 @@ class BucketSyncStream:
     the applied watermark never rolls back.
 
     The stream runs on ``backend`` (``"kernel"``: one receive-kernel
-    launch a round) on ``device`` (the GPU unless ``"cpu"`` is named);
+    launch a round; ``"des"``: the numpy round mirror on the host) on
+    ``device`` (the GPU unless ``"cpu"`` is named);
     the update mean is computed where the contributions are.  Duck-types
     the stream side of
     :meth:`repro_torch.core.views.MembershipService.reconfigure_stream`

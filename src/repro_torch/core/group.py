@@ -2,9 +2,18 @@
 
 One :class:`GroupConfig` describes a scenario (membership, subgroups,
 :class:`~repro_torch.core.simulator.SpindleFlags`, cost/net models) and
-:meth:`Group.run` executes it on one of two backends behind the
+:meth:`Group.run` executes it on one of four backends behind the
 :class:`ProtocolBackend` protocol:
 
+  * ``"des"``    — the two-phase discrete-event simulator of the paper's
+                   testbed (:mod:`repro_torch.core.desgraph` then
+                   :mod:`repro_torch.core.desreplay`), host code over the
+                   calibrated cost model; its streams round on the numpy
+                   mirror of the sweep.
+  * ``"des-loop"`` — the legacy single-phase event loop
+                   (:class:`repro_torch.core.simulator.Simulator`),
+                   bit-identical to ``"des"``, kept for differential
+                   testing; it does not stream.
   * ``"graph"``  — the fused predicate sweep (:mod:`repro_torch.core.sweep`)
                    with the plain ``max``-merge receive: the send pattern is
                    lowered to an ``app_schedule`` tensor and run round by
@@ -15,12 +24,15 @@ One :class:`GroupConfig` describes a scenario (membership, subgroups,
                    launched once per round over every (subgroup, member,
                    sender) lane.
 
-Both return the same :class:`RunReport` and per-subgroup total-order
-:class:`DeliveryLog`, bit-identical on integer fields to the reference
-package's ``graph`` / ``pallas`` backends.  All G subgroups run as one
-stacked loop (padded to a common (N_max, S_max) with validity masks), and
-a ``run_batch`` grid adds its points as one more leading dimension.  The
-round loop never copies to the host: the traces come back once, after it.
+The graph and kernel backends return the same :class:`RunReport` and
+per-subgroup total-order :class:`DeliveryLog`, bit-identical on integer
+fields to the reference package's ``graph`` / ``pallas`` backends; the
+DES backends equal the reference's ``des`` / ``des-loop`` bit for bit,
+floats included, and launch nothing on the device.  All G subgroups run
+as one stacked loop (padded to a common (N_max, S_max) with validity
+masks), and a ``run_batch`` grid adds its points as one more leading
+dimension.  The round loop never copies to the host: the traces come
+back once, after it.
 
 Usage::
 
@@ -52,6 +64,8 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.core import costmodel, delivery as delivery_mod
+from repro_torch.core import desgraph as desgraph_mod
+from repro_torch.core import desreplay as desreplay_mod
 from repro_torch.core import simulator as sim
 from repro_torch.core import sst
 from repro_torch.core import sweep as sweep_mod
@@ -82,6 +96,13 @@ class GroupConfig:
     host: costmodel.HostModel = costmodel.HOST_X86
     patterns: Tuple[Tuple[Tuple[int, int], sim.SenderPattern], ...] = ()
     target_delivered: Optional[int] = None
+    max_time_us: float = 60e6
+    # DES-plane knobs (charged by the des backends only, carried so a
+    # SimConfig round-trips losslessly through the Group API)
+    llc_bytes: int = 20 * 1024 * 1024
+    upcall_extra_us: float = 0.0
+    max_sweeps: int = 3_000_000
+    idle_tick_us: float = 2.0
     # graph/kernel round budget; None = auto (max sends + settle rounds)
     rounds: Optional[int] = None
     epoch: int = 0                               # bumped by reconfigure()
@@ -101,6 +122,32 @@ class GroupConfig:
             if pg == g and pn == node:
                 return pat
         return sim.SenderPattern()
+
+    def to_sim_config(self, **overrides) -> sim.SimConfig:
+        """Lower to the DES configuration (the ``des`` backend's input)."""
+        kw = dict(n_nodes=self.n_nodes, subgroups=self.subgroups,
+                  flags=self.flags, net=self.net, host=self.host,
+                  patterns=self.patterns,
+                  target_delivered=self.target_delivered,
+                  max_time_us=self.max_time_us,
+                  llc_bytes=self.llc_bytes,
+                  upcall_extra_us=self.upcall_extra_us,
+                  max_sweeps=self.max_sweeps,
+                  idle_tick_us=self.idle_tick_us)
+        kw.update(overrides)
+        return sim.SimConfig(**kw)
+
+    @classmethod
+    def from_sim_config(cls, cfg: sim.SimConfig, **kw) -> "GroupConfig":
+        return cls(members=tuple(range(cfg.n_nodes)),
+                   subgroups=cfg.subgroups, flags=cfg.flags, net=cfg.net,
+                   host=cfg.host, patterns=cfg.patterns,
+                   target_delivered=cfg.target_delivered,
+                   max_time_us=cfg.max_time_us,
+                   llc_bytes=cfg.llc_bytes,
+                   upcall_extra_us=cfg.upcall_extra_us,
+                   max_sweeps=cfg.max_sweeps,
+                   idle_tick_us=cfg.idle_tick_us, **kw)
 
 
 def single_group(n_nodes: int, n_senders: Optional[int] = None,
@@ -263,8 +310,7 @@ def get_backend(backend, device: DeviceLike = None) -> ProtocolBackend:
             raise ValueError(
                 f"unknown backend {backend!r}; the port has "
                 f"{sorted(BACKENDS)} ('kernel' is the counterpart of the "
-                "reference's 'pallas'; the DES backends come with "
-                "ROADMAP.md item 13)")
+                "reference's 'pallas')")
         return BACKENDS[backend](resolve_device(device))
     return backend
 
@@ -347,7 +393,9 @@ class Group:
 
     ``device`` is where the protocol rounds run: ``None`` means the GPU
     (``RuntimeError`` if there is none); pass ``"cpu"`` for the plain
-    PyTorch path on the host."""
+    PyTorch path on the host.  The DES backends run on the host whatever
+    the device and allocate nothing on it; the device rule holds for
+    them all the same."""
 
     def __init__(self, cfg: GroupConfig, device: DeviceLike = None):
         self.cfg = cfg
@@ -363,6 +411,11 @@ class Group:
         # reconfigure() on the group it RETURNS (None on fresh groups)
         self._gid_map: Optional[Dict[int, int]] = None
         self._sender_maps: Optional[Dict[int, List[Tuple[int, int]]]] = None
+
+    @classmethod
+    def from_sim_config(cls, cfg: sim.SimConfig, device: DeviceLike = None,
+                        **kw) -> "Group":
+        return cls(GroupConfig.from_sim_config(cfg, **kw), device=device)
 
     def subgroup(self, gid: int) -> SubgroupHandle:
         if not 0 <= gid < len(self.cfg.subgroups):
@@ -1048,6 +1101,164 @@ class KernelBackend(GraphBackend):
 
 
 # ---------------------------------------------------------------------------
+# "des" / "des-loop" backends — the discrete-event simulator.  "des" is
+# the two-phase simulate-then-replay split (DESIGN.md Sec. 12):
+# repro_torch.core.desgraph timestamps the event timeline,
+# repro_torch.core.desreplay replays the emitted graph.  "des-loop" is the
+# legacy single-phase event loop, kept for differential testing; both
+# produce bit-identical results by construction.  Host code: neither
+# launches a kernel nor touches the device.
+# ---------------------------------------------------------------------------
+
+
+def _des_logs(groups) -> Dict[int, DeliveryLog]:
+    """Delivery logs from final per-subgroup DES state (either phase-1
+    ``DesGraph.groups`` or the legacy ``Simulator.groups``)."""
+    logs = {}
+    for g in groups:
+        is_app = [~np.isnan(g.gen_log[s][: int(g.gen_len[s])])
+                  for s in range(g.n_s)]
+        delivered = {node: int(g.deliv_seen[g.member_pos[node],
+                                            g.member_pos[node]])
+                     for node in g.spec.members}
+        logs[g.gid] = DeliveryLog(n_senders=g.n_s, is_app=is_app,
+                                  delivered_seq=delivered)
+    return logs
+
+
+def _sum_delivered(logs: Mapping[int, DeliveryLog]) -> Tuple[int, int]:
+    a = n = 0
+    for log in logs.values():
+        for node in log.delivered_seq:
+            da, dn = log.app_null_counts(node)
+            a, n = a + da, n + dn
+    return a, n
+
+
+def _des_report(name: str, cfg: GroupConfig, result: sim.SimResult,
+                groups) -> Tuple[RunReport, Dict[int, DeliveryLog]]:
+    """Shared DES report assembly: both the two-phase ``des`` path and
+    the legacy ``des-loop`` lower their :class:`SimResult` and final
+    group state through this, so bit-identity between them is a
+    statement about the simulators, not the reporting glue."""
+    logs = _des_logs(groups)
+    if cfg.target_delivered is not None:
+        for log in logs.values():
+            log.truncate_to_app_target(cfg.target_delivered)
+    # app/null accounting comes from the (possibly clipped) delivery
+    # logs so it always matches what delivered()/upcalls expose;
+    # throughput/latency stay the DES's modelled timing
+    n_app, n_null = _sum_delivered(logs)
+    report = RunReport(
+        backend=name,
+        throughput_GBps=result.throughput_GBps,
+        mean_latency_us=result.mean_latency_us,
+        p99_latency_us=result.p99_latency_us,
+        duration_us=result.duration_us,
+        delivered_app_msgs=n_app,
+        delivered_null_msgs=n_null,
+        nulls_sent=result.nulls_sent,
+        rdma_writes=result.rdma_writes,
+        rounds=result.sweeps,
+        per_node_throughput=result.per_node_throughput,
+        stalled=result.stalled,
+        send_batches=result.send_batches,
+        recv_batches=result.recv_batches,
+        deliv_batches=result.deliv_batches,
+        extras={"post_time_us": result.post_time_us,
+                "predicate_time_us": result.predicate_time_us,
+                "sender_blocked_us": result.sender_blocked_us},
+    )
+    return report, logs
+
+
+def _des_device(device: DeviceLike) -> Optional[torch.device]:
+    """The device a DES backend records (for the streams and fused
+    programs built over it); the DES itself never touches it, so no
+    device is asked for when none is named."""
+    return None if device is None else resolve_device(device)
+
+
+class DESLoopBackend:
+    """The legacy single-phase DES event loop (``des-loop``), retained
+    for differential testing of the two-phase ``des`` path
+    (DESIGN.md Sec. 12).  Not streamable — use ``des`` for that."""
+
+    name = "des-loop"
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = _des_device(device)
+
+    def run(self, cfg: GroupConfig, counts: Dict[int, np.ndarray]
+            ) -> Tuple[RunReport, Dict[int, DeliveryLog]]:
+        sim_cfg = self._lower(cfg, counts)
+        simulator = sim.Simulator(sim_cfg)
+        result = simulator.run()
+        return _des_report(self.name, cfg, result, simulator.groups)
+
+    @staticmethod
+    def _lower(cfg: GroupConfig, counts: Dict[int, np.ndarray]
+               ) -> sim.SimConfig:
+        """Per-sender counts lower to ``SenderPattern.n_messages``
+        overrides (count 0 = inactive)."""
+        patterns = {(g, n): p for (g, n), p in cfg.patterns}
+        specs = []
+        for gid, spec in enumerate(cfg.subgroups):
+            c = counts[gid]
+            specs.append(dataclasses.replace(
+                spec, n_messages=int(c.max()) if len(c) else 0))
+            for rank, node in enumerate(spec.senders):
+                base = patterns.get((gid, node), sim.SenderPattern())
+                patterns[(gid, node)] = dataclasses.replace(
+                    base, active=base.active and int(c[rank]) > 0,
+                    n_messages=int(c[rank]))
+        return cfg.to_sim_config(
+            subgroups=tuple(specs),
+            patterns=tuple(patterns.items()))
+
+
+class DESBackend(GraphBackend):
+    """The two-phase DES (DESIGN.md Sec. 12), the ``des`` path.
+
+    Scheduled runs execute phase 1
+    (:func:`repro_torch.core.desgraph.simulate`, the slimmed event-level
+    pass emitting the compact event graph) then phase 2
+    (:func:`repro_torch.core.desreplay.replay`, the vectorized
+    reconstruction), bit-identical to the legacy ``des-loop``.
+
+    Streaming (:class:`GroupStream`) runs on the numpy round mirror
+    (``stream_numpy``): the same int32 arithmetic as
+    :func:`repro_torch.core.sweep.step_backlog`, evaluated on the host,
+    driven through the exact GraphBackend trim/carry/log machinery
+    inherited here — so streamed des rounds, cut epochs and
+    :class:`EpochCarry` contents are bit-identical to graph/kernel
+    streams fed the same ready rows.  Nothing of it runs on the device.
+    """
+
+    name = "des"
+    # GroupStream: rounds on the numpy mirror
+    # (repro_torch.core.desreplay.stream_program_np), not the device
+    stream_numpy = True
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = _des_device(device)
+
+    def run(self, cfg: GroupConfig, counts: Dict[int, np.ndarray]
+            ) -> Tuple[RunReport, Dict[int, DeliveryLog]]:
+        sim_cfg = DESLoopBackend._lower(cfg, counts)
+        graph = desgraph_mod.simulate(sim_cfg)
+        result = desreplay_mod.replay(graph)
+        return _des_report(self.name, cfg, result, graph.groups)
+
+    def run_batch(self, cfgs: List[GroupConfig],
+                  counts_list: List[Dict[int, np.ndarray]]
+                  ) -> List[Tuple[RunReport, Dict[int, DeliveryLog]]]:
+        """Sequential per-point runs (the DES has no batched program), so
+        grids stay comparable point for point with the other backends."""
+        return [self.run(c, k) for c, k in zip(cfgs, counts_list)]
+
+
+# ---------------------------------------------------------------------------
 # Streaming execution — per-round message counts on the stacked substrate
 # ---------------------------------------------------------------------------
 
@@ -1143,6 +1354,12 @@ class StreamView:
                    >= self.published[gid, :s_g]))
 
 
+def host_array(x) -> np.ndarray:
+    """A stream leaf on the host: a numpy array as it is (a des stream's
+    own), a tensor copied from its device."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 class GroupStream:
     """Streaming execution of one :class:`Group` scenario.
 
@@ -1154,7 +1371,10 @@ class GroupStream:
     on the group's device (:func:`repro_torch.core.sweep.stream_stacked`;
     on the ``kernel`` backend that is one receive-kernel launch) and
     copies the round's traces and watermarks to the host in ONE read,
-    returned as a :class:`StreamView` the caller can gate on.
+    returned as a :class:`StreamView` the caller can gate on.  On the
+    ``des`` backend the round is the host-side numpy mirror
+    (:func:`repro_torch.core.desreplay.stream_program_np`): the same
+    int32 arithmetic, no device tensor and no read.
     :meth:`finish` drains to quiescence and post-processes the
     accumulated round traces through the exact :class:`GraphBackend`
     machinery scheduled runs use, so the resulting :class:`RunReport` and
@@ -1168,29 +1388,40 @@ class GroupStream:
         be = get_backend(backend, group.device)
         if not isinstance(be, GraphBackend):
             raise ValueError(
-                "streaming runs on the stacked graph/kernel substrate; got "
-                f"{getattr(be, 'name', backend)!r}")
+                "streaming runs on the stacked graph/kernel/des substrate; "
+                f"got {getattr(be, 'name', backend)!r}")
         cfg = group.cfg
         if not cfg.subgroups:
             raise ValueError("no subgroups")
         self.group = group
         self.backend = be
         self.device = be.device
+        # des streams round on the host-side numpy mirror of the same
+        # int32 sweep arithmetic (DESIGN.md Sec. 12): bit-identical
+        # rounds, and nothing allocated on the device
+        self._numpy = bool(getattr(be, "stream_numpy", False))
         self._n = tuple(len(s.members) for s in cfg.subgroups)
         self._s = tuple(len(s.senders) for s in cfg.subgroups)
         self._w = tuple(s.window for s in cfg.subgroups)
         self.n_max, self.s_max = max(self._n), max(self._s)
         g_n = len(self._n)
         member_masks, sender_masks = _stack_masks(self._n, self._s)
-        self._masks = (None, None) if member_masks is None else (
-            torch.as_tensor(member_masks, device=self.device),
-            torch.as_tensor(sender_masks, device=self.device))
-        self._windows = torch.as_tensor(np.asarray(self._w, np.int32),
-                                        device=self.device)
         self._null_send = cfg.flags.null_send
         self._receive = be._receive_fn(max(self._w))
-        self._states = sweep_mod.batch_states(self.n_max, self.s_max, g_n,
-                                              self.device)
+        if self._numpy:
+            self._masks = (member_masks, sender_masks)
+            self._program = desreplay_mod.stream_program_np(
+                self._w, self._null_send)
+            self._states = desreplay_mod.batch_states_np(
+                self.n_max, self.s_max, g_n)
+        else:
+            self._masks = (None, None) if member_masks is None else (
+                torch.as_tensor(member_masks, device=self.device),
+                torch.as_tensor(sender_masks, device=self.device))
+            self._windows = torch.as_tensor(np.asarray(self._w, np.int32),
+                                            device=self.device)
+            self._states = sweep_mod.batch_states(self.n_max, self.s_max,
+                                                  g_n, self.device)
         self._costs = np.stack([_cost_params(cfg, spec)
                                 for spec in cfg.subgroups]).astype(
                                     np.float32)
@@ -1206,9 +1437,10 @@ class GroupStream:
             for g, resent in enumerate(self.carry.resend):
                 backlogs0[g, : len(resent)] = resent
                 self._enqueued[g] += resent.astype(np.int64)
-        self._backlogs = torch.as_tensor(backlogs0, device=self.device)
+        self._backlogs = backlogs0 if self._numpy else \
+            torch.as_tensor(backlogs0, device=self.device)
         # host copy of (delivered_num, published, backlog), refreshed by
-        # each step's one device-to-host read
+        # each step's one device-to-host read (a des stream's own arrays)
         self._host = (np.full((g_n, self.n_max), -1, np.int32),
                       np.zeros((g_n, self.s_max), np.int32), backlogs0)
         # running per-sender publish totals, so watermark queries
@@ -1272,7 +1504,8 @@ class GroupStream:
         ``states``/``backlogs`` are the post-run carry (a
         :class:`~repro_torch.core.sweep.SweepState` of (G, …) tensors or
         arrays, and a (G, S_max) backlog; copied, on the stream's
-        device); ``batches``/``app_pub``/``nulls`` the per-round traces
+        device, or into int32 numpy arrays on a des stream);
+        ``batches``/``app_pub``/``nulls`` the per-round traces
         as ``(T, G, ...)`` arrays or length-T lists of per-round
         ``(G, ...)`` rows; ``enqueued`` the per-subgroup per-rank app
         totals the rounds enqueued.  After absorbing, :meth:`finish`
@@ -1299,17 +1532,21 @@ class GroupStream:
                 raise ValueError("trace rows must be (G, N_max)/"
                                  "(G, S_max) shaped")
 
-        def own(x) -> torch.Tensor:
-            return torch.as_tensor(x).to(self.device, torch.int32,
-                                         copy=True)
+        if self._numpy:
+            def own(x):
+                return np.array(host_array(x), np.int32)
+        else:
+            def own(x):
+                return torch.as_tensor(x).to(self.device, torch.int32,
+                                             copy=True)
 
         self._states = sweep_mod.SweepState(**{
             f.name: own(getattr(states, f.name))
             for f in dataclasses.fields(sweep_mod.SweepState)})
         self._backlogs = own(backlogs)
-        self._host = (self._states.delivered_num.cpu().numpy(),
-                      self._states.published.cpu().numpy(),
-                      self._backlogs.cpu().numpy())
+        self._host = tuple(host_array(x) for x in (
+            self._states.delivered_num, self._states.published,
+            self._backlogs))
         self._batches, self._app_pub, self._nulls = batches, app_pub, \
             nulls
         for p, x in zip(app_pub, nulls):
@@ -1339,6 +1576,8 @@ class GroupStream:
                     f"subgroup {g} has {s_g} senders but ready names "
                     f"padded lanes {np.nonzero(ready[g, s_g:])[0] + s_g}")
             self._enqueued[g] += ready[g, :s_g].astype(np.int64)
+        if self._numpy:
+            return self._record(*self._step_numpy(ready))
         (self._states, self._backlogs), (batch, pub, nulls) = \
             sweep_mod.stream_stacked(
                 self._states, self._backlogs,
@@ -1357,6 +1596,19 @@ class GroupStream:
         pub, nulls, published, backlog = (
             x.reshape(g_n, self.s_max)
             for x in (pub, nulls, published, backlog))
+        return self._record(batch, pub, nulls, deliv, published, backlog)
+
+    def _step_numpy(self, ready: np.ndarray):
+        """A des round on the numpy mirror: no device tensor, no read."""
+        masks = () if self._masks[0] is None else self._masks
+        (self._states, self._backlogs), (batch, pub, nulls) = \
+            self._program(self._states, self._backlogs, ready, *masks)
+        return (batch, pub, nulls, self._states.delivered_num,
+                self._states.published, self._backlogs)
+
+    def _record(self, batch, pub, nulls, deliv, published,
+                backlog) -> StreamView:
+        """Append one round's host traces and watermarks."""
         self._host = (deliv, published, backlog)
         self._batches.append(batch)
         self._app_pub.append(pub)
@@ -1416,6 +1668,11 @@ class GroupStream:
                          backlogs: torch.Tensor) -> bool:
         """Whether the last round left every state leaf and the backlog
         as they were (one device-to-host read)."""
+        if self._numpy:
+            return np.array_equal(backlogs, self._backlogs) and all(
+                np.array_equal(getattr(states, f.name),
+                               getattr(self._states, f.name))
+                for f in dataclasses.fields(states))
         same = [(getattr(states, f.name) == getattr(self._states, f.name)
                  ).all() for f in dataclasses.fields(states)]
         same.append((backlogs == self._backlogs).all())
@@ -1515,7 +1772,7 @@ class GroupStream:
         new_group = self.group.reconfigure(view)
         gid_map, sender_maps = new_group._gid_map, new_group._sender_maps
         # the cut's one device-to-host read
-        received = self._states.received_num.cpu().numpy()  # (G, N_max)
+        received = host_array(self._states.received_num)    # (G, N_max)
         _, app_pub, nulls = self.traces()                    # (G, T, S)
         cut_seqs: Dict[int, int] = {}
         stable: Dict[int, np.ndarray] = {}
@@ -1523,7 +1780,7 @@ class GroupStream:
             n_g, s_g = self._n[gid], self._s[gid]
             alive_pos = np.asarray([m in alive for m in spec.members])
             cut = sst.ragged_trim(received[gid, :n_g], alive_pos)
-            pubs_at_cut = sst.sender_counts(cut + 1, s_g).numpy()
+            pubs_at_cut = sst.sender_counts(cut + 1, s_g)
             stable[gid] = np.asarray(
                 [delivery_mod.apps_in_publish_prefix(
                     app_pub[gid, :, s], nulls[gid, :, s],
@@ -1604,5 +1861,7 @@ class GroupStream:
         self.closed = True
 
 
+register_backend("des", DESBackend)
+register_backend("des-loop", DESLoopBackend)
 register_backend("graph", GraphBackend)
 register_backend("kernel", KernelBackend)

@@ -13,9 +13,25 @@ Total SMC memory per subgroup (Sec. 4.1.2): ``n * w * (m + 8)`` bytes.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SMCConfig:
+    window: int = 100            # w; Sec. 4.1.2 recommends ~100 for 10 KB
+    max_msg_size: int = 10240    # slot message area, bytes
+    slot_overhead: int = 8       # the slot counter
+
+    @property
+    def slot_bytes(self) -> int:
+        return self.max_msg_size + self.slot_overhead
+
+    def region_bytes(self, n_nodes: int) -> int:
+        """Total pinned SMC memory for one subgroup (n * w * (m + 8))."""
+        return n_nodes * self.window * self.slot_bytes
 
 
 # --- slot arithmetic --------------------------------------------------------

@@ -7,6 +7,12 @@ and the delivery logs are built on.  Every function keeps the dtype of
 its input: torch's ``cumprod``/``sum`` on int32 would return int64, so
 each reduction names its dtype.
 
+The four round-robin helpers dispatch on the input type, as the
+reference does: a ``torch.Tensor`` takes the torch form, anything else
+(numpy arrays, Python ints) the reference's numpy expression.  The
+discrete-event simulator calls them per event on numpy arrays, where a
+torch op's dispatch cost would dominate.
+
 Messages are M(i, k): sender rank i, sender index k.  Total order:
 ``M(i1,k1) < M(i2,k2)  <=>  k1 < k2 or (k1 == k2 and i1 < i2)``, and
 ``seq_num(i, k) = k * n_senders + i``.
@@ -36,20 +42,27 @@ def _leading_run(ge: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return run.sum(dim=-1, dtype=dtype)
 
 
-def rr_prefix(counts: torch.Tensor) -> torch.Tensor:
+def rr_prefix(counts):
     """Highest N such that the first N messages of the round-robin order
     are all present, given per-sender received counts.
 
-    counts: (..., S) integer tensor; returns (...) of the same dtype.
+    counts: (..., S) integer tensor or array; returns (...) of the same
+    dtype.
     ``received_num`` (a seq number) is then ``rr_prefix(counts) - 1``.
     """
+    if not isinstance(counts, torch.Tensor):
+        m = np.min(counts, axis=-1, keepdims=True)
+        ge = counts >= (m + 1)
+        run = np.cumprod(ge.astype(counts.dtype), axis=-1)
+        extra = np.sum(run, axis=-1)
+        s = counts.shape[-1]
+        return np.squeeze(m, -1) * s + extra
     m = counts.amin(dim=-1, keepdim=True)                # complete rounds
     extra = _leading_run(counts >= m + 1, counts.dtype)  # can extend round m
     return m.squeeze(-1) * counts.shape[-1] + extra
 
 
-def rr_prefix_masked(counts: torch.Tensor, mask: torch.Tensor,
-                     s_eff) -> torch.Tensor:
+def rr_prefix_masked(counts, mask, s_eff):
     """:func:`rr_prefix` over the masked prefix of the sender axis.
 
     counts: (..., S) integer; mask: bool broadcastable to counts, True on
@@ -58,28 +71,48 @@ def rr_prefix_masked(counts: torch.Tensor, mask: torch.Tensor,
     never hold it back.  The int-max sentinel of an all-padded row wraps
     on ``+ 1`` exactly as the reference's int32 arithmetic does.
     """
+    if not isinstance(counts, torch.Tensor):
+        counts = np.asarray(counts)
+        mask = np.asarray(mask)
+        big = np.iinfo(counts.dtype).max
+        m = np.min(np.where(mask, counts, big), axis=-1, keepdims=True)
+        ge = (counts >= m + 1) & mask
+        run = np.cumprod(ge.astype(counts.dtype), axis=-1)
+        extra = np.sum(run, axis=-1)
+        return np.squeeze(m, -1) * s_eff + extra
     big = torch.iinfo(counts.dtype).max
     m = torch.where(mask, counts, big).amin(dim=-1, keepdim=True)
     extra = _leading_run((counts >= m + 1) & mask, counts.dtype)
     return m.squeeze(-1) * s_eff + extra
 
 
-def sender_counts(seq_prefix, n_senders: int) -> torch.Tensor:
+def sender_counts(seq_prefix, n_senders: int):
     """Inverse-ish of rr_prefix: per-sender message counts contained in the
     first ``seq_prefix`` messages of the round-robin order."""
-    seq_prefix = torch.as_tensor(seq_prefix)
+    if not isinstance(seq_prefix, torch.Tensor):
+        seq_prefix = np.asarray(seq_prefix)
+        full = seq_prefix[..., None] // n_senders
+        rem = seq_prefix[..., None] % n_senders
+        ranks = np.arange(n_senders)
+        return full + (ranks < rem)
     full = seq_prefix[..., None] // n_senders
     rem = seq_prefix[..., None] % n_senders
     ranks = torch.arange(n_senders, device=seq_prefix.device)
     return full + (ranks < rem)
 
 
-def sender_counts_masked(seq_prefix, s_eff, n_slots: int) -> torch.Tensor:
+def sender_counts_masked(seq_prefix, s_eff, n_slots: int):
     """:func:`sender_counts` with a per-row effective sender count
     (``s_eff``: int or tensor broadcastable to ``seq_prefix``), padded to
     ``n_slots`` columns (entries at ranks >= s_eff are meaningless and
-    must be masked by the caller)."""
-    seq_prefix = torch.as_tensor(seq_prefix)
+    must be masked by the caller).  A numpy ``seq_prefix`` takes the
+    reference's form, with a scalar ``s_eff``."""
+    if not isinstance(seq_prefix, torch.Tensor):
+        seq_prefix = np.asarray(seq_prefix)
+        full = seq_prefix[..., None] // s_eff
+        rem = seq_prefix[..., None] % s_eff
+        ranks = np.arange(n_slots)
+        return full + (ranks < rem)
     if isinstance(s_eff, torch.Tensor):
         s_eff = s_eff[..., None]
     full = seq_prefix[..., None] // s_eff

@@ -18,8 +18,9 @@ round's ``step(ready)``; after the last stage the admission queue keeps
 releasing (no new arrivals) until it empties, then the stream drains
 (:meth:`finish`) and per-message latencies are reconstructed from the
 round traces (:mod:`repro_torch.load.metrics`).  Everything is
-deterministic given (profile, target, policy): ``graph`` and ``kernel``,
-on the card and on the CPU, produce byte-identical reports.
+deterministic given (profile, target, policy): ``graph``, ``kernel`` and
+``des`` (the numpy round mirror), on the card and on the CPU, produce
+byte-identical reports but for the backend's name.
 
 ``fused=True`` runs the same accounting off device round programs
 (:class:`repro_torch.core.graphloop.RoundProgram`, one round captured as
@@ -35,8 +36,8 @@ so identical queues), and the rounds are absorbed into the stream
 ``finish``/``build_report`` post-process through the exact unfused
 machinery.  The resulting :class:`LoadReport` is byte-identical to the
 per-round loop's — fused runs mark themselves only in
-``run_report.extras['load_fused']``.  Non-lowerable policies fall back
-silently to the host loop.
+``run_report.extras['load_fused']``.  Non-lowerable policies, and a des
+stream (it has no device round), fall back silently to the host loop.
 """
 
 from __future__ import annotations
@@ -89,7 +90,8 @@ def run_profile(target, profile: Profile,
     ``max_new_tokens`` / ``prompt_len`` shape the synthetic requests on
     the serve path.  ``fused=True`` runs the profile through the fused
     device programs (byte-identical report, see the module docstring);
-    it falls back to the host loop when the policy cannot be lowered."""
+    it falls back to the host loop when the policy cannot be lowered or
+    the stream is a des stream."""
     if hasattr(target, "engines") and hasattr(target, "submit"):
         return _run_serve_profile(target, profile, admission,
                                   settle_max=settle_max,
@@ -307,9 +309,9 @@ def _run_stream_profile_fused(stream, profile: Profile,
     device, FIFO attribution replayed on the host from the device
     release/shed matrices, rounds absorbed into the stream so
     finish/build_report run the unfused machinery verbatim.  Returns
-    None (silent fallback to the host loop) when the policy has no
-    device lowering."""
-    if policy.fused_key() is None:
+    None (silent fallback to the host loop) when the stream is the des
+    numpy mirror or the policy has no device lowering."""
+    if stream._numpy or policy.fused_key() is None:
         return None
     g_n, s_max = stream.shape
     arr = np.concatenate(stage_mats, axis=0).astype(np.int32)

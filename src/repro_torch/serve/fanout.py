@@ -96,7 +96,9 @@ class ReplicatedEngine:
     ``window`` is the per-slot SMC ring window: how many undelivered
     messages a slot may have in flight before the send predicate
     throttles it.  The multicast rounds run on ``device`` (the GPU unless
-    ``"cpu"`` is named) on ``backend`` (``"kernel"`` or ``"graph"``).
+    ``"cpu"`` is named) on ``backend`` (``"kernel"`` or ``"graph"``), or
+    on the host's numpy round mirror with ``"des"`` (the engines stay on
+    ``device``).
     """
 
     def __init__(self, engines: Sequence[ServeEngine], *,

@@ -53,7 +53,9 @@ Equivalence contract (tests/test_torch_serve_fused.py): the same masked
 decode body runs in both paths; the multicast rounds ARE
 :func:`repro_torch.core.sweep.step_backlog` on the same ``ready`` counts,
 handed to :meth:`repro_torch.core.group.GroupStream.absorb`, so report
-and delivery logs come from the identical post-processing; holds pin and
+and delivery logs come from the identical post-processing (a des
+stream's program sweeps with the graph arithmetic, bit-identical to its
+numpy mirror, and absorbs the rounds into numpy); holds pin and
 release with the arithmetic of :meth:`ReplicatedEngine._sync_holds`; the
 cut is the same host code in both paths.  What falls back to the
 per-round loop is what the reference lists
@@ -73,7 +75,7 @@ import torch
 
 from repro_torch.core import sweep as sweep_mod
 from repro_torch.core.graphloop import RoundProgram, cond
-from repro_torch.core.group import TRACE_EVENTS, RunReport
+from repro_torch.core.group import TRACE_EVENTS, RunReport, host_array
 from repro_torch.models import masking
 
 I32 = torch.int32
@@ -215,7 +217,11 @@ def _build_program(engines, stream, shapes, rank_slot) -> RoundProgram:
                          backend + "+decode"))
     dev = stream.device
     params = engines[0].params
-    windows = stream._windows
+    # the round's arithmetic on the engines' device: a des stream's own
+    # round is the numpy mirror, so its program sweeps with the graph
+    # arithmetic (the receive override is the kernel backend's alone)
+    windows = torch.as_tensor(np.asarray(stream.windows, np.int32),
+                              device=dev)
     receive_fn = stream._receive
 
     def z(*shape, dtype=I32, fill=0):
@@ -759,7 +765,7 @@ def run_fused(rep, *, max_rounds: int = 10_000, fail_at=None,
         init = _epoch_init(rep, reqs, rid_to_idx, host, n_g, B, r_max)
         requeue, n_rq = _requeue_ops(rep, rid_to_idx,
                                      host["admitted"], n_g)
-        backlogs0 = stream._backlogs.cpu().numpy().astype(np.int32)
+        backlogs0 = host_array(stream._backlogs).astype(np.int32)
         birth = _hold_births(rep, birth, n_g, B)
 
     # ---- finish: settle already ran on the device; post-process -------

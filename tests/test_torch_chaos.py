@@ -145,8 +145,9 @@ def test_fused_and_des_are_not_ported_yet(port_engines):
     target drives the fused path where the drawn cuts stay homogeneous
     and falls back, saying so, where they do not — either way the report
     is the unfused soak's but for the path markers; a stream target
-    ignores ``fused``, as the reference does.  The DES is not ported:
-    ``backend="des"`` raises naming item 13."""
+    ignores ``fused``, as the reference does.  The DES is ported too:
+    ``backend="des"`` soaks the numpy round mirror and its report is the
+    ``graph`` soak's but for the backend tag."""
     spec = FaultSpec(**SERVE_SPEC)
     reports = {}
     for fused in (False, True):
@@ -170,8 +171,11 @@ def test_fused_and_des_are_not_ported_yet(port_engines):
     a = chaos_soak(_chaos_group(api), FaultSpec(), fused=True)
     b = chaos_soak(_chaos_group(api), FaultSpec())
     assert a.extras == b.extras
-    with pytest.raises(ValueError, match="item 13"):
-        chaos_soak(_chaos_group(api), FaultSpec(), backend="des")
+    d = chaos_soak(_chaos_group(api), FaultSpec(**STREAM_SPEC), seed=11,
+                   backend="des")
+    g = chaos_soak(_chaos_group(api), FaultSpec(**STREAM_SPEC), seed=11,
+                   backend="graph")
+    assert d.backend == "des" and _report(d) == _report(g)
 
 
 def test_a_failed_check_raises_an_invariant_violation():

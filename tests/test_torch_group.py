@@ -229,11 +229,24 @@ def test_entry_point_runs_on_the_gpu_or_raises():
     assert port_api.Group(cfg, device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("name", ["des", "pallas", "des-loop", "nope"])
+@pytest.mark.parametrize("name", ["pallas", "nope"])
 def test_reference_only_backends_are_refused(name):
     g = port_api.Group(port_api.single_group(3, n_messages=2), device="cpu")
     with pytest.raises(ValueError, match="kernel"):
         g.run(backend=name)
+
+
+@pytest.mark.parametrize("name", ["des", "des-loop"])
+def test_des_backends_run(name):
+    """The discrete-event backends run on a CPU Group and equal the
+    reference's, every report field (floats included) and log exact."""
+    port_g = port_api.Group(port_api.single_group(3, n_messages=2),
+                            device="cpu")
+    ref_g = ref_api.Group(ref_api.single_group(3, n_messages=2))
+    got, want = port_g.run(backend=name), ref_g.run(backend=name)
+    assert got.backend == name and got.delivered_app_msgs == 3 * 3 * 2
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    _assert_logs_equal(port_g.delivery_logs, ref_g.delivery_logs)
 
 
 def test_run_batch_needs_a_grid_and_equal_lengths():

@@ -154,6 +154,19 @@ def test_fused_slice_modules_import_without_a_gpu(module):
     assert mod.__name__ == module
 
 
+DES_MODULES = (
+    "repro_torch.core.simulator", "repro_torch.core.desgraph",
+    "repro_torch.core.desreplay", "repro_torch.configs.spindle_smc")
+
+
+@pytest.mark.parametrize("module", DES_MODULES)
+def test_des_slice_modules_import_without_a_gpu(module):
+    """The discrete-event simulator's modules are host code: they import
+    on a CPU-only machine."""
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+
+
 def test_fused_slice_has_its_graph_source():
     src = (ROOT / "src/repro_torch/kernels/csrc/graph_cond.cu").read_text()
     assert "cudaGraphSetConditional" in src and "__global__" in src

@@ -1,9 +1,9 @@
 """The port's workload plane (``repro_torch.load``) against the
 reference's, on the CPU.
 
-``tests/test_load.py``'s cases but the DES conformance one (the DES is
-not ported): seeded arrivals and profiles drawing the reference's
-matrices, the harness on ``graph`` and ``kernel`` giving byte-identical
+``tests/test_load.py``'s cases: seeded arrivals and profiles drawing the
+reference's matrices, the DES conformance of a small fleet, the harness
+on ``graph``, ``kernel`` and ``des`` giving byte-identical
 ``LoadReport``s (and the reference's JSON, byte for byte), honest
 saturation under the bounding policies, the serve-plane lowering, the
 bounded program history, and ``fused=True`` — the profile's rounds and
@@ -451,6 +451,57 @@ def test_fused_profile_falls_back_silently():
     r2 = run_profile(_group(), _small_profile(), HostOnly())
     assert "load_fused" not in r1.run_report.extras
     assert r1.json_str() == r2.json_str()
+
+
+def test_fused_profile_falls_back_silently_on_des():
+    """The des numpy stream keeps the host loop: the same report as its
+    host loop, no load_fused marker, and the graph host loop's JSON but
+    for the backend name."""
+    rdes_f = run_profile(_group(), _small_profile(), AdmitAll(),
+                         backend="des", fused=True)
+    rdes_u = run_profile(_group(), _small_profile(), AdmitAll(),
+                         backend="des")
+    assert "load_fused" not in rdes_f.run_report.extras
+    assert rdes_f.json_str() == rdes_u.json_str()
+    rg = run_profile(_group(), _small_profile(), AdmitAll(),
+                     backend="graph")
+    assert rdes_u.json_str().replace('"des"', '"graph"') == rg.json_str()
+
+
+def test_des_conformance_small_fleet():
+    """The stream's released traffic, replayed as a des scenario, is
+    order-invariant conformant: identical per-sender app counts at every
+    member, each delivered in FIFO (gapless prefix) order; and the port's
+    des run equals the reference's on the same counts."""
+    logs = {}
+    for name, pkg, ld in (("port", api, load), ("ref", ref_api, ref_load)):
+        g = _group(pkg, n=4, senders=2, window=4)
+        stream = g.stream(backend="graph")
+        ld.run_profile(stream, _profile(ld, seed=3, overload=3.0,
+                                        rounds=12),
+                       ld.WindowSlack(inflight_limit=8, queue_cap=8))
+        _, app_pub, _ = stream.traces()
+        sent = app_pub[0].sum(axis=0)        # per-sender released apps
+        g2 = _group(pkg, n=4, senders=2, window=4)
+        h = g2.subgroup(0)
+        for rank, count in enumerate(sent):
+            if count:
+                h.send(sender=h.spec.senders[rank], n=int(count))
+        g2.run(backend="des")
+        logs[name] = (g.delivery_logs[0], g2.delivery_logs[0], h.spec, sent)
+    graph_log, des_log, spec, sent = logs["port"]
+    assert sent.sum() > 0
+    np.testing.assert_array_equal(sent, logs["ref"][3])
+    for node in spec.members:
+        assert des_log.sequence(node) == logs["ref"][1].sequence(node)
+        for log in (graph_log, des_log):
+            by_rank = {}
+            for rank, idx, _app in log.sequence(node):
+                by_rank.setdefault(rank, []).append(idx)
+            for rank, idxs in by_rank.items():
+                # FIFO: app slots delivered in publish order (idx gaps are
+                # null slots the open-loop stream published on idle lanes)
+                assert idxs == sorted(idxs) and len(set(idxs)) == len(idxs)
 
 
 def test_serve_target_fused_loadreport_bit_identical(load_engines):

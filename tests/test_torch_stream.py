@@ -267,7 +267,9 @@ def test_kernel_stream_sweeps_once_per_round(monkeypatch):
 def test_stream_and_bind_validate_inputs():
     cfg = port_api.single_group(3, n_senders=2, n_messages=4)
     with pytest.raises(ValueError, match="unknown backend"):
-        port_api.Group(cfg, device="cpu").stream(backend="des")
+        port_api.Group(cfg, device="cpu").stream(backend="pallas")
+    with pytest.raises(ValueError, match="graph/kernel/des"):
+        port_api.Group(cfg, device="cpu").stream(backend="des-loop")
     stream = port_api.Group(cfg, device="cpu").stream()
     with pytest.raises(ValueError, match="ready must be"):
         stream.step(np.zeros((2, 2), np.int32))
