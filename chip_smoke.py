@@ -27,7 +27,9 @@ internvl2-26b and seamless-m4t-medium at full width,
 ``ReplicatedEngine.run`` per round and fused on qwen2-moe-a2.7b and per
 round on seamless-m4t-medium) and their training (``Trainer`` on
 zamba2-2.7b, qwen2-moe-a2.7b, deepseek-moe-16b, internvl2-26b and
-seamless-m4t-medium at full width).
+seamless-m4t-medium at full width), and the launch plane (the serve and
+train launchers, the dry-run and roofline tools, the multicast grid
+sharded over named devices).
 
 Phases (one JSON line each; any failure exits non-zero):
 
@@ -267,9 +269,23 @@ Phases (one JSON line each; any failure exits non-zero):
    from ``--moe-seed-search 35``).  Phases 32-35 run in a child
    process of their own (``--families-train-phases``), timed runs
    before profiled ones;
-36. the ``kernels`` line: per kernel its launches on the main paths
-   (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34 and, from the
-   device traces, 18 and 20), its times and its bound.
+36. the DES held to the card runs of phases 2, 14, 17 and 20
+   (``--des-phase`` runs it alone);
+37. the launch plane: ``python -m repro_torch.launch.serve --arch
+   qwen3-1.7b`` and ``python -m repro_torch.launch.train`` (full-width
+   qwen3-1.7b, 3 steps of 8 x 128) as child processes, their lines
+   parsed; the same launchers in-process with exact launches (the serve
+   run also in float32, kernels against plain, identical tokens; the
+   train steps' launches phase 12's at W = 1); the dry-run children
+   (qwen3-1.7b x every shape on one pod, qwen2-72b ``train_4k`` on two,
+   statuses as ``skip_reason`` says, CUDA never initialised there) and
+   ``repro_torch.launch.roofline`` on their records, beside the card
+   work; phase 3's grids through ``run_batch(devices=[cuda:0] * k)``,
+   one chunk a device, identical to phase 3's unsharded and per-point
+   runs (``--launch-phase`` runs it alone, after the build and phase 3);
+then the ``kernels`` line: per kernel its launches on the main paths
+(phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34, 37 and, from the
+device traces, 18 and 20), its times and its bound.
 
 The round loop of every card multicast ``kernel`` run executes under
 ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
@@ -282,11 +298,15 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -312,9 +332,12 @@ from repro_torch.kernels import quantize as qz  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels import smc_sweep as ss  # noqa: E402
 from repro_torch.kernels import ssd_scan as sc  # noqa: E402
+from repro_torch.kernels.meta import (attention_flops,  # noqa: E402
+                                      ssd_flops)
 from repro_torch.models import (attention, encdec, hybrid,  # noqa: E402
                                 layers, moe, registry, transformer)
-from repro_torch.models.config import ShapeConfig  # noqa: E402
+from repro_torch.models.config import (ShapeConfig,  # noqa: E402
+                                       shape_by_name)
 from repro_torch.models.runtime import Runtime  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
@@ -671,7 +694,10 @@ def profile_run(cfg):
 
 
 def phase3_grids():
-    rows = {}
+    """The two grids as one ``run_batch`` each on card ``kernel``, every
+    point against its own sequential run; returns each grid's config,
+    grid, batch reports and (solo report, solo logs) per point."""
+    rows, grids_run = {}, {}
     grids = (
         ("fig6_windows", api.single_group(16, msg_size=10240, n_messages=800),
          {"windows": [5, 20, 100, 500, 1000]}),
@@ -690,6 +716,7 @@ def phase3_grids():
         check(launches == t_max, f"{label}: {launches} launches for a "
               f"{t_max}-round grid (want one per round)")
         (key, values), = grid.items()
+        solos = []
         for value, report in zip(values, reports):
             if key == "windows":
                 over = {"subgroups": tuple(dataclasses.replace(
@@ -703,11 +730,14 @@ def phase3_grids():
             same_logs(report.extras["delivery_logs"], solo.delivery_logs,
                       f"{label} point {value}")
             same_report(report, solo_report, f"{label} point {value}")
+            solos.append((solo_report, solo.delivery_logs))
         rows[label] = {"points": len(reports), "rounds": t_max,
                        "launches": launches, "batch_wall_s": wall,
                        "per_round_ms": wall / t_max * 1e3,
                        "per_point": [r.summary() for r in reports]}
+        grids_run[label] = (cfg, grid, reports, solos)
     emit({"phase": 3, "identical_to_sequential": True, **rows})
+    return grids_run
 
 
 def dds_domain():
@@ -1181,22 +1211,6 @@ def serve_kernels_vs_plain(cfg, run, per_step: dict, what: str):
 # ---------------------------------------------------------------------------
 # the forward path's kernels and the forward path itself
 # ---------------------------------------------------------------------------
-
-def attention_flops(b: int, s: int, hq: int, d: int, causal: bool) -> int:
-    """QK^T and PV over the (query, key) pairs the mask keeps."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    return 4 * b * hq * d * pairs
-
-
-def ssd_flops(b: int, s: int, h: int, p: int, n: int, g: int,
-              chunk: int) -> int:
-    """The SSD scan's matrix work: the causal C B^T scores once per group
-    (every head of a group shares them), their product with x dt, and
-    the inbound-state and state-update terms per head."""
-    pairs = chunk * (chunk + 1) // 2
-    per_chunk = g * 2 * n * pairs + h * (2 * p * pairs + 4 * chunk * n * p)
-    return b * (s // chunk) * per_chunk
-
 
 def sdpa_causal_library(q, k, v, causal):
     """One ``scaled_dot_product_attention`` call over the same inputs in
@@ -5629,6 +5643,277 @@ def families_train_phases() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# the launch plane: the serve and train launchers, the dry-run and the
+# roofline report, and the grid sharded over named devices
+# ---------------------------------------------------------------------------
+
+LAUNCH_PHASE_FLAG = "--launch-phase"
+LAUNCH_SERVE_ARGS = ["--arch", "qwen3-1.7b"]
+LAUNCH_TRAIN_ARGS = ["--arch", "qwen3-1.7b", "--steps", "3", "--seq-len",
+                     "128", "--global-batch", "8", "--log-every", "1"]
+LAUNCH_DRYRUNS = (("pod16x16", ["--arch", "qwen3-1.7b", "--shape", "all",
+                                "--mesh", "single"]),
+                  ("pod2x16x16", ["--arch", "qwen2-72b", "--shape",
+                                  "train_4k", "--mesh", "multi"]))
+LAUNCH_DRYRUN_DIR = ROOT / "results" / "dryrun_torch"
+# the dry-run's CLI run as ``__main__``, then whether it initialised CUDA
+DRYRUN_CHILD = (
+    "import json, runpy, torch; "
+    "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__', "
+    "alter_sys=True); "
+    "print(json.dumps({'cuda_initialized': torch.cuda.is_initialized()}))")
+# each grid of phase 3 sharded over these devices: one chunk a device
+LAUNCH_GRID_DEVICES = {"fig6_windows": ["cuda:0"] * 5,
+                       "fig11_null_send": ["cuda:0", "cuda:0"]}
+SERVE_LINE = re.compile(r"served (\d+) requests, (\d+) tokens in ([\d.]+)s "
+                        r"\(([\d.]+) tok/s, (\d+) decode steps, (\d+) "
+                        r"rounds\)")
+LATENCY_LINE = re.compile(r"latency mean (\d+)ms p99 (\d+)ms")
+STEP_LINE = re.compile(r"step +(\d+) loss ([-\d.naif]+) ")
+
+
+def launch_child(argv, timeout: int):
+    """Run ``argv`` from the checkout's root with ``src`` on the path;
+    returns (stdout lines, wall seconds); fails on a non-zero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, cwd=ROOT,
+                          env=env, timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{' '.join(argv[1:4])} exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout.strip().splitlines(), wall
+
+
+def launch_dryruns() -> dict:
+    """The dry-run children (qwen3-1.7b x every shape on one pod,
+    qwen2-72b train_4k on two) and the roofline report of each mesh;
+    host code, run beside the card phases."""
+    out = {"cells": [], "roofline_rows": {}, "walls_s": []}
+    for mesh_name, args in LAUNCH_DRYRUNS:
+        lines, wall = launch_child(
+            [sys.executable, "-c", DRYRUN_CHILD, *args, "--out",
+             str(LAUNCH_DRYRUN_DIR), "--force"], 300)
+        check(json.loads(lines[-1]) == {"cuda_initialized": False},
+              f"the dry-run initialised CUDA: {lines[-1]}")
+        out["walls_s"].append(wall)
+        for line in lines[:-1]:
+            if line.startswith("[dryrun]"):
+                continue
+            status, _, arch, shape = line.split()[:4]
+            rec = json.loads((LAUNCH_DRYRUN_DIR / mesh_name /
+                              f"{arch}__{shape}.json").read_text())
+            out["cells"].append({
+                "mesh": mesh_name, "arch": arch, "shape": shape,
+                "status": rec["status"], "trace_s": rec.get("trace_s"),
+                **({k: rec["roofline"][k] for k in (
+                    "dominant", "bound_s", "mfu_bound")}
+                   if rec["status"] == "ok" else {}),
+                "error": rec.get("error")})
+            check(status == f"[{rec['status']}]", f"dry-run line {line}")
+        table, _ = launch_child(
+            [sys.executable, "-m", "repro_torch.launch.roofline", "--dir",
+             str(LAUNCH_DRYRUN_DIR), "--mesh", mesh_name], 120)
+        out["roofline_rows"][mesh_name] = table[2:]
+    return out
+
+
+def launch_serve_f32(args) -> dict:
+    """The serve launcher's run in float32 on the kernels and on the
+    plain versions: identical tokens, request by request."""
+    from repro_torch.launch import serve as serve_launcher
+    cfg = registry.get(args.arch).cfg.reduced()
+    tokens, counts = {}, {}
+    for key, rt in (("kernels", Runtime()), ("plain",
+                                             Runtime(kernels="plain"))):
+        params = registry.Arch(cfg).init_params(args.seed, "cuda",
+                                                torch.float32)
+        before = ops.launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            done = serve_launcher.serve(args, params=params, device="cuda",
+                                        rt=rt)
+        counts[key] = launches_since(before)
+        tokens[key] = {r.rid: list(r.tokens_out) for r in done}
+    check(tokens["kernels"] == tokens["plain"],
+          "launch serve: float32 tokens differ between the kernels and "
+          "the plain versions")
+    check(counts["plain"] == {}, f"the plain run launched {counts['plain']}")
+    return {"requests": len(tokens["kernels"]), "identical_tokens": True,
+            "kernels_launches": counts["kernels"]}
+
+
+def launch_grids(grids_run) -> dict:
+    """Phase 3's grids through ``run_batch`` sharded over named devices
+    (``[cuda:0] * k``: the chunks one after another on the card): every
+    point identical to phase 3's unsharded batch and per-point runs."""
+    from repro_torch.core import placement
+    rows = {}
+    for label, devices in LAUNCH_GRID_DEVICES.items():
+        cfg, grid, batch, solos = grids_run[label]
+        (key, values), = grid.items()
+        n_shards = placement.shard_count(len(values), devices)
+        check(n_shards == len(devices), f"{label}: {n_shards} shards")
+        before = ss.WATERMARK_LAUNCHES
+        t0 = time.perf_counter()
+        reports = api.Group(cfg, device="cuda").run_batch(
+            backend=SyncCheckedKernelBackend("cuda"), devices=devices,
+            **grid)
+        wall = time.perf_counter() - t0
+        launches = ss.WATERMARK_LAUNCHES - before
+        t_max = max(r.rounds for r in reports)
+        check(launches == n_shards * t_max, f"{label} sharded: {launches} "
+              f"launches, want {n_shards} x {t_max}")
+        for value, rs, rb, (solo, solo_logs) in zip(values, reports, batch,
+                                                     solos):
+            what = f"{label} sharded point {value}"
+            same_logs(rs.extras["delivery_logs"],
+                      rb.extras["delivery_logs"], what + " (batch)")
+            same_report(rs, rb, what + " (batch)")
+            same_logs(rs.extras["delivery_logs"], solo_logs,
+                      what + " (solo)")
+            same_report(rs, solo, what + " (solo)")
+        rows[label] = {"points": len(values), "shards": n_shards,
+                       "devices": devices, "rounds": t_max,
+                       "launches": launches, "batch_wall_s": wall,
+                       "identical_to_unsharded_and_solo": True}
+    return rows
+
+
+def phase37_launch(grids_run, smi_line: str) -> dict:
+    """The launch plane: (a) the serve launcher as a child process and
+    in-process (bf16 as the CLI, then float32 kernels against plain), (b)
+    the train launcher at full width as a child and in-process, (c) the
+    dry-run and roofline children (beside the card work), (d) phase 3's
+    grids sharded over named devices, (e) the phase's seconds.  Returns
+    the launch path's counts: the in-process launcher runs and the
+    sharded grids."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        dry = pool.submit(launch_dryruns)
+
+        # (a) and (b) as a user starts them
+        lines, serve_wall = launch_child(
+            [sys.executable, "-m", "repro_torch.launch.serve",
+             *LAUNCH_SERVE_ARGS], 300)
+        m, lat = SERVE_LINE.fullmatch(lines[-2]), \
+            LATENCY_LINE.fullmatch(lines[-1])
+        check(m is not None and lat is not None,
+              f"serve launcher lines: {lines[-2:]}")
+        serve_args = serve_launcher.parse_args(LAUNCH_SERVE_ARGS)
+        check(int(m[1]) == serve_args.requests and int(m[2]) ==
+              serve_args.requests * serve_args.max_new,
+              f"serve launcher served {m[1]} requests, {m[2]} tokens")
+        serve_cli = {"requests": int(m[1]), "tokens": int(m[2]),
+                     "seconds": float(m[3]), "tokens_per_s": float(m[4]),
+                     "decode_steps": int(m[5]), "rounds": int(m[6]),
+                     "latency_mean_ms": int(lat[1]),
+                     "latency_p99_ms": int(lat[2]),
+                     "process_wall_s": serve_wall}
+        lines, train_wall = launch_child(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *LAUNCH_TRAIN_ARGS], 600)
+        cli_losses = [float(s[2]) for s in map(STEP_LINE.match, lines) if s]
+        train_args = train_launcher.parse_args(LAUNCH_TRAIN_ARGS)
+        cfg = registry.get(train_args.arch).cfg
+        ln_v = math.log(cfg.vocab_size)
+        check(len(cli_losses) == train_args.steps
+              and all(math.isfinite(x) for x in cli_losses)
+              and abs(cli_losses[0] - ln_v) < 1.0,
+              f"train launcher losses {cli_losses} (ln V = {ln_v:.2f})")
+
+        # in-process: the launch path's counted runs
+        ops.reset_launch_counts()             # the launch path starts here
+        serve_out = io.StringIO()
+        with contextlib.redirect_stdout(serve_out):
+            done = serve_launcher.serve(serve_args, device="cuda")
+        m = SERVE_LINE.fullmatch(serve_out.getvalue().splitlines()[0])
+        serve_counts = ops.launch_counts()
+        steps_ = int(m[5])
+        small = registry.get(serve_args.arch).cfg.reduced()
+        want = {k: v * steps_ for k, v in
+                decoder_launches(small, "flash_decode").items()}
+        check({k: serve_counts.get(k, 0) for k in want} == want,
+              f"serve launcher launches {serve_counts}, want {want}")
+        check(len(done) == serve_args.requests, "serve launcher drained")
+
+        want_step = train_launches(cfg, 1, 0)
+        walls, per_step = [], []
+        mark = {"t": None, "counts": None}
+
+        def on_step(step, metrics):
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - mark["t"])
+            per_step.append(launches_since(mark["counts"]))
+            mark["t"], mark["counts"] = time.perf_counter(), \
+                ops.launch_counts()
+
+        torch.cuda.synchronize()
+        mark["t"], mark["counts"] = time.perf_counter(), ops.launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer = train_launcher.train(train_args, device="cuda",
+                                           on_step=on_step)
+        for i, made in enumerate(per_step):
+            check(made == want_step, f"train launcher step {i + 1}: "
+                  f"launches {made}, want {want_step}")
+        losses = [h["loss"] for h in trainer.history]
+        # the CLI prints 4 decimals: the same steps in another process
+        check([f"{x:.4f}" for x in losses] == [f"{x:.4f}" for x in
+                                               cli_losses],
+              f"train launcher in-process losses {losses} != the CLI's "
+              f"{cli_losses}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        grids = launch_grids(grids_run)
+        launches = ops.launch_counts()        # ... and ends here
+
+        serve_f32 = launch_serve_f32(serve_args)
+        dryruns = dry.result()
+    for cell in dryruns["cells"]:
+        reason = registry.get(cell["arch"]).skip_reason(
+            shape_by_name(cell["shape"]))
+        check(cell["status"] == ("skipped" if reason else "ok"),
+              f"dry-run cell {cell}")
+    tokens = train_args.global_batch * train_args.seq_len
+    phase_s = time.perf_counter() - t0
+    emit({"phase": 37, "card": smi_line,
+          "serve_cli": serve_cli, "serve_in_process": {
+              "launches": {k: serve_counts.get(k, 0) for k in want},
+              "decode_steps": steps_},
+          "serve_f32_kernels_vs_plain": serve_f32,
+          "train": {"model": train_args.arch, "layers": cfg.n_layers,
+                    "batch": train_args.global_batch,
+                    "seq": train_args.seq_len,
+                    "cli_losses": cli_losses, "cli_wall_s": train_wall,
+                    "launches_per_step": want_step, "step_wall_s": walls,
+                    "tokens_per_s": [tokens / w for w in walls]},
+          "dryrun": dryruns, "grids": grids, "launches": launches,
+          "phase_s": phase_s})
+    check(phase_s < 150, f"phase 37 took {phase_s:.0f} s")
+    return launches
+
+
+def launch_phase() -> int:
+    """Phase 37 alone (``chip_smoke.py --launch-phase``), after the
+    build and phase 3 it compares with."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi_line = phase0_identity()
+    launch = phase37_launch(phase3_grids(), smi_line)
+    check(all(launch.get(k, 0) > 0 for k in (
+        "smc_sweep_watermark", "flash_decode", "flash_attention",
+        "rms_norm", "rms_norm_residual")),
+        f"the launch path skipped a kernel: {launch}")
+    emit({"launch": launch})
+    return 0
+
+
 KERNELS = (
     ("smc_sweep_watermark", "cuda", "src/repro_torch/kernels/csrc/smc_sweep.cu",
      "src/repro/kernels/smc_sweep.py:153 smc_sweep_watermark_pallas"),
@@ -5663,7 +5948,7 @@ LINE_SHAPES = {
     "ssd_scan": ("B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256", torch.bfloat16),
 }
 PATHS = ("multicast", "serve", "forward", "train", "cut", "fused", "load",
-         "recurrent", "families", "families_train")
+         "recurrent", "families", "families_train", "launch")
 
 
 def main() -> int:
@@ -5684,10 +5969,12 @@ def main() -> int:
         return families_train_phases()
     if DES_PHASE_FLAG in sys.argv[1:]:
         return des_phase()
+    if LAUNCH_PHASE_FLAG in sys.argv[1:]:
+        return launch_phase()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase0_identity()
+    smi_line = phase0_identity()
     shapes = (("group16", 16 * 16, 100), ("fig6_grid", 5 * 16 * 16, 1000),
               ("dds_stack", dds_lanes(), 100), ("large", 1 << 20, 100),
               ("extremes", 4099, 1000))
@@ -5695,7 +5982,7 @@ def main() -> int:
 
     ops.reset_launch_counts()                 # the multicast path starts here
     testbed = phase2_testbed()
-    phase3_grids()
+    grids_run = phase3_grids()
     phase4_dds()
     multicast = ops.launch_counts()           # ... and ends here
     check(multicast["smc_sweep_watermark"] > 0,
@@ -5781,13 +6068,21 @@ def main() -> int:
         "rms_norm", "rms_norm_residual", "quantize", "dequantize")),
         f"the families_train path skipped a kernel: {families_train}")
 
+    # the launch plane: the launchers as a user starts them, the dry-run
+    # and the roofline report, phase 3's grids sharded over named devices
+    launch = phase37_launch(grids_run, smi_line)
+    check(all(launch.get(k, 0) > 0 for k in (
+        "smc_sweep_watermark", "flash_decode", "flash_attention",
+        "rms_norm", "rms_norm_residual")),
+        f"the launch path skipped a kernel: {launch}")
+
     _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
     line_shapes = dict(LINE_SHAPES, **{
         name: (f"n={TRAIN_WORKERS * shard} block={shard}", torch.float32)
         for name in ("quantize", "dequantize")})
     by_path = dict(zip(PATHS, (multicast, serve, forward, train, cut,
                                fused, load, recurrent, families,
-                               families_train)))
+                               families_train, launch)))
     kernels = []
     for name, route, source, replaces in KERNELS:
         if name in line_shapes:

@@ -11,8 +11,9 @@ serve plane on the streamed multicast, ``train/``, ``optim/`` and
 checkpoints, AdamW, the token pipeline), and ``kernels/`` the
 hand-written Hopper kernels in CUDA (the SMC receive sweep, flash
 decode, flash attention, the SSD scan, RMSNorm with and without the
-residual add, and the int8 quantize pair).  Nothing here imports ``jax``
-or ``repro``.
+residual add, and the int8 quantize pair), ``launch/`` the serve and
+train launchers, the meta-device dry-run and its roofline report.
+Nothing here imports ``jax`` or ``repro``.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``;
 :func:`resolve_device` is the one place that decision is made.

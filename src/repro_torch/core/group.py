@@ -57,7 +57,7 @@ import collections
 import dataclasses
 import time
 from typing import (Any, Callable, Deque, Dict, List, Mapping, Optional,
-                    Protocol, Tuple)
+                    Protocol, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -66,6 +66,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.core import costmodel, delivery as delivery_mod
 from repro_torch.core import desgraph as desgraph_mod
 from repro_torch.core import desreplay as desreplay_mod
+from repro_torch.core import placement as placement_mod
 from repro_torch.core import simulator as sim
 from repro_torch.core import sst
 from repro_torch.core import sweep as sweep_mod
@@ -483,7 +484,8 @@ class Group:
         return report
 
     def run_batch(self, backend="kernel", *, windows=None, null_send=None,
-                  n_messages=None) -> List[RunReport]:
+                  n_messages=None, devices: Optional[Sequence] = None
+                  ) -> List[RunReport]:
         """Execute a grid of scenario variants as ONE batched loop.
 
         Each keyword is ``None`` (keep the configured value) or a sequence
@@ -494,6 +496,12 @@ class Group:
         tensor dimension); schedules are padded to a common round budget
         and per-point traces sliced back, so each report equals the
         corresponding sequential :meth:`run`.
+
+        ``devices`` shards the grid on the ``graph`` and ``kernel``
+        backends: one chunk a device over the largest count of them that
+        divides the grid (:mod:`repro_torch.core.placement`; e.g. four
+        ``cpu`` devices, or ``[cuda:0, cuda:0]``), every point's result
+        unchanged.  Without it the grid runs whole on the group's device.
 
         Returns one :class:`RunReport` per point; each report carries its
         delivery logs in ``extras["delivery_logs"]``.  Delivery upcalls do
@@ -529,7 +537,14 @@ class Group:
         counts = [{g: self.send_counts(g, c)
                    for g in range(len(c.subgroups))} for c in cfgs]
         be = get_backend(backend, self.device)
-        if hasattr(be, "run_batch"):
+        if devices is not None:
+            if not isinstance(be, GraphBackend) or isinstance(be,
+                                                              DESBackend):
+                name = getattr(be, "name", be)
+                raise ValueError(f"devices= shards the graph and kernel "
+                                 f"backends' grid, not {name!r}'s")
+            results = be.run_batch(cfgs, counts, devices=devices)
+        elif hasattr(be, "run_batch"):
             results = be.run_batch(cfgs, counts)
         else:
             results = [be.run(c, k) for c, k in zip(cfgs, counts)]
@@ -788,13 +803,15 @@ class GraphBackend:
                  windows: torch.Tensor, null_send, member_masks,
                  sender_masks, n_max: int, ring_window: int):
         """The device part of a run: the stacked round loop plus the cost
-        fold, inputs and outputs on ``self.device``, nothing copied to
-        the host.  scheds: (G, T, S_max) with a Python-bool
-        ``null_send``, or (B, G, T, S_max) with a (B,) bool tensor.
+        fold, inputs and outputs on the inputs' device (``self.device``,
+        or a grid chunk's device under :mod:`repro_torch.core.
+        placement`), nothing copied to the host.  scheds: (G, T, S_max)
+        with a Python-bool ``null_send``, or (B, G, T, S_max) with a (B,)
+        bool tensor.
         Returns (batches, app_pub, nulls, round_t, round_w)."""
         states = sweep_mod.batch_states(n_max, scheds.shape[-1],
                                         tuple(scheds.shape[:-2]),
-                                        self.device)
+                                        scheds.device)
         receive_fn = self._receive_fn(ring_window)
         if scheds.dim() == 3:
             _, (batches, app_pub, nulls) = sweep_mod.run_stacked(
@@ -825,13 +842,17 @@ class GraphBackend:
         return self._report(agg, wall0), agg.logs
 
     def run_batch(self, cfgs: List[GroupConfig],
-                  counts_list: List[Dict[int, np.ndarray]]
+                  counts_list: List[Dict[int, np.ndarray]],
+                  devices: Optional[Sequence] = None
                   ) -> List[Tuple[RunReport, Dict[int, DeliveryLog]]]:
         """Execute B scenario variants in ONE stacked round loop — every
         grid point, every subgroup.  All points must share membership
         shapes; schedules are padded to the common round budget and each
         point's traces sliced back to its own budget afterwards, so every
-        point's results are identical to a sequential :meth:`run`."""
+        point's results are identical to a sequential :meth:`run`.
+        ``devices`` (default: this backend's one device) shards the grid
+        one chunk a device (:mod:`repro_torch.core.placement`) when more
+        than one of them divides it."""
         if not cfgs:
             return []
         base = cfgs[0]
@@ -867,7 +888,7 @@ class GraphBackend:
         member_masks, sender_masks = _stack_masks(members, senders)
         outs = self._run_device(members, scheds, costs, windows, nulls_on,
                                 member_masks, sender_masks,
-                                int(windows.max()))
+                                int(windows.max()), devices)
         results = []
         for i in range(b):
             agg = _GraphAgg()
@@ -881,18 +902,27 @@ class GraphBackend:
         return results
 
     def _run_device(self, members, scheds, costs, windows, null_send,
-                    member_masks, sender_masks, ring_window: int
-                    ) -> List[np.ndarray]:
+                    member_masks, sender_masks, ring_window: int,
+                    devices: Optional[Sequence] = None) -> List[np.ndarray]:
         """Copy the lowered inputs to the device, run :meth:`_execute`,
         and copy its five traces back (the only device-to-host copies of a
-        run)."""
+        run).  A batch grid shards over ``devices`` when
+        :func:`~repro_torch.core.placement.shard_count` gives more than
+        one chunk; otherwise it runs whole on ``self.device``."""
         dev = self._to_device
         if not isinstance(null_send, bool):
             null_send = dev(null_send)
         masks = (None, None) if member_masks is None else \
             (dev(member_masks), dev(sender_masks))
-        outs = self._execute(dev(scheds), dev(costs), dev(windows),
-                             null_send, *masks, max(members), ring_window)
+        execute = self._execute
+        if devices is not None:
+            n_shards = placement_mod.shard_count(scheds.shape[0], devices)
+            if n_shards > 1:
+                execute = placement_mod.shard_over_batch(
+                    self._execute, list(devices)[:n_shards],
+                    n_batched_args=4)
+        outs = execute(dev(scheds), dev(costs), dev(windows), null_send,
+                       *masks, max(members), ring_window)
         return [o.cpu().numpy() for o in outs]
 
     # -- host-side post-processing -------------------------------------------

@@ -41,6 +41,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta
 from repro_torch.kernels.autograd import kernel_with_plain_grad
 from repro_torch.precision import compute
 
@@ -209,6 +210,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _meta_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool) -> torch.Tensor:
+    """The dry-run's launch on ``meta`` tensors (:mod:`.meta`)."""
+    b, s, hq, d = q.shape
+    return meta.launch("flash_attention", (q, k, v),
+                       meta.empty((b, s, hq, d), q.dtype),
+                       meta.attention_flops(b, s, hq, d, causal))
+
+
 def tile_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block of the bfloat16 kernel's tensor-core steps alone: q
@@ -244,11 +254,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     each read through its strides (the head dim must be contiguous) ->
     (B, S, Hq, D) in q's dtype, contiguous.  CPU tensors run the plain
     version; CUDA tensors launch the kernel on the current stream, with
-    the plain version's gradient where one is needed."""
+    the plain version's gradient where one is needed; ``meta`` tensors
+    take the dry-run's meta launch (:mod:`.meta`), with the same
+    gradient."""
     _check(q, k, v)
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
+    if dev.type == "meta":
+        return kernel_with_plain_grad(
+            lambda q_, k_, v_: _meta_launch(q_, k_, v_, causal),
+            lambda q_, k_, v_: flash_attention_plain(q_, k_, v_, causal),
+            q, k, v)
     if dev.type != "cuda":
         raise ValueError(f"no flash_attention for device {dev}")
     return kernel_with_plain_grad(

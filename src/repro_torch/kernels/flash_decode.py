@@ -32,6 +32,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta
 from repro_torch.kernels.autograd import refuse_grad
 from repro_torch.precision import compute
 
@@ -268,9 +269,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     tensors run the plain version.  CUDA tensors launch the kernels on
     the current stream; they take a head dim D that is a multiple of 8
     from 8 to 256 and Hq/Hkv from 1 to 16, and raise outside that range
-    (:func:`check_kernel_shape`), as on any device other than the CPU.
-    There is no gradient: with grad mode on and an input that requires
-    one, it raises."""
+    (:func:`check_kernel_shape`), as on any device other than the CPU;
+    ``meta`` tensors of an accepted shape take the dry-run's meta launch
+    (:mod:`.meta`).  There is no gradient: with grad mode on and an
+    input that requires one, it raises."""
     _check(q, k_cache, v_cache, kv_len)
     if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
                                     or v_cache.requires_grad):
@@ -280,4 +282,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, kv_len)
     check_kernel_shape(q.shape[2], q.shape[1] // k_cache.shape[2])
+    if q.device.type == "meta":
+        b, hq, d = q.shape
+        return meta.launch("flash_decode", (q, k_cache, v_cache, kv_len),
+                           meta.empty((b, hq, d), q.dtype),
+                           meta.decode_flops(b, hq, d, k_cache.shape[1]))
     raise ValueError(f"no flash_decode for device {q.device}")

@@ -1,6 +1,8 @@
 """Public wrappers around the port's kernels: what the protocol core and
 the model call.  Each takes CUDA tensors to its Hopper kernel and CPU
-tensors to its plain version (see the kernel modules); :data:`PLAIN`
+tensors to its plain version (see the kernel modules); a model site
+takes ``meta`` tensors to the dry-run's meta launch
+(:mod:`repro_torch.kernels.meta`); :data:`PLAIN`
 maps the kernel sites of the models and of the gradient reduction to
 the plain versions for ``Runtime(kernels="plain")``."""
 

@@ -32,6 +32,7 @@ from typing import Dict, Iterator, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta
 
 # Launches of the CUDA kernels in this process (the plain versions count
 # nothing).
@@ -216,7 +217,8 @@ def quantize(x: torch.Tensor, block: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (n,) float32 or bfloat16, ``block`` dividing n -> (q (n,) int8,
     scales (n / block,) float32).  CPU tensors run the plain version; CUDA
-    tensors launch the kernel on the current stream."""
+    tensors launch the kernel on the current stream; ``meta`` tensors
+    take the dry-run's meta launch (:mod:`.meta`)."""
     global QUANTIZE_LAUNCHES
     if x.dim() != 1:
         raise ValueError(f"quantize takes a flat (n,) tensor, got "
@@ -228,6 +230,10 @@ def quantize(x: torch.Tensor, block: int
     dev = x.device
     if dev.type == "cpu":
         return quantize_plain(x, block)
+    if dev.type == "meta":
+        return meta.launch("quantize", (x,),
+                           (meta.empty((n,), torch.int8),
+                            meta.empty((n // block,), torch.float32)))
     if dev.type != "cuda":
         raise ValueError(f"no quantize for device {dev}")
     x = x.contiguous()
@@ -253,7 +259,8 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, block: int,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """q (n,) int8, scales (n / block,) float32 -> (n,) ``out_dtype``
     (float32 or bfloat16).  CPU tensors run the plain version; CUDA
-    tensors launch the kernel on the current stream."""
+    tensors launch the kernel on the current stream; ``meta`` tensors
+    take the dry-run's meta launch (:mod:`.meta`)."""
     global DEQUANTIZE_LAUNCHES
     if q.dim() != 1 or q.dtype != torch.int8:
         raise TypeError(f"dequantize takes a flat int8 q, got {q.dtype} "
@@ -271,6 +278,9 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, block: int,
     dev = q.device
     if dev.type == "cpu":
         return dequantize_plain(q, scales, block, out_dtype)
+    if dev.type == "meta":
+        return meta.launch("dequantize", (q, scales),
+                           meta.empty((n,), out_dtype))
     if dev.type != "cuda":
         raise ValueError(f"no dequantize for device {dev}")
     q, scales = q.contiguous(), scales.contiguous()

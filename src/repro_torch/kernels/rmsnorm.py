@@ -40,6 +40,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta
 from repro_torch.kernels.autograd import kernel_with_plain_grad
 from repro_torch.precision import compute
 
@@ -318,7 +319,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """x (..., d), weight (d,) -> same shape and dtype as x.  On CUDA
     tensors that need a gradient, the kernel's output carries the plain
-    version's gradient (:mod:`repro_torch.kernels.autograd`)."""
+    version's gradient (:mod:`repro_torch.kernels.autograd`); ``meta``
+    tensors take the dry-run's meta launch (:mod:`.meta`) with the same
+    gradient."""
     _check(weight, x)
     if x.is_cuda:
         if not (torch.is_grad_enabled()          # inline needs_grad: the
@@ -329,6 +332,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
             lambda x_, w_: rms_norm_plain(x_, w_, eps), x, weight)
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, eps)
+    if x.device.type == "meta":
+        return kernel_with_plain_grad(
+            lambda x_, w_: meta.launch("rms_norm", (x_, w_),
+                                       meta.empty(x_.shape, x_.dtype)),
+            lambda x_, w_: rms_norm_plain(x_, w_, eps), x, weight)
     raise ValueError(f"no rms_norm for device {x.device}")
 
 
@@ -353,4 +361,12 @@ def rms_norm_residual(x: torch.Tensor, residual: torch.Tensor,
             x, residual, weight)
     if x.device.type == "cpu":
         return rms_norm_residual_plain(x, residual, weight, eps)
+    if x.device.type == "meta":
+        return kernel_with_plain_grad(
+            lambda x_, r_, w_: meta.launch(
+                "rms_norm_residual", (x_, r_, w_),
+                (meta.empty(x_.shape, x_.dtype),
+                 meta.empty(x_.shape, x_.dtype))),
+            lambda x_, r_, w_: rms_norm_residual_plain(x_, r_, w_, eps),
+            x, residual, weight)
     raise ValueError(f"no rms_norm_residual for device {x.device}")

@@ -36,6 +36,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta
 from repro_torch.kernels.autograd import kernel_with_plain_grad
 
 # Launches of the CUDA kernel in this process (the plain version counts
@@ -171,17 +172,34 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     contiguous).  Returns y (B, S, H, P) in x's dtype and the final state
     (B, H, P, N) in float32.  CPU tensors run the plain version; CUDA
     tensors launch the kernel on the current stream, with the plain
-    version's gradient where one is needed."""
+    version's gradient where one is needed; ``meta`` tensors take the
+    dry-run's meta launch (:mod:`.meta`), with the same gradient."""
     _check(x, dt, a_log, b, c, d_skip, dt_bias, chunk)
     dev = x.device
     if dev.type == "cpu":
         return ssd_scan_plain(x, dt, a_log, b, c, d_skip, dt_bias, chunk)
+    if dev.type == "meta":
+        return kernel_with_plain_grad(
+            lambda *t: _meta_launch(*t, chunk),
+            lambda *t: ssd_scan_plain(*t, chunk),
+            x, dt, a_log, b, c, d_skip, dt_bias)
     if dev.type != "cuda":
         raise ValueError(f"no ssd_scan for device {dev}")
     return kernel_with_plain_grad(
         lambda *t: _launch(*t, chunk),
         lambda *t: ssd_scan_plain(*t, chunk),
         x, dt, a_log, b, c, d_skip, dt_bias)
+
+
+def _meta_launch(x, dt, a_log, b, c, d_skip, dt_bias, chunk: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dry-run's launch on ``meta`` tensors (:mod:`.meta`)."""
+    bsz, s, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    return meta.launch("ssd_scan", (x, dt, a_log, b, c, d_skip, dt_bias),
+                       (meta.empty((bsz, s, h, p), x.dtype),
+                        meta.empty((bsz, h, p, n), torch.float32)),
+                       meta.ssd_flops(bsz, s, h, p, n, g, chunk))
 
 
 def _aligned_rows(t: torch.Tensor) -> torch.Tensor:

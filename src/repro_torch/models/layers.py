@@ -104,6 +104,107 @@ def init_tree(specs: PyTree, generator: torch.Generator) -> PyTree:
     return map_specs(lambda s: initialize(s, generator), specs)
 
 
+def abstract_tree(specs: PyTree) -> PyTree:
+    """Every leaf of ``specs`` as a ``meta`` tensor of its shape and
+    dtype: the stand-in the dry-run traces with (no storage)."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                           device="meta"), specs)
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis -> mesh-axis rules
+# ---------------------------------------------------------------------------
+
+# The baseline rules (the reference's; the presets of
+# :mod:`repro_torch.train.rules` edit them).  Values may be a mesh axis
+# name, a tuple of mesh axes, or None (replicated).
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "fsdp_embed": "data",       # FSDP-sharded input dim of big matmuls
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "vocab": "model",
+    "experts": "model",
+    "expert_mlp": None,
+    "layers": None,
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "ssm_heads": "model",
+    "conv": None,
+}
+
+Partition = Tuple[Any, ...]     # per dim: an axis name, a tuple, or None
+
+
+def _axes_size(axes: Tuple[str, ...], mesh) -> int:
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def spec_to_pspec(spec: ParamSpec, rules: Dict[str, Any], mesh) -> Partition:
+    """The partition of one parameter under ``rules`` on ``mesh``
+    (anything with an axis-name -> size ``shape`` mapping): one entry a
+    dim, a mesh-axis name, a tuple of names, or None.  A dim whose size
+    does not divide its mesh axes is replicated instead (correct, just
+    less sharded), as the reference's."""
+    out = []
+    for dim, name in zip(spec.shape, spec.axes):
+        target = rules.get(name) if name else None
+        if target is None:
+            out.append(None)
+            continue
+        axes = target if isinstance(target, tuple) else (target,)
+        axes = tuple(a for a in axes if a in mesh.shape)
+        size = _axes_size(axes, mesh) if axes else 1
+        if size <= 1 or dim % size != 0:
+            out.append(None)
+        else:
+            out.append(axes if len(axes) > 1 else axes[0])
+    return tuple(out)
+
+
+def tree_pspecs(specs: PyTree, rules: Dict[str, Any], mesh) -> PyTree:
+    return map_specs(lambda s: spec_to_pspec(s, rules, mesh), specs)
+
+
+def partition_shape(shape: Tuple[int, ...], partition: Partition,
+                    mesh) -> Tuple[int, ...]:
+    """The per-device block of a ``shape`` tensor under ``partition``."""
+    out = []
+    for dim, entry in zip(shape, partition):
+        if entry is None:
+            out.append(dim)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        out.append(dim // _axes_size(axes, mesh))
+    return tuple(out)
+
+
+def shard_shape(spec: ParamSpec, rules: Dict[str, Any],
+                mesh) -> Tuple[int, ...]:
+    """The per-device block of one parameter under ``rules``."""
+    return partition_shape(spec.shape, spec_to_pspec(spec, rules, mesh),
+                           mesh)
+
+
+def shard_bytes(spec: ParamSpec, rules: Dict[str, Any], mesh,
+                dtype: Optional[torch.dtype] = None) -> int:
+    """Bytes of one parameter's per-device block, in ``dtype`` (the
+    spec's own when None)."""
+    itemsize = torch.empty((), dtype=dtype or spec.dtype).element_size()
+    return math.prod(shard_shape(spec, rules, mesh)) * itemsize
+
+
+def tree_shard_bytes(specs: PyTree, rules: Dict[str, Any], mesh,
+                     dtype: Optional[torch.dtype] = None) -> int:
+    """Per-device bytes of a whole spec tree under ``rules``."""
+    return sum(shard_bytes(s, rules, mesh, dtype)
+               for s in spec_leaves(specs))
+
+
 # ---------------------------------------------------------------------------
 # Primitive layers
 # ---------------------------------------------------------------------------

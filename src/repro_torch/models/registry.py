@@ -190,6 +190,13 @@ class Arch:
                 "ssm": _ssm_decode_step, "hybrid": hybrid.decode_step,
                 "encdec": encdec.decode_step}[_family(self.cfg)]
 
+    def skip_reason(self, shape: ShapeConfig) -> Optional[str]:
+        """Why this arch does not run ``shape``'s cell, or None."""
+        for name, reason in self.cfg.skip_shapes:
+            if name == shape.name:
+                return reason
+        return None
+
     def input_specs(self, shape: ShapeConfig, *, batch_override=None
                     ) -> Dict[str, torch.Tensor]:
         return input_specs(self.cfg, shape, batch_override=batch_override)

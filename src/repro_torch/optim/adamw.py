@@ -8,7 +8,8 @@ weight decay, and casts every new parameter to ``param_dtype`` (float32
 specs included, as the reference does).  The schedule, the step and the
 bias corrections are float32 scalar tensors on the parameters' device,
 so a train step reads nothing back to the host.  ``abstract_state``
-comes with the launch tools, ROADMAP item 15.
+gives the state's ``meta`` stand-ins for the dry-run
+(:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -140,7 +141,16 @@ def update(cfg: OptConfig, grads: PyTree, state: Dict[str, Any],
     return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
 
 
-def abstract_state(*args, **kwargs):
-    raise NotImplementedError(
-        "abstract_state serves the dry-run; it comes with ROADMAP.md item 15 "
-        "(the launch tools)")
+def abstract_state(abstract_params: PyTree) -> Dict[str, Any]:
+    """The optimizer state of ``abstract_params`` as ``meta`` tensors
+    (the dry-run's stand-ins): int32 ``step``, float32 ``master``, ``m``
+    and ``v`` of every parameter's shape."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return {
+        "step": torch.empty((), dtype=torch.int32, device="meta"),
+        "master": tree_util.map(f32, abstract_params),
+        "m": tree_util.map(f32, abstract_params),
+        "v": tree_util.map(f32, abstract_params),
+    }

@@ -172,3 +172,29 @@ def test_fused_slice_has_its_graph_source():
     assert "cudaGraphSetConditional" in src and "__global__" in src
     for fn in ("graph_if_begin", "graph_if_end", "graph_body_stream"):
         assert f'extern "C" int {fn}' in src
+
+
+LAUNCH_MODULES = (
+    "repro_torch.launch", "repro_torch.launch.mesh",
+    "repro_torch.launch.serve", "repro_torch.launch.train",
+    "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+    "repro_torch.launch.opanalysis", "repro_torch.core.placement",
+    "repro_torch.train.rules", "repro_torch.kernels.meta")
+
+
+@pytest.mark.parametrize("module", LAUNCH_MODULES)
+def test_launch_slice_modules_stand_alone(module):
+    """The launch plane's, the rules' and the placement's modules import
+    on a CPU-only machine and import neither ``jax`` nor ``repro``
+    (their files are among the checked port files); importing the
+    dry-run sets no ``XLA_FLAGS``."""
+    import os
+    flags = os.environ.get("XLA_FLAGS")
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+    assert os.environ.get("XLA_FLAGS") == flags
+    path = Path(mod.__file__).resolve()
+    assert path in [p.resolve() for p in PORT_FILES]
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{module} imports {bad}"

@@ -174,8 +174,13 @@ def test_wrappers_check_inputs_and_count_nothing_on_the_cpu():
         ops.dequantize(q.int(), s, 1024)
     with pytest.raises(TypeError, match="writes float32 or bfloat16"):
         ops.dequantize(q, s, 1024, torch.float16)
-    with pytest.raises(ValueError, match="no quantize"):
-        qz.quantize(x.to("meta"), 1024)
+    # meta tensors (the dry-run's) take the meta launch: empty outputs of
+    # the kernel's shapes and dtypes, nothing launched
+    before = ops.launch_counts()
+    mq, ms = qz.quantize(x.to("meta"), 1024)
+    assert mq.is_meta and mq.shape == q.shape and mq.dtype == torch.int8
+    assert ms.is_meta and ms.shape == s.shape and ms.dtype == torch.float32
+    assert ops.launch_counts() == before
 
 
 # ---------------------------------------------------------------------------

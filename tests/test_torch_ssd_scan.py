@@ -276,10 +276,15 @@ def test_wrapper_refuses_gradients_and_bad_inputs():
     with pytest.raises(TypeError, match="share float32 or bfloat16"):
         ops.ssd_scan(x, dt, a_log, b.double(), c.double(), d_skip, dt_bias,
                      16)
-    with pytest.raises(ValueError, match="no ssd_scan"):
-        sc.ssd_scan(*(v.to("meta") for v in (x, dt, a_log, b, c, d_skip,
-                                              dt_bias)), 16)
+    # meta tensors (the dry-run's) take the meta launch: empty outputs of
+    # the kernel's shapes and dtypes, nothing launched
     before = sc.LAUNCHES
+    y, state = sc.ssd_scan(*(v.to("meta") for v in (x, dt, a_log, b, c,
+                                                    d_skip, dt_bias)), 16)
+    assert y.is_meta and y.shape == x.shape and y.dtype == x.dtype
+    assert state.is_meta and state.dtype == torch.float32 and \
+        state.shape == (x.shape[0], x.shape[2], x.shape[3], b.shape[3])
+    assert sc.LAUNCHES == before
     got = Runtime().op("ssd_scan")(x, dt, a_log, b, c, d_skip, dt_bias, 16)
     want = Runtime(kernels="plain").op("ssd_scan")(x, dt, a_log, b, c,
                                                    d_skip, dt_bias, 16)

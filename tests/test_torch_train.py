@@ -152,8 +152,16 @@ def test_update_casts_every_leaf_like_the_reference():
                                                  "a_log": torch.ones(2)},
                              state)
     assert all(p.dtype == torch.bfloat16 for p in new.values())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        adamw.abstract_state(params)
+    # the dry-run's stand-ins: float32 moments and master weights of every
+    # leaf's shape, whatever the leaves' dtype (tests/test_torch_launch.py
+    # holds them to the reference's)
+    abstract = adamw.abstract_state(new)
+    assert abstract["step"].dtype == torch.int32 and abstract["step"].is_meta
+    for key in ("master", "m", "v"):
+        assert {k: (tuple(t.shape), t.dtype, t.is_meta)
+                for k, t in abstract[key].items()} == \
+            {k: (tuple(p.shape), torch.float32, True)
+             for k, p in params.items()}
 
 
 # ---------------------------------------------------------------------------
