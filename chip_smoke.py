@@ -102,7 +102,15 @@ Phases (one JSON line each; any failure exits non-zero):
    one quantize and one dequantize per bucket), tokens/s, wall per step,
    one warm step profiled (device time, busy share) and taken apart
    (gradients, reduction, AdamW), peak memory, the step's bound, and one
-   warm step of the uncompressed ``spindle`` reduction;
+   warm step of the uncompressed ``spindle`` reduction; then
+   rematerialisation: ``steps.worker_grads`` at the same shape under
+   ``Runtime(remat=)`` ``none``, ``full`` and ``dots``, each warm:
+   losses bit-identical, every gradient leaf within 1e-4 of its largest
+   |g| of ``none``'s, the exact launches (every site inside a region
+   twice, :func:`remat_launches`), wall and peak memory above what the
+   call found allocated, ``full`` and ``dots`` under ``none``'s; and at
+   ``train_4k``'s length (1 x 4096, W = 1) ``none`` and ``full`` with
+   wall, peak and the dry-run's live-meta estimate of the same call;
 13. the train path in float32 at 4 layers, full width, on the kernels and
    on the plain versions: qwen3-1.7b (``spindle_compressed``, W = 2,
    2 x 512 tokens, three ``Trainer`` steps: losses within 1e-5 relative,
@@ -266,7 +274,10 @@ Phases (one JSON line each; any failure exits non-zero):
    zamba2 at params seeds 35, 36 and 37), the error with one kind of
    site on its kernels (zamba2 and internvl2 also from float64), one
    train step, every MoE router gap over 1e-5 (its seed
-   from ``--moe-seed-search 35``).  Phases 32-35 run in a child
+   from ``--moe-seed-search 35``); each model's per-worker gradients
+   at seed 35 also under ``remat="full"``: the exact launches of the
+   rerun, losses bit-identical, gradients within the family's bar of
+   the ``none`` run's.  Phases 32-35 run in a child
    process of their own (``--families-train-phases``), timed runs
    before profiled ones;
 36. the DES held to the card runs of phases 2, 14, 17 and 20
@@ -334,11 +345,12 @@ from repro_torch.kernels import smc_sweep as ss  # noqa: E402
 from repro_torch.kernels import ssd_scan as sc  # noqa: E402
 from repro_torch.kernels.meta import (attention_flops,  # noqa: E402
                                       ssd_flops)
+from repro_torch.launch import opanalysis  # noqa: E402
 from repro_torch.models import (attention, encdec, hybrid,  # noqa: E402
                                 layers, moe, registry, transformer)
 from repro_torch.models.config import (ShapeConfig,  # noqa: E402
                                        shape_by_name)
-from repro_torch.models.runtime import Runtime  # noqa: E402
+from repro_torch.models.runtime import Runtime, recomputing  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 
@@ -1730,6 +1742,30 @@ def train_launches(cfg, workers: int, buckets: int) -> dict:
     return want
 
 
+# the kernel sites outside every checkpointed region of a loss: each
+# stack's final norm and the vlm projector's norm
+REMAT_OUTSIDE = {"dense": {"rms_norm_residual": 1},
+                 "moe": {"rms_norm_residual": 1},
+                 "ssm": {"rms_norm_residual": 1},
+                 "hybrid": {"rms_norm_residual": 1},
+                 "vlm": {"rms_norm": 1, "rms_norm_residual": 1},
+                 "encdec": {"rms_norm_residual": 2}}
+
+
+def remat_launches(cfg, remat: str, workers: int) -> dict:
+    """Launches of ``workers`` loss forwards and backwards under
+    ``Runtime(remat=remat)``: the forward's, and under ``full`` and
+    ``dots`` every site inside a region once more in the backward's
+    rerun (2 x forward - REMAT_OUTSIDE: the rerun stops at a region's
+    trailing product, after its last site, as tests/test_torch_remat.py
+    pins on the CPU)."""
+    fwd = forward_launches(cfg)
+    if remat != "none":
+        out = REMAT_OUTSIDE[cfg.family]
+        fwd = {k: 2 * v - out.get(k, 0) for k, v in fwd.items()}
+    return {k: v * workers for k, v in fwd.items()}
+
+
 def launches_since(before: dict) -> dict:
     after = ops.launch_counts()
     return {k: after[k] - before[k] for k in after if after[k] - before[k]}
@@ -1851,6 +1887,7 @@ def phase12_train():
     spindle_step = steps.make_train_step(arch, spindle, donate=True)
     (_, _, m), spindle_wall = timed(lambda: spindle_step(params, opt, batch))
     check(math.isfinite(float(m["loss"])), "spindle step loss")
+    remat, remat_counts = phase12_remat(arch, params, batch, rt)
     parts = grads_s + reduce_s + update_s
     emit({"phase": 12, "model": "qwen3-1.7b", "layers": cfg.n_layers,
           "batch": b, "seq": s, "workers": TRAIN_WORKERS,
@@ -1868,9 +1905,129 @@ def phase12_train():
           "spindle_step_wall_s": spindle_wall,
           "spindle_step_loss": float(m["loss"]),
           **train_bound(cfg, params, b, s)})
+    emit({"phase": 12, "part": "remat", **remat})
     del params, opt, trainer, step_fn, spindle_step
     torch.cuda.empty_cache()
-    return launches
+    return dict(collections.Counter(launches) + remat_counts)
+
+
+REMAT_POLICIES = ("none", "full", "dots")
+REMAT_SEQ = 4096              # train_4k's sequence length
+
+
+def remat_call(arch, rt, params, batch, what: str):
+    """Two calls of ``steps.worker_grads(arch, rt)``, the first to warm:
+    each call's launches held to :func:`remat_launches`; returns the
+    second's (losses, grads) and its wall, its peak memory and that peak
+    above what the call found allocated."""
+    fn = steps.worker_grads(arch, rt)
+    want = remat_launches(arch.cfg, rt.remat, rt.dp_workers)
+    run_counted(lambda: fn(params, batch), want, f"{what} (warm-up)")
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = run_counted(lambda: fn(params, batch), want, what)
+    peak = torch.cuda.max_memory_allocated()
+    return out, {"wall_s": wall, "peak_bytes": peak,
+                 "peak_above_base_bytes": peak - base,
+                 "launches": want}
+
+
+def grad_distance(got, want) -> dict:
+    """Per leaf max |got - want| over the leaf's largest |want|; whether
+    every leaf is bit-identical."""
+    errs = {path: float((a - c).abs().max()) / (float(c.abs().max())
+                                                 or 1.0)
+            for (path, a), c in zip(tree_util.paths(got),
+                                    tree_util.leaves(want))}
+    worst = max(errs, key=errs.get)
+    return {"max": errs[worst], "leaf": worst,
+            "bit_identical": all(torch.equal(a, c) for a, c in zip(
+                tree_util.leaves(got), tree_util.leaves(want)))}
+
+
+def meta_peak_bytes(arch, rt, b: int, s: int) -> int:
+    """The dry-run's estimate of ``worker_grads``' temporary memory at
+    (b, s): the peak of the live ``meta`` tensors the call allocates
+    (:mod:`repro_torch.launch.opanalysis`), nothing on the card."""
+    params = layers.abstract_tree(arch.param_specs())
+    batch = {"tokens": torch.empty((b, s), dtype=torch.int32,
+                                   device="meta")}
+    with opanalysis.OpAnalysis() as an:
+        out = steps.worker_grads(arch, rt)(params, batch)
+        del out
+    return an.peak_bytes
+
+
+def phase12_remat(arch, params, batch, rt):
+    """Rematerialisation on phase 12's model: ``worker_grads`` at phase
+    12's shape (2 x 2048, W = 2, the same params and batch) under each
+    policy, warm: losses bit-identical to ``none``'s, every gradient leaf
+    within GRAD_TOL's dense bar of ``none``'s, the exact launches, wall
+    and peak; ``full``'s peak under ``none``'s and ``dots``' no higher.
+    Then one warm call at 1 x 4096, W = 1 under ``none`` and ``full``,
+    with the dry-run's live-meta estimate of the same call.  Returns the
+    record and the launches of the ``full`` and ``dots`` calls."""
+    cfg = arch.cfg
+    bar = GRAD_TOL["dense"]
+    t0 = time.perf_counter()
+    counts = collections.Counter()
+    out = {"model": "qwen3-1.7b", "batch": 2, "seq": 2048,
+           "workers": rt.dp_workers, "gradsync": rt.gradsync, "bar": bar}
+    (ref_losses, ref_grads), out["none"] = remat_call(
+        arch, rt, params, batch, "phase 12 remat none")
+    for remat in ("full", "dots"):
+        r = dataclasses.replace(rt, remat=remat)
+        (losses, grads), row = remat_call(arch, r, params, batch,
+                                          f"phase 12 remat {remat}")
+        check(torch.equal(losses, ref_losses), f"phase 12 remat {remat}: "
+              f"losses {losses.tolist()} != none's {ref_losses.tolist()}")
+        dist = grad_distance(grads, ref_grads)
+        check(dist["max"] <= bar, f"phase 12 remat {remat}: gradient "
+              f"{dist['leaf']} {dist['max']} of its max (bar {bar})")
+        del grads
+        row.update(grad_vs_none=dist, losses_bit_identical=True,
+                   wall_over_none=row["wall_s"] / out["none"]["wall_s"])
+        out[remat] = row
+        counts.update({k: 2 * v for k, v in row["launches"].items()})
+    del ref_grads
+    none_peak = out["none"]["peak_above_base_bytes"]
+    check(out["full"]["peak_above_base_bytes"] < none_peak,
+          f"phase 12 remat: full's peak {out['full']} is not under none's "
+          f"{none_peak}")
+    check(out["dots"]["peak_above_base_bytes"] <= none_peak,
+          f"phase 12 remat: dots' peak {out['dots']} is over none's "
+          f"{none_peak}")
+    torch.cuda.empty_cache()
+
+    # train_4k's length on one card: one row, one worker
+    long = {"tokens": seeded_tokens(cfg, 1, REMAT_SEQ, 12)}
+    out["seq_4096"] = {"batch": 1, "seq": REMAT_SEQ, "workers": 1}
+    for remat in ("none", "full"):
+        r = Runtime(remat=remat)
+        (losses, grads), row = remat_call(arch, r, params, long,
+                                          f"phase 12 remat {remat} 1x4096")
+        check(bool(torch.isfinite(losses).all()),
+              f"phase 12 remat {remat} 1x4096: loss {losses.tolist()}")
+        del grads
+        row["loss"] = float(losses[0])
+        row["dryrun_meta_peak_bytes"] = meta_peak_bytes(arch, r, 1,
+                                                        REMAT_SEQ)
+        row["meta_over_measured"] = (row["dryrun_meta_peak_bytes"]
+                                     / row["peak_above_base_bytes"])
+        out["seq_4096"][remat] = row
+        if remat == "full":
+            counts.update({k: 2 * v for k, v in row["launches"].items()})
+        torch.cuda.empty_cache()
+    s4 = out["seq_4096"]
+    check(s4["full"]["peak_above_base_bytes"]
+          < s4["none"]["peak_above_base_bytes"],
+          f"phase 12 remat 1x4096: full's peak is not under none's: {s4}")
+    check(s4["full"]["loss"] == s4["none"]["loss"],
+          f"phase 12 remat 1x4096: losses differ: {s4}")
+    out["part_s"] = time.perf_counter() - t0
+    return out, counts
 
 
 TRAIN_LOSS_RTOL = 1e-5
@@ -4284,13 +4441,16 @@ class RouterProbe:
     """While entered, every router call's smallest gap between a token's
     K-th and (K+1)-th probability, its aux term and every dispatch's
     dropped routes, kept on the device and read on exit (diagnostic
-    passes, and the train steps of phase 33)."""
+    passes, and the train steps of phase 33); a remat rerun's calls
+    (``recomputing()``) are not counted again."""
 
     def __enter__(self):
         self.gaps, self.drops, self.aux, self.routes = [], [], [], 0
         self._route, self._dispatch = moe.route, moe._dispatch
 
         def route(p, cfg, x):
+            if recomputing():         # a remat rerun: counted in its step
+                return self._route(p, cfg, x)
             with torch.no_grad():
                 probs = torch.softmax(moe.router_logits(p, x), -1)
                 top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
@@ -4301,8 +4461,9 @@ class RouterProbe:
 
         def dispatch(idx, weights, e, c, t):
             out = self._dispatch(idx, weights, e, c, t)
-            self.drops.append(idx.numel() - out[2].sum())
-            self.routes += idx.numel()
+            if not recomputing():
+                self.drops.append(idx.numel() - out[2].sum())
+                self.routes += idx.numel()
             return out
 
         moe.route, moe._dispatch = route, dispatch
@@ -5569,8 +5730,13 @@ def phase35_families_train_f32():
     from float64 when one kind of site is on its kernels); at seed 35
     the error with one kind of site on its kernels against plain
     (zamba2, seamless), one train step (:func:`compare_first_step`);
-    every MoE router gap of every run over TIE_GAP."""
+    every MoE router gap of every run over TIE_GAP; at seed 35 each
+    worker's gradients under ``remat="full"`` (:func:`remat_vs_none`).
+    Returns the ``full`` runs' launches and attention calls by causal
+    flag."""
     out = {}
+    remat_counts = {"launches": collections.Counter(),
+                    "split": collections.Counter()}
     for name, n_layers, s in TRAIN_F32_RUNS:
         cfg = train_f32_cfg(name, n_layers)
         arch = registry.Arch(cfg)
@@ -5604,6 +5770,8 @@ def phase35_families_train_f32():
                 if cfg.family in ("hybrid", "encdec"):
                     row["grad_rel_err_one_site_on_kernels"] = \
                         grad_errors_by_site(arch, params, batch, rt, sites)
+                row["remat_full"] = remat_vs_none(arch, params, batch, rt,
+                                                  what, remat_counts)
                 del params, batch
         if cfg.moe is not None:
             check_margin(probe.stats, what)
@@ -5613,6 +5781,48 @@ def phase35_families_train_f32():
         torch.cuda.empty_cache()
     emit({"phase": 35, "dtype": "float32", "loss_rtol": TRAIN_LOSS_RTOL,
           **out})
+    return remat_counts
+
+
+def remat_vs_none(arch, params, batch, rt, what: str, counts) -> dict:
+    """Each worker's gradients (one at a time, :func:`grads_of`) on the
+    kernels under ``remat="full"`` against the same worker's under
+    ``none``: the exact launches of each (:func:`remat_launches`),
+    losses bit-identical, every leaf within the family's GRAD_TOL; and
+    whether a second ``none`` run repeats the first bit for bit (the
+    MoE's gather backward accumulates with atomics).  The ``full``
+    runs' launches and attention calls go into ``counts``."""
+    full = dataclasses.replace(rt, remat="full")
+    cfg = arch.cfg
+    out = {"bar": grad_tol(cfg)}
+    for w in range(rt.dp_workers):
+        (loss_n, g_n), wall_n = run_counted(
+            lambda: grads_of(arch, rt, params, batch, w),
+            remat_launches(cfg, "none", 1), f"{what} worker {w} remat none")
+        _, g_again = grads_of(arch, rt, params, batch, w)
+        repeat = grad_distance(g_again, g_n)
+        del g_again
+        want = remat_launches(cfg, "full", 1)
+        (loss_f, g_f), wall_f = run_counted(
+            lambda: grads_of(arch, full, params, batch, w), want,
+            f"{what} worker {w} remat full")
+        check(torch.equal(loss_f, loss_n), f"{what} worker {w} remat full: "
+              f"loss {float(loss_f)} != none's {float(loss_n)}")
+        dist = grad_distance(g_f, g_n)
+        check(dist["max"] <= out["bar"], f"{what} worker {w} remat full: "
+              f"gradient {dist['leaf']} {dist['max']} of its max (bar "
+              f"{out['bar']})")
+        del g_n, g_f
+        counts["launches"].update(want)
+        counts["split"].update({k: 2 * v for k, v in
+                                attention_split(cfg, 1).items()})
+        out[f"worker_{w}"] = {"grad_vs_none": dist,
+                              "none_repeat_vs_none": repeat,
+                              "wall_none_s": wall_n,
+                              "wall_full_s": wall_f,
+                              "losses_bit_identical": True,
+                              "launches_full": want}
+    return out
 
 
 def families_train_phases() -> int:
@@ -5636,7 +5846,9 @@ def families_train_phases() -> int:
             train_routing(phase, name, n_layers)
     for phase, name, n_layers in TRAIN_FAMILY_RUNS:
         train_family_profile(phase, name, n_layers)
-    phase35_families_train_f32()
+    remat = phase35_families_train_f32()
+    counts.update(remat["launches"])
+    split.update(remat["split"])
     counts["flash_attention_causal"] = split["causal"]
     counts["flash_attention_non_causal"] = split["non_causal"]
     emit({"families_train": dict(counts)})
@@ -5707,11 +5919,17 @@ def launch_dryruns() -> dict:
             status, _, arch, shape = line.split()[:4]
             rec = json.loads((LAUNCH_DRYRUN_DIR / mesh_name /
                               f"{arch}__{shape}.json").read_text())
+            check(rec.get("remat", "full") == "full",
+                  f"dry-run cell {arch} {shape}: remat {rec.get('remat')}, "
+                  f"want the default full")
             out["cells"].append({
                 "mesh": mesh_name, "arch": arch, "shape": shape,
-                "status": rec["status"], "trace_s": rec.get("trace_s"),
+                "status": rec["status"], "remat": rec.get("remat"),
+                "trace_s": rec.get("trace_s"),
                 **({k: rec["roofline"][k] for k in (
                     "dominant", "bound_s", "mfu_bound")}
+                   if rec["status"] == "ok" else {}),
+                **({"temp_size_bytes": rec["memory"]["temp_size_bytes"]}
                    if rec["status"] == "ok" else {}),
                 "error": rec.get("error")})
             check(status == f"[{rec['status']}]", f"dry-run line {line}")

@@ -8,11 +8,13 @@ Usage:
   python -m repro_torch.launch.dryrun --arch all --shape all --mesh both
   python -m repro_torch.launch.dryrun ... --rules <name>   # rules preset
   python -m repro_torch.launch.dryrun ... --kernels plain  # plain sites
+  python -m repro_torch.launch.dryrun ... --remat none     # or dots
 
 Results are cached as JSON under
 ``results/dryrun_torch/<mesh>/<arch>__<shape>.json`` (one file per cell)
-so the sweep is restartable; ``python -m repro_torch.launch.roofline``
-tabulates them.
+so the sweep is restartable (a non-default ``--rules``, ``--gradsync``,
+``--kernels`` or ``--remat`` in a subdirectory, as the reference names
+it); ``python -m repro_torch.launch.roofline`` tabulates them.
 
 The port of ``repro.launch.dryrun``, which lowers and compiles each cell
 over 512 placeholder host devices.  Three differences:
@@ -29,9 +31,15 @@ over 512 placeholder host devices.  Three differences:
   mode over the data-parallel axes).  The port executes no tensor- or
   sequence-parallel collective, so the rules presets move the memory
   columns and not the collective term.
-* **No remat.**  The port has no rematerialisation, so the reference's
-  ``--remat`` flag is gone; ``--attn xla|chunked|pallas`` is
-  ``--kernels kernels|plain`` (``Runtime.kernels``).
+* **Remat reruns on ``meta``.**  ``--remat none|full|dots`` (default
+  ``full``, the reference's) is ``Runtime.remat``: a train cell's
+  backward reruns each checkpointed region inside autograd's engine,
+  where the analysis sees it, so the rerun's ops count in the FLOPs and
+  bytes and its tensors in the live peak.  The rerun stops at a
+  region's last saved tensor, as XLA drops the dead recompute, and
+  ``dots`` keeps the products' outputs (they are not rerun).
+  ``--attn xla|chunked|pallas`` is ``--kernels kernels|plain``
+  (``Runtime.kernels``).
 
 Per-device memory: argument bytes (parameters, AdamW state, inputs, and
 the cache for decode) and output bytes are exact from the rules'
@@ -146,13 +154,15 @@ def argument_bytes(arch, shape, rules, mesh,
 
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
              rules_name: str = "baseline", gradsync: str = "gspmd",
-             kernels: str = "kernels") -> Dict[str, Any]:
+             kernels: str = "kernels", remat: str = "full"
+             ) -> Dict[str, Any]:
     arch = registry.get(arch_name)
     shape = shape_by_name(shape_name)
     record: Dict[str, Any] = {
         "arch": arch_name, "shape": shape_name,
         "mesh": "pod2x16x16" if multi_pod else "pod16x16",
         "rules": rules_name, "gradsync": gradsync, "kernels": kernels,
+        "remat": remat,
     }
     skip = arch.skip_reason(shape)
     if skip:
@@ -165,7 +175,7 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
     n_chips = mesh.size
     # one step of the whole global batch; the data-parallel reduction is
     # modelled over the batch axes (opanalysis.gradient_reduction)
-    rt = Runtime(kernels=kernels, gradsync=gradsync)
+    rt = Runtime(kernels=kernels, gradsync=gradsync, remat=remat)
     t0 = time.time()
 
     specs = arch.param_specs()
@@ -262,6 +272,8 @@ def main(argv=None):
     ap.add_argument("--gradsync", default="gspmd")
     ap.add_argument("--kernels", default="kernels",
                     choices=["kernels", "plain"])
+    ap.add_argument("--remat", default="full",
+                    choices=["full", "dots", "none"])
     ap.add_argument("--variant", default=None,
                     help="subdirectory name for this configuration")
     ap.add_argument("--out", default="results/dryrun_torch")
@@ -279,10 +291,10 @@ def main(argv=None):
         outdir = Path(args.out) / mesh_name
         if args.variant:
             outdir = outdir / args.variant
-        elif (args.rules, args.gradsync, args.kernels) != \
-                ("baseline", "gspmd", "kernels"):
+        elif (args.rules, args.gradsync, args.kernels, args.remat) != \
+                ("baseline", "gspmd", "kernels", "full"):
             outdir = outdir / f"{args.rules}__{args.gradsync}__" \
-                f"{args.kernels}"
+                f"{args.kernels}__{args.remat}"
         outdir.mkdir(parents=True, exist_ok=True)
         for arch in archs:
             for shape in shapes:
@@ -294,7 +306,7 @@ def main(argv=None):
                       flush=True)
                 try:
                     rec = run_cell(arch, shape, multi, args.rules,
-                                   args.gradsync, args.kernels)
+                                   args.gradsync, args.kernels, args.remat)
                 except Exception as e:  # record failures — they are bugs
                     rec = {"arch": arch, "shape": shape,
                            "mesh": mesh_name, "status": "error",

@@ -45,7 +45,7 @@ def advice(cell: dict) -> str:
     extra = ""
     frac = r.get("useful_flop_frac")
     if frac is not None and frac < 0.5 and dom == "compute":
-        extra = " (useful-FLOP fraction <50%: redundant compute)"
+        extra = " (useful-FLOP fraction <50%: remat/redundant compute)"
     return _ADVICE.get(dom, "") + extra
 
 

@@ -89,20 +89,24 @@ def _swiglu(p: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:
 def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
            rt: Runtime) -> torch.Tensor:
     """frames (B, S_src, d_model), the stubbed frontend's output -> the
-    normed memory (B, S_src, d_model)."""
+    normed memory (B, S_src, d_model).  Layer i (its opening norm and
+    block) is one region of ``rt.checkpoint``."""
     x = frames.to(params["embed"].dtype)
     rope = _rope(cfg, x)
-    per_layer = transformer.unstack_layers(params["encoder"])
-    h = rt.op("rms_norm")(x, per_layer[0]["attn_norm"]["scale"],
-                          cfg.norm_eps)
-    for i, p in enumerate(per_layer):
-        if i:
-            h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
+
+    def region(p):
+        def run(y, x):
+            h, x = layers.open_norm(rt, y, x, p["attn_norm"]["scale"],
+                                    cfg.norm_eps)
+            a = attention.full_attention(p["attn"], cfg, h, False, rt, rope)
+            h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
                                               cfg.norm_eps)
-        a = attention.full_attention(p["attn"], cfg, h, False, rt, rope)
-        h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
-                                          cfg.norm_eps)
-        y = _swiglu(p, h)
+            return x, _swiglu(p, h)
+        return run
+
+    y = None
+    for p in transformer.unstack_layers(params["encoder"]):
+        x, y = rt.checkpoint(region(p))(y, x)
     return rt.op("rms_norm_residual")(y, x, params["enc_norm"]["scale"],
                                       cfg.norm_eps)[0]
 
@@ -111,23 +115,27 @@ def _decoder(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
              memory: torch.Tensor, rt: Runtime
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decoder stack over ``tokens`` (B, S): (the residual stream,
-    the last block's FFN output not yet added)."""
+    the last block's FFN output not yet added).  Layer i is one region
+    of ``rt.checkpoint``, as in :func:`encode`."""
     x = transformer.embed(params, cfg, tokens)
     rope = _rope(cfg, x)
-    per_layer = transformer.unstack_layers(params["decoder"])
-    h = rt.op("rms_norm")(x, per_layer[0]["attn_norm"]["scale"],
-                          cfg.norm_eps)
-    for i, p in enumerate(per_layer):
-        if i:
-            h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
+
+    def region(p):
+        def run(y, x):
+            h, x = layers.open_norm(rt, y, x, p["attn_norm"]["scale"],
+                                    cfg.norm_eps)
+            a = attention.full_attention(p["attn"], cfg, h, True, rt, rope)
+            h, x = rt.op("rms_norm_residual")(a, x, p["cross_norm"]["scale"],
                                               cfg.norm_eps)
-        a = attention.full_attention(p["attn"], cfg, h, True, rt, rope)
-        h, x = rt.op("rms_norm_residual")(a, x, p["cross_norm"]["scale"],
-                                          cfg.norm_eps)
-        c = attention.cross_attention(p["cross"], cfg, h, memory, rope)
-        h, x = rt.op("rms_norm_residual")(c, x, p["ffn_norm"]["scale"],
-                                          cfg.norm_eps)
-        y = _swiglu(p, h)
+            c = attention.cross_attention(p["cross"], cfg, h, memory, rope)
+            h, x = rt.op("rms_norm_residual")(c, x, p["ffn_norm"]["scale"],
+                                              cfg.norm_eps)
+            return x, _swiglu(p, h)
+        return run
+
+    y = None
+    for p in transformer.unstack_layers(params["decoder"]):
+        x, y = rt.checkpoint(region(p))(y, x)
     return x, y
 
 

@@ -26,7 +26,9 @@ run through :func:`repro_torch.models.ssm.mamba_block` (forward; the
 attn_every 6) that is 55 ``rms_norm`` (the first norm and 54 gated
 norms) and 72 ``rms_norm_residual`` calls a forward or a step, with 54
 ``ssd_scan`` and 9 ``flash_attention`` calls a forward or 9
-``flash_decode`` calls a step.
+``flash_decode`` calls a step.  On the full sequence each group's sites
+(the reference's super block: its Mamba layers and the shared block)
+are one region of ``rt.checkpoint``.
 """
 
 from __future__ import annotations
@@ -96,28 +98,35 @@ def _shared_block(p: Dict[str, Any], attn: Callable) -> List[Site]:
 
 
 def _walk(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
-          mamba: Callable, attn: Callable
+          mamba: Callable, attn: Callable, region: Callable = lambda fn: fn
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stack over the embedded x.  ``mamba(p, h, g, i)`` runs Mamba
     layer ``[g][i]`` and ``attn(h, g)`` the shared block's attention in
-    group ``g``.  Returns ``(x, y)``: the residual stream and the last
-    site's output, not yet added (the final norm adds it as it
-    normalises)."""
+    group ``g``.  Each group's sites (its Mamba layers and the shared
+    block, the reference's super block) run as one ``region(fn)(y, x)``:
+    ``rt.checkpoint`` on the full sequence, the identity in a decode
+    step.  Returns ``(x, y)``: the residual stream and the last site's
+    output, not yet added (the final norm adds it as it normalises)."""
     shared = params["shared_block"]
-    sites: List[Site] = []
-    for g, group in enumerate(unstack_groups(params["mamba_layers"])):
-        sites += [(lp["norm"]["scale"],
-                   lambda h, p=lp["ssm"], g=g, i=i: mamba(p, h, g, i))
-                  for i, lp in enumerate(group)]
-        sites += _shared_block(shared, lambda h, g=g: attn(h, g))
     eps = cfg.norm_eps
+
+    def group_sites(g: int, group: List[PyTree]) -> List[Site]:
+        return [(lp["norm"]["scale"],
+                 lambda h, p=lp["ssm"], i=i: mamba(p, h, g, i))
+                for i, lp in enumerate(group)] + \
+            _shared_block(shared, lambda h: attn(h, g))
+
+    def run_sites(sites: List[Site]) -> Callable:
+        def run(y, x):
+            for scale, fn in sites:
+                h, x = layers.open_norm(rt, y, x, scale, eps)
+                y = fn(h)
+            return x, y
+        return run
+
     y = None
-    for scale, fn in sites:
-        if y is None:
-            h = rt.op("rms_norm")(x, scale, eps)
-        else:
-            h, x = rt.op("rms_norm_residual")(y, x, scale, eps)
-        y = fn(h)
+    for g, group in enumerate(unstack_groups(params["mamba_layers"])):
+        x, y = region(run_sites(group_sites(g, group)))(y, x)
     return x, y
 
 
@@ -139,7 +148,8 @@ def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime
     return _walk(params, cfg, x, rt,
                  lambda p, h, g, i: ssm.mamba_block(p, cfg, h, rt),
                  lambda h, g: attention.full_attention(attn_p, cfg, h, True,
-                                                       rt, rope))
+                                                       rt, rope),
+                 rt.checkpoint)
 
 
 def forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,

@@ -251,6 +251,19 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return h @ w_down
 
 
+def open_norm(rt, y: Optional[torch.Tensor], x: torch.Tensor,
+              scale: torch.Tensor, eps: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A stack's norm site ``x = x + y; h = norm(x)`` -> ``(h, x)``: one
+    fused ``rms_norm_residual`` through ``rt``'s sites, or ``rms_norm``
+    of x alone at the stack's first site (``y`` None).  Every
+    checkpointed region of a layer walk opens with it, so a region's
+    inputs are ``(y, x)``."""
+    if y is None:
+        return rt.op("rms_norm")(x, scale, eps), x
+    return rt.op("rms_norm_residual")(y, x, scale, eps)
+
+
 def mlp_specs(d_model: int, d_ff: int) -> Dict[str, ParamSpec]:
     return {
         "w_gate": ParamSpec((d_model, d_ff), ("fsdp_embed", "mlp")),

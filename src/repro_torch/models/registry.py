@@ -79,15 +79,20 @@ def _ssm_hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     norm(x)`` is one fused ``rms_norm_residual``, as in the dense
     decoder: for mamba2-2.7b (64 layers) 65 ``rms_norm`` (the first norm
     and each block's gated norm), 64 ``rms_norm_residual`` and 64
-    ``ssd_scan`` calls per forward."""
+    ``ssd_scan`` calls per forward.  Layer i (its opening norm and
+    block) is one region of ``rt.checkpoint``, as in
+    :func:`repro_torch.models.transformer._stack`."""
+    def region(p):
+        def run(y, x):
+            h, x = layers.open_norm(rt, y, x, p["norm"]["scale"],
+                                    cfg.norm_eps)
+            return x, ssm.mamba_block(p["ssm"], cfg, h, rt)
+        return run
+
     x = transformer.embed(params, cfg, tokens)
-    per_layer = transformer.unstack_layers(params["layers"])
-    h = rt.op("rms_norm")(x, per_layer[0]["norm"]["scale"], cfg.norm_eps)
-    for i, p in enumerate(per_layer):
-        if i:
-            h, x = rt.op("rms_norm_residual")(y, x, p["norm"]["scale"],
-                                              cfg.norm_eps)
-        y = ssm.mamba_block(p["ssm"], cfg, h, rt)
+    y = None
+    for p in transformer.unstack_layers(params["layers"]):
+        x, y = rt.checkpoint(region(p))(y, x)
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
                                       cfg.norm_eps)
     return h

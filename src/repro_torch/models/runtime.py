@@ -1,5 +1,5 @@
-"""Runtime context: which implementation the kernel sites use, and how a
-train step reduces its gradients.
+"""Runtime context: which implementation the kernel sites use, what a
+backward pass recomputes, and how a train step reduces its gradients.
 
 The reference threads a ``Runtime`` (mesh, sharding rules, ``attn_impl``,
 ``gradsync``) through every forward function and train step.  One device
@@ -11,6 +11,26 @@ kernels and their plain versions:
   kernels (or raise), on CPU tensors they run the plain versions;
 * ``kernels="plain"`` calls the plain versions on any device — the
   comparison runs of ``chip_smoke.py`` ask for it explicitly.
+
+the reference's rematerialisation policy, which every family's layer
+walk applies to its regions through :meth:`Runtime.checkpoint`:
+
+* ``remat="none"`` (the default) keeps every activation for the
+  backward;
+* ``remat="full"`` keeps a region's inputs and outputs only and reruns
+  its forward in the backward (``jax.checkpoint``);
+* ``remat="dots"`` keeps the matrix products' outputs as well and reruns
+  the rest (``jax.checkpoint_policies.checkpoint_dots``).  The kernel
+  sites are not products, so they rerun under both policies.
+
+The reference defaults to ``full``; the port to ``none``, since every
+shape it trains fits on one card without it and remat changes no value,
+only memory against time.  The rerun stops once the last tensor the
+backward needs is recovered, so a region's trailing work after its last
+saved tensor runs once.  :func:`recomputing` tells an observer of the
+layer bodies (a router's statistics, say) that a call is a rerun, so
+that it counts a step once; the kernels' launch counts count the rerun,
+which is how the card shows it ran.
 
 and the two switches of the training plane:
 
@@ -28,7 +48,12 @@ and the two switches of the training plane:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+
+import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import ops
 
@@ -36,6 +61,39 @@ KERNEL_SITES = ("flash_decode", "rms_norm", "rms_norm_residual",
                 "flash_attention", "ssd_scan", "quantize", "dequantize")
 GRADSYNC_MODES = ("gspmd", "spindle", "spindle_per_tensor",
                   "spindle_compressed")
+REMAT_POLICIES = ("none", "full", "dots")
+# the dispatcher's matrix products (what ``torch.matmul``, ``einsum`` and
+# ``F.linear`` lower to): the outputs ``remat="dots"`` keeps
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+_recomputing = 0
+
+
+def recomputing() -> bool:
+    """Whether a checkpointed region is being rerun for the backward."""
+    return _recomputing > 0
+
+
+@contextlib.contextmanager
+def _rerun(inner=None):
+    global _recomputing
+    with inner if inner is not None else contextlib.nullcontext():
+        _recomputing += 1
+        try:
+            yield
+        finally:
+            _recomputing -= 1
+
+
+def _full_contexts():
+    return contextlib.nullcontext(), _rerun()
+
+
+def _dots_contexts():
+    forward, rerun = _ckpt.create_selective_checkpoint_contexts(
+        list(DOT_OPS))
+    return forward, _rerun(rerun)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +101,7 @@ class Runtime:
     kernels: str = "kernels"          # kernels | plain
     gradsync: str = "gspmd"           # one of GRADSYNC_MODES
     dp_workers: int = 1               # data-parallel workers W
+    remat: str = "none"               # one of REMAT_POLICIES
 
     def __post_init__(self):
         if self.kernels not in ("kernels", "plain"):
@@ -54,6 +113,9 @@ class Runtime:
         if not isinstance(self.dp_workers, int) or self.dp_workers < 1:
             raise ValueError(f"dp_workers must be a positive int, got "
                              f"{self.dp_workers!r}")
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
+                             f"{self.remat!r}")
 
     @property
     def spmd(self) -> bool:
@@ -68,6 +130,21 @@ class Runtime:
         if self.kernels == "plain":
             return ops.PLAIN[name]
         return getattr(ops, name)
+
+    def checkpoint(self, fn):
+        """``fn`` under the remat policy: ``fn`` itself for ``none`` or
+        with grad mode off (prefill, decode, serving and the captured
+        programs are untouched), else ``fn`` wrapped by
+        ``torch.utils.checkpoint`` (non-reentrant; the forward draws no
+        random numbers, so no RNG state is kept).  ``fn`` must not modify
+        its inputs in place: the rerun would read the modified values."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return fn
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            preserve_rng_state=False,
+            context_fn=(_dots_contexts if self.remat == "dots"
+                        else _full_contexts))
 
 
 CPU_RUNTIME = Runtime()

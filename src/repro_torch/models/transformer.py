@@ -21,6 +21,8 @@ deepseek-moe-16b 1 / 56 / 28.  The FFN is a SwiGLU, or for the MoE
 family :func:`repro_torch.models.moe.moe_block`, whose aux loss the
 forward sums over the layers and :func:`lm_loss` adds.  The big
 projections stay ``torch.matmul``, as the reference left them to XLA.
+Under ``Runtime(remat=...)`` each layer of the full-sequence stack is
+one region of ``rt.checkpoint`` (:func:`_stack`).
 The ssm, hybrid and encdec families have their own stacks
 (:mod:`~repro_torch.models.registry`, :mod:`~repro_torch.models.hybrid`,
 :mod:`~repro_torch.models.encdec`); :mod:`~repro_torch.models.vlm`
@@ -214,22 +216,30 @@ def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
     """Every block over the embedded x (B, S, d).  Returns ``(x, y,
     aux)``: the residual stream, the last block's FFN output, not yet
     added (the final norm adds it as it normalises), and the MoE aux
-    loss summed over the layers (None without MoE)."""
+    loss summed over the layers (None without MoE).
+
+    Layer i is one region of ``rt.checkpoint``: its opening norm (which
+    adds the previous block's FFN output) and the block, from ``(y, x)``
+    to ``(x, y, aux)``.  The fused norm puts two (B, S, d) tensors at
+    each region boundary where the reference's scan carries one.  The
+    cache writes of :func:`prefill` run without grad, where the
+    checkpoint is the identity."""
     _decoder_only(cfg)
     rope = layers.rope_cos_sin(torch.arange(x.shape[1], device=x.device)[None],
                                cfg.head_dim_, cfg.rope_theta,
                                compute_dtype(x.dtype))
-    per_layer = unstack_layers(params["layers"])
-    h = rt.op("rms_norm")(x, per_layer[0]["attn_norm"]["scale"],
-                          cfg.norm_eps)
-    aux = None
-    for i, p in enumerate(per_layer):
-        if i:
-            h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
-                                              cfg.norm_eps)
-        x, y, a = block(p, cfg, h, x, rt, rope,
-                        None if cache is None else (cache["k"][i],
-                                                    cache["v"][i]))
+
+    def region(p, kv):
+        def run(y, x):
+            h, x = layers.open_norm(rt, y, x, p["attn_norm"]["scale"],
+                                    cfg.norm_eps)
+            return block(p, cfg, h, x, rt, rope, kv)
+        return run
+
+    y = aux = None
+    for i, p in enumerate(unstack_layers(params["layers"])):
+        kv = None if cache is None else (cache["k"][i], cache["v"][i])
+        x, y, a = rt.checkpoint(region(p, kv))(y, x)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, y, aux

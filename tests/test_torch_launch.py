@@ -10,7 +10,7 @@ kernel sites, against the reference on the CPU.
 * ``opanalysis``: dot FLOPs of a 2-layer, width-64 dense prefill and
   train step with plain kernel sites within 2% of the reference's
   ``hloanalysis.analyze_text`` of the same step compiled on the CPU
-  (``attn_impl="xla"``, ``remat="none"``);
+  (``attn_impl="xla"``), under each ``remat`` policy on both sides;
 * the dry-run: every full-size cell on the single-pod mesh runs on
   ``meta`` and is ``skipped`` exactly where the reference's
   ``skip_reason`` says so; per-device argument bytes of the parameters
@@ -177,11 +177,21 @@ TINY = dict(name="launch-tiny", family="dense", n_layers=2, d_model=64,
 FLOPS_RTOL = 0.02
 
 
-@pytest.mark.parametrize("kind", ["prefill", "train"])
-def test_opanalysis_dot_flops_match_the_reference_hlo(kind):
+# (kind, remat); the remat-free cases keep their kind alone as their id
+FLOPS_CASES = [pytest.param(kind, remat, id=kind if remat == "none"
+                            else f"{kind}-{remat}")
+               for remat in ("none", "full", "dots")
+               for kind in ("prefill", "train")]
+
+
+@pytest.mark.parametrize("kind,remat", FLOPS_CASES)
+def test_opanalysis_dot_flops_match_the_reference_hlo(kind, remat):
+    """The reference's XLA drops the rerun's dead products as torch's
+    rerun stops at a region's last saved tensor, and ``dots`` keeps the
+    products on both sides: the counts agree under each policy."""
     b, s = 2, 32
     ref_arch = ref_registry.Arch(cfg=RefModelConfig(**TINY))
-    ref_rt = RefRuntime(attn_impl="xla", remat="none")
+    ref_rt = RefRuntime(attn_impl="xla", remat=remat)
     abstract = ref_layers.abstract_tree(ref_arch.param_specs())
     tokens = {"tokens": jax.ShapeDtypeStruct((b, s), jnp.int32)}
     if kind == "train":
@@ -196,7 +206,7 @@ def test_opanalysis_dot_flops_match_the_reference_hlo(kind):
     params = layers.abstract_tree(arch.param_specs())
     batch = {"tokens": torch.empty((b, s), dtype=torch.int32,
                                    device="meta")}
-    rt = Runtime(kernels="plain")
+    rt = Runtime(kernels="plain", remat=remat)
     with opanalysis.OpAnalysis() as an:
         if kind == "train":
             steps.make_train_step(arch, rt, donate=True)(
@@ -417,11 +427,12 @@ def test_dryrun_never_initialises_cuda(monkeypatch, tmp_path):
                  "spindle_compressed"])
     assert dict(os.environ) == before
     assert not torch.cuda.is_initialized()
-    plain = json.loads((tmp_path / "pod16x16" / "baseline__spindle__plain"
-                        / "mamba2-2.7b__decode_32k.json").read_text())
+    plain = json.loads((tmp_path / "pod16x16" /
+                        "baseline__spindle__plain__full" /
+                        "mamba2-2.7b__decode_32k.json").read_text())
     assert plain["status"] == "ok" and plain["ops"]["kernels"] == {}
     comp = json.loads((tmp_path / "pod16x16" /
-                       "baseline__spindle_compressed__kernels" /
+                       "baseline__spindle_compressed__kernels__full" /
                        "qwen3-1.7b__train_4k.json").read_text())
     coll = comp["ops"]["collectives"]
     assert set(coll) == {"reduce-scatter", "all-gather"}
@@ -430,8 +441,46 @@ def test_dryrun_never_initialises_cuda(monkeypatch, tmp_path):
     assert comp["ops"]["kernels"]["quantize"]["launches"] == \
         256 * coll["all-gather"]["count"]
     cells = roofline.load_cells(tmp_path, "pod16x16",
-                                "baseline__spindle_compressed__kernels")
+                                "baseline__spindle_compressed__kernels__full")
     assert roofline.row(cells[0])["status"] == "ok"
+
+
+def test_dryrun_remat_moves_the_train_cells_temp_memory(single_cells):
+    """qwen3-1.7b ``train_4k`` on one pod: the live-meta peak of the
+    default ``full`` cell is below ``none``'s (every layer's activations
+    kept) and ``dots``' (the products' outputs kept) lies between them;
+    the rerun adds products under ``full`` only."""
+    full = single_cells[("qwen3-1.7b", "train_4k")]
+    none, dots = (dryrun.run_cell("qwen3-1.7b", "train_4k", False,
+                                  remat=r) for r in ("none", "dots"))
+    assert [c["remat"] for c in (none, full, dots)] == \
+        ["none", "full", "dots"]
+    temp = [c["memory"]["temp_size_bytes"] for c in (full, dots, none)]
+    assert temp[0] < temp[1] < temp[2], temp
+    flops = [c["roofline"]["op_flops_global"] for c in (none, dots, full)]
+    assert flops[0] < flops[2] and flops[1] < flops[2], flops
+    # the kernel sites rerun under both policies
+    assert dots["ops"]["kernels"] == full["ops"]["kernels"]
+    assert full["ops"]["kernels"]["flash_attention"]["launches"] == \
+        2 * none["ops"]["kernels"]["flash_attention"]["launches"]
+
+
+def test_dryrun_records_the_remat_and_names_its_directory(tmp_path):
+    """The reference's layout: the default (``full``) cells straight
+    under the mesh, any non-default flag in
+    ``<rules>__<gradsync>__<kernels>__<remat>``."""
+    argv = ["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--out",
+            str(tmp_path)]
+    dryrun.main(argv)
+    dryrun.main(argv + ["--remat", "dots"])
+    base = tmp_path / "pod16x16"
+    default = json.loads((base / "qwen3-1.7b__decode_32k.json").read_text())
+    dots = json.loads((base / "baseline__gspmd__kernels__dots" /
+                       "qwen3-1.7b__decode_32k.json").read_text())
+    assert (default["remat"], dots["remat"]) == ("full", "dots")
+    assert default["status"] == dots["status"] == "ok"
+    with pytest.raises(SystemExit):
+        dryrun.main(argv + ["--remat", "selective"])
 
 
 def _serve_args(seed=3):
