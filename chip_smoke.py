@@ -29,7 +29,9 @@ round on seamless-m4t-medium) and their training (``Trainer`` on
 zamba2-2.7b, qwen2-moe-a2.7b, deepseek-moe-16b, internvl2-26b and
 seamless-m4t-medium at full width), and the launch plane (the serve and
 train launchers, the dry-run and roofline tools, the multicast grid
-sharded over named devices).
+sharded over named devices), and the port across real
+``torch.distributed`` ranks (the data-parallel train step, the MoE's
+expert parallelism, the SST push).
 
 Phases (one JSON line each; any failure exits non-zero):
 
@@ -213,8 +215,9 @@ Phases (one JSON line each; any failure exits non-zero):
    flash-attention calls, the loss beside ln V, the aux term, the routes
    dropped and the smallest router gap, tokens/s, and a computed bound
    that counts the E x C capacity slots the program runs;
-27. qwen2-moe-a2.7b served on phase 6's layout, per round (1 / 48 / 24
-   calls a decode step, C = 8 >= 8 rows: nothing drops) and
+27. qwen2-moe-a2.7b at full width, 4 of its 24 layers (``cut_layers``,
+   for the run's time limit), served on phase 6's layout, per round
+   (1 / 8 / 4 calls a decode step, C = 8 >= 8 rows: nothing drops) and
    ``run(fused=True)`` (identical, host_hops 0, one capture cold and
    none warm): tokens/s, wall a step, graph nodes, capture seconds, pool
    bytes, the fused run's wall a device step, one traced decode step's
@@ -294,8 +297,24 @@ Phases (one JSON line each; any failure exits non-zero):
    work; phase 3's grids through ``run_batch(devices=[cuda:0] * k)``,
    one chunk a device, identical to phase 3's unsharded and per-point
    runs (``--launch-phase`` runs it alone, after the build and phase 3);
+38. across real ``torch.distributed`` ranks (``repro_torch.core.ranks``;
+   ``--ranks-phase`` runs it alone, after the build), each rank a process
+   that loads the kernels built here: (a) qwen3-1.7b at full width and
+   depth (28 layers), a 2 x 2048 global batch, ``make_train_step`` for 2 steps
+   in each Spindle mode on two ranks sharing the card over ``gloo``
+   (1 x 2048 rows each), every rank's losses, parameters and AdamW state
+   bit-equal to the folded ``Runtime(dp_workers=2)`` run in a one-rank
+   process of its own, exact launches a step, a warm step taken apart;
+   (b) qwen2-moe-a2.7b at full width, 4 of 24 layers, its 64 expert
+   slots 32 a rank over a ``{"data": 1, "model": 2}`` mesh: the loss at
+   1 x 2048, a prefill of 1 x 512 and 8 greedy decode steps against the
+   unsplit path (within the bf16 bar, greedy tokens equal where the
+   unsplit top-2 gap exceeds it, routes and drops equal); (c)
+   ``sst.push_rows`` of the testbed's SST columns, exact; (d) in the
+   one-rank process, over ``nccl``: a train step and the three
+   reductions, bit-equal to the folded W = 1 ones;
 then the ``kernels`` line: per kernel its launches on the main paths
-(phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34, 37 and, from the
+(phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34, 37, 38 and, from the
 device traces, 18 and 20), its times and its bound.
 
 The round loop of every card multicast ``kernel`` run executes under
@@ -326,6 +345,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 T_START = time.perf_counter()
@@ -333,7 +353,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
-from repro_torch.core import gradsync, graphloop  # noqa: E402
+from repro_torch.core import gradsync, graphloop, ranks, sst  # noqa: E402
 from repro_torch.core.group import (GraphBackend, KernelBackend,  # noqa: E402
                                     _stack_masks)
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -4439,13 +4459,15 @@ def encoder_launches(cfg) -> dict:
 
 class RouterProbe:
     """While entered, every router call's smallest gap between a token's
-    K-th and (K+1)-th probability, its aux term and every dispatch's
-    dropped routes, kept on the device and read on exit (diagnostic
-    passes, and the train steps of phase 33); a remat rerun's calls
-    (``recomputing()``) are not counted again."""
+    K-th and (K+1)-th probability, its routes, its aux term and every
+    dispatch's dropped routes, kept on the device and read on exit
+    (diagnostic passes, the train steps of phase 33, phase 38's EP
+    runs); a remat rerun's calls (``recomputing()``) are not counted
+    again."""
 
     def __enter__(self):
         self.gaps, self.drops, self.aux, self.routes = [], [], [], 0
+        self.idx = []                 # each call's routes (phase 38)
         self._route, self._dispatch = moe.route, moe._dispatch
 
         def route(p, cfg, x):
@@ -4457,6 +4479,7 @@ class RouterProbe:
                 self.gaps.append((top[:, -2] - top[:, -1]).min())
             out = self._route(p, cfg, x)
             self.aux.append(out[2].detach())
+            self.idx.append(out[0].clone())
             return out
 
         def dispatch(idx, weights, e, c, t):
@@ -4902,9 +4925,10 @@ def phase26_moe_loss(cfg, params):
 
 
 def phase27_moe_serve(cfg, params, rep_k):
-    """qwen2-moe-a2.7b served on phase 6's layout (2 replicas x 8 slots x
-    2048 positions, window 8, 16 requests a replica): per round on the
-    ``kernel`` backend with 1 / 48 / 24 launches a decode step, then
+    """qwen2-moe-a2.7b (``cfg``: 4 of its 24 layers) served on phase 6's
+    layout (2 replicas x 8 slots x 2048 positions, window 8, 16 requests
+    a replica): per round on the ``kernel`` backend with 1 / 8 / 4
+    launches a decode step, then
     ``run(fused=True)`` identical to it, host_hops 0, one capture cold
     and none warm.  C = 8 >= T = 8, so no route drops.  Returns the
     per-round run's launches and the fused run's figures."""
@@ -4975,24 +4999,26 @@ def phase27_moe_serve(cfg, params, rep_k):
     return launches, fused_row
 
 
-def families_device_phase(cfg, params, rep_k, fused_row, seamless):
+def families_device_phase(cfg, params, served, fused_row, seamless):
     """The profiled figures of phases 26-30, after every timed run of
-    this process: one qwen2-moe-a2.7b decode step traced (the body the
-    fused program replays; device time and operations beside the byte
-    bound, and beside the untraced fused run's wall a device step), each
-    full-width forward profiled (device time, busy share, per kernel)
-    and one seamless decode step.  Phase 27's fused run is not traced
-    (its 36 replays of a 156k-node graph crash the profiler's
-    collection); a short fused epoch is (:func:`fused_short_trace`)."""
+    this process: one qwen2-moe-a2.7b decode step traced on phase 27's
+    engines (``served``: their config, parameters and replicas; the body
+    the fused program replays; device time and operations beside the
+    byte bound, and beside the untraced fused run's wall a device step),
+    each full-width forward profiled (device time, busy share, per
+    kernel) and one seamless decode step.  Phase 27's fused run is not
+    traced (its 36 replays of a graph crashed the profiler's collection
+    at 24 layers); a short fused epoch is (:func:`fused_short_trace`)."""
+    scfg, sparams, rep_k = served
     eng = rep_k.engines[0]
     tokens, pos, valid = step_inputs(eng, 16)
     dev_ms, dev_ops = profiled_device(
-        lambda: eng.decode(params, eng.cache, tokens, pos, valid), 5)
+        lambda: eng.decode(sparams, eng.cache, tokens, pos, valid), 5)
     check(dev_ms is not None, "qwen2-moe: no device time profiled")
-    top = profile_forward(lambda: eng.decode(params, eng.cache, tokens,
+    top = profile_forward(lambda: eng.decode(sparams, eng.cache, tokens,
                                              pos, valid))[
         "top_device_ops_ms"]
-    b = moe_step_bound(cfg, params, 8, (pos + 1).tolist())
+    b = moe_step_bound(scfg, sparams, 8, (pos + 1).tolist())
     emit({"phase": 27, "part": "device",
           "one_step_device_ms": dev_ms, "one_step_device_ops": dev_ops,
           "top_device_ops_ms_one_step": top,
@@ -5001,7 +5027,7 @@ def families_device_phase(cfg, params, rep_k, fused_row, seamless):
           "fused_warm_wall_ms_per_device_step":
               fused_row["warm_wall_ms_per_device_step"]})
     emit({"phase": 27, "part": "fused device",
-          **fused_short_trace(rep_k, cfg)})
+          **fused_short_trace(rep_k, scfg)})
     batch = {"tokens": seeded_tokens(cfg, 2, 2048, seed=126)}
     emit({"phase": 26, "part": "device", **profile_forward(
         lambda: registry.Arch(cfg).loss_fn()(params, cfg, batch,
@@ -5362,12 +5388,15 @@ def families_phases() -> int:
     launches, seamless = phase30_seamless()
     counts.update(launches)
     cfg = registry.get(MOE_SERVED).cfg
-    params, rep_k = serve_setup(cfg, torch.bfloat16, seed=0)
+    params = registry.Arch(cfg).init_params(0, "cuda", torch.bfloat16)
     counts.update(phase26_moe_loss(cfg, params))
-    launches, fused_row = phase27_moe_serve(cfg, params, rep_k)
+    scfg = cut_layers(cfg)                   # phase 27 serves 4 layers
+    sparams, rep_k = serve_setup(scfg, torch.bfloat16, seed=0)
+    launches, fused_row = phase27_moe_serve(scfg, sparams, rep_k)
     counts.update(launches)
-    families_device_phase(cfg, params, rep_k, fused_row, seamless)
-    del params, rep_k, seamless
+    families_device_phase(cfg, params, (scfg, sparams, rep_k), fused_row,
+                          seamless)
+    del params, sparams, rep_k, seamless
     torch.cuda.empty_cache()
     families_forward_profiles()
     phase31_families_f32()
@@ -6132,6 +6161,448 @@ def launch_phase() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 38: across real torch.distributed ranks
+# ---------------------------------------------------------------------------
+
+RANKS_PHASE_FLAG = "--ranks-phase"
+# (a): qwen3-1.7b at full width and depth: a rank peaks at 36.4 GB
+# allocated, 42.0 reserved (bf16 weights, gradients and their mean, the
+# float32 AdamW master, m and v at 12 B a parameter, activations and
+# float32 logits at 1 x 2048), so two fit beside each other on the 80 GB
+# card; the depth is the knob if they ever do not (14 layers: 23.5 GB)
+RANKS_MODEL = "qwen3-1.7b"
+RANKS_LAYERS = 28
+RANKS_BATCH, RANKS_SEQ, RANKS_STEPS = 2, 2048, 2
+RANKS_MODES = ("spindle", "spindle_per_tensor", "spindle_compressed")
+RANKS_DEVICES = ("cuda:0", "cuda:0")     # two ranks share the one card
+FOLDED_DEVICES = ("cuda:0",)             # one rank on its card: nccl
+# (b): qwen2-moe-a2.7b at full width, 4 of 24 layers (phases 26 and 33's
+# cut), its 64 expert slots 32 a rank
+EP_LAYERS = 4
+EP_SEQ, EP_PREFILL, EP_DECODE = 2048, 512, 8
+# (c): the testbed's SST columns, its 16 senders
+SST_PUSH_COLUMNS = {"received_num": (16,), "delivered_num": (),
+                    "persisted_num": (), "num_nulls": (16,)}
+RANKS_TIMEOUT = 600
+
+
+def ranks_cfg():
+    return dataclasses.replace(registry.get(RANKS_MODEL).cfg,
+                               n_layers=RANKS_LAYERS)
+
+
+def ep_cfg():
+    return cut_layers(registry.get(MOE_SERVED).cfg)
+
+
+def bit_digest(tree) -> list:
+    """Per tensor, the int64 sums (mod 2**64) of its bit patterns, plain
+    and weighted by position mod 65521: two trees with equal digests
+    hold equal bits, barring a collision."""
+    out = []
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for leaf in tensors(tree):
+        flat = leaf.detach().reshape(-1)
+        flat = flat.view(ints[flat.element_size()])
+        s = torch.zeros((), dtype=torch.int64, device=flat.device)
+        w = torch.zeros((), dtype=torch.int64, device=flat.device)
+        for lo in range(0, flat.numel(), 1 << 24):
+            chunk = flat[lo:lo + (1 << 24)].to(torch.int64)
+            pos = torch.arange(lo, lo + chunk.numel(),
+                               device=flat.device) % 65521 + 1
+            s += chunk.sum()
+            w += (chunk * pos).sum()
+        out.append((int(s), int(w)))
+    return out
+
+
+def ranks_batch(cfg, step: int, device) -> torch.Tensor:
+    """Step ``step``'s global batch of (a)."""
+    return seeded_tokens(cfg, RANKS_BATCH, RANKS_SEQ,
+                         seed=138 + step).to(device)
+
+
+class ReduceTimer:
+    """While entered, the seconds of every ``steps.reduce_grads`` call
+    (the train step's reduction, between two synchronisations)."""
+
+    def __enter__(self):
+        self.s, self._reduce = [], steps.reduce_grads
+
+        def reduce_grads(*args, **kwargs):
+            (out, secs) = timed(lambda: self._reduce(*args, **kwargs))
+            self.s.append(secs)
+            return out
+
+        steps.reduce_grads = reduce_grads
+        return self
+
+    def __exit__(self, *exc):
+        steps.reduce_grads = self._reduce
+        return False
+
+
+def ranks_train_mode(arch, rt, rows, device) -> dict:
+    """RANKS_STEPS steps of ``make_train_step`` from seed 0's weights on
+    ``rows`` of each global batch, each step's reduction timed inside
+    it.  Returns losses, walls, the reduction's seconds and share of each
+    step, launches a step, digests of the parameters and the AdamW
+    state."""
+    cfg = arch.cfg
+    params = arch.init_params(0, device, torch.bfloat16)
+    opt = adamw.init(params)
+    step = steps.make_train_step(arch, rt, donate=True)
+    losses, walls, per_step = [], [], []
+    with ReduceTimer() as reduce_timer:
+        for i in range(RANKS_STEPS):
+            batch = {"tokens": ranks_batch(cfg, i, device)[rows]}
+            before = ops.launch_counts()
+            (params, opt, m), wall = timed(lambda: step(params, opt, batch))
+            per_step.append(launches_since(before))
+            losses.append(float(m["loss"]))
+            walls.append(wall)
+    out = {"losses": losses, "step_wall_s": walls,
+           "reduce_s": reduce_timer.s,
+           "reduce_share": [r / w for r, w in zip(reduce_timer.s, walls)],
+           "launches_per_step": per_step, "params": bit_digest(params),
+           "opt": bit_digest(opt)}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def ranks_folded_child(rank, device):
+    """(a)'s comparison, the folded path ``Runtime(dp_workers=2)`` on the
+    whole global batch; then (d), one train step over ``nccl`` at world
+    size 1 (this process is a one-rank spawn: its own card) against the
+    folded W = 1 step, and the rank forms of the three reductions over
+    ``nccl`` against the folded forms at W = 1."""
+    arch = registry.Arch(ranks_cfg())
+    rows = slice(0, RANKS_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    folded = {mode: ranks_train_mode(
+        arch, Runtime(gradsync=mode, dp_workers=RANKS_BATCH), rows, device)
+        for mode in RANKS_MODES}
+    peak = torch.cuda.max_memory_allocated()
+
+    # (d): nccl at world size 1
+    mesh = ranks.RankMesh({"data": 1}, device)
+    axis = mesh.axis("data")
+    params = arch.init_params(0, device, torch.bfloat16)
+    batch = {"tokens": ranks_batch(arch.cfg, 0, device)[:1]}
+    plain = steps.make_train_step(arch, Runtime(gradsync="spindle"))
+    new_p, new_o, m = plain(params, adamw.init(params), batch)
+    want = (float(m["loss"]), bit_digest(new_p), bit_digest(new_o))
+    del new_p, new_o, m
+    d = {}
+    for mode in ("spindle", "spindle_per_tensor"):
+        rt = Runtime(gradsync=mode, mesh=mesh)
+        loss, grads = steps.rank_grads(arch, rt)(params, batch)
+        new_p, new_o, _ = adamw.update(adamw.OptConfig(), grads,
+                                       adamw.init(params))
+        del grads
+        d[mode] = (float(loss), bit_digest(new_p), bit_digest(new_o)) == want
+        del new_p, new_o
+        check(d[mode], f"(d) {mode} over nccl at world size 1 is not the "
+              "folded W = 1 step bit for bit")
+    _, grads = steps.value_and_grad(arch, Runtime())(params, batch)
+    plan = gradsync.make_plan(grads, target_bytes=steps.BUCKET_BYTES)
+    got, _ = gradsync.compressed_psum_mean(grads, plan, None, Runtime(),
+                                           axis)
+    want, _ = gradsync.compressed_psum_mean(
+        tree_util.map(lambda g: g[None], grads), plan, None, Runtime())
+    d["spindle_compressed"] = bit_digest(got) == bit_digest(want)
+    check(d["spindle_compressed"], "(d) the compressed reduction over nccl "
+          "is not the folded W = 1 one bit for bit")
+    return {"folded": folded, "peak_bytes": peak, "nccl_world1": d,
+            "backend": mesh.backend}
+
+
+def ep_run(arch, params, rt, loss_tokens, prompt, device):
+    """(b)'s path through the entry points: the bf16 loss, a prefill
+    into a preallocated cache, greedy decode steps.  Returns (loss,
+    logits a step (prefill first), tokens fed, the router probe,
+    wall)."""
+    cfg = arch.cfg
+    cache = {k: torch.zeros((cfg.n_layers, 1, EP_PREFILL + EP_DECODE,
+                             cfg.n_kv_heads, cfg.head_dim_),
+                            dtype=torch.bfloat16, device=device)
+             for k in ("k", "v")}
+    decode = steps.make_serve_step(arch, rt, "decode")
+
+    def run():
+        loss = arch.loss_fn()(params, cfg, {"tokens": loss_tokens}, rt)
+        logits, _ = arch.prefill_fn()(params, {"tokens": prompt}, rt,
+                                      cache=cache)
+        out, fed = [logits], []
+        pos = torch.full((1,), EP_PREFILL, dtype=torch.int32, device=device)
+        for _ in range(EP_DECODE):
+            nxt = out[-1].argmax(-1, keepdim=True).to(torch.int32)
+            fed.append(nxt)
+            logits, _ = decode(params, cache, {"tokens": nxt}, pos)
+            out.append(logits)
+            pos = pos + 1
+        return loss, torch.stack(out), torch.cat(fed, dim=1)
+
+    with torch.no_grad(), RouterProbe() as log:
+        (loss, logits, fed), wall = timed(run)
+    return loss, logits, fed, log, wall
+
+
+def ep_compare(split, whole, cfg) -> dict:
+    """(b)'s bars: the loss and the logits within the bf16 tolerance,
+    the greedy tokens equal wherever the unsplit top-2 gap exceeds it
+    (after a near tie the two runs may feed different tokens, so the
+    comparison stops there), routes and drops equal on the calls both
+    runs share."""
+    tol = TOL[torch.bfloat16]
+    loss_err = within(split[0], whole[0], torch.bfloat16,
+                      what="EP loss against unsplit")
+    top2 = torch.topk(whole[1].float(), 2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).reshape(-1).tolist()
+    tokens_equal, compared, errs = True, 0, []
+    for i in range(EP_DECODE + 1):
+        errs.append(within(split[1][i], whole[1][i], torch.bfloat16,
+                           what=f"EP logits, step {i}"))
+        compared = i + 1
+        if i == EP_DECODE:
+            break
+        same = torch.equal(split[2][:, i], whole[2][:, i])
+        if gaps[i] > tol:
+            check(same, f"EP greedy token {i} differs at a top-2 gap of "
+                  f"{gaps[i]} > {tol}")
+        elif not same:
+            tokens_equal = False
+            break
+    # router calls: n_layers for the loss, the prefill and each step fed
+    # the same token
+    calls = cfg.n_layers * (2 + compared - 1)
+    ls, lw = split[3], whole[3]
+    routes_equal = all(torch.equal(a, b)
+                       for a, b in zip(ls.idx[:calls], lw.idx[:calls]))
+    drops = [int(sum(int(d) for d in log.drops[:calls])) for log in (ls, lw)]
+    check(routes_equal, "EP routes differ from the unsplit path's")
+    check(drops[0] == drops[1], f"EP dropped {drops[0]} routes, unsplit "
+          f"{drops[1]}")
+    return {"loss_split": float(split[0]), "loss_unsplit": float(whole[0]),
+            "loss_err": loss_err, "logits_max_err": max(errs),
+            "logit_steps_compared": compared, "top2_gaps": gaps,
+            "greedy_tokens_equal": tokens_equal,
+            "tokens_split": split[2].tolist(),
+            "tokens_unsplit": whole[2].tolist(),
+            "router_calls_compared": calls, "routes_equal": routes_equal,
+            "routes_dropped": drops[1],
+            "min_router_gap": min(float(g) for g in lw.gaps[:calls]),
+            "tol": tol}
+
+
+def ranks_child(rank, device):
+    """Phase 38's two ranks on one card over ``gloo``: (a) the train
+    step, (b) expert parallelism, (c) the SST push.  Returns this rank's
+    results; rank 0 also holds (b) against the unsplit path."""
+    out = {"rank": rank}
+    mesh = ranks.RankMesh({"data": 2}, device)
+    axis = mesh.axis("data")
+    arch = registry.Arch(ranks_cfg())
+    rows = slice(axis.index, axis.index + 1)
+    ops.reset_launch_counts()                # the ranks path starts here
+    torch.cuda.reset_peak_memory_stats()
+    out["a"] = {mode: ranks_train_mode(
+        arch, Runtime(gradsync=mode, mesh=mesh), rows, device)
+        for mode in RANKS_MODES}
+    out["backend"] = mesh.backend
+    out["a_peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["a_peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    counts = ops.launch_counts()
+    if rank == 0:                            # progress, before (b) runs
+        emit({"phase": 38, "part": "a", "rank": 0,
+              "losses": {m: r["losses"] for m, r in out["a"].items()},
+              "step_wall_s": {m: r["step_wall_s"]
+                              for m, r in out["a"].items()},
+              "reduce_s": {m: r["reduce_s"] for m, r in out["a"].items()},
+              "peak_bytes": out["a_peak_bytes"]})
+
+    # (b) expert parallelism over a {"data": 1, "model": 2} mesh
+    ep_mesh = ranks.RankMesh({"data": 1, "model": 2}, device)
+    cfg = ep_cfg()
+    ep_arch = registry.Arch(cfg)
+    model = ep_mesh.axis("model")
+    full = ep_arch.init_params(0, device, torch.bfloat16)
+    mine = moe.shard_experts(full, model.index, model.size)
+    if rank:
+        del full
+    torch.cuda.empty_cache()
+    loss_tokens = seeded_tokens(cfg, 1, EP_SEQ, seed=238).to(device)
+    prompt = seeded_tokens(cfg, 1, EP_PREFILL, seed=239).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    split = ep_run(ep_arch, mine, Runtime(mesh=ep_mesh), loss_tokens,
+                   prompt, device)
+    counts = collections.Counter(counts) + collections.Counter(
+        ops.launch_counts())                 # ... and ends here
+    out["b"] = {"experts_here": mine["layers"]["moe"]["w_gate"].shape[1],
+                "wall_s": split[4], "peak_bytes":
+                torch.cuda.max_memory_allocated()}
+    if rank == 0:                            # the unsplit path beside it
+        whole = ep_run(ep_arch, full, Runtime(), loss_tokens, prompt,
+                       device)
+        out["b"].update(ep_compare(split, whole, cfg),
+                        unsplit_wall_s=whole[4])
+        del full, whole
+    del mine, split
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (c) the SST push over the data axis: int32, exact
+    rng = np.random.default_rng(338)
+    own, local = {}, {}
+    for name, shape in SST_PUSH_COLUMNS.items():
+        own[name] = torch.from_numpy(rng.integers(
+            0, 1 << 20, size=(2,) + shape, dtype=np.int32)).to(device)
+        local[name] = own[name] + torch.from_numpy(rng.integers(
+            -50, 50, size=(2,) + shape, dtype=np.int32)).to(device)
+    got = sst.push_rows({k: v[rank:rank + 1] for k, v in own.items()},
+                        local, axis)
+    out["c"] = all(got[k].dtype == torch.int32
+                   and torch.equal(got[k], torch.maximum(own[k], local[k]))
+                   for k in own)
+    check(out["c"], "push_rows is not the elementwise max of the rows")
+    out["counts"] = dict(counts)
+    return out
+
+
+def phase38_ranks(smi_line: str) -> dict:
+    """Phase 38: the port across real ``torch.distributed`` ranks.  The
+    kernels are built in this process first; each rank is a process of
+    :func:`repro_torch.core.ranks.spawn` that loads them.  (a) and its
+    folded comparison, (d) in one one-rank spawn over ``nccl``, then (a),
+    (b), (c) in a two-rank spawn on the one card over ``gloo``
+    (``ranks.backend_for``: NCCL refuses two ranks on one card).  A rank
+    that fails, or is not done in time, fails the run.  Returns the
+    ranks path's launches: both ranks' (a) steps and (b) EP runs."""
+    t0 = time.perf_counter()
+    build_kernels()
+    torch.cuda.empty_cache()
+    parent_bytes = [torch.cuda.memory_allocated(),
+                    torch.cuda.memory_reserved()]
+    (folded_out,), folded_s = timed(lambda: ranks.spawn(
+        ranks_folded_child, list(FOLDED_DEVICES), timeout=RANKS_TIMEOUT))
+    results, ranks_s = timed(lambda: ranks.spawn(
+        ranks_child, list(RANKS_DEVICES), timeout=RANKS_TIMEOUT))
+    for got, devices in ((folded_out["backend"], FOLDED_DEVICES),
+                         (results[0]["backend"], RANKS_DEVICES)):
+        check(got == ranks.backend_for(devices),
+              f"ranks on {devices} ran over {got}")
+    folded = folded_out["folded"]
+    cfg = ranks_cfg()
+    plan, _ = train_plan(cfg, workers=2)
+    want = train_launches(cfg, 1, 0)
+    a = {}
+    for mode in RANKS_MODES:
+        per_rank = [r["a"][mode] for r in results]
+        w = folded[mode]
+        for r, got in enumerate(per_rank):
+            bucket_launches = plan.n_buckets \
+                if mode == "spindle_compressed" else 0
+            step_want = dict(want, **({"quantize": bucket_launches,
+                                       "dequantize": bucket_launches}
+                                      if bucket_launches else {}))
+            for i, made in enumerate(got["launches_per_step"]):
+                check(made == step_want, f"(a) {mode} rank {r} step {i}: "
+                      f"launches {made}, want {step_want}")
+        same_ranks = all(p["params"] == per_rank[0]["params"]
+                         and p["opt"] == per_rank[0]["opt"]
+                         and p["losses"] == per_rank[0]["losses"]
+                         for p in per_rank)
+        check(same_ranks, f"(a) {mode}: the ranks' states diverged")
+        got = per_rank[0]
+        equal = {"losses": got["losses"] == w["losses"],
+                 "params": got["params"] == w["params"],
+                 "opt": got["opt"] == w["opt"]}
+        a[mode] = {
+            "bit_equal_to_folded": equal,
+            "leaves_differing": sum(x != y for x, y in
+                                    zip(got["params"], w["params"])),
+            "losses_ranks": got["losses"], "losses_folded": w["losses"],
+            "step_wall_s_ranks": [p["step_wall_s"] for p in per_rank],
+            "step_wall_s_folded": w["step_wall_s"],
+            "tokens_per_s_ranks": RANKS_BATCH * RANKS_SEQ /
+            max(p["step_wall_s"][-1] for p in per_rank),
+            "tokens_per_s_folded": RANKS_BATCH * RANKS_SEQ /
+            w["step_wall_s"][-1],
+            "reduce_s_ranks": [p["reduce_s"] for p in per_rank],
+            "reduce_share_ranks": [p["reduce_share"] for p in per_rank],
+            "reduce_s_folded": w["reduce_s"],
+            "reduce_share_folded": w["reduce_share"],
+            "quantize_per_step_rank": [
+                p["launches_per_step"][-1].get("quantize", 0)
+                for p in per_rank],
+            "dequantize_per_step_rank": [
+                p["launches_per_step"][-1].get("dequantize", 0)
+                for p in per_rank]}
+        check(all(equal.values()), f"(a) {mode}: two ranks are not the "
+              f"folded W = 2 step bit for bit: {equal}, "
+              f"{a[mode]['leaves_differing']} parameter leaves differ, "
+              f"losses {got['losses']} against {w['losses']}")
+    emit({"phase": 38, "part": "a", "model": RANKS_MODEL,
+          "layers": cfg.n_layers, "of_layers":
+          registry.get(RANKS_MODEL).cfg.n_layers, "params":
+          cfg.param_count(), "global_batch": [RANKS_BATCH, RANKS_SEQ],
+          "ranks": len(results), "devices": list(RANKS_DEVICES),
+          "backend": results[0]["backend"], "steps": RANKS_STEPS,
+          "modes": a,
+          "buckets": plan.n_buckets,
+          "peak_bytes_ranks": [r["a_peak_bytes"] for r in results],
+          "peak_reserved_bytes_ranks": [r["a_peak_reserved_bytes"]
+                                        for r in results],
+          "peak_bytes_folded": folded_out["peak_bytes"],
+          "parent_allocated_reserved_bytes": parent_bytes,
+          "folded_child_s": folded_s, "ranks_child_s": ranks_s,
+          "nvidia_smi": smi_line})
+    b = results[0]["b"]
+    emit({"phase": 38, "part": "b", "model": MOE_SERVED,
+          "layers": EP_LAYERS, "experts_a_rank":
+          [r["b"]["experts_here"] for r in results],
+          "loss_tokens": EP_SEQ, "prefill": EP_PREFILL,
+          "decode_steps": EP_DECODE,
+          "peak_bytes_ranks": [r["b"]["peak_bytes"] for r in results],
+          "wall_s_ranks": [r["b"]["wall_s"] for r in results], **b})
+    check(all(r["c"] for r in results), "(c) push_rows")
+    emit({"phase": 38, "part": "c", "columns": SST_PUSH_COLUMNS,
+          "exact": True})
+    emit({"phase": 38, "part": "d", "backend": folded_out["backend"],
+          "world_size": 1, "bit_equal_to_folded_w1":
+          folded_out["nccl_world1"]})
+    counts = collections.Counter()
+    for r in results:
+        counts.update(r["counts"])
+    emit({"phase": 38, "launches": dict(counts),
+          "gloo_cuda_collectives": ["all_reduce", "reduce_scatter",
+                                    "all_gather"], "staged": [],
+          "wall_s": time.perf_counter() - t0})
+    return dict(counts)
+
+
+def ranks_phase() -> int:
+    """Phase 38 alone (``chip_smoke.py --ranks-phase``), after the
+    build."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi_line = phase0_identity()
+    counts = phase38_ranks(smi_line)
+    check_ranks_path(counts)
+    emit({"ranks": counts})
+    return 0
+
+
+def check_ranks_path(counts: dict) -> None:
+    check(all(counts.get(k, 0) > 0 for k in (
+        "flash_attention", "flash_decode", "rms_norm", "rms_norm_residual",
+        "quantize", "dequantize")),
+        f"the ranks path skipped a kernel: {counts}")
+
+
 KERNELS = (
     ("smc_sweep_watermark", "cuda", "src/repro_torch/kernels/csrc/smc_sweep.cu",
      "src/repro/kernels/smc_sweep.py:153 smc_sweep_watermark_pallas"),
@@ -6166,7 +6637,7 @@ LINE_SHAPES = {
     "ssd_scan": ("B=1 S=2048 H=80 P=64 N=128 G=1 chunk=256", torch.bfloat16),
 }
 PATHS = ("multicast", "serve", "forward", "train", "cut", "fused", "load",
-         "recurrent", "families", "families_train", "launch")
+         "recurrent", "families", "families_train", "launch", "ranks")
 
 
 def main() -> int:
@@ -6189,6 +6660,8 @@ def main() -> int:
         return des_phase()
     if LAUNCH_PHASE_FLAG in sys.argv[1:]:
         return launch_phase()
+    if RANKS_PHASE_FLAG in sys.argv[1:]:
+        return ranks_phase()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -6294,13 +6767,18 @@ def main() -> int:
         "rms_norm", "rms_norm_residual")),
         f"the launch path skipped a kernel: {launch}")
 
+    # across real torch.distributed ranks: the data-parallel train step,
+    # expert parallelism and the SST push, each rank a process of its own
+    ranks_counts = phase38_ranks(smi_line)
+    check_ranks_path(ranks_counts)
+
     _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
     line_shapes = dict(LINE_SHAPES, **{
         name: (f"n={TRAIN_WORKERS * shard} block={shard}", torch.float32)
         for name in ("quantize", "dequantize")})
     by_path = dict(zip(PATHS, (multicast, serve, forward, train, cut,
                                fused, load, recurrent, families,
-                               families_train, launch)))
+                               families_train, launch, ranks_counts)))
     kernels = []
     for name, route, source, replaces in KERNELS:
         if name in line_shapes:

@@ -28,7 +28,17 @@ sum over dim 0; ``psum_scatter`` of a ``(W, L)`` bucket is a reshape to
 ``(W, W, L / W)`` followed by a sum over dim 0 (worker ``j`` owns row
 ``j`` of the result); ``all_gather`` is the identity of that gathered
 layout.  A mean is the same on every worker, so it comes back once,
-unstacked (each leaf ``shape``).  :class:`BucketSyncStream` routes a
+unstacked (each leaf ``shape``).
+
+Given a mesh axis (``axis=``, a :class:`repro_torch.core.ranks.Axis`),
+the same functions run across real ranks instead, as the reference's do
+inside ``shard_map``: each rank holds its own unstacked gradients, and
+the collectives are ``all_reduce``, ``reduce_scatter`` and
+``all_gather`` over the axis's process group.  One algorithm serves
+both forms; :func:`_reducer` is the one place that picks the form.  At
+two workers the two forms agree bit for bit (``a + b == b + a``); at
+more, ``gloo``'s ring sums in its own order, equal on every rank.
+:class:`BucketSyncStream` routes a
 bucket reduction through a live multicast stream, so that an elastic
 resize crosses the virtual-synchrony cut.
 """
@@ -46,6 +56,7 @@ from repro_torch import DeviceLike
 from repro_torch import tree as tree_util
 from repro_torch.core import delivery as delivery_mod
 from repro_torch.core import group as group_mod
+from repro_torch.core import ranks
 from repro_torch.core import simulator as sim
 from repro_torch.models.runtime import Runtime
 
@@ -158,47 +169,119 @@ def unflatten_buckets(buckets: Sequence[torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# Reduction modes (stacked (W, ...) leaves in, one mean out)
+# The reduction axis: workers folded onto one device, or ranks
 # ---------------------------------------------------------------------------
 
-def _workers(grads: PyTree) -> int:
-    return tree_util.leaves(grads)[0].shape[0]
+class _Folded:
+    """The W workers folded onto one device: dim 0 of every tensor is the
+    worker.  The gathered layout of a bucket is its rows in worker order,
+    so ``all_gather`` is the identity."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return x.sum(0)
+
+    def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """(W, n L) -> (W, L): row j is the sum of every worker's shard j."""
+        return x.reshape(self.size, self.size, -1).sum(0)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def own_shards(self, rows: torch.Tensor) -> torch.Tensor:
+        """A gathered (n, L) bucket's rows that the workers own: all."""
+        return rows
+
+    def residual(self, err: torch.Tensor, length: int) -> torch.Tensor:
+        """(W, n L)[:, :length]: worker j's error on its own shard j."""
+        w, shard_len = err.shape
+        res = torch.zeros((w, w, shard_len), dtype=err.dtype,
+                          device=err.device)
+        res[torch.arange(w), torch.arange(w)] = err
+        return res.view(w, -1)[:, :length]
 
 
-def per_tensor_psum_mean(grads: PyTree) -> PyTree:
+class _Ranked:
+    """This rank's tensors, reduced over a mesh axis by collectives."""
+
+    def __init__(self, axis: ranks.Axis):
+        self.axis = axis
+        self.size = axis.size
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return ranks.all_reduce(x, self.axis)
+
+    def psum_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """(n L,) -> (L,): this rank's shard of the sum."""
+        return ranks.reduce_scatter(x, self.axis)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return ranks.all_gather(x, self.axis)
+
+    def own_shards(self, rows: torch.Tensor) -> torch.Tensor:
+        return rows[self.axis.index]
+
+    def residual(self, err: torch.Tensor, length: int) -> torch.Tensor:
+        """(n L,)[:length], nonzero on this rank's shard only."""
+        res = err.new_zeros((self.size, err.numel()))
+        res[self.axis.index] = err
+        return res.view(-1)[:length]
+
+
+def _reducer(grads: PyTree, axis: Optional[ranks.Axis]):
+    """The one place that tells the two forms apart: without an axis the
+    leaves are stacked ``(W, ...)`` over folded workers, with one they
+    are this rank's own, reduced over the axis."""
+    if axis is None:
+        return _Folded(tree_util.leaves(grads)[0].shape[0])
+    return _Ranked(axis)
+
+
+# ---------------------------------------------------------------------------
+# Reduction modes (stacked (W, ...) leaves or a rank's own, one mean out)
+# ---------------------------------------------------------------------------
+
+def per_tensor_psum_mean(grads: PyTree,
+                         axis: Optional[ranks.Axis] = None) -> PyTree:
     """Baseline: one reduction per tensor (the per-event ack analogue)."""
-    n = _workers(grads)
-    return tree_util.map(lambda g: g.sum(0) / n, grads)
+    red = _reducer(grads, axis)
+    return tree_util.map(lambda g: red.psum(g) / red.size, grads)
 
 
-def fused_psum_mean(grads: PyTree, plan: BucketPlan) -> PyTree:
+def fused_psum_mean(grads: PyTree, plan: BucketPlan,
+                    axis: Optional[ranks.Axis] = None) -> PyTree:
     """Spindle: opportunistic fused-bucket reduction — every ready
     gradient coalesced, one reduction per bucket."""
-    n = _workers(grads)
+    red = _reducer(grads, axis)
     buckets = flatten_buckets(grads, plan)
-    return unflatten_buckets([b.sum(0) / n for b in buckets], plan)
+    return unflatten_buckets([red.psum(b) / red.size for b in buckets], plan)
 
 
 def psum_with_validity(grads: PyTree, valid: torch.Tensor,
-                       plan: Optional[BucketPlan] = None
+                       plan: Optional[BucketPlan] = None,
+                       axis: Optional[ranks.Axis] = None
                        ) -> Tuple[PyTree, torch.Tensor]:
-    """Null-round elastic reduction: stragglers (``valid[w] == 0``)
+    """Null-round elastic reduction: stragglers (``valid == 0``)
     contribute a zeroed gradient, and the mean is over the live
-    contributors only.  ``valid`` (W,).  Returns (mean, live_count)."""
+    contributors only.  ``valid`` is (W,) over folded workers, this
+    rank's scalar flag over an axis.  Returns (mean, live_count)."""
+    red = _reducer(grads, axis)
     valid_f = valid.to(torch.float32)
-    count = valid_f.sum()
+    count = red.psum(valid_f)
     denom = torch.clamp(count, min=1.0)
 
     def mask(g):
-        v = valid_f.to(g.dtype).reshape(-1, *([1] * (g.dim() - 1)))
-        return g * v
+        v = valid_f.to(g.dtype)
+        return g * v.reshape(*v.shape, *([1] * (g.dim() - v.dim())))
 
     masked = tree_util.map(mask, grads)
     if plan is None:
-        summed = tree_util.map(lambda g: g.sum(0), masked)
+        summed = tree_util.map(red.psum, masked)
     else:
         summed = unflatten_buckets(
-            [b.sum(0) for b in flatten_buckets(masked, plan)], plan)
+            [red.psum(b) for b in flatten_buckets(masked, plan)], plan)
     return tree_util.map(lambda g: g / denom.to(g.dtype), summed), count
 
 
@@ -208,8 +291,9 @@ def psum_with_validity(grads: PyTree, valid: torch.Tensor,
 
 @dataclasses.dataclass
 class CompressionState:
-    """Error-feedback residuals, one ``(W, L_b)`` float32 buffer per
-    bucket: worker ``w``'s residual of bucket ``b`` at row ``w``."""
+    """Error-feedback residuals, one float32 buffer per bucket: ``(W,
+    L_b)`` over folded workers (worker ``w``'s residual at row ``w``),
+    ``(L_b,)`` on a rank."""
 
     residuals: List[torch.Tensor]
 
@@ -224,16 +308,18 @@ class CompressionState:
 
 def compressed_psum_mean(grads: PyTree, plan: BucketPlan,
                          state: Optional[CompressionState],
-                         rt: Runtime = Runtime()
+                         rt: Runtime = Runtime(),
+                         axis: Optional[ranks.Axis] = None
                          ) -> Tuple[PyTree, Optional[CompressionState]]:
     """reduce_scatter (float32) -> int8-quantize each worker's shard ->
     all_gather (int8), with error feedback: a worker's residual (what
     quantizing its shard lost) is added to its gradient next step.
 
-    Per bucket of L elements (padded to a multiple of W), one
-    ``rt.op("quantize")`` launch quantizes all W shards with one scale
-    per shard (``block = padded L / W``), and one ``rt.op("dequantize")``
-    launch rebuilds the gathered bucket.
+    Per bucket of L elements (padded to a multiple of n), one
+    ``rt.op("quantize")`` launch quantizes the shards with one scale per
+    shard (``block = padded L / n``) — all W of them over folded workers,
+    this rank's own on a rank, as inside the reference's ``shard_map`` —
+    and one ``rt.op("dequantize")`` launch rebuilds the gathered bucket.
 
     ``state`` None is the zero state of a fresh step whose residuals are
     not kept — what the reference's train step does (it builds
@@ -241,7 +327,8 @@ def compressed_psum_mean(grads: PyTree, plan: BucketPlan,
     residuals) — and then None comes back; no residual buffer is
     allocated.  Otherwise the new residuals come back as a
     :class:`CompressionState`."""
-    w = _workers(grads)
+    red = _reducer(grads, axis)
+    n = red.size
     quantize, dequantize = rt.op("quantize"), rt.op("dequantize")
     buckets = flatten_buckets(grads, plan)
     leaves, new_res = [], []
@@ -250,25 +337,23 @@ def compressed_psum_mean(grads: PyTree, plan: BucketPlan,
         buckets[b] = None             # free a concatenated bucket early
         if state is not None:
             buf = buf + state.residuals[b]
-        length = buf.shape[1]
-        pad = (-length) % w
+        length = buf.shape[-1]
+        pad = (-length) % n
         if pad:
             buf = torch.nn.functional.pad(buf, (0, pad))
-        shard_len = buf.shape[1] // w
+        shard_len = buf.shape[-1] // n
         # reduce_scatter: worker j owns the sum of every worker's shard j
-        shard = buf.reshape(w, w, shard_len).sum(0) / w
+        shard = red.psum_scatter(buf) / n
         del buf
         q, scales = quantize(shard.reshape(-1), shard_len)
         # all_gather of the int8 shards and their scales, dequantized
-        full = dequantize(q, scales, shard_len, torch.float32)
+        full = dequantize(red.all_gather(q).reshape(-1),
+                          red.all_gather(scales).reshape(-1), shard_len,
+                          torch.float32)
         del q
         if state is not None:
-            # worker j's residual is nonzero on its own shard only
-            err = shard - full.view(w, shard_len)
-            res = torch.zeros((w, w, shard_len), dtype=torch.float32,
-                              device=err.device)
-            res[torch.arange(w), torch.arange(w)] = err
-            new_res.append(res.view(w, -1)[:, :length])
+            err = shard - red.own_shards(full.view(n, shard_len))
+            new_res.append(red.residual(err, length))
         del shard
         leaves += _bucket_leaves(full[:length], plan, b)
         del full

@@ -1,0 +1,307 @@
+"""Ranks: the port's counterpart of the reference's device mesh.
+
+The reference lays its devices out as a named mesh (``jax.make_mesh``)
+and reduces across a mesh axis inside ``shard_map`` (``lax.psum``,
+``psum_scatter``, ``all_gather``, ``axis_index``).  Here a rank is one
+process holding its own tensors on its own device, and a mesh axis is a
+set of ``torch.distributed`` process groups: each holds the ranks that
+differ only in that axis's coordinate.
+
+* :class:`RankMesh` -- axis names -> :class:`Axis` (this rank's group on
+  the axis, its index there, the axis size), built collectively with
+  ``new_group`` from a shape such as ``{"data": 2}`` or ``{"data": 1,
+  "model": 2}``.  Ranks lie row-major over the axes, as ``jax.make_mesh``
+  lays out devices.  A mesh compares equal only to itself.
+* :func:`all_reduce`, :func:`reduce_scatter`, :func:`all_gather` -- the
+  three collectives the port runs (the reference's ``psum``,
+  ``psum_scatter`` and ``all_gather``), each over an :class:`Axis`.
+* :func:`spawn` -- one process a rank through ``torch.multiprocessing``'s
+  ``spawn`` start method (the only one that works once CUDA is up in the
+  parent).  Rank ``r`` runs ``fn(r, devices[r], *args)`` and its result
+  comes back to the parent.  The parent holds the rendezvous store on
+  ``127.0.0.1`` at a port the kernel picks, so concurrent spawns never
+  race for a port.
+* :func:`init_from_env` -- a ``torchrun`` launch.
+
+The backend follows from the devices, here and nowhere else
+(:func:`backend_for`): ``nccl`` when every rank has a CUDA device of its
+own, ``gloo`` when ranks share a device or run on the CPU (NCCL refuses
+two ranks on one card).  ``gloo`` takes CUDA tensors for all three
+collectives (``all_reduce``, ``reduce_scatter_tensor`` and
+``all_gather_into_tensor``, on torch 2.11 with CUDA 12.8 on an H100), so
+none is staged through host buffers.
+
+With no device named, every entry point wants the card, as
+:func:`repro_torch.resolve_device` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import io
+import math
+import os
+import queue as queue_mod
+import time
+import warnings
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch import tree as tree_util
+
+HOST = "127.0.0.1"
+TIMEOUT_S = 600.0
+
+
+def backend_for(devices: Sequence[DeviceLike]) -> str:
+    """``nccl`` when every rank has a CUDA device of its own, else
+    ``gloo``."""
+    devs = [torch.device(d) for d in devices]
+    if all(d.type == "cuda" for d in devs) and \
+            len({d.index for d in devs}) == len(devs):
+        return "nccl"
+    return "gloo"
+
+
+# ---------------------------------------------------------------------------
+# The mesh
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Axis:
+    """One mesh axis as this rank sees it: the process group of the ranks
+    that share every other coordinate with it, its index on the axis (the
+    reference's ``lax.axis_index``) and the axis size (``psum(1,
+    axis)``)."""
+
+    name: str
+    group: Any
+    index: int
+    size: int
+
+
+class RankMesh:
+    """Named axes over the ranks of the default process group.  Every rank
+    builds it with the same ``shape`` (``new_group`` is collective); the
+    product of the sizes is the world size.  ``device`` is this rank's
+    device (the card unless ``"cpu"`` is named)."""
+
+    def __init__(self, shape: Mapping[str, int], device: DeviceLike = None):
+        if not dist.is_initialized():
+            raise RuntimeError("RankMesh needs an initialised default "
+                               "process group (spawn, init_from_env)")
+        self.shape: Dict[str, int] = {str(k): int(v)
+                                      for k, v in shape.items()}
+        self.device = resolve_device(device)
+        self.backend = dist.get_backend()
+        self.rank = dist.get_rank()
+        self.world_size = dist.get_world_size()
+        sizes = tuple(self.shape.values())
+        if math.prod(sizes) != self.world_size:
+            raise ValueError(f"mesh {self.shape} holds {math.prod(sizes)} "
+                             f"ranks; the world has {self.world_size}")
+        grid = np.arange(self.world_size).reshape(sizes)
+        coords = np.unravel_index(self.rank, sizes)
+        self.axes: Dict[str, Axis] = {}
+        for i, name in enumerate(self.shape):
+            mine = None
+            # every rank creates every group of the axis, in one order
+            for line in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
+                group = dist.new_group([int(r) for r in line])
+                if self.rank in line:
+                    mine = group
+            self.axes[name] = Axis(name, mine, int(coords[i]), sizes[i])
+
+    def axis(self, name: str) -> Axis:
+        if name not in self.axes:
+            raise KeyError(f"no mesh axis {name!r}; have {tuple(self.axes)}")
+        return self.axes[name]
+
+    def size(self, name: str) -> int:
+        """The axis size, 1 for an axis the mesh does not have (the
+        reference's ``mesh.shape.get``)."""
+        return self.shape.get(name, 1)
+
+    def __repr__(self) -> str:
+        return (f"RankMesh({self.shape}, rank={self.rank}, "
+                f"device={self.device}, backend={self.backend!r})")
+
+
+# ---------------------------------------------------------------------------
+# The collectives
+# ---------------------------------------------------------------------------
+
+def _call(collective: Callable, *args, **kwargs):
+    with warnings.catch_warnings():
+        # the collectives' newer names are not in every torch this runs on
+        warnings.simplefilter("ignore", FutureWarning)
+        collective(*args, **kwargs)
+
+
+def all_reduce(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum of ``x`` over the axis (``psum``), a new tensor."""
+    out = x.clone(memory_format=torch.contiguous_format)
+    _call(dist.all_reduce, out, group=axis.group)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``x`` (n * L,) summed over the axis; rank i keeps elements [i L,
+    (i + 1) L) of the sum (``psum_scatter``, not tiled)."""
+    if x.dim() != 1 or x.numel() % axis.size:
+        raise ValueError(f"reduce_scatter takes a flat tensor of a "
+                         f"multiple of {axis.size} elements, got "
+                         f"{tuple(x.shape)}")
+    out = x.new_empty(x.numel() // axis.size)
+    _call(dist.reduce_scatter_tensor, out, x.contiguous(), group=axis.group)
+    return out
+
+
+def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Every rank's ``x`` stacked in axis order: ``(n, *x.shape)``."""
+    flat = x.reshape(-1).contiguous()
+    out = flat.new_empty(axis.size * flat.numel())
+    _call(dist.all_gather_into_tensor, out, flat, group=axis.group)
+    return out.view(axis.size, *x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Starting ranks
+# ---------------------------------------------------------------------------
+
+def _matmul_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def _set_matmul_flags(flags) -> None:
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = flags[:2]
+    torch.set_float32_matmul_precision(flags[2])
+
+
+def _to_cpu(result: Any) -> Any:
+    return tree_util.map(
+        lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x,
+        result)
+
+
+def _entry(rank: int, fn: Callable, devices: List[torch.device], port: int,
+           flags, timeout: float, results, args) -> None:
+    _set_matmul_flags(flags)
+    store = dist.TCPStore(HOST, port, is_master=False,
+                          timeout=datetime.timedelta(seconds=timeout))
+    device = devices[rank]
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    else:
+        # CPU ranks share the host's cores, as under torchrun
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))
+    dist.init_process_group(backend_for(devices), store=store, rank=rank,
+                            world_size=len(devices),
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        out = fn(rank, device, *args)
+        buf = io.BytesIO()
+        torch.save(_to_cpu(out), buf)
+        results.put((rank, buf.getvalue()))
+    finally:
+        dist.destroy_process_group()
+
+
+def _devices(devices: Optional[Sequence[DeviceLike]]) -> List[torch.device]:
+    if devices is None:
+        resolve_device(None)          # raises without a card
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if not devices:
+        raise ValueError("spawn needs at least one device")
+    return [resolve_device(d) for d in devices]
+
+
+def spawn(fn: Callable, devices: Optional[Sequence[DeviceLike]] = None,
+          *args, timeout: float = TIMEOUT_S) -> List[Any]:
+    """Run ``fn(rank, device, *args)`` in one process a rank, rank ``r``
+    on ``devices[r]`` (``None``: one rank a card; ``"cpu"`` entries run on
+    the CPU), the default process group initialised with
+    :func:`backend_for` of the devices and the parent's float32 matmul
+    flags; CPU ranks split the host's cores between them.  ``fn`` must
+    be importable by name (a module-level function) and its result
+    picklable; tensors in it come back on the CPU.  Returns the results
+    in rank order.  A rank that raises or exits nonzero fails
+    the call, and so does one that is not done within ``timeout`` seconds
+    (also the collectives' timeout); every process started is stopped
+    before this returns."""
+    devs = _devices(devices)
+    n = len(devs)
+    store = dist.TCPStore(HOST, 0, is_master=True, wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout))
+    results = mp.get_context("spawn").Queue()
+    ctx = mp.start_processes(
+        _entry, args=(fn, devs, store.port, _matmul_flags(), timeout,
+                      results, args),
+        nprocs=n, join=False, start_method="spawn")
+    got: Dict[int, Any] = {}
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            try:
+                rank, payload = results.get(timeout=0.2)
+                got[rank] = torch.load(io.BytesIO(payload),
+                                       weights_only=False)
+                continue
+            except queue_mod.Empty:
+                pass
+            # raises ProcessRaisedException / ProcessExitedException for a
+            # failed rank; True once every rank has exited cleanly
+            if ctx.join(timeout=0) and results.empty():
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ranks not done within {timeout} s "
+                                   f"({sorted(got)} of {n} returned)")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results.close()
+        del store
+    missing = sorted(set(range(n)) - set(got))
+    if missing:
+        raise RuntimeError(f"ranks {missing} exited without a result")
+    return [got[r] for r in range(n)]
+
+
+def init_from_env(device: DeviceLike = None,
+                  timeout: float = TIMEOUT_S) -> torch.device:
+    """Initialise the default process group of a ``torchrun`` launch
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``) and return this rank's device:
+    ``cuda:LOCAL_RANK`` modulo the node's cards (ranks then share a card
+    only when there are more of them than cards), or the CPU when
+    ``device`` names it.  The backend is :func:`backend_for` of the
+    node's devices, the same on every node."""
+    local = int(os.environ["LOCAL_RANK"])
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    if device is not None and torch.device(device).type == "cpu":
+        node = [torch.device("cpu")] * local_world
+    else:
+        resolve_device(device)        # raises without a card
+        cards = torch.cuda.device_count()
+        node = [torch.device("cuda", i % cards) for i in range(local_world)]
+    device = node[local]
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend_for(node), init_method="env://",
+                            timeout=datetime.timedelta(seconds=timeout))
+    return device

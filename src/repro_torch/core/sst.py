@@ -16,12 +16,19 @@ torch op's dispatch cost would dominate.
 Messages are M(i, k): sender rank i, sender index k.  Total order:
 ``M(i1,k1) < M(i2,k2)  <=>  k1 < k2 or (k1 == k2 and i1 < i2)``, and
 ``seq_num(i, k) = k * n_senders + i``.
+
+:func:`push_rows` is the SST's push across ranks: each rank's own row
+gathered to all and merged into the local copy with ``max``.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import numpy as np
 import torch
+
+from repro_torch.core import ranks
 
 
 def seq_of(rank, index, n_senders: int):
@@ -161,3 +168,21 @@ def cascading_trim(received_num, alive_stages) -> list:
             raise AssertionError("cascading trim rolled a watermark back")
         prev = alive
     return trims
+
+
+# ---------------------------------------------------------------------------
+# Pushing every node's own row across ranks
+# ---------------------------------------------------------------------------
+
+def push_rows(own_row: Dict[str, torch.Tensor],
+              local_copy: Dict[str, torch.Tensor],
+              axis: ranks.Axis) -> Dict[str, torch.Tensor]:
+    """Every rank of ``axis`` contributes its own row (each column's
+    entry with a leading dim of 1) and receives the monotone-merged full
+    table: one ``all_gather`` of each column's row, then the elementwise
+    ``max`` with the rank's stale local copy (each column ``(n, ...)``),
+    so a re-delivered or reordered row can never roll a counter back
+    (the paper's Sec. 3.4).  The reference's ``push_rows`` inside
+    ``shard_map`` (``make_push_rows`` over a mesh axis)."""
+    gathered = {k: ranks.all_gather(v[0], axis) for k, v in own_row.items()}
+    return {k: torch.maximum(gathered[k], local_copy[k]) for k in gathered}

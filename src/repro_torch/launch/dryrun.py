@@ -30,7 +30,9 @@ over 512 placeholder host devices.  Three differences:
 * **Collectives are the gradient reduction only** (``--gradsync``'s
   mode over the data-parallel axes).  The port executes no tensor- or
   sequence-parallel collective, so the rules presets move the memory
-  columns and not the collective term.
+  columns and not the collective term.  The MoE's expert-parallel
+  all-reduce runs across ranks (``Runtime(mesh=...)``) but is not in
+  that term yet (ROADMAP.md item 30).
 * **Remat reruns on ``meta``.**  ``--remat none|full|dots`` (default
   ``full``, the reference's) is ``Runtime.remat``: a train cell's
   backward reruns each checkpointed region inside autograd's engine,

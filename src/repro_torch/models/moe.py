@@ -1,13 +1,13 @@
-"""Mixture-of-Experts FFN on one device: GShard-style capacity routing.
+"""Mixture-of-Experts FFN: GShard-style capacity routing, on one device or
+with its experts split over ranks.
 
-The port of ``repro.models.moe`` at ``ep_rank = 0, ep_size = 1`` (the
-reference's expert-parallel ``shard_map`` path is ROADMAP item 18).
-Every token picks its top-k routed experts by a float32 router; each
-expert takes at most C tokens (:func:`_capacity`), first choices filling
-slots first (k-major cumsum order), and routes over capacity drop.  The
-experts run as one batched SwiGLU over their (E, C) slots; the shared
-experts, when there are any, run on every token.  Aux loss: Switch
-load-balance plus the router z-loss.
+The port of ``repro.models.moe``.  Every token picks its top-k routed
+experts by a float32 router; each expert takes at most C tokens
+(:func:`_capacity`), first choices filling slots first (k-major cumsum
+order), and routes over capacity drop.  The experts run as one batched
+SwiGLU over their (E, C) slots; the shared experts, when there are any,
+run on every token.  Aux loss: Switch load-balance plus the router
+z-loss.
 
 Everything is static in shape and never reads the device from the host,
 so a decode step that routes can be captured in a CUDA graph
@@ -25,21 +25,40 @@ so a decode step that routes can be captured in a CUDA graph
 The pad experts (``ep_pad_to`` > ``n_routed``: qwen2-moe-a2.7b's 60
 experts in 64 slots) never route: the router has ``n_routed`` columns.
 They run on zero rows, as in the reference, and add nothing.
+
+Expert parallelism (the reference's ``shard_map`` over ``ep_axis``,
+``_moe_ffn_sharded``): on a :class:`~repro_torch.core.ranks.RankMesh`
+whose ``ep_axis`` has ``ep`` ranks, rank ``i`` holds experts ``[i E/ep,
+(i + 1) E/ep)`` (:func:`shard_experts`) and the same tokens as its peers.
+It routes every token and builds the global tables, runs its experts'
+rows of them, combines their outputs (a route to another rank's expert
+reads the zero row) in float32 and ``all_reduce``-s that partial output
+over the axis, rounding the sum once to the input's dtype; then the
+shared experts are added.  A token's k experts are summed in k order on
+each rank and the ranks' sums then added, so the result differs from
+the unsplit one (one float32 sum in k order, rounded once) by the
+float32 summation order only.  A gradient through the split experts is
+not ported (:data:`EP_TRAIN_ITEM`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tree as tree_util
+from repro_torch.core import ranks
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.precision import compute
 
-EP_ITEM = "ROADMAP.md item 18 (multi-GPU with expert parallelism)"
+EP_TRAIN_ITEM = "ROADMAP.md item 28 (training through expert parallelism)"
+# the leaves split over the expert axis (the reference's ``expert_specs``:
+# the router and the shared experts are replicated)
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 
 def _padded_experts(cfg: ModelConfig) -> int:
@@ -159,37 +178,91 @@ def _expert_ffn(xe: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     return torch.bmm(h, wd)
 
 
-def _moe_ffn(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor
+def _moe_ffn(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+             ep: Optional[ranks.Axis] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The routed experts over x (T, d) -> (y (T, d), aux)."""
+    """The routed experts over x (T, d) -> (y (T, d), aux); with ``ep``
+    this rank's experts' part of y."""
     t, d = x.shape
     e_pad = _padded_experts(cfg)
+    e_local = p["w_gate"].shape[0]
+    if e_local * (1 if ep is None else ep.size) != e_pad:
+        raise ValueError(f"{cfg.name}: {e_local} experts here, "
+                         f"{e_pad} over {1 if ep is None else ep.size} "
+                         "ranks")
     cap = _capacity(t, cfg)
     idx, weights, aux = route(p, cfg, x)
     tt, wt, vt, slot = _dispatch(idx, weights, e_pad, cap, t)
+    if ep is not None:
+        lo = ep.index * e_local
+        tt, wt, vt = (a[lo:lo + e_local] for a in (tt, wt, vt))
+        # a route to another rank's expert reads the zero row
+        slot = slot - lo * cap
+        slot = torch.where((slot >= 0) & (slot < e_local * cap), slot,
+                           e_local * cap)
     xg = x.index_select(0, tt.clamp(0, t - 1).reshape(-1).long())
-    xg = xg.reshape(e_pad, cap, d) * vt[..., None].to(x.dtype)
+    xg = xg.reshape(e_local, cap, d) * vt[..., None].to(x.dtype)
     ye = _expert_ffn(xg, p["w_gate"], p["w_up"], p["w_down"])
     ye = ye * (wt * vt).to(ye.dtype)[..., None]
-    rows = torch.cat([ye.reshape(e_pad * cap, d), ye.new_zeros(1, d)])
+    rows = torch.cat([ye.reshape(e_local * cap, d), ye.new_zeros(1, d)])
     y = rows.index_select(0, slot.reshape(-1)).reshape(-1, t, d)
-    return y.sum(0), aux
+    if ep is None:
+        return y.sum(0), aux
+    # a rank's part stays float32: moe_block adds the parts, then rounds
+    return y.sum(0, dtype=torch.float32), aux
 
 
 def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
-              x: torch.Tensor, ep_axis: Optional[str] = None
+              x: torch.Tensor, ep_axis: Optional[str] = None,
+              mesh: Optional[ranks.RankMesh] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN: routed experts plus the shared experts.  x (B, S, d)
     -> (y (B, S, d), aux scalar).  The tokens of every row route
-    together: the capacity is that of B * S tokens."""
+    together: the capacity is that of B * S tokens.  With ``ep_axis``,
+    an axis of ``mesh``, ``p`` holds this rank's experts
+    (:func:`shard_experts`), every rank of the axis passes the same x,
+    and each gets the whole y."""
+    ep = None
     if ep_axis is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: expert parallelism over {ep_axis!r} is not "
-            f"ported; it comes with {EP_ITEM}")
+        if mesh is None:
+            raise ValueError(f"ep_axis={ep_axis!r} names an axis of a "
+                             "RankMesh; pass mesh=")
+        ep = mesh.axis(ep_axis)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, *tree_util.leaves(p))):
+            raise NotImplementedError(
+                f"{cfg.name}: a gradient through the experts split over "
+                f"{ep_axis!r} is not ported; it comes with {EP_TRAIN_ITEM}")
     b, s, d = x.shape
-    y, aux = _moe_ffn(p, cfg, x.reshape(b * s, d))
+    y, aux = _moe_ffn(p, cfg, x.reshape(b * s, d), ep)
+    if ep is not None:
+        y = ranks.all_reduce(y, ep).to(x.dtype)
     y = y.reshape(b, s, d)
     if cfg.moe.n_shared:
         sh = p["shared"]
         y = y + layers.swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
     return y, aux
+
+
+def shard_experts(params: Any, index: int, size: int) -> Any:
+    """Rank ``index`` of ``size``'s part of a parameter tree: every MoE
+    layer's expert leaves (:data:`EXPERT_LEAVES`, stacked ``(L, E, ...)``
+    or one layer's ``(E, ...)``) cut to experts ``[index E/size, (index
+    + 1) E/size)`` on their expert dim, as contiguous copies (so that the
+    full leaves can be freed); every other leaf, the router and the
+    shared experts included, is the same tensor."""
+    def cut(path: str, leaf):
+        parts = path.split("/")
+        if len(parts) < 2 or parts[-2] != "moe" or \
+                parts[-1] not in EXPERT_LEAVES:
+            return leaf
+        dim = leaf.dim() - 3
+        e = leaf.shape[dim]
+        if e % size:
+            raise ValueError(f"{path}: {e} experts do not split over "
+                             f"{size} ranks")
+        n = e // size
+        return leaf.narrow(dim, index * n, n).contiguous()
+
+    return tree_util.unflatten(params, [cut(path, leaf) for path, leaf
+                                        in tree_util.paths(params)])

@@ -44,6 +44,18 @@ and the two switches of the training plane:
   card as a leading tensor dimension
   (:mod:`repro_torch.train.steps`); with W = 1 there is nothing to
   reduce, as on the reference's single device.
+
+and the reference's mesh, as ranks (:mod:`repro_torch.core.ranks`):
+
+* ``mesh`` — a :class:`~repro_torch.core.ranks.RankMesh`, one process a
+  rank, each holding its own tensors: the train step reduces over the
+  ``dp_axes`` (one axis, ``("data",)``) by collectives, and an MoE layer
+  splits its experts over ``ep_axis`` (``"model"``) when that axis has
+  more than one rank (:meth:`Runtime.moe_ep_size`).  The folded workers
+  and the ranks are two ways to one result, chosen by the caller: a
+  mesh of more than one rank with ``dp_workers`` > 1 is refused.  A
+  mesh takes part in ``==`` and ``hash`` by identity, so runtimes on
+  different groups never compare equal.
 """
 
 from __future__ import annotations
@@ -51,11 +63,15 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import ops
+
+if TYPE_CHECKING:
+    from repro_torch.core.ranks import RankMesh
 
 KERNEL_SITES = ("flash_decode", "rms_norm", "rms_norm_residual",
                 "flash_attention", "ssd_scan", "quantize", "dequantize")
@@ -102,6 +118,9 @@ class Runtime:
     gradsync: str = "gspmd"           # one of GRADSYNC_MODES
     dp_workers: int = 1               # data-parallel workers W
     remat: str = "none"               # one of REMAT_POLICIES
+    mesh: Optional["RankMesh"] = None   # ranks (core/ranks.py), or None
+    dp_axes: Tuple[str, ...] = ("data",)
+    ep_axis: Optional[str] = "model"
 
     def __post_init__(self):
         if self.kernels not in ("kernels", "plain"):
@@ -116,12 +135,31 @@ class Runtime:
         if self.remat not in REMAT_POLICIES:
             raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
                              f"{self.remat!r}")
+        if self.dp_workers > 1 and self.ranks > 1:
+            raise ValueError(
+                f"dp_workers={self.dp_workers} folds the workers onto one "
+                f"device and the mesh {self.mesh.shape} runs them as ranks: "
+                "pick one")
+
+    @property
+    def ranks(self) -> int:
+        """The ranks of the mesh, 1 without one."""
+        return 1 if self.mesh is None else self.mesh.world_size
 
     @property
     def spmd(self) -> bool:
         """Whether a train step reduces over workers (the reference's
-        ``Runtime.spmd``: a mesh of more than one device)."""
-        return self.dp_workers > 1
+        ``Runtime.spmd``: a mesh of more than one device): W > 1 folded
+        workers, or a mesh of more than one rank."""
+        return self.dp_workers > 1 or self.ranks > 1
+
+    def moe_ep_size(self) -> int:
+        """The ranks an MoE layer splits its experts over: the size of
+        the mesh's ``ep_axis``, 1 off a mesh of more than one rank or
+        without that axis (the reference's ``moe_ep_size``)."""
+        if self.ranks <= 1 or self.ep_axis is None:
+            return 1
+        return self.mesh.size(self.ep_axis)
 
     def op(self, name: str):
         """The callable for one kernel site (see :data:`KERNEL_SITES`)."""

@@ -95,13 +95,18 @@ def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
 # Blocks and decode
 # ---------------------------------------------------------------------------
 
-def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor
+def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor, rt: Runtime
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's FFN on the normed h (B, S, d): (y, the MoE aux loss —
-    None for a SwiGLU)."""
+    None for a SwiGLU).  The MoE splits its experts over ``rt.ep_axis``
+    when the mesh gives that axis more than one rank, as the reference's
+    ``_ffn`` does."""
     if cfg.moe is None:
         m = p["mlp"]
         return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), None
+    if rt.moe_ep_size() > 1:
+        return moe.moe_block(p["moe"], cfg, h, ep_axis=rt.ep_axis,
+                             mesh=rt.mesh)
     return moe.moe_block(p["moe"], cfg, h)
 
 
@@ -154,7 +159,7 @@ def decode_block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
                                    position, rt, rows, rope)
     h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
                                       cfg.norm_eps)
-    return x, _ffn(p, cfg, h)[0]
+    return x, _ffn(p, cfg, h, rt)[0]
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
@@ -207,7 +212,7 @@ def block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
         cache[1][:, :s] = v.to(cache[1].dtype)
     h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
                                       cfg.norm_eps)
-    return (x, *_ffn(p, cfg, h))
+    return (x, *_ffn(p, cfg, h, rt))
 
 
 def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,

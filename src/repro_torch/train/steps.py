@@ -26,22 +26,39 @@ the mean of the workers' losses.  With W = 1, or with ``gspmd``, the step
 takes the gradient of the whole batch, as the reference does on one
 device.  The compressed mode starts every step from zero error-feedback
 residuals and drops the new ones, as the reference's train step does.
+
+With ``rt.mesh`` of more than one rank the workers are real ranks
+(:func:`rank_grads`, the reference's ``_manual_grads``): each rank's
+batch is already its rows, it takes the gradient of its own loss, the
+loss is ``all_reduce(loss) / n`` over the mesh's data axis and the
+gradients are reduced there by the rank form of ``rt.gradsync``; every
+rank then applies the same AdamW step.  ``gspmd`` on ranks is the
+gradient of the rank's rows and one ``all_reduce`` mean a leaf: the
+reduction a framework's data parallelism inserts, which is what the
+reference's GSPMD partitioning emits for replicated parameters (its
+numbers are those of ``spindle_per_tensor``).  Training through the
+MoE's expert parallelism is not ported (:data:`repro_torch.models.moe.
+EP_TRAIN_ITEM`): a train step on a mesh that splits the experts raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import tree as tree_util
-from repro_torch.core import gradsync
+from repro_torch.core import gradsync, ranks
+from repro_torch.models import moe
 from repro_torch.models.registry import Arch
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
 
 PyTree = Any
 BUCKET_BYTES = 32 << 20
+MULTI_POD_ITEM = ("ROADMAP.md item 29 (the multi-pod (\"pod\", \"data\") "
+                  "reduction across ranks)")
 
 
 def value_and_grad(arch: Arch, rt: Runtime) -> Callable:
@@ -96,20 +113,54 @@ def worker_grads(arch: Arch, rt: Runtime) -> Callable:
     return fn
 
 
-def reduce_grads(stacked: PyTree, rt: Runtime,
-                 bucket_bytes: int = BUCKET_BYTES) -> PyTree:
-    """The mean of stacked ``(W, ...)`` gradients by ``rt.gradsync``'s
-    Spindle mode (fused buckets, per tensor, or compressed)."""
-    if rt.gradsync == "spindle_per_tensor":
-        return gradsync.per_tensor_psum_mean(stacked)
-    plan = gradsync.make_plan(tree_util.map(lambda g: g[0], stacked),
-                              target_bytes=bucket_bytes)
+def reduce_grads(grads: PyTree, rt: Runtime,
+                 bucket_bytes: int = BUCKET_BYTES,
+                 axis: Optional[ranks.Axis] = None) -> PyTree:
+    """The mean of the gradients by ``rt.gradsync``'s Spindle mode (fused
+    buckets, per tensor, or compressed): of stacked ``(W, ...)`` folded
+    workers' gradients, or with ``axis`` of this rank's over the axis.
+    ``gspmd`` on ranks is the per-tensor mean (see the module's
+    docstring)."""
+    if rt.gradsync == "spindle_per_tensor" or (rt.gradsync == "gspmd"
+                                               and axis is not None):
+        return gradsync.per_tensor_psum_mean(grads, axis)
+    one = grads if axis is not None else tree_util.map(lambda g: g[0], grads)
+    plan = gradsync.make_plan(one, target_bytes=bucket_bytes)
     if rt.gradsync == "spindle_compressed":
-        mean, _ = gradsync.compressed_psum_mean(stacked, plan, None, rt)
+        mean, _ = gradsync.compressed_psum_mean(grads, plan, None, rt, axis)
         return mean
     if rt.gradsync == "spindle":
-        return gradsync.fused_psum_mean(stacked, plan)
+        return gradsync.fused_psum_mean(grads, plan, axis)
     raise ValueError(f"{rt.gradsync!r} is not a Spindle reduction mode")
+
+
+def dp_axis(rt: Runtime) -> ranks.Axis:
+    """The mesh axis the gradients reduce over: ``rt.dp_axes``, one axis
+    of ``rt.mesh``."""
+    if len(rt.dp_axes) != 1:
+        raise NotImplementedError(
+            f"a reduction over the data axes {rt.dp_axes} across ranks is "
+            f"not ported; it comes with {MULTI_POD_ITEM}")
+    return rt.mesh.axis(rt.dp_axes[0])
+
+
+def rank_grads(arch: Arch, rt: Runtime,
+               bucket_bytes: int = BUCKET_BYTES) -> Callable:
+    """``fn(params, batch) -> (loss, grads)`` on one rank of ``rt.mesh``:
+    the gradient of this rank's loss on its batch (its rows of the global
+    batch), then the mean loss and the mean gradients over the data axis
+    by ``rt.gradsync`` (the reference's ``_manual_grads``).  The loss
+    inside runs without the mesh, as the reference's manual region
+    does."""
+    vg = value_and_grad(arch, dataclasses.replace(rt, mesh=None))
+    axis = dp_axis(rt)
+
+    def fn(params: PyTree, batch: Dict[str, torch.Tensor]):
+        loss, grads = vg(params, batch)
+        loss = ranks.all_reduce(loss, axis) / axis.size
+        return loss, reduce_grads(grads, rt, bucket_bytes, axis)
+
+    return fn
 
 
 def make_train_step(arch: Arch, rt: Runtime,
@@ -123,14 +174,23 @@ def make_train_step(arch: Arch, rt: Runtime,
     reference's ``adamw.update`` default, bfloat16).  ``donate=True``
     updates the parameters and the optimizer state in place, as the
     reference's Trainer donates them to its jitted step; the arguments
-    are then spent."""
+    are then spent.  On ``rt.mesh`` of more than one rank every rank
+    calls the step on its own batch (:func:`rank_grads`)."""
+    if arch.cfg.moe is not None and rt.moe_ep_size() > 1:
+        raise NotImplementedError(
+            f"{arch.cfg.name}: a train step through expert parallelism over "
+            f"{rt.ep_axis!r} ({rt.moe_ep_size()} ranks) is not ported; it "
+            f"comes with {moe.EP_TRAIN_ITEM}")
     vg = value_and_grad(arch, rt)
     per_worker = worker_grads(arch, rt)
+    per_rank = rank_grads(arch, rt, bucket_bytes) if rt.ranks > 1 else None
 
     def train_step(params: PyTree, opt_state: Dict[str, Any],
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[PyTree, Dict[str, Any], Dict[str, Any]]:
-        if rt.gradsync.startswith("spindle") and rt.spmd:
+        if per_rank is not None:
+            loss, grads = per_rank(params, batch)
+        elif rt.gradsync.startswith("spindle") and rt.spmd:
             losses, stacked = per_worker(params, batch)
             loss = losses.sum() / rt.dp_workers
             grads = reduce_grads(stacked, rt, bucket_bytes)

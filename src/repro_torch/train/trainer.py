@@ -12,6 +12,14 @@ watermarks as the reference does.  The step updates the parameters and
 the optimizer state in place (the reference donates them to its jitted
 step).  Elastic view changes run in
 :class:`repro_torch.train.elastic.ElasticRuntime`.
+
+With ``rt.mesh`` every rank runs its own ``Trainer``: rank ``r`` of the
+data axis's ``n`` loads rows ``[r B/n, (r + 1) B/n)`` of each global
+batch (``pipeline.ShardedLoader(rank=r, n_ranks=n)``, the folded path's
+worker ``r``), on the mesh's device unless ``device`` says otherwise.
+The mesh's rank 0 alone writes checkpoints, every rank waits for the
+write and every rank restores, so ``history`` and the ``SyncState``
+watermarks are the same on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+import torch.distributed as dist
+
 from repro_torch import tree as tree_util
 from repro_torch.core.gradsync import SyncState
 from repro_torch.data import pipeline
@@ -31,7 +41,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint
-from repro_torch.train.steps import make_train_step
+from repro_torch.train.steps import dp_axis, make_train_step
 
 PyTree = Any
 
@@ -61,13 +71,21 @@ class Trainer:
         self.cfg = cfg
         self.tcfg = tcfg
         self.rt = rt
+        if device is None and rt.mesh is not None:
+            device = rt.mesh.device
         self.device = resolve_device(device)
         self.data_cfg = pipeline.DataConfig(
             seq_len=tcfg.seq_len, global_batch=tcfg.global_batch,
             vocab_size=cfg.vocab_size, seed=tcfg.seed,
             n_patterns=tcfg.data_patterns)
-        self.loader = pipeline.ShardedLoader(self.data_cfg, rank=0,
-                                             n_ranks=1)
+        rank, n_ranks = 0, 1
+        if rt.mesh is not None:
+            axis = dp_axis(rt)
+            rank, n_ranks = axis.index, axis.size
+        self.loader = pipeline.ShardedLoader(self.data_cfg, rank=rank,
+                                             n_ranks=n_ranks)
+        # the one process that writes checkpoints and prints the log
+        self.writer = rt.mesh is None or rt.mesh.rank == 0
         self.sync = SyncState()
         self.history: List[Dict[str, float]] = []
         self._step = make_train_step(self.arch, rt, tcfg.opt,
@@ -150,9 +168,10 @@ class Trainer:
                 m["step"] = step + 1
                 m["wall_s"] = time.time() - t0
                 self.history.append(m)
-                print(f"step {step+1:5d} loss {m['loss']:.4f} "
-                      f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e}",
-                      flush=True)
+                if self.writer:
+                        print(f"step {step+1:5d} loss {m['loss']:.4f} "
+                          f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e}",
+                          flush=True)
             if self.tcfg.checkpoint_dir and \
                     (step + 1) % self.tcfg.checkpoint_every == 0:
                 self._save(step + 1, params, opt_state)
@@ -163,9 +182,12 @@ class Trainer:
         return params, opt_state
 
     def _save(self, step: int, params, opt_state):
-        checkpoint.save(self.tcfg.checkpoint_dir, step,
-                        {"params": params, "opt": opt_state},
-                        extra={"arch": self.cfg.name})
+        if self.writer:
+            checkpoint.save(self.tcfg.checkpoint_dir, step,
+                            {"params": params, "opt": opt_state},
+                            extra={"arch": self.cfg.name})
+            checkpoint.prune(self.tcfg.checkpoint_dir,
+                             self.tcfg.keep_checkpoints)
+        if self.rt.mesh is not None:
+            dist.barrier()            # the checkpoint is on disk for all
         self.sync = self.sync.deliver(step)
-        checkpoint.prune(self.tcfg.checkpoint_dir,
-                         self.tcfg.keep_checkpoints)

@@ -198,3 +198,44 @@ def test_launch_slice_modules_stand_alone(module):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{module} imports {bad}"
+
+
+RANK_MODULES = ("repro_torch.core.ranks", "repro_torch.core.sst",
+                "repro_torch.models.moe")
+
+
+@pytest.mark.parametrize("module", RANK_MODULES)
+def test_rank_slice_modules_stand_alone(module):
+    """The rank layer and the modules that run collectives import on a
+    CPU-only machine, start no process group when imported and import
+    neither ``jax`` nor ``repro``."""
+    import torch.distributed as dist
+    mod = importlib.import_module(module)
+    assert mod.__name__ == module
+    assert not dist.is_initialized()
+    path = Path(mod.__file__).resolve()
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{module} imports {bad}"
+
+
+def test_rank_entry_points_want_the_card(monkeypatch):
+    """``spawn`` and ``init_from_env`` run on the card unless the CPU is
+    named; the backend follows from the devices alone."""
+    import torch
+    from repro_torch.core import ranks
+    assert ranks.backend_for(["cpu", "cpu"]) == "gloo"
+    assert ranks.backend_for(["cuda:0", "cuda:0"]) == "gloo"
+    assert ranks.backend_for(["cuda:0", "cuda:1"]) == "nccl"
+    assert ranks.backend_for(["cuda:0"]) == "nccl"
+    assert ranks.backend_for(["cuda:0", "cpu"]) == "gloo"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ranks.spawn(print)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ranks.spawn(print, ["cuda:0", "cuda:0"])
+        monkeypatch.setenv("LOCAL_RANK", "0")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ranks.init_from_env()
+    with pytest.raises(RuntimeError, match="process group"):
+        ranks.RankMesh({"data": 1}, "cpu")
