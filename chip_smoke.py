@@ -299,8 +299,8 @@ Phases (one JSON line each; any failure exits non-zero):
    runs (``--launch-phase`` runs it alone, after the build and phase 3);
 38. across real ``torch.distributed`` ranks (``repro_torch.core.ranks``;
    ``--ranks-phase`` runs it alone, after the build), each rank a process
-   that loads the kernels built here: (a) qwen3-1.7b at full width and
-   depth (28 layers), a 2 x 2048 global batch, ``make_train_step`` for 2 steps
+   that loads the kernels built here: (a) qwen3-1.7b at full width, 4
+   of 28 layers, a 2 x 2048 global batch, ``make_train_step`` for 2 steps
    in each Spindle mode on two ranks sharing the card over ``gloo``
    (1 x 2048 rows each), every rank's losses, parameters and AdamW state
    bit-equal to the folded ``Runtime(dp_workers=2)`` run in a one-rank
@@ -312,7 +312,29 @@ Phases (one JSON line each; any failure exits non-zero):
    unsplit top-2 gap exceeds it, routes and drops equal); (c)
    ``sst.push_rows`` of the testbed's SST columns, exact; (d) in the
    one-rank process, over ``nccl``: a train step and the three
-   reductions, bit-equal to the folded W = 1 ones;
+   reductions, bit-equal to the folded W = 1 ones; (e) qwen2-moe-a2.7b
+   at full width, 2 of 24 layers, trained through its experts split over
+   ``{"data": 1, "model": 2}`` (``gspmd``, 2 steps of 1 x 2048) on the
+   two ranks, against the unsplit one-rank step in the one-rank process:
+   losses and parameters (strided samples of every leaf, rank i's expert
+   rows against the unsplit rows [i E/2, (i + 1) E/2)) within the bf16
+   bar, the first step's routes and drops equal (the same weights), a
+   later step's routes different only where the two runs' router
+   probabilities differ by at least half the token's unsplit gap (bf16
+   weights that differ by a rounding move a near tie), the non-expert
+   state bit-identical between the ranks, exact launches a step; (f)
+   qwen3-1.7b at full width, 2 of 28 layers, on four ranks sharing the
+   card over
+   ``{"pod": 2, "data": 2}`` with ``dp_axes=("pod", "data")``, a 4 x
+   2048 global batch, 2 steps in each Spindle mode and ``gspmd``: every
+   rank's state bit-identical to every other's, ``spindle`` and
+   ``spindle_per_tensor`` against the folded ``Runtime(dp_workers=4)``
+   step in the one-rank process (losses within 1e-6 relative, the
+   float32 master within the sign-flip bound), the compressed mode's
+   first reduction against the two-leg mean (the int8 leg over
+   ``"data"``, then the plain mean over ``"pod"``) computed there from
+   the four ranks' own gradients, within one quantization step; exact
+   launches a step (a quantize and a dequantize a bucket);
 then the ``kernels`` line: per kernel its launches on the main paths
 (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34, 37, 38 and, from the
 device traces, 18 and 20), its times and its bound.
@@ -4465,9 +4487,16 @@ class RouterProbe:
     runs); a remat rerun's calls (``recomputing()``) are not counted
     again."""
 
+    def __init__(self, keep_probs: bool = False):
+        self.keep_probs = keep_probs
+
     def __enter__(self):
         self.gaps, self.drops, self.aux, self.routes = [], [], [], 0
+        self.probs = []               # each call's (T, E), if kept
         self.idx = []                 # each call's routes (phase 38)
+        # each call's per-token smallest gap between neighbours among
+        # its K + 1 largest probabilities (phase 38)
+        self.token_gaps = []
         self._route, self._dispatch = moe.route, moe._dispatch
 
         def route(p, cfg, x):
@@ -4477,6 +4506,9 @@ class RouterProbe:
                 probs = torch.softmax(moe.router_logits(p, x), -1)
                 top = torch.topk(probs, cfg.moe.top_k + 1, dim=-1).values
                 self.gaps.append((top[:, -2] - top[:, -1]).min())
+                self.token_gaps.append((top[:, :-1] - top[:, 1:]).amin(-1))
+                if self.keep_probs:
+                    self.probs.append(probs)
             out = self._route(p, cfg, x)
             self.aux.append(out[2].detach())
             self.idx.append(out[0].clone())
@@ -6166,13 +6198,14 @@ def launch_phase() -> int:
 # ---------------------------------------------------------------------------
 
 RANKS_PHASE_FLAG = "--ranks-phase"
-# (a): qwen3-1.7b at full width and depth: a rank peaks at 36.4 GB
-# allocated, 42.0 reserved (bf16 weights, gradients and their mean, the
-# float32 AdamW master, m and v at 12 B a parameter, activations and
-# float32 logits at 1 x 2048), so two fit beside each other on the 80 GB
-# card; the depth is the knob if they ever do not (14 layers: 23.5 GB)
+# (a): qwen3-1.7b at full width, 4 of 28 layers (0.51 B parameters;
+# bf16 weights, gradients and their mean, the float32 AdamW master, m
+# and v at 12 B a parameter, activations and float32 logits at 1 x
+# 2048).  Cut from 28 (36.4 GB allocated a rank) to make room in the
+# run's time for (e) and (f): its reductions through gloo take most of
+# the part, 2.1-6.1 s a step still at 14 layers (23.5 GB a rank)
 RANKS_MODEL = "qwen3-1.7b"
-RANKS_LAYERS = 28
+RANKS_LAYERS = 4
 RANKS_BATCH, RANKS_SEQ, RANKS_STEPS = 2, 2048, 2
 RANKS_MODES = ("spindle", "spindle_per_tensor", "spindle_compressed")
 RANKS_DEVICES = ("cuda:0", "cuda:0")     # two ranks share the one card
@@ -6184,6 +6217,29 @@ EP_SEQ, EP_PREFILL, EP_DECODE = 2048, 512, 8
 # (c): the testbed's SST columns, its 16 senders
 SST_PUSH_COLUMNS = {"received_num": (16,), "delivered_num": (),
                     "persisted_num": (), "num_nulls": (16,)}
+# (e): qwen2-moe-a2.7b at full width, 2 of 24 layers, trained through
+# its experts split over {"data": 1, "model": 2}.  A layer holds ~605 M
+# parameters (553.6 M of experts in 64 slots, 34.6 M shared, 16.8 M
+# attention), the embedding and head 622 M; at 18 B a parameter (bf16
+# weights, gradients and their mean, float32 master, m and v) a rank's
+# 1.28 B at 2 layers take ~23 GB plus activations, so two ranks fit on
+# the 80 GB card; at 4 layers (~35 GB a rank before activations) they
+# do not
+EP_TRAIN_LAYERS = 2
+EP_TRAIN_SEQ, EP_TRAIN_STEPS = 2048, 2
+EP_MODEL = 2                             # ranks on the "model" axis
+# (f): qwen3-1.7b at full width, 2 of 28 layers (~0.41 B parameters,
+# ~10 GB a rank), four ranks on {"pod": 2, "data": 2} sharing the card,
+# a 4 x 2048 global batch
+POD_SHAPE = {"pod": 2, "data": 2}
+POD_AXES = ("pod", "data")
+POD_LAYERS, POD_BATCH = 2, 4
+POD_MODES = RANKS_MODES + ("gspmd",)
+POD_DEVICES = ("cuda:0",) * 4
+POD_LOSS_RTOL = 1e-6
+# elements a leaf in the strided samples that (e) and (f) compare across
+# processes (a whole tree would cross as gigabytes)
+SAMPLE = 1 << 20
 RANKS_TIMEOUT = 600
 
 
@@ -6194,6 +6250,41 @@ def ranks_cfg():
 
 def ep_cfg():
     return cut_layers(registry.get(MOE_SERVED).cfg)
+
+
+def ep_train_cfg():
+    return dataclasses.replace(registry.get(MOE_SERVED).cfg,
+                               n_layers=EP_TRAIN_LAYERS)
+
+
+def pod_cfg():
+    return dataclasses.replace(registry.get(RANKS_MODEL).cfg,
+                               n_layers=POD_LAYERS)
+
+
+def strided(t: torch.Tensor) -> torch.Tensor:
+    """At most SAMPLE elements of ``t``, evenly strided over its flat
+    order, as a copy."""
+    flat = t.detach().reshape(-1)
+    return flat[::-(-flat.numel() // SAMPLE)].clone()
+
+
+def samples(tree, model_index=None) -> dict:
+    """path -> :func:`strided` of each leaf.  An MoE expert leaf is
+    sampled per rank of the expert axis (key ``path#i``): of a whole
+    tree (``model_index`` None) each rank's rows [i E/EP_MODEL, (i + 1)
+    E/EP_MODEL), of a rank's own tree its rows as ``model_index``."""
+    out = {}
+    for path, leaf in tree_util.paths(tree):
+        if not moe.is_expert_leaf(path):
+            out[path] = strided(leaf)
+        elif model_index is not None:
+            out[f"{path}#{model_index}"] = strided(leaf)
+        else:
+            h = leaf.shape[1] // EP_MODEL
+            for i in range(EP_MODEL):
+                out[f"{path}#{i}"] = strided(leaf[:, i * h:(i + 1) * h])
+    return out
 
 
 def bit_digest(tree) -> list:
@@ -6225,14 +6316,17 @@ def ranks_batch(cfg, step: int, device) -> torch.Tensor:
 
 class ReduceTimer:
     """While entered, the seconds of every ``steps.reduce_grads`` call
-    (the train step's reduction, between two synchronisations)."""
+    (the train step's reduction, between two synchronisations), and
+    :func:`samples` of the first call's mean (``first``)."""
 
     def __enter__(self):
-        self.s, self._reduce = [], steps.reduce_grads
+        self.s, self._reduce, self.first = [], steps.reduce_grads, None
 
         def reduce_grads(*args, **kwargs):
             (out, secs) = timed(lambda: self._reduce(*args, **kwargs))
             self.s.append(secs)
+            if self.first is None:
+                self.first = samples(out)
             return out
 
         steps.reduce_grads = reduce_grads
@@ -6243,30 +6337,42 @@ class ReduceTimer:
         return False
 
 
-def ranks_train_mode(arch, rt, rows, device) -> dict:
+def pod_batch(cfg, step: int, device) -> torch.Tensor:
+    """Step ``step``'s global batch of (f)."""
+    return seeded_tokens(cfg, POD_BATCH, RANKS_SEQ,
+                         seed=538 + step).to(device)
+
+
+def ranks_train_mode(arch, rt, rows, device, batch_fn=ranks_batch,
+                     keep: bool = False) -> dict:
     """RANKS_STEPS steps of ``make_train_step`` from seed 0's weights on
-    ``rows`` of each global batch, each step's reduction timed inside
-    it.  Returns losses, walls, the reduction's seconds and share of each
-    step, launches a step, digests of the parameters and the AdamW
-    state."""
+    ``rows`` of each global batch (``batch_fn``), each step's reduction
+    timed inside it.  Returns losses, walls, the reduction's seconds and
+    share of each step, launches a step, digests of the parameters and
+    the AdamW state; with ``keep``, :func:`samples` of the float32
+    master, the first reduction's mean and the learning rates too."""
     cfg = arch.cfg
     params = arch.init_params(0, device, torch.bfloat16)
     opt = adamw.init(params)
     step = steps.make_train_step(arch, rt, donate=True)
-    losses, walls, per_step = [], [], []
+    losses, walls, per_step, lrs = [], [], [], []
     with ReduceTimer() as reduce_timer:
         for i in range(RANKS_STEPS):
-            batch = {"tokens": ranks_batch(cfg, i, device)[rows]}
+            batch = {"tokens": batch_fn(cfg, i, device)[rows]}
             before = ops.launch_counts()
             (params, opt, m), wall = timed(lambda: step(params, opt, batch))
             per_step.append(launches_since(before))
             losses.append(float(m["loss"]))
+            lrs.append(float(m["lr"]))
             walls.append(wall)
     out = {"losses": losses, "step_wall_s": walls,
            "reduce_s": reduce_timer.s,
            "reduce_share": [r / w for r, w in zip(reduce_timer.s, walls)],
            "launches_per_step": per_step, "params": bit_digest(params),
            "opt": bit_digest(opt)}
+    if keep:
+        out.update(master=samples(opt["master"]), lrs=lrs,
+                   first_mean=reduce_timer.first)
     del params, opt, step
     torch.cuda.empty_cache()
     return out
@@ -6315,8 +6421,99 @@ def ranks_folded_child(rank, device):
     d["spindle_compressed"] = bit_digest(got) == bit_digest(want)
     check(d["spindle_compressed"], "(d) the compressed reduction over nccl "
           "is not the folded W = 1 one bit for bit")
+    del params, grads, got, want
+    torch.cuda.empty_cache()
     return {"folded": folded, "peak_bytes": peak, "nccl_world1": d,
-            "backend": mesh.backend}
+            "backend": mesh.backend, "e": ep_train_unsplit(device),
+            "f": pod_folded(device)}
+
+
+def ep_train(arch, params, rt, device):
+    """(e)'s EP_TRAIN_STEPS steps of ``make_train_step`` from ``params``:
+    the state after, and losses, walls, launches a step, every router
+    call's routes and dropped routes."""
+    opt = adamw.init(params)
+    step = steps.make_train_step(arch, rt, donate=True)
+    losses, walls, per_step = [], [], []
+    with RouterProbe(keep_probs=True) as probe:
+        for i in range(EP_TRAIN_STEPS):
+            batch = {"tokens": seeded_tokens(arch.cfg, 1, EP_TRAIN_SEQ,
+                                             seed=438 + i).to(device)}
+            before = ops.launch_counts()
+            (params, opt, m), wall = timed(lambda: step(params, opt, batch))
+            per_step.append(launches_since(before))
+            losses.append(float(m["loss"]))
+            walls.append(wall)
+    return params, opt, {
+        "losses": losses, "step_wall_s": walls,
+        "launches_per_step": per_step,
+        "routes": [r.cpu() for r in probe.idx],
+        "token_gaps": [g.cpu() for g in probe.token_gaps],
+        "probs": [p.cpu() for p in probe.probs],
+        "drops": [int(d) for d in probe.drops]}
+
+
+def ep_train_unsplit(device) -> dict:
+    """(e)'s comparison: the unsplit step on one rank (every expert
+    here), :func:`samples` of its parameters after the steps."""
+    arch = registry.Arch(ep_train_cfg())
+    torch.cuda.reset_peak_memory_stats()
+    params = arch.init_params(0, device, torch.bfloat16)
+    params, opt, out = ep_train(arch, params, Runtime(), device)
+    out.update(samples=samples(params),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def pod_folded(device) -> dict:
+    """(f)'s comparisons on one rank: the folded ``Runtime(dp_workers=4)``
+    step of ``spindle`` and ``spindle_per_tensor`` on the whole global
+    batch; and the compressed mode's two-leg mean of the four ranks' own
+    first-step gradients (worker ``2 pod + data``'s rows): the int8 leg
+    over each pod's two data workers, then the plain mean over the
+    pods, with each leaf's quantization step (its bucket's largest
+    scale over both pods' shards)."""
+    arch = registry.Arch(pod_cfg())
+    out = {mode: ranks_train_mode(
+        arch, Runtime(gradsync=mode, dp_workers=POD_BATCH),
+        slice(0, POD_BATCH), device, pod_batch, keep=True)
+        for mode in ("spindle", "spindle_per_tensor")}
+    params = arch.init_params(0, device, torch.bfloat16)
+    batch = {"tokens": pod_batch(arch.cfg, 0, device)}
+    _, stacked = steps.worker_grads(
+        arch, Runtime(dp_workers=POD_BATCH))(params, batch)
+    del params
+    plan = gradsync.make_plan(tree_util.map(lambda g: g[0], stacked),
+                              target_bytes=steps.BUCKET_BYTES)
+    scales, quantize = [], ops.quantize
+
+    def recording(x, block):
+        q, s = quantize(x, block)
+        scales.append(float(s.max()))
+        return q, s
+
+    ops.quantize = recording
+    try:
+        legs = [gradsync.compressed_psum_mean(
+            tree_util.map(lambda g: g[2 * pod:2 * pod + 2], stacked), plan,
+            None, Runtime())[0] for pod in range(2)]
+    finally:
+        ops.quantize = quantize
+    del stacked
+    mean = gradsync.per_tensor_psum_mean(
+        tree_util.map(lambda a, b: torch.stack([a, b]), *legs))
+    paths = [path for path, _ in tree_util.paths(mean)]
+    step_of = {}
+    for b in range(plan.n_buckets):
+        for i in plan.bucket_leaves(b):
+            step_of[paths[i]] = max(scales[b], scales[plan.n_buckets + b])
+    out["compressed"] = {"mean": samples(mean), "step": step_of,
+                         "buckets": plan.n_buckets}
+    del legs, mean
+    torch.cuda.empty_cache()
+    return out
 
 
 def ep_run(arch, params, rt, loss_tokens, prompt, device):
@@ -6468,7 +6665,192 @@ def ranks_child(rank, device):
                    and torch.equal(got[k], torch.maximum(own[k], local[k]))
                    for k in own)
     check(out["c"], "push_rows is not the elementwise max of the rows")
+
+    # (e) training through the experts split over the model axis
+    ops.reset_launch_counts()
+    out["e"] = ep_train_rank(ep_mesh, device)
+    counts = collections.Counter(counts) + collections.Counter(
+        ops.launch_counts())
     out["counts"] = dict(counts)
+    return out
+
+
+def ep_train_rank(mesh, device) -> dict:
+    """(e) on this rank: its experts of seed 0's weights, the steps under
+    ``gspmd`` on ``mesh``, :func:`samples` of its parameters after them
+    and a digest of its non-expert state."""
+    model = mesh.axis("model")
+    arch = registry.Arch(ep_train_cfg())
+    full = arch.init_params(0, device, torch.bfloat16)
+    mine = moe.shard_experts(full, model.index, model.size)
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, e = ep_train(arch, mine, Runtime(mesh=mesh), device)
+    del mine
+    whole = {"params": params, "opt": opt}
+    e.update(samples=samples(params, model.index),
+             non_expert=bit_digest({path: leaf for path, leaf
+                                    in tree_util.paths(whole)
+                                    if not moe.is_expert_leaf(path)}),
+             experts_here=params["layers"]["moe"]["w_gate"].shape[1],
+             peak_bytes=torch.cuda.max_memory_allocated())
+    del params, opt, whole
+    torch.cuda.empty_cache()
+    return e
+
+
+def pod_child(rank, device):
+    """(f)'s four ranks on one card over ``gloo``: qwen3-1.7b at
+    POD_LAYERS layers on ``{"pod": 2, "data": 2}``, each mode's steps on
+    this rank's row of the global batch."""
+    mesh = ranks.RankMesh(POD_SHAPE, device)
+    axis = mesh.axis(POD_AXES)
+    arch = registry.Arch(pod_cfg())
+    rows = slice(axis.index, axis.index + 1)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"rank": rank, "index": axis.index, "backend": mesh.backend}
+    for mode in POD_MODES:
+        # the ranks' states are compared whole by digest; samples of one
+        # rank's are enough beside them
+        out[mode] = ranks_train_mode(
+            arch, Runtime(gradsync=mode, mesh=mesh, dp_axes=POD_AXES), rows,
+            device, pod_batch, keep=axis.index == 0)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["counts"] = ops.launch_counts()
+    return out
+
+
+def ep_train_compare(results, unsplit) -> dict:
+    """(e)'s bars (see the module's docstring)."""
+    tol = TOL[torch.bfloat16]
+    cfg = ep_train_cfg()
+    want = train_launches(cfg, 1, 0)
+    errs, later = {}, []
+    for r, got in enumerate(x["e"] for x in results):
+        check(got["experts_here"] * EP_MODEL == moe._padded_experts(cfg),
+              f"(e) rank {r} holds {got['experts_here']} experts")
+        for i, made in enumerate(got["launches_per_step"]):
+            check(made == want, f"(e) rank {r} step {i}: launches {made}, "
+                  f"want {want}")
+        for i, (a, b) in enumerate(zip(got["losses"], unsplit["losses"])):
+            check(abs(a - b) <= tol + tol * abs(b), f"(e) rank {r} loss "
+                  f"{i}: {a} against unsplit {b}")
+        calls = len(unsplit["routes"])
+        check(len(got["routes"]) == calls == cfg.n_layers * EP_TRAIN_STEPS,
+              f"(e) rank {r}: {len(got['routes'])} router calls")
+        first = cfg.n_layers              # the first step's calls
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got["routes"][:first], unsplit["routes"][:first]))
+              and got["drops"][:first] == unsplit["drops"][:first],
+              f"(e) rank {r}: the first step's routes or drops differ")
+        for i in range(first, calls):
+            # a token's top-k can change only if two of its experts swap,
+            # whose unsplit gap is at most twice the largest difference
+            # of the two runs' probabilities at that token
+            moved = (got["routes"][i] != unsplit["routes"][i]).any(-1)
+            shift = (got["probs"][i] - unsplit["probs"][i]).abs().amax(-1)
+            gap = unsplit["token_gaps"][i]
+            check(bool((gap[moved] <= 2 * shift[moved]).all()),
+                  f"(e) rank {r} call {i}: a route moved at an unsplit gap "
+                  "wider than the probabilities moved")
+            if r == 0:
+                later.append({"tokens_moved": int(moved.sum()),
+                              "max_prob_shift": float(shift.max()),
+                              "max_gap_moved": float(gap[moved].max())
+                              if moved.any() else None,
+                              "dropped": got["drops"][i],
+                              "dropped_unsplit": unsplit["drops"][i]})
+        for key, sample in got["samples"].items():
+            errs[key] = within(sample, unsplit["samples"][key],
+                               torch.bfloat16, what=f"(e) rank {r} {key}")
+    check(results[0]["e"]["non_expert"] == results[1]["e"]["non_expert"],
+          "(e) the non-expert state differs between the ranks")
+    return {"losses_split": [x["e"]["losses"] for x in results],
+            "losses_unsplit": unsplit["losses"],
+            "step_wall_s_split": [x["e"]["step_wall_s"] for x in results],
+            "step_wall_s_unsplit": unsplit["step_wall_s"],
+            "params_max_err": max(errs.values()),
+            "leaves_sampled": len(errs), "sample": SAMPLE,
+            "routes_dropped": sum(unsplit["drops"]),
+            "router_calls": len(unsplit["routes"]),
+            "first_step_routes_equal": True, "later_calls": later,
+            "launches_per_step": want,
+            "peak_bytes_split": [x["e"]["peak_bytes"] for x in results],
+            "peak_bytes_unsplit": unsplit["peak_bytes"], "tol": tol}
+
+
+def pod_compare(results, folded) -> dict:
+    """(f)'s bars (see the module's docstring)."""
+    cfg = pod_cfg()
+    plan, _ = train_plan(cfg, workers=POD_SHAPE["data"])
+    check(sorted(r["index"] for r in results) == list(range(POD_BATCH)),
+          "(f) the ranks' indices over (pod, data) are not 0..3")
+    lead = next(r for r in results if r["index"] == 0)
+    out = {"buckets": plan.n_buckets}
+    for mode in POD_MODES:
+        per_rank = [r[mode] for r in results]
+        want = train_launches(cfg, 1, plan.n_buckets if
+                              mode == "spindle_compressed" else 0)
+        for r, got in enumerate(per_rank):
+            for i, made in enumerate(got["launches_per_step"]):
+                check(made == want, f"(f) {mode} rank {r} step {i}: "
+                      f"launches {made}, want {want}")
+        check(all(p[k] == per_rank[0][k] for p in per_rank
+                  for k in ("params", "opt", "losses")),
+              f"(f) {mode}: the ranks' states diverged")
+        got = lead[mode]
+        out[mode] = {"losses": got["losses"],
+                     "step_wall_s_ranks": [p["step_wall_s"]
+                                           for p in per_rank],
+                     "reduce_s_ranks": [p["reduce_s"] for p in per_rank],
+                     "reduce_share_ranks": [p["reduce_share"]
+                                            for p in per_rank],
+                     "launches_per_step": want}
+        if mode in folded:
+            w = folded[mode]
+            rel = [relative(a, b) for a, b in zip(got["losses"],
+                                                  w["losses"])]
+            check(max(rel) <= POD_LOSS_RTOL, f"(f) {mode}: losses "
+                  f"{got['losses']} against folded {w['losses']}")
+            # an element whose summed gradient changes sign with the
+            # order of the sum moves by at most 2 lr a step
+            flip = 2.02 * sum(w["lrs"])
+            diffs = [(got["master"][k] - w["master"][k]).abs()
+                     for k in w["master"]]
+            worst = max(float(d.max()) for d in diffs)
+            over = sum(int((d > POD_LOSS_RTOL * w["master"][k].abs()).sum())
+                       for d, k in zip(diffs, w["master"]))
+            check(worst <= flip, f"(f) {mode}: master differs from the "
+                  f"folded step by {worst} > {flip}")
+            out[mode].update(losses_folded=w["losses"], loss_rel_err=rel,
+                             master_max_abs_err=worst,
+                             master_sign_flip_bound=flip,
+                             master_elements_over_loss_rtol=over,
+                             master_elements_sampled=sum(
+                                 d.numel() for d in diffs),
+                             step_wall_s_folded=w["step_wall_s"],
+                             reduce_s_folded=w["reduce_s"])
+    ref = folded["compressed"]
+    check(ref["buckets"] == plan.n_buckets, "(f) bucket plans differ")
+    errs = []
+    got = lead["spindle_compressed"]["first_mean"]
+    for k, want in ref["mean"].items():
+        # one quantization step, and the rounding of the bf16 leaf
+        step = ref["step"][k]
+        err = float((got[k].float() - want.float()).abs().max())
+        bar = 1.01 * step + 2 ** -7 * float(want.float().abs().max())
+        check(err <= bar, f"(f) compressed {k}: {err} beyond one "
+              f"quantization step {step}")
+        errs.append(err / step if step else 0.0)
+    out["spindle_compressed"].update(
+        first_mean_max_err_in_steps=max(errs),
+        quantize_per_step=[p["spindle_compressed"]["launches_per_step"][-1]
+                           .get("quantize", 0) for p in results])
+    check(all(r["gspmd"]["params"] == r["spindle_per_tensor"]["params"]
+              for r in results),
+          "(f) gspmd is not the per-tensor mean's numbers")
     return out
 
 
@@ -6490,8 +6872,11 @@ def phase38_ranks(smi_line: str) -> dict:
         ranks_folded_child, list(FOLDED_DEVICES), timeout=RANKS_TIMEOUT))
     results, ranks_s = timed(lambda: ranks.spawn(
         ranks_child, list(RANKS_DEVICES), timeout=RANKS_TIMEOUT))
+    pod, pod_s = timed(lambda: ranks.spawn(
+        pod_child, list(POD_DEVICES), timeout=RANKS_TIMEOUT))
     for got, devices in ((folded_out["backend"], FOLDED_DEVICES),
-                         (results[0]["backend"], RANKS_DEVICES)):
+                         (results[0]["backend"], RANKS_DEVICES),
+                         (pod[0]["backend"], POD_DEVICES)):
         check(got == ranks.backend_for(devices),
               f"ranks on {devices} ran over {got}")
     folded = folded_out["folded"]
@@ -6574,13 +6959,29 @@ def phase38_ranks(smi_line: str) -> dict:
     emit({"phase": 38, "part": "d", "backend": folded_out["backend"],
           "world_size": 1, "bit_equal_to_folded_w1":
           folded_out["nccl_world1"]})
+    emit({"phase": 38, "part": "e", "model": MOE_SERVED,
+          "layers": EP_TRAIN_LAYERS, "mesh": {"data": 1, "model": EP_MODEL},
+          "gradsync": "gspmd", "tokens": [1, EP_TRAIN_SEQ],
+          "steps": EP_TRAIN_STEPS, "params_a_rank": sum(
+              v.numel() for k, v in tree_util.paths({"p": moe.shard_experts(
+                  layers.abstract_tree(registry.param_specs(ep_train_cfg())),
+                  0, EP_MODEL)})),
+          **ep_train_compare(results, folded_out["e"]),
+          "nvidia_smi": smi_line})
+    emit({"phase": 38, "part": "f", "model": RANKS_MODEL,
+          "layers": POD_LAYERS, "mesh": POD_SHAPE, "dp_axes": POD_AXES,
+          "global_batch": [POD_BATCH, RANKS_SEQ], "steps": RANKS_STEPS,
+          "modes": pod_compare(pod, folded_out["f"]),
+          "peak_bytes_ranks": [r["peak_bytes"] for r in pod],
+          "pod_child_s": pod_s, "nvidia_smi": smi_line})
     counts = collections.Counter()
-    for r in results:
+    for r in results + pod:
         counts.update(r["counts"])
     emit({"phase": 38, "launches": dict(counts),
           "gloo_cuda_collectives": ["all_reduce", "reduce_scatter",
                                     "all_gather"], "staged": [],
-          "wall_s": time.perf_counter() - t0})
+          "folded_child_s": folded_s, "ranks_child_s": ranks_s,
+          "pod_child_s": pod_s, "wall_s": time.perf_counter() - t0})
     return dict(counts)
 
 

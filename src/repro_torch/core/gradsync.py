@@ -34,7 +34,8 @@ Given a mesh axis (``axis=``, a :class:`repro_torch.core.ranks.Axis`),
 the same functions run across real ranks instead, as the reference's do
 inside ``shard_map``: each rank holds its own unstacked gradients, and
 the collectives are ``all_reduce``, ``reduce_scatter`` and
-``all_gather`` over the axis's process group.  One algorithm serves
+``all_gather`` over the axis's process group (a product of mesh axes,
+such as ``("pod", "data")``, is one axis here).  One algorithm serves
 both forms; :func:`_reducer` is the one place that picks the form.  At
 two workers the two forms agree bit for bit (``a + b == b + a``); at
 more, ``gloo``'s ring sums in its own order, equal on every rank.

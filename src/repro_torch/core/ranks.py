@@ -11,10 +11,21 @@ differ only in that axis's coordinate.
   the axis, its index there, the axis size), built collectively with
   ``new_group`` from a shape such as ``{"data": 2}`` or ``{"data": 1,
   "model": 2}``.  Ranks lie row-major over the axes, as ``jax.make_mesh``
-  lays out devices.  A mesh compares equal only to itself.
+  lays out devices.  A tuple of axis names in mesh order, such as
+  ``("pod", "data")``, names their product (the reference's tuple axis
+  names in ``psum`` and ``axis_index``).  A mesh compares equal only to
+  itself.
 * :func:`all_reduce`, :func:`reduce_scatter`, :func:`all_gather` -- the
   three collectives the port runs (the reference's ``psum``,
   ``psum_scatter`` and ``all_gather``), each over an :class:`Axis`.
+* :func:`reduce_from`, :func:`copy_to`, :func:`from_first` -- the
+  collectives autograd sees: a sum whose backward hands each rank the
+  cotangent of the sum, its transpose (the identity forward, the sum of
+  the cotangents backward), and the value of the axis's first rank with
+  each rank's own gradient.  Inside the reference's ``shard_map`` they
+  are ``psum`` and its transpose; the port needs them spelled out where
+  a rank holds part of a layer (the MoE's experts split over
+  ``"model"``).
 * :func:`spawn` -- one process a rank through ``torch.multiprocessing``'s
   ``spawn`` start method (the only one that works once CUDA is up in the
   parent).  Rank ``r`` runs ``fn(r, devices[r], *args)`` and its result
@@ -40,12 +51,14 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import io
+import itertools
 import math
 import os
 import queue as queue_mod
 import time
 import warnings
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -78,9 +91,9 @@ class Axis:
     """One mesh axis as this rank sees it: the process group of the ranks
     that share every other coordinate with it, its index on the axis (the
     reference's ``lax.axis_index``) and the axis size (``psum(1,
-    axis)``)."""
+    axis)``).  A product of axes has a tuple for its name."""
 
-    name: str
+    name: Union[str, Tuple[str, ...]]
     group: Any
     index: int
     size: int
@@ -90,7 +103,12 @@ class RankMesh:
     """Named axes over the ranks of the default process group.  Every rank
     builds it with the same ``shape`` (``new_group`` is collective); the
     product of the sizes is the world size.  ``device`` is this rank's
-    device (the card unless ``"cpu"`` is named)."""
+    device (the card unless ``"cpu"`` is named).
+
+    Besides each axis, every product of two or more axes in mesh order
+    gets its groups here (``("pod", "data")``, ``("data", "model")``, ...):
+    a group can only be made by every rank together, so none is made on
+    demand.  A mesh of k axes makes ``2**k - 1`` axes' groups."""
 
     def __init__(self, shape: Mapping[str, int], device: DeviceLike = None):
         if not dist.is_initialized():
@@ -108,20 +126,39 @@ class RankMesh:
                              f"ranks; the world has {self.world_size}")
         grid = np.arange(self.world_size).reshape(sizes)
         coords = np.unravel_index(self.rank, sizes)
-        self.axes: Dict[str, Axis] = {}
-        for i, name in enumerate(self.shape):
-            mine = None
-            # every rank creates every group of the axis, in one order
-            for line in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
-                group = dist.new_group([int(r) for r in line])
-                if self.rank in line:
-                    mine = group
-            self.axes[name] = Axis(name, mine, int(coords[i]), sizes[i])
+        names = tuple(self.shape)
+        self.axes: Dict[Union[str, Tuple[str, ...]], Axis] = {}
+        for k in range(1, len(names) + 1):
+            for dims in itertools.combinations(range(len(names)), k):
+                along = tuple(sizes[i] for i in dims)
+                size = math.prod(along)
+                # the named dims last, row-major: a line is one group, in
+                # the order new_group ranks its members (ascending)
+                rest = [i for i in range(len(names)) if i not in dims]
+                lines = grid.transpose(rest + list(dims)).reshape(-1, size)
+                mine = None
+                # every rank creates every group of the axis, in one order
+                for line in lines:
+                    group = dist.new_group([int(r) for r in line])
+                    if self.rank in line:
+                        mine = group
+                index = int(np.ravel_multi_index(
+                    tuple(coords[i] for i in dims), along))
+                key = names[dims[0]] if k == 1 else \
+                    tuple(names[i] for i in dims)
+                self.axes[key] = Axis(key, mine, index, size)
 
-    def axis(self, name: str) -> Axis:
-        if name not in self.axes:
-            raise KeyError(f"no mesh axis {name!r}; have {tuple(self.axes)}")
-        return self.axes[name]
+    def axis(self, name: Union[str, Sequence[str]]) -> Axis:
+        """The axis ``name``, or for a tuple of names in mesh order their
+        product: its index row-major over the named axes (the
+        reference's ``lax.axis_index`` of a tuple), its size the
+        product of theirs.  A one-name tuple is that axis."""
+        key = name if isinstance(name, str) else (
+            name[0] if len(name) == 1 else tuple(name))
+        if key not in self.axes:
+            raise KeyError(f"no mesh axis {name!r}; have {tuple(self.shape)}"
+                           " (a product names its axes in mesh order)")
+        return self.axes[key]
 
     def size(self, name: str) -> int:
         """The axis size, 1 for an axis the mesh does not have (the
@@ -169,6 +206,64 @@ def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     out = flat.new_empty(axis.size * flat.numel())
     _call(dist.all_gather_into_tensor, out, flat, group=axis.group)
     return out.view(axis.size, *x.shape)
+
+
+# ---------------------------------------------------------------------------
+# The collectives autograd sees
+# ---------------------------------------------------------------------------
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad, ctx.axis), None
+
+
+class _FromFirst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_gather(x, axis)[0].clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def reduce_from(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum of ``x`` over the axis, whose backward gives each rank the
+    cotangent of the sum as its part's (Megatron's ``g``; in the
+    reference, ``psum`` inside ``shard_map``)."""
+    return _ReduceFrom.apply(x, axis)
+
+
+def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``x`` itself, whose backward sums the ranks' cotangents over the
+    axis (Megatron's ``f``, the transpose of :func:`reduce_from`): a
+    tensor that every rank holds whole, entering a computation of which
+    each rank holds a part."""
+    return _CopyTo.apply(x, axis)
+
+
+def from_first(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The value of the axis's rank 0 on every rank, whose backward
+    hands each rank's cotangent to its own ``x`` (what the reference's
+    ``shard_map`` returns for an output of spec ``P()`` that differs
+    along the axis, with its replication check off)."""
+    return _FromFirst.apply(x, axis)
 
 
 # ---------------------------------------------------------------------------

@@ -27,12 +27,12 @@ over 512 placeholder host devices.  Three differences:
   its ops; the kernel sites report their own FLOPs and bytes.  The
   global counts are divided by the mesh's devices for the per-device
   roofline.
-* **Collectives are the gradient reduction only** (``--gradsync``'s
-  mode over the data-parallel axes).  The port executes no tensor- or
-  sequence-parallel collective, so the rules presets move the memory
-  columns and not the collective term.  The MoE's expert-parallel
-  all-reduce runs across ranks (``Runtime(mesh=...)``) but is not in
-  that term yet (ROADMAP.md item 30).
+* **Collectives are the gradient reduction** (``--gradsync``'s mode
+  over the data-parallel axes) **and the MoE's expert-parallel
+  all-reduces** over ``"model"`` (:func:`ep_all_reduces`), each by the
+  ring model.  The port executes no tensor- or sequence-parallel
+  collective, so the rules presets move the memory columns and not the
+  collective term.
 * **Remat reruns on ``meta``.**  ``--remat none|full|dots`` (default
   ``full``, the reference's) is ``Runtime.remat``: a train cell's
   backward reruns each checkpointed region inside autograd's engine,
@@ -154,6 +154,38 @@ def argument_bytes(arch, shape, rules, mesh,
     return out
 
 
+def ep_all_reduces(cfg, shape, mesh_shape: Dict[str, int], remat: str
+                   ) -> list:
+    """The MoE's all-reduces over ``"model"`` in one step of a cell
+    whose mesh splits the experts there (the reference's
+    ``moe_ep_size() > 1``), as the port's expert-parallel layer runs
+    them (:mod:`repro_torch.models.moe`), T being the tokens of one data
+    shard (the global tokens over the ``("pod", "data")`` axes, the
+    reference's ``tok_spec``): ``[(operand bytes, count), ...]``, float32
+    each:
+
+    * the forward: (T, d) a MoE layer, the partial outputs' sum;
+    * a train cell's backward: (T, d) a layer for the tokens' cotangent
+      and (T, K) for the routing weights', and under remat (``full`` or
+      ``dots``: the sum is not a product) the forward's (T, d) again in
+      each layer's rerun.
+
+    Per device, as the gradient reduction is counted; empty off MoE or
+    where ``"model"`` has one device."""
+    ep = mesh_shape.get("model", 1)
+    if cfg.moe is None or ep <= 1:
+        return []
+    shards = math.prod(mesh_shape.get(a, 1) for a in ("pod", "data"))
+    tokens = shape.global_batch * (1 if shape.is_decode else shape.seq_len)
+    t = -(-tokens // shards)
+    layer = 4 * t * cfg.d_model
+    out = [(layer, cfg.n_layers)]
+    if shape.kind == "train":
+        out.append((layer, cfg.n_layers * (2 if remat != "none" else 1)))
+        out.append((4 * t * cfg.moe.top_k, cfg.n_layers))
+    return out
+
+
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
              rules_name: str = "baseline", gradsync: str = "gspmd",
              kernels: str = "kernels", remat: str = "full"
@@ -210,6 +242,10 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
             out_bytes = _output_bytes(out, arch.cache_specs(shape), rules,
                                       mesh, batch_shards)
         del out
+        ep = mesh.shape.get("model", 1)
+        for operand, count in ep_all_reduces(arch.cfg, shape, mesh.shape,
+                                             remat):
+            an.collective("all-reduce", operand, ep, count)
     t_trace = time.time() - t0
 
     met = an.metrics

@@ -32,13 +32,23 @@ whose ``ep_axis`` has ``ep`` ranks, rank ``i`` holds experts ``[i E/ep,
 (i + 1) E/ep)`` (:func:`shard_experts`) and the same tokens as its peers.
 It routes every token and builds the global tables, runs its experts'
 rows of them, combines their outputs (a route to another rank's expert
-reads the zero row) in float32 and ``all_reduce``-s that partial output
-over the axis, rounding the sum once to the input's dtype; then the
-shared experts are added.  A token's k experts are summed in k order on
-each rank and the ranks' sums then added, so the result differs from
-the unsplit one (one float32 sum in k order, rounded once) by the
-float32 summation order only.  A gradient through the split experts is
-not ported (:data:`EP_TRAIN_ITEM`).
+reads the zero row) in float32 and sums that partial output over the
+axis, rounding the sum once to the input's dtype; then the shared
+experts are added.  A token's k experts are summed in k order on each
+rank and the ranks' sums then added, so the result differs from the
+unsplit one (one float32 sum in k order, rounded once) by the float32
+summation order only.
+
+A gradient runs through the split experts as the reference's ``psum``
+transposes inside ``shard_map``: the partial output's sum is
+:func:`~repro_torch.core.ranks.reduce_from` (its backward hands every
+rank the whole cotangent), and what enters the rank's own experts --
+the tokens, in float32, and the routing weights -- is
+:func:`~repro_torch.core.ranks.copy_to` (its backward sums the ranks'
+parts).  The router then gets its whole gradient on every rank: the
+combine weights' part summed over the ranks, the aux loss's computed
+whole from the full router probabilities on each.  The expert leaves'
+gradients stay per rank, each rank's rows only.
 """
 
 from __future__ import annotations
@@ -55,7 +65,6 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.precision import compute
 
-EP_TRAIN_ITEM = "ROADMAP.md item 28 (training through expert parallelism)"
 # the leaves split over the expert axis (the reference's ``expert_specs``:
 # the router and the shared experts are replicated)
 EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
@@ -192,6 +201,10 @@ def _moe_ffn(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
                          "ranks")
     cap = _capacity(t, cfg)
     idx, weights, aux = route(p, cfg, x)
+    if ep is not None:
+        # what enters this rank's experts; the aux term stays whole
+        weights = ranks.copy_to(weights, ep)
+        x = ranks.copy_to(compute(x), ep).to(x.dtype)
     tt, wt, vt, slot = _dispatch(idx, weights, e_pad, cap, t)
     if ep is not None:
         lo = ep.index * e_local
@@ -221,22 +234,18 @@ def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     together: the capacity is that of B * S tokens.  With ``ep_axis``,
     an axis of ``mesh``, ``p`` holds this rank's experts
     (:func:`shard_experts`), every rank of the axis passes the same x,
-    and each gets the whole y."""
+    and each gets the whole y; a gradient through it is each rank's part
+    (see the module's docstring)."""
     ep = None
     if ep_axis is not None:
         if mesh is None:
             raise ValueError(f"ep_axis={ep_axis!r} names an axis of a "
                              "RankMesh; pass mesh=")
         ep = mesh.axis(ep_axis)
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, *tree_util.leaves(p))):
-            raise NotImplementedError(
-                f"{cfg.name}: a gradient through the experts split over "
-                f"{ep_axis!r} is not ported; it comes with {EP_TRAIN_ITEM}")
     b, s, d = x.shape
     y, aux = _moe_ffn(p, cfg, x.reshape(b * s, d), ep)
     if ep is not None:
-        y = ranks.all_reduce(y, ep).to(x.dtype)
+        y = ranks.reduce_from(y, ep).to(x.dtype)
     y = y.reshape(b, s, d)
     if cfg.moe.n_shared:
         sh = p["shared"]
@@ -244,19 +253,33 @@ def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     return y, aux
 
 
+def is_expert_leaf(path: str) -> bool:
+    """Whether the ``/``-joined ``path`` of a parameter tree (or of a tree
+    that nests one, as the AdamW state and a checkpoint do) names an
+    MoE layer's expert leaf, split over the expert axis."""
+    parts = path.split("/")
+    return len(parts) >= 2 and parts[-2] == "moe" and \
+        parts[-1] in EXPERT_LEAVES
+
+
+def _expert_dim(leaf: torch.Tensor) -> int:
+    """The expert dim of an expert leaf, stacked ``(L, E, ...)`` or one
+    layer's ``(E, ...)``."""
+    return leaf.dim() - 3
+
+
 def shard_experts(params: Any, index: int, size: int) -> Any:
     """Rank ``index`` of ``size``'s part of a parameter tree: every MoE
-    layer's expert leaves (:data:`EXPERT_LEAVES`, stacked ``(L, E, ...)``
-    or one layer's ``(E, ...)``) cut to experts ``[index E/size, (index
-    + 1) E/size)`` on their expert dim, as contiguous copies (so that the
-    full leaves can be freed); every other leaf, the router and the
-    shared experts included, is the same tensor."""
+    layer's expert leaves (:func:`is_expert_leaf`) cut to experts
+    ``[index E/size, (index + 1) E/size)`` on their expert dim, as
+    contiguous copies (so that the full leaves can be freed); every other
+    leaf, the router and the shared experts included, is the same
+    tensor.  Any tree that nests parameter trees (the AdamW state, a
+    checkpoint's) is cut the same way."""
     def cut(path: str, leaf):
-        parts = path.split("/")
-        if len(parts) < 2 or parts[-2] != "moe" or \
-                parts[-1] not in EXPERT_LEAVES:
+        if not is_expert_leaf(path):
             return leaf
-        dim = leaf.dim() - 3
+        dim = _expert_dim(leaf)
         e = leaf.shape[dim]
         if e % size:
             raise ValueError(f"{path}: {e} experts do not split over "
@@ -266,3 +289,31 @@ def shard_experts(params: Any, index: int, size: int) -> Any:
 
     return tree_util.unflatten(params, [cut(path, leaf) for path, leaf
                                         in tree_util.paths(params)])
+
+
+def gather_experts(tree: Any, axis: ranks.Axis) -> Any:
+    """The inverse of :func:`shard_experts` across ranks: every expert
+    leaf gathered over ``axis`` (every rank of the axis calls this) and
+    its parts joined in axis order on the expert dim; every other leaf
+    is the same tensor."""
+    def join(path: str, leaf):
+        if not is_expert_leaf(path):
+            return leaf
+        parts = ranks.all_gather(leaf, axis)
+        return torch.cat(torch.unbind(parts), dim=_expert_dim(leaf))
+
+    return tree_util.unflatten(tree, [join(path, leaf) for path, leaf
+                                      in tree_util.paths(tree)])
+
+
+def whole_like(tree: Any, size: int) -> Any:
+    """Empty tensors of the whole tree's shapes, from a rank's part of it
+    cut ``size`` ways (a template to restore a checkpoint into)."""
+    def grow(path: str, leaf):
+        shape = list(leaf.shape)
+        if is_expert_leaf(path):
+            shape[_expert_dim(leaf)] *= size
+        return torch.empty(shape, dtype=leaf.dtype, device=leaf.device)
+
+    return tree_util.unflatten(tree, [grow(path, leaf) for path, leaf
+                                      in tree_util.paths(tree)])

@@ -49,9 +49,11 @@ and the reference's mesh, as ranks (:mod:`repro_torch.core.ranks`):
 
 * ``mesh`` — a :class:`~repro_torch.core.ranks.RankMesh`, one process a
   rank, each holding its own tensors: the train step reduces over the
-  ``dp_axes`` (one axis, ``("data",)``) by collectives, and an MoE layer
-  splits its experts over ``ep_axis`` (``"model"``) when that axis has
-  more than one rank (:meth:`Runtime.moe_ep_size`).  The folded workers
+  ``dp_axes`` (``("data",)``, or several such as ``("pod", "data")``)
+  by collectives, and an MoE layer splits its experts over ``ep_axis``
+  (``"model"``) when that axis has more than one rank
+  (:meth:`Runtime.moe_ep_size`; a train step does so under ``gspmd``,
+  :mod:`repro_torch.train.steps`).  The folded workers
   and the ranks are two ways to one result, chosen by the caller: a
   mesh of more than one rank with ``dp_workers`` > 1 is refused.  A
   mesh takes part in ``==`` and ``hash`` by identity, so runtimes on

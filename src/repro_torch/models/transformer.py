@@ -100,7 +100,11 @@ def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor, rt: Runtime
     """The block's FFN on the normed h (B, S, d): (y, the MoE aux loss —
     None for a SwiGLU).  The MoE splits its experts over ``rt.ep_axis``
     when the mesh gives that axis more than one rank, as the reference's
-    ``_ffn`` does."""
+    ``_ffn`` does.  There h is this rank's data shard (its rows over
+    ``("pod", "data")``, the same on every rank of ``rt.ep_axis``: the
+    reference's ``tok_spec``), the capacity comes from those tokens, and
+    the aux loss is this rank's; what a train step reports is
+    :mod:`repro_torch.train.steps`' to say."""
     if cfg.moe is None:
         m = p["mlp"]
         return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), None
@@ -266,6 +270,15 @@ def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     """Next-token cross entropy (with the z-loss) over ``batch["tokens"]``
     (B, S), plus the MoE aux loss; ``batch["mask"]`` (B, S), when given,
     marks the valid target positions.  Returns a float32 scalar."""
+    loss, aux = lm_loss_terms(params, cfg, batch, rt)
+    return loss if aux is None else loss + aux
+
+
+def lm_loss_terms(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
+                  rt: Runtime
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`lm_loss`'s two terms: the cross entropy and the MoE aux
+    loss summed over the layers (None without MoE)."""
     tokens = batch["tokens"]
     x, y, aux = _stack(params, cfg, embed(params, cfg, tokens), rt)
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
@@ -274,7 +287,7 @@ def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     mask = batch.get("mask")
     loss = layers.cross_entropy_loss(
         logits, tokens[:, 1:], None if mask is None else mask[:, 1:])
-    return loss if aux is None else loss + aux
+    return loss, aux
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,

@@ -75,7 +75,7 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 
 def update(cfg: OptConfig, grads: PyTree, state: Dict[str, Any],
            param_dtype: torch.dtype = torch.bfloat16, *,
-           params: PyTree = None
+           params: PyTree = None, grad_norm: torch.Tensor = None
            ) -> Tuple[PyTree, Dict[str, Any], Dict[str, torch.Tensor]]:
     """Returns (new_params (cast to ``param_dtype``), new_state, metrics
     {grad_norm, lr}).
@@ -87,10 +87,12 @@ def update(cfg: OptConfig, grads: PyTree, state: Dict[str, Any],
     are written into ``params`` (a leaf of another dtype is replaced),
     and the returned trees hold those same tensors.  The arithmetic is the same either way, one rounding per
     operation in the reference's order.  Without ``params`` nothing is
-    overwritten."""
+    overwritten.  ``grad_norm``, when given, is the global norm to clip
+    by, for gradients of which this process holds a part (a rank's
+    experts)."""
     inplace = params is not None
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(cfg, step)

@@ -27,18 +27,39 @@ takes the gradient of the whole batch, as the reference does on one
 device.  The compressed mode starts every step from zero error-feedback
 residuals and drops the new ones, as the reference's train step does.
 
-With ``rt.mesh`` of more than one rank the workers are real ranks
-(:func:`rank_grads`, the reference's ``_manual_grads``): each rank's
-batch is already its rows, it takes the gradient of its own loss, the
-loss is ``all_reduce(loss) / n`` over the mesh's data axis and the
-gradients are reduced there by the rank form of ``rt.gradsync``; every
-rank then applies the same AdamW step.  ``gspmd`` on ranks is the
-gradient of the rank's rows and one ``all_reduce`` mean a leaf: the
-reduction a framework's data parallelism inserts, which is what the
-reference's GSPMD partitioning emits for replicated parameters (its
-numbers are those of ``spindle_per_tensor``).  Training through the
-MoE's expert parallelism is not ported (:data:`repro_torch.models.moe.
-EP_TRAIN_ITEM`): a train step on a mesh that splits the experts raises.
+With ``rt.mesh`` of more than one rank the workers are real ranks, and
+each rank passes its own rows of the global batch.  Three paths, as the
+reference takes them on its production meshes:
+
+* **The Spindle modes** (:func:`rank_grads`, the reference's
+  ``_manual_grads``): each rank takes the gradient of its own loss with
+  no expert parallelism (the reference's ``rt_inner`` has no mesh, so
+  every rank holds every expert, also on a mesh with a ``"model"``
+  axis, where ranks that differ only there compute the same thing).
+  The loss is ``all_reduce(loss) / n`` over the data axes ``rt.dp_axes``
+  (one axis, or their product such as ``("pod", "data")``) and the
+  gradients are reduced there by the rank form of ``rt.gradsync``; the
+  compressed mode runs its int8 leg over the last data axis and then a
+  plain mean over each earlier one, as the reference does across pods.
+* **gspmd without split experts**: the same, with one ``all_reduce``
+  mean a leaf: the reduction a framework's data parallelism inserts,
+  which is what the reference's GSPMD partitioning emits for replicated
+  parameters (its numbers are those of ``spindle_per_tensor``).
+* **gspmd with the experts split** over ``rt.ep_axis``
+  (:func:`ep_rank_grads`; the reference's ``_ffn`` under GSPMD): each
+  rank takes the gradient of its own loss on its data shard (its rows
+  over ``("pod", "data")``, the same on every rank of the expert axis)
+  with its own experts (:mod:`repro_torch.models.moe`).  The non-expert
+  leaves' gradients are then the same on every rank of the expert axis;
+  every leaf is reduced by a per-tensor mean over the data axes only,
+  the expert leaves never over the expert axis, and the global norm
+  that AdamW clips by adds the expert leaves' squares over it.  The
+  reported loss is the reference's: the cross-entropy mean over every
+  data shard plus the aux loss of data shard 0 (its ``shard_map`` hands
+  back shard 0's aux), while the gradient is that of the cross-entropy
+  mean plus the mean of the shards' aux losses.
+
+Every rank then applies the same AdamW step to what it holds.
 """
 
 from __future__ import annotations
@@ -50,24 +71,26 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.core import gradsync, ranks
-from repro_torch.models import moe
+from repro_torch.models import moe, transformer
 from repro_torch.models.registry import Arch
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
 
 PyTree = Any
 BUCKET_BYTES = 32 << 20
-MULTI_POD_ITEM = ("ROADMAP.md item 29 (the multi-pod (\"pod\", \"data\") "
-                  "reduction across ranks)")
+# the axes an expert-parallel layer's tokens are split over (the
+# reference's ``tok_spec`` in ``transformer._ffn``)
+TOKEN_AXES = ("pod", "data")
 
 
-def value_and_grad(arch: Arch, rt: Runtime) -> Callable:
+def value_and_grad(arch: Arch, rt: Runtime,
+                   loss_fn: Optional[Callable] = None) -> Callable:
     """``fn(params, batch) -> (loss, grads)``: the loss (detached) and
     its gradient with respect to every parameter leaf, in the leaves'
     dtypes, for every family (the MoE's loss includes its aux term).  The
-    parameters are not modified."""
+    parameters are not modified.  ``loss_fn`` replaces the arch's."""
     cfg = arch.cfg
-    loss_fn = arch.loss_fn()
+    loss_fn = arch.loss_fn() if loss_fn is None else loss_fn
 
     def fn(params: PyTree, batch: Dict[str, torch.Tensor]):
         leaves = [p.detach().requires_grad_() for p in
@@ -120,14 +143,22 @@ def reduce_grads(grads: PyTree, rt: Runtime,
     buckets, per tensor, or compressed): of stacked ``(W, ...)`` folded
     workers' gradients, or with ``axis`` of this rank's over the axis.
     ``gspmd`` on ranks is the per-tensor mean (see the module's
-    docstring)."""
+    docstring).  Over a product of axes of ``rt.mesh`` the compressed
+    mode's int8 leg runs over the last of them, then a plain mean over
+    each earlier one."""
     if rt.gradsync == "spindle_per_tensor" or (rt.gradsync == "gspmd"
                                                and axis is not None):
         return gradsync.per_tensor_psum_mean(grads, axis)
     one = grads if axis is not None else tree_util.map(lambda g: g[0], grads)
     plan = gradsync.make_plan(one, target_bytes=bucket_bytes)
     if rt.gradsync == "spindle_compressed":
+        outer = ()
+        if axis is not None and isinstance(axis.name, tuple):
+            *outer, last = axis.name
+            axis = rt.mesh.axis(last)
         mean, _ = gradsync.compressed_psum_mean(grads, plan, None, rt, axis)
+        for name in outer:            # a plain mean across the pods
+            mean = gradsync.per_tensor_psum_mean(mean, rt.mesh.axis(name))
         return mean
     if rt.gradsync == "spindle":
         return gradsync.fused_psum_mean(grads, plan, axis)
@@ -136,19 +167,34 @@ def reduce_grads(grads: PyTree, rt: Runtime,
 
 def dp_axis(rt: Runtime) -> ranks.Axis:
     """The mesh axis the gradients reduce over: ``rt.dp_axes``, one axis
-    of ``rt.mesh``."""
-    if len(rt.dp_axes) != 1:
-        raise NotImplementedError(
-            f"a reduction over the data axes {rt.dp_axes} across ranks is "
-            f"not ported; it comes with {MULTI_POD_ITEM}")
-    return rt.mesh.axis(rt.dp_axes[0])
+    of ``rt.mesh`` or the product of several."""
+    return rt.mesh.axis(rt.dp_axes)
+
+
+def splits_experts(arch: Arch, rt: Runtime) -> bool:
+    """Whether the train step runs the MoE's experts split over
+    ``rt.ep_axis``: ``gspmd`` on a mesh that gives that axis more than
+    one rank.  The Spindle modes never do (the reference's manual region
+    runs without its mesh)."""
+    return (arch.cfg.moe is not None and rt.gradsync == "gspmd"
+            and rt.moe_ep_size() > 1)
+
+
+def batch_axis(arch: Arch, rt: Runtime) -> Optional[ranks.Axis]:
+    """The mesh axis whose index picks this rank's rows of a global batch:
+    :data:`TOKEN_AXES` present in the mesh when the step splits the
+    experts (None when there are none), else :func:`dp_axis`."""
+    if splits_experts(arch, rt):
+        names = tuple(a for a in TOKEN_AXES if a in rt.mesh.shape)
+        return rt.mesh.axis(names) if names else None
+    return dp_axis(rt)
 
 
 def rank_grads(arch: Arch, rt: Runtime,
                bucket_bytes: int = BUCKET_BYTES) -> Callable:
     """``fn(params, batch) -> (loss, grads)`` on one rank of ``rt.mesh``:
     the gradient of this rank's loss on its batch (its rows of the global
-    batch), then the mean loss and the mean gradients over the data axis
+    batch), then the mean loss and the mean gradients over the data axes
     by ``rt.gradsync`` (the reference's ``_manual_grads``).  The loss
     inside runs without the mesh, as the reference's manual region
     does."""
@@ -163,6 +209,58 @@ def rank_grads(arch: Arch, rt: Runtime,
     return fn
 
 
+def ep_global_norm(grads: PyTree, axis: ranks.Axis) -> torch.Tensor:
+    """:func:`repro_torch.optim.adamw.global_norm` of the whole gradient
+    when this rank holds its experts' part of the expert leaves: their
+    squares summed over ``axis`` (one ``all_reduce``), every leaf's part
+    added in leaf order as the unsplit norm adds them."""
+    parts, experts = [], []
+    for path, g in tree_util.paths(grads):
+        parts.append(torch.sum(torch.square(g.to(torch.float32))))
+        if moe.is_expert_leaf(path):
+            experts.append(len(parts) - 1)
+    summed = ranks.all_reduce(torch.stack([parts[i] for i in experts]),
+                              axis)
+    for i, total in zip(experts, summed.unbind()):
+        parts[i] = total
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return torch.sqrt(out)
+
+
+def ep_rank_grads(arch: Arch, rt: Runtime) -> Callable:
+    """``fn(params, batch) -> (loss, grads, grad_norm)`` on one rank of a
+    mesh whose ``rt.ep_axis`` splits the experts (``params`` holds this
+    rank's, :func:`repro_torch.models.moe.shard_experts`): the gradient
+    of this rank's loss on its data shard, reduced by a per-tensor mean
+    over the data axes (:func:`batch_axis`), never over the expert axis;
+    the reported loss and the global norm as the module's docstring
+    says."""
+    cfg = arch.cfg
+    if cfg.family != "moe":
+        raise ValueError(f"{cfg.name}: experts split over ranks train in "
+                         f"the moe family only, not {cfg.family}")
+    data = batch_axis(arch, rt)
+    if data is not None and data.size == 1:
+        data = None
+    experts = rt.mesh.axis(rt.ep_axis)
+
+    def loss_fn(params, cfg, batch, rt):
+        ce, aux = transformer.lm_loss_terms(params, cfg, batch, rt)
+        # the value of data shard 0's aux, the gradient of this rank's own
+        return ce + (aux if data is None else ranks.from_first(aux, data))
+
+    vg = value_and_grad(arch, rt, loss_fn)
+
+    def fn(params: PyTree, batch: Dict[str, torch.Tensor]):
+        loss, grads = vg(params, batch)
+        if data is not None:
+            loss = ranks.all_reduce(loss, data) / data.size
+            grads = gradsync.per_tensor_psum_mean(grads, data)
+        return loss, grads, ep_global_norm(grads, experts)
+
+    return fn
 def make_train_step(arch: Arch, rt: Runtime,
                     opt_cfg: adamw.OptConfig = adamw.OptConfig(), *,
                     bucket_bytes: int = BUCKET_BYTES,
@@ -175,20 +273,24 @@ def make_train_step(arch: Arch, rt: Runtime,
     updates the parameters and the optimizer state in place, as the
     reference's Trainer donates them to its jitted step; the arguments
     are then spent.  On ``rt.mesh`` of more than one rank every rank
-    calls the step on its own batch (:func:`rank_grads`)."""
-    if arch.cfg.moe is not None and rt.moe_ep_size() > 1:
-        raise NotImplementedError(
-            f"{arch.cfg.name}: a train step through expert parallelism over "
-            f"{rt.ep_axis!r} ({rt.moe_ep_size()} ranks) is not ported; it "
-            f"comes with {moe.EP_TRAIN_ITEM}")
+    calls the step on its own batch (the module's docstring says which of
+    three paths it takes); where the experts are split, on its own
+    experts and their AdamW state."""
     vg = value_and_grad(arch, rt)
     per_worker = worker_grads(arch, rt)
-    per_rank = rank_grads(arch, rt, bucket_bytes) if rt.ranks > 1 else None
+    per_rank = split = None
+    if splits_experts(arch, rt):
+        split = ep_rank_grads(arch, rt)
+    elif rt.ranks > 1:
+        per_rank = rank_grads(arch, rt, bucket_bytes)
 
     def train_step(params: PyTree, opt_state: Dict[str, Any],
                    batch: Dict[str, torch.Tensor]
                    ) -> Tuple[PyTree, Dict[str, Any], Dict[str, Any]]:
-        if per_rank is not None:
+        norm = None
+        if split is not None:
+            loss, grads, norm = split(params, batch)
+        elif per_rank is not None:
             loss, grads = per_rank(params, batch)
         elif rt.gradsync.startswith("spindle") and rt.spmd:
             losses, stacked = per_worker(params, batch)
@@ -199,7 +301,7 @@ def make_train_step(arch: Arch, rt: Runtime,
             loss, grads = vg(params, batch)
         new_params, new_opt, metrics = adamw.update(
             opt_cfg, grads, opt_state, param_dtype,
-            params=params if donate else None)
+            params=params if donate else None, grad_norm=norm)
         metrics["loss"] = loss
         return new_params, new_opt, metrics
 

@@ -14,12 +14,18 @@ step).  Elastic view changes run in
 :class:`repro_torch.train.elastic.ElasticRuntime`.
 
 With ``rt.mesh`` every rank runs its own ``Trainer``: rank ``r`` of the
-data axis's ``n`` loads rows ``[r B/n, (r + 1) B/n)`` of each global
-batch (``pipeline.ShardedLoader(rank=r, n_ranks=n)``, the folded path's
-worker ``r``), on the mesh's device unless ``device`` says otherwise.
-The mesh's rank 0 alone writes checkpoints, every rank waits for the
-write and every rank restores, so ``history`` and the ``SyncState``
-watermarks are the same on every rank.
+data axes' ``n`` (their product, ``steps.batch_axis``) loads rows ``[r
+B/n, (r + 1) B/n)`` of each global batch (``pipeline.ShardedLoader(
+rank=r, n_ranks=n)``, the folded path's worker ``r``), on the mesh's
+device unless ``device`` says otherwise.  Where the train step splits
+the MoE's experts over ``rt.ep_axis`` (``steps.splits_experts``) a rank
+holds its experts' rows of the parameters and of their AdamW state
+(``moe.shard_experts`` by its index on that axis) and everything else
+whole.  The mesh's rank 0 alone writes checkpoints, always the whole
+tree in the reference's layout (the expert leaves gathered over the
+expert axis first); every rank waits for the write and every rank
+restores, cutting its experts again, so ``history`` and the
+``SyncState`` watermarks are the same on every rank.
 """
 
 from __future__ import annotations
@@ -36,12 +42,13 @@ import torch.distributed as dist
 from repro_torch import tree as tree_util
 from repro_torch.core.gradsync import SyncState
 from repro_torch.data import pipeline
-from repro_torch.models import registry
+from repro_torch.models import moe, registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint
-from repro_torch.train.steps import dp_axis, make_train_step
+from repro_torch.train.steps import (batch_axis, make_train_step,
+                                     splits_experts)
 
 PyTree = Any
 
@@ -79,9 +86,12 @@ class Trainer:
             vocab_size=cfg.vocab_size, seed=tcfg.seed,
             n_patterns=tcfg.data_patterns)
         rank, n_ranks = 0, 1
-        if rt.mesh is not None:
-            axis = dp_axis(rt)
+        axis = None if rt.mesh is None else batch_axis(self.arch, rt)
+        if axis is not None:
             rank, n_ranks = axis.index, axis.size
+        # the expert axis when this rank holds its experts' part
+        self.experts = rt.mesh.axis(rt.ep_axis) \
+            if splits_experts(self.arch, rt) else None
         self.loader = pipeline.ShardedLoader(self.data_cfg, rank=rank,
                                              n_ranks=n_ranks)
         # the one process that writes checkpoints and prints the log
@@ -100,7 +110,16 @@ class Trainer:
         seed = self.tcfg.seed if seed is None else seed
         params = self.arch.init_params(seed, self.device,
                                        self.tcfg.param_dtype)
+        params = self._own(params)
         return params, adamw.init(params)
+
+    def _own(self, tree):
+        """This rank's part of a whole tree: its experts' rows where the
+        experts are split, else the tree itself."""
+        if self.experts is None:
+            return tree
+        return moe.shard_experts(tree, self.experts.index,
+                                 self.experts.size)
 
     def maybe_restore(self, params, opt_state):
         """The latest checkpoint's step and state, or ``(0, params,
@@ -114,8 +133,11 @@ class Trainer:
         d = self.tcfg.checkpoint_dir
         if not d or checkpoint.latest_step(d) is None:
             return 0, params, opt_state
-        step, tree, _extra = checkpoint.restore(
-            d, {"params": params, "opt": opt_state})
+        like = {"params": params, "opt": opt_state}
+        if self.experts is not None:
+            like = moe.whole_like(like, self.experts.size)
+        step, tree, _extra = checkpoint.restore(d, like)
+        tree = self._own(tree)
         self.sync = SyncState(delivered_step=step, sent_step=step)
         restored = tree_util.map(lambda t: t.to(self.tcfg.param_dtype),
                                  tree["params"])
@@ -182,9 +204,11 @@ class Trainer:
         return params, opt_state
 
     def _save(self, step: int, params, opt_state):
+        tree = {"params": params, "opt": opt_state}
+        if self.experts is not None:      # every rank takes part
+            tree = moe.gather_experts(tree, self.experts)
         if self.writer:
-            checkpoint.save(self.tcfg.checkpoint_dir, step,
-                            {"params": params, "opt": opt_state},
+            checkpoint.save(self.tcfg.checkpoint_dir, step, tree,
                             extra={"arch": self.cfg.name})
             checkpoint.prune(self.tcfg.checkpoint_dir,
                              self.tcfg.keep_checkpoints)

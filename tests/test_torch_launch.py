@@ -412,6 +412,39 @@ def test_dryrun_argument_bytes_equal_the_reference_shards(mesh_name,
                 sum(args.values())
 
 
+def test_dryrun_counts_the_moe_expert_parallel_all_reduces(single_cells,
+                                                          monkeypatch):
+    """qwen2-moe-a2.7b on one pod splits its experts over ``"model"`` (16
+    devices): a float32 (T, d) all-reduce a MoE layer in the forward, T
+    the tokens of one of the 16 data shards; a train cell adds the
+    tokens' cotangent (T, d), the routing weights' (T, K) and, under the
+    default remat, the forward's again in the rerun.  Ring wire bytes:
+    2 (g - 1) / g of the operand.  A dense cell has no collective off
+    the train step."""
+    name, d, k, n_layers = "qwen2-moe-a2.7b", 2048, 4, 24
+    ring = 2 * 15 / 16
+    for shape_name in ("prefill_32k", "decode_32k"):
+        shape = shape_by_name(shape_name)
+        t = shape.global_batch * (1 if shape.is_decode else shape.seq_len)
+        operand = n_layers * 4 * (t // 16) * d
+        assert single_cells[(name, shape_name)]["ops"]["collectives"] == {
+            "all-reduce": {"count": n_layers, "operand_bytes": operand,
+                           "wire_bytes": operand * ring}}, shape_name
+    assert single_cells[("qwen3-1.7b", "prefill_32k")]["ops"][
+        "collectives"] == {}
+    with_ep = single_cells[(name, "train_4k")]["ops"]["collectives"][
+        "all-reduce"]
+    monkeypatch.setattr(dryrun, "ep_all_reduces", lambda *a: [])
+    without = dryrun.run_cell(name, "train_4k", False)["ops"][
+        "collectives"]["all-reduce"]
+    t = 256 * 4096 // 16
+    operand = n_layers * (3 * 4 * t * d + 4 * t * k)
+    assert with_ep["count"] - without["count"] == 4 * n_layers
+    assert with_ep["operand_bytes"] - without["operand_bytes"] == operand
+    assert with_ep["wire_bytes"] - without["wire_bytes"] == \
+        pytest.approx(operand * ring, rel=1e-12)
+
+
 def test_dryrun_never_initialises_cuda(monkeypatch, tmp_path):
     def boom(*a, **k):
         raise AssertionError("the dry-run initialised CUDA")

@@ -35,9 +35,9 @@ seeds.
   replication check off: this jax cannot infer it through ``all_gather``
   and ``max``, so ``make_push_rows`` itself refuses to trace).
 * ``Runtime``: a mesh compares by identity, ``dp_workers`` and a mesh of
-  more than one rank together raise, a train step through expert
-  parallelism raises naming its ROADMAP item, and a mesh with no device
-  named wants the card.
+  more than one rank together raise, and a mesh with no device named
+  wants the card.  (Training on the production mesh axes, expert
+  parallelism included, is ``tests/test_torch_ranks_train.py``.)
 """
 
 import dataclasses
@@ -439,12 +439,6 @@ def _ep(mesh, inp):
     finally:
         moe.route = route
     out["expert_rows"] = mine["layers"]["moe"]["w_gate"].shape[1]
-    try:
-        steps.make_train_step(registry.Arch(cfg),
-                              Runtime(gradsync="spindle", mesh=mesh))
-        out["train_raises"] = None
-    except NotImplementedError as e:
-        out["train_raises"] = str(e)
     return out
 
 
@@ -747,12 +741,6 @@ def test_expert_parallel_moe_matches_the_reference_mesh(two, reference):
             np.testing.assert_allclose(ep["cache"][k].numpy(),
                                        reference[f"ep/new_cache/{k}"],
                                        rtol=RTOL, atol=ATOL)
-
-
-def test_a_train_step_through_expert_parallelism_raises(two):
-    for r in two:
-        msg = r["ep"]["train_raises"]
-        assert msg is not None and "item 28" in msg, msg
 
 
 def test_push_rows_equals_the_reference(two, reference):
