@@ -334,7 +334,24 @@ Phases (one JSON line each; any failure exits non-zero):
    first reduction against the two-leg mean (the int8 leg over
    ``"data"``, then the plain mean over ``"pod"``) computed there from
    the four ranks' own gradients, within one quantization step; exact
-   launches a step (a quantize and a dequantize a bucket);
+   launches a step (a quantize and a dequantize a bucket); (g) the
+   rules' parameter layouts (``Runtime(rules=...)``, each rank its
+   blocks by ``layers.shard_params``): (g1) in the four ranks' processes,
+   qwen3-1.7b at full width, 2 of 28 layers, under ``baseline`` on
+   ``{"data": 2, "model": 2}`` (8 / 4 heads, half the MLP and vocabulary
+   a rank over ``"model"``, the ``fsdp_embed`` dims halved over
+   ``"data"``), 2 ``gspmd`` steps of a 2 x 2048 global batch against the
+   unsplit step in the one-rank process: losses and strided samples of
+   every rank's blocks within the bf16 bar, ranks that hold the same
+   block bit-identical, the unsplit step's launches a step, the seconds
+   in ``gloo`` and the peak a rank beside the unsplit's; (g2) in the two
+   ranks' processes, qwen2-72b at full width, 2 of 80 layers, under
+   ``megatron`` on ``{"model": 2}`` (32 / 4 heads a rank): a prefill of 1
+   x 512 and 8 greedy decode steps through ``make_serve_step`` against
+   the unsplit path on rank 0 (logits within the bf16 bar, tokens equal
+   where the unsplit top-2 gap exceeds it), a rank's weight bytes half
+   the unsplit's; ``flash_attention`` and ``flash_decode`` at each part's
+   local head counts against their plain versions;
 then the ``kernels`` line: per kernel its launches on the main paths
 (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34, 37, 38 and, from the
 device traces, 18 and 20), its times and its bound.
@@ -363,6 +380,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -394,6 +412,7 @@ from repro_torch.models.config import (ShapeConfig,  # noqa: E402
                                        shape_by_name)
 from repro_torch.models.runtime import Runtime, recomputing  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.train import rules as rules_lib  # noqa: E402
 from repro_torch.train import steps  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -6237,9 +6256,27 @@ POD_LAYERS, POD_BATCH = 2, 4
 POD_MODES = RANKS_MODES + ("gspmd",)
 POD_DEVICES = ("cuda:0",) * 4
 POD_LOSS_RTOL = 1e-6
+# (g1): qwen3-1.7b at full width, 2 of 28 layers (the cut of (f)), laid
+# out by the "baseline" rules on four ranks {"data": 2, "model": 2}: 8 of
+# its 16 q heads, 4 of its 8 kv heads, half the MLP columns and half the
+# vocabulary a rank over "model", every fsdp_embed dim halved over
+# "data"; 2 gspmd steps of a 2 x 2048 global batch (one row a data rank)
+LAYOUT_SHAPE = {"data": 2, "model": 2}
+LAYOUT_PRESET = "baseline"
+LAYOUT_BATCH = 2
+# (g2): qwen2-72b at full width (QKV bias, an untied head), 2 of 80
+# layers, under "megatron" on two ranks {"model": 2}: 32 of 64 q heads and
+# 4 of 8 kv heads a rank; a prefill of 1 x 512, then 8 greedy decode steps
+TP_SERVE_MODEL = "qwen2-72b"
+TP_SERVE_LAYERS = 2
+TP_SERVE_SHAPE = {"model": 2}
+TP_SERVE_PRESET = "megatron"
+TP_PREFILL, TP_DECODE = 512, 8
 # elements a leaf in the strided samples that (e) and (f) compare across
-# processes (a whole tree would cross as gigabytes)
+# processes (a whole tree would cross as gigabytes); (g1)'s blocks cross
+# four times, one a rank, so fewer
 SAMPLE = 1 << 20
+LAYOUT_SAMPLE = 1 << 16
 RANKS_TIMEOUT = 600
 
 
@@ -6262,11 +6299,11 @@ def pod_cfg():
                                n_layers=POD_LAYERS)
 
 
-def strided(t: torch.Tensor) -> torch.Tensor:
-    """At most SAMPLE elements of ``t``, evenly strided over its flat
+def strided(t: torch.Tensor, n: int = SAMPLE) -> torch.Tensor:
+    """At most ``n`` elements of ``t``, evenly strided over its flat
     order, as a copy."""
     flat = t.detach().reshape(-1)
-    return flat[::-(-flat.numel() // SAMPLE)].clone()
+    return flat[::-(-flat.numel() // n)].clone()
 
 
 def samples(tree, model_index=None) -> dict:
@@ -6378,6 +6415,373 @@ def ranks_train_mode(arch, rt, rows, device, batch_fn=ranks_batch,
     return out
 
 
+def layout_cfg():
+    return pod_cfg()
+
+
+def tp_serve_cfg():
+    return dataclasses.replace(registry.get(TP_SERVE_MODEL).cfg,
+                               n_layers=TP_SERVE_LAYERS)
+
+
+def layout_batch(cfg, step: int, device) -> torch.Tensor:
+    """Step ``step``'s global batch of (g1)."""
+    return seeded_tokens(cfg, LAYOUT_BATCH, RANKS_SEQ,
+                         seed=638 + step).to(device)
+
+
+def mesh_coords(shape: dict):
+    """Every rank's coordinates on a mesh of ``shape``, in rank order."""
+    return [dict(zip(shape, idx)) for idx in np.ndindex(*shape.values())]
+
+
+def block_key(partition, coords: dict) -> tuple:
+    """The coordinates that pick a leaf's block under ``partition``:
+    two ranks with the same key hold the same block."""
+    return tuple((a, coords[a]) for e in partition
+                 for a in layers.entry_axes(e))
+
+
+def block_samples(tree, cfg, table, shape: dict, coords: dict) -> dict:
+    """path -> :func:`strided` samples of the block of each leaf of a
+    whole tree that the rank at ``coords`` holds under ``table``."""
+    def axis(entry):
+        names = layers.entry_axes(entry)
+        index, size = 0, 1
+        for a in names:
+            index, size = index * shape[a] + coords[a], size * shape[a]
+        return types.SimpleNamespace(index=index, size=size)
+
+    mesh = types.SimpleNamespace(shape=shape, axis=axis)
+    mine = layers.shard_params(tree, registry.param_specs(cfg), table, mesh)
+    return {path: strided(leaf, LAYOUT_SAMPLE)
+            for path, leaf in tree_util.paths(mine)}
+
+
+class GlooTimer:
+    """While entered, the seconds this process spends in the ranks'
+    collectives (``ranks._call``), each between two synchronisations of
+    the card, so that work queued before it is not counted."""
+
+    def __enter__(self):
+        self.s, self.calls, self._call = 0.0, 0, ranks._call
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._call(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+
+        ranks._call = call
+        return self
+
+    def __exit__(self, *exc):
+        ranks._call = self._call
+        return False
+
+
+def layout_train(arch, params, rt, rows, device) -> tuple:
+    """RANKS_STEPS steps of ``make_train_step`` on ``rows`` of each of
+    (g1)'s global batches: the parameters after, losses, walls, launches
+    a step, and the seconds in the collectives."""
+    opt = adamw.init(params)
+    step = steps.make_train_step(arch, rt, donate=True)
+    losses, walls, per_step, gloo_s = [], [], [], []
+    for i in range(RANKS_STEPS):
+        batch = {"tokens": layout_batch(arch.cfg, i, device)[rows]}
+        before = ops.launch_counts()
+        with GlooTimer() as gloo:
+            (params, opt, m), wall = timed(lambda: step(params, opt, batch))
+        per_step.append(launches_since(before))
+        losses.append(float(m["loss"]))
+        walls.append(wall)
+        gloo_s.append(gloo.s)
+    del opt, step
+    return params, {"losses": losses, "step_wall_s": walls,
+                    "launches_per_step": per_step, "gloo_s": gloo_s,
+                    "gloo_calls_per_step": gloo.calls}
+
+
+def layout_train_rank(device) -> dict:
+    """(g1) on this rank of the four: its blocks of seed 0's weights,
+    the gspmd steps on its row, then the blocks' samples and digests."""
+    mesh = ranks.RankMesh(LAYOUT_SHAPE, device)
+    arch = registry.Arch(layout_cfg())
+    rt = Runtime(mesh=mesh, rules=rules_lib.get(LAYOUT_PRESET, arch.cfg))
+    check(steps.splits_layout(arch, rt), "(g1) the rules split no leaf")
+    full = arch.init_params(0, device, torch.bfloat16)
+    params = layers.shard_params(full, arch.param_specs(), rt.rules_(),
+                                 mesh)
+    del full
+    torch.cuda.empty_cache()
+    axis = steps.batch_axis(arch, rt)
+    torch.cuda.reset_peak_memory_stats()
+    params, out = layout_train(arch, params, rt,
+                               slice(axis.index, axis.index + 1), device)
+    out.update(coords={a: mesh.axis(a).index for a in mesh.shape},
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               weight_bytes=sum(x.numel() * x.element_size()
+                                for x in tree_util.leaves(params)),
+               samples={path: strided(leaf, LAYOUT_SAMPLE)
+                        for path, leaf in tree_util.paths(params)},
+               digests={path: bit_digest({"x": leaf})
+                        for path, leaf in tree_util.paths(params)})
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_unsplit(device) -> dict:
+    """(g1)'s comparison on one rank: the unsplit gspmd steps on the
+    whole global batch, and the samples of each rank's block of the
+    parameters after them."""
+    arch = registry.Arch(layout_cfg())
+    torch.cuda.reset_peak_memory_stats()
+    params = arch.init_params(0, device, torch.bfloat16)
+    params, out = layout_train(arch, params, Runtime(),
+                               slice(0, LAYOUT_BATCH), device)
+    table = rules_lib.get(LAYOUT_PRESET, arch.cfg)
+    out.update(peak_bytes=torch.cuda.max_memory_allocated(),
+               weight_bytes=sum(x.numel() * x.element_size()
+                                for x in tree_util.leaves(params)),
+               blocks=[block_samples(params, arch.cfg, table, LAYOUT_SHAPE,
+                                     c) for c in mesh_coords(LAYOUT_SHAPE)])
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def local_head_kernels(device, hq: int, hkv: int, seq: int) -> dict:
+    """flash_attention over (1, seq) and flash_decode over a cache of
+    seq + TP_DECODE positions at a rank's head counts, against their
+    plain versions on the same bf16 inputs."""
+    gen = torch.Generator(device=device).manual_seed(hq * 100 + hkv)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.bfloat16)
+
+    q, k, v = rand(1, seq, hq, 128), rand(1, seq, hkv, 128), \
+        rand(1, seq, hkv, 128)
+    errs = {"flash_attention": within(
+        ops.flash_attention(q, k, v, True),
+        ops.PLAIN["flash_attention"](q, k, v, True), torch.bfloat16,
+        what=f"flash_attention at {hq}/{hkv} heads")}
+    kc, vc = rand(1, seq + TP_DECODE, hkv, 128), \
+        rand(1, seq + TP_DECODE, hkv, 128)
+    qd = rand(1, hq, 128)
+    lengths = torch.full((1,), seq + TP_DECODE, dtype=torch.int32,
+                         device=device)
+    errs["flash_decode"] = within(
+        ops.flash_decode(qd, kc, vc, lengths),
+        ops.PLAIN["flash_decode"](qd, kc, vc, lengths), torch.bfloat16,
+        what=f"flash_decode at {hq}/{hkv} heads")
+    return {"heads": [hq, hkv], "seq": seq, "max_abs_err": errs}
+
+
+def tp_serve_run(arch, params, rt, prompt, device, feed=None):
+    """(g2)'s path through ``make_serve_step``: the prefill, its cache
+    grown to TP_DECODE more positions, greedy decode steps (or the
+    tokens of ``feed``, (1, TP_DECODE)).  Returns (logits a step
+    (prefill first), tokens fed, the cache's kv heads, wall)."""
+    prefill = steps.make_serve_step(arch, rt, "prefill")
+    decode = steps.make_serve_step(arch, rt, "decode")
+
+    def run():
+        logits, cache = prefill(params, {"tokens": prompt})
+        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, TP_DECODE))
+                 for k, v in cache.items()}
+        out, fed = [logits], []
+        pos = torch.full((1,), TP_PREFILL, dtype=torch.int32, device=device)
+        for i in range(TP_DECODE):
+            nxt = out[-1].argmax(-1, keepdim=True).to(torch.int32) \
+                if feed is None else feed[:, i:i + 1]
+            fed.append(nxt)
+            logits, cache = decode(params, cache, {"tokens": nxt}, pos)
+            out.append(logits)
+            pos = pos + 1
+        return torch.stack(out), torch.cat(fed, dim=1), cache["k"].shape[3]
+
+    with torch.no_grad():
+        (logits, fed, kv_heads), wall = timed(run)
+    return logits, fed, kv_heads, wall
+
+
+def tp_serve_compare(split, whole, fed, split32, whole32, whole64) -> dict:
+    """(g2)'s bars.  The bf16 runs: at every step the split logits no
+    farther from the float32 unsplit run on the same (upcast) weights
+    than twice the unsplit bf16 logits are, plus 1e-6, both unsplit
+    runs fed the split run's tokens (``fed``, ``whole32``; phase 13's
+    yardstick: two bf16 paths that round at different points differ by
+    more than the bf16 bar at some of 152,064 logits, each as far from
+    float32 as the other); and the greedy tokens of the split and the
+    unsplit runs equal wherever the unsplit top-2 gap exceeds twice the
+    two runs' distances from float32 added (where no pair of logits
+    within those distances can swap; after a nearer tie the runs feed
+    different tokens: the comparison stops there).  The float32 runs,
+    fed the split bf16 run's tokens: the split logits no farther from
+    the float64 unsplit run than twice the unsplit float32 logits are,
+    plus 1e-6 (two float32 paths that sum the 8192- and 29568-long
+    products in different orders differ by more than the float32 bar at
+    full width)."""
+    tol = TOL[torch.bfloat16]
+    top2 = torch.topk(whole[0].float(), 2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).reshape(-1).tolist()
+    errs, e_split, e_fed, bar = [], [], [], []
+    errs32, e_split32, e_whole32 = [], [], []
+    for i in range(TP_DECODE + 1):
+        got, want = split[0][i].float(), fed[0][i].float()
+        yard = whole32[0][i].float()
+        errs.append(float((got - want).abs().max()))
+        bar.append(float(((got - want).abs() - tol - tol * want.abs())
+                         .max()))
+        e_split.append(float((got - yard).abs().max()))
+        e_fed.append(float((want - yard).abs().max()))
+        check(e_split[-1] <= 2 * e_fed[-1] + 1e-6, f"(g2) logits, step "
+              f"{i}: {e_split[-1]} from float32 against the unsplit "
+              f"bf16's {e_fed[-1]}")
+        yard = whole64[0][i].double()
+        errs32.append(float((split32[0][i] - whole32[0][i]).abs().max()))
+        e_split32.append(float((split32[0][i].double() - yard).abs().max()))
+        e_whole32.append(float((whole32[0][i].double() - yard).abs().max()))
+        check(e_split32[-1] <= 2 * e_whole32[-1] + 1e-6, f"(g2) float32 "
+              f"logits, step {i}: {e_split32[-1]} from float64 against "
+              f"the unsplit float32's {e_whole32[-1]}")
+    tokens_equal, compared = True, 0
+    for i in range(TP_DECODE):
+        same = torch.equal(split[1][:, i], whole[1][:, i])
+        apart = 2 * (e_split[i] + e_fed[i])
+        if gaps[i] > apart:
+            check(same, f"(g2) greedy token {i} differs at a top-2 gap of "
+                  f"{gaps[i]} > {apart}")
+        compared = i + 1
+        if not same:
+            tokens_equal = False
+            break
+    return {"logits_max_err": max(errs), "bf16_bar_excess": bar,
+            "bf16_bar_met": max(bar) <= 0,
+            "split_from_float32": e_split, "unsplit_from_float32": e_fed,
+            "float32_logits_max_err": max(errs32),
+            "float32_split_from_float64": e_split32,
+            "float32_unsplit_from_float64": e_whole32,
+            "top2_gaps": gaps, "greedy_tokens_equal": tokens_equal,
+            "greedy_tokens_compared": compared,
+            "tokens_split": split[1].tolist(),
+            "tokens_unsplit": whole[1].tolist(), "tol": tol,
+            "tol_float32": TOL[torch.float32]}
+
+
+def tp_serve_rank(rank, device) -> tuple:
+    """(g2) on this rank of the two: its blocks of seed 0's weights under
+    ``megatron``, the prefill and decode in bf16 (the counted path);
+    rank 0 then the unsplit path, greedy and fed the split run's tokens;
+    both ranks again in float32 on the upcast weights, fed the split
+    run's tokens, and rank 0 the unsplit float32 path so fed (the
+    yardstick of the bf16 runs), the unsplit float64 plain path so fed
+    (the yardstick of the float32 runs), and the kernels at the local
+    heads.  Returns (results, this rank's launches on the path)."""
+    mesh = ranks.RankMesh(TP_SERVE_SHAPE, device)
+    cfg = tp_serve_cfg()
+    arch = registry.Arch(cfg)
+    rt = Runtime(mesh=mesh, rules=rules_lib.get(TP_SERVE_PRESET, cfg))
+    specs = arch.param_specs()
+    full = arch.init_params(0, device, torch.bfloat16)
+    mine = layers.shard_params(full, specs, rt.rules_(), mesh)
+    torch.cuda.empty_cache()
+    prompt = seeded_tokens(cfg, 1, TP_PREFILL, seed=738).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    split = tp_serve_run(arch, mine, rt, prompt, device)
+    counts = ops.launch_counts()
+    hq = mine["layers"]["attn"]["wq"].shape[2]
+    out = {"heads_here": [hq, split[2]], "wall_s": split[3],
+           "weight_bytes": sum(x.numel() * x.element_size()
+                               for x in tree_util.leaves(mine)),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if rank == 0:                            # the unsplit path beside it
+        whole = tp_serve_run(arch, full, Runtime(), prompt, device)
+        fed = tp_serve_run(arch, full, Runtime(), prompt, device,
+                           feed=split[1])
+        out.update(unsplit_wall_s=whole[3], unsplit_weight_bytes=sum(
+            x.numel() * x.element_size() for x in tree_util.leaves(full)),
+            unsplit_heads=[cfg.n_heads, whole[2]])
+    del mine
+    full = tree_util.map(lambda t: t.float(), full)
+    torch.cuda.empty_cache()
+    split32 = tp_serve_run(arch, layers.shard_params(full, specs,
+                                                     rt.rules_(), mesh),
+                           rt, prompt, device, feed=split[1])
+    if rank == 0:
+        whole32 = tp_serve_run(arch, full, Runtime(), prompt, device,
+                               feed=split[1])
+        full = tree_util.map(lambda t: t.double(), full)
+        torch.cuda.empty_cache()
+        whole64 = tp_serve_run(arch, full, Runtime(kernels="plain"), prompt,
+                               device, feed=split[1])
+        out.update(tp_serve_compare(split, whole, fed, split32, whole32,
+                                    whole64),
+                   kernels=local_head_kernels(device, hq, split[2],
+                                              TP_PREFILL))
+        del whole, fed, whole32, whole64
+    del full, split, split32
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out, counts
+
+
+def layout_compare(results, unsplit) -> dict:
+    """(g1)'s bars (see the module's docstring)."""
+    tol = TOL[torch.bfloat16]
+    cfg = layout_cfg()
+    want = train_launches(cfg, 1, 0)
+    table = rules_lib.get(LAYOUT_PRESET, cfg)
+    layout = layers.tree_layout(registry.param_specs(cfg), table,
+                                types.SimpleNamespace(shape=LAYOUT_SHAPE))
+    check(all(made == want for made in unsplit["launches_per_step"]),
+          f"(g1) unsplit launches {unsplit['launches_per_step']}, want "
+          f"{want}")
+    coords = mesh_coords(LAYOUT_SHAPE)
+    errs, same, holders = [], {}, collections.Counter()
+    for r, got in enumerate(x["g"] for x in results):
+        for i, made in enumerate(got["launches_per_step"]):
+            check(made == want, f"(g1) rank {r} step {i}: launches {made}, "
+                  f"want {want}")
+        for i, (a, b) in enumerate(zip(got["losses"], unsplit["losses"])):
+            check(abs(a - b) <= tol + tol * abs(b), f"(g1) rank {r} loss "
+                  f"{i}: {a} against unsplit {b}")
+        blocks = unsplit["blocks"][coords.index(got["coords"])]
+        for path, sample in got["samples"].items():
+            errs.append(within(sample, blocks[path], torch.bfloat16,
+                               what=f"(g1) rank {r} {path}"))
+        for path, digest in got["digests"].items():
+            key = (path, block_key(layout[path], got["coords"]))
+            holders[key] += 1
+            check(same.setdefault(key, digest) == digest,
+                  f"(g1) rank {r}: its block of {path} differs from "
+                  "another rank's same block")
+    walls = [x["g"]["step_wall_s"] for x in results]
+    gloo = [x["g"]["gloo_s"] for x in results]
+    return {"losses_split": [x["g"]["losses"] for x in results],
+            "losses_unsplit": unsplit["losses"],
+            "params_max_err": max(errs), "leaves_sampled":
+            len(results[0]["g"]["samples"]), "sample": LAYOUT_SAMPLE,
+            "blocks_held_by_several_ranks": sum(
+                1 for n in holders.values() if n > 1),
+            "launches_per_step": want,
+            "step_wall_s_split": walls,
+            "step_wall_s_unsplit": unsplit["step_wall_s"],
+            "gloo_s_split": gloo,
+            "gloo_share_split": [[g / w for g, w in zip(gs, ws)]
+                                 for gs, ws in zip(gloo, walls)],
+            "gloo_calls_per_step": results[0]["g"]["gloo_calls_per_step"],
+            "peak_bytes_split": [x["g"]["peak_bytes"] for x in results],
+            "peak_bytes_unsplit": unsplit["peak_bytes"],
+            "weight_bytes_split": [x["g"]["weight_bytes"] for x in results],
+            "weight_bytes_unsplit": unsplit["weight_bytes"], "tol": tol}
+
+
 def ranks_folded_child(rank, device):
     """(a)'s comparison, the folded path ``Runtime(dp_workers=2)`` on the
     whole global batch; then (d), one train step over ``nccl`` at world
@@ -6425,7 +6829,7 @@ def ranks_folded_child(rank, device):
     torch.cuda.empty_cache()
     return {"folded": folded, "peak_bytes": peak, "nccl_world1": d,
             "backend": mesh.backend, "e": ep_train_unsplit(device),
-            "f": pod_folded(device)}
+            "f": pod_folded(device), "g": layout_unsplit(device)}
 
 
 def ep_train(arch, params, rt, device):
@@ -6671,6 +7075,9 @@ def ranks_child(rank, device):
     out["e"] = ep_train_rank(ep_mesh, device)
     counts = collections.Counter(counts) + collections.Counter(
         ops.launch_counts())
+    # (g2) serving on the "megatron" layout over {"model": 2}
+    out["g"], g_counts = tp_serve_rank(rank, device)
+    counts = counts + collections.Counter(g_counts)
     out["counts"] = dict(counts)
     return out
 
@@ -6718,7 +7125,16 @@ def pod_child(rank, device):
             arch, Runtime(gradsync=mode, mesh=mesh, dp_axes=POD_AXES), rows,
             device, pod_batch, keep=axis.index == 0)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
-    out["counts"] = ops.launch_counts()
+    counts = collections.Counter(ops.launch_counts())
+    # (g1) training on the "baseline" layout over {"data": 2, "model": 2}
+    ops.reset_launch_counts()
+    out["g"] = layout_train_rank(device)
+    out["counts"] = dict(counts + collections.Counter(ops.launch_counts()))
+    if out["g"]["coords"] == {"data": 0, "model": 0}:
+        cfg = layout_cfg()
+        out["g"]["kernels"] = local_head_kernels(
+            device, cfg.n_heads // LAYOUT_SHAPE["model"],
+            cfg.n_kv_heads // LAYOUT_SHAPE["model"], RANKS_SEQ)
     return out
 
 
@@ -6974,6 +7390,34 @@ def phase38_ranks(smi_line: str) -> dict:
           "modes": pod_compare(pod, folded_out["f"]),
           "peak_bytes_ranks": [r["peak_bytes"] for r in pod],
           "pod_child_s": pod_s, "nvidia_smi": smi_line})
+    g1 = layout_compare(pod, folded_out["g"])
+    g1_kernels = next(r["g"]["kernels"] for r in pod if "kernels" in r["g"])
+    emit({"phase": 38, "part": "g1", "model": RANKS_MODEL,
+          "layers": POD_LAYERS, "mesh": LAYOUT_SHAPE,
+          "rules": LAYOUT_PRESET, "gradsync": "gspmd",
+          "global_batch": [LAYOUT_BATCH, RANKS_SEQ], "steps": RANKS_STEPS,
+          "heads_a_rank": [layout_cfg().n_heads // LAYOUT_SHAPE["model"],
+                           layout_cfg().n_kv_heads // LAYOUT_SHAPE["model"]],
+          **g1, "kernels_at_local_heads": g1_kernels,
+          "nvidia_smi": smi_line})
+    g2 = results[0]["g"]
+    ratio = [r["g"]["weight_bytes"] / g2["unsplit_weight_bytes"]
+             for r in results]
+    check(all(abs(x - 1 / TP_SERVE_SHAPE["model"]) < 0.01 for x in ratio),
+          f"(g2) a rank's weight bytes are {ratio} of the unsplit's")
+    emit({"phase": 38, "part": "g2", "model": TP_SERVE_MODEL,
+          "layers": TP_SERVE_LAYERS, "of_layers":
+          registry.get(TP_SERVE_MODEL).cfg.n_layers,
+          "mesh": TP_SERVE_SHAPE, "rules": TP_SERVE_PRESET,
+          "prefill": TP_PREFILL, "decode_steps": TP_DECODE,
+          "heads_a_rank": [r["g"]["heads_here"] for r in results],
+          "weight_bytes_ranks": [r["g"]["weight_bytes"] for r in results],
+          "weight_ratio_ranks": ratio,
+          "peak_bytes_ranks": [r["g"]["peak_bytes"] for r in results],
+          "wall_s_ranks": [r["g"]["wall_s"] for r in results],
+          **{k: v for k, v in g2.items() if k not in (
+              "heads_here", "weight_bytes", "peak_bytes", "wall_s")},
+          "nvidia_smi": smi_line})
     counts = collections.Counter()
     for r in results + pod:
         counts.update(r["counts"])

@@ -17,15 +17,19 @@ differ only in that axis's coordinate.
   itself.
 * :func:`all_reduce`, :func:`reduce_scatter`, :func:`all_gather` -- the
   three collectives the port runs (the reference's ``psum``,
-  ``psum_scatter`` and ``all_gather``), each over an :class:`Axis`.
-* :func:`reduce_from`, :func:`copy_to`, :func:`from_first` -- the
-  collectives autograd sees: a sum whose backward hands each rank the
-  cotangent of the sum, its transpose (the identity forward, the sum of
-  the cotangents backward), and the value of the axis's first rank with
-  each rank's own gradient.  Inside the reference's ``shard_map`` they
-  are ``psum`` and its transpose; the port needs them spelled out where
-  a rank holds part of a layer (the MoE's experts split over
-  ``"model"``).
+  ``psum_scatter`` and ``all_gather``), each over an :class:`Axis`, the
+  last two flat or along a dim; :func:`axis_max` is the max over an
+  axis, taken from a gather.
+* :func:`reduce_from`, :func:`copy_to`, :func:`gather_from`,
+  :func:`from_first` -- the collectives autograd sees: a sum whose
+  backward hands each rank the cotangent of the sum, its transpose (the
+  identity forward, the sum of the cotangents backward), a gather along
+  a dim whose backward reduce-scatters, and the value of the axis's
+  first rank with each rank's own gradient.  Inside the reference's
+  ``shard_map`` they are ``psum`` and its transpose; the port needs them
+  spelled out where a rank holds part of a layer (the MoE's experts
+  split over ``"model"``, the heads, MLP columns and vocabulary rows of
+  tensor parallelism, the FSDP blocks over ``"data"``).
 * :func:`spawn` -- one process a rank through ``torch.multiprocessing``'s
   ``spawn`` start method (the only one that works once CUDA is up in the
   parent).  Rank ``r`` runs ``fn(r, devices[r], *args)`` and its result
@@ -188,9 +192,21 @@ def all_reduce(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return out
 
 
-def reduce_scatter(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """``x`` (n * L,) summed over the axis; rank i keeps elements [i L,
-    (i + 1) L) of the sum (``psum_scatter``, not tiled)."""
+def reduce_scatter(x: torch.Tensor, axis: Axis,
+                   dim: Optional[int] = None) -> torch.Tensor:
+    """``x`` summed over the axis, rank i keeping its block of the sum
+    (``psum_scatter``): with ``dim`` None ``x`` is flat (n * L,) and the
+    block elements [i L, (i + 1) L) (not tiled); with ``dim`` the block
+    is rows [i L, (i + 1) L) of that dim (tiled)."""
+    if dim is not None:
+        moved = x.movedim(dim, 0)
+        if moved.shape[0] % axis.size:
+            raise ValueError(f"reduce_scatter: dim {dim} of "
+                             f"{tuple(x.shape)} does not split over "
+                             f"{axis.size} ranks")
+        out = reduce_scatter(moved.reshape(-1), axis)
+        return out.view(moved.shape[0] // axis.size,
+                        *moved.shape[1:]).movedim(0, dim)
     if x.dim() != 1 or x.numel() % axis.size:
         raise ValueError(f"reduce_scatter takes a flat tensor of a "
                          f"multiple of {axis.size} elements, got "
@@ -200,12 +216,23 @@ def reduce_scatter(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return out
 
 
-def all_gather(x: torch.Tensor, axis: Axis) -> torch.Tensor:
-    """Every rank's ``x`` stacked in axis order: ``(n, *x.shape)``."""
+def all_gather(x: torch.Tensor, axis: Axis,
+               dim: Optional[int] = None) -> torch.Tensor:
+    """Every rank's ``x`` in axis order: stacked ``(n, *x.shape)`` with
+    ``dim`` None, else joined along ``dim`` (tiled)."""
     flat = x.reshape(-1).contiguous()
     out = flat.new_empty(axis.size * flat.numel())
     _call(dist.all_gather_into_tensor, out, flat, group=axis.group)
-    return out.view(axis.size, *x.shape)
+    out = out.view(axis.size, *x.shape)
+    if dim is None:
+        return out
+    return torch.cat(torch.unbind(out), dim=dim)
+
+
+def axis_max(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The elementwise max of ``x`` over the axis (``pmax``), gathered
+    and reduced here, so that the backends need no MAX reduction."""
+    return all_gather(x, axis).amax(0)
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +270,17 @@ class _FromFirst(torch.autograd.Function):
         return grad, None
 
 
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return reduce_scatter(grad, ctx.axis, ctx.dim), None, None
+
+
 def reduce_from(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     """The sum of ``x`` over the axis, whose backward gives each rank the
     cotangent of the sum as its part's (Megatron's ``g``; in the
@@ -256,6 +294,15 @@ def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     tensor that every rank holds whole, entering a computation of which
     each rank holds a part."""
     return _CopyTo.apply(x, axis)
+
+
+def gather_from(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """Every rank's block of a tensor joined along ``dim`` in axis order,
+    whose backward reduce-scatters the cotangent: each rank gets its
+    block of the sum over the axis (FSDP's gather of a parameter split
+    over ``"data"``; in the reference, what GSPMD inserts for a
+    parameter sharded there)."""
+    return _GatherFrom.apply(x, axis, dim % x.dim())
 
 
 def from_first(x: torch.Tensor, axis: Axis) -> torch.Tensor:

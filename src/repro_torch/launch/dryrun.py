@@ -28,11 +28,15 @@ over 512 placeholder host devices.  Three differences:
   global counts are divided by the mesh's devices for the per-device
   roofline.
 * **Collectives are the gradient reduction** (``--gradsync``'s mode
-  over the data-parallel axes) **and the MoE's expert-parallel
-  all-reduces** over ``"model"`` (:func:`ep_all_reduces`), each by the
-  ring model.  The port executes no tensor- or sequence-parallel
-  collective, so the rules presets move the memory columns and not the
-  collective term.
+  over the data-parallel axes), **the MoE's expert-parallel
+  all-reduces** over ``"model"`` (:func:`ep_all_reduces`) **and the
+  dense family's tensor-parallel and FSDP collectives** where the port
+  runs the rules' layout (:func:`layout_collectives`: the all-reduces
+  over ``"model"``, the gathers of the ``"data"`` blocks and the
+  reduce-scatters of their gradients, and the gradient reduction then
+  left), each by the ring model.  The port runs no sequence-parallel
+  preset and no other family's layout, so there the rules move the
+  memory columns and not the collective term.
 * **Remat reruns on ``meta``.**  ``--remat none|full|dots`` (default
   ``full``, the reference's) is ``Runtime.remat``: a train cell's
   backward reruns each checkpointed region inside autograd's engine,
@@ -57,6 +61,7 @@ import json
 import math
 import time
 import traceback
+import types
 from pathlib import Path
 from typing import Any, Dict
 
@@ -65,7 +70,7 @@ import torch
 from repro_torch.core import costmodel
 from repro_torch.launch import opanalysis
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import layers, registry
+from repro_torch.models import layers, registry, transformer
 from repro_torch.models.config import SHAPES, shape_by_name
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
@@ -97,6 +102,7 @@ def _output_bytes(tree, specs, rules, mesh, batch_shards: int) -> int:
     """Per-device bytes of a step's outputs: a leaf with the shape of a
     spec in ``specs`` (a parameter or a cache leaf) sharded by the
     rules, the rest batch-major."""
+    layers.tree_layout(specs, rules, mesh)       # refuses what cannot lie
     by_shape = {s.shape: s for s in layers.spec_leaves(specs)}
     total = 0
     for t in opanalysis.tensor_leaves(tree):
@@ -140,6 +146,9 @@ def argument_bytes(arch, shape, rules, mesh,
     inputs split over the batch shards, and (decode) the cache by the
     rules and the per-row positions."""
     specs = arch.param_specs()
+    layers.tree_layout(specs, rules, mesh)       # refuses what cannot lie
+    if shape.kind == "decode":
+        layers.tree_layout(arch.cache_specs(shape), rules, mesh)
     out = {"params": layers.tree_shard_bytes(specs, rules, mesh),
            "inputs": _batch_bytes(arch.input_specs(shape), batch_shards)}
     if shape.kind == "train":
@@ -183,6 +192,144 @@ def ep_all_reduces(cfg, shape, mesh_shape: Dict[str, int], remat: str
     if shape.kind == "train":
         out.append((layer, cfg.n_layers * (2 if remat != "none" else 1)))
         out.append((4 * t * cfg.moe.top_k, cfg.n_layers))
+    return out
+
+
+def runs_layout(cfg, rules, mesh, gradsync: str, kind: str):
+    """The parameter layout the port runs a cell's step on
+    (``registry.rules_layout``), or None: a train step under a Spindle
+    mode keeps every leaf whole, and what the port refuses (the
+    sequence-parallel presets, another family's split leaves) is not
+    modelled."""
+    if kind == "train" and gradsync != "gspmd":
+        return None
+    # a leaf the rules cannot lay out raises here; what waits is None
+    layers.tree_layout(registry.param_specs(cfg), rules, mesh)
+    try:
+        return registry.rules_layout(cfg, rules, mesh)
+    except ValueError:
+        return None
+
+
+def layout_collectives(cfg, shape, mesh_shape: Dict[str, int], layout,
+                       batch_axes, remat: str) -> list:
+    """The collectives one device runs in a step of the dense family on
+    the rules' ``layout`` (:func:`runs_layout`), as the port runs them,
+    ``[(kind, operand bytes, group, count), ...]``; T the tokens of one
+    data shard (the global batch over ``batch_axes``), d the width, L
+    the layers, n the ranks of ``"model"``, activations bfloat16 (2
+    bytes), the row-parallel sums float32:
+
+    * tensor parallelism over ``"model"``: where the vocabulary splits,
+      the lookup's all-reduce (T, d) and, in a train step, the loss's
+      gather of the row max and all-reduces of the sum of exponentials
+      and the gold logit (float32, T' = the positions the loss reads)
+      and the backward's all-reduce of the unembedding's input (T', d);
+      a prefill or decode gathers the last position's logits (B, V / n).
+      Where the heads split, each layer's row-parallel sum of the
+      attention (T, d) in float32 (again in each layer's rerun under
+      ``full`` or ``dots``) and in a train step the backward's
+      all-reduce of its input (T, d), of the qk-norm scales' gradients
+      and of the whole kv leaves' where the kv heads stay whole; where
+      the MLP splits, its float32 sum (T, d) and, training, its input's
+      all-reduce (T, d);
+    * FSDP over the other axes of a leaf (``"data"``): each split
+      leaf's all-gather of its block, a layer's once a layer (twice
+      under remat, the gather reruns), the tied embedding twice (lookup
+      and unembedding); training, the reduce-scatter of each gathered
+      gradient;
+    * training, the gradient reduction: each leaf's block all-reduced
+      over the data axes it does not lie on, the loss's all-reduce (4
+      bytes) and the global norm's, one an axis that splits a leaf
+      (4 bytes a leaf).
+
+    Per device; empty without a layout."""
+    if layout is None:
+        return []
+    specs = dict(layers.spec_paths(transformer.lm_specs(cfg)))
+
+    def size(axes) -> int:
+        return math.prod(mesh_shape.get(a, 1) for a in axes)
+
+    def block(path) -> int:
+        """Bytes of one device's block of a leaf, one layer's if the
+        leaf is stacked."""
+        spec = specs[path]
+        n = math.prod(layers.partition_shape(
+            spec.shape, layout[path], types.SimpleNamespace(
+                shape=mesh_shape)))
+        n //= spec.shape[0] if spec.axes[0] == "layers" else 1
+        return n * torch.empty((), dtype=spec.dtype).element_size()
+
+    def split(path, dim) -> bool:
+        return layout[path][dim] == layers.TP_AXIS
+
+    out = []
+
+    def add(kind, operand, group, count=1):
+        if group > 1 and count:
+            out.append((kind, operand, group, count))
+
+    train, n_layers = shape.kind == "train", cfg.n_layers
+    rows = shape.global_batch // size(batch_axes)
+    seq = 1 if shape.is_decode else shape.seq_len
+    t, d, act = rows * seq, cfg.d_model, 2
+    n = mesh_shape.get(layers.TP_AXIS, 1)
+    rerun = train and remat != "none"
+    vocab, heads = split("embed", 0), split("layers/attn/wq", 2)
+    mlp = split("layers/mlp/w_gate", 2)
+    # tensor parallelism
+    if vocab:
+        add("all-reduce", t * d * act, n)
+        if train:
+            t_loss = rows * (seq - 1)
+            add("all-gather", 4 * t_loss, n)
+            add("all-reduce", 4 * t_loss, n, 2)
+            add("all-reduce", t_loss * d * act, n)
+        else:
+            add("all-gather", rows * (cfg.vocab_size // n) * act, n)
+    if heads:
+        add("all-reduce", 4 * t * d, n, n_layers * (2 if rerun else 1))
+        if train:
+            add("all-reduce", t * d * act, n, n_layers)
+            whole = ["q_norm", "k_norm"] if cfg.qk_norm else []
+            if not split("layers/attn/wk", 2):
+                whole += ["wk", "wv"] + (["bk", "bv"] if cfg.qkv_bias
+                                         else [])
+            for name in whole:
+                leaf = specs[f"layers/attn/{name}"]
+                add("all-reduce", math.prod(leaf.shape[1:]) * act, n,
+                    n_layers)
+    if mlp:
+        add("all-reduce", 4 * t * d, n, n_layers)
+        if train:
+            add("all-reduce", t * d * act, n, n_layers)
+    # FSDP
+    axes_of = {path: [a for e in part for a in layers.entry_axes(e)]
+               for path, part in layout.items()}
+    for path in layout:
+        group = size(a for a in axes_of[path] if a != layers.TP_AXIS)
+        stacked = specs[path].axes[0] == "layers"
+        count = n_layers if stacked else \
+            (2 if path == "embed" and cfg.tie_embeddings else 1)
+        add("all-gather", block(path), group,
+            count * (2 if rerun and stacked else 1))
+        if train:
+            add("reduce-scatter", block(path) * group, group, count)
+    if not train:
+        return out
+    # the gradient reduction, the loss and the global norm
+    per_axes = {}
+    for path in layout:
+        rest = [a for a in batch_axes if a not in axes_of[path]]
+        add("all-reduce", block(path) * (n_layers if specs[path].axes[0]
+                                         == "layers" else 1), size(rest))
+        if axes_of[path]:
+            key = tuple(a for a in mesh_shape if a in axes_of[path])
+            per_axes[key] = per_axes.get(key, 0) + 1
+    add("all-reduce", 4, size(batch_axes))
+    for axes, leaves in per_axes.items():
+        add("all-reduce", 4 * leaves, size(axes))
     return out
 
 
@@ -232,12 +379,14 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
         step_args = (params, layers.abstract_tree(arch.cache_specs(shape)),
                      inputs, torch.empty((shape.global_batch,),
                                          dtype=torch.int32, device="meta"))
+    layout = runs_layout(arch.cfg, rules, mesh, gradsync, shape.kind)
     with opanalysis.OpAnalysis() as an:
         out = step(*step_args)
         if shape.kind == "train":
             out_bytes = args["params"] + args["opt_state"] + 4 * len(out[2])
-            opanalysis.gradient_reduction(an, grads, rt, batch_shards,
-                                          n_chips, BUCKET_BYTES)
+            if layout is None:
+                opanalysis.gradient_reduction(an, grads, rt, batch_shards,
+                                              n_chips, BUCKET_BYTES)
         else:
             out_bytes = _output_bytes(out, arch.cache_specs(shape), rules,
                                       mesh, batch_shards)
@@ -246,6 +395,9 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
         for operand, count in ep_all_reduces(arch.cfg, shape, mesh.shape,
                                              remat):
             an.collective("all-reduce", operand, ep, count)
+        for kind, operand, group, count in layout_collectives(
+                arch.cfg, shape, mesh.shape, layout, batch_axes, remat):
+            an.collective(kind, operand, group, count)
     t_trace = time.time() - t0
 
     met = an.metrics

@@ -13,6 +13,15 @@ it to XLA.  The reference's
 pure-XLA blocked twin of the flash kernel, ``_sdpa_chunked``, is not
 ported: the tests hold the port against the reference's own kernel and
 its ``_sdpa``, and the port's kernel site has its plain version.
+
+Under tensor parallelism (``Runtime.rules`` on a mesh whose ``"model"``
+axis has more than one rank) ``p`` holds this rank's heads: the local
+head counts come from the weights' shapes, the input enters through
+``ranks.copy_to`` and the row-parallel ``wo`` leaves through a float32
+sum over the axis (``layers.row_parallel``).  Where the kv heads do not
+split over the axis but the q heads do, they stay whole and each rank
+reads the one kv head of its q heads (:func:`kv_heads_here`); the
+cache of a rank then holds that head.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import ranks
 from repro_torch.models import layers, masking
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
@@ -59,25 +69,84 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, h * k)).view(*x.shape[:-1], h, k)
 
 
+def kv_heads_here(cfg: ModelConfig, n_q: int) -> int:
+    """The kv heads a rank holding ``n_q`` of the q heads reads: all of
+    them unsplit; its share when they split over the ranks as the q
+    heads do; one when they stay whole while the q heads split (the q
+    heads of a rank then share one kv head)."""
+    if n_q == cfg.n_heads:
+        return cfg.n_kv_heads
+    ways = cfg.n_heads // n_q
+    if cfg.n_kv_heads % ways == 0:
+        return cfg.n_kv_heads // ways
+    if ways % cfg.n_kv_heads == 0:
+        return 1
+    raise ValueError(f"{cfg.name}: {cfg.n_kv_heads} kv heads neither split "
+                     f"over {ways} ranks nor serve whole groups of their "
+                     f"{n_q} q heads")
+
+
+def tp_axis(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+            rt: Runtime) -> Optional[ranks.Axis]:
+    """The tensor-parallel axis when ``p`` holds this rank's heads, else
+    None."""
+    return layers.split_axis(p["wq"].shape[-2], cfg.n_heads, rt,
+                             "the attention's heads")
+
+
+def _kv_params(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+               axis: Optional[ranks.Axis]) -> Dict[str, torch.Tensor]:
+    """The k/v weights (and biases) this rank reads: ``p``'s own, or
+    where the kv heads stay whole while the q heads split, the one kv
+    head of this rank's q heads, entering through ``copy_to`` (every
+    rank's gradient of the whole leaf is the sum of the ranks' parts)."""
+    keys = ("wk", "wv", "bk", "bv") if cfg.qkv_bias else ("wk", "wv")
+    if axis is None or p["wk"].shape[-2] != cfg.n_kv_heads:
+        return {k: p[k] for k in keys}
+    n_q = p["wq"].shape[-2]
+    first = axis.index * n_q // (cfg.n_heads // cfg.n_kv_heads)
+    n = kv_heads_here(cfg, n_q)
+    return {k: ranks.copy_to(p[k], axis).narrow(-2, first, n) for k in keys}
+
+
 def _project_qkv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
-                 x: torch.Tensor, rt: Runtime, rope
+                 x: torch.Tensor, rt: Runtime, rope,
+                 axis: Optional[ranks.Axis] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v (B, S, H, D) with bias, qk-norm and RoPE applied;
     ``rope`` is the ``(cos, sin)`` of the tokens' positions
-    (:func:`repro_torch.models.layers.rope_cos_sin`)."""
+    (:func:`repro_torch.models.layers.rope_cos_sin`).  With ``axis``
+    (:func:`tp_axis`) H counts this rank's heads, and x and the whole
+    per-head leaves enter through ``copy_to``."""
+    kv = _kv_params(p, cfg, axis)
+    if axis is not None:
+        x = ranks.copy_to(x, axis)
     q = _heads(x, p["wq"])
-    k = _heads(x, p["wk"])
-    v = _heads(x, p["wv"])
+    k = _heads(x, kv["wk"])
+    v = _heads(x, kv["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + kv["bk"]
+        v = v + kv["bv"]
     if cfg.qk_norm:
         norm = rt.op("rms_norm")
-        q = norm(q, p["q_norm"], cfg.norm_eps)
-        k = norm(k, p["k_norm"], cfg.norm_eps)
+        q_norm, k_norm = p["q_norm"], p["k_norm"]
+        if axis is not None:
+            q_norm, k_norm = (ranks.copy_to(q_norm, axis),
+                              ranks.copy_to(k_norm, axis))
+        q = norm(q, q_norm, cfg.norm_eps)
+        k = norm(k, k_norm, cfg.norm_eps)
     cos, sin = rope
     return layers.rotate(q, cos, sin), layers.rotate(k, cos, sin), v
+
+
+def _out(p: Dict[str, torch.Tensor], out: torch.Tensor,
+         axis: Optional[ranks.Axis]) -> torch.Tensor:
+    """The attention output (B, S, H, D) through ``wo`` -> (B, S, d),
+    summed over ``axis`` when H is this rank's heads."""
+    b, s, h, d = out.shape
+    return layers.row_parallel(out.reshape(b, s, h * d),
+                               p["wo"].reshape(h * d, -1), axis)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -124,15 +193,15 @@ def full_attention_kv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     """:func:`full_attention` that also returns the sequence's k and v
     (B, S, Hkv, D), k rotated — what a prefill writes to the cache."""
     rt = Runtime() if rt is None else rt
-    b, s, _ = x.shape
+    s = x.shape[1]
     if rope is None:
         rope = layers.rope_cos_sin(torch.arange(s, device=x.device)[None],
                                    cfg.head_dim_, cfg.rope_theta,
                                    compute_dtype(x.dtype))
-    q, k, v = _project_qkv(p, cfg, x, rt, rope)
+    axis = tp_axis(p, cfg, rt)
+    q, k, v = _project_qkv(p, cfg, x, rt, rope, axis)
     out = rt.op("flash_attention")(q, k, v, causal)
-    hq, hd = cfg.n_heads, cfg.head_dim_
-    return out.reshape(b, s, hq * hd) @ p["wo"].reshape(hq * hd, -1), k, v
+    return _out(p, out, axis), k, v
 
 
 def full_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -171,9 +240,13 @@ def cross_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def kv_cache_specs(cfg: ModelConfig, batch: int, max_len: int,
-                   n_layers: Optional[int] = None) -> Dict[str, ParamSpec]:
+                   n_layers: Optional[int] = None,
+                   kv_heads: Optional[int] = None) -> Dict[str, ParamSpec]:
+    """The k and v caches, (L, B, S_max, Hkv, D) each; ``kv_heads`` is a
+    rank's count under tensor parallelism (:func:`kv_heads_here`)."""
     nl = n_layers if n_layers is not None else cfg.n_layers
-    shape = (nl, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    hkv = cfg.n_kv_heads if kv_heads is None else kv_heads
+    shape = (nl, batch, max_len, hkv, cfg.head_dim_)
     axes = ("layers", "batch", "seq", "kv_heads", "head_dim")
     return {"k": ParamSpec(shape, axes), "v": ParamSpec(shape, axes)}
 
@@ -203,7 +276,8 @@ def decode_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     if rope is None:
         rope = layers.rope_cos_sin(position[:, None], cfg.head_dim_,
                                    cfg.rope_theta)
-    q, k, v = _project_qkv(p, cfg, x, rt, rope)
+    axis = tp_axis(p, cfg, rt)
+    q, k, v = _project_qkv(p, cfg, x, rt, rope, axis)
     if masking.is_device_mask(rows):
         every = torch.arange(b, device=x.device)
         at = position.long()
@@ -219,5 +293,4 @@ def decode_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
         k_cache[rows, at] = k[rows, 0].to(k_cache.dtype)
         v_cache[rows, at] = v[rows, 0].to(v_cache.dtype)
     out = rt.op("flash_decode")(q[:, 0], k_cache, v_cache, position + 1)
-    hq, hd = cfg.n_heads, cfg.head_dim_
-    return (out.reshape(b, 1, hq * hd) @ p["wo"].reshape(hq * hd, -1))
+    return _out(p, out[:, None], axis)

@@ -10,6 +10,17 @@ The plain RMSNorm lives with its kernels and is re-exported here as
 :func:`rms_norm`; the models reach the kernels through
 :class:`repro_torch.models.runtime.Runtime`.  :func:`cross_entropy_loss`
 is the loss of the full-sequence forward.
+
+The rules map the logical axes onto mesh axes (:func:`spec_to_pspec`).
+:func:`tree_layout` lays out a whole tree and refuses a leaf that maps
+one mesh axis to two of its dims, as the reference's ``NamedSharding``
+does; :func:`shard_params` cuts a tree to this rank's blocks of that
+layout and :func:`gather_params` joins them again.  A block split over
+:data:`TP_AXIS` is computed on where it lies (tensor parallelism: the
+column- and row-parallel halves of :func:`swiglu`, :func:`row_parallel`,
+the vocabulary-parallel :func:`cross_entropy_loss`); a block split over
+any other axis (FSDP's ``"data"``) is gathered before use
+(:func:`gather_fsdp`).
 """
 
 from __future__ import annotations
@@ -20,6 +31,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch import tree as tree_util
+from repro_torch.core import ranks
 from repro_torch.kernels.rmsnorm import rms_norm_plain as rms_norm  # noqa: F401
 from repro_torch.precision import compute, compute_dtype
 
@@ -65,6 +78,17 @@ def map_specs(fn, specs: PyTree, *rest: PyTree) -> PyTree:
         return fn(specs, *rest)
     return {k: map_specs(fn, specs[k], *(r[k] for r in rest))
             for k in sorted(specs)}
+
+
+def spec_paths(specs: PyTree, prefix: str = ""
+               ) -> Iterator[Tuple[str, ParamSpec]]:
+    """``(path, spec)`` for every ParamSpec, ``/``-joined keys in
+    sorted-key order (the paths of :func:`repro_torch.tree.paths`)."""
+    if isinstance(specs, ParamSpec):
+        yield prefix, specs
+        return
+    for k in sorted(specs):
+        yield from spec_paths(specs[k], f"{prefix}/{k}" if prefix else k)
 
 
 def spec_leaves(specs: PyTree) -> Iterator[ParamSpec]:
@@ -138,6 +162,17 @@ DEFAULT_RULES: Dict[str, Any] = {
 }
 
 Partition = Tuple[Any, ...]     # per dim: an axis name, a tuple, or None
+# the mesh axis of tensor parallelism (the rules' "heads", "kv_heads",
+# "mlp", "vocab" and "experts"); a leaf's block over any other axis is
+# gathered before use
+TP_AXIS = "model"
+
+
+def entry_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one partition entry (none for None)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
 
 
 def _axes_size(axes: Tuple[str, ...], mesh) -> int:
@@ -168,6 +203,146 @@ def spec_to_pspec(spec: ParamSpec, rules: Dict[str, Any], mesh) -> Partition:
 
 def tree_pspecs(specs: PyTree, rules: Dict[str, Any], mesh) -> PyTree:
     return map_specs(lambda s: spec_to_pspec(s, rules, mesh), specs)
+
+
+def check_partition(path: str, partition: Partition) -> None:
+    """Refuse a partition that maps one mesh axis to two dims of the
+    leaf at ``path`` (``ValueError`` naming both), as the reference's
+    ``NamedSharding`` refuses it (``DuplicateSpecError``)."""
+    seen: Dict[str, int] = {}
+    for dim, entry in enumerate(partition):
+        for axis in entry_axes(entry):
+            if axis in seen:
+                raise ValueError(
+                    f"{path}: the layout maps mesh axis {axis!r} to dims "
+                    f"{seen[axis]} and {dim} {partition}; a mesh axis "
+                    "shards at most one dim of a leaf")
+            seen[axis] = dim
+
+
+def tree_layout(specs: PyTree, rules: Dict[str, Any],
+                mesh) -> Dict[str, Partition]:
+    """``path -> partition`` of every leaf of ``specs`` under ``rules`` on
+    ``mesh``, each checked by :func:`check_partition`."""
+    out = {}
+    for path, spec in spec_paths(specs):
+        out[path] = spec_to_pspec(spec, rules, mesh)
+        check_partition(path, out[path])
+    return out
+
+
+def _partition_at(layout: Dict[str, Partition], path: str, leaf
+                  ) -> Optional[Partition]:
+    """The partition of the layout's leaf that ``path`` ends with (a
+    tree nesting parameter trees, such as the AdamW state or a
+    checkpoint's, holds them under longer paths), or None."""
+    parts = path.split("/")
+    for i in range(len(parts)):
+        part = layout.get("/".join(parts[i:]))
+        if part is not None and isinstance(leaf, torch.Tensor) and \
+                leaf.dim() == len(part):
+            return part
+    return None
+
+
+def shard_params(tree: PyTree, specs: PyTree, rules: Dict[str, Any],
+                 mesh) -> PyTree:
+    """This rank's block of every leaf of ``tree`` (the parameters, or a
+    tree nesting them) under ``rules`` on the rank mesh ``mesh``: each
+    split dim cut to the rank's index on its axes, as a contiguous copy;
+    a leaf the layout keeps whole is the same tensor.  The port's
+    counterpart of placing the parameters by the reference's
+    ``tree_shardings``."""
+    layout = tree_layout(specs, rules, mesh)
+
+    def cut(path: str, leaf):
+        part = _partition_at(layout, path, leaf)
+        if part is None or not any(part):
+            return leaf
+        for dim, entry in enumerate(part):
+            if entry is not None:
+                axis = mesh.axis(entry)
+                n = leaf.shape[dim] // axis.size
+                leaf = leaf.narrow(dim, axis.index * n, n)
+        return leaf.contiguous()
+
+    return tree_util.unflatten(tree, [cut(path, leaf) for path, leaf
+                                      in tree_util.paths(tree)])
+
+
+def gather_params(tree: PyTree, specs: PyTree, rules: Dict[str, Any],
+                  mesh) -> PyTree:
+    """The inverse of :func:`shard_params` across ranks (every rank of
+    the mesh calls it): each split dim gathered over its axes, the whole
+    tree on every rank, bit for bit."""
+    layout = tree_layout(specs, rules, mesh)
+
+    def join(path: str, leaf):
+        part = _partition_at(layout, path, leaf)
+        for dim, entry in enumerate(part or ()):
+            if entry is not None:
+                leaf = ranks.all_gather(leaf, mesh.axis(entry), dim)
+        return leaf
+
+    return tree_util.unflatten(tree, [join(path, leaf) for path, leaf
+                                      in tree_util.paths(tree)])
+
+
+def whole_like(tree: PyTree, specs: PyTree, rules: Dict[str, Any],
+               mesh) -> PyTree:
+    """Empty tensors of the whole tree's shapes, from this rank's blocks
+    of it (a template to restore a checkpoint into)."""
+    layout = tree_layout(specs, rules, mesh)
+
+    def grow(path: str, leaf):
+        shape = list(leaf.shape)
+        for dim, entry in enumerate(_partition_at(layout, path, leaf) or ()):
+            if entry is not None:
+                shape[dim] *= mesh.axis(entry).size
+        return torch.empty(shape, dtype=leaf.dtype, device=leaf.device)
+
+    return tree_util.unflatten(tree, [grow(path, leaf) for path, leaf
+                                      in tree_util.paths(tree)])
+
+
+def split_axis(here: int, whole: int, rt, what: str
+               ) -> Optional[ranks.Axis]:
+    """The tensor-parallel axis (``rt.tp_axis()``) when a dim holds
+    ``here`` of its ``whole`` entries on this rank, else None; a split
+    dim on a runtime without that axis raises."""
+    if here == whole:
+        return None
+    axis = None if rt is None else rt.tp_axis()
+    if axis is None:
+        raise ValueError(f"{what} holds {here} of {whole} entries on a "
+                         "runtime without a tensor-parallel axis")
+    return axis
+
+
+def gather_fsdp(tree: PyTree, specs: PyTree, rt) -> PyTree:
+    """``tree`` (one layer's parameters, or the embedding) with every
+    dim that ``rt``'s rules split over an axis other than
+    :data:`TP_AXIS` and that this rank holds a block of gathered whole
+    (:func:`repro_torch.core.ranks.gather_from`: the backward
+    reduce-scatters the gradient).  A leaf may carry leading dims its
+    spec lacks (the stacked layers).  ``tree`` itself off a laid-out
+    runtime."""
+    if rt.rules is None or rt.ranks <= 1:
+        return tree
+    rules, mesh = rt.rules_(), rt.mesh
+
+    def one(spec: ParamSpec, leaf: torch.Tensor) -> torch.Tensor:
+        lead = leaf.dim() - len(spec.shape)
+        for dim, entry in enumerate(spec_to_pspec(spec, rules, mesh)):
+            axes = tuple(a for a in entry_axes(entry) if a != TP_AXIS)
+            if axes and leaf.shape[lead + dim] != spec.shape[dim]:
+                leaf = ranks.gather_from(leaf, mesh.axis(axes), lead + dim)
+        return leaf
+
+    if isinstance(specs, ParamSpec):
+        return one(specs, tree)
+    return {k: gather_fsdp(tree[k], specs[k], rt) if k in specs else tree[k]
+            for k in tree}
 
 
 def partition_shape(shape: Tuple[int, ...], partition: Partition,
@@ -243,12 +418,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                                    compute_dtype(x.dtype)))
 
 
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 axis: Optional[ranks.Axis] = None) -> torch.Tensor:
+    """``x @ w``; with ``axis``, ``w`` is this rank's rows and ``x`` its
+    matching columns, and the ranks' partial products are summed over
+    the axis in float32 and rounded once (a bfloat16 sum of bfloat16
+    parts would round at every rank's part)."""
+    if axis is None:
+        return x @ w
+    return ranks.reduce_from(compute(x) @ compute(w), axis).to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor,
+           axis: Optional[ranks.Axis] = None) -> torch.Tensor:
+    """The SwiGLU FFN; with ``axis`` the rank's columns of ``w_gate`` and
+    ``w_up`` and rows of ``w_down`` (tensor parallelism), ``x`` entering
+    through :func:`~repro_torch.core.ranks.copy_to`."""
+    if axis is not None:
+        x = ranks.copy_to(x, axis)
     g = x @ w_gate
     u = x @ w_up
     h = torch.nn.functional.silu(compute(g)).to(x.dtype) * u
-    return h @ w_down
+    return row_parallel(h, w_down, axis)
 
 
 def open_norm(rt, y: Optional[torch.Tensor], x: torch.Tensor,
@@ -281,14 +473,33 @@ def norm_specs(d_model: int, ln: bool = False) -> Dict[str, ParamSpec]:
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None,
-                       z_coef: float = 1e-4) -> torch.Tensor:
+                       z_coef: float = 1e-4,
+                       vocab_axis: Optional[ranks.Axis] = None
+                       ) -> torch.Tensor:
     """Token-mean next-token cross entropy with the z-loss
     ``z_coef * logsumexp^2``, accumulated in float32 (float64 for
     float64 logits); logits (..., V),
-    labels (...) int, ``mask`` (...) marks the positions that count."""
+    labels (...) int, ``mask`` (...) marks the positions that count.
+
+    With ``vocab_axis`` the logits are this rank's columns [i V, (i + 1)
+    V) of the vocabulary: the row max is taken over the axis (detached:
+    the logsumexp does not depend on it), and the sum of exponentials
+    and the gold logit are each summed over it."""
     logits = compute(logits)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if vocab_axis is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        n = logits.shape[-1]
+        top = ranks.axis_max(logits.detach().amax(-1), vocab_axis)
+        total = torch.exp(logits - top[..., None]).sum(-1)
+        lse = torch.log(ranks.reduce_from(total, vocab_axis)) + top
+        local = labels.long() - vocab_axis.index * n
+        inside = (local >= 0) & (local < n)
+        gold = torch.gather(logits, -1,
+                            local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = ranks.reduce_from(torch.where(inside, gold, 0.0),
+                                 vocab_axis)
     loss = lse - gold + z_coef * lse.square()
     if mask is not None:
         mask = mask.to(loss.dtype)

@@ -23,8 +23,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import (attention, encdec, hybrid, layers, ssm,
-                                transformer, vlm)
+from repro_torch.models import (attention, encdec, hybrid, layers, moe,
+                                ssm, transformer, vlm)
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.masking import valid_rows
@@ -206,9 +206,62 @@ class Arch:
                     ) -> Dict[str, torch.Tensor]:
         return input_specs(self.cfg, shape, batch_override=batch_override)
 
-    def cache_specs(self, shape: ShapeConfig, *, batch_override=None
-                    ) -> PyTree:
-        return cache_specs(self.cfg, shape, batch_override=batch_override)
+    def cache_specs(self, shape: ShapeConfig, *, batch_override=None,
+                    kv_heads: Optional[int] = None) -> PyTree:
+        return cache_specs(self.cfg, shape, batch_override=batch_override,
+                           kv_heads=kv_heads)
+
+
+# the rules' layouts that wait, by what they need
+SEQ_PARALLEL_ITEM = "ROADMAP.md item 33 (the sequence-parallel presets)"
+FAMILY_LAYOUT_ITEM = ("ROADMAP.md item 34 (the ssm, hybrid, moe, vlm and "
+                      "encdec families' layouts)")
+
+
+def layout(cfg: ModelConfig, rt: Runtime
+           ) -> Optional[Dict[str, layers.Partition]]:
+    """:func:`rules_layout` of ``rt``'s rules on its rank mesh; None
+    without rules or off a mesh of more than one rank."""
+    if rt.rules is None or rt.ranks <= 1:
+        return None
+    return rules_layout(cfg, rt.rules_(), rt.mesh)
+
+
+def rules_layout(cfg: ModelConfig, rules: Dict[str, Any], mesh
+                 ) -> Optional[Dict[str, layers.Partition]]:
+    """``path -> partition`` of every parameter leaf under ``rules`` on
+    ``mesh`` (anything with an axis-name -> size ``shape``;
+    ``layers.tree_layout``: a leaf mapping one mesh axis to two dims
+    raises), or None where the rules split no leaf but the MoE's experts
+    (``pure_dp``, ``full_dp``, a mesh whose named axes hold one rank
+    each): every such path is the one that runs without rules, the
+    experts split by ``moe``.
+
+    What waits raises ``ValueError``: rules that shard the sequence over
+    a mesh axis of more than one rank (:data:`SEQ_PARALLEL_ITEM`), a
+    family other than ``dense`` with a non-expert leaf split
+    (:data:`FAMILY_LAYOUT_ITEM`), and a dim split over
+    ``layers.TP_AXIS`` together with another axis."""
+    out = layers.tree_layout(param_specs(cfg), rules, mesh)
+    split = [path for path, part in out.items()
+             if any(part) and not moe.is_expert_leaf(path)]
+    if not split:
+        return None
+    seq = [a for a in layers.entry_axes(rules.get("seq"))
+           if mesh.shape.get(a, 1) > 1]
+    if seq:
+        raise ValueError(f"the rules shard the sequence over {seq}: "
+                         f"{SEQ_PARALLEL_ITEM} waits")
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: the rules split {split[0]} of the "
+                         f"{cfg.family} family: {FAMILY_LAYOUT_ITEM} waits")
+    for path in split:
+        for entry in out[path]:
+            axes = layers.entry_axes(entry)
+            if layers.TP_AXIS in axes and len(axes) > 1:
+                raise ValueError(f"{path}: a dim split over {axes} mixes "
+                                 f"{layers.TP_AXIS!r} with other axes")
+    return out
 
 
 def param_specs(cfg: ModelConfig) -> PyTree:
@@ -255,10 +308,13 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
-                batch_override: Optional[int] = None) -> PyTree:
+                batch_override: Optional[int] = None,
+                kv_heads: Optional[int] = None) -> PyTree:
     """Decode-state ParamSpec tree sized for ``shape`` (cache of
     ``seq_len``; the encdec's cross cache of ``seq_len`` source
-    positions too, as the reference's)."""
+    positions too, as the reference's).  ``kv_heads`` is a rank's under
+    tensor parallelism (the decoder families;
+    :func:`repro_torch.models.transformer.kv_heads_here`)."""
     f = _family(cfg)
     b = batch_override if batch_override is not None else shape.global_batch
     if f == "ssm":
@@ -268,7 +324,8 @@ def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
     if f == "encdec":
         return encdec.cache_specs(cfg, b, shape.seq_len,
                                   src_len=shape.seq_len)
-    return attention.kv_cache_specs(cfg, b, shape.seq_len)
+    return attention.kv_cache_specs(cfg, b, shape.seq_len,
+                                    kv_heads=kv_heads)
 
 
 # ---------------------------------------------------------------------------

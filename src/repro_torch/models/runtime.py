@@ -58,6 +58,21 @@ and the reference's mesh, as ranks (:mod:`repro_torch.core.ranks`):
   mesh of more than one rank with ``dp_workers`` > 1 is refused.  A
   mesh takes part in ``==`` and ``hash`` by identity, so runtimes on
   different groups never compare equal.
+
+and the reference's sharding rules (:mod:`repro_torch.train.rules`):
+
+* ``rules`` -- a logical-axis -> mesh-axis table, None by default.
+  Without it every leaf is whole on every rank, as before the rules
+  came.  With a preset on a mesh of more than one rank, a ``gspmd``
+  train step, a prefill, a decode and the serving engine run on this
+  rank's block of each parameter (``layers.spec_to_pspec``; the caller
+  cuts them with ``layers.shard_params``): the heads, MLP columns and
+  vocabulary rows split over ``"model"`` (``layers.TP_AXIS``, tensor
+  parallelism) and the ``fsdp_embed`` dims over ``"data"`` (FSDP,
+  gathered before use).  The table is kept as a sorted tuple of items,
+  so a runtime still hashes and compares by value; :meth:`rules_`
+  gives it back as a dict (the reference's ``DEFAULT_RULES`` without
+  one).
 """
 
 from __future__ import annotations
@@ -65,15 +80,16 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
-from typing import TYPE_CHECKING, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import ops
+from repro_torch.models import layers
 
 if TYPE_CHECKING:
-    from repro_torch.core.ranks import RankMesh
+    from repro_torch.core.ranks import Axis, RankMesh
 
 KERNEL_SITES = ("flash_decode", "rms_norm", "rms_norm_residual",
                 "flash_attention", "ssd_scan", "quantize", "dequantize")
@@ -123,8 +139,12 @@ class Runtime:
     mesh: Optional["RankMesh"] = None   # ranks (core/ranks.py), or None
     dp_axes: Tuple[str, ...] = ("data",)
     ep_axis: Optional[str] = "model"
+    rules: Optional[Any] = None       # logical -> mesh axes, or None
 
     def __post_init__(self):
+        if self.rules is not None:
+            object.__setattr__(self, "rules",
+                               tuple(sorted(dict(self.rules).items())))
         if self.kernels not in ("kernels", "plain"):
             raise ValueError(f"kernels must be 'kernels' or 'plain', got "
                              f"{self.kernels!r}")
@@ -154,6 +174,21 @@ class Runtime:
         ``Runtime.spmd``: a mesh of more than one device): W > 1 folded
         workers, or a mesh of more than one rank."""
         return self.dp_workers > 1 or self.ranks > 1
+
+    def rules_(self) -> Dict[str, Any]:
+        """The rules as a dict: the runtime's, else the reference's
+        default table (``layers.DEFAULT_RULES``)."""
+        if self.rules is None:
+            return dict(layers.DEFAULT_RULES)
+        return dict(self.rules)
+
+    def tp_axis(self) -> Optional["Axis"]:
+        """The mesh's ``layers.TP_AXIS`` when the rules may split a leaf
+        there (rules given, an axis of more than one rank), else None."""
+        if self.rules is None or self.ranks <= 1 or \
+                self.mesh.size(layers.TP_AXIS) <= 1:
+            return None
+        return self.mesh.axis(layers.TP_AXIS)
 
     def moe_ep_size(self) -> int:
         """The ranks an MoE layer splits its experts over: the size of

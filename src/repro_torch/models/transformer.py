@@ -23,6 +23,16 @@ forward sums over the layers and :func:`lm_loss` adds.  The big
 projections stay ``torch.matmul``, as the reference left them to XLA.
 Under ``Runtime(remat=...)`` each layer of the full-sequence stack is
 one region of ``rt.checkpoint`` (:func:`_stack`).
+
+Under ``Runtime.rules`` on a rank mesh the dense family runs on this
+rank's blocks of the parameters (``layers.shard_params``): its heads
+(:mod:`~repro_torch.models.attention`), its SwiGLU columns and rows, and
+its rows of the vocabulary (:func:`embed` masks the lookup to them and
+sums over ``"model"``, :func:`unembed` gives this rank's logits, which
+the loss takes vocabulary-parallel and the serving entry points gather
+whole).  A layer's blocks over ``"data"`` (FSDP) are gathered inside its
+checkpointed region, just before use, so that under remat the gather
+reruns in the backward and the whole weight is not kept.
 The ssm, hybrid and encdec families have their own stacks
 (:mod:`~repro_torch.models.registry`, :mod:`~repro_torch.models.hybrid`,
 :mod:`~repro_torch.models.encdec`); :mod:`~repro_torch.models.vlm`
@@ -35,6 +45,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import ranks
 from repro_torch.models import attention, layers, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
@@ -78,16 +89,22 @@ def stack_block_specs(cfg: ModelConfig, n_layers: int) -> Dict[str, Any]:
                             block_specs(cfg))
 
 
+def embed_spec(cfg: ModelConfig) -> ParamSpec:
+    return ParamSpec((cfg.vocab_size, cfg.d_model), ("vocab", "fsdp_embed"))
+
+
+def head_spec(cfg: ModelConfig) -> ParamSpec:
+    return ParamSpec((cfg.d_model, cfg.vocab_size), ("fsdp_embed", "vocab"))
+
+
 def lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs = {
-        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
-                           ("vocab", "fsdp_embed")),
+        "embed": embed_spec(cfg),
         "layers": stack_block_specs(cfg, cfg.n_layers),
         "final_norm": layers.norm_specs(cfg.d_model),
     }
     if not cfg.tie_embeddings:
-        specs["lm_head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
-                                     ("fsdp_embed", "vocab"))
+        specs["lm_head"] = head_spec(cfg)
     return specs
 
 
@@ -107,11 +124,21 @@ def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor, rt: Runtime
     :mod:`repro_torch.train.steps`' to say."""
     if cfg.moe is None:
         m = p["mlp"]
-        return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"]), None
+        axis = layers.split_axis(m["w_gate"].shape[-1], cfg.d_ff, rt,
+                                 "the MLP")
+        return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"],
+                             axis), None
     if rt.moe_ep_size() > 1:
         return moe.moe_block(p["moe"], cfg, h, ep_axis=rt.ep_axis,
                              mesh=rt.mesh)
     return moe.moe_block(p["moe"], cfg, h)
+
+
+def kv_heads_here(params: PyTree, cfg: ModelConfig) -> int:
+    """The kv heads of this rank's cache: all of them, or under tensor
+    parallelism those its q heads read (``attention.kv_heads_here``)."""
+    return attention.kv_heads_here(cfg,
+                                   params["layers"]["attn"]["wq"].shape[-2])
 
 
 def layer_params(stacked: PyTree, i: int) -> PyTree:
@@ -134,19 +161,45 @@ def unstack_layers(stacked: PyTree) -> List[PyTree]:
     return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
 
 
-def embed(params: PyTree, cfg: ModelConfig,
-          tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> (B, S, d) in the weights' dtype."""
-    return params["embed"][tokens.long()]
+def embed(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+          rt: Optional[Runtime] = None) -> torch.Tensor:
+    """tokens (B, S) -> (B, S, d) in the weights' dtype.  Where this rank
+    holds rows [i V, (i + 1) V) of the vocabulary, the lookup reads the
+    tokens among them and the ranks' lookups are summed (one is nonzero
+    at each position)."""
+    w = params["embed"] if rt is None else \
+        layers.gather_fsdp(params["embed"], embed_spec(cfg), rt)
+    axis = layers.split_axis(w.shape[0], cfg.vocab_size, rt,
+                             "the embedding")
+    if axis is None:
+        return w[tokens.long()]
+    n = w.shape[0]
+    local = tokens.long() - axis.index * n
+    inside = ((local >= 0) & (local < n))[..., None]
+    rows = w[local.clamp(0, n - 1)]
+    return ranks.reduce_from(torch.where(inside, rows, 0), axis)
 
 
-def unembed(params: PyTree, cfg: ModelConfig,
-            h: torch.Tensor) -> torch.Tensor:
+def unembed(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
+            rt: Optional[Runtime] = None, whole: bool = True
+            ) -> torch.Tensor:
     """Final-normed hidden (B, S, d) -> logits (B, S, V); tied weights
-    read the embedding (``x @ embed.T``)."""
+    read the embedding (``x @ embed.T``).  Where this rank holds part of
+    the vocabulary, its logits (B, S, V / n), gathered whole with
+    ``whole`` (serving: no gradient)."""
     if cfg.tie_embeddings:
-        return h @ params["embed"].T
-    return h @ params["lm_head"]
+        w = params["embed"] if rt is None else \
+            layers.gather_fsdp(params["embed"], embed_spec(cfg), rt)
+        w = w.T
+    else:
+        w = params["lm_head"] if rt is None else \
+            layers.gather_fsdp(params["lm_head"], head_spec(cfg), rt)
+    axis = layers.split_axis(w.shape[1], cfg.vocab_size, rt,
+                             "the unembedding")
+    if axis is None:
+        return h @ w
+    logits = ranks.copy_to(h, axis) @ w
+    return ranks.all_gather(logits, axis, -1) if whole else logits
 
 
 def decode_block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
@@ -181,11 +234,12 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
     rows = valid_rows(valid, position.device)
     rope = layers.rope_cos_sin(position[:, None], cfg.head_dim_,
                                cfg.rope_theta)
-    x = embed(params, cfg, tokens)
+    x = embed(params, cfg, tokens, rt)
     h = rt.op("rms_norm")(x, params["layers"]["attn_norm"]["scale"][0],
                           cfg.norm_eps)
+    specs = block_specs(cfg)
     for i in range(cfg.n_layers):
-        p = layer_params(params["layers"], i)
+        p = layers.gather_fsdp(layer_params(params["layers"], i), specs, rt)
         if i:
             h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
                                               cfg.norm_eps)
@@ -193,7 +247,7 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
                             position, rt, rows, rope)
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
                                       cfg.norm_eps)
-    return unembed(params, cfg, h)[:, 0], cache
+    return unembed(params, cfg, h, rt)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -238,11 +292,14 @@ def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
                                cfg.head_dim_, cfg.rope_theta,
                                compute_dtype(x.dtype))
 
+    specs = block_specs(cfg)
+
     def region(p, kv):
         def run(y, x):
-            h, x = layers.open_norm(rt, y, x, p["attn_norm"]["scale"],
+            q = layers.gather_fsdp(p, specs, rt)
+            h, x = layers.open_norm(rt, y, x, q["attn_norm"]["scale"],
                                     cfg.norm_eps)
-            return block(p, cfg, h, x, rt, rope, kv)
+            return block(q, cfg, h, x, rt, rope, kv)
         return run
 
     y = aux = None
@@ -280,13 +337,15 @@ def lm_loss_terms(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     """:func:`lm_loss`'s two terms: the cross entropy and the MoE aux
     loss summed over the layers (None without MoE)."""
     tokens = batch["tokens"]
-    x, y, aux = _stack(params, cfg, embed(params, cfg, tokens), rt)
+    x, y, aux = _stack(params, cfg, embed(params, cfg, tokens, rt), rt)
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
                                       cfg.norm_eps)
-    logits = unembed(params, cfg, h[:, :-1])
+    logits = unembed(params, cfg, h[:, :-1], rt, whole=False)
     mask = batch.get("mask")
     loss = layers.cross_entropy_loss(
-        logits, tokens[:, 1:], None if mask is None else mask[:, 1:])
+        logits, tokens[:, 1:], None if mask is None else mask[:, 1:],
+        vocab_axis=layers.split_axis(logits.shape[-1], cfg.vocab_size, rt,
+                                     "the logits"))
     return loss, aux
 
 
@@ -302,8 +361,8 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     is left as it is) and the same dict is returned, so that
     :func:`decode_step` continues from position S.  This is the port's
     in-place form of the reference's returned cache."""
-    return prefill_embedded(params, cfg, embed(params, cfg, tokens), rt,
-                            cache)
+    return prefill_embedded(params, cfg, embed(params, cfg, tokens, rt),
+                            rt, cache)
 
 
 def prefill_embedded(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
@@ -314,7 +373,8 @@ def prefill_embedded(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     prepends its projected patches)."""
     _decoder_only(cfg)
     b, s = x.shape[:2]
-    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim_)
+    shape = (cfg.n_layers, b, s, kv_heads_here(params, cfg),
+             cfg.head_dim_)
     if cache is None:
         cache = {k: torch.empty(shape, dtype=x.dtype, device=x.device)
                  for k in ("k", "v")}
@@ -329,4 +389,4 @@ def prefill_embedded(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     h, _ = rt.op("rms_norm_residual")(y[:, -1:], x[:, -1:],
                                       params["final_norm"]["scale"],
                                       cfg.norm_eps)
-    return unembed(params, cfg, h)[:, 0], cache
+    return unembed(params, cfg, h, rt)[:, 0], cache

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import layers, masking, registry
+from repro_torch.models import layers, masking, registry, transformer
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.runtime import Runtime
 
@@ -76,7 +76,12 @@ class ServeEngine:
     in the weights' dtype, a float32 spec in float32
     (:meth:`~repro_torch.models.layers.ParamSpec.dtype_for`).  ``rt``
     picks the kernel sites' implementation
-    (:class:`repro_torch.models.runtime.Runtime`)."""
+    (:class:`repro_torch.models.runtime.Runtime`).  Under tensor
+    parallelism (``rt.rules`` on a rank mesh, ``params`` this rank's
+    blocks) every rank of the mesh runs its own engine with the same
+    requests: the schedule on the host is the same on every rank, and
+    each rank's cache holds the kv heads its q heads read,
+    ``(L, B, S_max, Hkv_here, D)``."""
 
     def __init__(self, arch_name: str, params, cfg: ModelConfig,
                  ecfg: EngineConfig, rt: Runtime = Runtime(),
@@ -93,8 +98,10 @@ class ServeEngine:
         self.params = params
         b, s = ecfg.max_batch, ecfg.max_len
         shape = ShapeConfig("engine", s, b, "decode")
-        self.cache_specs = registry.cache_specs(cfg, shape,
-                                                batch_override=b)
+        kv_heads = transformer.kv_heads_here(params, cfg) \
+            if cfg.family == "dense" else None
+        self.cache_specs = registry.cache_specs(cfg, shape, batch_override=b,
+                                                kv_heads=kv_heads)
         self.cache: Dict[str, Any] = layers.map_specs(
             lambda sp: torch.zeros(sp.shape,
                                    dtype=sp.dtype_for(embed.dtype),

@@ -28,7 +28,7 @@ device.  The compressed mode starts every step from zero error-feedback
 residuals and drops the new ones, as the reference's train step does.
 
 With ``rt.mesh`` of more than one rank the workers are real ranks, and
-each rank passes its own rows of the global batch.  Three paths, as the
+each rank passes its own rows of the global batch.  Four paths, as the
 reference takes them on its production meshes:
 
 * **The Spindle modes** (:func:`rank_grads`, the reference's
@@ -58,6 +58,19 @@ reference takes them on its production meshes:
   data shard plus the aux loss of data shard 0 (its ``shard_map`` hands
   back shard 0's aux), while the gradient is that of the cross-entropy
   mean plus the mean of the shards' aux losses.
+* **gspmd with the rules' layout** (:func:`layout_rank_grads`; the
+  reference's GSPMD step on parameters placed by ``tree_shardings``):
+  ``rt.rules`` split the dense family's leaves (``registry.layout``),
+  each rank holding its blocks (``layers.shard_params``).  The rows are
+  split over :data:`TOKEN_AXES` as for the experts; the ranks of
+  ``"model"`` compute on their heads, MLP columns and vocabulary rows
+  (tensor parallelism), and a layer's ``"data"`` blocks are gathered
+  before use, their gradient reduce-scattered (FSDP).  A leaf's
+  gradient is then summed over the data axes its blocks do not lie on
+  and divided by the data ranks, which gives the mean; a block is never
+  reduced over ``"model"``.  The loss is the mean over the data axes,
+  and the global norm adds each split leaf's squares over the axes that
+  split it (:func:`sharded_global_norm`).
 
 Every rank then applies the same AdamW step to what it holds.
 """
@@ -71,7 +84,7 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.core import gradsync, ranks
-from repro_torch.models import moe, transformer
+from repro_torch.models import layers, moe, registry, transformer
 from repro_torch.models.registry import Arch
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
@@ -180,11 +193,21 @@ def splits_experts(arch: Arch, rt: Runtime) -> bool:
             and rt.moe_ep_size() > 1)
 
 
+def splits_layout(arch: Arch, rt: Runtime) -> bool:
+    """Whether the train step runs on the rules' layout: ``gspmd`` with
+    ``rt.rules`` splitting a non-expert leaf on ``rt.mesh``
+    (``registry.layout``, which refuses what waits).  The Spindle modes
+    never do (the reference's manual region runs without its rules)."""
+    return rt.gradsync == "gspmd" and \
+        registry.layout(arch.cfg, rt) is not None
+
+
 def batch_axis(arch: Arch, rt: Runtime) -> Optional[ranks.Axis]:
     """The mesh axis whose index picks this rank's rows of a global batch:
     :data:`TOKEN_AXES` present in the mesh when the step splits the
-    experts (None when there are none), else :func:`dp_axis`."""
-    if splits_experts(arch, rt):
+    experts or runs on the rules' layout (None when there are none),
+    else :func:`dp_axis`."""
+    if splits_experts(arch, rt) or splits_layout(arch, rt):
         names = tuple(a for a in TOKEN_AXES if a in rt.mesh.shape)
         return rt.mesh.axis(names) if names else None
     return dp_axis(rt)
@@ -198,7 +221,8 @@ def rank_grads(arch: Arch, rt: Runtime,
     by ``rt.gradsync`` (the reference's ``_manual_grads``).  The loss
     inside runs without the mesh, as the reference's manual region
     does."""
-    vg = value_and_grad(arch, dataclasses.replace(rt, mesh=None))
+    vg = value_and_grad(arch, dataclasses.replace(rt, mesh=None,
+                                                  rules=None))
     axis = dp_axis(rt)
 
     def fn(params: PyTree, batch: Dict[str, torch.Tensor]):
@@ -209,20 +233,26 @@ def rank_grads(arch: Arch, rt: Runtime,
     return fn
 
 
-def ep_global_norm(grads: PyTree, axis: ranks.Axis) -> torch.Tensor:
+def sharded_global_norm(grads: PyTree,
+                        split_over: Dict[str, ranks.Axis]) -> torch.Tensor:
     """:func:`repro_torch.optim.adamw.global_norm` of the whole gradient
-    when this rank holds its experts' part of the expert leaves: their
-    squares summed over ``axis`` (one ``all_reduce``), every leaf's part
-    added in leaf order as the unsplit norm adds them."""
-    parts, experts = [], []
+    when this rank holds a block of some leaves: ``split_over`` maps a
+    leaf's path to the axis (one, or a product) its blocks lie over, and
+    that leaf's squares are summed over it (one ``all_reduce`` an axis,
+    in the order the leaves first name them); every leaf's part is added
+    in leaf order as the unsplit norm adds them."""
+    parts, groups = [], {}
     for path, g in tree_util.paths(grads):
         parts.append(torch.sum(torch.square(g.to(torch.float32))))
-        if moe.is_expert_leaf(path):
-            experts.append(len(parts) - 1)
-    summed = ranks.all_reduce(torch.stack([parts[i] for i in experts]),
-                              axis)
-    for i, total in zip(experts, summed.unbind()):
-        parts[i] = total
+        axis = split_over.get(path)
+        if axis is not None:
+            groups.setdefault(axis.name, (axis, []))[1].append(
+                len(parts) - 1)
+    for axis, where in groups.values():
+        summed = ranks.all_reduce(torch.stack([parts[i] for i in where]),
+                                  axis)
+        for i, total in zip(where, summed.unbind()):
+            parts[i] = total
     out = parts[0]
     for part in parts[1:]:
         out = out + part
@@ -258,9 +288,57 @@ def ep_rank_grads(arch: Arch, rt: Runtime) -> Callable:
         if data is not None:
             loss = ranks.all_reduce(loss, data) / data.size
             grads = gradsync.per_tensor_psum_mean(grads, data)
-        return loss, grads, ep_global_norm(grads, experts)
+        return loss, grads, sharded_global_norm(
+            grads, {path: experts for path, _ in tree_util.paths(grads)
+                    if moe.is_expert_leaf(path)})
 
     return fn
+
+
+def _in_mesh_order(rt: Runtime, names) -> Tuple[str, ...]:
+    return tuple(a for a in rt.mesh.shape if a in names)
+
+
+def layout_rank_grads(arch: Arch, rt: Runtime) -> Callable:
+    """``fn(params, batch) -> (loss, grads, grad_norm)`` on one rank of a
+    mesh whose rules lay out the parameters (``params`` holds this rank's
+    blocks, ``layers.shard_params``): the gradient of this rank's loss
+    on its data shard, each leaf summed over the data axes its blocks do
+    not lie on (an FSDP block's gradient is already summed over its own,
+    by the gather's reduce-scatter) and divided by the data ranks; the
+    loss the mean over the data axes; the global norm as the module's
+    docstring says."""
+    layout = registry.layout(arch.cfg, rt)
+    data = batch_axis(arch, rt)
+    names = () if data is None else layers.entry_axes(data.name)
+    over, split_over = {}, {}
+    for path, part in layout.items():
+        axes = [a for entry in part for a in layers.entry_axes(entry)]
+        fsdp = [a for a in axes if a != layers.TP_AXIS]
+        if any(a not in names for a in fsdp):
+            raise ValueError(f"{path}: its blocks over {fsdp} are not "
+                             f"among the data axes {names}")
+        rest = _in_mesh_order(rt, [a for a in names if a not in fsdp])
+        over[path] = rt.mesh.axis(rest) if rest else None
+        if axes:
+            split_over[path] = rt.mesh.axis(_in_mesh_order(rt, axes))
+    vg = value_and_grad(arch, rt)
+
+    def fn(params: PyTree, batch: Dict[str, torch.Tensor]):
+        loss, grads = vg(params, batch)
+        if data is not None and data.size > 1:
+            loss = ranks.all_reduce(loss, data) / data.size
+            mean = []
+            for path, g in tree_util.paths(grads):
+                if over[path] is not None:
+                    g = ranks.all_reduce(g, over[path])
+                mean.append(g / data.size)
+            grads = tree_util.unflatten(grads, mean)
+        return loss, grads, sharded_global_norm(grads, split_over)
+
+    return fn
+
+
 def make_train_step(arch: Arch, rt: Runtime,
                     opt_cfg: adamw.OptConfig = adamw.OptConfig(), *,
                     bucket_bytes: int = BUCKET_BYTES,
@@ -274,12 +352,14 @@ def make_train_step(arch: Arch, rt: Runtime,
     reference's Trainer donates them to its jitted step; the arguments
     are then spent.  On ``rt.mesh`` of more than one rank every rank
     calls the step on its own batch (the module's docstring says which of
-    three paths it takes); where the experts are split, on its own
-    experts and their AdamW state."""
+    four paths it takes); where the experts are split or the rules lay
+    out the parameters, on its own blocks and their AdamW state."""
     vg = value_and_grad(arch, rt)
     per_worker = worker_grads(arch, rt)
     per_rank = split = None
-    if splits_experts(arch, rt):
+    if splits_layout(arch, rt):
+        split = layout_rank_grads(arch, rt)
+    elif splits_experts(arch, rt):
         split = ep_rank_grads(arch, rt)
     elif rt.ranks > 1:
         per_rank = rank_grads(arch, rt, bucket_bytes)

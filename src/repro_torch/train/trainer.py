@@ -25,7 +25,12 @@ whole.  The mesh's rank 0 alone writes checkpoints, always the whole
 tree in the reference's layout (the expert leaves gathered over the
 expert axis first); every rank waits for the write and every rank
 restores, cutting its experts again, so ``history`` and the
-``SyncState`` watermarks are the same on every rank.
+``SyncState`` watermarks are the same on every rank.  Where ``rt.rules``
+lay out the parameters (``steps.splits_layout``) a rank holds its
+blocks of every leaf and of its AdamW state (``layers.shard_params``),
+cut from the unsplit initialisation, gathered whole
+(``layers.gather_params``) for a checkpoint and cut again on a restore,
+the same way.
 """
 
 from __future__ import annotations
@@ -42,13 +47,13 @@ import torch.distributed as dist
 from repro_torch import tree as tree_util
 from repro_torch.core.gradsync import SyncState
 from repro_torch.data import pipeline
-from repro_torch.models import moe, registry
+from repro_torch.models import layers, moe, registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
 from repro_torch.train import checkpoint
 from repro_torch.train.steps import (batch_axis, make_train_step,
-                                     splits_experts)
+                                     splits_experts, splits_layout)
 
 PyTree = Any
 
@@ -92,6 +97,10 @@ class Trainer:
         # the expert axis when this rank holds its experts' part
         self.experts = rt.mesh.axis(rt.ep_axis) \
             if splits_experts(self.arch, rt) else None
+        # the rules' layout, (specs, rules, mesh), when this rank holds
+        # its blocks of the parameters
+        self.layout = (self.arch.param_specs(), rt.rules_(), rt.mesh) \
+            if splits_layout(self.arch, rt) else None
         self.loader = pipeline.ShardedLoader(self.data_cfg, rank=rank,
                                              n_ranks=n_ranks)
         # the one process that writes checkpoints and prints the log
@@ -114,12 +123,23 @@ class Trainer:
         return params, adamw.init(params)
 
     def _own(self, tree):
-        """This rank's part of a whole tree: its experts' rows where the
-        experts are split, else the tree itself."""
+        """This rank's part of a whole tree: its blocks under the rules'
+        layout, its experts' rows where the experts are split, else the
+        tree itself."""
+        if self.layout is not None:
+            return layers.shard_params(tree, *self.layout)
         if self.experts is None:
             return tree
         return moe.shard_experts(tree, self.experts.index,
                                  self.experts.size)
+
+    def _whole(self, tree):
+        """The whole tree from every rank's part (every rank calls it)."""
+        if self.layout is not None:
+            return layers.gather_params(tree, *self.layout)
+        if self.experts is not None:
+            return moe.gather_experts(tree, self.experts)
+        return tree
 
     def maybe_restore(self, params, opt_state):
         """The latest checkpoint's step and state, or ``(0, params,
@@ -134,7 +154,9 @@ class Trainer:
         if not d or checkpoint.latest_step(d) is None:
             return 0, params, opt_state
         like = {"params": params, "opt": opt_state}
-        if self.experts is not None:
+        if self.layout is not None:
+            like = layers.whole_like(like, *self.layout)
+        elif self.experts is not None:
             like = moe.whole_like(like, self.experts.size)
         step, tree, _extra = checkpoint.restore(d, like)
         tree = self._own(tree)
@@ -204,9 +226,7 @@ class Trainer:
         return params, opt_state
 
     def _save(self, step: int, params, opt_state):
-        tree = {"params": params, "opt": opt_state}
-        if self.experts is not None:      # every rank takes part
-            tree = moe.gather_experts(tree, self.experts)
+        tree = self._whole({"params": params, "opt": opt_state})
         if self.writer:
             checkpoint.save(self.tcfg.checkpoint_dir, step, tree,
                             extra={"arch": self.cfg.name})

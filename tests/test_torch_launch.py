@@ -419,8 +419,9 @@ def test_dryrun_counts_the_moe_expert_parallel_all_reduces(single_cells,
     the tokens of one of the 16 data shards; a train cell adds the
     tokens' cotangent (T, d), the routing weights' (T, K) and, under the
     default remat, the forward's again in the rerun.  Ring wire bytes:
-    2 (g - 1) / g of the operand.  A dense cell has no collective off
-    the train step."""
+    2 (g - 1) / g of the operand.  A dense cell's collectives off the
+    train step are its layout's
+    (``test_dryrun_counts_the_dense_layout_collectives``)."""
     name, d, k, n_layers = "qwen2-moe-a2.7b", 2048, 4, 24
     ring = 2 * 15 / 16
     for shape_name in ("prefill_32k", "decode_32k"):
@@ -430,8 +431,6 @@ def test_dryrun_counts_the_moe_expert_parallel_all_reduces(single_cells,
         assert single_cells[(name, shape_name)]["ops"]["collectives"] == {
             "all-reduce": {"count": n_layers, "operand_bytes": operand,
                            "wire_bytes": operand * ring}}, shape_name
-    assert single_cells[("qwen3-1.7b", "prefill_32k")]["ops"][
-        "collectives"] == {}
     with_ep = single_cells[(name, "train_4k")]["ops"]["collectives"][
         "all-reduce"]
     monkeypatch.setattr(dryrun, "ep_all_reduces", lambda *a: [])
@@ -443,6 +442,159 @@ def test_dryrun_counts_the_moe_expert_parallel_all_reduces(single_cells,
     assert with_ep["operand_bytes"] - without["operand_bytes"] == operand
     assert with_ep["wire_bytes"] - without["wire_bytes"] == \
         pytest.approx(operand * ring, rel=1e-12)
+
+
+def test_dryrun_counts_the_dense_layout_collectives(single_cells):
+    """qwen3-1.7b under ``baseline`` on one pod (16 x 16): 16 heads, the
+    MLP and the vocabulary split over ``"model"`` (its 8 kv heads stay
+    whole), every ``fsdp_embed`` dim over ``"data"``.  A prefill of 32 x
+    32768 (T = 2 x 32768 tokens a data shard): the lookup's bfloat16
+    all-reduce (T, d), each layer's float32 sums of the attention and
+    the MLP (T, d), the last position's logits gathered (2, V / 16); the
+    FSDP gathers of each layer's 7 blocks and of the tied embedding
+    twice.  A decode of 128 rows: the same at T = 8, no cache collective.
+    """
+    d, heads, kv, hd, ff, vocab, n_layers = 2048, 16, 8, 128, 6144, \
+        151936, 28
+    blocks = [d // 16 * heads // 16 * hd, d // 16 * kv * hd,
+              d // 16 * kv * hd, heads // 16 * hd * d // 16,
+              d // 16 * ff // 16, d // 16 * ff // 16, ff // 16 * d // 16]
+    embed = vocab // 16 * d // 16
+    ring, gather = 2 * 15 / 16, 15
+    for shape_name, rows, seq in (("prefill_32k", 2, 32768),
+                                  ("decode_32k", 8, 1)):
+        t = rows * seq
+        reduce_ops = [(2 * t * d, 1), (4 * t * d, 2 * n_layers)]
+        gather_ops = [(2 * rows * vocab // 16, 1), (2 * embed, 2)] + \
+            [(2 * b, n_layers) for b in blocks]
+        got = single_cells[("qwen3-1.7b", shape_name)]["ops"]["collectives"]
+        assert set(got) == {"all-reduce", "all-gather"}, shape_name
+        for kind, ops_, factor in (("all-reduce", reduce_ops, ring),
+                                   ("all-gather", gather_ops, gather)):
+            operand = sum(b * c for b, c in ops_)
+            assert got[kind]["count"] == sum(c for _, c in ops_), kind
+            assert got[kind]["operand_bytes"] == operand, kind
+            assert got[kind]["wire_bytes"] == pytest.approx(
+                operand * factor, rel=1e-12), kind
+
+
+def test_dryrun_train_layout_replaces_the_per_leaf_all_reduce(single_cells):
+    """A baseline train cell reduces no FSDP leaf by the per-leaf
+    all-reduce over ``"data"`` (its gradient is reduce-scattered there),
+    and a Spindle mode, whose leaves stay whole, keeps that reduction
+    and adds no layout collective."""
+    got = single_cells[("qwen3-1.7b", "train_4k")]["ops"]["collectives"]
+    assert set(got) == {"all-reduce", "all-gather", "reduce-scatter"}
+    spindle = dryrun.run_cell("qwen3-1.7b", "train_4k", False,
+                              gradsync="spindle_per_tensor")
+    assert set(spindle["ops"]["collectives"]) == {"all-reduce"}
+    assert spindle["ops"]["collectives"]["all-reduce"]["count"] == len(
+        list(layers.spec_leaves(registry.get("qwen3-1.7b").param_specs())))
+
+
+def _abstract_mesh(name):
+    from jax.sharding import AbstractMesh
+    return AbstractMesh(tuple(MESHES[name].values()), tuple(MESHES[name]))
+
+
+def _reference_refuses(spec, rules_, mesh_) -> bool:
+    """Whether the reference's ``NamedSharding`` refuses ``spec``'s
+    partition (what ``layers.tree_shardings`` builds), compiling
+    nothing."""
+    from jax.sharding import NamedSharding
+    try:
+        NamedSharding(mesh_, ref_layers.spec_to_pspec(spec, rules_, mesh_))
+    except Exception as e:  # noqa: BLE001 - the class is jax-internal
+        assert type(e).__name__ == "DuplicateSpecError", e
+        return True
+    return False
+
+
+def _port_refuses(path, spec, rules_, stand_in) -> bool:
+    try:
+        layers.check_partition(path, layers.spec_to_pspec(spec, rules_,
+                                                          stand_in))
+    except ValueError as e:
+        assert path in str(e)
+        return True
+    return False
+
+
+def _refusals(arch_name, ref_arch, preset, mesh_name):
+    """Per leaf of the parameters and of each decode cell's cache, the
+    port's refusal and the reference's, under the cell's rules."""
+    arch = registry.get(arch_name)
+    stand_in, abstract = _stand_in(mesh_name), _abstract_mesh(mesh_name)
+    out = []
+    for shape in SHAPES:
+        _, rules_, _, _ = dryrun.cell_layout(arch, shape,
+                                             mesh_name == "multi", preset)
+        trees = [(arch.param_specs(), ref_arch.param_specs())]
+        if shape.kind == "decode":
+            trees.append((arch.cache_specs(shape),
+                          ref_arch.cache_specs(shape)))
+        for port_tree, ref_tree in trees:
+            port_leaves = _flat(port_tree, layers.ParamSpec)
+            for path, spec in _flat(ref_tree, ref_layers.ParamSpec).items():
+                out.append(((shape.name, path), _port_refuses(
+                    path, port_leaves[path], rules_, stand_in),
+                    _reference_refuses(spec, rules_, abstract)))
+    return out
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_layout_refusals_fall_leaf_for_leaf_where_the_reference_raises(
+        preset):
+    """Every arch and the tiny config, both production meshes: the port
+    refuses a leaf's layout exactly where the reference's
+    ``NamedSharding`` raises: ``fsdp_only`` puts ``"data"`` twice in the
+    leaves whose ``mlp`` or ``vocab`` dim shares it with ``fsdp_embed``;
+    the sequence-parallel presets put ``"model"`` twice in a cache whose
+    kv heads divide it; the others never refuse."""
+    if "launch-tiny" not in registry.names():
+        registry.register("launch-tiny", lambda: ModelConfig(**TINY))
+    archs = [(name, ref_registry.get(name)) for name in ARCHS] + \
+        [("launch-tiny", ref_registry.Arch(cfg=RefModelConfig(**TINY)))]
+    refused = 0
+    for name, ref_arch in archs:
+        for mesh_name in MESHES:
+            for where, port, ref in _refusals(name, ref_arch, preset,
+                                              mesh_name):
+                assert port == ref, (name, mesh_name, where)
+                refused += ref
+    if preset == "fsdp_only":
+        assert refused > 0
+    elif preset in ("baseline", "megatron", "pure_dp", "full_dp"):
+        assert refused == 0
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_dryrun_records_error_exactly_where_the_reference_would(preset,
+                                                                tmp_path):
+    """The dry-run over the tiny config, every shape, both meshes: a cell
+    records ``error`` where the reference's ``run_cell`` cannot build
+    its parameters' (or a decode cell's cache's) shardings, ``ok``
+    elsewhere."""
+    if "launch-tiny" not in registry.names():
+        registry.register("launch-tiny", lambda: ModelConfig(**TINY))
+    ref_arch = ref_registry.Arch(cfg=RefModelConfig(**TINY))
+    dryrun.main(["--arch", "launch-tiny", "--shape", "all", "--mesh", "both",
+                 "--rules", preset, "--out", str(tmp_path)])
+    for mesh_name, mesh_dir in (("single", "pod16x16"),
+                                ("multi", "pod2x16x16")):
+        refuses = {}
+        for (shape_name, _), _, ref in _refusals("launch-tiny", ref_arch,
+                                                 preset, mesh_name):
+            refuses[shape_name] = refuses.get(shape_name, False) or ref
+        for shape in SHAPES:
+            [path] = (tmp_path / mesh_dir).rglob(
+                f"launch-tiny__{shape.name}.json")
+            rec = json.loads(path.read_text())
+            want = "error" if refuses[shape.name] else "ok"
+            assert rec["status"] == want, (mesh_name, shape.name,
+                                           rec.get("error"))
+            if want == "error":
+                assert "mesh axis 'data'" in rec["error"]
 
 
 def test_dryrun_never_initialises_cuda(monkeypatch, tmp_path):
