@@ -57,8 +57,8 @@ Phases (one JSON line each; any failure exits non-zero):
    (S_max=128); the RMSNorm kernels also at the recurrent decode's rows
    (8 x 2560 and the gated 8 x 5120); CUDA-event and profiler times, the
    plain and library times, the bound;
-6. the serve plane at full width: qwen3-1.7b (28 layers, bf16 weights
-   from seed 0), two replicas of 8 KV slots x 2048 positions, 16
+6. the serve plane at full width: qwen3-1.7b (8 of its 28 layers,
+   ``SERVE_LAYERS``, bf16 weights from seed 0), two replicas of 8 KV slots x 2048 positions, 16
    requests each, on the ``kernel`` backend: every kernel launched once
    per site per decode step, tokens/s, wall per round, device-busy share;
 7. the same serve scenario in float32 at 4 layers, on the kernels and on
@@ -113,7 +113,8 @@ Phases (one JSON line each; any failure exits non-zero):
    call found allocated, ``full`` and ``dots`` under ``none``'s; and at
    ``train_4k``'s length (1 x 4096, W = 1) ``none`` and ``full`` with
    wall, peak and the dry-run's live-meta estimate of the same call;
-13. the train path in float32 at 4 layers, full width, on the kernels and
+13. the train path in float32 at 2 layers (``TRAIN_F32_LAYERS``), full
+   width, on the kernels and
    on the plain versions: qwen3-1.7b (``spindle_compressed``, W = 2,
    2 x 512 tokens, three ``Trainer`` steps: losses within 1e-5 relative,
    per-worker gradients within 1e-4 of each leaf's largest, master weights
@@ -160,13 +161,13 @@ Phases (one JSON line each; any failure exits non-zero):
    no invariant breaks;
 18. the fused serve program (``ReplicatedEngine.run(fused=True)``: each
    epoch one round captured as a CUDA graph, its control flow in IF
-   nodes) on phase 6's setup cut to FUSED_LAYERS (8) layers, card
+   nodes) on phase 6's setup cut to FUSED_LAYERS (4) layers, card
    ``kernel`` and card ``graph``: tokens,
    per-topic logs, free / finish / admit rounds and the report identical
    to the per-round loop's; host_hops 0; one capture cold, none warm;
    flag reads within ceil(rounds / 32) + 2; tokens/s cold and warm,
    wall per round, capture seconds, graph nodes and pool bytes; then,
-   from a traced warm ``kernel`` run, 8 / 17 / 16 device kernels per
+   from a traced warm ``kernel`` run, 4 / 9 / 8 device kernels per
    device decode step, one watermark kernel a round, device time and
    busy share;
 19. the fused program through the cut: ``FUSED_FAIL_AT`` (homogeneous
@@ -186,11 +187,12 @@ Phases (one JSON line each; any failure exits non-zero):
    seed 0, ``loss_fn`` on 1 x 2048): a finite loss near ln V, exactly
    9 / 54 / 55 / 72 flash-attention / SSD / RMSNorm / residual-norm
    calls a forward, tokens/s, the bound;
-22. the recurrent serve plane at full width: mamba2-2.7b and
-   zamba2-2.7b (bf16 weights from seed 0, two replicas of 8 slots x
+22. the recurrent serve plane at full width: mamba2-2.7b at 16 of 64
+   layers and zamba2-2.7b at 12 of 54 (``RECURRENT_SERVE_LAYERS``; bf16
+   weights from seed 0, two replicas of 8 slots x
    2048 positions, 12 requests each with 2-4-token prompts, ``kernel``
-   backend): drained, exact launches a decode step (mamba2 65 / 64,
-   zamba2 9 flash decode / 55 / 72), ``ssm_state`` float32 beside bf16
+   backend): drained, exact launches a decode step (mamba2 17 / 16,
+   zamba2 2 flash decode / 13 / 16), ``ssm_state`` float32 beside bf16
    leaves in every engine; tokens/s, wall a decode step, the step's
    computed byte bound;
 23. the same runs fused on card ``kernel`` and card ``graph``:
@@ -299,7 +301,7 @@ Phases (one JSON line each; any failure exits non-zero):
    runs (``--launch-phase`` runs it alone, after the build and phase 3);
 38. across real ``torch.distributed`` ranks (``repro_torch.core.ranks``;
    ``--ranks-phase`` runs it alone, after the build), each rank a process
-   that loads the kernels built here: (a) qwen3-1.7b at full width, 4
+   that loads the kernels built here: (a) qwen3-1.7b at full width, 2
    of 28 layers, a 2 x 2048 global batch, ``make_train_step`` for 2 steps
    in each Spindle mode on two ranks sharing the card over ``gloo``
    (1 x 2048 rows each), every rank's losses, parameters and AdamW state
@@ -351,7 +353,21 @@ Phases (one JSON line each; any failure exits non-zero):
    the unsplit path on rank 0 (logits within the bf16 bar, tokens equal
    where the unsplit top-2 gap exceeds it), a rank's weight bytes half
    the unsplit's; ``flash_attention`` and ``flash_decode`` at each part's
-   local head counts against their plain versions;
+   local head counts against their plain versions; (h) every other
+   family's layout at full width: (h1) mamba2-2.7b and (h3)
+   qwen2-moe-a2.7b at 2 layers trained as (g1) on the four ranks (the
+   Mamba block on 40 of 80 heads a rank, its gated norms
+   ``layers.rms_norm_split``, so 1 ``rms_norm`` a step; the MoE's 64
+   expert slots 32 a rank beside 8 of 16 heads; its comparison the
+   folded per-shard step, each shard routing its own tokens, and its
+   first step's routes allowed to differ only where the two runs'
+   router probabilities moved by half the token's unsplit gap), (h2)
+   zamba2-2.7b at 6 layers, (h4) internvl2-26b at 2 layers and
+   seamless-m4t-medium at full depth served as (g2) on the two ranks (a
+   loss at 1 x 2048, a prefill of 1 x 512, 8 greedy steps, from a zero
+   decode state for the hybrid and the encdec; the hybrid's forward and
+   the encoder's memory held by the yardstick), each rank's weight bytes
+   its layout's; ``ssd_scan`` at 40 heads against its plain version;
 then the ``kernels`` line: per kernel its launches on the main paths
 (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34, 37, 38 and, from the
 device traces, 18 and 20), its times and its bound.
@@ -407,7 +423,7 @@ from repro_torch.kernels.meta import (attention_flops,  # noqa: E402
                                       ssd_flops)
 from repro_torch.launch import opanalysis  # noqa: E402
 from repro_torch.models import (attention, encdec, hybrid,  # noqa: E402
-                                layers, moe, registry, transformer)
+                                layers, moe, registry, ssm, transformer)
 from repro_torch.models.config import (ShapeConfig,  # noqa: E402
                                        shape_by_name)
 from repro_torch.models.runtime import Runtime, recomputing  # noqa: E402
@@ -1096,10 +1112,17 @@ def serve_profile(rep, per_replica: int, seed: int):
             "top_device_ops_us": {e.key[:60]: device_us(e) for e in top}}
 
 
+# phase 6 serves qwen3-1.7b at 8 of its 28 layers: its per-round loop is
+# host-bound, ~1000 launches a step at 28 layers, and the run's time
+# limit needed the room
+SERVE_LAYERS = 8
+
+
 def phase6_serve():
-    """The serve plane at qwen3-1.7b's full width on the kernel backend;
-    returns the serve path's launch counts."""
-    cfg = registry.get("qwen3-1.7b").cfg
+    """The serve plane at qwen3-1.7b's full width, SERVE_LAYERS layers,
+    on the kernel backend; returns the serve path's launch counts."""
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg,
+                              n_layers=SERVE_LAYERS)
     t0 = time.perf_counter()
     params, rep = serve_setup(cfg, torch.bfloat16, seed=0)
     torch.cuda.synchronize()
@@ -2348,14 +2371,19 @@ def compare_first_step(arch, params, batch, rt, plain, opt_cfg, what):
     return {"master_max_abs_err": err, "lr_1": lr1, "step1_loss_rel": rel}
 
 
+# phase 13's depth, cut from 4 for the run's time limit
+TRAIN_F32_LAYERS = 2
+
+
 def phase13_train_vs_plain():
-    """The train path in float32 at 4 layers, full width, on the kernels
-    and on the plain versions: qwen3-1.7b with the compressed reduction
+    """The train path in float32 at TRAIN_F32_LAYERS layers, full width,
+    on the kernels and on the plain versions: qwen3-1.7b with the compressed reduction
     (3 Trainer steps, checkpoint restart), mamba2-2.7b with fused buckets
     (one step, the SSD scan's gradient)."""
     plain_of = lambda r: dataclasses.replace(r, kernels="plain")
     res = {}
-    cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg, n_layers=4)
+    cfg = dataclasses.replace(registry.get("qwen3-1.7b").cfg,
+                              n_layers=TRAIN_F32_LAYERS)
     arch = registry.Arch(cfg)
     rt = Runtime(gradsync="spindle_compressed", dp_workers=TRAIN_WORKERS)
     kw = dict(seq_len=512, global_batch=2, log_every=1,
@@ -2438,7 +2466,8 @@ def phase13_train_vs_plain():
     del params, runs, p_re, o_re, full_p, full_o, p0
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(registry.get("mamba2-2.7b").cfg, n_layers=4)
+    cfg = dataclasses.replace(registry.get("mamba2-2.7b").cfg,
+                              n_layers=TRAIN_F32_LAYERS)
     arch = registry.Arch(cfg)
     rt = Runtime(gradsync="spindle", dp_workers=TRAIN_WORKERS)
     params = arch.init_params(14, "cuda", torch.float32)
@@ -3534,8 +3563,9 @@ def fused_run(rep, requests, fail_at=None):
 # the fused child's serve plane: qwen3-1.7b at full width and this many of
 # its 28 layers (the depth cut that keeps the whole run well inside its
 # time limit: the device trace's records and the captured graphs' nodes
-# grow with the layers, and nothing in phases 18-20 depends on depth)
-FUSED_LAYERS = 8
+# grow with the layers, and nothing in phases 18-20 depends on depth;
+# cut from 8 for the run's time limit)
+FUSED_LAYERS = 4
 
 
 def fused_setup():
@@ -3619,7 +3649,7 @@ def fused_device_phase(cfg, reps, requests, rows):
     ``kernel`` (collecting the trace's device records takes tens of
     seconds, so the ``graph`` run, whose device work is the same but for
     the watermark kernel, is not traced): L / 2L + 1 / 2L kernel
-    launches per device decode step (8 / 17 / 16 at FUSED_LAYERS), one
+    launches per device decode step (4 / 9 / 8 at FUSED_LAYERS), one
     watermark kernel a round, device time per round and step and the
     busy share of the traced run; beside them, labelled, the untraced
     warm run's wall per round (phase 18's timing: a second run).
@@ -3986,6 +4016,11 @@ def run_fused_phases():
 # ---------------------------------------------------------------------------
 
 RECURRENT = ("mamba2-2.7b", "zamba2-2.7b")
+# phases 22 and 23 serve them at full width, mamba2-2.7b at 16 of 64
+# layers and zamba2-2.7b at 12 of 54 (two shared-block groups): the
+# per-round loops are host-bound and the run's time limit needed the
+# room
+RECURRENT_SERVE_LAYERS = {"mamba2-2.7b": 16, "zamba2-2.7b": 12}
 RECURRENT_PER_REPLICA = 12
 RECURRENT_PHASES_FLAG = "--recurrent-phases"
 
@@ -4150,8 +4185,10 @@ def recurrent_serve(name: str):
     seed 0, 2 replicas x 8 slots x 2048 positions, window 8): the
     per-round loop on the ``kernel`` backend with its launches counted,
     then the fused program on card ``kernel`` and card ``graph`` against
-    the per-round loop.  Returns the per-round run's launches."""
-    cfg = registry.get(name).cfg
+    the per-round loop, at RECURRENT_SERVE_LAYERS layers.  Returns the
+    per-round run's launches."""
+    cfg = dataclasses.replace(registry.get(name).cfg,
+                              n_layers=RECURRENT_SERVE_LAYERS[name])
     t0 = time.perf_counter()
     params, rep_k = serve_setup(cfg, torch.bfloat16, seed=0)
     torch.cuda.synchronize()
@@ -6217,14 +6254,15 @@ def launch_phase() -> int:
 # ---------------------------------------------------------------------------
 
 RANKS_PHASE_FLAG = "--ranks-phase"
-# (a): qwen3-1.7b at full width, 4 of 28 layers (0.51 B parameters;
+# (a): qwen3-1.7b at full width, 2 of 28 layers (0.41 B parameters;
 # bf16 weights, gradients and their mean, the float32 AdamW master, m
 # and v at 12 B a parameter, activations and float32 logits at 1 x
 # 2048).  Cut from 28 (36.4 GB allocated a rank) to make room in the
-# run's time for (e) and (f): its reductions through gloo take most of
-# the part, 2.1-6.1 s a step still at 14 layers (23.5 GB a rank)
+# run's time for (e) and (f), and from 4 for (h): its reductions
+# through gloo take most of the part, 2.1-6.1 s a step still at 14
+# layers (23.5 GB a rank)
 RANKS_MODEL = "qwen3-1.7b"
-RANKS_LAYERS = 4
+RANKS_LAYERS = 2
 RANKS_BATCH, RANKS_SEQ, RANKS_STEPS = 2, 2048, 2
 RANKS_MODES = ("spindle", "spindle_per_tensor", "spindle_compressed")
 RANKS_DEVICES = ("cuda:0", "cuda:0")     # two ranks share the one card
@@ -6272,6 +6310,31 @@ TP_SERVE_LAYERS = 2
 TP_SERVE_SHAPE = {"model": 2}
 TP_SERVE_PRESET = "megatron"
 TP_PREFILL, TP_DECODE = 512, 8
+# (h): every other family's layout at full width, part -> (model, layers
+# (None: all), mesh shape, preset).  (h1) mamba2-2.7b, 2 of 64 layers,
+# under "baseline" on the four ranks of (g1): 40 of its 80 ssm heads a
+# rank over "model" (the fused projection's 10,576 columns and the conv's
+# 5,376 channels in blocks of 5,288 and 2,688, gathered whole), every
+# fsdp_embed dim halved over "data"; 2 gspmd steps of (g1)'s 2 x 2048.
+# (h2) zamba2-2.7b, 6 of 54 layers (one group and its shared block),
+# under "megatron" on the two ranks of (g2): 40 of 80 ssm heads, 16 of 32
+# q and kv heads at D = 80.  (h3) qwen2-moe-a2.7b, 2 of 24 layers, under
+# "baseline" on the four ranks: 8 of 16 heads, half the shared experts'
+# columns and half the 64 expert slots a rank over "model".  (h4)
+# internvl2-26b, 2 of 48 layers (24 of 48 q heads, 4 of 8 kv heads; its
+# vocabulary of 92,553 stays whole), and seamless-m4t-medium at full
+# depth (12 + 12 layers, 8 of 16 heads), under "megatron" on the two
+# ranks.  The served parts: a loss at 1 x 2048, a prefill of 1 x 512 and
+# 8 greedy decode steps, as (g2)
+FAMILY_PARTS = {
+    "h1": ("mamba2-2.7b", 2, LAYOUT_SHAPE, "baseline"),
+    "h2": ("zamba2-2.7b", 6, TP_SERVE_SHAPE, "megatron"),
+    "h3": ("qwen2-moe-a2.7b", 2, LAYOUT_SHAPE, "baseline"),
+    "h4a": ("internvl2-26b", 2, TP_SERVE_SHAPE, "megatron"),
+    "h4b": ("seamless-m4t-medium", None, TP_SERVE_SHAPE, "megatron"),
+}
+FAMILY_TRAINED = ("h1", "h3")
+FAMILY_SERVED = ("h2", "h4a", "h4b")
 # elements a leaf in the strided samples that (e) and (f) compare across
 # processes (a whole tree would cross as gigabytes); (g1)'s blocks cross
 # four times, one a rank, so fewer
@@ -6297,6 +6360,13 @@ def ep_train_cfg():
 def pod_cfg():
     return dataclasses.replace(registry.get(RANKS_MODEL).cfg,
                                n_layers=POD_LAYERS)
+
+
+def family_cfg(part: str):
+    name, n_layers, _, _ = FAMILY_PARTS[part]
+    cfg = registry.get(name).cfg
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
 
 
 def strided(t: torch.Tensor, n: int = SAMPLE) -> torch.Tensor:
@@ -6485,32 +6555,53 @@ class GlooTimer:
 def layout_train(arch, params, rt, rows, device) -> tuple:
     """RANKS_STEPS steps of ``make_train_step`` on ``rows`` of each of
     (g1)'s global batches: the parameters after, losses, walls, launches
-    a step, and the seconds in the collectives."""
+    a step, and the seconds in the collectives; an MoE's first step's
+    router calls (:class:`RouterProbe`) beside them."""
     opt = adamw.init(params)
     step = steps.make_train_step(arch, rt, donate=True)
     losses, walls, per_step, gloo_s = [], [], [], []
+    probe = RouterProbe(keep_probs=True)
     for i in range(RANKS_STEPS):
         batch = {"tokens": layout_batch(arch.cfg, i, device)[rows]}
         before = ops.launch_counts()
-        with GlooTimer() as gloo:
+        with GlooTimer() as gloo, (probe if i == 0 and arch.cfg.moe
+                                   else contextlib.nullcontext()):
             (params, opt, m), wall = timed(lambda: step(params, opt, batch))
         per_step.append(launches_since(before))
         losses.append(float(m["loss"]))
         walls.append(wall)
         gloo_s.append(gloo.s)
     del opt, step
-    return params, {"losses": losses, "step_wall_s": walls,
-                    "launches_per_step": per_step, "gloo_s": gloo_s,
-                    "gloo_calls_per_step": gloo.calls}
+    out = {"losses": losses, "step_wall_s": walls,
+           "launches_per_step": per_step, "gloo_s": gloo_s,
+           "gloo_calls_per_step": gloo.calls}
+    if arch.cfg.moe:
+        out["router"] = probe_record(probe)
+    return params, out
 
 
-def layout_train_rank(device) -> dict:
-    """(g1) on this rank of the four: its blocks of seed 0's weights,
-    the gspmd steps on its row, then the blocks' samples and digests."""
-    mesh = ranks.RankMesh(LAYOUT_SHAPE, device)
-    arch = registry.Arch(layout_cfg())
-    rt = Runtime(mesh=mesh, rules=rules_lib.get(LAYOUT_PRESET, arch.cfg))
-    check(steps.splits_layout(arch, rt), "(g1) the rules split no leaf")
+def probe_record(probe) -> dict:
+    """A :class:`RouterProbe`'s calls on the host: routes, probabilities,
+    per-token gaps and dropped routes, a call each."""
+    return {"routes": [r.cpu() for r in probe.idx],
+            "probs": [p.cpu() for p in probe.probs],
+            "token_gaps": [g.cpu() for g in probe.token_gaps],
+            "drops": [int(d) for d in probe.drops]}
+
+
+def layout_train_rank(device, cfg=None, shape=None, preset=None,
+                      what: str = "(g1)") -> dict:
+    """(g1) (or an (h) train part: ``cfg`` under ``preset`` on a mesh of
+    ``shape``) on this rank of the four: its blocks of seed 0's weights,
+    the gspmd steps on its row, then the blocks' samples and digests (an
+    MoE's first step's router calls beside them)."""
+    cfg = layout_cfg() if cfg is None else cfg
+    shape = LAYOUT_SHAPE if shape is None else shape
+    mesh = ranks.RankMesh(shape, device)
+    arch = registry.Arch(cfg)
+    rt = Runtime(mesh=mesh, rules=rules_lib.get(preset or LAYOUT_PRESET,
+                                                arch.cfg))
+    check(steps.splits_layout(arch, rt), f"{what} the rules split no leaf")
     full = arch.init_params(0, device, torch.bfloat16)
     params = layers.shard_params(full, arch.param_specs(), rt.rules_(),
                                  mesh)
@@ -6533,27 +6624,75 @@ def layout_train_rank(device) -> dict:
     return out
 
 
-def layout_unsplit(device) -> dict:
-    """(g1)'s comparison on one rank: the unsplit gspmd steps on the
-    whole global batch, and the samples of each rank's block of the
-    parameters after them."""
-    arch = registry.Arch(layout_cfg())
+def layout_unsplit(device, cfg=None, shape=None, preset=None) -> dict:
+    """(g1)'s comparison on one rank (or an (h) train part's): the
+    unsplit gspmd steps on the whole global batch, and the samples of
+    each rank's block of the parameters after them.  An MoE over more
+    than one data shard routes each shard's tokens with a capacity of
+    its own and reports shard 0's aux loss (the reference's
+    ``shard_map``): its comparison is the folded per-shard step
+    (``Runtime(dp_workers=2, gradsync="spindle_per_tensor")``: the same
+    mean of the shards' gradients), its loss the shards' mean cross
+    entropy plus shard 0's aux at the step's weights, and its first
+    step's router calls each shard's."""
+    cfg = layout_cfg() if cfg is None else cfg
+    shape = LAYOUT_SHAPE if shape is None else shape
+    preset = preset or LAYOUT_PRESET
+    arch = registry.Arch(cfg)
+    per_shard = cfg.moe is not None and shape.get("data", 1) > 1
     torch.cuda.reset_peak_memory_stats()
     params = arch.init_params(0, device, torch.bfloat16)
-    params, out = layout_train(arch, params, Runtime(),
-                               slice(0, LAYOUT_BATCH), device)
-    table = rules_lib.get(LAYOUT_PRESET, arch.cfg)
+    if not per_shard:
+        params, out = layout_train(arch, params, Runtime(),
+                                   slice(0, LAYOUT_BATCH), device)
+    else:
+        params, out = moe_shards_train(arch, params, device)
+    table = rules_lib.get(preset, arch.cfg)
     out.update(peak_bytes=torch.cuda.max_memory_allocated(),
                weight_bytes=sum(x.numel() * x.element_size()
                                 for x in tree_util.leaves(params)),
-               blocks=[block_samples(params, arch.cfg, table, LAYOUT_SHAPE,
-                                     c) for c in mesh_coords(LAYOUT_SHAPE)])
+               blocks=[block_samples(params, arch.cfg, table, shape, c)
+                       for c in mesh_coords(shape)])
     del params
     torch.cuda.empty_cache()
     return out
 
 
-def local_head_kernels(device, hq: int, hkv: int, seq: int) -> dict:
+def moe_shards_train(arch, params, device) -> tuple:
+    """:func:`layout_unsplit`'s MoE over LAYOUT_BATCH data shards, one
+    row each: before each step every shard's cross entropy and aux loss
+    at the step's weights (the first step's router calls recorded), then
+    the folded per-shard step."""
+    cfg = arch.cfg
+    opt = adamw.init(params)
+    step = steps.make_train_step(arch, Runtime(
+        gradsync="spindle_per_tensor", dp_workers=LAYOUT_BATCH), donate=True)
+    losses, walls, per_step, router = [], [], [], []
+    for i in range(RANKS_STEPS):
+        batch = {"tokens": layout_batch(cfg, i, device)}
+        ce, aux = [], []
+        for w in range(LAYOUT_BATCH):
+            with torch.no_grad(), RouterProbe(keep_probs=True) as probe:
+                c, a = transformer.lm_loss_terms(
+                    params, cfg, {"tokens": batch["tokens"][w:w + 1]},
+                    Runtime())
+            ce.append(float(c))
+            aux.append(float(a))
+            if i == 0:
+                router.append(probe_record(probe))
+        losses.append(sum(ce) / len(ce) + aux[0])
+        before = ops.launch_counts()
+        (params, opt, _), wall = timed(lambda: step(params, opt, batch))
+        per_step.append(launches_since(before))
+        walls.append(wall)
+    del opt, step
+    return params, {"losses": losses, "step_wall_s": walls,
+                    "launches_per_step": per_step, "router": router,
+                    "per_shard": True}
+
+
+def local_head_kernels(device, hq: int, hkv: int, seq: int,
+                       head_dim: int = 128) -> dict:
     """flash_attention over (1, seq) and flash_decode over a cache of
     seq + TP_DECODE positions at a rank's head counts, against their
     plain versions on the same bf16 inputs."""
@@ -6563,54 +6702,152 @@ def local_head_kernels(device, hq: int, hkv: int, seq: int) -> dict:
         return torch.randn(shape, generator=gen, device=device,
                            dtype=torch.bfloat16)
 
-    q, k, v = rand(1, seq, hq, 128), rand(1, seq, hkv, 128), \
-        rand(1, seq, hkv, 128)
+    q, k, v = rand(1, seq, hq, head_dim), rand(1, seq, hkv, head_dim), \
+        rand(1, seq, hkv, head_dim)
     errs = {"flash_attention": within(
         ops.flash_attention(q, k, v, True),
         ops.PLAIN["flash_attention"](q, k, v, True), torch.bfloat16,
         what=f"flash_attention at {hq}/{hkv} heads")}
-    kc, vc = rand(1, seq + TP_DECODE, hkv, 128), \
-        rand(1, seq + TP_DECODE, hkv, 128)
-    qd = rand(1, hq, 128)
+    kc, vc = rand(1, seq + TP_DECODE, hkv, head_dim), \
+        rand(1, seq + TP_DECODE, hkv, head_dim)
+    qd = rand(1, hq, head_dim)
     lengths = torch.full((1,), seq + TP_DECODE, dtype=torch.int32,
                          device=device)
     errs["flash_decode"] = within(
         ops.flash_decode(qd, kc, vc, lengths),
         ops.PLAIN["flash_decode"](qd, kc, vc, lengths), torch.bfloat16,
         what=f"flash_decode at {hq}/{hkv} heads")
-    return {"heads": [hq, hkv], "seq": seq, "max_abs_err": errs}
+    return {"heads": [hq, hkv], "head_dim": head_dim, "seq": seq,
+            "max_abs_err": errs}
 
 
-def tp_serve_run(arch, params, rt, prompt, device, feed=None):
-    """(g2)'s path through ``make_serve_step``: the prefill, its cache
-    grown to TP_DECODE more positions, greedy decode steps (or the
-    tokens of ``feed``, (1, TP_DECODE)).  Returns (logits a step
-    (prefill first), tokens fed, the cache's kv heads, wall)."""
+def local_ssd_kernel(device, cfg, tp: int, seq: int) -> dict:
+    """ssd_scan at a rank's heads and groups of ``cfg``'s Mamba block
+    (``ssm.rank_dims``) over (1, seq), against its plain version on the
+    same bf16 inputs."""
+    h, g = ssm.rank_dims(cfg, tp)
+    s_ = cfg.ssm
+    gen = torch.Generator(device=device).manual_seed(h * 10 + g)
+    args = ssd_inputs(1, seq, h, s_.head_dim, s_.d_state, g, torch.bfloat16,
+                      gen)
+    (y, st), (y_want, st_want) = sc.ssd_scan(*args, s_.chunk), \
+        sc.ssd_scan_plain(*args, s_.chunk)
+    return {"heads": h, "groups": g, "seq": seq,
+            "max_abs_err": within(y, y_want, torch.bfloat16,
+                                  SSD_Y_TOL[torch.bfloat16],
+                                  what=f"ssd_scan at {h} heads"),
+            "state_max_abs_err": within(st, st_want, torch.float32,
+                                        SSD_STATE_TOL,
+                                        what=f"ssd_scan state at {h} "
+                                        "heads")}
+
+
+def family_batch(cfg, seq: int, seed: int, device, dtype) -> dict:
+    """A 1 x ``seq`` batch of the family's inputs from ``seed``: tokens,
+    and the vlm's ``n_patches`` patch embeddings before ``seq -
+    n_patches`` text tokens, or the encdec's ``seq / 2`` frames and
+    ``seq / 2`` tokens (the reference's input specs)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_text = seq
+    out = {}
+    if cfg.family == "vlm":
+        n_text = seq - cfg.vlm.n_patches
+        out["patches"] = torch.randn((1, cfg.vlm.n_patches,
+                                      cfg.vlm.vision_dim), generator=gen,
+                                     device=device).to(dtype)
+    if cfg.family == "encdec":
+        n_text = seq // 2
+        out["frames"] = torch.randn((1, seq // 2, cfg.d_model),
+                                    generator=gen, device=device).to(dtype)
+    out["tokens"] = seeded_tokens(cfg, 1, n_text, seed=seed).to(device)
+    return out
+
+
+def rank_kv(whole: torch.Tensor, cfg, rt) -> torch.Tensor:
+    """This rank's kv heads (dim 3) of a whole (L, B, S, Hkv, D) cache:
+    ``attention.kv_heads_split`` of them, its share where they split,
+    else the one its q heads read."""
+    tp = registry.tp_ways(cfg, rt)
+    n = attention.kv_heads_split(cfg, tp)
+    if n == whole.shape[3]:
+        return whole
+    axis = rt.tp_axis()
+    first = axis.index * n if cfg.n_kv_heads % tp == 0 else \
+        axis.index * (cfg.n_heads // tp) // (cfg.n_heads // cfg.n_kv_heads)
+    return whole.narrow(3, first, n).contiguous()
+
+
+def family_serve_run(arch, params, rt, device, feed=None):
+    """A served part's path through the entry points: the loss at 1 x
+    RANKS_SEQ; a prefill of 1 x TP_PREFILL (the KV cache of the
+    decoder families, grown by TP_DECODE positions; the hybrid's
+    forward, the encdec's encoder memory) and TP_DECODE greedy decode
+    steps after it (or the tokens of ``feed``, (1, TP_DECODE)): from the
+    KV cache, or for the recurrent and encdec families from a zero
+    decode state fed the prompt's first token (the encdec's cross cache
+    seeded, this rank's kv heads of it).  Returns (logits a step (the
+    prefill's or the first step's first), tokens fed, the cache's kv
+    heads, wall, loss, the prefill's value where it is not logits)."""
+    cfg = arch.cfg
+    dtype = params["embed"].dtype
+    loss_batch = family_batch(cfg, RANKS_SEQ, 838, device, dtype)
+    prompt = family_batch(cfg, TP_PREFILL, 839, device, dtype)
     prefill = steps.make_serve_step(arch, rt, "prefill")
     decode = steps.make_serve_step(arch, rt, "decode")
 
     def run():
-        logits, cache = prefill(params, {"tokens": prompt})
-        cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0, TP_DECODE))
-                 for k, v in cache.items()}
+        loss = arch.loss_fn()(params, cfg, loss_batch, rt)
+        other = None
+        if cfg.family in transformer.DECODER_FAMILIES:
+            logits, cache = prefill(params, prompt)
+            pos = cache["k"].shape[2]
+            cache = {k: torch.nn.functional.pad(v, (0, 0, 0, 0, 0,
+                                                    TP_DECODE))
+                     for k, v in cache.items()}
+        else:
+            specs = arch.cache_specs(
+                ShapeConfig("h", TP_DECODE + 1, 1, "decode"),
+                tp=registry.tp_ways(cfg, rt))
+            # the float64 yardstick keeps its ssm state in float64 too
+            cache = layers.map_specs(lambda sp: torch.zeros(
+                sp.shape, dtype=dtype if dtype == torch.float64
+                else sp.dtype_for(dtype), device=device), specs)
+            other = prefill(params, prompt)
+            if cfg.family == "encdec":
+                other = other[0]
+                gen = torch.Generator(device=device).manual_seed(840)
+                shape = (cfg.encdec.n_decoder_layers, 1, TP_PREFILL,
+                         cfg.n_kv_heads, cfg.head_dim_)
+                for k in ("cross_k", "cross_v"):
+                    cache[k] = rank_kv(torch.randn(
+                        shape, generator=gen, device=device).to(dtype),
+                        cfg, rt)
+            pos = 0
+            logits, cache = decode(params, cache,
+                                   {"tokens": prompt["tokens"][:, :1]},
+                                   torch.zeros((1,), dtype=torch.int32,
+                                               device=device))
+            pos = 1
         out, fed = [logits], []
-        pos = torch.full((1,), TP_PREFILL, dtype=torch.int32, device=device)
+        at = torch.full((1,), pos, dtype=torch.int32, device=device)
         for i in range(TP_DECODE):
             nxt = out[-1].argmax(-1, keepdim=True).to(torch.int32) \
                 if feed is None else feed[:, i:i + 1]
             fed.append(nxt)
-            logits, cache = decode(params, cache, {"tokens": nxt}, pos)
+            logits, cache = decode(params, cache, {"tokens": nxt}, at)
             out.append(logits)
-            pos = pos + 1
-        return torch.stack(out), torch.cat(fed, dim=1), cache["k"].shape[3]
+            at = at + 1
+        kv = cache["k"].shape[3]
+        return torch.stack(out), torch.cat(fed, dim=1), kv, loss, other
 
     with torch.no_grad():
-        (logits, fed, kv_heads), wall = timed(run)
-    return logits, fed, kv_heads, wall
+        (logits, fed, kv_heads, loss, other), wall = timed(run)
+    return logits, fed, kv_heads, wall, loss, other
 
 
-def tp_serve_compare(split, whole, fed, split32, whole32, whole64) -> dict:
-    """(g2)'s bars.  The bf16 runs: at every step the split logits no
+def tp_serve_compare(split, whole, fed, split32, whole32, whole64,
+                     what: str = "(g2)") -> dict:
+    """(g2)'s bars (and a served (h) part's).  The bf16 runs: at every step the split logits no
     farther from the float32 unsplit run on the same (upcast) weights
     than twice the unsplit bf16 logits are, plus 1e-6, both unsplit
     runs fed the split run's tokens (``fed``, ``whole32``; phase 13's
@@ -6639,14 +6876,14 @@ def tp_serve_compare(split, whole, fed, split32, whole32, whole64) -> dict:
                          .max()))
         e_split.append(float((got - yard).abs().max()))
         e_fed.append(float((want - yard).abs().max()))
-        check(e_split[-1] <= 2 * e_fed[-1] + 1e-6, f"(g2) logits, step "
+        check(e_split[-1] <= 2 * e_fed[-1] + 1e-6, f"{what} logits, step "
               f"{i}: {e_split[-1]} from float32 against the unsplit "
               f"bf16's {e_fed[-1]}")
         yard = whole64[0][i].double()
         errs32.append(float((split32[0][i] - whole32[0][i]).abs().max()))
         e_split32.append(float((split32[0][i].double() - yard).abs().max()))
         e_whole32.append(float((whole32[0][i].double() - yard).abs().max()))
-        check(e_split32[-1] <= 2 * e_whole32[-1] + 1e-6, f"(g2) float32 "
+        check(e_split32[-1] <= 2 * e_whole32[-1] + 1e-6, f"{what} float32 "
               f"logits, step {i}: {e_split32[-1]} from float64 against "
               f"the unsplit float32's {e_whole32[-1]}")
     tokens_equal, compared = True, 0
@@ -6654,7 +6891,7 @@ def tp_serve_compare(split, whole, fed, split32, whole32, whole64) -> dict:
         same = torch.equal(split[1][:, i], whole[1][:, i])
         apart = 2 * (e_split[i] + e_fed[i])
         if gaps[i] > apart:
-            check(same, f"(g2) greedy token {i} differs at a top-2 gap of "
+            check(same, f"{what} greedy token {i} differs at a top-2 gap of "
                   f"{gaps[i]} > {apart}")
         compared = i + 1
         if not same:
@@ -6673,57 +6910,91 @@ def tp_serve_compare(split, whole, fed, split32, whole32, whole64) -> dict:
             "tol_float32": TOL[torch.float32]}
 
 
-def tp_serve_rank(rank, device) -> tuple:
-    """(g2) on this rank of the two: its blocks of seed 0's weights under
-    ``megatron``, the prefill and decode in bf16 (the counted path);
-    rank 0 then the unsplit path, greedy and fed the split run's tokens;
-    both ranks again in float32 on the upcast weights, fed the split
-    run's tokens, and rank 0 the unsplit float32 path so fed (the
-    yardstick of the bf16 runs), the unsplit float64 plain path so fed
-    (the yardstick of the float32 runs), and the kernels at the local
-    heads.  Returns (results, this rank's launches on the path)."""
-    mesh = ranks.RankMesh(TP_SERVE_SHAPE, device)
-    cfg = tp_serve_cfg()
+def prefill_yardstick(split, whole, whole32, what: str) -> dict:
+    """A prefill's value that is not logits (the hybrid's forward loss,
+    the encdec's encoder memory) held as the logits are: the split bf16
+    run no farther from the unsplit float32 run than twice the unsplit
+    bf16 run is, plus 1e-6 (phase 13's yardstick)."""
+    yard = whole32.float()
+    e_split = float((split.float() - yard).abs().max())
+    e_whole = float((whole.float() - yard).abs().max())
+    check(e_split <= 2 * e_whole + 1e-6, f"{what} prefill: {e_split} from "
+          f"float32 against the unsplit bf16's {e_whole}")
+    return {"prefill_max_err": float((split.float() - whole.float()).abs()
+                                     .max()),
+            "prefill_split_from_float32": e_split,
+            "prefill_unsplit_from_float32": e_whole}
+
+
+def serve_part(part: str):
+    """A served part's (config, mesh shape, preset): (g2), or an (h)
+    part of FAMILY_PARTS."""
+    if part == "g2":
+        return tp_serve_cfg(), TP_SERVE_SHAPE, TP_SERVE_PRESET
+    _, _, shape, preset = FAMILY_PARTS[part]
+    return family_cfg(part), shape, preset
+
+
+def tp_serve_rank(rank, device, part: str = "g2") -> tuple:
+    """(g2) (or a served (h) part) on this rank of the two: its blocks of
+    seed 0's weights under the part's preset, the loss, prefill and
+    decode in bf16 (the counted path); rank 0 then the unsplit path,
+    greedy and fed the split run's tokens; both ranks again in float32
+    on the upcast weights, fed the split run's tokens, and rank 0 the
+    unsplit float32 path so fed (the yardstick of the bf16 runs), the
+    unsplit float64 plain path so fed (the yardstick of the float32
+    runs), and the kernels at the local heads.  Returns (results, this
+    rank's launches on the path)."""
+    what = f"({part})"
+    cfg, shape, preset = serve_part(part)
+    mesh = ranks.RankMesh(shape, device)
     arch = registry.Arch(cfg)
-    rt = Runtime(mesh=mesh, rules=rules_lib.get(TP_SERVE_PRESET, cfg))
+    rt = Runtime(mesh=mesh, rules=rules_lib.get(preset, cfg))
+    check(steps.splits_layout(arch, rt), f"{what} the rules split no leaf")
     specs = arch.param_specs()
     full = arch.init_params(0, device, torch.bfloat16)
     mine = layers.shard_params(full, specs, rt.rules_(), mesh)
     torch.cuda.empty_cache()
-    prompt = seeded_tokens(cfg, 1, TP_PREFILL, seed=738).to(device)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    split = tp_serve_run(arch, mine, rt, prompt, device)
+    split = family_serve_run(arch, mine, rt, device)
     counts = ops.launch_counts()
-    hq = mine["layers"]["attn"]["wq"].shape[2]
+    hq = cfg.n_heads // registry.tp_ways(cfg, rt) \
+        if cfg.n_heads % registry.tp_ways(cfg, rt) == 0 else cfg.n_heads
     out = {"heads_here": [hq, split[2]], "wall_s": split[3],
+           "loss": float(split[4]),
            "weight_bytes": sum(x.numel() * x.element_size()
                                for x in tree_util.leaves(mine)),
            "peak_bytes": torch.cuda.max_memory_allocated()}
     if rank == 0:                            # the unsplit path beside it
-        whole = tp_serve_run(arch, full, Runtime(), prompt, device)
-        fed = tp_serve_run(arch, full, Runtime(), prompt, device,
-                           feed=split[1])
+        whole = family_serve_run(arch, full, Runtime(), device)
+        fed = family_serve_run(arch, full, Runtime(), device,
+                               feed=split[1])
         out.update(unsplit_wall_s=whole[3], unsplit_weight_bytes=sum(
             x.numel() * x.element_size() for x in tree_util.leaves(full)),
-            unsplit_heads=[cfg.n_heads, whole[2]])
+            unsplit_heads=[cfg.n_heads, whole[2]],
+            loss_unsplit=float(whole[4]),
+            loss_err=within(split[4], whole[4], torch.bfloat16,
+                            what=f"{what} loss against unsplit"))
     del mine
     full = tree_util.map(lambda t: t.float(), full)
     torch.cuda.empty_cache()
-    split32 = tp_serve_run(arch, layers.shard_params(full, specs,
-                                                     rt.rules_(), mesh),
-                           rt, prompt, device, feed=split[1])
+    split32 = family_serve_run(arch, layers.shard_params(
+        full, specs, rt.rules_(), mesh), rt, device, feed=split[1])
     if rank == 0:
-        whole32 = tp_serve_run(arch, full, Runtime(), prompt, device,
-                               feed=split[1])
+        whole32 = family_serve_run(arch, full, Runtime(), device,
+                                   feed=split[1])
+        if split[5] is not None:
+            out.update(prefill_yardstick(split[5], whole[5], whole32[5],
+                                         what))
         full = tree_util.map(lambda t: t.double(), full)
         torch.cuda.empty_cache()
-        whole64 = tp_serve_run(arch, full, Runtime(kernels="plain"), prompt,
-                               device, feed=split[1])
+        whole64 = family_serve_run(arch, full, Runtime(kernels="plain"),
+                                   device, feed=split[1])
         out.update(tp_serve_compare(split, whole, fed, split32, whole32,
-                                    whole64),
+                                    whole64, what),
                    kernels=local_head_kernels(device, hq, split[2],
-                                              TP_PREFILL))
+                                              TP_PREFILL, cfg.head_dim_))
         del whole, fed, whole32, whole64
     del full, split, split32
     torch.cuda.empty_cache()
@@ -6731,55 +7002,113 @@ def tp_serve_rank(rank, device) -> tuple:
     return out, counts
 
 
-def layout_compare(results, unsplit) -> dict:
-    """(g1)'s bars (see the module's docstring)."""
+def tp_launches(cfg, want: dict) -> dict:
+    """``want`` (a step's launches unsplit) on a rank whose Mamba heads
+    split: each Mamba layer's gated norm is ``layers.rms_norm_split``,
+    not the ``rms_norm`` site."""
+    if cfg.ssm is None:
+        return want
+    return dict(want, rms_norm=want["rms_norm"] - cfg.n_layers)
+
+
+def layout_compare(results, unsplit, key: str = "g", cfg=None,
+                   shape=None, preset=None) -> dict:
+    """(g1)'s bars (see the module's docstring), or an (h) train part's
+    (``key``: the part's entry in each rank's results)."""
     tol = TOL[torch.bfloat16]
-    cfg = layout_cfg()
+    cfg = layout_cfg() if cfg is None else cfg
+    shape = LAYOUT_SHAPE if shape is None else shape
+    what = "(g1)" if key == "g" else f"({key})"
     want = train_launches(cfg, 1, 0)
-    table = rules_lib.get(LAYOUT_PRESET, cfg)
+    table = rules_lib.get(preset or LAYOUT_PRESET, cfg)
     layout = layers.tree_layout(registry.param_specs(cfg), table,
-                                types.SimpleNamespace(shape=LAYOUT_SHAPE))
-    check(all(made == want for made in unsplit["launches_per_step"]),
-          f"(g1) unsplit launches {unsplit['launches_per_step']}, want "
-          f"{want}")
-    coords = mesh_coords(LAYOUT_SHAPE)
+                                types.SimpleNamespace(shape=shape))
+    per_shard = unsplit.get("per_shard", False)
+    unsplit_want = train_launches(cfg, LAYOUT_BATCH, 0) if per_shard \
+        else want
+    check(all(made == unsplit_want for made in unsplit["launches_per_step"]),
+          f"{what} unsplit launches {unsplit['launches_per_step']}, want "
+          f"{unsplit_want}")
+    split_want = tp_launches(cfg, want)
+    coords = mesh_coords(shape)
     errs, same, holders = [], {}, collections.Counter()
-    for r, got in enumerate(x["g"] for x in results):
+    routes = {}
+    for r, got in enumerate(x[key] for x in results):
         for i, made in enumerate(got["launches_per_step"]):
-            check(made == want, f"(g1) rank {r} step {i}: launches {made}, "
-                  f"want {want}")
+            check(made == split_want, f"{what} rank {r} step {i}: launches "
+                  f"{made}, want {split_want}")
         for i, (a, b) in enumerate(zip(got["losses"], unsplit["losses"])):
-            check(abs(a - b) <= tol + tol * abs(b), f"(g1) rank {r} loss "
+            check(abs(a - b) <= tol + tol * abs(b), f"{what} rank {r} loss "
                   f"{i}: {a} against unsplit {b}")
         blocks = unsplit["blocks"][coords.index(got["coords"])]
         for path, sample in got["samples"].items():
             errs.append(within(sample, blocks[path], torch.bfloat16,
-                               what=f"(g1) rank {r} {path}"))
+                               what=f"{what} rank {r} {path}"))
         for path, digest in got["digests"].items():
-            key = (path, block_key(layout[path], got["coords"]))
-            holders[key] += 1
-            check(same.setdefault(key, digest) == digest,
-                  f"(g1) rank {r}: its block of {path} differs from "
+            k = (path, block_key(layout[path], got["coords"]))
+            holders[k] += 1
+            check(same.setdefault(k, digest) == digest,
+                  f"{what} rank {r}: its block of {path} differs from "
                   "another rank's same block")
-    walls = [x["g"]["step_wall_s"] for x in results]
-    gloo = [x["g"]["gloo_s"] for x in results]
-    return {"losses_split": [x["g"]["losses"] for x in results],
-            "losses_unsplit": unsplit["losses"],
-            "params_max_err": max(errs), "leaves_sampled":
-            len(results[0]["g"]["samples"]), "sample": LAYOUT_SAMPLE,
-            "blocks_held_by_several_ranks": sum(
-                1 for n in holders.values() if n > 1),
-            "launches_per_step": want,
-            "step_wall_s_split": walls,
-            "step_wall_s_unsplit": unsplit["step_wall_s"],
-            "gloo_s_split": gloo,
-            "gloo_share_split": [[g / w for g, w in zip(gs, ws)]
-                                 for gs, ws in zip(gloo, walls)],
-            "gloo_calls_per_step": results[0]["g"]["gloo_calls_per_step"],
-            "peak_bytes_split": [x["g"]["peak_bytes"] for x in results],
-            "peak_bytes_unsplit": unsplit["peak_bytes"],
-            "weight_bytes_split": [x["g"]["weight_bytes"] for x in results],
-            "weight_bytes_unsplit": unsplit["weight_bytes"], "tol": tol}
+        if "router" in got:
+            shard = got["coords"].get("data", 0)
+            ref = unsplit["router"][shard] if per_shard else \
+                unsplit["router"]
+            routes[r] = router_compare(got["router"], ref, f"{what} rank "
+                                       f"{r}")
+    walls = [x[key]["step_wall_s"] for x in results]
+    gloo = [x[key]["gloo_s"] for x in results]
+    out = {"losses_split": [x[key]["losses"] for x in results],
+           "losses_unsplit": unsplit["losses"],
+           "params_max_err": max(errs), "leaves_sampled":
+           len(results[0][key]["samples"]), "sample": LAYOUT_SAMPLE,
+           "blocks_held_by_several_ranks": sum(
+               1 for n in holders.values() if n > 1),
+           "launches_per_step": split_want,
+           "launches_per_step_unsplit": unsplit_want,
+           "step_wall_s_split": walls,
+           "step_wall_s_unsplit": unsplit["step_wall_s"],
+           "gloo_s_split": gloo,
+           "gloo_share_split": [[g / w for g, w in zip(gs, ws)]
+                                for gs, ws in zip(gloo, walls)],
+           "gloo_calls_per_step": results[0][key]["gloo_calls_per_step"],
+           "peak_bytes_split": [x[key]["peak_bytes"] for x in results],
+           "peak_bytes_unsplit": unsplit["peak_bytes"],
+           "weight_bytes_split": [x[key]["weight_bytes"] for x in results],
+           "weight_bytes_unsplit": unsplit["weight_bytes"], "tol": tol}
+    if routes:
+        out["first_step_router"] = routes
+    return out
+
+
+def router_compare(got: dict, want: dict, what: str) -> dict:
+    """The first step's router calls of a rank against the unsplit
+    path's on the same tokens: a token's routes may differ only where
+    two of its experts swap, whose unsplit gap is at most twice the
+    largest difference of the two runs' probabilities at that token
+    (the split path's router input differs by the roundings of its
+    row-parallel sums); the drops equal wherever no route moved."""
+    check(len(got["routes"]) == len(want["routes"]),
+          f"{what}: {len(got['routes'])} router calls, unsplit "
+          f"{len(want['routes'])}")
+    moved_total, shifts, equal_calls = 0, [], 0
+    for i, (a, b) in enumerate(zip(got["routes"], want["routes"])):
+        moved = (a != b).any(-1)
+        shift = (got["probs"][i] - want["probs"][i]).abs().amax(-1)
+        gap = want["token_gaps"][i]
+        check(bool((gap[moved] <= 2 * shift[moved]).all()),
+              f"{what} router call {i}: a route moved at an unsplit gap "
+              "wider than the probabilities moved")
+        if not moved.any():
+            equal_calls += 1
+            check(got["drops"][i] == want["drops"][i], f"{what} router call "
+                  f"{i}: routes equal, drops {got['drops'][i]} against "
+                  f"{want['drops'][i]}")
+        moved_total += int(moved.sum())
+        shifts.append(float(shift.max()))
+    return {"calls": len(want["routes"]), "calls_routes_equal": equal_calls,
+            "tokens_moved": moved_total, "max_prob_shift": max(shifts),
+            "drops_split": got["drops"], "drops_unsplit": want["drops"]}
 
 
 def ranks_folded_child(rank, device):
@@ -6829,7 +7158,10 @@ def ranks_folded_child(rank, device):
     torch.cuda.empty_cache()
     return {"folded": folded, "peak_bytes": peak, "nccl_world1": d,
             "backend": mesh.backend, "e": ep_train_unsplit(device),
-            "f": pod_folded(device), "g": layout_unsplit(device)}
+            "f": pod_folded(device), "g": layout_unsplit(device),
+            "h": {part: layout_unsplit(device, family_cfg(part),
+                                       *FAMILY_PARTS[part][2:])
+                  for part in FAMILY_TRAINED}}
 
 
 def ep_train(arch, params, rt, device):
@@ -7078,6 +7410,13 @@ def ranks_child(rank, device):
     # (g2) serving on the "megatron" layout over {"model": 2}
     out["g"], g_counts = tp_serve_rank(rank, device)
     counts = counts + collections.Counter(g_counts)
+    # (h2), (h4): the other families served on it
+    for part in FAMILY_SERVED:
+        out[part], h_counts = tp_serve_rank(rank, device, part)
+        counts = counts + collections.Counter(h_counts)
+    if rank == 0:
+        out["h2"]["ssd"] = local_ssd_kernel(
+            device, family_cfg("h2"), TP_SERVE_SHAPE["model"], TP_PREFILL)
     out["counts"] = dict(counts)
     return out
 
@@ -7129,12 +7468,26 @@ def pod_child(rank, device):
     # (g1) training on the "baseline" layout over {"data": 2, "model": 2}
     ops.reset_launch_counts()
     out["g"] = layout_train_rank(device)
-    out["counts"] = dict(counts + collections.Counter(ops.launch_counts()))
+    counts += collections.Counter(ops.launch_counts())
+    # (h1), (h3): the other families trained on it
+    for part in FAMILY_TRAINED:
+        ops.reset_launch_counts()
+        out[part] = layout_train_rank(device, family_cfg(part),
+                                      *FAMILY_PARTS[part][2:],
+                                      what=f"({part})")
+        counts += collections.Counter(ops.launch_counts())
+    out["counts"] = dict(counts)
     if out["g"]["coords"] == {"data": 0, "model": 0}:
         cfg = layout_cfg()
         out["g"]["kernels"] = local_head_kernels(
             device, cfg.n_heads // LAYOUT_SHAPE["model"],
             cfg.n_kv_heads // LAYOUT_SHAPE["model"], RANKS_SEQ)
+        cfg = family_cfg("h3")
+        out["h3"]["kernels"] = local_head_kernels(
+            device, cfg.n_heads // LAYOUT_SHAPE["model"],
+            cfg.n_kv_heads // LAYOUT_SHAPE["model"], RANKS_SEQ)
+        out["h1"]["ssd"] = local_ssd_kernel(
+            device, family_cfg("h1"), LAYOUT_SHAPE["model"], RANKS_SEQ)
     return out
 
 
@@ -7418,6 +7771,46 @@ def phase38_ranks(smi_line: str) -> dict:
           **{k: v for k, v in g2.items() if k not in (
               "heads_here", "weight_bytes", "peak_bytes", "wall_s")},
           "nvidia_smi": smi_line})
+    for part in FAMILY_TRAINED:
+        cfg, (_, _, shape, preset) = family_cfg(part), FAMILY_PARTS[part]
+        h = layout_compare(pod, folded_out["h"][part], part, cfg, shape,
+                           preset)
+        extra = {k: v for r in pod for k, v in r[part].items()
+                 if k in ("kernels", "ssd")}
+        emit({"phase": 38, "part": part, "model": FAMILY_PARTS[part][0],
+              "layers": cfg.n_layers, "of_layers": registry.get(
+                  FAMILY_PARTS[part][0]).cfg.n_layers, "mesh": shape,
+              "rules": preset, "gradsync": "gspmd",
+              "global_batch": [LAYOUT_BATCH, RANKS_SEQ],
+              "steps": RANKS_STEPS, **h, **extra, "nvidia_smi": smi_line})
+    for part in FAMILY_SERVED:
+        cfg, (_, _, shape, preset) = family_cfg(part), FAMILY_PARTS[part]
+        h = results[0][part]
+        ratio = [r[part]["weight_bytes"] / h["unsplit_weight_bytes"]
+                 for r in results]
+        table = rules_lib.get(preset, cfg)
+        laid = sum(layers.shard_bytes(sp, table, types.SimpleNamespace(
+            shape=shape), sp.dtype_for(torch.bfloat16))
+            for sp in layers.spec_leaves(registry.param_specs(cfg)))
+        check(all(r[part]["weight_bytes"] == laid for r in results),
+              f"({part}) a rank's weight bytes "
+              f"{[r[part]['weight_bytes'] for r in results]}, its layout's "
+              f"{laid}")
+        emit({"phase": 38, "part": part, "model": FAMILY_PARTS[part][0],
+              "layers": cfg.n_layers, "of_layers": registry.get(
+                  FAMILY_PARTS[part][0]).cfg.n_layers, "mesh": shape,
+              "rules": preset, "loss_tokens": RANKS_SEQ,
+              "prefill": TP_PREFILL, "decode_steps": TP_DECODE,
+              "heads_a_rank": [r[part]["heads_here"] for r in results],
+              "weight_bytes_ranks": [r[part]["weight_bytes"]
+                                     for r in results],
+              "weight_ratio_ranks": ratio,
+              "peak_bytes_ranks": [r[part]["peak_bytes"] for r in results],
+              "wall_s_ranks": [r[part]["wall_s"] for r in results],
+              "losses_ranks": [r[part]["loss"] for r in results],
+              **{k: v for k, v in h.items() if k not in (
+                  "heads_here", "weight_bytes", "peak_bytes", "wall_s",
+                  "loss")}, "nvidia_smi": smi_line})
     counts = collections.Counter()
     for r in results + pod:
         counts.update(r["counts"])
@@ -7444,7 +7837,7 @@ def ranks_phase() -> int:
 def check_ranks_path(counts: dict) -> None:
     check(all(counts.get(k, 0) > 0 for k in (
         "flash_attention", "flash_decode", "rms_norm", "rms_norm_residual",
-        "quantize", "dequantize")),
+        "ssd_scan", "quantize", "dequantize")),
         f"the ranks path skipped a kernel: {counts}")
 
 

@@ -37,6 +37,11 @@ differ only in that axis's coordinate.
   ``127.0.0.1`` at a port the kernel picks, so concurrent spawns never
   race for a port.
 * :func:`init_from_env` -- a ``torchrun`` launch.
+* :func:`ledger` -- counts every collective run inside it, by kind,
+  operand bytes and group size; on :meth:`RankMesh.ledger`, rank 0 of a
+  mesh with no processes behind it, the collectives are counted and not
+  run, so that one rank's step runs on ``meta`` tensors and its
+  collectives come out as the ranks would run them (the dry-run's).
 
 The backend follows from the devices, here and nowhere else
 (:func:`backend_for`): ``nccl`` when every rank has a CUDA device of its
@@ -52,6 +57,7 @@ With no device named, every entry point wants the card, as
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import io
@@ -118,39 +124,64 @@ class RankMesh:
         if not dist.is_initialized():
             raise RuntimeError("RankMesh needs an initialised default "
                                "process group (spawn, init_from_env)")
-        self.shape: Dict[str, int] = {str(k): int(v)
-                                      for k, v in shape.items()}
+        self._set_shape(shape, dist.get_world_size())
         self.device = resolve_device(device)
         self.backend = dist.get_backend()
         self.rank = dist.get_rank()
-        self.world_size = dist.get_world_size()
-        sizes = tuple(self.shape.values())
-        if math.prod(sizes) != self.world_size:
-            raise ValueError(f"mesh {self.shape} holds {math.prod(sizes)} "
-                             f"ranks; the world has {self.world_size}")
-        grid = np.arange(self.world_size).reshape(sizes)
-        coords = np.unravel_index(self.rank, sizes)
-        names = tuple(self.shape)
+        grid = np.arange(self.world_size).reshape(self.sizes)
+        coords = np.unravel_index(self.rank, self.sizes)
+        for key, dims in self._products():
+            along = tuple(self.sizes[i] for i in dims)
+            size = math.prod(along)
+            # the named dims last, row-major: a line is one group, in the
+            # order new_group ranks its members (ascending)
+            rest = [i for i in range(len(self.sizes)) if i not in dims]
+            lines = grid.transpose(rest + list(dims)).reshape(-1, size)
+            mine = None
+            # every rank creates every group of the axis, in one order
+            for line in lines:
+                group = dist.new_group([int(r) for r in line])
+                if self.rank in line:
+                    mine = group
+            index = int(np.ravel_multi_index(
+                tuple(coords[i] for i in dims), along))
+            self.axes[key] = Axis(key, mine, index, size)
+
+    @classmethod
+    def ledger(cls, shape: Mapping[str, int],
+               device: DeviceLike = "meta") -> "RankMesh":
+        """Rank 0 of a mesh of ``shape`` with no processes behind it:
+        every axis's group is a :class:`LedgerGroup`, whose collectives
+        :func:`ledger` counts and nothing runs (on ``meta`` tensors the
+        results have their shapes and no values)."""
+        mesh = cls.__new__(cls)
+        mesh._set_shape(shape, math.prod(int(v) for v in shape.values()))
+        mesh.device = torch.device(device)
+        mesh.backend, mesh.rank = "ledger", 0
+        for key, dims in mesh._products():
+            size = math.prod(mesh.sizes[i] for i in dims)
+            mesh.axes[key] = Axis(key, LedgerGroup(size), 0, size)
+        return mesh
+
+    def _set_shape(self, shape: Mapping[str, int], world_size: int) -> None:
+        self.shape: Dict[str, int] = {str(k): int(v)
+                                      for k, v in shape.items()}
+        self.sizes = tuple(self.shape.values())
+        self.world_size = world_size
+        if math.prod(self.sizes) != world_size:
+            raise ValueError(f"mesh {self.shape} holds "
+                             f"{math.prod(self.sizes)} ranks; the world has "
+                             f"{world_size}")
         self.axes: Dict[Union[str, Tuple[str, ...]], Axis] = {}
+
+    def _products(self):
+        """``(key, dims)`` of every axis and every product of axes in
+        mesh order: one name, or a tuple of names."""
+        names = tuple(self.shape)
         for k in range(1, len(names) + 1):
             for dims in itertools.combinations(range(len(names)), k):
-                along = tuple(sizes[i] for i in dims)
-                size = math.prod(along)
-                # the named dims last, row-major: a line is one group, in
-                # the order new_group ranks its members (ascending)
-                rest = [i for i in range(len(names)) if i not in dims]
-                lines = grid.transpose(rest + list(dims)).reshape(-1, size)
-                mine = None
-                # every rank creates every group of the axis, in one order
-                for line in lines:
-                    group = dist.new_group([int(r) for r in line])
-                    if self.rank in line:
-                        mine = group
-                index = int(np.ravel_multi_index(
-                    tuple(coords[i] for i in dims), along))
-                key = names[dims[0]] if k == 1 else \
-                    tuple(names[i] for i in dims)
-                self.axes[key] = Axis(key, mine, index, size)
+                yield (names[dims[0]] if k == 1 else
+                       tuple(names[i] for i in dims)), dims
 
     def axis(self, name: Union[str, Sequence[str]]) -> Axis:
         """The axis ``name``, or for a tuple of names in mesh order their
@@ -178,7 +209,45 @@ class RankMesh:
 # The collectives
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class LedgerGroup:
+    """The group of an axis of :meth:`RankMesh.ledger`: its size, and no
+    processes."""
+
+    size: int
+
+
+KIND = {"all_reduce": "all-reduce", "all_gather_into_tensor": "all-gather",
+        "reduce_scatter_tensor": "reduce-scatter"}
+_ledger: Optional[Dict[Tuple[str, int, int], int]] = None
+
+
+@contextlib.contextmanager
+def ledger():
+    """Yields a dict that counts every collective run inside:
+    ``{(kind, operand bytes, group size): count}``, the kinds
+    ``all-reduce``, ``all-gather`` and ``reduce-scatter``, an
+    all-reduce's operand its tensor, a gather's and a reduce-scatter's
+    their input."""
+    global _ledger
+    outer, _ledger = _ledger, {}
+    try:
+        yield _ledger
+    finally:
+        _ledger = outer
+
+
 def _call(collective: Callable, *args, **kwargs):
+    group = kwargs["group"]
+    fake = isinstance(group, LedgerGroup)
+    if _ledger is not None:
+        operand = args[0] if collective.__name__ == "all_reduce" else args[1]
+        key = (KIND[collective.__name__],
+               operand.numel() * operand.element_size(),
+               group.size if fake else dist.get_world_size(group))
+        _ledger[key] = _ledger.get(key, 0) + 1
+    if fake:
+        return
     with warnings.catch_warnings():
         # the collectives' newer names are not in every torch this runs on
         warnings.simplefilter("ignore", FutureWarning)

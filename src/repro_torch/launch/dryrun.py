@@ -28,15 +28,16 @@ over 512 placeholder host devices.  Three differences:
   global counts are divided by the mesh's devices for the per-device
   roofline.
 * **Collectives are the gradient reduction** (``--gradsync``'s mode
-  over the data-parallel axes), **the MoE's expert-parallel
-  all-reduces** over ``"model"`` (:func:`ep_all_reduces`) **and the
-  dense family's tensor-parallel and FSDP collectives** where the port
-  runs the rules' layout (:func:`layout_collectives`: the all-reduces
-  over ``"model"``, the gathers of the ``"data"`` blocks and the
-  reduce-scatters of their gradients, and the gradient reduction then
-  left), each by the ring model.  The port runs no sequence-parallel
-  preset and no other family's layout, so there the rules move the
-  memory columns and not the collective term.
+  over the data-parallel axes) and **the MoE's expert-parallel
+  all-reduces** over ``"model"`` (:func:`ep_all_reduces`), or where the
+  port runs the rules' layout, **the collectives its ranks run**
+  (:func:`layout_collectives`: one rank's step on ``meta`` over a
+  ledger mesh, every collective counted as it is called: the
+  tensor-parallel all-reduces and gathers, the FSDP gathers and
+  reduce-scatters, the expert-parallel sums, the gradient reduction
+  then left), each by the ring model.  The port runs no
+  sequence-parallel preset, so there the rules move the memory columns
+  and not the collective term.
 * **Remat reruns on ``meta``.**  ``--remat none|full|dots`` (default
   ``full``, the reference's) is ``Runtime.remat``: a train cell's
   backward reruns each checkpointed region inside autograd's engine,
@@ -61,22 +62,21 @@ import json
 import math
 import time
 import traceback
-import types
 from pathlib import Path
 from typing import Any, Dict
 
 import torch
 
-from repro_torch.core import costmodel
+from repro_torch.core import costmodel, ranks
 from repro_torch.launch import opanalysis
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import layers, registry, transformer
+from repro_torch.models import layers, registry
 from repro_torch.models.config import SHAPES, shape_by_name
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
 from repro_torch.train import rules as rules_lib
-from repro_torch.train.steps import (BUCKET_BYTES, make_serve_step,
-                                     make_train_step)
+from repro_torch.train.steps import (BUCKET_BYTES, layout_rank_grads,
+                                     make_serve_step, make_train_step)
 
 CHIP = costmodel.H100_SXM
 TEMP_ESTIMATE = ("peak of live meta tensors over the step / devices the "
@@ -199,8 +199,7 @@ def runs_layout(cfg, rules, mesh, gradsync: str, kind: str):
     """The parameter layout the port runs a cell's step on
     (``registry.rules_layout``), or None: a train step under a Spindle
     mode keeps every leaf whole, and what the port refuses (the
-    sequence-parallel presets, another family's split leaves) is not
-    modelled."""
+    sequence-parallel presets) is not modelled."""
     if kind == "train" and gradsync != "gspmd":
         return None
     # a leaf the rules cannot lay out raises here; what waits is None
@@ -211,126 +210,47 @@ def runs_layout(cfg, rules, mesh, gradsync: str, kind: str):
         return None
 
 
-def layout_collectives(cfg, shape, mesh_shape: Dict[str, int], layout,
-                       batch_axes, remat: str) -> list:
-    """The collectives one device runs in a step of the dense family on
-    the rules' ``layout`` (:func:`runs_layout`), as the port runs them,
-    ``[(kind, operand bytes, group, count), ...]``; T the tokens of one
-    data shard (the global batch over ``batch_axes``), d the width, L
-    the layers, n the ranks of ``"model"``, activations bfloat16 (2
-    bytes), the row-parallel sums float32:
-
-    * tensor parallelism over ``"model"``: where the vocabulary splits,
-      the lookup's all-reduce (T, d) and, in a train step, the loss's
-      gather of the row max and all-reduces of the sum of exponentials
-      and the gold logit (float32, T' = the positions the loss reads)
-      and the backward's all-reduce of the unembedding's input (T', d);
-      a prefill or decode gathers the last position's logits (B, V / n).
-      Where the heads split, each layer's row-parallel sum of the
-      attention (T, d) in float32 (again in each layer's rerun under
-      ``full`` or ``dots``) and in a train step the backward's
-      all-reduce of its input (T, d), of the qk-norm scales' gradients
-      and of the whole kv leaves' where the kv heads stay whole; where
-      the MLP splits, its float32 sum (T, d) and, training, its input's
-      all-reduce (T, d);
-    * FSDP over the other axes of a leaf (``"data"``): each split
-      leaf's all-gather of its block, a layer's once a layer (twice
-      under remat, the gather reruns), the tied embedding twice (lookup
-      and unembedding); training, the reduce-scatter of each gathered
-      gradient;
-    * training, the gradient reduction: each leaf's block all-reduced
-      over the data axes it does not lie on, the loss's all-reduce (4
-      bytes) and the global norm's, one an axis that splits a leaf
-      (4 bytes a leaf).
-
-    Per device; empty without a layout."""
-    if layout is None:
-        return []
-    specs = dict(layers.spec_paths(transformer.lm_specs(cfg)))
-
-    def size(axes) -> int:
-        return math.prod(mesh_shape.get(a, 1) for a in axes)
-
-    def block(path) -> int:
-        """Bytes of one device's block of a leaf, one layer's if the
-        leaf is stacked."""
-        spec = specs[path]
-        n = math.prod(layers.partition_shape(
-            spec.shape, layout[path], types.SimpleNamespace(
-                shape=mesh_shape)))
-        n //= spec.shape[0] if spec.axes[0] == "layers" else 1
-        return n * torch.empty((), dtype=spec.dtype).element_size()
-
-    def split(path, dim) -> bool:
-        return layout[path][dim] == layers.TP_AXIS
-
-    out = []
-
-    def add(kind, operand, group, count=1):
-        if group > 1 and count:
-            out.append((kind, operand, group, count))
-
-    train, n_layers = shape.kind == "train", cfg.n_layers
-    rows = shape.global_batch // size(batch_axes)
-    seq = 1 if shape.is_decode else shape.seq_len
-    t, d, act = rows * seq, cfg.d_model, 2
-    n = mesh_shape.get(layers.TP_AXIS, 1)
-    rerun = train and remat != "none"
-    vocab, heads = split("embed", 0), split("layers/attn/wq", 2)
-    mlp = split("layers/mlp/w_gate", 2)
-    # tensor parallelism
-    if vocab:
-        add("all-reduce", t * d * act, n)
-        if train:
-            t_loss = rows * (seq - 1)
-            add("all-gather", 4 * t_loss, n)
-            add("all-reduce", 4 * t_loss, n, 2)
-            add("all-reduce", t_loss * d * act, n)
+def layout_collectives(arch, shape, rules, mesh_shape: Dict[str, int],
+                       batch_axes, remat: str,
+                       kernels: str = "kernels") -> list:
+    """The collectives one device runs in a step of ``shape``'s cell on
+    the rules' layout (:func:`runs_layout`), as the port's ranks run
+    them: rank 0's step on ``meta`` tensors over
+    ``ranks.RankMesh.ledger(mesh_shape)``, on its blocks of the
+    parameters (``layers.shard_params``) and its rows of the global
+    batch (the batch over ``batch_axes``), each collective counted by
+    ``ranks.ledger``: ``[(kind, operand bytes, group, count), ...]``.  A
+    train cell runs the gradient and its reduction
+    (``steps.layout_rank_grads``: the tensor-parallel all-reduces, the
+    FSDP gathers and reduce-scatters, the MoE's expert-parallel sums,
+    the gradient's, the loss's and the global norm's all-reduces), a
+    prefill or decode cell ``make_serve_step`` on the rank's decode
+    state (``registry.cache_specs`` at ``registry.tp_ways``)."""
+    mesh = ranks.RankMesh.ledger(mesh_shape)
+    rt = Runtime(kernels=kernels, remat=remat, mesh=mesh, rules=rules)
+    specs = arch.param_specs()
+    params = layers.shard_params(layers.abstract_tree(specs), specs, rules,
+                                 mesh)
+    rows = shape.global_batch // math.prod(mesh_shape.get(a, 1)
+                                           for a in batch_axes)
+    inputs = arch.input_specs(shape, batch_override=rows)
+    with ranks.ledger() as counts:
+        if shape.kind == "train":
+            layout_rank_grads(arch, rt)(params, inputs)
+        elif shape.kind == "prefill":
+            with torch.no_grad():
+                make_serve_step(arch, rt, "prefill")(params, inputs)
         else:
-            add("all-gather", rows * (cfg.vocab_size // n) * act, n)
-    if heads:
-        add("all-reduce", 4 * t * d, n, n_layers * (2 if rerun else 1))
-        if train:
-            add("all-reduce", t * d * act, n, n_layers)
-            whole = ["q_norm", "k_norm"] if cfg.qk_norm else []
-            if not split("layers/attn/wk", 2):
-                whole += ["wk", "wv"] + (["bk", "bv"] if cfg.qkv_bias
-                                         else [])
-            for name in whole:
-                leaf = specs[f"layers/attn/{name}"]
-                add("all-reduce", math.prod(leaf.shape[1:]) * act, n,
-                    n_layers)
-    if mlp:
-        add("all-reduce", 4 * t * d, n, n_layers)
-        if train:
-            add("all-reduce", t * d * act, n, n_layers)
-    # FSDP
-    axes_of = {path: [a for e in part for a in layers.entry_axes(e)]
-               for path, part in layout.items()}
-    for path in layout:
-        group = size(a for a in axes_of[path] if a != layers.TP_AXIS)
-        stacked = specs[path].axes[0] == "layers"
-        count = n_layers if stacked else \
-            (2 if path == "embed" and cfg.tie_embeddings else 1)
-        add("all-gather", block(path), group,
-            count * (2 if rerun and stacked else 1))
-        if train:
-            add("reduce-scatter", block(path) * group, group, count)
-    if not train:
-        return out
-    # the gradient reduction, the loss and the global norm
-    per_axes = {}
-    for path in layout:
-        rest = [a for a in batch_axes if a not in axes_of[path]]
-        add("all-reduce", block(path) * (n_layers if specs[path].axes[0]
-                                         == "layers" else 1), size(rest))
-        if axes_of[path]:
-            key = tuple(a for a in mesh_shape if a in axes_of[path])
-            per_axes[key] = per_axes.get(key, 0) + 1
-    add("all-reduce", 4, size(batch_axes))
-    for axes, leaves in per_axes.items():
-        add("all-reduce", 4 * leaves, size(axes))
-    return out
+            cache = layers.abstract_tree(arch.cache_specs(
+                shape, batch_override=rows,
+                tp=registry.tp_ways(arch.cfg, rt)))
+            with torch.no_grad():
+                make_serve_step(arch, rt, "decode")(
+                    params, cache, inputs,
+                    torch.empty((rows,), dtype=torch.int32, device="meta"))
+    return [(kind, operand, group, count)
+            for (kind, operand, group), count in counts.items()
+            if group > 1]
 
 
 def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
@@ -380,6 +300,8 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
                      inputs, torch.empty((shape.global_batch,),
                                          dtype=torch.int32, device="meta"))
     layout = runs_layout(arch.cfg, rules, mesh, gradsync, shape.kind)
+    collectives = [] if layout is None else layout_collectives(
+        arch, shape, rules, mesh.shape, batch_axes, remat, kernels)
     with opanalysis.OpAnalysis() as an:
         out = step(*step_args)
         if shape.kind == "train":
@@ -391,12 +313,12 @@ def run_cell(arch_name: str, shape_name: str, multi_pod: bool,
             out_bytes = _output_bytes(out, arch.cache_specs(shape), rules,
                                       mesh, batch_shards)
         del out
-        ep = mesh.shape.get("model", 1)
-        for operand, count in ep_all_reduces(arch.cfg, shape, mesh.shape,
-                                             remat):
-            an.collective("all-reduce", operand, ep, count)
-        for kind, operand, group, count in layout_collectives(
-                arch.cfg, shape, mesh.shape, layout, batch_axes, remat):
+        if layout is None:
+            ep = mesh.shape.get("model", 1)
+            for operand, count in ep_all_reduces(arch.cfg, shape,
+                                                 mesh.shape, remat):
+                an.collective("all-reduce", operand, ep, count)
+        for kind, operand, group, count in collectives:
             an.collective(kind, operand, group, count)
     t_trace = time.time() - t0
 

@@ -9,7 +9,7 @@ through the ``flash_attention`` kernel site of the :class:`Runtime`, and
 ``flash_decode`` site with a per-row ``(B,)`` length.
 :func:`cross_attention` (the encoder-decoder's, queries over a memory of
 another length) stays the plain :func:`_sdpa`, as the reference leaves
-it to XLA.  The reference's
+it to XLA, and splits its heads as the self attention does.  The reference's
 pure-XLA blocked twin of the flash kernel, ``_sdpa_chunked``, is not
 ported: the tests hold the port against the reference's own kernel and
 its ``_sdpa``, and the port's kernel site has its plain version.
@@ -84,6 +84,15 @@ def kv_heads_here(cfg: ModelConfig, n_q: int) -> int:
     raise ValueError(f"{cfg.name}: {cfg.n_kv_heads} kv heads neither split "
                      f"over {ways} ranks nor serve whole groups of their "
                      f"{n_q} q heads")
+
+
+def kv_heads_split(cfg: ModelConfig, tp: int) -> int:
+    """The kv heads of a rank's cache under tensor parallelism over
+    ``tp`` ranks: those its q heads read (:func:`kv_heads_here`), the q
+    heads split where they divide ``tp`` and whole elsewhere, as
+    ``layers.spec_to_pspec`` lays them out."""
+    n_q = cfg.n_heads // tp if cfg.n_heads % tp == 0 else cfg.n_heads
+    return kv_heads_here(cfg, n_q)
 
 
 def tp_axis(p: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -217,22 +226,26 @@ def full_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 def cross_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                     x: torch.Tensor, memory: torch.Tensor,
-                    rope) -> torch.Tensor:
+                    rope, rt: Optional[Runtime] = None) -> torch.Tensor:
     """Encoder-decoder cross attention: x (B, S, d) over ``memory`` (B,
     S_mem, d), no mask.  q is rotated by ``rope``, the ``(cos, sin)`` of
-    positions 0..S-1; k and v are not rotated.  Returns (B, S, d)."""
-    b, s, _ = x.shape
+    positions 0..S-1; k and v are not rotated.  Returns (B, S, d).  With
+    this rank's heads in ``p`` (:func:`tp_axis`), its q heads read its
+    kv heads of the memory, x and the memory entering through
+    ``copy_to``, and ``wo`` is row-parallel."""
+    axis = tp_axis(p, cfg, rt)
+    kv = _kv_params(p, cfg, axis)
+    if axis is not None:
+        x, memory = ranks.copy_to(x, axis), ranks.copy_to(memory, axis)
     q = _heads(x, p["wq"])
-    k = _heads(memory, p["wk"])
-    v = _heads(memory, p["wv"])
+    k = _heads(memory, kv["wk"])
+    v = _heads(memory, kv["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + kv["bk"]
+        v = v + kv["bv"]
     q = layers.rotate(q, *rope)
-    out = _sdpa(q, k, v, causal=False)
-    hq, hd = cfg.n_heads, cfg.head_dim_
-    return out.reshape(b, s, hq * hd) @ p["wo"].reshape(hq * hd, -1)
+    return _out(p, _sdpa(q, k, v, causal=False), axis)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,15 @@ cache (``flash_decode`` over all ``src_len`` positions of every row: the
 same function as the reference's unmasked one-query attention): 24
 ``flash_decode`` calls a step.  The cross q is rotated at each row's own
 position; the reference takes one scalar position for the whole batch.
+
+Under ``Runtime.rules`` on a rank mesh both stacks run on this rank's
+heads (the encoder's non-causal attention, the decoder's self and cross
+attention: its q heads over its kv heads of the memory) and its SwiGLU
+columns and rows, the vocabulary as
+:mod:`~repro_torch.models.transformer` takes it; each layer's
+``"data"`` blocks are gathered inside its region.  The self and the
+cross cache of a rank hold its kv heads (:func:`cache_specs` with
+``tp``).
 """
 
 from __future__ import annotations
@@ -60,8 +69,7 @@ def _dec_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
     e = cfg.encdec
     return {
-        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
-                           ("vocab", "fsdp_embed")),
+        "embed": transformer.embed_spec(cfg),
         "encoder": layers.map_specs(
             lambda s: s.stack_layers(e.n_encoder_layers),
             _enc_block_specs(cfg)),
@@ -70,8 +78,7 @@ def encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
             _dec_block_specs(cfg)),
         "enc_norm": layers.norm_specs(cfg.d_model),
         "final_norm": layers.norm_specs(cfg.d_model),
-        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size),
-                             ("fsdp_embed", "vocab")),
+        "lm_head": transformer.head_spec(cfg),
     }
 
 
@@ -81,9 +88,11 @@ def _rope(cfg: ModelConfig, x: torch.Tensor):
                                compute_dtype(x.dtype))
 
 
-def _swiglu(p: Dict[str, Any], h: torch.Tensor) -> torch.Tensor:
+def _swiglu(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
+            rt: Runtime) -> torch.Tensor:
     m = p["mlp"]
-    return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"])
+    axis = layers.split_axis(m["w_gate"].shape[-1], cfg.d_ff, rt, "the MLP")
+    return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"], axis)
 
 
 def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
@@ -93,15 +102,17 @@ def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
     block) is one region of ``rt.checkpoint``."""
     x = frames.to(params["embed"].dtype)
     rope = _rope(cfg, x)
+    specs = _enc_block_specs(cfg)
 
-    def region(p):
+    def region(layer):
         def run(y, x):
+            p = layers.gather_fsdp(layer, specs, rt)
             h, x = layers.open_norm(rt, y, x, p["attn_norm"]["scale"],
                                     cfg.norm_eps)
             a = attention.full_attention(p["attn"], cfg, h, False, rt, rope)
             h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
                                               cfg.norm_eps)
-            return x, _swiglu(p, h)
+            return x, _swiglu(p, cfg, h, rt)
         return run
 
     y = None
@@ -117,20 +128,23 @@ def _decoder(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     """The decoder stack over ``tokens`` (B, S): (the residual stream,
     the last block's FFN output not yet added).  Layer i is one region
     of ``rt.checkpoint``, as in :func:`encode`."""
-    x = transformer.embed(params, cfg, tokens)
+    x = transformer.embed(params, cfg, tokens, rt)
     rope = _rope(cfg, x)
+    specs = _dec_block_specs(cfg)
 
-    def region(p):
+    def region(layer):
         def run(y, x):
+            p = layers.gather_fsdp(layer, specs, rt)
             h, x = layers.open_norm(rt, y, x, p["attn_norm"]["scale"],
                                     cfg.norm_eps)
             a = attention.full_attention(p["attn"], cfg, h, True, rt, rope)
             h, x = rt.op("rms_norm_residual")(a, x, p["cross_norm"]["scale"],
                                               cfg.norm_eps)
-            c = attention.cross_attention(p["cross"], cfg, h, memory, rope)
+            c = attention.cross_attention(p["cross"], cfg, h, memory, rope,
+                                          rt)
             h, x = rt.op("rms_norm_residual")(c, x, p["ffn_norm"]["scale"],
                                               cfg.norm_eps)
-            return x, _swiglu(p, h)
+            return x, _swiglu(p, cfg, h, rt)
         return run
 
     y = None
@@ -158,21 +172,25 @@ def seq2seq_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
                                       cfg.norm_eps)
     mask = batch.get("mask")
-    return layers.cross_entropy_loss(
-        h @ params["lm_head"], tokens[:, 1:],
-        None if mask is None else mask[:, 1:])
+    return transformer.next_token_loss(params, cfg, h, tokens[:, 1:],
+                                       None if mask is None else mask[:, 1:],
+                                       rt)
 
 
 # ---------------------------------------------------------------------------
 # Decode with the self-KV cache and the precomputed cross cache
 # ---------------------------------------------------------------------------
 
-def cache_specs(cfg: ModelConfig, batch: int, max_len: int, src_len: int
-                ) -> Dict[str, ParamSpec]:
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, src_len: int,
+                tp: int = 1) -> Dict[str, ParamSpec]:
+    """The self and the cross cache; with ``tp`` a rank's under tensor
+    parallelism over that many ranks (its kv heads,
+    :func:`repro_torch.models.attention.kv_heads_split`)."""
     nl = cfg.encdec.n_decoder_layers
+    hkv = attention.kv_heads_split(cfg, tp)
     kv = ("layers", "batch", "seq", "kv_heads", "head_dim")
-    self_kv = (nl, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-    cross = (nl, batch, src_len, cfg.n_kv_heads, cfg.head_dim_)
+    self_kv = (nl, batch, max_len, hkv, cfg.head_dim_)
+    cross = (nl, batch, src_len, hkv, cfg.head_dim_)
     return {"k": ParamSpec(self_kv, kv), "v": ParamSpec(self_kv, kv),
             "cross_k": ParamSpec(cross, kv), "cross_v": ParamSpec(cross, kv)}
 
@@ -193,12 +211,13 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
     b = tokens.shape[0]
     src_len = torch.full((b,), cache["cross_k"].shape[2], dtype=torch.int32,
                          device=position.device)
-    hq, hd = cfg.n_heads, cfg.head_dim_
-    x = transformer.embed(params, cfg, tokens)
+    x = transformer.embed(params, cfg, tokens, rt)
     h = rt.op("rms_norm")(x, params["decoder"]["attn_norm"]["scale"][0],
                           cfg.norm_eps)
+    specs = _dec_block_specs(cfg)
     for i in range(cfg.encdec.n_decoder_layers):
-        p = transformer.layer_params(params["decoder"], i)
+        p = layers.gather_fsdp(transformer.layer_params(params["decoder"], i),
+                               specs, rt)
         if i:
             h, x = rt.op("rms_norm_residual")(y, x, p["attn_norm"]["scale"],
                                               cfg.norm_eps)
@@ -207,16 +226,18 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
                                        rope)
         h, x = rt.op("rms_norm_residual")(a, x, p["cross_norm"]["scale"],
                                           cfg.norm_eps)
-        q = attention._heads(h, p["cross"]["wq"])
+        cross = p["cross"]
+        q = attention._heads(h, cross["wq"])
         if cfg.qkv_bias:
-            q = q + p["cross"]["bq"]
+            q = q + cross["bq"]
         q = layers.rotate(q, *rope)
         o = rt.op("flash_decode")(q[:, 0], cache["cross_k"][i],
                                   cache["cross_v"][i], src_len)
-        c = o.reshape(b, 1, hq * hd) @ p["cross"]["wo"].reshape(hq * hd, -1)
+        c = attention._out(cross, o[:, None],
+                           attention.tp_axis(cross, cfg, rt))
         h, x = rt.op("rms_norm_residual")(c, x, p["ffn_norm"]["scale"],
                                           cfg.norm_eps)
-        y = _swiglu(p, h)
+        y = _swiglu(p, cfg, h, rt)
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
                                       cfg.norm_eps)
-    return (h @ params["lm_head"])[:, 0], cache
+    return transformer.unembed(params, cfg, h, rt)[:, 0], cache

@@ -29,6 +29,15 @@ norms) and 72 ``rms_norm_residual`` calls a forward or a step, with 54
 ``flash_decode`` calls a step.  On the full sequence each group's sites
 (the reference's super block: its Mamba layers and the shared block)
 are one region of ``rt.checkpoint``.
+
+Under ``Runtime.rules`` on a rank mesh the Mamba layers run on this
+rank's ssm heads (:func:`repro_torch.models.ssm.mamba_block`), the
+shared block's attention on its heads and its SwiGLU on its columns and
+rows (tensor parallelism, as the dense family's), the vocabulary as
+:mod:`~repro_torch.models.transformer` takes it; each group's ``"data"``
+blocks (its Mamba layers' and the shared block's) are gathered inside
+its region.  The decode state of a rank holds its ssm heads, its conv
+channels and its kv heads (:func:`cache_specs` with ``tp``).
 """
 
 from __future__ import annotations
@@ -57,25 +66,29 @@ def _groups(cfg: ModelConfig) -> Tuple[int, int]:
     return cfg.n_layers // k, k
 
 
-def hybrid_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    g, k = _groups(cfg)
-    mamba = {"norm": layers.norm_specs(cfg.d_model),
-             "ssm": ssm.ssm_specs(cfg)}
-    shared = {
+def _mamba_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"norm": layers.norm_specs(cfg.d_model),
+            "ssm": ssm.ssm_specs(cfg)}
+
+
+def _shared_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
         "attn_norm": layers.norm_specs(cfg.d_model),
         "attn": attention.attn_specs(cfg),
         "ffn_norm": layers.norm_specs(cfg.d_model),
         "mlp": layers.mlp_specs(cfg.d_model, cfg.d_ff),
     }
+
+
+def hybrid_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    g, k = _groups(cfg)
     return {
-        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
-                           ("vocab", "fsdp_embed")),
+        "embed": transformer.embed_spec(cfg),
         "mamba_layers": layers.map_specs(
-            lambda s: s.stack_layers(k).stack_layers(g), mamba),
-        "shared_block": shared,
+            lambda s: s.stack_layers(k).stack_layers(g), _mamba_specs(cfg)),
+        "shared_block": _shared_specs(cfg),
         "final_norm": layers.norm_specs(cfg.d_model),
-        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size),
-                             ("fsdp_embed", "vocab")),
+        "lm_head": transformer.head_spec(cfg),
     }
 
 
@@ -87,37 +100,43 @@ def unstack_groups(stacked: PyTree) -> List[List[PyTree]]:
             for group in transformer.unstack_layers(stacked)]
 
 
-def _shared_block(p: Dict[str, Any], attn: Callable) -> List[Site]:
+def _shared_block(p: Dict[str, Any], cfg: ModelConfig, rt: Runtime,
+                  attn: Callable) -> List[Site]:
     """The shared block's two norm sites: ``attn(h)`` after the attention
-    norm, the SwiGLU MLP after the FFN norm."""
+    norm, the SwiGLU MLP (on this rank's columns and rows where they
+    split) after the FFN norm."""
     m = p["mlp"]
+    axis = layers.split_axis(m["w_gate"].shape[-1], cfg.d_ff, rt, "the MLP")
     return [(p["attn_norm"]["scale"], attn),
             (p["ffn_norm"]["scale"],
              lambda h: layers.swiglu(h, m["w_gate"], m["w_up"],
-                                     m["w_down"]))]
+                                     m["w_down"], axis))]
 
 
 def _walk(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
           mamba: Callable, attn: Callable, region: Callable = lambda fn: fn
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stack over the embedded x.  ``mamba(p, h, g, i)`` runs Mamba
-    layer ``[g][i]`` and ``attn(h, g)`` the shared block's attention in
-    group ``g``.  Each group's sites (its Mamba layers and the shared
-    block, the reference's super block) run as one ``region(fn)(y, x)``:
-    ``rt.checkpoint`` on the full sequence, the identity in a decode
-    step.  Returns ``(x, y)``: the residual stream and the last site's
-    output, not yet added (the final norm adds it as it normalises)."""
-    shared = params["shared_block"]
+    layer ``[g][i]`` and ``attn(p, h, g)`` the shared block's attention
+    ``p`` in group ``g``.  Each group's sites (its Mamba layers and the
+    shared block, the reference's super block) run as one ``region(fn)(y,
+    x)``, their ``"data"`` blocks gathered inside it: ``rt.checkpoint``
+    on the full sequence, the identity in a decode step.  Returns ``(x,
+    y)``: the residual stream and the last site's output, not yet added
+    (the final norm adds it as it normalises)."""
     eps = cfg.norm_eps
+    mamba_specs, shared_specs = _mamba_specs(cfg), _shared_specs(cfg)
 
-    def group_sites(g: int, group: List[PyTree]) -> List[Site]:
-        return [(lp["norm"]["scale"],
-                 lambda h, p=lp["ssm"], i=i: mamba(p, h, g, i))
-                for i, lp in enumerate(group)] + \
-            _shared_block(shared, lambda h: attn(h, g))
-
-    def run_sites(sites: List[Site]) -> Callable:
+    def run_group(g: int, group: List[PyTree]) -> Callable:
         def run(y, x):
+            shared = layers.gather_fsdp(params["shared_block"], shared_specs,
+                                        rt)
+            here = [layers.gather_fsdp(lp, mamba_specs, rt) for lp in group]
+            sites = [(lp["norm"]["scale"],
+                      lambda h, p=lp["ssm"], i=i: mamba(p, h, g, i))
+                     for i, lp in enumerate(here)] + \
+                _shared_block(shared, cfg, rt,
+                              lambda h: attn(shared["attn"], h, g))
             for scale, fn in sites:
                 h, x = layers.open_norm(rt, y, x, scale, eps)
                 y = fn(h)
@@ -126,7 +145,7 @@ def _walk(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
 
     y = None
     for g, group in enumerate(unstack_groups(params["mamba_layers"])):
-        x, y = region(run_sites(group_sites(g, group)))(y, x)
+        x, y = region(run_group(g, group))(y, x)
     return x, y
 
 
@@ -144,11 +163,10 @@ def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime
     positions = torch.arange(x.shape[1], device=x.device)[None]
     rope = layers.rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta,
                                compute_dtype(x.dtype))
-    attn_p = params["shared_block"]["attn"]
     return _walk(params, cfg, x, rt,
                  lambda p, h, g, i: ssm.mamba_block(p, cfg, h, rt),
-                 lambda h, g: attention.full_attention(attn_p, cfg, h, True,
-                                                       rt, rope),
+                 lambda p, h, g: attention.full_attention(p, cfg, h, True,
+                                                          rt, rope),
                  rt.checkpoint)
 
 
@@ -165,7 +183,8 @@ def hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
            rt: Runtime) -> torch.Tensor:
     """The full-sequence stack over ``tokens`` (B, S) -> the final-normed
     hidden states (B, S, d)."""
-    x, y = _stack(params, cfg, transformer.embed(params, cfg, tokens), rt)
+    x, y = _stack(params, cfg, transformer.embed(params, cfg, tokens, rt),
+                  rt)
     return _final_norm(params, cfg, x, y, rt)
 
 
@@ -175,10 +194,10 @@ def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     (B, S); ``batch["mask"]`` marks the valid target positions.  Returns
     a float32 scalar."""
     tokens = batch["tokens"]
-    logits = hidden(params, cfg, tokens, rt)[:, :-1] @ params["lm_head"]
     mask = batch.get("mask")
-    return layers.cross_entropy_loss(
-        logits, tokens[:, 1:], None if mask is None else mask[:, 1:])
+    return transformer.next_token_loss(
+        params, cfg, hidden(params, cfg, tokens, rt)[:, :-1], tokens[:, 1:],
+        None if mask is None else mask[:, 1:], rt)
 
 
 # ---------------------------------------------------------------------------
@@ -186,11 +205,16 @@ def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
 # block per invocation group (the shared block attends at G points).
 # ---------------------------------------------------------------------------
 
-def cache_specs(cfg: ModelConfig, batch: int, max_len: int
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1
                 ) -> Dict[str, ParamSpec]:
+    """The decode state; with ``tp`` a rank's under tensor parallelism
+    over that many ranks (its ssm heads and conv channels,
+    :func:`repro_torch.models.ssm.ssm_cache_specs`, and its kv heads,
+    :func:`repro_torch.models.attention.kv_heads_split`)."""
     g, k = _groups(cfg)
-    ssm_specs = ssm.ssm_cache_specs(cfg, batch, n_layers=k)
-    kv = attention.kv_cache_specs(cfg, batch, max_len, n_layers=g)
+    ssm_specs = ssm.ssm_cache_specs(cfg, batch, n_layers=k, tp=tp)
+    kv = attention.kv_cache_specs(cfg, batch, max_len, n_layers=g,
+                                  kv_heads=attention.kv_heads_split(cfg, tp))
     return {**layers.map_specs(lambda s: s.stack_layers(g), ssm_specs),
             **kv}
 
@@ -211,13 +235,12 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Dict[str, Any],
     rope = layers.rope_cos_sin(position[:, None], cfg.head_dim_,
                                cfg.rope_theta,
                                compute_dtype(params["embed"].dtype))
-    attn_p = params["shared_block"]["attn"]
-    x, y = _walk(params, cfg, transformer.embed(params, cfg, tokens), rt,
+    x, y = _walk(params, cfg, transformer.embed(params, cfg, tokens, rt), rt,
                  lambda p, h, g, i: ssm.mamba_decode_block(
                      p, cfg, h, cache["ssm_state"][g, i],
                      cache["conv_state"][g, i], rt, rows),
-                 lambda h, g: attention.decode_attention(
-                     attn_p, cfg, h, cache["k"][g], cache["v"][g], position,
+                 lambda p, h, g: attention.decode_attention(
+                     p, cfg, h, cache["k"][g], cache["v"][g], position,
                      rt, rows, rope))
     h = _final_norm(params, cfg, x, y, rt)
-    return (h @ params["lm_head"])[:, 0], cache
+    return transformer.unembed(params, cfg, h, rt)[:, 0], cache

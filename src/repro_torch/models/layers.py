@@ -429,6 +429,20 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor,
     return ranks.reduce_from(compute(x) @ compute(w), axis).to(x.dtype)
 
 
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                   axis: ranks.Axis, width: int) -> torch.Tensor:
+    """RMSNorm over a last dim of ``width`` entries of which ``x`` holds
+    this rank's columns and ``scale`` their scales: each row's float32
+    sum of squares is summed over ``axis`` (a (..., 1) all-reduce where
+    gathering the rows would move all of them), then the rank's columns
+    are normalised.  Each rank's columns read the sum, so its backward
+    sums the ranks' cotangents of it as well."""
+    xf = compute(x)
+    ss = ranks.reduce_from(ranks.copy_to(xf.square().sum(-1, keepdim=True),
+                                         axis), axis)
+    return (xf * torch.rsqrt(ss / width + eps) * compute(scale)).to(x.dtype)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor,
            axis: Optional[ranks.Axis] = None) -> torch.Tensor:

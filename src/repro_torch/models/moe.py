@@ -227,7 +227,8 @@ def _moe_ffn(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
 
 def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
               x: torch.Tensor, ep_axis: Optional[str] = None,
-              mesh: Optional[ranks.RankMesh] = None
+              mesh: Optional[ranks.RankMesh] = None,
+              shared_axis: Optional[ranks.Axis] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN: routed experts plus the shared experts.  x (B, S, d)
     -> (y (B, S, d), aux scalar).  The tokens of every row route
@@ -235,7 +236,9 @@ def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     an axis of ``mesh``, ``p`` holds this rank's experts
     (:func:`shard_experts`), every rank of the axis passes the same x,
     and each gets the whole y; a gradient through it is each rank's part
-    (see the module's docstring)."""
+    (see the module's docstring).  With ``shared_axis`` the shared
+    experts are this rank's columns and rows of their SwiGLU (tensor
+    parallelism, ``layers.swiglu``)."""
     ep = None
     if ep_axis is not None:
         if mesh is None:
@@ -249,7 +252,8 @@ def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     y = y.reshape(b, s, d)
     if cfg.moe.n_shared:
         sh = p["shared"]
-        y = y + layers.swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
+        y = y + layers.swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"],
+                              shared_axis)
     return y, aux
 
 

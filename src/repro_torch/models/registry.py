@@ -26,7 +26,6 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.models import (attention, encdec, hybrid, layers, moe,
                                 ssm, transformer, vlm)
 from repro_torch.models.config import ModelConfig, ShapeConfig
-from repro_torch.models.layers import ParamSpec
 from repro_torch.models.masking import valid_rows
 from repro_torch.models.runtime import Runtime
 
@@ -58,17 +57,18 @@ def _family(cfg: ModelConfig) -> str:
 # ssm-family LM (mamba2): thin assembly over ssm.py blocks
 # ---------------------------------------------------------------------------
 
+def _ssm_block_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"norm": layers.norm_specs(cfg.d_model),
+            "ssm": ssm.ssm_specs(cfg)}
+
+
 def _ssm_lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    block = {"norm": layers.norm_specs(cfg.d_model),
-             "ssm": ssm.ssm_specs(cfg)}
     return {
-        "embed": ParamSpec((cfg.vocab_size, cfg.d_model),
-                           ("vocab", "fsdp_embed")),
-        "layers": layers.map_specs(lambda s: s.stack_layers(cfg.n_layers),
-                                   block),
+        "embed": transformer.embed_spec(cfg),
+        "layers": transformer.stack_specs(_ssm_block_specs(cfg),
+                                          cfg.n_layers),
         "final_norm": layers.norm_specs(cfg.d_model),
-        "lm_head": ParamSpec((cfg.d_model, cfg.vocab_size),
-                             ("fsdp_embed", "vocab")),
+        "lm_head": transformer.head_spec(cfg),
     }
 
 
@@ -79,17 +79,22 @@ def _ssm_hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     norm(x)`` is one fused ``rms_norm_residual``, as in the dense
     decoder: for mamba2-2.7b (64 layers) 65 ``rms_norm`` (the first norm
     and each block's gated norm), 64 ``rms_norm_residual`` and 64
-    ``ssd_scan`` calls per forward.  Layer i (its opening norm and
-    block) is one region of ``rt.checkpoint``, as in
+    ``ssd_scan`` calls per forward (on a rank whose heads split, the
+    gated norms are ``layers.rms_norm_split``: 1 ``rms_norm``).  Layer i
+    (its opening norm and block) is one region of ``rt.checkpoint``, its
+    ``"data"`` blocks gathered inside it, as in
     :func:`repro_torch.models.transformer._stack`."""
+    specs = _ssm_block_specs(cfg)
+
     def region(p):
         def run(y, x):
-            h, x = layers.open_norm(rt, y, x, p["norm"]["scale"],
+            q = layers.gather_fsdp(p, specs, rt)
+            h, x = layers.open_norm(rt, y, x, q["norm"]["scale"],
                                     cfg.norm_eps)
-            return x, ssm.mamba_block(p["ssm"], cfg, h, rt)
+            return x, ssm.mamba_block(q["ssm"], cfg, h, rt)
         return run
 
-    x = transformer.embed(params, cfg, tokens)
+    x = transformer.embed(params, cfg, tokens, rt)
     y = None
     for p in transformer.unstack_layers(params["layers"]):
         x, y = rt.checkpoint(region(p))(y, x)
@@ -112,10 +117,12 @@ def _ssm_decode_step(params: PyTree, cfg: ModelConfig,
     ``rms_norm_residual`` calls a step.  Returns ``(logits (B, V),
     cache)`` — the same cache dict."""
     rows = valid_rows(valid, position.device)
-    x = transformer.embed(params, cfg, tokens)
+    specs = _ssm_block_specs(cfg)
+    x = transformer.embed(params, cfg, tokens, rt)
     per_layer = transformer.unstack_layers(params["layers"])
     h = rt.op("rms_norm")(x, per_layer[0]["norm"]["scale"], cfg.norm_eps)
     for i, p in enumerate(per_layer):
+        p = layers.gather_fsdp(p, specs, rt)
         if i:
             h, x = rt.op("rms_norm_residual")(y, x, p["norm"]["scale"],
                                               cfg.norm_eps)
@@ -123,7 +130,7 @@ def _ssm_decode_step(params: PyTree, cfg: ModelConfig,
                                    cache["conv_state"][i], rt, rows)
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
                                       cfg.norm_eps)
-    return (h @ params["lm_head"])[:, 0], cache
+    return transformer.unembed(params, cfg, h, rt)[:, 0], cache
 
 
 def _ssm_lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
@@ -132,10 +139,10 @@ def _ssm_lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     :func:`repro_torch.models.transformer.lm_loss` for the dense one."""
     tokens = batch["tokens"]
     h = _ssm_hidden(params, cfg, tokens, rt)
-    logits = h[:, :-1] @ params["lm_head"]
     mask = batch.get("mask")
-    return layers.cross_entropy_loss(
-        logits, tokens[:, 1:], None if mask is None else mask[:, 1:])
+    return transformer.next_token_loss(
+        params, cfg, h[:, :-1], tokens[:, 1:],
+        None if mask is None else mask[:, 1:], rt)
 
 
 # ---------------------------------------------------------------------------
@@ -207,15 +214,13 @@ class Arch:
         return input_specs(self.cfg, shape, batch_override=batch_override)
 
     def cache_specs(self, shape: ShapeConfig, *, batch_override=None,
-                    kv_heads: Optional[int] = None) -> PyTree:
+                    tp: int = 1) -> PyTree:
         return cache_specs(self.cfg, shape, batch_override=batch_override,
-                           kv_heads=kv_heads)
+                           tp=tp)
 
 
 # the rules' layouts that wait, by what they need
 SEQ_PARALLEL_ITEM = "ROADMAP.md item 33 (the sequence-parallel presets)"
-FAMILY_LAYOUT_ITEM = ("ROADMAP.md item 34 (the ssm, hybrid, moe, vlm and "
-                      "encdec families' layouts)")
 
 
 def layout(cfg: ModelConfig, rt: Runtime
@@ -237,11 +242,14 @@ def rules_layout(cfg: ModelConfig, rules: Dict[str, Any], mesh
     each): every such path is the one that runs without rules, the
     experts split by ``moe``.
 
-    What waits raises ``ValueError``: rules that shard the sequence over
-    a mesh axis of more than one rank (:data:`SEQ_PARALLEL_ITEM`), a
-    family other than ``dense`` with a non-expert leaf split
-    (:data:`FAMILY_LAYOUT_ITEM`), and a dim split over
-    ``layers.TP_AXIS`` together with another axis."""
+    What the port does not run raises ``ValueError``: rules that shard
+    the sequence over a mesh axis of more than one rank
+    (:data:`SEQ_PARALLEL_ITEM`), a dim split over ``layers.TP_AXIS``
+    together with another axis, and a Mamba block whose leaves do not
+    split over ``layers.TP_AXIS`` together (its heads, its columns of
+    the projection and of the conv, its norm and ``w_out`` rows: all or
+    none) or whose heads split off their groups' edges
+    (``ssm.rank_dims``)."""
     out = layers.tree_layout(param_specs(cfg), rules, mesh)
     split = [path for path, part in out.items()
              if any(part) and not moe.is_expert_leaf(path)]
@@ -252,16 +260,37 @@ def rules_layout(cfg: ModelConfig, rules: Dict[str, Any], mesh
     if seq:
         raise ValueError(f"the rules shard the sequence over {seq}: "
                          f"{SEQ_PARALLEL_ITEM} waits")
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: the rules split {split[0]} of the "
-                         f"{cfg.family} family: {FAMILY_LAYOUT_ITEM} waits")
     for path in split:
         for entry in out[path]:
             axes = layers.entry_axes(entry)
             if layers.TP_AXIS in axes and len(axes) > 1:
                 raise ValueError(f"{path}: a dim split over {axes} mixes "
                                  f"{layers.TP_AXIS!r} with other axes")
+    if cfg.ssm is not None:
+        tp = {path: any(layers.TP_AXIS in layers.entry_axes(e)
+                        for e in part)
+              for path, part in out.items() if "/ssm/" in path}
+        if len(set(tp.values())) > 1:
+            raise ValueError(
+                f"{cfg.name}: the rules split "
+                f"{sorted(p for p, t in tp.items() if t)} of the Mamba "
+                f"block over {layers.TP_AXIS!r} and not "
+                f"{sorted(p for p, t in tp.items() if not t)}; its heads "
+                "and columns split together or not at all")
+        if any(tp.values()):
+            ssm.rank_dims(cfg, mesh.shape[layers.TP_AXIS])
     return out
+
+
+def tp_ways(cfg: ModelConfig, rt: Runtime) -> int:
+    """The ranks that tensor parallelism splits ``cfg``'s heads over
+    under ``rt`` (the size of its ``layers.TP_AXIS`` where its
+    :func:`layout` splits a leaf), else 1: what sizes a rank's decode
+    state (:func:`cache_specs`)."""
+    axis = rt.tp_axis()
+    if axis is None or layout(cfg, rt) is None:
+        return 1
+    return axis.size
 
 
 def param_specs(cfg: ModelConfig) -> PyTree:
@@ -309,23 +338,25 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, *,
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, *,
                 batch_override: Optional[int] = None,
-                kv_heads: Optional[int] = None) -> PyTree:
+                tp: int = 1) -> PyTree:
     """Decode-state ParamSpec tree sized for ``shape`` (cache of
     ``seq_len``; the encdec's cross cache of ``seq_len`` source
-    positions too, as the reference's).  ``kv_heads`` is a rank's under
-    tensor parallelism (the decoder families;
-    :func:`repro_torch.models.transformer.kv_heads_here`)."""
+    positions too, as the reference's).  With ``tp`` (:func:`tp_ways`)
+    a rank's under tensor parallelism: its kv heads
+    (``attention.kv_heads_split``), its ssm heads and conv channels
+    (``ssm.ssm_cache_specs``)."""
     f = _family(cfg)
     b = batch_override if batch_override is not None else shape.global_batch
     if f == "ssm":
-        return ssm.ssm_cache_specs(cfg, b)
+        return ssm.ssm_cache_specs(cfg, b, tp=tp)
     if f == "hybrid":
-        return hybrid.cache_specs(cfg, b, shape.seq_len)
+        return hybrid.cache_specs(cfg, b, shape.seq_len, tp)
     if f == "encdec":
         return encdec.cache_specs(cfg, b, shape.seq_len,
-                                  src_len=shape.seq_len)
+                                  src_len=shape.seq_len, tp=tp)
     return attention.kv_cache_specs(cfg, b, shape.seq_len,
-                                    kv_heads=kv_heads)
+                                    kv_heads=attention.kv_heads_split(cfg,
+                                                                      tp))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,21 @@ through ``rms_norm``.
 Layout follows the reference: d_inner = expand * d_model, H = d_inner /
 head_dim heads, scalar decay A per head, B/C shared across heads in
 ``n_groups`` groups.
+
+Under tensor parallelism (``Runtime.rules`` splitting ``ssm_inner`` and
+``ssm_heads`` over ``"model"``) a rank holds contiguous column blocks of
+the fused ``w_in`` and of the conv, which do not fall on head edges, and
+its heads' per-head vectors, ``norm`` entries and ``w_out`` rows, which
+do.  :func:`mamba_block` computes its column block of the projection and
+gathers it whole over the axis (``ranks.gather_from``: the backward
+reduce-scatters), gathers the small conv weights the same way, then takes
+its heads' z, x and dt and its groups' B and C (:func:`rank_dims`),
+convolves those channels only and scans its heads.  The gated RMSNorm
+over the whole d_inner sums each row's squares over the axis
+(``layers.rms_norm_split``, in place of the ``rms_norm`` site) and
+``w_out`` is row-parallel.  The decode state of a rank holds its heads'
+``ssm_state`` and the conv inputs of its channels
+(:func:`ssm_cache_specs` with ``tp``).
 """
 
 from __future__ import annotations
@@ -30,7 +45,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import masking
+from repro_torch.core import ranks
+from repro_torch.models import layers, masking
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.runtime import Runtime
@@ -64,6 +80,65 @@ def ssm_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         "norm": ParamSpec((d_inner,), ("ssm_inner",), init="ones"),
         "w_out": ParamSpec((d_inner, d), ("ssm_inner", "fsdp_embed")),
     }
+
+
+def rank_dims(cfg: ModelConfig, tp: int) -> Tuple[int, int]:
+    """The (heads, groups) a rank holds when the heads split ``tp`` ways:
+    its H / tp heads and the groups they read, all H / G heads of a group
+    on one rank or one group's heads across ranks (H / tp a multiple of
+    H / G, or the reverse); (H, G) for ``tp`` 1.  Other splits raise
+    ``ValueError``: a rank's heads would read parts of groups, which the
+    scan's head-to-group map cannot give."""
+    _, nh, _, _, ng = _dims(cfg)
+    if tp == 1:
+        return nh, ng
+    here, per_group = nh // tp, nh // ng
+    if nh % tp or (here % per_group and per_group % here):
+        raise ValueError(f"{cfg.name}: {nh} ssm heads in {ng} groups do "
+                         f"not split {tp} ways along group edges")
+    return here, max(1, here // per_group)
+
+
+def _rank_channels(cfg: ModelConfig, xbc: torch.Tensor, index: int,
+                   tp: int) -> torch.Tensor:
+    """Rank ``index`` of ``tp``'s channels of the whole ``[x, B, C]``
+    channels (the conv's input, or its weights): its heads' x and its
+    groups' B and C, contiguous."""
+    d_inner, nh, hp, dn, ng = _dims(cfg)
+    here, groups = rank_dims(cfg, tp)
+    h0, g0 = index * here, index * here * ng // nh
+    return torch.cat([xbc[..., h0 * hp:(h0 + here) * hp],
+                      xbc[..., d_inner + g0 * dn:
+                          d_inner + (g0 + groups) * dn],
+                      xbc[..., d_inner + (ng + g0) * dn:
+                          d_inner + (ng + g0 + groups) * dn]], dim=-1)
+
+
+def _rank_proj(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+               x: torch.Tensor, axis: ranks.Axis):
+    """This rank's ``[z, xBC, dt]`` of the fused projection of ``x`` and
+    its conv weights and bias, from its column blocks of ``w_in`` and of
+    the conv gathered whole over ``axis``: its heads' z, x and dt, its
+    groups' B and C."""
+    d_inner, nh, hp, dn, ng = _dims(cfg)
+    here, _ = rank_dims(cfg, axis.size)
+    h0 = axis.index * here
+    proj = ranks.gather_from(ranks.copy_to(x, axis) @ p["w_in"], axis, -1)
+    z, xbc, dt = _split_proj(cfg, proj)
+    conv_w, conv_b = (_rank_channels(cfg, ranks.gather_from(p[k], axis, -1),
+                                     axis.index, axis.size)
+                      for k in ("conv_w", "conv_b"))
+    return (z[..., h0 * hp:(h0 + here) * hp],
+            _rank_channels(cfg, xbc, axis.index, axis.size),
+            dt[..., h0:h0 + here], conv_w, conv_b)
+
+
+def heads_axis(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+               rt: Optional[Runtime]) -> Optional[ranks.Axis]:
+    """The tensor-parallel axis when ``p`` holds this rank's ssm heads,
+    else None."""
+    return layers.split_axis(p["a_log"].shape[-1], _dims(cfg)[1], rt,
+                             "the ssm heads")
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
@@ -198,20 +273,41 @@ def mamba_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Full-sequence Mamba2 block.  x: (B, S, d_model) -> same shape.
     The scan runs through the ``ssd_scan`` site (from a zero state) and
     the gated norm through ``rms_norm``; the projections stay
-    ``torch.matmul``."""
+    ``torch.matmul``.  Where ``p`` holds this rank's heads, the block
+    runs on them as the module's docstring says."""
     rt = Runtime() if rt is None else rt
     d_inner, nh, hp, dn, ng = _dims(cfg)
     bsz, s = x.shape[0], x.shape[1]
-    z, xbc, dt = _split_proj(cfg, x @ p["w_in"])
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs, b, c = torch.split(xbc, [d_inner, ng * dn, ng * dn], dim=-1)
-    y, _ = rt.op("ssd_scan")(xs.reshape(bsz, s, nh, hp), dt, p["a_log"],
-                             b.reshape(bsz, s, ng, dn),
-                             c.reshape(bsz, s, ng, dn), p["d_skip"],
+    axis = heads_axis(p, cfg, rt)
+    if axis is None:
+        here, groups = nh, ng
+        z, xbc, dt = _split_proj(cfg, x @ p["w_in"])
+        conv_w, conv_b = p["conv_w"], p["conv_b"]
+    else:
+        here, groups = rank_dims(cfg, axis.size)
+        z, xbc, dt, conv_w, conv_b = _rank_proj(cfg, p, x, axis)
+    xbc = _causal_conv(xbc, conv_w, conv_b)
+    xs, b, c = torch.split(xbc, [here * hp, groups * dn, groups * dn],
+                           dim=-1)
+    y, _ = rt.op("ssd_scan")(xs.reshape(bsz, s, here, hp), dt, p["a_log"],
+                             b.reshape(bsz, s, groups, dn),
+                             c.reshape(bsz, s, groups, dn), p["d_skip"],
                              p["dt_bias"], cfg.ssm.chunk)
-    y = y.reshape(bsz, s, d_inner)
+    return _gated_out(p, cfg, y.reshape(bsz, s, here * hp), z, rt, axis)
+
+
+def _gated_out(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+               y: torch.Tensor, z: torch.Tensor, rt: Runtime,
+               axis: Optional[ranks.Axis]) -> torch.Tensor:
+    """``norm(y * silu(z)) @ w_out``: the ``rms_norm`` site, or over
+    ``axis`` (this rank's heads' columns) the norm of
+    ``layers.rms_norm_split`` and the row-parallel ``w_out``."""
     gated = y * F.silu(compute(z)).to(y.dtype)
-    return rt.op("rms_norm")(gated, p["norm"], cfg.norm_eps) @ p["w_out"]
+    if axis is None:
+        return rt.op("rms_norm")(gated, p["norm"], cfg.norm_eps) @ p["w_out"]
+    normed = layers.rms_norm_split(gated, p["norm"], cfg.norm_eps, axis,
+                                   _dims(cfg)[0])
+    return layers.row_parallel(normed, p["w_out"], axis)
 
 
 # ---------------------------------------------------------------------------
@@ -219,15 +315,19 @@ def mamba_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def ssm_cache_specs(cfg: ModelConfig, batch: int,
-                    n_layers: Optional[int] = None) -> Dict[str, ParamSpec]:
+                    n_layers: Optional[int] = None,
+                    tp: int = 1) -> Dict[str, ParamSpec]:
     """The ssm family's decode state: ``ssm_state`` (L, B, H, P, N)
     float32 and ``conv_state`` (L, B, W-1, conv_dim) in the weights'
-    dtype."""
+    dtype; with the heads split ``tp`` ways, a rank's: its H / tp heads,
+    and the conv inputs of their x channels and of their groups' B and
+    C (:func:`rank_dims`)."""
     d_inner, nh, hp, dn, ng = _dims(cfg)
+    here, groups = rank_dims(cfg, tp)
     nl = n_layers if n_layers is not None else cfg.n_layers
-    conv_dim = d_inner + 2 * ng * dn
+    conv_dim = here * hp + 2 * groups * dn
     return {
-        "ssm_state": ParamSpec((nl, batch, nh, hp, dn),
+        "ssm_state": ParamSpec((nl, batch, here, hp, dn),
                                ("layers", "batch", "ssm_heads",
                                 "head_dim", "ssm_state"),
                                dtype=torch.float32),
@@ -247,23 +347,31 @@ def mamba_decode_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     at ``rows`` (:func:`repro_torch.models.masking.valid_rows`: index
     rows, a ``(B,)`` bool device mask, or ``None`` for every row); the
     other rows stay bit-unchanged.  Every row is computed, so a row's
-    result does not depend on which rows are valid.  Returns the block's
-    output (B, 1, d_model)."""
+    result does not depend on which rows are valid.  Where ``p`` holds
+    this rank's heads, the states are this rank's
+    (:func:`ssm_cache_specs` with ``tp``).  Returns the block's output
+    (B, 1, d_model)."""
     rt = Runtime() if rt is None else rt
     d_inner, nh, hp, dn, ng = _dims(cfg)
     bsz = x.shape[0]
-    z, xbc, dt = _split_proj(cfg, (x @ p["w_in"])[:, 0])
+    axis = heads_axis(p, cfg, rt)
+    if axis is None:
+        here, groups = nh, ng
+        z, xbc, dt = _split_proj(cfg, (x @ p["w_in"])[:, 0])
+        conv_w, conv_b = p["conv_w"], p["conv_b"]
+    else:
+        here, groups = rank_dims(cfg, axis.size)
+        z, xbc, dt, conv_w, conv_b = _rank_proj(cfg, p, x[:, 0], axis)
     window = torch.cat([conv_state, xbc[:, None].to(conv_state.dtype)],
                        dim=1)                                   # (B, W, C)
-    conv_out = _conv_window(window, p["conv_w"], p["conv_b"], 1)[:, 0]
-    xs, b, c = torch.split(conv_out.to(x.dtype), [d_inner, ng * dn,
-                                                  ng * dn], dim=-1)
-    y, new_state = ssd_decode_step(xs.reshape(bsz, nh, hp), dt, p["a_log"],
-                                   b.reshape(bsz, ng, dn),
-                                   c.reshape(bsz, ng, dn), p["d_skip"],
+    conv_out = _conv_window(window, conv_w, conv_b, 1)[:, 0]
+    xs, b, c = torch.split(conv_out.to(x.dtype), [here * hp, groups * dn,
+                                                  groups * dn], dim=-1)
+    y, new_state = ssd_decode_step(xs.reshape(bsz, here, hp), dt,
+                                   p["a_log"], b.reshape(bsz, groups, dn),
+                                   c.reshape(bsz, groups, dn), p["d_skip"],
                                    p["dt_bias"], ssm_state)
     masking.write_rows(ssm_state, new_state, rows)
     masking.write_rows(conv_state, window[:, 1:], rows)
-    gated = y.reshape(bsz, d_inner) * F.silu(compute(z)).to(y.dtype)
-    out = rt.op("rms_norm")(gated, p["norm"], cfg.norm_eps) @ p["w_out"]
+    out = _gated_out(p, cfg, y.reshape(bsz, here * hp), z, rt, axis)
     return out[:, None]

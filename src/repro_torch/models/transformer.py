@@ -84,9 +84,13 @@ def block_specs(cfg: ModelConfig) -> Dict[str, Any]:
     return specs
 
 
+def stack_specs(specs: Dict[str, Any], n_layers: int) -> Dict[str, Any]:
+    """``specs`` (one layer's) stacked ``n_layers`` deep."""
+    return layers.map_specs(lambda s: s.stack_layers(n_layers), specs)
+
+
 def stack_block_specs(cfg: ModelConfig, n_layers: int) -> Dict[str, Any]:
-    return layers.map_specs(lambda s: s.stack_layers(n_layers),
-                            block_specs(cfg))
+    return stack_specs(block_specs(cfg), n_layers)
 
 
 def embed_spec(cfg: ModelConfig) -> ParamSpec:
@@ -121,17 +125,24 @@ def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor, rt: Runtime
     ``("pod", "data")``, the same on every rank of ``rt.ep_axis``: the
     reference's ``tok_spec``), the capacity comes from those tokens, and
     the aux loss is this rank's; what a train step reports is
-    :mod:`repro_torch.train.steps`' to say."""
+    :mod:`repro_torch.train.steps`' to say.  Under the rules' layout the
+    shared experts run on this rank's columns and rows (tensor
+    parallelism, as the SwiGLU's), the routed experts split over
+    ``rt.ep_axis`` as they are without rules, the router whole."""
     if cfg.moe is None:
         m = p["mlp"]
         axis = layers.split_axis(m["w_gate"].shape[-1], cfg.d_ff, rt,
                                  "the MLP")
         return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"],
                              axis), None
+    shared = p["moe"].get("shared")
+    axis = None if shared is None else layers.split_axis(
+        shared["w_gate"].shape[-1], cfg.moe.n_shared * cfg.moe.d_ff_expert,
+        rt, "the shared experts")
     if rt.moe_ep_size() > 1:
         return moe.moe_block(p["moe"], cfg, h, ep_axis=rt.ep_axis,
-                             mesh=rt.mesh)
-    return moe.moe_block(p["moe"], cfg, h)
+                             mesh=rt.mesh, shared_axis=axis)
+    return moe.moe_block(p["moe"], cfg, h, shared_axis=axis)
 
 
 def kv_heads_here(params: PyTree, cfg: ModelConfig) -> int:
@@ -340,13 +351,24 @@ def lm_loss_terms(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     x, y, aux = _stack(params, cfg, embed(params, cfg, tokens, rt), rt)
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
                                       cfg.norm_eps)
-    logits = unembed(params, cfg, h[:, :-1], rt, whole=False)
     mask = batch.get("mask")
-    loss = layers.cross_entropy_loss(
-        logits, tokens[:, 1:], None if mask is None else mask[:, 1:],
+    loss = next_token_loss(params, cfg, h[:, :-1], tokens[:, 1:],
+                           None if mask is None else mask[:, 1:], rt)
+    return loss, aux
+
+
+def next_token_loss(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
+                    labels: torch.Tensor, mask: Optional[torch.Tensor],
+                    rt: Runtime) -> torch.Tensor:
+    """The cross entropy of the final-normed ``h`` (B, S, d)'s logits
+    against ``labels`` (B, S) (``layers.cross_entropy_loss``), taken
+    vocabulary-parallel where this rank holds part of the vocabulary:
+    every family's loss."""
+    logits = unembed(params, cfg, h, rt, whole=False)
+    return layers.cross_entropy_loss(
+        logits, labels, mask,
         vocab_axis=layers.split_axis(logits.shape[-1], cfg.vocab_size, rt,
                                      "the logits"))
-    return loss, aux
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,

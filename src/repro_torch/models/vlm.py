@@ -12,6 +12,13 @@ counts text positions only.  The decode is the decoder-only LM's (the
 image tokens live in the KV cache).  For internvl2-26b a forward makes
 2 ``rms_norm``, 96 ``rms_norm_residual`` and 48 ``flash_attention``
 calls.
+
+Under ``Runtime.rules`` on a rank mesh the backbone is the dense
+family's (:mod:`~repro_torch.models.transformer`); the projector's
+weights, whole on ``"model"``, have their ``"data"`` blocks gathered
+before use.  A vocabulary that does not divide the ``"model"`` ranks
+(internvl2-26b's 92,553) stays whole there (``layers.spec_to_pspec``),
+and the embedding, the unembedding and the loss then take it whole.
 """
 
 from __future__ import annotations
@@ -29,14 +36,18 @@ from repro_torch.precision import compute
 PyTree = Any
 
 
-def vlm_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    specs = transformer.lm_specs(cfg)
+def _projector_specs(cfg: ModelConfig) -> Dict[str, Any]:
     v = cfg.vlm
-    specs["projector"] = {
+    return {
         "norm": layers.norm_specs(v.vision_dim),
         "w1": ParamSpec((v.vision_dim, cfg.d_model), (None, "fsdp_embed")),
         "w2": ParamSpec((cfg.d_model, cfg.d_model), (None, "fsdp_embed")),
     }
+
+
+def vlm_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    specs = transformer.lm_specs(cfg)
+    specs["projector"] = _projector_specs(cfg)
     return specs
 
 
@@ -44,7 +55,7 @@ def project_patches(params: PyTree, cfg: ModelConfig,
                     patches: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """Patch embeddings (B, P, vision_dim) -> (B, P, d) in the weights'
     dtype."""
-    p = params["projector"]
+    p = layers.gather_fsdp(params["projector"], _projector_specs(cfg), rt)
     x = rt.op("rms_norm")(patches.to(p["w1"].dtype), p["norm"]["scale"],
                           cfg.norm_eps)
     x = x @ p["w1"]
@@ -56,7 +67,7 @@ def _embed(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
            rt: Runtime) -> torch.Tensor:
     """The combined sequence [projected patches; text embeddings]."""
     vis = project_patches(params, cfg, batch["patches"], rt)
-    txt = transformer.embed(params, cfg, batch["tokens"])
+    txt = transformer.embed(params, cfg, batch["tokens"], rt)
     return torch.cat([vis, txt], dim=1)
 
 
@@ -73,8 +84,8 @@ def vlm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
                                       cfg.norm_eps)
     n_p = batch["patches"].shape[1]
-    logits = transformer.unembed(params, cfg, h[:, n_p - 1:-1])
-    loss = layers.cross_entropy_loss(logits, tokens, batch.get("mask"))
+    loss = transformer.next_token_loss(params, cfg, h[:, n_p - 1:-1], tokens,
+                                       batch.get("mask"), rt)
     return loss if aux is None else loss + aux
 
 

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.models import layers, masking, registry, transformer
+from repro_torch.models import layers, masking, registry
 from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.models.runtime import Runtime
 
@@ -80,8 +80,10 @@ class ServeEngine:
     parallelism (``rt.rules`` on a rank mesh, ``params`` this rank's
     blocks) every rank of the mesh runs its own engine with the same
     requests: the schedule on the host is the same on every rank, and
-    each rank's cache holds the kv heads its q heads read,
-    ``(L, B, S_max, Hkv_here, D)``."""
+    each rank's cache is its part of the decode state
+    (``registry.cache_specs`` at ``registry.tp_ways``): the kv heads its
+    q heads read, ``(L, B, S_max, Hkv_here, D)``, its ssm heads and conv
+    channels, its kv heads of the encdec's cross cache."""
 
     def __init__(self, arch_name: str, params, cfg: ModelConfig,
                  ecfg: EngineConfig, rt: Runtime = Runtime(),
@@ -98,10 +100,8 @@ class ServeEngine:
         self.params = params
         b, s = ecfg.max_batch, ecfg.max_len
         shape = ShapeConfig("engine", s, b, "decode")
-        kv_heads = transformer.kv_heads_here(params, cfg) \
-            if cfg.family == "dense" else None
-        self.cache_specs = registry.cache_specs(cfg, shape, batch_override=b,
-                                                kv_heads=kv_heads)
+        self.cache_specs = registry.cache_specs(
+            cfg, shape, batch_override=b, tp=registry.tp_ways(cfg, rt))
         self.cache: Dict[str, Any] = layers.map_specs(
             lambda sp: torch.zeros(sp.shape,
                                    dtype=sp.dtype_for(embed.dtype),

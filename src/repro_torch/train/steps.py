@@ -60,12 +60,14 @@ reference takes them on its production meshes:
   mean plus the mean of the shards' aux losses.
 * **gspmd with the rules' layout** (:func:`layout_rank_grads`; the
   reference's GSPMD step on parameters placed by ``tree_shardings``):
-  ``rt.rules`` split the dense family's leaves (``registry.layout``),
-  each rank holding its blocks (``layers.shard_params``).  The rows are
+  ``rt.rules`` split any family's leaves (``registry.layout``), each
+  rank holding its blocks (``layers.shard_params``).  The rows are
   split over :data:`TOKEN_AXES` as for the experts; the ranks of
-  ``"model"`` compute on their heads, MLP columns and vocabulary rows
-  (tensor parallelism), and a layer's ``"data"`` blocks are gathered
-  before use, their gradient reduce-scattered (FSDP).  A leaf's
+  ``"model"`` compute on their heads (attention and ssm), MLP columns,
+  expert rows and vocabulary rows (tensor and expert parallelism), and
+  a layer's ``"data"`` blocks are gathered before use, their gradient
+  reduce-scattered (FSDP).  An MoE reports the loss of the split
+  experts' path.  A leaf's
   gradient is then summed over the data axes its blocks do not lie on
   and divided by the data ranks, which gives the mean; a block is never
   reduced over ``"model"``.  The loss is the mean over the data axes,
@@ -259,6 +261,22 @@ def sharded_global_norm(grads: PyTree,
     return torch.sqrt(out)
 
 
+def _split_experts_loss(data: Optional[ranks.Axis]) -> Callable:
+    """The MoE's loss where its experts split: the cross entropy plus
+    the aux loss whose value is data shard 0's (what the reference's
+    ``shard_map`` hands back) and whose gradient is this rank's own."""
+    def loss_fn(params, cfg, batch, rt):
+        ce, aux = transformer.lm_loss_terms(params, cfg, batch, rt)
+        return ce + (aux if data is None else ranks.from_first(aux, data))
+    return loss_fn
+
+
+def _data_shards(arch: Arch, rt: Runtime) -> Optional[ranks.Axis]:
+    """:func:`batch_axis` where it holds more than one rank, else None."""
+    data = batch_axis(arch, rt)
+    return None if data is None or data.size == 1 else data
+
+
 def ep_rank_grads(arch: Arch, rt: Runtime) -> Callable:
     """``fn(params, batch) -> (loss, grads, grad_norm)`` on one rank of a
     mesh whose ``rt.ep_axis`` splits the experts (``params`` holds this
@@ -271,17 +289,9 @@ def ep_rank_grads(arch: Arch, rt: Runtime) -> Callable:
     if cfg.family != "moe":
         raise ValueError(f"{cfg.name}: experts split over ranks train in "
                          f"the moe family only, not {cfg.family}")
-    data = batch_axis(arch, rt)
-    if data is not None and data.size == 1:
-        data = None
+    data = _data_shards(arch, rt)
     experts = rt.mesh.axis(rt.ep_axis)
-
-    def loss_fn(params, cfg, batch, rt):
-        ce, aux = transformer.lm_loss_terms(params, cfg, batch, rt)
-        # the value of data shard 0's aux, the gradient of this rank's own
-        return ce + (aux if data is None else ranks.from_first(aux, data))
-
-    vg = value_and_grad(arch, rt, loss_fn)
+    vg = value_and_grad(arch, rt, _split_experts_loss(data))
 
     def fn(params: PyTree, batch: Dict[str, torch.Tensor]):
         loss, grads = vg(params, batch)
@@ -309,7 +319,7 @@ def layout_rank_grads(arch: Arch, rt: Runtime) -> Callable:
     loss the mean over the data axes; the global norm as the module's
     docstring says."""
     layout = registry.layout(arch.cfg, rt)
-    data = batch_axis(arch, rt)
+    data = _data_shards(arch, rt)
     names = () if data is None else layers.entry_axes(data.name)
     over, split_over = {}, {}
     for path, part in layout.items():
@@ -322,11 +332,12 @@ def layout_rank_grads(arch: Arch, rt: Runtime) -> Callable:
         over[path] = rt.mesh.axis(rest) if rest else None
         if axes:
             split_over[path] = rt.mesh.axis(_in_mesh_order(rt, axes))
-    vg = value_and_grad(arch, rt)
+    vg = value_and_grad(arch, rt, _split_experts_loss(data)
+                        if splits_experts(arch, rt) else None)
 
     def fn(params: PyTree, batch: Dict[str, torch.Tensor]):
         loss, grads = vg(params, batch)
-        if data is not None and data.size > 1:
+        if data is not None:
             loss = ranks.all_reduce(loss, data) / data.size
             mean = []
             for path, g in tree_util.paths(grads):

@@ -412,29 +412,30 @@ def test_dryrun_argument_bytes_equal_the_reference_shards(mesh_name,
                 sum(args.values())
 
 
-def test_dryrun_counts_the_moe_expert_parallel_all_reduces(single_cells,
-                                                          monkeypatch):
-    """qwen2-moe-a2.7b on one pod splits its experts over ``"model"`` (16
-    devices): a float32 (T, d) all-reduce a MoE layer in the forward, T
-    the tokens of one of the 16 data shards; a train cell adds the
-    tokens' cotangent (T, d), the routing weights' (T, K) and, under the
-    default remat, the forward's again in the rerun.  Ring wire bytes:
-    2 (g - 1) / g of the operand.  A dense cell's collectives off the
-    train step are its layout's
-    (``test_dryrun_counts_the_dense_layout_collectives``)."""
+def test_dryrun_counts_the_moe_expert_parallel_all_reduces(monkeypatch):
+    """qwen2-moe-a2.7b on one pod under ``pure_dp`` (every other leaf
+    whole, the experts split over ``"model"``, 16 devices): a float32
+    (T, d) all-reduce a MoE layer in the forward, T the tokens of one of
+    the 16 data shards; a train cell adds the tokens' cotangent (T, d),
+    the routing weights' (T, K) and, under the default remat, the
+    forward's again in the rerun.  Ring wire bytes: 2 (g - 1) / g of the
+    operand.  Under ``baseline`` the rules lay the MoE out and its
+    collectives are its ranks' (``layout_collectives``, held to the
+    ranks in ``tests/test_torch_family_layouts.py``)."""
     name, d, k, n_layers = "qwen2-moe-a2.7b", 2048, 4, 24
     ring = 2 * 15 / 16
+    cells = {s: dryrun.run_cell(name, s, False, "pure_dp")
+             for s in ("prefill_32k", "decode_32k", "train_4k")}
     for shape_name in ("prefill_32k", "decode_32k"):
         shape = shape_by_name(shape_name)
         t = shape.global_batch * (1 if shape.is_decode else shape.seq_len)
         operand = n_layers * 4 * (t // 16) * d
-        assert single_cells[(name, shape_name)]["ops"]["collectives"] == {
+        assert cells[shape_name]["ops"]["collectives"] == {
             "all-reduce": {"count": n_layers, "operand_bytes": operand,
                            "wire_bytes": operand * ring}}, shape_name
-    with_ep = single_cells[(name, "train_4k")]["ops"]["collectives"][
-        "all-reduce"]
+    with_ep = cells["train_4k"]["ops"]["collectives"]["all-reduce"]
     monkeypatch.setattr(dryrun, "ep_all_reduces", lambda *a: [])
-    without = dryrun.run_cell(name, "train_4k", False)["ops"][
+    without = dryrun.run_cell(name, "train_4k", False, "pure_dp")["ops"][
         "collectives"]["all-reduce"]
     t = 256 * 4096 // 16
     operand = n_layers * (3 * 4 * t * d + 4 * t * k)

@@ -681,17 +681,19 @@ def test_dry_run_counts_the_collectives_the_ranks_run(four, two, name):
     ``full``, and a prefill."""
     cfg, shape = _cfg(name), CASES[name][1]
     table = _rules(name)
-    layout = registry.rules_layout(cfg, table, _stand_in(shape))
-    batch_axes = dryrun._batch_axes(table, _stand_in(shape), ROWS)
+    assert registry.rules_layout(cfg, table, _stand_in(shape))
     cells = {"train": ShapeConfig("rules-train", SEQ, ROWS, "train"),
              "prefill": ShapeConfig("rules-prefill", PROMPT, PROMPT_ROWS,
                                     "prefill")}
     for got in _results(f"{name}_counts", four, two):
         for key, counted in got.items():
             kind, remat = key.split("/")
+            batch_axes = dryrun._batch_axes(table, _stand_in(shape),
+                                            cells[kind].global_batch)
             want = {}
             for op, operand, group, count in dryrun.layout_collectives(
-                    cfg, cells[kind], shape, layout, batch_axes, remat):
+                    registry.Arch(cfg), cells[kind], table, shape,
+                    batch_axes, remat):
                 want[(op, operand, group)] = \
                     want.get((op, operand, group), 0) + count
             assert counted == want, key
@@ -743,13 +745,27 @@ def test_sequence_parallel_presets_are_refused(preset):
                                   "zamba2-2.7b", "internvl2-26b",
                                   "seamless-m4t-medium"])
 def test_other_families_split_by_the_rules_are_refused(arch):
+    """The families that waited for their layouts run them now: under
+    ``baseline`` on ``{"data": 2, "model": 2}`` and ``megatron`` on
+    ``{"model": 2}`` the layout comes back, every leaf partitioned as
+    ``spec_to_pspec`` says, and the train step runs on it; what is still
+    refused is the sequence-parallel presets
+    (:func:`test_sequence_parallel_presets_are_refused`) and ``fsdp_only``
+    on a split ``"data"`` axis."""
     cfg = registry.get(arch).cfg
-    with pytest.raises(ValueError, match="item 34"):
-        registry.layout(cfg, _runtime({"data": 2, "model": 2}, "baseline",
+    specs = dict(layers.spec_paths(registry.param_specs(cfg)))
+    for shape, preset in (({"data": 2, "model": 2}, "baseline"),
+                          ({"model": 2}, "megatron")):
+        rt = _runtime(shape, preset, cfg)
+        got = registry.layout(cfg, rt)
+        assert got is not None and set(got) == set(specs)
+        for path, spec in specs.items():
+            assert got[path] == layers.spec_to_pspec(spec, rt.rules_(),
+                                                     rt.mesh), path
+        assert steps.splits_layout(registry.Arch(cfg), rt)
+    with pytest.raises(ValueError, match="item 33"):
+        registry.layout(cfg, _runtime({"data": 2, "model": 2}, "seq_model",
                                       cfg))
-    with pytest.raises(ValueError, match="item 34"):
-        steps.splits_layout(registry.Arch(cfg), _runtime(
-            {"data": 2, "model": 2}, "megatron", cfg))
 
 
 def test_the_moe_under_pure_dp_runs_its_expert_path():
