@@ -368,6 +368,17 @@ Phases (one JSON line each; any failure exits non-zero):
    decode state for the hybrid and the encdec; the hybrid's forward and
    the encoder's memory held by the yardstick), each rank's weight bytes
    its layout's; ``ssd_scan`` at 40 heads against its plain version;
+   (i) the sequence-parallel presets (each rank holding its rows of the
+   stream between the mixers, a gather before each mixer and a
+   reduce-scatter after it): (i1) qwen3-1.7b at 2 layers under
+   ``seq_model`` on (g1)'s four ranks (1024 of a row's 2048 positions a
+   rank), trained as (g1) and held to (g1)'s unsplit step with (g1)'s
+   bars, its collectives a step by kind, the seconds in ``gloo`` and
+   the peak a rank beside (g1)'s; (i2) qwen2-72b at 2 layers under
+   ``megatron_seq`` on (g2)'s two ranks served as (g2) (a loss at 1 x
+   2048, a prefill of 1 x 512, 256 positions a rank, 8 greedy steps);
+   ``flash_attention``, ``flash_decode``, ``rms_norm`` and
+   ``rms_norm_residual`` at (i)'s shapes against their plain versions;
 then the ``kernels`` line: per kernel its launches on the main paths
 (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34, 37, 38 and, from the
 device traces, 18 and 20), its times and its bound.
@@ -6335,6 +6346,15 @@ FAMILY_PARTS = {
 }
 FAMILY_TRAINED = ("h1", "h3")
 FAMILY_SERVED = ("h2", "h4a", "h4b")
+# (i): the sequence-parallel presets.  (i1) qwen3-1.7b at (g1)'s 2 of 28
+# layers under "seq_model" on (g1)'s four ranks: (g1)'s parameter layout,
+# each rank holding 1024 of its row's 2048 positions between the blocks;
+# 2 gspmd steps of (g1)'s 2 x 2048, held to (g1)'s unsplit step.  (i2)
+# qwen2-72b at (g2)'s 2 of 80 layers under "megatron_seq" on (g2)'s two
+# ranks: the loss at 1 x 2048 (1024 positions a rank), a prefill of 1 x
+# 512 (256 a rank) and 8 greedy decode steps (whole: one position)
+SEQ_TRAIN_PRESET = "seq_model"
+SEQ_SERVE_PRESET = "megatron_seq"
 # elements a leaf in the strided samples that (e) and (f) compare across
 # processes (a whole tree would cross as gigabytes); (g1)'s blocks cross
 # four times, one a rank, so fewer
@@ -6564,17 +6584,24 @@ def layout_train(arch, params, rt, rows, device) -> tuple:
     for i in range(RANKS_STEPS):
         batch = {"tokens": layout_batch(arch.cfg, i, device)[rows]}
         before = ops.launch_counts()
-        with GlooTimer() as gloo, (probe if i == 0 and arch.cfg.moe
-                                   else contextlib.nullcontext()):
+        with GlooTimer() as gloo, ranks.ledger() as ledger, (
+                probe if i == 0 and arch.cfg.moe
+                else contextlib.nullcontext()):
             (params, opt, m), wall = timed(lambda: step(params, opt, batch))
         per_step.append(launches_since(before))
         losses.append(float(m["loss"]))
         walls.append(wall)
         gloo_s.append(gloo.s)
     del opt, step
+    kinds = {}
+    for (kind, operand, _), n in ledger.items():
+        calls, nbytes = kinds.get(kind, (0, 0))
+        kinds[kind] = (calls + n, nbytes + n * operand)
     out = {"losses": losses, "step_wall_s": walls,
            "launches_per_step": per_step, "gloo_s": gloo_s,
-           "gloo_calls_per_step": gloo.calls}
+           "gloo_calls_per_step": gloo.calls,
+           "collectives_per_step": {k: {"calls": c, "operand_bytes": b}
+                                    for k, (c, b) in sorted(kinds.items())}}
     if arch.cfg.moe:
         out["router"] = probe_record(probe)
     return params, out
@@ -6611,7 +6638,8 @@ def layout_train_rank(device, cfg=None, shape=None, preset=None,
     torch.cuda.reset_peak_memory_stats()
     params, out = layout_train(arch, params, rt,
                                slice(axis.index, axis.index + 1), device)
-    out.update(coords={a: mesh.axis(a).index for a in mesh.shape},
+    out.update(seq_split=rt.on_sequence(RANKS_SEQ).seq_axis() is not None,
+               coords={a: mesh.axis(a).index for a in mesh.shape},
                peak_bytes=torch.cuda.max_memory_allocated(),
                weight_bytes=sum(x.numel() * x.element_size()
                                 for x in tree_util.leaves(params)),
@@ -6931,6 +6959,8 @@ def serve_part(part: str):
     part of FAMILY_PARTS."""
     if part == "g2":
         return tp_serve_cfg(), TP_SERVE_SHAPE, TP_SERVE_PRESET
+    if part == "i2":
+        return tp_serve_cfg(), TP_SERVE_SHAPE, SEQ_SERVE_PRESET
     _, _, shape, preset = FAMILY_PARTS[part]
     return family_cfg(part), shape, preset
 
@@ -6963,6 +6993,8 @@ def tp_serve_rank(rank, device, part: str = "g2") -> tuple:
         if cfg.n_heads % registry.tp_ways(cfg, rt) == 0 else cfg.n_heads
     out = {"heads_here": [hq, split[2]], "wall_s": split[3],
            "loss": float(split[4]),
+           "seq_split": [rt.on_sequence(n).seq_axis() is not None
+                         for n in (RANKS_SEQ, TP_PREFILL, 1)],
            "weight_bytes": sum(x.numel() * x.element_size()
                                for x in tree_util.leaves(mine)),
            "peak_bytes": torch.cuda.max_memory_allocated()}
@@ -7000,6 +7032,29 @@ def tp_serve_rank(rank, device, part: str = "g2") -> tuple:
     torch.cuda.empty_cache()
     dist.barrier()
     return out, counts
+
+
+def local_norm_kernels(device, rows: int, d: int) -> dict:
+    """``rms_norm`` and ``rms_norm_residual`` over (1, rows, d), a rank's
+    rows of a split sequence, against their plain versions on the same
+    bf16 inputs."""
+    gen = torch.Generator(device=device).manual_seed(rows + d)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.bfloat16)
+
+    x, res, w = rand(1, rows, d), rand(1, rows, d), rand(d)
+    what = f"at {rows} x {d}"
+    errs = {"rms_norm": within(
+        ops.rms_norm(x, w, 1e-6), ops.PLAIN["rms_norm"](x, w, 1e-6),
+        torch.bfloat16, what=f"rms_norm {what}")}
+    got = ops.rms_norm_residual(x, res, w, 1e-6)
+    want = ops.PLAIN["rms_norm_residual"](x, res, w, 1e-6)
+    errs["rms_norm_residual"] = max(
+        within(a, b, torch.bfloat16, what=f"rms_norm_residual {what}")
+        for a, b in zip(got, want))
+    return {"rows": rows, "d": d, "max_abs_err": errs}
 
 
 def tp_launches(cfg, want: dict) -> dict:
@@ -7414,9 +7469,16 @@ def ranks_child(rank, device):
     for part in FAMILY_SERVED:
         out[part], h_counts = tp_serve_rank(rank, device, part)
         counts = counts + collections.Counter(h_counts)
+    # (i2) serving on the "megatron_seq" layout over {"model": 2}
+    out["i2"], i_counts = tp_serve_rank(rank, device, "i2")
+    counts = counts + collections.Counter(i_counts)
     if rank == 0:
         out["h2"]["ssd"] = local_ssd_kernel(
             device, family_cfg("h2"), TP_SERVE_SHAPE["model"], TP_PREFILL)
+        d = tp_serve_cfg().d_model
+        out["i2"]["norms"] = [local_norm_kernels(
+            device, n // TP_SERVE_SHAPE["model"], d)
+            for n in (RANKS_SEQ, TP_PREFILL)]
     out["counts"] = dict(counts)
     return out
 
@@ -7476,6 +7538,11 @@ def pod_child(rank, device):
                                       *FAMILY_PARTS[part][2:],
                                       what=f"({part})")
         counts += collections.Counter(ops.launch_counts())
+    # (i1) training under "seq_model" on (g1)'s mesh
+    ops.reset_launch_counts()
+    out["i1"] = layout_train_rank(device, layout_cfg(), LAYOUT_SHAPE,
+                                  SEQ_TRAIN_PRESET, what="(i1)")
+    counts += collections.Counter(ops.launch_counts())
     out["counts"] = dict(counts)
     if out["g"]["coords"] == {"data": 0, "model": 0}:
         cfg = layout_cfg()
@@ -7488,6 +7555,12 @@ def pod_child(rank, device):
             cfg.n_kv_heads // LAYOUT_SHAPE["model"], RANKS_SEQ)
         out["h1"]["ssd"] = local_ssd_kernel(
             device, family_cfg("h1"), LAYOUT_SHAPE["model"], RANKS_SEQ)
+        cfg = layout_cfg()
+        out["i1"]["kernels"] = local_head_kernels(
+            device, cfg.n_heads // LAYOUT_SHAPE["model"],
+            cfg.n_kv_heads // LAYOUT_SHAPE["model"], RANKS_SEQ)
+        out["i1"]["norms"] = local_norm_kernels(
+            device, RANKS_SEQ // LAYOUT_SHAPE["model"], cfg.d_model)
     return out
 
 
@@ -7629,9 +7702,11 @@ def phase38_ranks(smi_line: str) -> dict:
     :func:`repro_torch.core.ranks.spawn` that loads them.  (a) and its
     folded comparison, (d) in one one-rank spawn over ``nccl``, then (a),
     (b), (c) in a two-rank spawn on the one card over ``gloo``
-    (``ranks.backend_for``: NCCL refuses two ranks on one card).  A rank
-    that fails, or is not done in time, fails the run.  Returns the
-    ranks path's launches: both ranks' (a) steps and (b) EP runs."""
+    (``ranks.backend_for``: NCCL refuses two ranks on one card), with
+    (e), (g2), (h2), (h4) and (i2) after them; then (f), (g1), (h1),
+    (h3) and (i1) in a four-rank spawn.  A rank that fails, or is not
+    done in time, fails the run.  Returns the ranks path's launches:
+    every part's, (i) included."""
     t0 = time.perf_counter()
     build_kernels()
     torch.cuda.empty_cache()
@@ -7811,6 +7886,47 @@ def phase38_ranks(smi_line: str) -> dict:
               **{k: v for k, v in h.items() if k not in (
                   "heads_here", "weight_bytes", "peak_bytes", "wall_s",
                   "loss")}, "nvidia_smi": smi_line})
+    i1 = layout_compare(pod, folded_out["g"], "i1", layout_cfg(),
+                        LAYOUT_SHAPE, SEQ_TRAIN_PRESET)
+    check(all(r["i1"]["seq_split"] for r in pod),
+          "(i1) the sequence did not split over the ranks")
+    extra = {k: v for r in pod for k, v in r["i1"].items()
+             if k in ("kernels", "norms")}
+    emit({"phase": 38, "part": "i1", "model": RANKS_MODEL,
+          "layers": POD_LAYERS, "mesh": LAYOUT_SHAPE,
+          "rules": SEQ_TRAIN_PRESET, "gradsync": "gspmd",
+          "global_batch": [LAYOUT_BATCH, RANKS_SEQ], "steps": RANKS_STEPS,
+          "positions_a_rank": RANKS_SEQ // LAYOUT_SHAPE["model"], **i1,
+          "collectives_per_step": [r["i1"]["collectives_per_step"]
+                                   for r in pod],
+          "collectives_per_step_g1": [r["g"]["collectives_per_step"]
+                                      for r in pod],
+          "step_wall_s_g1": g1["step_wall_s_split"],
+          "gloo_s_g1": g1["gloo_s_split"],
+          "peak_bytes_g1": g1["peak_bytes_split"], **extra,
+          "nvidia_smi": smi_line})
+    i2 = results[0]["i2"]
+    check(all(r["i2"]["seq_split"] == [True, True, False] for r in results),
+          "(i2) the loss and the prefill must split the sequence, a decode "
+          f"step not: {[r['i2']['seq_split'] for r in results]}")
+    check(all(r["i2"]["weight_bytes"] == r["g"]["weight_bytes"]
+              for r in results), "(i2) a rank's weights differ from (g2)'s")
+    emit({"phase": 38, "part": "i2", "model": TP_SERVE_MODEL,
+          "layers": TP_SERVE_LAYERS, "mesh": TP_SERVE_SHAPE,
+          "rules": SEQ_SERVE_PRESET, "loss_tokens": RANKS_SEQ,
+          "prefill": TP_PREFILL, "decode_steps": TP_DECODE,
+          "positions_a_rank": [RANKS_SEQ // TP_SERVE_SHAPE["model"],
+                               TP_PREFILL // TP_SERVE_SHAPE["model"]],
+          "heads_a_rank": [r["i2"]["heads_here"] for r in results],
+          "weight_bytes_ranks": [r["i2"]["weight_bytes"] for r in results],
+          "peak_bytes_ranks": [r["i2"]["peak_bytes"] for r in results],
+          "peak_bytes_g2": [r["g"]["peak_bytes"] for r in results],
+          "wall_s_ranks": [r["i2"]["wall_s"] for r in results],
+          "wall_s_g2": [r["g"]["wall_s"] for r in results],
+          "losses_ranks": [r["i2"]["loss"] for r in results],
+          **{k: v for k, v in i2.items() if k not in (
+              "heads_here", "weight_bytes", "peak_bytes", "wall_s", "loss",
+              "seq_split")}, "nvidia_smi": smi_line})
     counts = collections.Counter()
     for r in results + pod:
         counts.update(r["counts"])

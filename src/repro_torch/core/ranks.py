@@ -30,6 +30,14 @@ differ only in that axis's coordinate.
   spelled out where a rank holds part of a layer (the MoE's experts
   split over ``"model"``, the heads, MLP columns and vocabulary rows of
   tensor parallelism, the FSDP blocks over ``"data"``).
+* :func:`reduce_scatter_to`, :func:`split_to`, :func:`gather_whole` --
+  those of sequence parallelism, where each rank holds its rows of the
+  sequence between the layers: a sum kept as each rank's block (the
+  transpose of :func:`gather_from`: its backward gathers), the rank's
+  block of a tensor every rank holds whole (its backward gathers), and
+  a gather for a computation every rank then runs whole (its backward
+  takes the rank's block of the cotangent, which every rank holds
+  whole).
 * :func:`spawn` -- one process a rank through ``torch.multiprocessing``'s
   ``spawn`` start method (the only one that works once CUDA is up in the
   parent).  Rank ``r`` runs ``fn(r, devices[r], *args)`` and its result
@@ -372,6 +380,70 @@ def gather_from(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
     over ``"data"``; in the reference, what GSPMD inserts for a
     parameter sharded there)."""
     return _GatherFrom.apply(x, axis, dim % x.dim())
+
+
+class _ReduceScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return reduce_scatter(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.axis, ctx.dim), None, None
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        n = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.index * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather(grad, ctx.axis, ctx.dim), None, None
+
+
+class _GatherWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[ctx.dim] // ctx.axis.size
+        return grad.narrow(ctx.dim, ctx.axis.index * n, n), None, None
+
+
+def reduce_scatter_to(x: torch.Tensor, axis: Axis, dim: int
+                      ) -> torch.Tensor:
+    """``x`` summed over the axis, this rank keeping its block of the sum
+    along ``dim`` (rows [i L, (i + 1) L)), whose backward gathers the
+    ranks' cotangents of their blocks: each rank gets the cotangent of
+    the whole sum (Megatron's reduce-scatter into the sequence-parallel
+    region; the transpose of :func:`gather_from`)."""
+    return _ReduceScatterTo.apply(x, axis, dim % x.dim())
+
+
+def split_to(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of an ``x`` that every rank of the
+    axis holds whole, whose backward gathers the ranks' cotangents of
+    their blocks: each rank gets the cotangent of the whole ``x``."""
+    if x.shape[dim] % axis.size:
+        raise ValueError(f"split_to: dim {dim} of {tuple(x.shape)} does not "
+                         f"split over {axis.size} ranks")
+    return _SplitTo.apply(x, axis, dim % x.dim())
+
+
+def gather_whole(x: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
+    """Every rank's block joined along ``dim`` in axis order, for a
+    computation that every rank of the axis then runs whole: its
+    backward takes this rank's block of the cotangent, which every rank
+    holds whole (the transpose of :func:`split_to`)."""
+    return _GatherWhole.apply(x, axis, dim % x.dim())
 
 
 def from_first(x: torch.Tensor, axis: Axis) -> torch.Tensor:

@@ -35,9 +35,10 @@ over 512 placeholder host devices.  Three differences:
   ledger mesh, every collective counted as it is called: the
   tensor-parallel all-reduces and gathers, the FSDP gathers and
   reduce-scatters, the expert-parallel sums, the gradient reduction
-  then left), each by the ring model.  The port runs no
-  sequence-parallel preset, so there the rules move the memory columns
-  and not the collective term.
+  then left; under ``seq_model`` and ``megatron_seq`` the sequence's
+  gathers and reduce-scatters around each mixer), each by the ring
+  model.  ``ssm_seq``, which the port refuses, moves the memory
+  columns and not the collective term.
 * **Remat reruns on ``meta``.**  ``--remat none|full|dots`` (default
   ``full``, the reference's) is ``Runtime.remat``: a train cell's
   backward reruns each checkpointed region inside autograd's engine,
@@ -198,8 +199,8 @@ def ep_all_reduces(cfg, shape, mesh_shape: Dict[str, int], remat: str
 def runs_layout(cfg, rules, mesh, gradsync: str, kind: str):
     """The parameter layout the port runs a cell's step on
     (``registry.rules_layout``), or None: a train step under a Spindle
-    mode keeps every leaf whole, and what the port refuses (the
-    sequence-parallel presets) is not modelled."""
+    mode keeps every leaf whole, and what the port refuses (``ssm_seq``)
+    is not modelled."""
     if kind == "train" and gradsync != "gspmd":
         return None
     # a leaf the rules cannot lay out raises here; what waits is None
@@ -223,7 +224,9 @@ def layout_collectives(arch, shape, rules, mesh_shape: Dict[str, int],
     train cell runs the gradient and its reduction
     (``steps.layout_rank_grads``: the tensor-parallel all-reduces, the
     FSDP gathers and reduce-scatters, the MoE's expert-parallel sums,
-    the gradient's, the loss's and the global norm's all-reduces), a
+    the sequence's gathers and reduce-scatters where
+    ``layers.seq_axis`` splits it, the gradient's, the loss's and the
+    global norm's all-reduces), a
     prefill or decode cell ``make_serve_step`` on the rank's decode
     state (``registry.cache_specs`` at ``registry.tp_ways``)."""
     mesh = ranks.RankMesh.ledger(mesh_shape)

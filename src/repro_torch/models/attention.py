@@ -22,6 +22,14 @@ sum over the axis (``layers.row_parallel``).  Where the kv heads do not
 split over the axis but the q heads do, they stay whole and each rank
 reads the one kv head of its q heads (:func:`kv_heads_here`); the
 cache of a rank then holds that head.
+
+Over a sequence that ``Runtime.seq_axis()`` splits (``seq_model``,
+``megatron_seq``) the input is this rank's rows: it enters through
+``layers.enter`` (gathered whole over the axis), q, k and v are
+projected and rotated over the whole sequence, and ``wo``'s float32
+partial sums are reduce-scattered back to the rank's rows
+(``layers.row_parallel``).  The cross attention reads the memory whole.
+A decode step never splits.
 """
 
 from __future__ import annotations
@@ -122,14 +130,13 @@ def _project_qkv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                  x: torch.Tensor, rt: Runtime, rope,
                  axis: Optional[ranks.Axis] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, k, v (B, S, H, D) with bias, qk-norm and RoPE applied;
-    ``rope`` is the ``(cos, sin)`` of the tokens' positions
+    """q, k, v (B, S, H, D) with bias, qk-norm and RoPE applied, of ``x``
+    as the attention reads it (``layers.enter``); ``rope`` is the ``(cos,
+    sin)`` of the tokens' positions
     (:func:`repro_torch.models.layers.rope_cos_sin`).  With ``axis``
-    (:func:`tp_axis`) H counts this rank's heads, and x and the whole
-    per-head leaves enter through ``copy_to``."""
+    (:func:`tp_axis`) H counts this rank's heads, and the whole per-head
+    leaves enter through ``copy_to``."""
     kv = _kv_params(p, cfg, axis)
-    if axis is not None:
-        x = ranks.copy_to(x, axis)
     q = _heads(x, p["wq"])
     k = _heads(x, kv["wk"])
     v = _heads(x, kv["wv"])
@@ -150,12 +157,14 @@ def _project_qkv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def _out(p: Dict[str, torch.Tensor], out: torch.Tensor,
-         axis: Optional[ranks.Axis]) -> torch.Tensor:
+         axis: Optional[ranks.Axis],
+         seq: Optional[ranks.Axis] = None) -> torch.Tensor:
     """The attention output (B, S, H, D) through ``wo`` -> (B, S, d),
-    summed over ``axis`` when H is this rank's heads."""
+    summed over ``axis`` when H is this rank's heads, this rank's rows
+    of it over a split sequence (``layers.row_parallel``)."""
     b, s, h, d = out.shape
     return layers.row_parallel(out.reshape(b, s, h * d),
-                               p["wo"].reshape(h * d, -1), axis)
+                               p["wo"].reshape(h * d, -1), axis, seq)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -202,23 +211,24 @@ def full_attention_kv(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     """:func:`full_attention` that also returns the sequence's k and v
     (B, S, Hkv, D), k rotated — what a prefill writes to the cache."""
     rt = Runtime() if rt is None else rt
-    s = x.shape[1]
+    axis, seq = tp_axis(p, cfg, rt), rt.seq_axis()
+    x = layers.enter(x, axis, seq)
     if rope is None:
-        rope = layers.rope_cos_sin(torch.arange(s, device=x.device)[None],
-                                   cfg.head_dim_, cfg.rope_theta,
-                                   compute_dtype(x.dtype))
-    axis = tp_axis(p, cfg, rt)
+        rope = layers.rope_cos_sin(
+            torch.arange(x.shape[1], device=x.device)[None], cfg.head_dim_,
+            cfg.rope_theta, compute_dtype(x.dtype))
     q, k, v = _project_qkv(p, cfg, x, rt, rope, axis)
     out = rt.op("flash_attention")(q, k, v, causal)
-    return _out(p, out, axis), k, v
+    return _out(p, out, axis, seq), k, v
 
 
 def full_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                    x: torch.Tensor, causal: bool = True,
                    rt: Optional[Runtime] = None, rope=None) -> torch.Tensor:
     """Self-attention over a full sequence (forward / prefill).  x (B, S,
-    d) at positions 0..S-1 -> (B, S, d); the inner attention runs through
-    the ``flash_attention`` site.  ``rope`` is the positions' ``(cos,
+    d) at positions 0..S-1 -> (B, S, d), this rank's rows of both over a
+    split sequence; the inner attention runs through the
+    ``flash_attention`` site.  ``rope`` is the whole sequence's ``(cos,
     sin)`` when the caller has it (the decoder computes it once for all
     layers)."""
     return full_attention_kv(p, cfg, x, causal, rt, rope)[0]
@@ -232,11 +242,15 @@ def cross_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     positions 0..S-1; k and v are not rotated.  Returns (B, S, d).  With
     this rank's heads in ``p`` (:func:`tp_axis`), its q heads read its
     kv heads of the memory, x and the memory entering through
-    ``copy_to``, and ``wo`` is row-parallel."""
+    ``copy_to``, and ``wo`` is row-parallel.  Over a split sequence x
+    is this rank's rows of the decoder's stream (``layers.enter``), the
+    memory whole and ``rope`` the whole sequence's."""
     axis = tp_axis(p, cfg, rt)
+    seq = None if rt is None else rt.seq_axis()
     kv = _kv_params(p, cfg, axis)
+    x = layers.enter(x, axis, seq)
     if axis is not None:
-        x, memory = ranks.copy_to(x, axis), ranks.copy_to(memory, axis)
+        memory = ranks.copy_to(memory, axis)
     q = _heads(x, p["wq"])
     k = _heads(memory, kv["wk"])
     v = _heads(memory, kv["wv"])
@@ -245,7 +259,7 @@ def cross_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
         k = k + kv["bk"]
         v = v + kv["bv"]
     q = layers.rotate(q, *rope)
-    return _out(p, _sdpa(q, k, v, causal=False), axis)
+    return _out(p, _sdpa(q, k, v, causal=False), axis, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -290,7 +304,8 @@ def decode_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig,
         rope = layers.rope_cos_sin(position[:, None], cfg.head_dim_,
                                    cfg.rope_theta)
     axis = tp_axis(p, cfg, rt)
-    q, k, v = _project_qkv(p, cfg, x, rt, rope, axis)
+    q, k, v = _project_qkv(p, cfg, layers.enter(x, axis, None), rt, rope,
+                           axis)
     if masking.is_device_mask(rows):
         every = torch.arange(b, device=x.device)
         at = position.long()

@@ -31,12 +31,17 @@ columns and rows, the vocabulary as
 :mod:`~repro_torch.models.transformer` takes it; each layer's
 ``"data"`` blocks are gathered inside its region.  The self and the
 cross cache of a rank hold its kv heads (:func:`cache_specs` with
-``tp``).
+``tp``).  Under ``seq_model`` and ``megatron_seq`` each stream splits on
+its own (``Runtime.on_sequence``: the frames' length for the encoder,
+the tokens' for the decoder): its norm sites run on this rank's rows,
+every mixer between a gather and a reduce-scatter, and the encoder's
+normed memory is gathered whole once a forward, for every layer's cross
+attention.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -82,8 +87,11 @@ def encdec_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
-def _rope(cfg: ModelConfig, x: torch.Tensor):
-    return layers.rope_cos_sin(torch.arange(x.shape[1], device=x.device)[None],
+def _rope(cfg: ModelConfig, x: torch.Tensor, rt: Optional[Runtime] = None):
+    """The ``(cos, sin)`` of the whole sequence of the stream ``x`` (of
+    which this rank holds its rows where ``rt`` splits it)."""
+    s = x.shape[1] if rt is None else layers.stream_len(x, rt)
+    return layers.rope_cos_sin(torch.arange(s, device=x.device)[None],
                                cfg.head_dim_, cfg.rope_theta,
                                compute_dtype(x.dtype))
 
@@ -92,16 +100,18 @@ def _swiglu(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
             rt: Runtime) -> torch.Tensor:
     m = p["mlp"]
     axis = layers.split_axis(m["w_gate"].shape[-1], cfg.d_ff, rt, "the MLP")
-    return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"], axis)
+    return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"], axis,
+                         rt.seq_axis())
 
 
 def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
            rt: Runtime) -> torch.Tensor:
     """frames (B, S_src, d_model), the stubbed frontend's output -> the
-    normed memory (B, S_src, d_model).  Layer i (its opening norm and
-    block) is one region of ``rt.checkpoint``."""
-    x = frames.to(params["embed"].dtype)
-    rope = _rope(cfg, x)
+    normed memory (B, S_src, d_model), whole.  Layer i (its opening norm
+    and block) is one region of ``rt.checkpoint``."""
+    rt = rt.on_sequence(frames.shape[1])
+    x = layers.split_seq(frames.to(params["embed"].dtype), rt)
+    rope = _rope(cfg, x, rt)
     specs = _enc_block_specs(cfg)
 
     def region(layer):
@@ -110,26 +120,28 @@ def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
             h, x = layers.open_norm(rt, y, x, p["attn_norm"]["scale"],
                                     cfg.norm_eps)
             a = attention.full_attention(p["attn"], cfg, h, False, rt, rope)
-            h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
-                                              cfg.norm_eps)
+            h, x = layers.open_norm(rt, a, x, p["ffn_norm"]["scale"],
+                                    cfg.norm_eps)
             return x, _swiglu(p, cfg, h, rt)
         return run
 
     y = None
     for p in transformer.unstack_layers(params["encoder"]):
         x, y = rt.checkpoint(region(p))(y, x)
-    return rt.op("rms_norm_residual")(y, x, params["enc_norm"]["scale"],
-                                      cfg.norm_eps)[0]
+    return layers.gather_seq(layers.open_norm(
+        rt, y, x, params["enc_norm"]["scale"], cfg.norm_eps)[0], rt)
 
 
 def _decoder(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
              memory: torch.Tensor, rt: Runtime
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decoder stack over ``tokens`` (B, S): (the residual stream,
-    the last block's FFN output not yet added).  Layer i is one region
-    of ``rt.checkpoint``, as in :func:`encode`."""
+    """The decoder stack over ``tokens`` (B, S) and the whole ``memory``:
+    (the residual stream, the last block's FFN output not yet added),
+    this rank's rows of both where ``rt`` (on the tokens' sequence)
+    splits it.  Layer i is one region of ``rt.checkpoint``, as in
+    :func:`encode`."""
     x = transformer.embed(params, cfg, tokens, rt)
-    rope = _rope(cfg, x)
+    rope = _rope(cfg, x, rt)
     specs = _dec_block_specs(cfg)
 
     def region(layer):
@@ -138,12 +150,12 @@ def _decoder(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
             h, x = layers.open_norm(rt, y, x, p["attn_norm"]["scale"],
                                     cfg.norm_eps)
             a = attention.full_attention(p["attn"], cfg, h, True, rt, rope)
-            h, x = rt.op("rms_norm_residual")(a, x, p["cross_norm"]["scale"],
-                                              cfg.norm_eps)
+            h, x = layers.open_norm(rt, a, x, p["cross_norm"]["scale"],
+                                    cfg.norm_eps)
             c = attention.cross_attention(p["cross"], cfg, h, memory, rope,
                                           rt)
-            h, x = rt.op("rms_norm_residual")(c, x, p["ffn_norm"]["scale"],
-                                              cfg.norm_eps)
+            h, x = layers.open_norm(rt, c, x, p["ffn_norm"]["scale"],
+                                    cfg.norm_eps)
             return x, _swiglu(p, cfg, h, rt)
         return run
 
@@ -156,9 +168,10 @@ def _decoder(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_train(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                  memory: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """The decoder over ``tokens`` (B, S) and ``memory``: its hidden
-    states (B, S, d) before the final norm, as the reference's."""
+    states (B, S, d) before the final norm, as the reference's (whole)."""
+    rt = rt.on_sequence(tokens.shape[1])
     x, y = _decoder(params, cfg, tokens, memory, rt)
-    return x + y
+    return layers.gather_seq(x + y, rt)
 
 
 def seq2seq_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
@@ -168,9 +181,10 @@ def seq2seq_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     tokens[:, 1:].  Returns a float32 scalar."""
     memory = encode(params, cfg, batch["frames"], rt)
     tokens = batch["tokens"]
+    rt = rt.on_sequence(tokens.shape[1] - 1)
     x, y = _decoder(params, cfg, tokens[:, :-1], memory, rt)
-    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
-                                      cfg.norm_eps)
+    h, _ = layers.open_norm(rt, y, x, params["final_norm"]["scale"],
+                            cfg.norm_eps)
     mask = batch.get("mask")
     return transformer.next_token_loss(params, cfg, h, tokens[:, 1:],
                                        None if mask is None else mask[:, 1:],

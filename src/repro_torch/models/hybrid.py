@@ -37,7 +37,11 @@ rows (tensor parallelism, as the dense family's), the vocabulary as
 :mod:`~repro_torch.models.transformer` takes it; each group's ``"data"``
 blocks (its Mamba layers' and the shared block's) are gathered inside
 its region.  The decode state of a rank holds its ssm heads, its conv
-channels and its kv heads (:func:`cache_specs` with ``tp``).
+channels and its kv heads (:func:`cache_specs` with ``tp``).  Over a
+sequence that ``Runtime.on_sequence`` splits (``seq_model``,
+``megatron_seq``) each group's norm sites run on this rank's rows, and
+its Mamba blocks, the shared attention and the shared SwiGLU each run
+between a gather and a reduce-scatter, as the dense family's mixers do.
 """
 
 from __future__ import annotations
@@ -110,7 +114,7 @@ def _shared_block(p: Dict[str, Any], cfg: ModelConfig, rt: Runtime,
     return [(p["attn_norm"]["scale"], attn),
             (p["ffn_norm"]["scale"],
              lambda h: layers.swiglu(h, m["w_gate"], m["w_up"],
-                                     m["w_down"], axis))]
+                                     m["w_down"], axis, rt.seq_axis()))]
 
 
 def _walk(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
@@ -151,16 +155,15 @@ def _walk(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
 
 def _final_norm(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                 y: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
-                                      cfg.norm_eps)
-    return h
+    return layers.open_norm(rt, y, x, params["final_norm"]["scale"],
+                            cfg.norm_eps)[0]
 
 
 def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`_walk` over a full sequence of embedded x (B, S, d),
-    positions 0..S-1."""
-    positions = torch.arange(x.shape[1], device=x.device)[None]
+    positions 0..S-1 (this rank's rows where ``rt`` splits it)."""
+    positions = torch.arange(layers.stream_len(x, rt), device=x.device)[None]
     rope = layers.rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta,
                                compute_dtype(x.dtype))
     return _walk(params, cfg, x, rt,
@@ -174,18 +177,27 @@ def forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
             rt: Runtime) -> torch.Tensor:
     """The hybrid stack on embedded inputs x (B, S, d) -> the hidden
     states (B, S, d) before the final norm, as the reference returns
-    them."""
-    x, y = _stack(params, cfg, x, rt)
-    return x + y
+    them (gathered whole where the sequence splits)."""
+    rt = rt.on_sequence(x.shape[1])
+    x, y = _stack(params, cfg, layers.split_seq(x, rt), rt)
+    return layers.gather_seq(x + y, rt)
+
+
+def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+            rt: Runtime) -> torch.Tensor:
+    """The final-normed hidden states over ``tokens`` (B, S), this rank's
+    rows where ``rt`` (on the sequence) splits it."""
+    x, y = _stack(params, cfg, transformer.embed(params, cfg, tokens, rt),
+                  rt)
+    return _final_norm(params, cfg, x, y, rt)
 
 
 def hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
            rt: Runtime) -> torch.Tensor:
     """The full-sequence stack over ``tokens`` (B, S) -> the final-normed
-    hidden states (B, S, d)."""
-    x, y = _stack(params, cfg, transformer.embed(params, cfg, tokens, rt),
-                  rt)
-    return _final_norm(params, cfg, x, y, rt)
+    hidden states (B, S, d), whole."""
+    rt = rt.on_sequence(tokens.shape[1])
+    return layers.gather_seq(_hidden(params, cfg, tokens, rt), rt)
 
 
 def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
@@ -195,9 +207,10 @@ def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     a float32 scalar."""
     tokens = batch["tokens"]
     mask = batch.get("mask")
+    rt = rt.on_sequence(tokens.shape[1])
     return transformer.next_token_loss(
-        params, cfg, hidden(params, cfg, tokens, rt)[:, :-1], tokens[:, 1:],
-        None if mask is None else mask[:, 1:], rt)
+        params, cfg, _hidden(params, cfg, tokens, rt), tokens[:, 1:],
+        None if mask is None else mask[:, 1:], rt, slice(None, -1))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,16 @@ column- and row-parallel halves of :func:`swiglu`, :func:`row_parallel`,
 the vocabulary-parallel :func:`cross_entropy_loss`); a block split over
 any other axis (FSDP's ``"data"``) is gathered before use
 (:func:`gather_fsdp`).
+
+Sequence parallelism (the ``seq_model`` and ``megatron_seq`` presets,
+Megatron's form): where :func:`seq_axis` splits a call's sequence, each
+rank holds its S / tp rows of the (B, S, d) stream between the mixers
+(attention, the SwiGLU, the MoE, the Mamba block), and the norm sites
+run on them (:func:`open_norm`).  A mixer's input enters through
+:func:`enter` (the rows gathered over the axis) and its output leaves
+through :func:`row_parallel` (its float32 partial sums reduce-scattered
+over the sequence, or where the mixer runs whole on every rank, the
+rank's rows taken).
 """
 
 from __future__ import annotations
@@ -166,6 +176,10 @@ Partition = Tuple[Any, ...]     # per dim: an axis name, a tuple, or None
 # "mlp", "vocab" and "experts"); a leaf's block over any other axis is
 # gathered before use
 TP_AXIS = "model"
+# the logical axes the mixers split over: the sequence splits over
+# TP_AXIS only where they all split there too (Megatron's sequence
+# parallelism, :func:`seq_axis`)
+SEQ_MIXER_AXES = ("heads", "kv_heads", "mlp", "ssm_inner", "ssm_heads")
 
 
 def entry_axes(entry) -> Tuple[str, ...]:
@@ -418,15 +432,81 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                                    compute_dtype(x.dtype)))
 
 
-def row_parallel(x: torch.Tensor, w: torch.Tensor,
-                 axis: Optional[ranks.Axis] = None) -> torch.Tensor:
-    """``x @ w``; with ``axis``, ``w`` is this rank's rows and ``x`` its
-    matching columns, and the ranks' partial products are summed over
-    the axis in float32 and rounded once (a bfloat16 sum of bfloat16
-    parts would round at every rank's part)."""
+def seq_axis(rt, s: int) -> Optional[ranks.Axis]:
+    """The axis a call over a sequence of ``s`` positions splits it over:
+    :data:`TP_AXIS` when ``rt``'s rules map ``"seq"`` there (and the
+    mixers' axes, :data:`SEQ_MIXER_AXES`, as ``seq_model`` and
+    ``megatron_seq`` do: ``ssm_seq`` waits), that axis has more than one
+    rank and ``s`` divides over them; else None (the reference's
+    fallback: a dim that does not divide stays whole), and the call runs
+    the base preset's path.  A decode step (``s`` 1) never splits."""
+    axis = None if rt is None else rt.tp_axis()
+    if axis is None or s % axis.size:
+        return None
+    table = rt.rules_()
+    if any(entry_axes(table.get(k)) != (TP_AXIS,)
+           for k in ("seq",) + SEQ_MIXER_AXES):
+        return None
+    return axis
+
+
+def enter(x: torch.Tensor, axis: Optional[ranks.Axis],
+          seq: Optional[ranks.Axis]) -> torch.Tensor:
+    """A mixer's input: ``x`` (the normed stream, this rank's rows of the
+    sequence where ``seq`` splits it) as the mixer reads it.  With
+    ``axis`` the mixer holds this rank's part (its heads, columns):
+    ``x`` enters through ``copy_to``, or over a split sequence through
+    ``gather_from`` (the backward reduce-scatters the ranks' partial
+    cotangents).  Without it the mixer runs whole on every rank: ``x``
+    itself, or over a split sequence ``gather_whole``."""
+    if seq is None:
+        return x if axis is None else ranks.copy_to(x, axis)
     if axis is None:
-        return x @ w
-    return ranks.reduce_from(compute(x) @ compute(w), axis).to(x.dtype)
+        return ranks.gather_whole(x, seq, 1)
+    return ranks.gather_from(x, seq, 1)
+
+
+def stream_len(x: torch.Tensor, rt) -> int:
+    """The positions of the whole sequence of the stream ``x`` (B, S,
+    ...): S, times the ranks where ``rt.seq_axis()`` splits it."""
+    seq = rt.seq_axis()
+    return x.shape[1] * (1 if seq is None else seq.size)
+
+
+def gather_seq(x: torch.Tensor, rt) -> torch.Tensor:
+    """The whole sequence of a stream of which this rank holds its rows
+    where ``rt.seq_axis()`` splits it (``gather_whole``), for what every
+    rank then reads whole; ``x`` itself otherwise."""
+    seq = rt.seq_axis()
+    return x if seq is None else ranks.gather_whole(x, seq, 1)
+
+
+def split_seq(x: torch.Tensor, rt) -> torch.Tensor:
+    """This rank's rows of a stream every rank holds whole, where
+    ``rt.seq_axis()`` splits the sequence (``split_to``); ``x`` itself
+    otherwise."""
+    seq = rt.seq_axis()
+    return x if seq is None else ranks.split_to(x, seq, 1)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 axis: Optional[ranks.Axis] = None,
+                 seq: Optional[ranks.Axis] = None) -> torch.Tensor:
+    """``x @ w``, a mixer's output; with ``axis``, ``w`` is this rank's
+    rows and ``x`` its matching columns, and the ranks' partial products
+    are summed over the axis in float32 and rounded once (a bfloat16 sum
+    of bfloat16 parts would round at every rank's part).  With ``seq``
+    (``x`` over the whole sequence, :func:`enter`) the sum is
+    reduce-scattered over the sequence, each rank keeping its rows
+    (``reduce_scatter_to``), or without ``axis`` the product's rows of
+    this rank taken (``split_to``)."""
+    if axis is None:
+        y = x @ w
+        return y if seq is None else ranks.split_to(y, seq, 1)
+    part = compute(x) @ compute(w)
+    if seq is None:
+        return ranks.reduce_from(part, axis).to(x.dtype)
+    return ranks.reduce_scatter_to(part, seq, 1).to(x.dtype)
 
 
 def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
@@ -444,17 +524,20 @@ def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor,
-           axis: Optional[ranks.Axis] = None) -> torch.Tensor:
+           w_down: torch.Tensor, axis: Optional[ranks.Axis] = None,
+           seq: Optional[ranks.Axis] = None) -> torch.Tensor:
     """The SwiGLU FFN; with ``axis`` the rank's columns of ``w_gate`` and
-    ``w_up`` and rows of ``w_down`` (tensor parallelism), ``x`` entering
-    through :func:`~repro_torch.core.ranks.copy_to`."""
-    if axis is not None:
-        x = ranks.copy_to(x, axis)
+    ``w_up`` and rows of ``w_down`` (tensor parallelism).  ``x`` enters
+    and the output leaves as :func:`enter` and :func:`row_parallel` say
+    (``seq``: ``x`` is this rank's rows of the sequence).  Over a split
+    sequence the hidden columns stay split by ``"mlp"`` on the gathered
+    rows, where the reference's ``constrain`` lets ``"seq"`` take the
+    axis; the values are the same."""
+    x = enter(x, axis, seq)
     g = x @ w_gate
     u = x @ w_up
     h = torch.nn.functional.silu(compute(g)).to(x.dtype) * u
-    return row_parallel(h, w_down, axis)
+    return row_parallel(h, w_down, axis, seq)
 
 
 def open_norm(rt, y: Optional[torch.Tensor], x: torch.Tensor,
@@ -464,7 +547,13 @@ def open_norm(rt, y: Optional[torch.Tensor], x: torch.Tensor,
     fused ``rms_norm_residual`` through ``rt``'s sites, or ``rms_norm``
     of x alone at the stack's first site (``y`` None).  Every
     checkpointed region of a layer walk opens with it, so a region's
-    inputs are ``(y, x)``."""
+    inputs are ``(y, x)``.  Where ``rt.seq_axis()`` splits the sequence
+    the site runs on this rank's rows, and the whole ``scale`` enters
+    through ``copy_to``: its gradient from the rank's rows is summed over
+    the ranks."""
+    seq = rt.seq_axis()
+    if seq is not None:
+        scale = ranks.copy_to(scale, seq)
     if y is None:
         return rt.op("rms_norm")(x, scale, eps), x
     return rt.op("rms_norm_residual")(y, x, scale, eps)

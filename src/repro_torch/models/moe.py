@@ -49,6 +49,14 @@ parts).  The router then gets its whole gradient on every rank: the
 combine weights' part summed over the ranks, the aux loss's computed
 whole from the full router probabilities on each.  The expert leaves'
 gradients stay per rank, each rank's rows only.
+
+Over a sequence split across the ranks (``seq_model``,
+``megatron_seq``: the input is this rank's rows) the router and the
+routed experts read the rows gathered whole (``ranks.gather_whole``, as
+the reference's ``tok_spec`` gathers the sequence, so the capacity is
+the whole sequence's), the experts' float32 partial output is
+reduce-scattered back to the rank's rows, and the shared experts run as
+a split SwiGLU between their own gather and reduce-scatter.
 """
 
 from __future__ import annotations
@@ -228,7 +236,8 @@ def _moe_ffn(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
 def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
               x: torch.Tensor, ep_axis: Optional[str] = None,
               mesh: Optional[ranks.RankMesh] = None,
-              shared_axis: Optional[ranks.Axis] = None
+              shared_axis: Optional[ranks.Axis] = None,
+              seq: Optional[ranks.Axis] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN: routed experts plus the shared experts.  x (B, S, d)
     -> (y (B, S, d), aux scalar).  The tokens of every row route
@@ -238,22 +247,29 @@ def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     and each gets the whole y; a gradient through it is each rank's part
     (see the module's docstring).  With ``shared_axis`` the shared
     experts are this rank's columns and rows of their SwiGLU (tensor
-    parallelism, ``layers.swiglu``)."""
+    parallelism, ``layers.swiglu``).  With ``seq`` x and y are this
+    rank's rows of the sequence (see the module's docstring)."""
     ep = None
     if ep_axis is not None:
         if mesh is None:
             raise ValueError(f"ep_axis={ep_axis!r} names an axis of a "
                              "RankMesh; pass mesh=")
         ep = mesh.axis(ep_axis)
-    b, s, d = x.shape
-    y, aux = _moe_ffn(p, cfg, x.reshape(b * s, d), ep)
-    if ep is not None:
-        y = ranks.reduce_from(y, ep).to(x.dtype)
+    every = x if seq is None else ranks.gather_whole(x, seq, 1)
+    b, s, d = every.shape
+    y, aux = _moe_ffn(p, cfg, every.reshape(b * s, d), ep)
     y = y.reshape(b, s, d)
+    if ep is not None and seq is not None and ep.name == seq.name:
+        y = ranks.reduce_scatter_to(y, seq, 1).to(x.dtype)
+    else:
+        if ep is not None:
+            y = ranks.reduce_from(y, ep).to(x.dtype)
+        if seq is not None:
+            y = ranks.split_to(y, seq, 1)
     if cfg.moe.n_shared:
         sh = p["shared"]
         y = y + layers.swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"],
-                              shared_axis)
+                              shared_axis, seq)
     return y, aux
 
 

@@ -75,7 +75,17 @@ def _ssm_lm_specs(cfg: ModelConfig) -> Dict[str, Any]:
 def _ssm_hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                 rt: Runtime) -> torch.Tensor:
     """The Mamba2 stack over ``tokens`` (B, S) -> the final-normed hidden
-    states (B, S, d).  Pre-norm residual blocks; each ``x = x + y; h =
+    states (B, S, d), whole (:func:`_ssm_stream`, gathered where the
+    sequence splits)."""
+    rt = rt.on_sequence(tokens.shape[1])
+    return layers.gather_seq(_ssm_stream(params, cfg, tokens, rt), rt)
+
+
+def _ssm_stream(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                rt: Runtime) -> torch.Tensor:
+    """The Mamba2 stack over ``tokens`` (B, S) -> the final-normed hidden
+    states (B, S, d), this rank's rows where ``rt`` (on the sequence)
+    splits it.  Pre-norm residual blocks; each ``x = x + y; h =
     norm(x)`` is one fused ``rms_norm_residual``, as in the dense
     decoder: for mamba2-2.7b (64 layers) 65 ``rms_norm`` (the first norm
     and each block's gated norm), 64 ``rms_norm_residual`` and 64
@@ -98,9 +108,8 @@ def _ssm_hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     y = None
     for p in transformer.unstack_layers(params["layers"]):
         x, y = rt.checkpoint(region(p))(y, x)
-    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
-                                      cfg.norm_eps)
-    return h
+    return layers.open_norm(rt, y, x, params["final_norm"]["scale"],
+                            cfg.norm_eps)[0]
 
 
 def _ssm_decode_step(params: PyTree, cfg: ModelConfig,
@@ -138,11 +147,12 @@ def _ssm_lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     """Next-token cross entropy of the Mamba2 LM, as
     :func:`repro_torch.models.transformer.lm_loss` for the dense one."""
     tokens = batch["tokens"]
-    h = _ssm_hidden(params, cfg, tokens, rt)
+    rt = rt.on_sequence(tokens.shape[1])
+    h = _ssm_stream(params, cfg, tokens, rt)
     mask = batch.get("mask")
     return transformer.next_token_loss(
-        params, cfg, h[:, :-1], tokens[:, 1:],
-        None if mask is None else mask[:, 1:], rt)
+        params, cfg, h, tokens[:, 1:],
+        None if mask is None else mask[:, 1:], rt, slice(None, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +230,9 @@ class Arch:
 
 
 # the rules' layouts that wait, by what they need
-SEQ_PARALLEL_ITEM = "ROADMAP.md item 33 (the sequence-parallel presets)"
+SEQ_PARALLEL_ITEM = ("ROADMAP.md item 33 (b) (ssm_seq: the sequence split "
+                     "with the mixers whole, its states passed from rank "
+                     "to rank)")
 
 
 def layout(cfg: ModelConfig, rt: Runtime
@@ -242,10 +254,17 @@ def rules_layout(cfg: ModelConfig, rules: Dict[str, Any], mesh
     each): every such path is the one that runs without rules, the
     experts split by ``moe``.
 
+    The sequence is not a parameter's axis: ``seq_model`` and
+    ``megatron_seq`` lay the parameters out as ``baseline`` and
+    ``megatron`` do, and their ``"seq"`` on ``layers.TP_AXIS`` splits
+    the stream between the mixers where ``layers.seq_axis`` says.
+
     What the port does not run raises ``ValueError``: rules that shard
-    the sequence over a mesh axis of more than one rank
-    (:data:`SEQ_PARALLEL_ITEM`), a dim split over ``layers.TP_AXIS``
-    together with another axis, and a Mamba block whose leaves do not
+    the sequence over another axis of more than one rank, or over
+    ``layers.TP_AXIS`` with a mixer's axes (``layers.SEQ_MIXER_AXES``)
+    not there (``ssm_seq``, :data:`SEQ_PARALLEL_ITEM`), a dim split over
+    ``layers.TP_AXIS`` together with another axis, and a Mamba block
+    whose leaves do not
     split over ``layers.TP_AXIS`` together (its heads, its columns of
     the projection and of the conv, its norm and ``w_out`` rows: all or
     none) or whose heads split off their groups' edges
@@ -257,9 +276,14 @@ def rules_layout(cfg: ModelConfig, rules: Dict[str, Any], mesh
         return None
     seq = [a for a in layers.entry_axes(rules.get("seq"))
            if mesh.shape.get(a, 1) > 1]
-    if seq:
-        raise ValueError(f"the rules shard the sequence over {seq}: "
-                         f"{SEQ_PARALLEL_ITEM} waits")
+    if seq and seq != [layers.TP_AXIS]:
+        raise ValueError(f"the rules shard the sequence over {seq}; the "
+                         f"port splits it over {layers.TP_AXIS!r} only")
+    whole = [k for k in layers.SEQ_MIXER_AXES
+             if layers.entry_axes(rules.get(k)) != (layers.TP_AXIS,)]
+    if seq and whole:
+        raise ValueError(f"the rules shard the sequence over {seq} with "
+                         f"{whole} whole there: {SEQ_PARALLEL_ITEM} waits")
     for path in split:
         for entry in out[path]:
             axes = layers.entry_axes(entry)

@@ -72,7 +72,12 @@ and the reference's sharding rules (:mod:`repro_torch.train.rules`):
   gathered before use).  The table is kept as a sorted tuple of items,
   so a runtime still hashes and compares by value; :meth:`rules_`
   gives it back as a dict (the reference's ``DEFAULT_RULES`` without
-  one).
+  one).  Under ``seq_model`` and ``megatron_seq`` a call over a sequence
+  that :func:`repro_torch.models.layers.seq_axis` splits runs with each
+  rank holding its rows of the stream between the mixers: the entry
+  points record that decision on the runtime they pass down
+  (:meth:`Runtime.on_sequence`, the ``seq_split`` flag, False by
+  default), and every site reads it through :meth:`Runtime.seq_axis`.
 """
 
 from __future__ import annotations
@@ -140,6 +145,7 @@ class Runtime:
     dp_axes: Tuple[str, ...] = ("data",)
     ep_axis: Optional[str] = "model"
     rules: Optional[Any] = None       # logical -> mesh axes, or None
+    seq_split: bool = False           # set by on_sequence, see seq_axis
 
     def __post_init__(self):
         if self.rules is not None:
@@ -189,6 +195,21 @@ class Runtime:
                 self.mesh.size(layers.TP_AXIS) <= 1:
             return None
         return self.mesh.axis(layers.TP_AXIS)
+
+    def on_sequence(self, s: int) -> "Runtime":
+        """This runtime for a call over a sequence of ``s`` positions:
+        ``seq_split`` set where ``layers.seq_axis`` splits it, cleared
+        elsewhere (the one place that decides)."""
+        split = layers.seq_axis(self, s) is not None
+        return self if split == self.seq_split else \
+            dataclasses.replace(self, seq_split=split)
+
+    def seq_axis(self) -> Optional["Axis"]:
+        """The axis this call's sequence is split over (each rank holding
+        its rows of the stream between the mixers): the mesh's
+        ``layers.TP_AXIS`` when :meth:`on_sequence` set ``seq_split``,
+        else None."""
+        return self.tp_axis() if self.seq_split else None
 
     def moe_ep_size(self) -> int:
         """The ranks an MoE layer splits its experts over: the size of

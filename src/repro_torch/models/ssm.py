@@ -36,6 +36,13 @@ over the whole d_inner sums each row's squares over the axis
 ``w_out`` is row-parallel.  The decode state of a rank holds its heads'
 ``ssm_state`` and the conv inputs of its channels
 (:func:`ssm_cache_specs` with ``tp``).
+
+Over a sequence split across the ranks (``seq_model``,
+``megatron_seq``) the block's input is this rank's rows: it is gathered
+whole before the projection (``layers.enter``), so the conv stays causal
+over the whole sequence and the scan runs from a zero state, and
+``w_out``'s partial sums are reduce-scattered back to the rank's rows
+(``layers.row_parallel``).
 """
 
 from __future__ import annotations
@@ -116,14 +123,14 @@ def _rank_channels(cfg: ModelConfig, xbc: torch.Tensor, index: int,
 
 def _rank_proj(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                x: torch.Tensor, axis: ranks.Axis):
-    """This rank's ``[z, xBC, dt]`` of the fused projection of ``x`` and
-    its conv weights and bias, from its column blocks of ``w_in`` and of
-    the conv gathered whole over ``axis``: its heads' z, x and dt, its
-    groups' B and C."""
+    """This rank's ``[z, xBC, dt]`` of the fused projection of ``x`` (as
+    the block reads it, ``layers.enter``) and its conv weights and bias,
+    from its column blocks of ``w_in`` and of the conv gathered whole
+    over ``axis``: its heads' z, x and dt, its groups' B and C."""
     d_inner, nh, hp, dn, ng = _dims(cfg)
     here, _ = rank_dims(cfg, axis.size)
     h0 = axis.index * here
-    proj = ranks.gather_from(ranks.copy_to(x, axis) @ p["w_in"], axis, -1)
+    proj = ranks.gather_from(x @ p["w_in"], axis, -1)
     z, xbc, dt = _split_proj(cfg, proj)
     conv_w, conv_b = (_rank_channels(cfg, ranks.gather_from(p[k], axis, -1),
                                      axis.index, axis.size)
@@ -274,11 +281,13 @@ def mamba_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     The scan runs through the ``ssd_scan`` site (from a zero state) and
     the gated norm through ``rms_norm``; the projections stay
     ``torch.matmul``.  Where ``p`` holds this rank's heads, the block
-    runs on them as the module's docstring says."""
+    runs on them as the module's docstring says, and over a split
+    sequence x and the output are this rank's rows."""
     rt = Runtime() if rt is None else rt
     d_inner, nh, hp, dn, ng = _dims(cfg)
+    axis, seq = heads_axis(p, cfg, rt), rt.seq_axis()
+    x = layers.enter(x, axis, seq)
     bsz, s = x.shape[0], x.shape[1]
-    axis = heads_axis(p, cfg, rt)
     if axis is None:
         here, groups = nh, ng
         z, xbc, dt = _split_proj(cfg, x @ p["w_in"])
@@ -293,21 +302,25 @@ def mamba_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                              b.reshape(bsz, s, groups, dn),
                              c.reshape(bsz, s, groups, dn), p["d_skip"],
                              p["dt_bias"], cfg.ssm.chunk)
-    return _gated_out(p, cfg, y.reshape(bsz, s, here * hp), z, rt, axis)
+    return _gated_out(p, cfg, y.reshape(bsz, s, here * hp), z, rt, axis,
+                      seq)
 
 
 def _gated_out(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                y: torch.Tensor, z: torch.Tensor, rt: Runtime,
-               axis: Optional[ranks.Axis]) -> torch.Tensor:
+               axis: Optional[ranks.Axis],
+               seq: Optional[ranks.Axis] = None) -> torch.Tensor:
     """``norm(y * silu(z)) @ w_out``: the ``rms_norm`` site, or over
     ``axis`` (this rank's heads' columns) the norm of
-    ``layers.rms_norm_split`` and the row-parallel ``w_out``."""
+    ``layers.rms_norm_split``; ``w_out`` through ``layers.row_parallel``
+    (``seq``: this rank's rows of the product)."""
     gated = y * F.silu(compute(z)).to(y.dtype)
     if axis is None:
-        return rt.op("rms_norm")(gated, p["norm"], cfg.norm_eps) @ p["w_out"]
-    normed = layers.rms_norm_split(gated, p["norm"], cfg.norm_eps, axis,
-                                   _dims(cfg)[0])
-    return layers.row_parallel(normed, p["w_out"], axis)
+        normed = rt.op("rms_norm")(gated, p["norm"], cfg.norm_eps)
+    else:
+        normed = layers.rms_norm_split(gated, p["norm"], cfg.norm_eps, axis,
+                                       _dims(cfg)[0])
+    return layers.row_parallel(normed, p["w_out"], axis, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +374,8 @@ def mamba_decode_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
         conv_w, conv_b = p["conv_w"], p["conv_b"]
     else:
         here, groups = rank_dims(cfg, axis.size)
-        z, xbc, dt, conv_w, conv_b = _rank_proj(cfg, p, x[:, 0], axis)
+        z, xbc, dt, conv_w, conv_b = _rank_proj(
+            cfg, p, layers.enter(x[:, 0], axis, None), axis)
     window = torch.cat([conv_state, xbc[:, None].to(conv_state.dtype)],
                        dim=1)                                   # (B, W, C)
     conv_out = _conv_window(window, conv_w, conv_b, 1)[:, 0]

@@ -32,7 +32,16 @@ sums over ``"model"``, :func:`unembed` gives this rank's logits, which
 the loss takes vocabulary-parallel and the serving entry points gather
 whole).  A layer's blocks over ``"data"`` (FSDP) are gathered inside its
 checkpointed region, just before use, so that under remat the gather
-reruns in the backward and the whole weight is not kept.
+reruns in the backward and the whole weight is not kept.  Under
+``seq_model`` and ``megatron_seq`` every full-sequence entry point asks
+``Runtime.on_sequence`` whether its sequence splits; where it does,
+:func:`embed` hands each rank its rows (the vocabulary-parallel lookup
+reduce-scattered, a whole table's lookup split), the blocks run on them
+(the norm sites on the rows, each mixer between a gather and a
+reduce-scatter, the MoE's routed experts over the gathered tokens), and
+the final-normed rows are gathered for the head (:func:`next_token_loss`,
+:func:`prefill_embedded`).  A region's two boundary tensors are then a
+rank's rows.
 The ssm, hybrid and encdec families have their own stacks
 (:mod:`~repro_torch.models.registry`, :mod:`~repro_torch.models.hybrid`,
 :mod:`~repro_torch.models.encdec`); :mod:`~repro_torch.models.vlm`
@@ -128,21 +137,23 @@ def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor, rt: Runtime
     :mod:`repro_torch.train.steps`' to say.  Under the rules' layout the
     shared experts run on this rank's columns and rows (tensor
     parallelism, as the SwiGLU's), the routed experts split over
-    ``rt.ep_axis`` as they are without rules, the router whole."""
+    ``rt.ep_axis`` as they are without rules, the router whole.  Over a
+    split sequence h is this rank's rows and so is y."""
+    seq = rt.seq_axis()
     if cfg.moe is None:
         m = p["mlp"]
         axis = layers.split_axis(m["w_gate"].shape[-1], cfg.d_ff, rt,
                                  "the MLP")
         return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"],
-                             axis), None
+                             axis, seq), None
     shared = p["moe"].get("shared")
     axis = None if shared is None else layers.split_axis(
         shared["w_gate"].shape[-1], cfg.moe.n_shared * cfg.moe.d_ff_expert,
         rt, "the shared experts")
     if rt.moe_ep_size() > 1:
         return moe.moe_block(p["moe"], cfg, h, ep_axis=rt.ep_axis,
-                             mesh=rt.mesh, shared_axis=axis)
-    return moe.moe_block(p["moe"], cfg, h, shared_axis=axis)
+                             mesh=rt.mesh, shared_axis=axis, seq=seq)
+    return moe.moe_block(p["moe"], cfg, h, shared_axis=axis, seq=seq)
 
 
 def kv_heads_here(params: PyTree, cfg: ModelConfig) -> int:
@@ -177,27 +188,31 @@ def embed(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     """tokens (B, S) -> (B, S, d) in the weights' dtype.  Where this rank
     holds rows [i V, (i + 1) V) of the vocabulary, the lookup reads the
     tokens among them and the ranks' lookups are summed (one is nonzero
-    at each position)."""
+    at each position).  Where ``rt.seq_axis()`` splits the sequence, this
+    rank's rows of the sequence: the sum reduce-scattered over it, or a
+    whole table's lookup split."""
     w = params["embed"] if rt is None else \
         layers.gather_fsdp(params["embed"], embed_spec(cfg), rt)
     axis = layers.split_axis(w.shape[0], cfg.vocab_size, rt,
                              "the embedding")
+    seq = None if rt is None else rt.seq_axis()
     if axis is None:
-        return w[tokens.long()]
+        x = w[tokens.long()]
+        return x if seq is None else ranks.split_to(x, seq, 1)
     n = w.shape[0]
     local = tokens.long() - axis.index * n
     inside = ((local >= 0) & (local < n))[..., None]
-    rows = w[local.clamp(0, n - 1)]
-    return ranks.reduce_from(torch.where(inside, rows, 0), axis)
+    rows = torch.where(inside, w[local.clamp(0, n - 1)], 0)
+    if seq is None:
+        return ranks.reduce_from(rows, axis)
+    return ranks.reduce_scatter_to(rows, seq, 1)
 
 
-def unembed(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
-            rt: Optional[Runtime] = None, whole: bool = True
-            ) -> torch.Tensor:
-    """Final-normed hidden (B, S, d) -> logits (B, S, V); tied weights
-    read the embedding (``x @ embed.T``).  Where this rank holds part of
-    the vocabulary, its logits (B, S, V / n), gathered whole with
-    ``whole`` (serving: no gradient)."""
+def _head(params: PyTree, cfg: ModelConfig, rt: Optional[Runtime]
+          ) -> Tuple[torch.Tensor, Optional[ranks.Axis]]:
+    """The head's (d, V) weight as this rank reads it (tied weights: the
+    embedding's transpose), and the tensor-parallel axis when it holds
+    part of the vocabulary."""
     if cfg.tie_embeddings:
         w = params["embed"] if rt is None else \
             layers.gather_fsdp(params["embed"], embed_spec(cfg), rt)
@@ -205,12 +220,20 @@ def unembed(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
     else:
         w = params["lm_head"] if rt is None else \
             layers.gather_fsdp(params["lm_head"], head_spec(cfg), rt)
-    axis = layers.split_axis(w.shape[1], cfg.vocab_size, rt,
-                             "the unembedding")
+    return w, layers.split_axis(w.shape[1], cfg.vocab_size, rt,
+                                "the unembedding")
+
+
+def unembed(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
+            rt: Optional[Runtime] = None) -> torch.Tensor:
+    """Final-normed hidden (B, S, d), whole, -> logits (B, S, V) for
+    serving (no gradient; the loss is :func:`next_token_loss`); tied
+    weights read the embedding (``x @ embed.T``).  Where this rank holds
+    part of the vocabulary, its logits (B, S, V / n) gathered whole."""
+    w, axis = _head(params, cfg, rt)
     if axis is None:
         return h @ w
-    logits = ranks.copy_to(h, axis) @ w
-    return ranks.all_gather(logits, axis, -1) if whole else logits
+    return ranks.all_gather(h @ w, axis, -1)
 
 
 def decode_block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
@@ -276,11 +299,10 @@ def block(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
     receive the block's k and v (in place)."""
     a, k, v = attention.full_attention_kv(p["attn"], cfg, h, True, rt, rope)
     if cache is not None:
-        s = h.shape[1]
+        s = k.shape[1]                # the whole sequence's
         cache[0][:, :s] = k.to(cache[0].dtype)
         cache[1][:, :s] = v.to(cache[1].dtype)
-    h, x = rt.op("rms_norm_residual")(a, x, p["ffn_norm"]["scale"],
-                                      cfg.norm_eps)
+    h, x = layers.open_norm(rt, a, x, p["ffn_norm"]["scale"], cfg.norm_eps)
     return (x, *_ffn(p, cfg, h, rt))
 
 
@@ -295,13 +317,14 @@ def _stack(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
     Layer i is one region of ``rt.checkpoint``: its opening norm (which
     adds the previous block's FFN output) and the block, from ``(y, x)``
     to ``(x, y, aux)``.  The fused norm puts two (B, S, d) tensors at
-    each region boundary where the reference's scan carries one.  The
-    cache writes of :func:`prefill` run without grad, where the
-    checkpoint is the identity."""
+    each region boundary where the reference's scan carries one (a
+    rank's rows of each over a split sequence).  The cache writes of
+    :func:`prefill` run without grad, where the checkpoint is the
+    identity."""
     _decoder_only(cfg)
-    rope = layers.rope_cos_sin(torch.arange(x.shape[1], device=x.device)[None],
-                               cfg.head_dim_, cfg.rope_theta,
-                               compute_dtype(x.dtype))
+    rope = layers.rope_cos_sin(
+        torch.arange(layers.stream_len(x, rt), device=x.device)[None],
+        cfg.head_dim_, cfg.rope_theta, compute_dtype(x.dtype))
 
     specs = block_specs(cfg)
 
@@ -326,11 +349,14 @@ def forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The decoder stack on embedded inputs x (B, S, d).  Returns (hidden
     (B, S, d) before the final norm, the MoE aux loss summed over the
-    layers — 0 for the dense family), as the reference does."""
-    x, y, aux = _stack(params, cfg, x, rt)
+    layers — 0 for the dense family), as the reference does.  Over a
+    split sequence the stack runs on this rank's rows of x and the
+    hidden states are gathered whole."""
+    rt = rt.on_sequence(x.shape[1])
+    x, y, aux = _stack(params, cfg, layers.split_seq(x, rt), rt)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + y, aux
+    return layers.gather_seq(x + y, rt), aux
 
 
 def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
@@ -348,27 +374,33 @@ def lm_loss_terms(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     """:func:`lm_loss`'s two terms: the cross entropy and the MoE aux
     loss summed over the layers (None without MoE)."""
     tokens = batch["tokens"]
+    rt = rt.on_sequence(tokens.shape[1])
     x, y, aux = _stack(params, cfg, embed(params, cfg, tokens, rt), rt)
-    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
-                                      cfg.norm_eps)
+    h, _ = layers.open_norm(rt, y, x, params["final_norm"]["scale"],
+                            cfg.norm_eps)
     mask = batch.get("mask")
-    loss = next_token_loss(params, cfg, h[:, :-1], tokens[:, 1:],
-                           None if mask is None else mask[:, 1:], rt)
+    loss = next_token_loss(params, cfg, h, tokens[:, 1:],
+                           None if mask is None else mask[:, 1:], rt,
+                           slice(None, -1))
     return loss, aux
 
 
 def next_token_loss(params: PyTree, cfg: ModelConfig, h: torch.Tensor,
                     labels: torch.Tensor, mask: Optional[torch.Tensor],
-                    rt: Runtime) -> torch.Tensor:
-    """The cross entropy of the final-normed ``h`` (B, S, d)'s logits
-    against ``labels`` (B, S) (``layers.cross_entropy_loss``), taken
-    vocabulary-parallel where this rank holds part of the vocabulary:
-    every family's loss."""
-    logits = unembed(params, cfg, h, rt, whole=False)
-    return layers.cross_entropy_loss(
-        logits, labels, mask,
-        vocab_axis=layers.split_axis(logits.shape[-1], cfg.vocab_size, rt,
-                                     "the logits"))
+                    rt: Runtime, rows: slice = slice(None)) -> torch.Tensor:
+    """The cross entropy of the logits of the final-normed ``h`` (B, S,
+    d) at the positions ``rows`` against ``labels`` (B, len(rows))
+    (``layers.cross_entropy_loss``), taken vocabulary-parallel where
+    this rank holds part of the vocabulary: every family's loss.  Where
+    ``rt.seq_axis()`` splits the sequence, ``h`` is this rank's rows of
+    it, gathered whole for the head (``layers.enter``)."""
+    w, axis = _head(params, cfg, rt)
+    seq = rt.seq_axis()
+    if seq is None:
+        h = layers.enter(h[:, rows], axis, None)
+    else:
+        h = layers.enter(h, axis, seq)[:, rows]
+    return layers.cross_entropy_loss(h @ w, labels, mask, vocab_axis=axis)
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
@@ -383,6 +415,7 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     is left as it is) and the same dict is returned, so that
     :func:`decode_step` continues from position S.  This is the port's
     in-place form of the reference's returned cache."""
+    rt = rt.on_sequence(tokens.shape[1])
     return prefill_embedded(params, cfg, embed(params, cfg, tokens, rt),
                             rt, cache)
 
@@ -392,9 +425,12 @@ def prefill_embedded(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
                      cache: Optional[Dict[str, torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """:func:`prefill` over the embedded positions x (B, S, d) (the vlm
-    prepends its projected patches)."""
+    prepends its projected patches), this rank's rows of them where
+    ``rt`` (on the sequence, ``Runtime.on_sequence``) splits it: each
+    rank writes the cache at every position of its kv heads, and the
+    last position's final-normed row is gathered from the last rank."""
     _decoder_only(cfg)
-    b, s = x.shape[:2]
+    b, s = x.shape[0], layers.stream_len(x, rt)
     shape = (cfg.n_layers, b, s, kv_heads_here(params, cfg),
              cfg.head_dim_)
     if cache is None:
@@ -411,4 +447,5 @@ def prefill_embedded(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     h, _ = rt.op("rms_norm_residual")(y[:, -1:], x[:, -1:],
                                       params["final_norm"]["scale"],
                                       cfg.norm_eps)
+    h = layers.gather_seq(h, rt)[:, -1:]
     return unembed(params, cfg, h, rt)[:, 0], cache

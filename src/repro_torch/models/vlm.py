@@ -19,10 +19,14 @@ weights, whole on ``"model"``, have their ``"data"`` blocks gathered
 before use.  A vocabulary that does not divide the ``"model"`` ranks
 (internvl2-26b's 92,553) stays whole there (``layers.spec_to_pspec``),
 and the embedding, the unembedding and the loss then take it whole.
+Over a combined sequence that ``Runtime.on_sequence`` splits, the
+sequence [patches; text] is built whole on every rank and each rank
+takes its rows of it (``layers.split_seq``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -63,12 +67,21 @@ def project_patches(params: PyTree, cfg: ModelConfig,
     return x @ p["w2"]
 
 
+def _on_combined(batch: Dict[str, Any], rt: Runtime) -> Runtime:
+    """``rt`` on the combined sequence of ``batch``'s patches and text."""
+    return rt.on_sequence(batch["patches"].shape[1] +
+                          batch["tokens"].shape[1])
+
+
 def _embed(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
            rt: Runtime) -> torch.Tensor:
-    """The combined sequence [projected patches; text embeddings]."""
-    vis = project_patches(params, cfg, batch["patches"], rt)
-    txt = transformer.embed(params, cfg, batch["tokens"], rt)
-    return torch.cat([vis, txt], dim=1)
+    """The combined sequence [projected patches; text embeddings], built
+    whole, then this rank's rows of it where ``rt`` (on the combined
+    sequence, :func:`_on_combined`) splits it."""
+    whole = dataclasses.replace(rt, seq_split=False)
+    vis = project_patches(params, cfg, batch["patches"], whole)
+    txt = transformer.embed(params, cfg, batch["tokens"], whole)
+    return layers.split_seq(torch.cat([vis, txt], dim=1), rt)
 
 
 def vlm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
@@ -79,13 +92,15 @@ def vlm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     the float32 cross entropy (plus the MoE aux loss of an MoE
     backbone)."""
     tokens = batch["tokens"]
+    rt = _on_combined(batch, rt)
     x, y, aux = transformer._stack(params, cfg, _embed(params, cfg, batch,
                                                        rt), rt)
-    h, _ = rt.op("rms_norm_residual")(y, x, params["final_norm"]["scale"],
-                                      cfg.norm_eps)
+    h, _ = layers.open_norm(rt, y, x, params["final_norm"]["scale"],
+                            cfg.norm_eps)
     n_p = batch["patches"].shape[1]
-    loss = transformer.next_token_loss(params, cfg, h[:, n_p - 1:-1], tokens,
-                                       batch.get("mask"), rt)
+    loss = transformer.next_token_loss(params, cfg, h, tokens,
+                                       batch.get("mask"), rt,
+                                       slice(n_p - 1, -1))
     return loss if aux is None else loss + aux
 
 
@@ -95,6 +110,7 @@ def prefill(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     """Multimodal prefill over the P + S_text combined positions: (the
     last position's logits (B, V), the KV cache), in the preallocated
     form of :func:`repro_torch.models.transformer.prefill`."""
+    rt = _on_combined(batch, rt)
     return transformer.prefill_embedded(params, cfg,
                                         _embed(params, cfg, batch, rt), rt,
                                         cache)

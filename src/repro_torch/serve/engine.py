@@ -83,7 +83,10 @@ class ServeEngine:
     each rank's cache is its part of the decode state
     (``registry.cache_specs`` at ``registry.tp_ways``): the kv heads its
     q heads read, ``(L, B, S_max, Hkv_here, D)``, its ssm heads and conv
-    channels, its kv heads of the encdec's cross cache."""
+    channels, its kv heads of the encdec's cross cache.  The engine
+    prefills through decode steps of one position, which never split
+    the sequence: under ``seq_model`` and ``megatron_seq`` every prompt
+    takes the base preset's path, and the cache keeps its layout."""
 
     def __init__(self, arch_name: str, params, cfg: ModelConfig,
                  ecfg: EngineConfig, rt: Runtime = Runtime(),

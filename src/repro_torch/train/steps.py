@@ -72,7 +72,11 @@ reference takes them on its production meshes:
   and divided by the data ranks, which gives the mean; a block is never
   reduced over ``"model"``.  The loss is the mean over the data axes,
   and the global norm adds each split leaf's squares over the axes that
-  split it (:func:`sharded_global_norm`).
+  split it (:func:`sharded_global_norm`).  Under ``seq_model`` and
+  ``megatron_seq`` the ranks of ``"model"`` also split the sequence
+  between the mixers (``layers.seq_axis``); a whole leaf applied on a
+  rank's rows, each norm scale, enters through ``ranks.copy_to`` at its
+  site, so its gradient is already whole on every rank here.
 
 Every rank then applies the same AdamW step to what it holds.
 """

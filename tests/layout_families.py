@@ -1,19 +1,22 @@
 """What ``tests/test_torch_family_layouts_recurrent.py`` (the ssm and
-hybrid families) and ``tests/test_torch_family_layouts.py`` (the moe,
-vlm and encdec families) share: the tiny configs and their cases, the
-inputs drawn from seeds, the reference's GSPMD steps on four virtual
-devices (a script run in one subprocess a case), what each rank runs,
-and the comparisons.
+hybrid families), ``tests/test_torch_family_layouts.py`` (the moe, vlm
+and encdec families) and ``tests/test_torch_seq_parallel.py`` (every
+family under the sequence-parallel presets) share: the tiny configs and
+their cases, the inputs drawn from seeds, the reference's GSPMD steps on
+four virtual devices (a script run in one subprocess a case), what each
+rank runs, and the comparisons.
 
 A case is a config under a preset on a mesh: ``baseline`` on ``{"data":
 2, "model": 2}`` (FSDP and tensor parallelism), ``megatron`` on
 ``{"model": 2}`` (tensor parallelism alone) and on ``{"data": 1,
 "model": 4}`` (a dim that does not divide 4 ranks stays whole: the
-hybrid's 2 kv heads, the encdec's vocabulary of 258).  Every case trains
-2 steps and counts its collectives against the dry-run's; the
-``megatron`` cases also serve (greedy decode against the reference, a
-``ServeEngine`` against the unsplit engine), the ``baseline`` cases run a
-``Trainer`` with a restart.
+hybrid's 2 kv heads, the encdec's vocabulary of 258); ``seq_model`` and
+``megatron_seq`` likewise, the sequence split over ``"model"`` between
+the mixers.  Every case trains 2 steps and counts its collectives
+against the dry-run's; the ``megatron`` and ``megatron_seq`` cases also
+serve (greedy decode against the reference, a ``ServeEngine`` against
+the unsplit engine), the ``baseline`` cases run a ``Trainer`` with a
+restart.
 """
 
 import os
@@ -36,7 +39,7 @@ from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
 from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
 from repro_torch.train import checkpoint, rules, steps, trainer
-from test_torch_ranks import _nest, _put
+from test_torch_ranks import DENSE, _nest, _put
 
 ROOT = Path(__file__).resolve().parent.parent
 _SSM = dict(d_state=16, head_dim=16, expand=2, chunk=8)
@@ -67,12 +70,20 @@ CONFIGS = {
                     n_kv_heads=4, d_ff=128, vocab_size=258, head_dim=16,
                     rope_theta=1e4),
                {"encdec": dict(n_encoder_layers=2, n_decoder_layers=2)}),
+    # the dense test config (qk-norm, tied embeddings) and a qwen2-like
+    # one (QKV bias, an untied head), as tests/test_torch_rules_ranks.py's
+    "dense": ({k: v for k, v in DENSE.items() if k != "name"}, {}),
+    "qwen2": (dict({k: v for k, v in DENSE.items() if k != "name"},
+                   qkv_bias=True, qk_norm=False, tie_embeddings=False), {}),
 }
 SUB = {"ssm": "SSMConfig", "hybrid": "HybridConfig", "moe": "MoEConfig",
        "vlm": "VLMConfig", "encdec": "EncDecConfig"}
 BL22 = ({"data": 2, "model": 2}, "baseline")
 MG2 = ({"model": 2}, "megatron")
 MG14 = ({"data": 1, "model": 4}, "megatron")
+SM22 = ({"data": 2, "model": 2}, "seq_model")
+MS2 = ({"model": 2}, "megatron_seq")
+MS14 = ({"data": 1, "model": 4}, "megatron_seq")
 # case -> (config, mesh shape, preset)
 CASES = {"ssm_bl22": ("ssm", *BL22), "ssm_mg2": ("ssm-g2", *MG2),
          "hyb_bl22": ("hybrid", *BL22), "hyb_mg2": ("hybrid", *MG2),
@@ -80,10 +91,16 @@ CASES = {"ssm_bl22": ("ssm", *BL22), "ssm_mg2": ("ssm-g2", *MG2),
          "moe_bl22": ("moe", *BL22), "moe_mg2": ("moe", *MG2),
          "vlm_bl22": ("vlm", *BL22), "vlm_mg2": ("vlm", *MG2),
          "enc_bl22": ("encdec", *BL22), "enc_mg2": ("encdec", *MG2),
-         "enc_mg14": ("encdec", *MG14)}
+         "enc_mg14": ("encdec", *MG14),
+         "dense_sm22": ("dense", *SM22), "qwen2_ms14": ("qwen2", *MS14),
+         "moe_sm22": ("moe", *SM22), "vlm_ms2": ("vlm", *MS2),
+         "enc_ms14": ("encdec", *MS14), "ssm_sm22": ("ssm", *SM22),
+         "hyb_ms14": ("hybrid", *MS14)}
 RECURRENT = ("ssm_bl22", "ssm_mg2", "hyb_bl22", "hyb_mg2", "hyb_mg14")
 FAMILIES = ("moe_bl22", "moe_mg2", "vlm_bl22", "vlm_mg2", "enc_bl22",
             "enc_mg2", "enc_mg14")
+SEQ_PARALLEL = ("dense_sm22", "qwen2_ms14", "moe_sm22", "vlm_ms2",
+                "enc_ms14", "ssm_sm22", "hyb_ms14")
 DRAWS = {"bq": (0, 0.1), "bk": (0, 0.1), "bv": (0, 0.1),
          "conv_b": (0, 0.1), "a_log": (0, 0.5), "dt_bias": (0, 0.5),
          "d_skip": (1, 0.3)}
@@ -117,7 +134,7 @@ def table(case: str):
 
 
 def served(case: str) -> bool:
-    return CASES[case][2] == "megatron"
+    return CASES[case][2] in ("megatron", "megatron_seq")
 
 
 def trained(case: str) -> bool:
@@ -136,10 +153,19 @@ def as_unsplit(case: str) -> bool:
 
 def kv_prefill(case: str) -> bool:
     """Whether the case's serving starts from a prefill that fills a KV
-    cache (the moe and vlm families), else from a zero decode state fed
-    the prompt token by token (the recurrent families and the encdec,
-    whose prefill is its encoder)."""
-    return cfg_of(case).family in ("moe", "vlm")
+    cache (the dense, moe and vlm families), else from a zero decode
+    state fed the prompt token by token (the recurrent families and the
+    encdec, whose prefill is its encoder)."""
+    return cfg_of(case).family in ("dense", "moe", "vlm")
+
+
+def seq_len(case: str) -> int:
+    """The tokens a training row: SEQ, and one more for the encdec under
+    a sequence-parallel preset, so that its decoder's SEQ positions
+    (``tokens[:, :-1]``) split as its encoder's frames do."""
+    if cfg_of(case).family == "encdec" and CASES[case][2].endswith("seq"):
+        return SEQ + 1
+    return SEQ
 
 
 def _draw(config: str, seed: int):
@@ -154,14 +180,16 @@ def _draw(config: str, seed: int):
     return params
 
 
-def inputs(cases):
+def inputs(cases, seeds=None):
     """The parameters of every config of ``cases`` (the port's
     initialisation, the biases and the ssm's per-head vectors drawn: a
-    zero or one init hides bugs) and each served encdec case's cross
-    cache, drawn from seeds, as flat numpy arrays."""
+    zero or one init hides bugs; config -> seed from ``seeds``, else 40
+    on in sorted order) and each served encdec case's cross cache, drawn
+    from seeds, as flat numpy arrays."""
     out = {}
     for i, config in enumerate(sorted({CASES[c][0] for c in cases})):
-        _put(out, f"{config}/params", _draw(config, 40 + i))
+        seed = 40 + i if seeds is None else seeds[config]
+        _put(out, f"{config}/params", _draw(config, seed))
     for case in cases:
         cfg = cfg_of(case)
         if served(case) and cfg.family == "encdec":
@@ -174,10 +202,12 @@ def inputs(cases):
     return out
 
 
-def batch(case: str, step: int, rows: int = ROWS, seq: int = SEQ):
-    """A numpy batch of the family's inputs: tokens, and the vlm's
-    patches or the encdec's frames."""
+def batch(case: str, step: int, rows: int = ROWS, seq: int = None):
+    """A numpy batch of the family's inputs: tokens (:func:`seq_len` a
+    row unless ``seq`` says), and the vlm's patches or the encdec's
+    frames."""
     cfg = cfg_of(case)
+    seq = seq_len(case) if seq is None else seq
     rng = np.random.default_rng(90 + 7 * step + len(case))
     out = {"tokens": rng.integers(0, cfg.vocab_size, size=(rows, seq),
                                   dtype=np.int32)}

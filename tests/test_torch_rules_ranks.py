@@ -736,9 +736,22 @@ def _runtime(shape, preset, cfg, gradsync="gspmd"):
 @pytest.mark.parametrize("preset", ["seq_model", "megatron_seq",
                                     "ssm_seq"])
 def test_sequence_parallel_presets_are_refused(preset):
+    """``seq_model`` and ``megatron_seq`` run now (their steps on ranks
+    are ``tests/test_torch_seq_parallel.py``'s): the layout comes back,
+    every leaf partitioned as ``spec_to_pspec`` says; ``ssm_seq`` is
+    still refused, naming item 33."""
     cfg = _cfg("bl22")
-    with pytest.raises(ValueError, match="item 33"):
-        registry.layout(cfg, _runtime({"data": 2, "model": 2}, preset, cfg))
+    rt = _runtime({"data": 2, "model": 2}, preset, cfg)
+    if preset == "ssm_seq":
+        with pytest.raises(ValueError, match="item 33"):
+            registry.layout(cfg, rt)
+        return
+    got = registry.layout(cfg, rt)
+    specs = dict(layers.spec_paths(registry.param_specs(cfg)))
+    assert got is not None and set(got) == set(specs)
+    for path, spec in specs.items():
+        assert got[path] == layers.spec_to_pspec(spec, rt.rules_(),
+                                                 rt.mesh), path
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "mamba2-2.7b",
@@ -749,7 +762,7 @@ def test_other_families_split_by_the_rules_are_refused(arch):
     ``baseline`` on ``{"data": 2, "model": 2}`` and ``megatron`` on
     ``{"model": 2}`` the layout comes back, every leaf partitioned as
     ``spec_to_pspec`` says, and the train step runs on it; what is still
-    refused is the sequence-parallel presets
+    refused is ``ssm_seq``
     (:func:`test_sequence_parallel_presets_are_refused`) and ``fsdp_only``
     on a split ``"data"`` axis."""
     cfg = registry.get(arch).cfg
@@ -764,7 +777,7 @@ def test_other_families_split_by_the_rules_are_refused(arch):
                                                      rt.mesh), path
         assert steps.splits_layout(registry.Arch(cfg), rt)
     with pytest.raises(ValueError, match="item 33"):
-        registry.layout(cfg, _runtime({"data": 2, "model": 2}, "seq_model",
+        registry.layout(cfg, _runtime({"data": 2, "model": 2}, "ssm_seq",
                                       cfg))
 
 
