@@ -379,6 +379,20 @@ Phases (one JSON line each; any failure exits non-zero):
    2048, a prefill of 1 x 512, 256 positions a rank, 8 greedy steps);
    ``flash_attention``, ``flash_decode``, ``rms_norm`` and
    ``rms_norm_residual`` at (i)'s shapes against their plain versions;
+   (j) ``ssm_seq``, Mamba's form (each rank its rows of the stream, the
+   Mamba block and the SwiGLU on them with their weights whole, the
+   conv's halo and the scan's (B, H, P, N) state handed from rank to
+   rank, the attention over the gathered sequence): (j1) mamba2-2.7b at
+   (h1)'s 2 layers on (g1)'s four ranks, trained as (h1) and held to
+   (h1)'s unsplit step with (h1)'s bars (its blocks under ``ssm_seq``),
+   its collectives a step, the seconds in ``gloo`` and the peak a rank
+   beside (h1)'s; (j2) zamba2-2.7b at (h2)'s 6 layers on (g2)'s two
+   ranks served as (h2) (the loss at 1 x 2048 held by phase 13's
+   yardstick, 1024 positions and 4 chunks a rank, the decode whole), a
+   rank's weight bytes whole but the vocabulary; ``ssd_scan`` at a
+   rank's (1, 1024, 80, 64) N = 128 against its plain version and the
+   handoff's fold and correction on the card against the same math on
+   the CPU;
 then the ``kernels`` line: per kernel its launches on the main paths
 (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34, 37, 38 and, from the
 device traces, 18 and 20), its times and its bound.
@@ -6355,6 +6369,16 @@ FAMILY_SERVED = ("h2", "h4a", "h4b")
 # 512 (256 a rank) and 8 greedy decode steps (whole: one position)
 SEQ_TRAIN_PRESET = "seq_model"
 SEQ_SERVE_PRESET = "megatron_seq"
+# (j): ssm_seq, the sequence split with the mixers whole.  (j1)
+# mamba2-2.7b at (h1)'s 2 of 64 layers on (g1)'s four ranks: every leaf
+# whole on "model" but the vocabulary (the fsdp_embed dims halved over
+# "data"), each rank 1024 of its row's 2048 positions (4 of the row's 8
+# chunks of 256); 2 gspmd steps of (h1)'s 2 x 2048, held to (h1)'s
+# unsplit step.  (j2) zamba2-2.7b at (h2)'s 6 of 54 layers on (g2)'s two
+# ranks: the loss at 1 x 2048 (1024 positions a rank), the prefill's
+# forward at 1 x 512 (256, one chunk, a rank) and 8 greedy decode steps
+# (whole)
+SSM_SEQ_PRESET = "ssm_seq"
 # elements a leaf in the strided samples that (e) and (f) compare across
 # processes (a whole tree would cross as gigabytes); (g1)'s blocks cross
 # four times, one a rank, so fewer
@@ -6638,7 +6662,8 @@ def layout_train_rank(device, cfg=None, shape=None, preset=None,
     torch.cuda.reset_peak_memory_stats()
     params, out = layout_train(arch, params, rt,
                                slice(axis.index, axis.index + 1), device)
-    out.update(seq_split=rt.on_sequence(RANKS_SEQ).seq_axis() is not None,
+    on = rt.on_sequence(RANKS_SEQ, arch.cfg)
+    out.update(seq_split=on.seq_axis() is not None, seq_rows=on.seq_rows,
                coords={a: mesh.axis(a).index for a in mesh.shape},
                peak_bytes=torch.cuda.max_memory_allocated(),
                weight_bytes=sum(x.numel() * x.element_size()
@@ -6652,7 +6677,8 @@ def layout_train_rank(device, cfg=None, shape=None, preset=None,
     return out
 
 
-def layout_unsplit(device, cfg=None, shape=None, preset=None) -> dict:
+def layout_unsplit(device, cfg=None, shape=None, preset=None,
+                   also=()) -> dict:
     """(g1)'s comparison on one rank (or an (h) train part's): the
     unsplit gspmd steps on the whole global batch, and the samples of
     each rank's block of the parameters after them.  An MoE over more
@@ -6662,7 +6688,9 @@ def layout_unsplit(device, cfg=None, shape=None, preset=None) -> dict:
     (``Runtime(dp_workers=2, gradsync="spindle_per_tensor")``: the same
     mean of the shards' gradients), its loss the shards' mean cross
     entropy plus shard 0's aux at the step's weights, and its first
-    step's router calls each shard's."""
+    step's router calls each shard's.  ``also``: presets whose blocks
+    are sampled too (``blocks_under``), for a part that runs the same
+    model and batches under another layout."""
     cfg = layout_cfg() if cfg is None else cfg
     shape = LAYOUT_SHAPE if shape is None else shape
     preset = preset or LAYOUT_PRESET
@@ -6680,7 +6708,11 @@ def layout_unsplit(device, cfg=None, shape=None, preset=None) -> dict:
                weight_bytes=sum(x.numel() * x.element_size()
                                 for x in tree_util.leaves(params)),
                blocks=[block_samples(params, arch.cfg, table, shape, c)
-                       for c in mesh_coords(shape)])
+                       for c in mesh_coords(shape)],
+               blocks_under={
+                   p: [block_samples(params, arch.cfg,
+                                     rules_lib.get(p, arch.cfg), shape, c)
+                       for c in mesh_coords(shape)] for p in also})
     del params
     torch.cuda.empty_cache()
     return out
@@ -6954,6 +6986,62 @@ def prefill_yardstick(split, whole, whole32, what: str) -> dict:
             "prefill_unsplit_from_float32": e_whole}
 
 
+def loss_yardstick(split, whole, whole32, what: str) -> dict:
+    """A served part's loss held by phase 13's yardstick: the split bf16
+    loss no farther from the unsplit float32 loss (on the upcast
+    weights) than twice the unsplit bf16 loss is, plus 1e-6."""
+    yard = float(whole32)
+    e_split, e_whole = abs(float(split) - yard), abs(float(whole) - yard)
+    check(e_split <= 2 * e_whole + 1e-6, f"{what} loss: {e_split} from "
+          f"float32 against the unsplit bf16's {e_whole}")
+    return {"loss_split_from_float32": e_split,
+            "loss_unsplit_from_float32": e_whole}
+
+
+def handoff_check(device, cfg, tp: int, seq: int) -> dict:
+    """(j)'s state handoff on the card: ``cfg``'s scan over (1, ``seq``)
+    at its whole heads, the rows of ``tp`` ranks simulated in this
+    process (``ssm.ssd_local`` through the ``ssd_scan`` kernel on each
+    rank's rows, every pair stacked in rank order, each rank's
+    ``ssm.ssd_handoff``): the fold and the correction on the card
+    against the same math on the CPU from the same kernel outputs
+    (float32, 1e-4 relative), and the rows joined against the kernel's
+    scan of the whole sequence (the bf16 bar of ``ssd_scan``)."""
+    s_ = cfg.ssm
+    h, g = ssm.rank_dims(cfg, 1)
+    gen = torch.Generator(device=device).manual_seed(938)
+    args = ssd_inputs(1, seq, h, s_.head_dim, s_.d_state, g,
+                      torch.bfloat16, gen)
+    rows = seq // tp
+    local, cpu = [], []
+    for r in range(tp):
+        part = [a[:, r * rows:(r + 1) * rows] if a.dim() > 1 else a
+                for a in args]
+        local.append((ssm.ssd_local(sc.ssd_scan, *part, s_.chunk), part[4]))
+    every = torch.stack([pair for (_, _, pair), _ in local])
+    ys, err = [], 0.0
+    for r, ((y0, cs, _), c) in enumerate(local):
+        ys.append(ssm.ssd_handoff(y0, cs, c, every, r)[0])
+        # the fold and the correction in float32 (y0 upcast), so that no
+        # rounding to bf16 hides or makes a difference
+        y, final = ssm.ssd_handoff(y0.float(), cs, c, every, r)
+        y_cpu, final_cpu = ssm.ssd_handoff(y0.float().cpu(), cs.cpu(),
+                                           c.cpu(), every.cpu(), r)
+        err = max(err, within(y.cpu(), y_cpu, torch.float32, 1e-4,
+                              what=f"(j) handoff rank {r} y"),
+                  within(final.cpu(), final_cpu, torch.float32, 1e-4,
+                         what=f"(j) handoff rank {r} final state"))
+    y_whole, state_whole = sc.ssd_scan(*args, s_.chunk)
+    return {"ranks": tp, "rows": rows, "heads": h,
+            "card_vs_cpu_max_abs_err": err,
+            "joined_vs_whole_max_abs_err": within(
+                torch.cat(ys, 1), y_whole, torch.bfloat16,
+                SSD_Y_TOL[torch.bfloat16], what="(j) rows joined"),
+            "final_state_vs_whole_max_abs_err": within(
+                final, state_whole, torch.float32, SSD_STATE_TOL,
+                what="(j) final state")}
+
+
 def serve_part(part: str):
     """A served part's (config, mesh shape, preset): (g2), or an (h)
     part of FAMILY_PARTS."""
@@ -6961,6 +7049,8 @@ def serve_part(part: str):
         return tp_serve_cfg(), TP_SERVE_SHAPE, TP_SERVE_PRESET
     if part == "i2":
         return tp_serve_cfg(), TP_SERVE_SHAPE, SEQ_SERVE_PRESET
+    if part == "j2":
+        return family_cfg("h2"), TP_SERVE_SHAPE, SSM_SEQ_PRESET
     _, _, shape, preset = FAMILY_PARTS[part]
     return family_cfg(part), shape, preset
 
@@ -6993,8 +7083,9 @@ def tp_serve_rank(rank, device, part: str = "g2") -> tuple:
         if cfg.n_heads % registry.tp_ways(cfg, rt) == 0 else cfg.n_heads
     out = {"heads_here": [hq, split[2]], "wall_s": split[3],
            "loss": float(split[4]),
-           "seq_split": [rt.on_sequence(n).seq_axis() is not None
+           "seq_split": [rt.on_sequence(n, cfg).seq_axis() is not None
                          for n in (RANKS_SEQ, TP_PREFILL, 1)],
+           "seq_rows": rt.on_sequence(RANKS_SEQ, cfg).seq_rows,
            "weight_bytes": sum(x.numel() * x.element_size()
                                for x in tree_util.leaves(mine)),
            "peak_bytes": torch.cuda.max_memory_allocated()}
@@ -7019,6 +7110,9 @@ def tp_serve_rank(rank, device, part: str = "g2") -> tuple:
         if split[5] is not None:
             out.update(prefill_yardstick(split[5], whole[5], whole32[5],
                                          what))
+        if part == "j2":
+            out.update(loss_yardstick(split[4], whole[4], whole32[4],
+                                      what))
         full = tree_util.map(lambda t: t.double(), full)
         torch.cuda.empty_cache()
         whole64 = family_serve_run(arch, full, Runtime(kernels="plain"),
@@ -7057,11 +7151,15 @@ def local_norm_kernels(device, rows: int, d: int) -> dict:
     return {"rows": rows, "d": d, "max_abs_err": errs}
 
 
-def tp_launches(cfg, want: dict) -> dict:
+def tp_launches(cfg, want: dict, table=None, shape=None) -> dict:
     """``want`` (a step's launches unsplit) on a rank whose Mamba heads
-    split: each Mamba layer's gated norm is ``layers.rms_norm_split``,
-    not the ``rms_norm`` site."""
+    split (under ``table`` on a mesh of ``shape``, when given): each
+    Mamba layer's gated norm is ``layers.rms_norm_split``, not the
+    ``rms_norm`` site.  Under ``ssm_seq`` the heads stay whole."""
     if cfg.ssm is None:
+        return want
+    if table is not None and registry.tp_ways(cfg, Runtime(
+            mesh=ranks.RankMesh.ledger(shape), rules=table)) == 1:
         return want
     return dict(want, rms_norm=want["rms_norm"] - cfg.n_layers)
 
@@ -7084,7 +7182,7 @@ def layout_compare(results, unsplit, key: str = "g", cfg=None,
     check(all(made == unsplit_want for made in unsplit["launches_per_step"]),
           f"{what} unsplit launches {unsplit['launches_per_step']}, want "
           f"{unsplit_want}")
-    split_want = tp_launches(cfg, want)
+    split_want = tp_launches(cfg, want, table, shape)
     coords = mesh_coords(shape)
     errs, same, holders = [], {}, collections.Counter()
     routes = {}
@@ -7214,9 +7312,10 @@ def ranks_folded_child(rank, device):
     return {"folded": folded, "peak_bytes": peak, "nccl_world1": d,
             "backend": mesh.backend, "e": ep_train_unsplit(device),
             "f": pod_folded(device), "g": layout_unsplit(device),
-            "h": {part: layout_unsplit(device, family_cfg(part),
-                                       *FAMILY_PARTS[part][2:])
-                  for part in FAMILY_TRAINED}}
+            "h": {part: layout_unsplit(
+                device, family_cfg(part), *FAMILY_PARTS[part][2:],
+                also=(SSM_SEQ_PRESET,) if part == "h1" else ())
+                for part in FAMILY_TRAINED}}
 
 
 def ep_train(arch, params, rt, device):
@@ -7472,6 +7571,9 @@ def ranks_child(rank, device):
     # (i2) serving on the "megatron_seq" layout over {"model": 2}
     out["i2"], i_counts = tp_serve_rank(rank, device, "i2")
     counts = counts + collections.Counter(i_counts)
+    # (j2) (h2)'s model served under "ssm_seq" over {"model": 2}
+    out["j2"], j_counts = tp_serve_rank(rank, device, "j2")
+    counts = counts + collections.Counter(j_counts)
     if rank == 0:
         out["h2"]["ssd"] = local_ssd_kernel(
             device, family_cfg("h2"), TP_SERVE_SHAPE["model"], TP_PREFILL)
@@ -7543,6 +7645,11 @@ def pod_child(rank, device):
     out["i1"] = layout_train_rank(device, layout_cfg(), LAYOUT_SHAPE,
                                   SEQ_TRAIN_PRESET, what="(i1)")
     counts += collections.Counter(ops.launch_counts())
+    # (j1) (h1)'s model trained under "ssm_seq" on (g1)'s mesh
+    ops.reset_launch_counts()
+    out["j1"] = layout_train_rank(device, family_cfg("h1"), LAYOUT_SHAPE,
+                                  SSM_SEQ_PRESET, what="(j1)")
+    counts += collections.Counter(ops.launch_counts())
     out["counts"] = dict(counts)
     if out["g"]["coords"] == {"data": 0, "model": 0}:
         cfg = layout_cfg()
@@ -7560,6 +7667,13 @@ def pod_child(rank, device):
             device, cfg.n_heads // LAYOUT_SHAPE["model"],
             cfg.n_kv_heads // LAYOUT_SHAPE["model"], RANKS_SEQ)
         out["i1"]["norms"] = local_norm_kernels(
+            device, RANKS_SEQ // LAYOUT_SHAPE["model"], cfg.d_model)
+        cfg = family_cfg("h1")
+        out["j1"]["ssd"] = local_ssd_kernel(
+            device, cfg, 1, RANKS_SEQ // LAYOUT_SHAPE["model"])
+        out["j1"]["handoff"] = handoff_check(
+            device, cfg, LAYOUT_SHAPE["model"], RANKS_SEQ)
+        out["j1"]["norms"] = local_norm_kernels(
             device, RANKS_SEQ // LAYOUT_SHAPE["model"], cfg.d_model)
     return out
 
@@ -7703,10 +7817,10 @@ def phase38_ranks(smi_line: str) -> dict:
     folded comparison, (d) in one one-rank spawn over ``nccl``, then (a),
     (b), (c) in a two-rank spawn on the one card over ``gloo``
     (``ranks.backend_for``: NCCL refuses two ranks on one card), with
-    (e), (g2), (h2), (h4) and (i2) after them; then (f), (g1), (h1),
-    (h3) and (i1) in a four-rank spawn.  A rank that fails, or is not
-    done in time, fails the run.  Returns the ranks path's launches:
-    every part's, (i) included."""
+    (e), (g2), (h2), (h4), (i2) and (j2) after them; then (f), (g1),
+    (h1), (h3), (i1) and (j1) in a four-rank spawn.  A rank that fails,
+    or is not done in time, fails the run.  Returns the ranks path's
+    launches: every part's, (i) and (j) included."""
     t0 = time.perf_counter()
     build_kernels()
     torch.cuda.empty_cache()
@@ -7927,6 +8041,68 @@ def phase38_ranks(smi_line: str) -> dict:
           **{k: v for k, v in i2.items() if k not in (
               "heads_here", "weight_bytes", "peak_bytes", "wall_s", "loss",
               "seq_split")}, "nvidia_smi": smi_line})
+    h1_unsplit = folded_out["h"]["h1"]
+    cfg = family_cfg("h1")
+    j1 = layout_compare(pod, dict(h1_unsplit, blocks=h1_unsplit[
+        "blocks_under"][SSM_SEQ_PRESET]), "j1", cfg, LAYOUT_SHAPE,
+        SSM_SEQ_PRESET)
+    check(all(r["j1"]["seq_split"] and r["j1"]["seq_rows"] for r in pod),
+          "(j1) the sequence did not split in ssm_seq's form")
+    extra = {k: v for r in pod for k, v in r["j1"].items()
+             if k in ("ssd", "handoff", "norms")}
+    emit({"phase": 38, "part": "j1", "model": FAMILY_PARTS["h1"][0],
+          "layers": cfg.n_layers, "mesh": LAYOUT_SHAPE,
+          "rules": SSM_SEQ_PRESET, "gradsync": "gspmd",
+          "global_batch": [LAYOUT_BATCH, RANKS_SEQ], "steps": RANKS_STEPS,
+          "positions_a_rank": RANKS_SEQ // LAYOUT_SHAPE["model"],
+          "chunks_a_rank": RANKS_SEQ // LAYOUT_SHAPE["model"]
+          // cfg.ssm.chunk, **j1,
+          "collectives_per_step": [r["j1"]["collectives_per_step"]
+                                   for r in pod],
+          "collectives_per_step_h1": [r["h1"]["collectives_per_step"]
+                                      for r in pod],
+          "step_wall_s_h1": [r["h1"]["step_wall_s"] for r in pod],
+          "gloo_s_h1": [r["h1"]["gloo_s"] for r in pod],
+          "gloo_share_h1": [[g / w for g, w in zip(r["h1"]["gloo_s"],
+                                                   r["h1"]["step_wall_s"])]
+                            for r in pod],
+          "peak_bytes_h1": [r["h1"]["peak_bytes"] for r in pod],
+          "weight_bytes_h1": [r["h1"]["weight_bytes"] for r in pod],
+          **extra, "nvidia_smi": smi_line})
+    j2 = results[0]["j2"]
+    cfg = family_cfg("h2")
+    check(all(r["j2"]["seq_split"] == [True, True, False]
+              and r["j2"]["seq_rows"] for r in results),
+          "(j2) the loss and the prefill must split the sequence in "
+          "ssm_seq's form, a decode step not: "
+          f"{[(r['j2']['seq_split'], r['j2']['seq_rows']) for r in results]}")
+    table = rules_lib.get(SSM_SEQ_PRESET, cfg)
+    laid = sum(layers.shard_bytes(sp, table, types.SimpleNamespace(
+        shape=TP_SERVE_SHAPE), sp.dtype_for(torch.bfloat16))
+        for sp in layers.spec_leaves(registry.param_specs(cfg)))
+    check(all(r["j2"]["weight_bytes"] == laid for r in results),
+          f"(j2) a rank's weight bytes "
+          f"{[r['j2']['weight_bytes'] for r in results]}, its layout's "
+          f"{laid}")
+    emit({"phase": 38, "part": "j2", "model": FAMILY_PARTS["h2"][0],
+          "layers": cfg.n_layers, "mesh": TP_SERVE_SHAPE,
+          "rules": SSM_SEQ_PRESET, "loss_tokens": RANKS_SEQ,
+          "prefill": TP_PREFILL, "decode_steps": TP_DECODE,
+          "positions_a_rank": [RANKS_SEQ // TP_SERVE_SHAPE["model"],
+                               TP_PREFILL // TP_SERVE_SHAPE["model"]],
+          "heads_a_rank": [r["j2"]["heads_here"] for r in results],
+          "weight_bytes_ranks": [r["j2"]["weight_bytes"] for r in results],
+          "weight_ratio_ranks": [r["j2"]["weight_bytes"] /
+                                 j2["unsplit_weight_bytes"]
+                                 for r in results],
+          "peak_bytes_ranks": [r["j2"]["peak_bytes"] for r in results],
+          "peak_bytes_h2": [r["h2"]["peak_bytes"] for r in results],
+          "wall_s_ranks": [r["j2"]["wall_s"] for r in results],
+          "wall_s_h2": [r["h2"]["wall_s"] for r in results],
+          "losses_ranks": [r["j2"]["loss"] for r in results],
+          **{k: v for k, v in j2.items() if k not in (
+              "heads_here", "weight_bytes", "peak_bytes", "wall_s", "loss",
+              "seq_split", "seq_rows")}, "nvidia_smi": smi_line})
     counts = collections.Counter()
     for r in results + pod:
         counts.update(r["counts"])

@@ -36,9 +36,9 @@ over 512 placeholder host devices.  Three differences:
   tensor-parallel all-reduces and gathers, the FSDP gathers and
   reduce-scatters, the expert-parallel sums, the gradient reduction
   then left; under ``seq_model`` and ``megatron_seq`` the sequence's
-  gathers and reduce-scatters around each mixer), each by the ring
-  model.  ``ssm_seq``, which the port refuses, moves the memory
-  columns and not the collective term.
+  gathers and reduce-scatters around each mixer, under ``ssm_seq`` the
+  Mamba blocks' halo and state gathers, the attention's gathers and
+  the whole leaves' gradient all-reduces), each by the ring model.
 * **Remat reruns on ``meta``.**  ``--remat none|full|dots`` (default
   ``full``, the reference's) is ``Runtime.remat``: a train cell's
   backward reruns each checkpointed region inside autograd's engine,
@@ -198,9 +198,10 @@ def ep_all_reduces(cfg, shape, mesh_shape: Dict[str, int], remat: str
 
 def runs_layout(cfg, rules, mesh, gradsync: str, kind: str):
     """The parameter layout the port runs a cell's step on
-    (``registry.rules_layout``), or None: a train step under a Spindle
-    mode keeps every leaf whole, and what the port refuses (``ssm_seq``)
-    is not modelled."""
+    (``registry.rules_layout``, every preset's), or None: a train step
+    under a Spindle mode keeps every leaf whole, and what the port
+    refuses (a table with some of the mixers' axes on the sequence's
+    axis and some whole) is not modelled."""
     if kind == "train" and gradsync != "gspmd":
         return None
     # a leaf the rules cannot lay out raises here; what waits is None

@@ -28,8 +28,11 @@ Over a sequence that ``Runtime.seq_axis()`` splits (``seq_model``,
 ``layers.enter`` (gathered whole over the axis), q, k and v are
 projected and rotated over the whole sequence, and ``wo``'s float32
 partial sums are reduce-scattered back to the rank's rows
-(``layers.row_parallel``).  The cross attention reads the memory whole.
-A decode step never splits.
+(``layers.row_parallel``).  Under ``ssm_seq`` the heads are whole: the
+input is gathered whole, every rank attends over the whole sequence
+with all heads and keeps its rows of the output (``split_to``); the
+weights, applied to the gathered sequence, take no ``copy_to``.  The
+cross attention reads the memory whole.  A decode step never splits.
 """
 
 from __future__ import annotations

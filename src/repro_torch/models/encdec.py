@@ -31,8 +31,8 @@ columns and rows, the vocabulary as
 :mod:`~repro_torch.models.transformer` takes it; each layer's
 ``"data"`` blocks are gathered inside its region.  The self and the
 cross cache of a rank hold its kv heads (:func:`cache_specs` with
-``tp``).  Under ``seq_model`` and ``megatron_seq`` each stream splits on
-its own (``Runtime.on_sequence``: the frames' length for the encoder,
+``tp``).  Under ``seq_model``, ``megatron_seq`` and ``ssm_seq`` each
+stream splits on its own (``Runtime.on_sequence``: the frames' length for the encoder,
 the tokens' for the decoder): its norm sites run on this rank's rows,
 every mixer between a gather and a reduce-scatter, and the encoder's
 normed memory is gathered whole once a forward, for every layer's cross
@@ -101,7 +101,7 @@ def _swiglu(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor,
     m = p["mlp"]
     axis = layers.split_axis(m["w_gate"].shape[-1], cfg.d_ff, rt, "the MLP")
     return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"], axis,
-                         rt.seq_axis())
+                         rt.seq_axis(), rt.seq_rows)
 
 
 def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
@@ -109,7 +109,7 @@ def encode(params: PyTree, cfg: ModelConfig, frames: torch.Tensor,
     """frames (B, S_src, d_model), the stubbed frontend's output -> the
     normed memory (B, S_src, d_model), whole.  Layer i (its opening norm
     and block) is one region of ``rt.checkpoint``."""
-    rt = rt.on_sequence(frames.shape[1])
+    rt = rt.on_sequence(frames.shape[1], cfg)
     x = layers.split_seq(frames.to(params["embed"].dtype), rt)
     rope = _rope(cfg, x, rt)
     specs = _enc_block_specs(cfg)
@@ -169,7 +169,7 @@ def decode_train(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
                  memory: torch.Tensor, rt: Runtime) -> torch.Tensor:
     """The decoder over ``tokens`` (B, S) and ``memory``: its hidden
     states (B, S, d) before the final norm, as the reference's (whole)."""
-    rt = rt.on_sequence(tokens.shape[1])
+    rt = rt.on_sequence(tokens.shape[1], cfg)
     x, y = _decoder(params, cfg, tokens, memory, rt)
     return layers.gather_seq(x + y, rt)
 
@@ -181,7 +181,7 @@ def seq2seq_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     tokens[:, 1:].  Returns a float32 scalar."""
     memory = encode(params, cfg, batch["frames"], rt)
     tokens = batch["tokens"]
-    rt = rt.on_sequence(tokens.shape[1] - 1)
+    rt = rt.on_sequence(tokens.shape[1] - 1, cfg)
     x, y = _decoder(params, cfg, tokens[:, :-1], memory, rt)
     h, _ = layers.open_norm(rt, y, x, params["final_norm"]["scale"],
                             cfg.norm_eps)

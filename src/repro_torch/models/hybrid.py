@@ -41,7 +41,10 @@ channels and its kv heads (:func:`cache_specs` with ``tp``).  Over a
 sequence that ``Runtime.on_sequence`` splits (``seq_model``,
 ``megatron_seq``) each group's norm sites run on this rank's rows, and
 its Mamba blocks, the shared attention and the shared SwiGLU each run
-between a gather and a reduce-scatter, as the dense family's mixers do.
+between a gather and a reduce-scatter, as the dense family's mixers do;
+under ``ssm_seq`` the Mamba blocks and the shared SwiGLU run on the rows
+(the state handed from rank to rank), the shared attention over the
+gathered sequence.
 """
 
 from __future__ import annotations
@@ -114,7 +117,8 @@ def _shared_block(p: Dict[str, Any], cfg: ModelConfig, rt: Runtime,
     return [(p["attn_norm"]["scale"], attn),
             (p["ffn_norm"]["scale"],
              lambda h: layers.swiglu(h, m["w_gate"], m["w_up"],
-                                     m["w_down"], axis, rt.seq_axis()))]
+                                     m["w_down"], axis, rt.seq_axis(),
+                                     rt.seq_rows))]
 
 
 def _walk(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime,
@@ -178,7 +182,7 @@ def forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor,
     """The hybrid stack on embedded inputs x (B, S, d) -> the hidden
     states (B, S, d) before the final norm, as the reference returns
     them (gathered whole where the sequence splits)."""
-    rt = rt.on_sequence(x.shape[1])
+    rt = rt.on_sequence(x.shape[1], cfg)
     x, y = _stack(params, cfg, layers.split_seq(x, rt), rt)
     return layers.gather_seq(x + y, rt)
 
@@ -196,7 +200,7 @@ def hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
            rt: Runtime) -> torch.Tensor:
     """The full-sequence stack over ``tokens`` (B, S) -> the final-normed
     hidden states (B, S, d), whole."""
-    rt = rt.on_sequence(tokens.shape[1])
+    rt = rt.on_sequence(tokens.shape[1], cfg)
     return layers.gather_seq(_hidden(params, cfg, tokens, rt), rt)
 
 
@@ -207,7 +211,7 @@ def lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     a float32 scalar."""
     tokens = batch["tokens"]
     mask = batch.get("mask")
-    rt = rt.on_sequence(tokens.shape[1])
+    rt = rt.on_sequence(tokens.shape[1], cfg)
     return transformer.next_token_loss(
         params, cfg, _hidden(params, cfg, tokens, rt), tokens[:, 1:],
         None if mask is None else mask[:, 1:], rt, slice(None, -1))

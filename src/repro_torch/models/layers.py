@@ -30,7 +30,14 @@ run on them (:func:`open_norm`).  A mixer's input enters through
 :func:`enter` (the rows gathered over the axis) and its output leaves
 through :func:`row_parallel` (its float32 partial sums reduce-scattered
 over the sequence, or where the mixer runs whole on every rank, the
-rank's rows taken).
+rank's rows taken).  Under ``ssm_seq`` (Mamba's form, :func:`seq_form`
+``"rows"``) every mixer is whole: the attention still reads the
+gathered sequence, while the row-wise mixers (the SwiGLU with
+``rows``, the Mamba block) run on the rank's rows with no collective;
+every whole leaf a site applies to the rows enters through
+:func:`on_rows` (``ranks.copy_to``: its gradient summed over the ranks),
+a leaf applied to the gathered sequence does not (each rank's gradient
+of it is already the whole one).
 """
 
 from __future__ import annotations
@@ -178,7 +185,7 @@ Partition = Tuple[Any, ...]     # per dim: an axis name, a tuple, or None
 TP_AXIS = "model"
 # the logical axes the mixers split over: the sequence splits over
 # TP_AXIS only where they all split there too (Megatron's sequence
-# parallelism, :func:`seq_axis`)
+# parallelism) or none does (ssm_seq's), :func:`seq_form`
 SEQ_MIXER_AXES = ("heads", "kv_heads", "mlp", "ssm_inner", "ssm_heads")
 
 
@@ -432,22 +439,47 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                                    compute_dtype(x.dtype)))
 
 
-def seq_axis(rt, s: int) -> Optional[ranks.Axis]:
-    """The axis a call over a sequence of ``s`` positions splits it over:
-    :data:`TP_AXIS` when ``rt``'s rules map ``"seq"`` there (and the
-    mixers' axes, :data:`SEQ_MIXER_AXES`, as ``seq_model`` and
-    ``megatron_seq`` do: ``ssm_seq`` waits), that axis has more than one
-    rank and ``s`` divides over them; else None (the reference's
-    fallback: a dim that does not divide stays whole), and the call runs
-    the base preset's path.  A decode step (``s`` 1) never splits."""
+def seq_form(rt, s: int, cfg=None) -> Optional[str]:
+    """How a call over a sequence of ``s`` positions splits it over
+    :data:`TP_AXIS` (``rt.tp_axis()``, more than one rank, ``s``
+    dividing over them) where ``rt``'s rules map ``"seq"`` there:
+
+    * ``"mixers"`` (``seq_model``, ``megatron_seq``: Megatron's form)
+      where the mixers' axes (:data:`SEQ_MIXER_AXES`) all split there
+      too: each mixer runs between a gather of the rows and a
+      reduce-scatter of its output;
+    * ``"rows"`` (``ssm_seq``: Mamba's form) where they are all whole:
+      the row-wise mixers (the SwiGLU, the Mamba block) run on the
+      rank's rows with their whole weights, the attention over the
+      gathered sequence.  A ``cfg`` with Mamba blocks splits so only
+      where ``s / tp`` is a multiple of its chunk and holds the conv's
+      ``d_conv - 1`` rows of halo.
+
+    None otherwise (the reference's fallback: a dim that does not divide
+    stays whole), and the call runs the base preset's path.  A decode
+    step (``s`` 1) never splits."""
     axis = None if rt is None else rt.tp_axis()
     if axis is None or s % axis.size:
         return None
     table = rt.rules_()
-    if any(entry_axes(table.get(k)) != (TP_AXIS,)
-           for k in ("seq",) + SEQ_MIXER_AXES):
+    if entry_axes(table.get("seq")) != (TP_AXIS,):
         return None
-    return axis
+    mixers = {entry_axes(table.get(k)) for k in SEQ_MIXER_AXES}
+    if mixers == {(TP_AXIS,)}:
+        return "mixers"
+    if mixers != {()}:
+        return None
+    here = s // axis.size
+    ssm = None if cfg is None else cfg.ssm
+    if ssm is not None and (here % ssm.chunk or here < ssm.conv_width - 1):
+        return None
+    return "rows"
+
+
+def seq_axis(rt, s: int, cfg=None) -> Optional[ranks.Axis]:
+    """The axis a call over a sequence of ``s`` positions splits it over
+    (:data:`TP_AXIS`) where :func:`seq_form` splits it, else None."""
+    return None if seq_form(rt, s, cfg) is None else rt.tp_axis()
 
 
 def enter(x: torch.Tensor, axis: Optional[ranks.Axis],
@@ -523,16 +555,31 @@ def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
     return (xf * torch.rsqrt(ss / width + eps) * compute(scale)).to(x.dtype)
 
 
+def on_rows(w: torch.Tensor, seq: Optional[ranks.Axis]) -> torch.Tensor:
+    """A whole leaf ``w`` that a site applies to this rank's rows of a
+    sequence split over ``seq``: it enters through ``copy_to``, so that
+    its gradient from the rank's rows is summed over the ranks; ``w``
+    itself where the sequence is whole."""
+    return w if seq is None else ranks.copy_to(w, seq)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, axis: Optional[ranks.Axis] = None,
-           seq: Optional[ranks.Axis] = None) -> torch.Tensor:
+           seq: Optional[ranks.Axis] = None,
+           rows: bool = False) -> torch.Tensor:
     """The SwiGLU FFN; with ``axis`` the rank's columns of ``w_gate`` and
     ``w_up`` and rows of ``w_down`` (tensor parallelism).  ``x`` enters
     and the output leaves as :func:`enter` and :func:`row_parallel` say
     (``seq``: ``x`` is this rank's rows of the sequence).  Over a split
     sequence the hidden columns stay split by ``"mlp"`` on the gathered
     rows, where the reference's ``constrain`` lets ``"seq"`` take the
-    axis; the values are the same."""
+    axis; the values are the same.  With ``rows`` (``ssm_seq``'s form,
+    ``Runtime.seq_rows``) the whole weights run on the rank's rows with
+    no collective, each entering through :func:`on_rows`."""
+    if rows and seq is not None:
+        w_gate, w_up, w_down = (on_rows(w, seq)
+                                for w in (w_gate, w_up, w_down))
+        seq = None
     x = enter(x, axis, seq)
     g = x @ w_gate
     u = x @ w_up
@@ -551,9 +598,7 @@ def open_norm(rt, y: Optional[torch.Tensor], x: torch.Tensor,
     the site runs on this rank's rows, and the whole ``scale`` enters
     through ``copy_to``: its gradient from the rank's rows is summed over
     the ranks."""
-    seq = rt.seq_axis()
-    if seq is not None:
-        scale = ranks.copy_to(scale, seq)
+    scale = on_rows(scale, rt.seq_axis())
     if y is None:
         return rt.op("rms_norm")(x, scale, eps), x
     return rt.op("rms_norm_residual")(y, x, scale, eps)

@@ -51,12 +51,13 @@ whole from the full router probabilities on each.  The expert leaves'
 gradients stay per rank, each rank's rows only.
 
 Over a sequence split across the ranks (``seq_model``,
-``megatron_seq``: the input is this rank's rows) the router and the
-routed experts read the rows gathered whole (``ranks.gather_whole``, as
-the reference's ``tok_spec`` gathers the sequence, so the capacity is
-the whole sequence's), the experts' float32 partial output is
-reduce-scattered back to the rank's rows, and the shared experts run as
-a split SwiGLU between their own gather and reduce-scatter.
+``megatron_seq``, ``ssm_seq``: the input is this rank's rows) the router
+and the routed experts read the rows gathered whole
+(``ranks.gather_whole``, as the reference's ``tok_spec`` gathers the
+sequence, so the capacity is the whole sequence's), the experts' float32
+partial output is reduce-scattered back to the rank's rows, and the
+shared experts run as a split SwiGLU between their own gather and
+reduce-scatter, or under ``ssm_seq`` whole on the rank's rows.
 """
 
 from __future__ import annotations
@@ -237,7 +238,7 @@ def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
               x: torch.Tensor, ep_axis: Optional[str] = None,
               mesh: Optional[ranks.RankMesh] = None,
               shared_axis: Optional[ranks.Axis] = None,
-              seq: Optional[ranks.Axis] = None
+              seq: Optional[ranks.Axis] = None, rows: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN: routed experts plus the shared experts.  x (B, S, d)
     -> (y (B, S, d), aux scalar).  The tokens of every row route
@@ -248,7 +249,9 @@ def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     (see the module's docstring).  With ``shared_axis`` the shared
     experts are this rank's columns and rows of their SwiGLU (tensor
     parallelism, ``layers.swiglu``).  With ``seq`` x and y are this
-    rank's rows of the sequence (see the module's docstring)."""
+    rank's rows of the sequence (see the module's docstring); with
+    ``rows`` too (``ssm_seq``) the whole shared experts run on them
+    (``layers.swiglu``'s ``rows``)."""
     ep = None
     if ep_axis is not None:
         if mesh is None:
@@ -269,7 +272,7 @@ def moe_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     if cfg.moe.n_shared:
         sh = p["shared"]
         y = y + layers.swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"],
-                              shared_axis, seq)
+                              shared_axis, seq, rows)
     return y, aux
 
 

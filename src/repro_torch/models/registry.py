@@ -77,7 +77,7 @@ def _ssm_hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     """The Mamba2 stack over ``tokens`` (B, S) -> the final-normed hidden
     states (B, S, d), whole (:func:`_ssm_stream`, gathered where the
     sequence splits)."""
-    rt = rt.on_sequence(tokens.shape[1])
+    rt = rt.on_sequence(tokens.shape[1], cfg)
     return layers.gather_seq(_ssm_stream(params, cfg, tokens, rt), rt)
 
 
@@ -147,7 +147,7 @@ def _ssm_lm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     """Next-token cross entropy of the Mamba2 LM, as
     :func:`repro_torch.models.transformer.lm_loss` for the dense one."""
     tokens = batch["tokens"]
-    rt = rt.on_sequence(tokens.shape[1])
+    rt = rt.on_sequence(tokens.shape[1], cfg)
     h = _ssm_stream(params, cfg, tokens, rt)
     mask = batch.get("mask")
     return transformer.next_token_loss(
@@ -229,12 +229,6 @@ class Arch:
                            tp=tp)
 
 
-# the rules' layouts that wait, by what they need
-SEQ_PARALLEL_ITEM = ("ROADMAP.md item 33 (b) (ssm_seq: the sequence split "
-                     "with the mixers whole, its states passed from rank "
-                     "to rank)")
-
-
 def layout(cfg: ModelConfig, rt: Runtime
            ) -> Optional[Dict[str, layers.Partition]]:
     """:func:`rules_layout` of ``rt``'s rules on its rank mesh; None
@@ -250,19 +244,24 @@ def rules_layout(cfg: ModelConfig, rules: Dict[str, Any], mesh
     ``mesh`` (anything with an axis-name -> size ``shape``;
     ``layers.tree_layout``: a leaf mapping one mesh axis to two dims
     raises), or None where the rules split no leaf but the MoE's experts
-    (``pure_dp``, ``full_dp``, a mesh whose named axes hold one rank
-    each): every such path is the one that runs without rules, the
-    experts split by ``moe``.
+    and not the sequence (``pure_dp``, ``full_dp``, a mesh whose named
+    axes hold one rank each): every such path is the one that runs
+    without rules, the experts split by ``moe``.  A layout that splits
+    the sequence alone (``ssm_seq`` where the vocabulary does not divide
+    the ranks and no ``"data"`` axis splits) comes back, every leaf
+    whole.
 
     The sequence is not a parameter's axis: ``seq_model`` and
     ``megatron_seq`` lay the parameters out as ``baseline`` and
-    ``megatron`` do, and their ``"seq"`` on ``layers.TP_AXIS`` splits
-    the stream between the mixers where ``layers.seq_axis`` says.
+    ``megatron`` do, and ``ssm_seq`` keeps every mixer whole (the
+    vocabulary and the experts on ``layers.TP_AXIS``, ``fsdp_embed`` on
+    ``"data"``); their ``"seq"`` on ``layers.TP_AXIS`` splits the stream
+    where ``layers.seq_form`` says, in Megatron's form or in Mamba's.
 
     What the port does not run raises ``ValueError``: rules that shard
     the sequence over another axis of more than one rank, or over
-    ``layers.TP_AXIS`` with a mixer's axes (``layers.SEQ_MIXER_AXES``)
-    not there (``ssm_seq``, :data:`SEQ_PARALLEL_ITEM`), a dim split over
+    ``layers.TP_AXIS`` with some of the mixers' axes
+    (``layers.SEQ_MIXER_AXES``) there and some not, a dim split over
     ``layers.TP_AXIS`` together with another axis, and a Mamba block
     whose leaves do not
     split over ``layers.TP_AXIS`` together (its heads, its columns of
@@ -272,18 +271,21 @@ def rules_layout(cfg: ModelConfig, rules: Dict[str, Any], mesh
     out = layers.tree_layout(param_specs(cfg), rules, mesh)
     split = [path for path, part in out.items()
              if any(part) and not moe.is_expert_leaf(path)]
-    if not split:
-        return None
     seq = [a for a in layers.entry_axes(rules.get("seq"))
            if mesh.shape.get(a, 1) > 1]
+    if not split and not seq:
+        return None
     if seq and seq != [layers.TP_AXIS]:
         raise ValueError(f"the rules shard the sequence over {seq}; the "
                          f"port splits it over {layers.TP_AXIS!r} only")
-    whole = [k for k in layers.SEQ_MIXER_AXES
-             if layers.entry_axes(rules.get(k)) != (layers.TP_AXIS,)]
-    if seq and whole:
+    mixers = {k: layers.entry_axes(rules.get(k))
+              for k in layers.SEQ_MIXER_AXES}
+    if seq and set(mixers.values()) not in ({(layers.TP_AXIS,)}, {()}):
+        off = [k for k, v in mixers.items() if v != (layers.TP_AXIS,)]
         raise ValueError(f"the rules shard the sequence over {seq} with "
-                         f"{whole} whole there: {SEQ_PARALLEL_ITEM} waits")
+                         f"{off} of the mixers' axes off it and the "
+                         "others on it; the port splits the sequence with "
+                         "the mixers all on it or all whole")
     for path in split:
         for entry in out[path]:
             axes = layers.entry_axes(entry)
@@ -306,15 +308,28 @@ def rules_layout(cfg: ModelConfig, rules: Dict[str, Any], mesh
     return out
 
 
+# the logical axes of the heads: where the layout splits one of them the
+# decode state is a rank's part (``cache_specs`` with ``tp``)
+HEAD_AXES = ("heads", "kv_heads", "ssm_heads", "ssm_inner")
+
+
 def tp_ways(cfg: ModelConfig, rt: Runtime) -> int:
     """The ranks that tensor parallelism splits ``cfg``'s heads over
     under ``rt`` (the size of its ``layers.TP_AXIS`` where its
-    :func:`layout` splits a leaf), else 1: what sizes a rank's decode
-    state (:func:`cache_specs`)."""
+    :func:`layout` splits a leaf's heads there: :data:`HEAD_AXES`),
+    else 1: what sizes a rank's decode state (:func:`cache_specs`).
+    Under ``ssm_seq`` only the vocabulary and the experts split, and the
+    decode state is the whole one."""
     axis = rt.tp_axis()
-    if axis is None or layout(cfg, rt) is None:
+    laid = None if axis is None else layout(cfg, rt)
+    if laid is None:
         return 1
-    return axis.size
+    for path, spec in layers.spec_paths(param_specs(cfg)):
+        if any(name in HEAD_AXES and
+               layers.TP_AXIS in layers.entry_axes(entry)
+               for name, entry in zip(spec.axes, laid[path])):
+            return axis.size
+    return 1
 
 
 def param_specs(cfg: ModelConfig) -> PyTree:

@@ -72,12 +72,14 @@ and the reference's sharding rules (:mod:`repro_torch.train.rules`):
   gathered before use).  The table is kept as a sorted tuple of items,
   so a runtime still hashes and compares by value; :meth:`rules_`
   gives it back as a dict (the reference's ``DEFAULT_RULES`` without
-  one).  Under ``seq_model`` and ``megatron_seq`` a call over a sequence
-  that :func:`repro_torch.models.layers.seq_axis` splits runs with each
-  rank holding its rows of the stream between the mixers: the entry
+  one).  Under ``seq_model``, ``megatron_seq`` and ``ssm_seq`` a call
+  over a sequence that :func:`repro_torch.models.layers.seq_form`
+  splits runs with each rank holding its rows of the stream: the entry
   points record that decision on the runtime they pass down
-  (:meth:`Runtime.on_sequence`, the ``seq_split`` flag, False by
-  default), and every site reads it through :meth:`Runtime.seq_axis`.
+  (:meth:`Runtime.on_sequence`: the ``seq_split`` flag, and
+  ``seq_rows`` for ``ssm_seq``'s form, where the row-wise mixers run on
+  the rank's rows; both False by default), and every site reads it
+  through :meth:`Runtime.seq_axis` and ``seq_rows``.
 """
 
 from __future__ import annotations
@@ -146,6 +148,7 @@ class Runtime:
     ep_axis: Optional[str] = "model"
     rules: Optional[Any] = None       # logical -> mesh axes, or None
     seq_split: bool = False           # set by on_sequence, see seq_axis
+    seq_rows: bool = False            # set by on_sequence: ssm_seq's form
 
     def __post_init__(self):
         if self.rules is not None:
@@ -196,13 +199,17 @@ class Runtime:
             return None
         return self.mesh.axis(layers.TP_AXIS)
 
-    def on_sequence(self, s: int) -> "Runtime":
-        """This runtime for a call over a sequence of ``s`` positions:
-        ``seq_split`` set where ``layers.seq_axis`` splits it, cleared
+    def on_sequence(self, s: int, cfg=None) -> "Runtime":
+        """This runtime for a call over a sequence of ``s`` positions of
+        ``cfg``'s model: ``seq_split`` set where ``layers.seq_form``
+        splits it, and ``seq_rows`` where it does so in ``ssm_seq``'s
+        form (the row-wise mixers on the rank's rows), both cleared
         elsewhere (the one place that decides)."""
-        split = layers.seq_axis(self, s) is not None
-        return self if split == self.seq_split else \
-            dataclasses.replace(self, seq_split=split)
+        form = layers.seq_form(self, s, cfg)
+        split, rows = form is not None, form == "rows"
+        if (split, rows) == (self.seq_split, self.seq_rows):
+            return self
+        return dataclasses.replace(self, seq_split=split, seq_rows=rows)
 
     def seq_axis(self) -> Optional["Axis"]:
         """The axis this call's sequence is split over (each rank holding

@@ -43,6 +43,19 @@ whole before the projection (``layers.enter``), so the conv stays causal
 over the whole sequence and the scan runs from a zero state, and
 ``w_out``'s partial sums are reduce-scattered back to the rank's rows
 (``layers.row_parallel``).
+
+Under ``ssm_seq`` (Mamba's own form: the block whole on every rank,
+``Runtime.seq_rows``) the block runs on this rank's rows and never
+gathers them (:func:`_rows_block`): the projections and the gated norm
+on the rows, every leaf entering through ``layers.on_rows`` (its
+gradient summed over the ranks); the conv reads the previous rank's
+last ``d_conv - 1`` inputs (:func:`_halo`); the ``ssd_scan`` site runs
+from a zero state on the rows and its final state is handed from rank
+to rank (:func:`ssd_rows`: every rank's (B, H, P, N) state and log-decay
+gathered, folded in rank order with the reference's operator, the state
+entering the rows added to y in float32, as the reference's ``y_off``
+term).  ``layers.seq_form`` splits so only where a rank's rows are
+whole chunks and hold the conv's halo.
 """
 
 from __future__ import annotations
@@ -282,10 +295,15 @@ def mamba_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
     the gated norm through ``rms_norm``; the projections stay
     ``torch.matmul``.  Where ``p`` holds this rank's heads, the block
     runs on them as the module's docstring says, and over a split
-    sequence x and the output are this rank's rows."""
+    sequence x and the output are this rank's rows: gathered around the
+    block (``seq_model``, ``megatron_seq``), or under ``ssm_seq``
+    (``rt.seq_rows``) the block on the rows with its state handed from
+    rank to rank (:func:`_rows_block`)."""
     rt = Runtime() if rt is None else rt
     d_inner, nh, hp, dn, ng = _dims(cfg)
     axis, seq = heads_axis(p, cfg, rt), rt.seq_axis()
+    if seq is not None and rt.seq_rows:
+        return _rows_block(p, cfg, x, rt, seq)
     x = layers.enter(x, axis, seq)
     bsz, s = x.shape[0], x.shape[1]
     if axis is None:
@@ -304,6 +322,107 @@ def mamba_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
                              p["dt_bias"], cfg.ssm.chunk)
     return _gated_out(p, cfg, y.reshape(bsz, s, here * hp), z, rt, axis,
                       seq)
+
+
+def _rows_block(p: Dict[str, torch.Tensor], cfg: ModelConfig,
+                x: torch.Tensor, rt: Runtime, seq: ranks.Axis
+                ) -> torch.Tensor:
+    """:func:`mamba_block` on this rank's rows of a sequence split over
+    ``seq`` with the block whole (``ssm_seq``): the projections, the
+    conv, the scan and the gated norm on the rows, every leaf entering
+    through ``layers.on_rows``; the conv reads the previous rank's last
+    ``d_conv - 1`` inputs (:func:`_halo`) and the scan's state is handed
+    from rank to rank (:func:`ssd_rows`)."""
+    d_inner, nh, hp, dn, ng = _dims(cfg)
+    p = {k: layers.on_rows(v, seq) for k, v in p.items()}
+    bsz, s = x.shape[0], x.shape[1]
+    z, xbc, dt = _split_proj(cfg, x @ p["w_in"])
+    window = torch.cat([_halo(xbc, seq, cfg.ssm.conv_width - 1), xbc], 1)
+    xbc = _conv_window(window, p["conv_w"], p["conv_b"], s)
+    xs, b, c = torch.split(xbc, [d_inner, ng * dn, ng * dn], dim=-1)
+    y = ssd_rows(rt.op("ssd_scan"), xs.reshape(bsz, s, nh, hp), dt,
+                 p["a_log"], b.reshape(bsz, s, ng, dn),
+                 c.reshape(bsz, s, ng, dn), p["d_skip"], p["dt_bias"],
+                 cfg.ssm.chunk, seq)[0]
+    return _gated_out(p, cfg, y.reshape(bsz, s, d_inner), z, rt, None)
+
+
+def _halo(xbc: torch.Tensor, seq: ranks.Axis, n: int) -> torch.Tensor:
+    """The ``n`` rows of the conv's input before this rank's rows: the
+    previous rank's last ``n`` (rank 0 reads zeros, the causal pad).
+    Every rank's tail is gathered (``ranks.gather_from``: the backward
+    reduce-scatters, each tail's cotangent living on the next rank) and
+    every rank reads the gathered tensor, rank 0 its zero pad, so that
+    every rank runs the gather's backward."""
+    tails = ranks.gather_from(xbc[:, xbc.shape[1] - n:], seq, 1)
+    return F.pad(tails, (0, 0, n, 0)).narrow(1, seq.index * n, n)
+
+
+def ssd_rows(scan, x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+             dt_bias: torch.Tensor, chunk: int, seq: ranks.Axis
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan of a sequence of which this rank holds rows [r S_r,
+    (r + 1) S_r), r its index on ``seq``: :func:`ssd_local` on the rows,
+    every rank's ``(decay, state)`` pair gathered
+    (``ranks.gather_from``: the backward reduce-scatters), then
+    :func:`ssd_handoff`.  Shapes as :func:`ssd_chunked`'s; returns (y,
+    the whole sequence's final state)."""
+    y0, cs, pair = ssd_local(scan, x, dt, a_log, b, c, d_skip, dt_bias,
+                             chunk)
+    every = ranks.gather_from(pair[None], seq, 0)
+    return ssd_handoff(y0, cs, c, every, seq.index)
+
+
+def ssd_local(scan, x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+              b: torch.Tensor, c: torch.Tensor, d_skip: torch.Tensor,
+              dt_bias: torch.Tensor, chunk: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One rank's part of :func:`ssd_rows` before the handoff: ``scan``
+    (the ``ssd_scan`` site) from a zero state on the rows gives y0 and
+    the rows' own final state; ``cs`` (B, S_r, H) is the float32
+    log-decay ``softplus(dt + dt_bias) (-exp(a_log))`` summed from the
+    rank's first row through each row.  Returns (y0, cs, the pair (B, H,
+    P N + 1): the state flattened beside the rows' log-decay ``cs[:,
+    -1]``)."""
+    bsz, _, h, p = x.shape
+    n = b.shape[3]
+    y0, local = scan(x, dt, a_log, b, c, d_skip, dt_bias, chunk)
+    da = F.softplus(compute(dt) + compute(dt_bias)) * \
+        -torch.exp(compute(a_log))                              # (B,S,H)
+    cs = torch.cumsum(da, dim=1)
+    pair = torch.cat([local.to(cs.dtype).reshape(bsz, h, p * n),
+                      cs[:, -1, :, None]], dim=-1)
+    return y0, cs, pair
+
+
+def ssd_handoff(y0: torch.Tensor, cs: torch.Tensor, c: torch.Tensor,
+                every: torch.Tensor, index: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rank ``index``'s part of :func:`ssd_rows` after the handoff, from
+    every rank's pair of :func:`ssd_local` (``every`` (tp, B, H, P N +
+    1), in rank order): the pairs ``(exp(L), state)`` folded in rank
+    order with the reference's operator ``(dl, sl) . (dr, sr) = (dl dr,
+    sr + dr sl)``, the state entering this rank's rows kept, then ``y =
+    y0 + exp(cs_t) (C_t . S_in)`` in float32 (the reference's ``y_off``
+    term of ``ssd_chunked``), rounded once to y0's dtype.  Every rank
+    folds every pair and keeps the state after the earlier ones
+    (``torch.where``), so that every rank's y reads the gathered pairs
+    (and every rank runs the gather's backward).  Returns (y, the final
+    state of the whole sequence)."""
+    bsz, _, h, p = y0.shape
+    g, n = c.shape[2], c.shape[3]
+    state = enter = torch.zeros((bsz, h, p, n), dtype=cs.dtype,
+                                device=cs.device)
+    for j in range(every.shape[0]):
+        decay = torch.exp(every[j, ..., -1])[..., None, None]
+        state = every[j, ..., :-1].reshape(bsz, h, p, n) + decay * state
+        earlier = torch.tensor(j < index, device=state.device)
+        enter = torch.where(earlier, state, enter)
+    cheads = compute(c).repeat_interleave(h // g, dim=2)        # (B,S,H,N)
+    y_off = torch.einsum("bshn,bhpn->bshp", cheads, enter) * \
+        torch.exp(cs)[..., None]
+    return (compute(y0) + y_off).to(y0.dtype), state
 
 
 def _gated_out(p: Dict[str, torch.Tensor], cfg: ModelConfig,

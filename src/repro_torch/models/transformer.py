@@ -38,7 +38,9 @@ reruns in the backward and the whole weight is not kept.  Under
 :func:`embed` hands each rank its rows (the vocabulary-parallel lookup
 reduce-scattered, a whole table's lookup split), the blocks run on them
 (the norm sites on the rows, each mixer between a gather and a
-reduce-scatter, the MoE's routed experts over the gathered tokens), and
+reduce-scatter, the MoE's routed experts over the gathered tokens; under
+``ssm_seq`` the SwiGLU and the shared experts on the rows with their
+weights whole, the attention over the gathered sequence), and
 the final-normed rows are gathered for the head (:func:`next_token_loss`,
 :func:`prefill_embedded`).  A region's two boundary tensors are then a
 rank's rows.
@@ -145,15 +147,17 @@ def _ffn(p: Dict[str, Any], cfg: ModelConfig, h: torch.Tensor, rt: Runtime
         axis = layers.split_axis(m["w_gate"].shape[-1], cfg.d_ff, rt,
                                  "the MLP")
         return layers.swiglu(h, m["w_gate"], m["w_up"], m["w_down"],
-                             axis, seq), None
+                             axis, seq, rt.seq_rows), None
     shared = p["moe"].get("shared")
     axis = None if shared is None else layers.split_axis(
         shared["w_gate"].shape[-1], cfg.moe.n_shared * cfg.moe.d_ff_expert,
         rt, "the shared experts")
     if rt.moe_ep_size() > 1:
         return moe.moe_block(p["moe"], cfg, h, ep_axis=rt.ep_axis,
-                             mesh=rt.mesh, shared_axis=axis, seq=seq)
-    return moe.moe_block(p["moe"], cfg, h, shared_axis=axis, seq=seq)
+                             mesh=rt.mesh, shared_axis=axis, seq=seq,
+                             rows=rt.seq_rows)
+    return moe.moe_block(p["moe"], cfg, h, shared_axis=axis, seq=seq,
+                         rows=rt.seq_rows)
 
 
 def kv_heads_here(params: PyTree, cfg: ModelConfig) -> int:
@@ -352,7 +356,7 @@ def forward(params: PyTree, cfg: ModelConfig, x: torch.Tensor, rt: Runtime
     layers — 0 for the dense family), as the reference does.  Over a
     split sequence the stack runs on this rank's rows of x and the
     hidden states are gathered whole."""
-    rt = rt.on_sequence(x.shape[1])
+    rt = rt.on_sequence(x.shape[1], cfg)
     x, y, aux = _stack(params, cfg, layers.split_seq(x, rt), rt)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -374,7 +378,7 @@ def lm_loss_terms(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     """:func:`lm_loss`'s two terms: the cross entropy and the MoE aux
     loss summed over the layers (None without MoE)."""
     tokens = batch["tokens"]
-    rt = rt.on_sequence(tokens.shape[1])
+    rt = rt.on_sequence(tokens.shape[1], cfg)
     x, y, aux = _stack(params, cfg, embed(params, cfg, tokens, rt), rt)
     h, _ = layers.open_norm(rt, y, x, params["final_norm"]["scale"],
                             cfg.norm_eps)
@@ -415,7 +419,7 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     is left as it is) and the same dict is returned, so that
     :func:`decode_step` continues from position S.  This is the port's
     in-place form of the reference's returned cache."""
-    rt = rt.on_sequence(tokens.shape[1])
+    rt = rt.on_sequence(tokens.shape[1], cfg)
     return prefill_embedded(params, cfg, embed(params, cfg, tokens, rt),
                             rt, cache)
 

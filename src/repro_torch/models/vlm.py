@@ -67,10 +67,11 @@ def project_patches(params: PyTree, cfg: ModelConfig,
     return x @ p["w2"]
 
 
-def _on_combined(batch: Dict[str, Any], rt: Runtime) -> Runtime:
+def _on_combined(cfg: ModelConfig, batch: Dict[str, Any],
+                 rt: Runtime) -> Runtime:
     """``rt`` on the combined sequence of ``batch``'s patches and text."""
     return rt.on_sequence(batch["patches"].shape[1] +
-                          batch["tokens"].shape[1])
+                          batch["tokens"].shape[1], cfg)
 
 
 def _embed(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
@@ -78,7 +79,7 @@ def _embed(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     """The combined sequence [projected patches; text embeddings], built
     whole, then this rank's rows of it where ``rt`` (on the combined
     sequence, :func:`_on_combined`) splits it."""
-    whole = dataclasses.replace(rt, seq_split=False)
+    whole = dataclasses.replace(rt, seq_split=False, seq_rows=False)
     vis = project_patches(params, cfg, batch["patches"], whole)
     txt = transformer.embed(params, cfg, batch["tokens"], whole)
     return layers.split_seq(torch.cat([vis, txt], dim=1), rt)
@@ -92,7 +93,7 @@ def vlm_loss(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     the float32 cross entropy (plus the MoE aux loss of an MoE
     backbone)."""
     tokens = batch["tokens"]
-    rt = _on_combined(batch, rt)
+    rt = _on_combined(cfg, batch, rt)
     x, y, aux = transformer._stack(params, cfg, _embed(params, cfg, batch,
                                                        rt), rt)
     h, _ = layers.open_norm(rt, y, x, params["final_norm"]["scale"],
@@ -110,7 +111,7 @@ def prefill(params: PyTree, cfg: ModelConfig, batch: Dict[str, Any],
     """Multimodal prefill over the P + S_text combined positions: (the
     last position's logits (B, V), the KV cache), in the preallocated
     form of :func:`repro_torch.models.transformer.prefill`."""
-    rt = _on_combined(batch, rt)
+    rt = _on_combined(cfg, batch, rt)
     return transformer.prefill_embedded(params, cfg,
                                         _embed(params, cfg, batch, rt), rt,
                                         cache)

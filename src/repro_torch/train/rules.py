@@ -14,6 +14,9 @@ them.  Presets:
   fsdp_only  everything sharded over 'data', no tensor parallelism
   seq_model  sequence dim of activations onto 'model' (sequence-parallel
              lever for long-context shapes)
+  megatron_seq  megatron + the sequence on 'model' between the mixers
+  ssm_seq    the sequence on 'model' with every mixer whole: the Mamba
+             state handed from rank to rank
 """
 
 from __future__ import annotations

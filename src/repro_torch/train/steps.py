@@ -72,11 +72,12 @@ reference takes them on its production meshes:
   and divided by the data ranks, which gives the mean; a block is never
   reduced over ``"model"``.  The loss is the mean over the data axes,
   and the global norm adds each split leaf's squares over the axes that
-  split it (:func:`sharded_global_norm`).  Under ``seq_model`` and
-  ``megatron_seq`` the ranks of ``"model"`` also split the sequence
-  between the mixers (``layers.seq_axis``); a whole leaf applied on a
-  rank's rows, each norm scale, enters through ``ranks.copy_to`` at its
-  site, so its gradient is already whole on every rank here.
+  split it (:func:`sharded_global_norm`).  Under ``seq_model``,
+  ``megatron_seq`` and ``ssm_seq`` the ranks of ``"model"`` also split
+  the sequence (``layers.seq_form``); a whole leaf applied on a rank's
+  rows (each norm scale; under ``ssm_seq`` the Mamba blocks' and the
+  SwiGLUs' weights too) enters through ``ranks.copy_to`` at its site, so
+  its gradient is already whole on every rank here.
 
 Every rank then applies the same AdamW step to what it holds.
 """
@@ -201,8 +202,8 @@ def splits_experts(arch: Arch, rt: Runtime) -> bool:
 
 def splits_layout(arch: Arch, rt: Runtime) -> bool:
     """Whether the train step runs on the rules' layout: ``gspmd`` with
-    ``rt.rules`` splitting a non-expert leaf on ``rt.mesh``
-    (``registry.layout``, which refuses what waits).  The Spindle modes
+    ``rt.rules`` splitting a non-expert leaf or the sequence on
+    ``rt.mesh`` (``registry.layout``, which refuses what waits).  The Spindle modes
     never do (the reference's manual region runs without its rules)."""
     return rt.gradsync == "gspmd" and \
         registry.layout(arch.cfg, rt) is not None

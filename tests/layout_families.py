@@ -84,6 +84,9 @@ MG14 = ({"data": 1, "model": 4}, "megatron")
 SM22 = ({"data": 2, "model": 2}, "seq_model")
 MS2 = ({"model": 2}, "megatron_seq")
 MS14 = ({"data": 1, "model": 4}, "megatron_seq")
+SS22 = ({"data": 2, "model": 2}, "ssm_seq")
+SS2 = ({"model": 2}, "ssm_seq")
+SS14 = ({"data": 1, "model": 4}, "ssm_seq")
 # case -> (config, mesh shape, preset)
 CASES = {"ssm_bl22": ("ssm", *BL22), "ssm_mg2": ("ssm-g2", *MG2),
          "hyb_bl22": ("hybrid", *BL22), "hyb_mg2": ("hybrid", *MG2),
@@ -95,12 +98,20 @@ CASES = {"ssm_bl22": ("ssm", *BL22), "ssm_mg2": ("ssm-g2", *MG2),
          "dense_sm22": ("dense", *SM22), "qwen2_ms14": ("qwen2", *MS14),
          "moe_sm22": ("moe", *SM22), "vlm_ms2": ("vlm", *MS2),
          "enc_ms14": ("encdec", *MS14), "ssm_sm22": ("ssm", *SM22),
-         "hyb_ms14": ("hybrid", *MS14)}
+         "hyb_ms14": ("hybrid", *MS14),
+         "ssm_ss22": ("ssm", *SS22), "hyb_ss14": ("hybrid", *SS14),
+         "dense_ss2": ("dense", *SS2), "moe_ss22": ("moe", *SS22),
+         "vlm_ss2": ("vlm", *SS2), "enc_ss14": ("encdec", *SS14)}
 RECURRENT = ("ssm_bl22", "ssm_mg2", "hyb_bl22", "hyb_mg2", "hyb_mg14")
 FAMILIES = ("moe_bl22", "moe_mg2", "vlm_bl22", "vlm_mg2", "enc_bl22",
             "enc_mg2", "enc_mg14")
 SEQ_PARALLEL = ("dense_sm22", "qwen2_ms14", "moe_sm22", "vlm_ms2",
                 "enc_ms14", "ssm_sm22", "hyb_ms14")
+SSM_SEQ = ("ssm_ss22", "hyb_ss14", "dense_ss2", "moe_ss22", "vlm_ss2",
+           "enc_ss14")
+# the tokens a training row of the recurrent ssm_seq cases: two chunks a
+# rank over 2 ranks, one over 4 (a fold over four ranks)
+SSM_SEQ_LEN = 32
 DRAWS = {"bq": (0, 0.1), "bk": (0, 0.1), "bv": (0, 0.1),
          "conv_b": (0, 0.1), "a_log": (0, 0.5), "dt_bias": (0, 0.5),
          "d_skip": (1, 0.3)}
@@ -134,7 +145,11 @@ def table(case: str):
 
 
 def served(case: str) -> bool:
-    return CASES[case][2] in ("megatron", "megatron_seq")
+    """The cases that serve: ``megatron`` and ``megatron_seq``, and
+    ``ssm_seq`` on one data rank."""
+    preset = CASES[case][2]
+    return preset in ("megatron", "megatron_seq") or (
+        preset == "ssm_seq" and mesh_shape(case).get("data", 1) == 1)
 
 
 def trained(case: str) -> bool:
@@ -162,9 +177,13 @@ def kv_prefill(case: str) -> bool:
 def seq_len(case: str) -> int:
     """The tokens a training row: SEQ, and one more for the encdec under
     a sequence-parallel preset, so that its decoder's SEQ positions
-    (``tokens[:, :-1]``) split as its encoder's frames do."""
+    (``tokens[:, :-1]``) split as its encoder's frames do;
+    :data:`SSM_SEQ_LEN` for the Mamba stacks under ``ssm_seq``, whose
+    rows hold whole chunks."""
     if cfg_of(case).family == "encdec" and CASES[case][2].endswith("seq"):
         return SEQ + 1
+    if cfg_of(case).ssm is not None and CASES[case][2] == "ssm_seq":
+        return SSM_SEQ_LEN
     return SEQ
 
 
@@ -460,9 +479,11 @@ def serve_case(case, mesh, host, inp):
             if cfg.family == "encdec":
                 out["memory"], _ = arch.prefill_fn()(params, _rows(pr, None),
                                                      rt)
+                axis = rt.tp_axis() if registry.tp_ways(cfg, rt) > 1 \
+                    else None
                 for k in ("cross_k", "cross_v"):
                     cache[k] = rank_kv(torch.from_numpy(inp[f"{case}/{k}"]),
-                                       cfg, rt.tp_axis())
+                                       cfg, axis)
             pos, feed = 0, [torch.from_numpy(pr["tokens"][:, i:i + 1])
                             for i in range(PROMPT)]
         out["cache_shapes"] = {k: tuple(v.shape) for k, v in cache.items()}
@@ -537,6 +558,17 @@ CELLS = {"train": ShapeConfig("layout-train", SEQ, ROWS, "train"),
                                 "prefill"),
          "decode": ShapeConfig("layout-decode", S_MAX, PROMPT_ROWS,
                                "decode")}
+
+
+def cell(case: str, kind: str) -> ShapeConfig:
+    """The dry-run cell ``CELLS[kind]`` a case's collectives are counted
+    in: its train cell at :data:`SSM_SEQ_LEN` tokens a row for the Mamba
+    stacks under ``ssm_seq`` (so that their rows split)."""
+    if kind == "train" and seq_len(case) == SSM_SEQ_LEN:
+        return ShapeConfig("layout-train", SSM_SEQ_LEN, ROWS, "train")
+    return CELLS[kind]
+
+
 def _cell_inputs(arch, shape, rows):
     """Random inputs of the dry-run cell ``shape``'s shapes, ``rows``
     rows of them."""
@@ -559,7 +591,7 @@ def count_one(case, mesh, host, kind, remat):
     a reduce-scatter's their input, recorded where the collectives are
     called (``ranks._call``)."""
     arch, rt, params = _laid_out(case, mesh, host, torch.bfloat16, remat)
-    shape = CELLS[kind]
+    shape = cell(case, kind)
     axis = steps.batch_axis(arch, rt)
     rows = shape.global_batch // (1 if axis is None else axis.size)
     inputs = _cell_inputs(arch, shape, rows)
@@ -757,9 +789,10 @@ def check_same_bits(results):
 def rank_cache_shapes(case, rows, max_len, src_len):
     """The decode state a rank holds: the whole cache's shapes (the
     cross cache of ``src_len`` positions) with a rank's kv heads, ssm
-    heads and conv channels, counted here from the config."""
+    heads and conv channels, counted here from the config; under
+    ``ssm_seq``, whose heads stay whole, the whole cache's."""
     cfg = cfg_of(case)
-    n = mesh_shape(case)["model"]
+    n = 1 if CASES[case][2] == "ssm_seq" else mesh_shape(case)["model"]
     whole = registry.cache_specs(cfg, ShapeConfig("x", max_len, rows,
                                                   "decode"))
     kv = cfg.n_kv_heads // n if cfg.n_kv_heads % n == 0 else 1
@@ -767,7 +800,7 @@ def rank_cache_shapes(case, rows, max_len, src_len):
     for k, spec in whole.items():
         shape = list(spec.shape)
         if k in ("k", "v", "cross_k", "cross_v"):
-            shape[-2] = kv
+            shape[-2] = kv if n > 1 else shape[-2]
             if k.startswith("cross"):
                 shape[2] = src_len
         elif k == "ssm_state":
@@ -859,12 +892,12 @@ def check_counts(case, results):
     for got in (r["counts"] for r in results):
         for key, counted in got.items():
             kind, remat = key.split("/")
-            cell = CELLS[kind]
+            where = cell(case, kind)
             batch_axes = dryrun._batch_axes(table(case), stand_in(shape),
-                                            cell.global_batch)
+                                            where.global_batch)
             want = {}
             for op, operand, group, count in dryrun.layout_collectives(
-                    arch, cell, table(case), shape, batch_axes, remat):
+                    arch, where, table(case), shape, batch_axes, remat):
                 want[(op, operand, group)] = \
                     want.get((op, operand, group), 0) + count
             assert counted == want, key

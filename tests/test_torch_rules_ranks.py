@@ -736,16 +736,12 @@ def _runtime(shape, preset, cfg, gradsync="gspmd"):
 @pytest.mark.parametrize("preset", ["seq_model", "megatron_seq",
                                     "ssm_seq"])
 def test_sequence_parallel_presets_are_refused(preset):
-    """``seq_model`` and ``megatron_seq`` run now (their steps on ranks
-    are ``tests/test_torch_seq_parallel.py``'s): the layout comes back,
-    every leaf partitioned as ``spec_to_pspec`` says; ``ssm_seq`` is
-    still refused, naming item 33."""
+    """``seq_model``, ``megatron_seq`` and ``ssm_seq`` run now (their
+    steps on ranks are ``tests/test_torch_seq_parallel.py``'s and
+    ``tests/test_torch_ssm_seq.py``'s): the layout comes back, every
+    leaf partitioned as ``spec_to_pspec`` says."""
     cfg = _cfg("bl22")
     rt = _runtime({"data": 2, "model": 2}, preset, cfg)
-    if preset == "ssm_seq":
-        with pytest.raises(ValueError, match="item 33"):
-            registry.layout(cfg, rt)
-        return
     got = registry.layout(cfg, rt)
     specs = dict(layers.spec_paths(registry.param_specs(cfg)))
     assert got is not None and set(got) == set(specs)
@@ -762,9 +758,9 @@ def test_other_families_split_by_the_rules_are_refused(arch):
     ``baseline`` on ``{"data": 2, "model": 2}`` and ``megatron`` on
     ``{"model": 2}`` the layout comes back, every leaf partitioned as
     ``spec_to_pspec`` says, and the train step runs on it; what is still
-    refused is ``ssm_seq``
-    (:func:`test_sequence_parallel_presets_are_refused`) and ``fsdp_only``
-    on a split ``"data"`` axis."""
+    refused is a table that puts ``"seq"`` on ``"model"`` with the heads
+    there and the MLP whole (neither Megatron's form nor ``ssm_seq``'s)
+    and ``fsdp_only`` on a split ``"data"`` axis."""
     cfg = registry.get(arch).cfg
     specs = dict(layers.spec_paths(registry.param_specs(cfg)))
     for shape, preset in (({"data": 2, "model": 2}, "baseline"),
@@ -776,9 +772,10 @@ def test_other_families_split_by_the_rules_are_refused(arch):
             assert got[path] == layers.spec_to_pspec(spec, rt.rules_(),
                                                      rt.mesh), path
         assert steps.splits_layout(registry.Arch(cfg), rt)
-    with pytest.raises(ValueError, match="item 33"):
-        registry.layout(cfg, _runtime({"data": 2, "model": 2}, "ssm_seq",
-                                      cfg))
+    rt = _runtime({"data": 2, "model": 2}, "seq_model", cfg)
+    mixed = dataclasses.replace(rt, rules=dict(rt.rules_(), mlp=None))
+    with pytest.raises(ValueError, match="mixers"):
+        registry.layout(cfg, mixed)
 
 
 def test_the_moe_under_pure_dp_runs_its_expert_path():

@@ -263,9 +263,10 @@ def test_every_config_lays_out_under_the_sequence_presets():
     """All ten configs come back laid out under ``seq_model`` and
     ``megatron_seq`` on ``{"data": 2, "model": 2}`` and ``{"model":
     2}``, every leaf as ``spec_to_pspec`` says, and as under the base
-    preset (the sequence is no parameter's axis); ``ssm_seq`` on
-    ``{"data": 2, "model": 2}`` still raises naming item 33, and
-    ``"seq"`` on ``"data"`` raises naming the axis."""
+    preset (the sequence is no parameter's axis); under ``ssm_seq`` on
+    ``{"data": 2, "model": 2}`` too every config lays out, every leaf as
+    ``spec_to_pspec`` says, and ``"seq"`` on ``"data"`` raises naming
+    the axis."""
     for name in CONFIGS:
         cfg = registry.get(name).cfg
         for shape in ({"data": 2, "model": 2}, {"model": 2}):
@@ -277,8 +278,9 @@ def test_every_config_lays_out_under_the_sequence_presets():
                 assert got == registry.rules_layout(
                     cfg, rules.get(BASE[preset], cfg), L.stand_in(shape))
         shape = L.stand_in({"data": 2, "model": 2})
-        with pytest.raises(ValueError, match="item 33"):
-            registry.rules_layout(cfg, rules.get("ssm_seq", cfg), shape)
+        table = rules.get("ssm_seq", cfg)
+        assert registry.rules_layout(cfg, table, shape) == \
+            layers.tree_layout(registry.param_specs(cfg), table, shape)
         table = dict(rules.get("seq_model", cfg), seq="data")
         with pytest.raises(ValueError, match="'data'"):
             registry.rules_layout(cfg, table, shape)
