@@ -393,6 +393,23 @@ Phases (one JSON line each; any failure exits non-zero):
    rank's (1, 1024, 80, 64) N = 128 against its plain version and the
    handoff's fold and correction on the card against the same math on
    the CPU;
+39. on a host of four cards only (``--cards-phase``; the default run
+   prints one line saying it skipped it, and on fewer than four cards
+   the flag exits 1 naming the count): phase 38 as above, then the same
+   parts one rank a card over ``nccl`` ((a), (b), (c), (e), (g2), (h2),
+   (h4), (i2), (j2) on cuda:0-1; (f), (g1), (h1), (h3), (i1), (j1) on
+   cuda:0-3), every rank reporting ``nccl`` and its own card, each part
+   held to the same folded and unsplit results with the same bars as
+   its ``gloo`` leg, and a line a part with both legs' warm walls,
+   collectives by kind and bytes, their seconds and share, and the peaks
+   a rank; each card's ``nvidia-smi`` line and ``topo -m``; (l) the nine
+   kernels at the ``kernels`` line's shapes on cuda:1-3 while cuda:0 is
+   current, against their plain versions (rows 1, 2, 8, 9 exactly); (k)
+   four of Fig. 6's windows and Fig. 11's grid through ``run_batch`` on
+   four and two cards, ``[cuda:0] * k``, unsharded and the default
+   (every card), identical to the unsharded batch and the per-point
+   runs, with walls, launches a chunk and, traced last, each card's busy
+   time and their overlap;
 then the ``kernels`` line: per kernel its launches on the main paths
 (phases 2-4, 6, 9, 12, 14-17, 21-22, 26-30, 32-34, 37, 38 and, from the
 device traces, 18 and 20), its times and its bound.
@@ -410,6 +427,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import io
@@ -434,7 +452,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import api  # noqa: E402
 from repro_torch import tree as tree_util  # noqa: E402
-from repro_torch.core import gradsync, graphloop, ranks, sst  # noqa: E402
+from repro_torch.core import (gradsync, graphloop, placement,  # noqa: E402
+                              ranks, sst)
 from repro_torch.core.group import (GraphBackend, KernelBackend,  # noqa: E402
                                     _stack_masks)
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -6110,7 +6129,6 @@ def launch_grids(grids_run) -> dict:
     """Phase 3's grids through ``run_batch`` sharded over named devices
     (``[cuda:0] * k``: the chunks one after another on the card): every
     point identical to phase 3's unsharded batch and per-point runs."""
-    from repro_torch.core import placement
     rows = {}
     for label, devices in LAUNCH_GRID_DEVICES.items():
         cfg, grid, batch, solos = grids_run[label]
@@ -6290,8 +6308,11 @@ RANKS_MODEL = "qwen3-1.7b"
 RANKS_LAYERS = 2
 RANKS_BATCH, RANKS_SEQ, RANKS_STEPS = 2, 2048, 2
 RANKS_MODES = ("spindle", "spindle_per_tensor", "spindle_compressed")
-RANKS_DEVICES = ("cuda:0", "cuda:0")     # two ranks share the one card
-FOLDED_DEVICES = ("cuda:0",)             # one rank on its card: nccl
+# phase 38's ranks share cuda:0 over gloo (phase 39 runs the same parts
+# one rank a card over nccl, ranks.cards); the folded comparisons run in
+# one rank on cuda:0, over nccl at world size 1
+RANKS_DEVICES = ("cuda:0", "cuda:0")
+FOLDED_DEVICES = ("cuda:0",)
 # (b): qwen2-moe-a2.7b at full width, 4 of 24 layers (phases 26 and 33's
 # cut), its 64 expert slots 32 a rank
 EP_LAYERS = 4
@@ -6317,7 +6338,7 @@ POD_SHAPE = {"pod": 2, "data": 2}
 POD_AXES = ("pod", "data")
 POD_LAYERS, POD_BATCH = 2, 4
 POD_MODES = RANKS_MODES + ("gspmd",)
-POD_DEVICES = ("cuda:0",) * 4
+POD_DEVICES = ("cuda:0",) * 4            # phase 38's four share cuda:0
 POD_LOSS_RTOL = 1e-6
 # (g1): qwen3-1.7b at full width, 2 of 28 layers (the cut of (f)), laid
 # out by the "baseline" rules on four ranks {"data": 2, "model": 2}: 8 of
@@ -6498,27 +6519,33 @@ def ranks_train_mode(arch, rt, rows, device, batch_fn=ranks_batch,
                      keep: bool = False) -> dict:
     """RANKS_STEPS steps of ``make_train_step`` from seed 0's weights on
     ``rows`` of each global batch (``batch_fn``), each step's reduction
-    timed inside it.  Returns losses, walls, the reduction's seconds and
-    share of each step, launches a step, digests of the parameters and
-    the AdamW state; with ``keep``, :func:`samples` of the float32
-    master, the first reduction's mean and the learning rates too."""
+    and collectives timed inside it.  Returns losses, walls, the
+    reduction's seconds and share of each step, the collectives' seconds
+    a step and the last step's by kind, launches a step, digests of the
+    parameters and the AdamW state; with ``keep``, :func:`samples` of
+    the float32 master, the first reduction's mean and the learning
+    rates too."""
     cfg = arch.cfg
     params = arch.init_params(0, device, torch.bfloat16)
     opt = adamw.init(params)
     step = steps.make_train_step(arch, rt, donate=True)
-    losses, walls, per_step, lrs = [], [], [], []
+    losses, walls, per_step, lrs, coll_s = [], [], [], [], []
     with ReduceTimer() as reduce_timer:
         for i in range(RANKS_STEPS):
             batch = {"tokens": batch_fn(cfg, i, device)[rows]}
             before = ops.launch_counts()
-            (params, opt, m), wall = timed(lambda: step(params, opt, batch))
+            with CollectiveTimer() as clock:
+                (params, opt, m), wall = timed(
+                    lambda: step(params, opt, batch))
             per_step.append(launches_since(before))
             losses.append(float(m["loss"]))
             lrs.append(float(m["lr"]))
             walls.append(wall)
+            coll_s.append(clock.s)
     out = {"losses": losses, "step_wall_s": walls,
            "reduce_s": reduce_timer.s,
            "reduce_share": [r / w for r, w in zip(reduce_timer.s, walls)],
+           "collective_s": coll_s, "collectives_per_step": clock.kinds(),
            "launches_per_step": per_step, "params": bit_digest(params),
            "opt": bit_digest(opt)}
     if keep:
@@ -6572,13 +6599,18 @@ def block_samples(tree, cfg, table, shape: dict, coords: dict) -> dict:
             for path, leaf in tree_util.paths(mine)}
 
 
-class GlooTimer:
+class CollectiveTimer:
     """While entered, the seconds this process spends in the ranks'
     collectives (``ranks._call``), each between two synchronisations of
-    the card, so that work queued before it is not counted."""
+    the card, so that work queued before it is not counted and its own
+    is (``gloo`` and ``nccl`` alike: NCCL's calls return before their
+    work is done); their count; and :func:`ranks.ledger`'s count of them
+    (:meth:`kinds`)."""
 
     def __enter__(self):
         self.s, self.calls, self._call = 0.0, 0, ranks._call
+        self._counting = ranks.ledger()
+        self.ledger = self._counting.__enter__()
 
         def call(*args, **kwargs):
             torch.cuda.synchronize()
@@ -6593,7 +6625,21 @@ class GlooTimer:
 
     def __exit__(self, *exc):
         ranks._call = self._call
+        self._counting.__exit__(*exc)
         return False
+
+    def kinds(self) -> dict:
+        """kind -> {"calls", "operand_bytes"} of the collectives run."""
+        out = {}
+        for (kind, operand, _), n in sorted(self.ledger.items()):
+            calls, nbytes = out.get(kind, (0, 0))
+            out[kind] = (calls + n, nbytes + n * operand)
+        return {k: {"calls": c, "operand_bytes": b}
+                for k, (c, b) in sorted(out.items())}
+
+    def record(self) -> dict:
+        return {"collective_s": self.s, "collective_calls": self.calls,
+                "collectives": self.kinds()}
 
 
 def layout_train(arch, params, rt, rows, device) -> tuple:
@@ -6603,29 +6649,24 @@ def layout_train(arch, params, rt, rows, device) -> tuple:
     router calls (:class:`RouterProbe`) beside them."""
     opt = adamw.init(params)
     step = steps.make_train_step(arch, rt, donate=True)
-    losses, walls, per_step, gloo_s = [], [], [], []
+    losses, walls, per_step, coll_s = [], [], [], []
     probe = RouterProbe(keep_probs=True)
     for i in range(RANKS_STEPS):
         batch = {"tokens": layout_batch(arch.cfg, i, device)[rows]}
         before = ops.launch_counts()
-        with GlooTimer() as gloo, ranks.ledger() as ledger, (
+        with CollectiveTimer() as clock, (
                 probe if i == 0 and arch.cfg.moe
                 else contextlib.nullcontext()):
             (params, opt, m), wall = timed(lambda: step(params, opt, batch))
         per_step.append(launches_since(before))
         losses.append(float(m["loss"]))
         walls.append(wall)
-        gloo_s.append(gloo.s)
+        coll_s.append(clock.s)
     del opt, step
-    kinds = {}
-    for (kind, operand, _), n in ledger.items():
-        calls, nbytes = kinds.get(kind, (0, 0))
-        kinds[kind] = (calls + n, nbytes + n * operand)
     out = {"losses": losses, "step_wall_s": walls,
-           "launches_per_step": per_step, "gloo_s": gloo_s,
-           "gloo_calls_per_step": gloo.calls,
-           "collectives_per_step": {k: {"calls": c, "operand_bytes": b}
-                                    for k, (c, b) in sorted(kinds.items())}}
+           "launches_per_step": per_step, "collective_s": coll_s,
+           "collective_calls_per_step": clock.calls,
+           "collectives_per_step": clock.kinds()}
     if arch.cfg.moe:
         out["router"] = probe_record(probe)
     return params, out
@@ -6847,7 +6888,8 @@ def family_serve_run(arch, params, rt, device, feed=None):
     decode state fed the prompt's first token (the encdec's cross cache
     seeded, this rank's kv heads of it).  Returns (logits a step (the
     prefill's or the first step's first), tokens fed, the cache's kv
-    heads, wall, loss, the prefill's value where it is not logits)."""
+    heads, wall, loss, the prefill's value where it is not logits, the
+    collectives' :meth:`CollectiveTimer.record`)."""
     cfg = arch.cfg
     dtype = params["embed"].dtype
     loss_batch = family_batch(cfg, RANKS_SEQ, 838, device, dtype)
@@ -6900,9 +6942,9 @@ def family_serve_run(arch, params, rt, device, feed=None):
         kv = cache["k"].shape[3]
         return torch.stack(out), torch.cat(fed, dim=1), kv, loss, other
 
-    with torch.no_grad():
+    with torch.no_grad(), CollectiveTimer() as clock:
         (logits, fed, kv_heads, loss, other), wall = timed(run)
-    return logits, fed, kv_heads, wall, loss, other
+    return logits, fed, kv_heads, wall, loss, other, clock.record()
 
 
 def tp_serve_compare(split, whole, fed, split32, whole32, whole64,
@@ -7082,7 +7124,7 @@ def tp_serve_rank(rank, device, part: str = "g2") -> tuple:
     hq = cfg.n_heads // registry.tp_ways(cfg, rt) \
         if cfg.n_heads % registry.tp_ways(cfg, rt) == 0 else cfg.n_heads
     out = {"heads_here": [hq, split[2]], "wall_s": split[3],
-           "loss": float(split[4]),
+           "loss": float(split[4]), **split[6],
            "seq_split": [rt.on_sequence(n, cfg).seq_axis() is not None
                          for n in (RANKS_SEQ, TP_PREFILL, 1)],
            "seq_rows": rt.on_sequence(RANKS_SEQ, cfg).seq_rows,
@@ -7210,7 +7252,7 @@ def layout_compare(results, unsplit, key: str = "g", cfg=None,
             routes[r] = router_compare(got["router"], ref, f"{what} rank "
                                        f"{r}")
     walls = [x[key]["step_wall_s"] for x in results]
-    gloo = [x[key]["gloo_s"] for x in results]
+    coll = [x[key]["collective_s"] for x in results]
     out = {"losses_split": [x[key]["losses"] for x in results],
            "losses_unsplit": unsplit["losses"],
            "params_max_err": max(errs), "leaves_sampled":
@@ -7221,10 +7263,11 @@ def layout_compare(results, unsplit, key: str = "g", cfg=None,
            "launches_per_step_unsplit": unsplit_want,
            "step_wall_s_split": walls,
            "step_wall_s_unsplit": unsplit["step_wall_s"],
-           "gloo_s_split": gloo,
-           "gloo_share_split": [[g / w for g, w in zip(gs, ws)]
-                                for gs, ws in zip(gloo, walls)],
-           "gloo_calls_per_step": results[0][key]["gloo_calls_per_step"],
+           "collective_s_split": coll,
+           "collective_share_split": [[g / w for g, w in zip(gs, ws)]
+                                      for gs, ws in zip(coll, walls)],
+           "collective_calls_per_step":
+           results[0][key]["collective_calls_per_step"],
            "peak_bytes_split": [x[key]["peak_bytes"] for x in results],
            "peak_bytes_unsplit": unsplit["peak_bytes"],
            "weight_bytes_split": [x[key]["weight_bytes"] for x in results],
@@ -7320,22 +7363,27 @@ def ranks_folded_child(rank, device):
 
 def ep_train(arch, params, rt, device):
     """(e)'s EP_TRAIN_STEPS steps of ``make_train_step`` from ``params``:
-    the state after, and losses, walls, launches a step, every router
-    call's routes and dropped routes."""
+    the state after, and losses, walls, the collectives' seconds a step
+    and the last step's by kind, launches a step, every router call's
+    routes and dropped routes."""
     opt = adamw.init(params)
     step = steps.make_train_step(arch, rt, donate=True)
-    losses, walls, per_step = [], [], []
+    losses, walls, per_step, coll_s = [], [], [], []
     with RouterProbe(keep_probs=True) as probe:
         for i in range(EP_TRAIN_STEPS):
             batch = {"tokens": seeded_tokens(arch.cfg, 1, EP_TRAIN_SEQ,
                                              seed=438 + i).to(device)}
             before = ops.launch_counts()
-            (params, opt, m), wall = timed(lambda: step(params, opt, batch))
+            with CollectiveTimer() as clock:
+                (params, opt, m), wall = timed(
+                    lambda: step(params, opt, batch))
             per_step.append(launches_since(before))
             losses.append(float(m["loss"]))
             walls.append(wall)
+            coll_s.append(clock.s)
     return params, opt, {
-        "losses": losses, "step_wall_s": walls,
+        "losses": losses, "step_wall_s": walls, "collective_s": coll_s,
+        "collectives_per_step": clock.kinds(),
         "launches_per_step": per_step,
         "routes": [r.cpu() for r in probe.idx],
         "token_gaps": [g.cpu() for g in probe.token_gaps],
@@ -7409,8 +7457,8 @@ def pod_folded(device) -> dict:
 def ep_run(arch, params, rt, loss_tokens, prompt, device):
     """(b)'s path through the entry points: the bf16 loss, a prefill
     into a preallocated cache, greedy decode steps.  Returns (loss,
-    logits a step (prefill first), tokens fed, the router probe,
-    wall)."""
+    logits a step (prefill first), tokens fed, the router probe, wall,
+    the collectives' :meth:`CollectiveTimer.record`)."""
     cfg = arch.cfg
     cache = {k: torch.zeros((cfg.n_layers, 1, EP_PREFILL + EP_DECODE,
                              cfg.n_kv_heads, cfg.head_dim_),
@@ -7432,9 +7480,9 @@ def ep_run(arch, params, rt, loss_tokens, prompt, device):
             pos = pos + 1
         return loss, torch.stack(out), torch.cat(fed, dim=1)
 
-    with torch.no_grad(), RouterProbe() as log:
+    with torch.no_grad(), RouterProbe() as log, CollectiveTimer() as clock:
         (loss, logits, fed), wall = timed(run)
-    return loss, logits, fed, log, wall
+    return loss, logits, fed, log, wall, clock.record()
 
 
 def ep_compare(split, whole, cfg) -> dict:
@@ -7485,9 +7533,11 @@ def ep_compare(split, whole, cfg) -> dict:
 
 
 def ranks_child(rank, device):
-    """Phase 38's two ranks on one card over ``gloo``: (a) the train
-    step, (b) expert parallelism, (c) the SST push.  Returns this rank's
-    results; rank 0 also holds (b) against the unsplit path."""
+    """Phase 38's two ranks (sharing the card over ``gloo``, or in phase
+    39 one a card over ``nccl``): (a) the train step, (b) expert
+    parallelism, (c) the SST push, then (e), (g2), (h2), (h4), (i2) and
+    (j2).  Returns this rank's results; rank 0 also holds (b) against
+    the unsplit path."""
     out = {"rank": rank}
     mesh = ranks.RankMesh({"data": 2}, device)
     axis = mesh.axis("data")
@@ -7498,7 +7548,7 @@ def ranks_child(rank, device):
     out["a"] = {mode: ranks_train_mode(
         arch, Runtime(gradsync=mode, mesh=mesh), rows, device)
         for mode in RANKS_MODES}
-    out["backend"] = mesh.backend
+    out["backend"], out["device"] = mesh.backend, str(device)
     out["a_peak_bytes"] = torch.cuda.max_memory_allocated()
     out["a_peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
     counts = ops.launch_counts()
@@ -7529,7 +7579,7 @@ def ranks_child(rank, device):
     counts = collections.Counter(counts) + collections.Counter(
         ops.launch_counts())                 # ... and ends here
     out["b"] = {"experts_here": mine["layers"]["moe"]["w_gate"].shape[1],
-                "wall_s": split[4], "peak_bytes":
+                "wall_s": split[4], **split[5], "peak_bytes":
                 torch.cuda.max_memory_allocated()}
     if rank == 0:                            # the unsplit path beside it
         whole = ep_run(ep_arch, full, Runtime(), loss_tokens, prompt,
@@ -7611,16 +7661,18 @@ def ep_train_rank(mesh, device) -> dict:
 
 
 def pod_child(rank, device):
-    """(f)'s four ranks on one card over ``gloo``: qwen3-1.7b at
-    POD_LAYERS layers on ``{"pod": 2, "data": 2}``, each mode's steps on
-    this rank's row of the global batch."""
+    """(f)'s four ranks (sharing the card over ``gloo``, or in phase 39
+    one a card over ``nccl``): qwen3-1.7b at POD_LAYERS layers on
+    ``{"pod": 2, "data": 2}``, each mode's steps on this rank's row of the
+    global batch; then (g1), (h1), (h3), (i1) and (j1)."""
     mesh = ranks.RankMesh(POD_SHAPE, device)
     axis = mesh.axis(POD_AXES)
     arch = registry.Arch(pod_cfg())
     rows = slice(axis.index, axis.index + 1)
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    out = {"rank": rank, "index": axis.index, "backend": mesh.backend}
+    out = {"rank": rank, "index": axis.index, "backend": mesh.backend,
+           "device": str(device)}
     for mode in POD_MODES:
         # the ranks' states are compared whole by digest; samples of one
         # rank's are enough beside them
@@ -7810,33 +7862,52 @@ def pod_compare(results, folded) -> dict:
     return out
 
 
-def phase38_ranks(smi_line: str) -> dict:
-    """Phase 38: the port across real ``torch.distributed`` ranks.  The
-    kernels are built in this process first; each rank is a process of
-    :func:`repro_torch.core.ranks.spawn` that loads them.  (a) and its
-    folded comparison, (d) in one one-rank spawn over ``nccl``, then (a),
-    (b), (c) in a two-rank spawn on the one card over ``gloo``
-    (``ranks.backend_for``: NCCL refuses two ranks on one card), with
-    (e), (g2), (h2), (h4), (i2) and (j2) after them; then (f), (g1),
-    (h1), (h3), (i1) and (j1) in a four-rank spawn.  A rank that fails,
-    or is not done in time, fails the run.  Returns the ranks path's
-    launches: every part's, (i) and (j) included."""
-    t0 = time.perf_counter()
+def ranks_folded() -> tuple:
+    """Phase 38's comparisons: the kernels built in this process, then
+    :func:`ranks_folded_child` in a one-rank spawn on FOLDED_DEVICES.
+    Returns (its results, its seconds, this process's allocated and
+    reserved bytes before it)."""
     build_kernels()
     torch.cuda.empty_cache()
     parent_bytes = [torch.cuda.memory_allocated(),
                     torch.cuda.memory_reserved()]
     (folded_out,), folded_s = timed(lambda: ranks.spawn(
         ranks_folded_child, list(FOLDED_DEVICES), timeout=RANKS_TIMEOUT))
+    check(folded_out["backend"] == ranks.backend_for(FOLDED_DEVICES),
+          f"the rank on {FOLDED_DEVICES} ran over {folded_out['backend']}")
+    return folded_out, folded_s, parent_bytes
+
+
+def check_placed(results, devices, what: str) -> str:
+    """Every rank of a spawn on ``devices`` ran on its own device over
+    :func:`ranks.backend_for` of them; returns that backend."""
+    want = ranks.backend_for(devices)
+    got = [(r["device"], r["backend"]) for r in results]
+    check(got == [(str(torch.device(d)), want) for d in devices],
+          f"{what}: the ranks on {list(devices)} ran on {got}, want each "
+          f"on its device over {want}")
+    return want
+
+
+def ranks_leg(folded, two, four, smi_line: str, phase: int = 38) -> tuple:
+    """Phase 38's rank parts: (a), (b), (c), (e), (g2), (h2), (h4), (i2)
+    and (j2) in a spawn of one rank on each of ``two``, then (f), (g1),
+    (h1), (h3), (i1) and (j1) in one on each of ``four``, every part held
+    to the comparisons of ``folded`` (:func:`ranks_folded`) with phase
+    38's bars.  The backend is the devices' (:func:`ranks.backend_for`):
+    ``gloo`` for ranks that share a card, ``nccl`` for one a card; each
+    line carries ``phase`` and the backend.  A rank that fails, or is not
+    done in time, fails the run.  Returns (the ranks path's launches:
+    every part's, (i) and (j) included; :func:`leg_summary`)."""
+    folded_out, folded_s, parent_bytes = folded
+    t0 = time.perf_counter()
     results, ranks_s = timed(lambda: ranks.spawn(
-        ranks_child, list(RANKS_DEVICES), timeout=RANKS_TIMEOUT))
+        ranks_child, list(two), timeout=RANKS_TIMEOUT))
     pod, pod_s = timed(lambda: ranks.spawn(
-        pod_child, list(POD_DEVICES), timeout=RANKS_TIMEOUT))
-    for got, devices in ((folded_out["backend"], FOLDED_DEVICES),
-                         (results[0]["backend"], RANKS_DEVICES),
-                         (pod[0]["backend"], POD_DEVICES)):
-        check(got == ranks.backend_for(devices),
-              f"ranks on {devices} ran over {got}")
+        pod_child, list(four), timeout=RANKS_TIMEOUT))
+    backend = check_placed(results, two, "two ranks")
+    check(check_placed(pod, four, "four ranks") == backend,
+          "the two legs' backends differ")
     folded = folded_out["folded"]
     cfg = ranks_cfg()
     plan, _ = train_plan(cfg, workers=2)
@@ -7888,12 +7959,13 @@ def phase38_ranks(smi_line: str) -> dict:
               f"folded W = 2 step bit for bit: {equal}, "
               f"{a[mode]['leaves_differing']} parameter leaves differ, "
               f"losses {got['losses']} against {w['losses']}")
-    emit({"phase": 38, "part": "a", "model": RANKS_MODEL,
+    emit({"phase": phase, "backend": backend,
+          "part": "a", "model": RANKS_MODEL,
           "layers": cfg.n_layers, "of_layers":
           registry.get(RANKS_MODEL).cfg.n_layers, "params":
           cfg.param_count(), "global_batch": [RANKS_BATCH, RANKS_SEQ],
-          "ranks": len(results), "devices": list(RANKS_DEVICES),
-          "backend": results[0]["backend"], "steps": RANKS_STEPS,
+          "ranks": len(results), "devices": [str(d) for d in two],
+          "steps": RANKS_STEPS,
           "modes": a,
           "buckets": plan.n_buckets,
           "peak_bytes_ranks": [r["a_peak_bytes"] for r in results],
@@ -7904,7 +7976,8 @@ def phase38_ranks(smi_line: str) -> dict:
           "folded_child_s": folded_s, "ranks_child_s": ranks_s,
           "nvidia_smi": smi_line})
     b = results[0]["b"]
-    emit({"phase": 38, "part": "b", "model": MOE_SERVED,
+    emit({"phase": phase, "backend": backend,
+          "part": "b", "model": MOE_SERVED,
           "layers": EP_LAYERS, "experts_a_rank":
           [r["b"]["experts_here"] for r in results],
           "loss_tokens": EP_SEQ, "prefill": EP_PREFILL,
@@ -7912,12 +7985,11 @@ def phase38_ranks(smi_line: str) -> dict:
           "peak_bytes_ranks": [r["b"]["peak_bytes"] for r in results],
           "wall_s_ranks": [r["b"]["wall_s"] for r in results], **b})
     check(all(r["c"] for r in results), "(c) push_rows")
-    emit({"phase": 38, "part": "c", "columns": SST_PUSH_COLUMNS,
+    emit({"phase": phase, "backend": backend,
+          "part": "c", "columns": SST_PUSH_COLUMNS,
           "exact": True})
-    emit({"phase": 38, "part": "d", "backend": folded_out["backend"],
-          "world_size": 1, "bit_equal_to_folded_w1":
-          folded_out["nccl_world1"]})
-    emit({"phase": 38, "part": "e", "model": MOE_SERVED,
+    emit({"phase": phase, "backend": backend,
+          "part": "e", "model": MOE_SERVED,
           "layers": EP_TRAIN_LAYERS, "mesh": {"data": 1, "model": EP_MODEL},
           "gradsync": "gspmd", "tokens": [1, EP_TRAIN_SEQ],
           "steps": EP_TRAIN_STEPS, "params_a_rank": sum(
@@ -7926,7 +7998,8 @@ def phase38_ranks(smi_line: str) -> dict:
                   0, EP_MODEL)})),
           **ep_train_compare(results, folded_out["e"]),
           "nvidia_smi": smi_line})
-    emit({"phase": 38, "part": "f", "model": RANKS_MODEL,
+    emit({"phase": phase, "backend": backend,
+          "part": "f", "model": RANKS_MODEL,
           "layers": POD_LAYERS, "mesh": POD_SHAPE, "dp_axes": POD_AXES,
           "global_batch": [POD_BATCH, RANKS_SEQ], "steps": RANKS_STEPS,
           "modes": pod_compare(pod, folded_out["f"]),
@@ -7934,7 +8007,8 @@ def phase38_ranks(smi_line: str) -> dict:
           "pod_child_s": pod_s, "nvidia_smi": smi_line})
     g1 = layout_compare(pod, folded_out["g"])
     g1_kernels = next(r["g"]["kernels"] for r in pod if "kernels" in r["g"])
-    emit({"phase": 38, "part": "g1", "model": RANKS_MODEL,
+    emit({"phase": phase, "backend": backend,
+          "part": "g1", "model": RANKS_MODEL,
           "layers": POD_LAYERS, "mesh": LAYOUT_SHAPE,
           "rules": LAYOUT_PRESET, "gradsync": "gspmd",
           "global_batch": [LAYOUT_BATCH, RANKS_SEQ], "steps": RANKS_STEPS,
@@ -7947,7 +8021,8 @@ def phase38_ranks(smi_line: str) -> dict:
              for r in results]
     check(all(abs(x - 1 / TP_SERVE_SHAPE["model"]) < 0.01 for x in ratio),
           f"(g2) a rank's weight bytes are {ratio} of the unsplit's")
-    emit({"phase": 38, "part": "g2", "model": TP_SERVE_MODEL,
+    emit({"phase": phase, "backend": backend,
+          "part": "g2", "model": TP_SERVE_MODEL,
           "layers": TP_SERVE_LAYERS, "of_layers":
           registry.get(TP_SERVE_MODEL).cfg.n_layers,
           "mesh": TP_SERVE_SHAPE, "rules": TP_SERVE_PRESET,
@@ -7966,7 +8041,8 @@ def phase38_ranks(smi_line: str) -> dict:
                            preset)
         extra = {k: v for r in pod for k, v in r[part].items()
                  if k in ("kernels", "ssd")}
-        emit({"phase": 38, "part": part, "model": FAMILY_PARTS[part][0],
+        emit({"phase": phase, "backend": backend,
+              "part": part, "model": FAMILY_PARTS[part][0],
               "layers": cfg.n_layers, "of_layers": registry.get(
                   FAMILY_PARTS[part][0]).cfg.n_layers, "mesh": shape,
               "rules": preset, "gradsync": "gspmd",
@@ -7985,7 +8061,8 @@ def phase38_ranks(smi_line: str) -> dict:
               f"({part}) a rank's weight bytes "
               f"{[r[part]['weight_bytes'] for r in results]}, its layout's "
               f"{laid}")
-        emit({"phase": 38, "part": part, "model": FAMILY_PARTS[part][0],
+        emit({"phase": phase, "backend": backend,
+              "part": part, "model": FAMILY_PARTS[part][0],
               "layers": cfg.n_layers, "of_layers": registry.get(
                   FAMILY_PARTS[part][0]).cfg.n_layers, "mesh": shape,
               "rules": preset, "loss_tokens": RANKS_SEQ,
@@ -8006,7 +8083,8 @@ def phase38_ranks(smi_line: str) -> dict:
           "(i1) the sequence did not split over the ranks")
     extra = {k: v for r in pod for k, v in r["i1"].items()
              if k in ("kernels", "norms")}
-    emit({"phase": 38, "part": "i1", "model": RANKS_MODEL,
+    emit({"phase": phase, "backend": backend,
+          "part": "i1", "model": RANKS_MODEL,
           "layers": POD_LAYERS, "mesh": LAYOUT_SHAPE,
           "rules": SEQ_TRAIN_PRESET, "gradsync": "gspmd",
           "global_batch": [LAYOUT_BATCH, RANKS_SEQ], "steps": RANKS_STEPS,
@@ -8016,7 +8094,7 @@ def phase38_ranks(smi_line: str) -> dict:
           "collectives_per_step_g1": [r["g"]["collectives_per_step"]
                                       for r in pod],
           "step_wall_s_g1": g1["step_wall_s_split"],
-          "gloo_s_g1": g1["gloo_s_split"],
+          "collective_s_g1": g1["collective_s_split"],
           "peak_bytes_g1": g1["peak_bytes_split"], **extra,
           "nvidia_smi": smi_line})
     i2 = results[0]["i2"]
@@ -8025,7 +8103,8 @@ def phase38_ranks(smi_line: str) -> dict:
           f"step not: {[r['i2']['seq_split'] for r in results]}")
     check(all(r["i2"]["weight_bytes"] == r["g"]["weight_bytes"]
               for r in results), "(i2) a rank's weights differ from (g2)'s")
-    emit({"phase": 38, "part": "i2", "model": TP_SERVE_MODEL,
+    emit({"phase": phase, "backend": backend,
+          "part": "i2", "model": TP_SERVE_MODEL,
           "layers": TP_SERVE_LAYERS, "mesh": TP_SERVE_SHAPE,
           "rules": SEQ_SERVE_PRESET, "loss_tokens": RANKS_SEQ,
           "prefill": TP_PREFILL, "decode_steps": TP_DECODE,
@@ -8050,7 +8129,8 @@ def phase38_ranks(smi_line: str) -> dict:
           "(j1) the sequence did not split in ssm_seq's form")
     extra = {k: v for r in pod for k, v in r["j1"].items()
              if k in ("ssd", "handoff", "norms")}
-    emit({"phase": 38, "part": "j1", "model": FAMILY_PARTS["h1"][0],
+    emit({"phase": phase, "backend": backend,
+          "part": "j1", "model": FAMILY_PARTS["h1"][0],
           "layers": cfg.n_layers, "mesh": LAYOUT_SHAPE,
           "rules": SSM_SEQ_PRESET, "gradsync": "gspmd",
           "global_batch": [LAYOUT_BATCH, RANKS_SEQ], "steps": RANKS_STEPS,
@@ -8062,10 +8142,10 @@ def phase38_ranks(smi_line: str) -> dict:
           "collectives_per_step_h1": [r["h1"]["collectives_per_step"]
                                       for r in pod],
           "step_wall_s_h1": [r["h1"]["step_wall_s"] for r in pod],
-          "gloo_s_h1": [r["h1"]["gloo_s"] for r in pod],
-          "gloo_share_h1": [[g / w for g, w in zip(r["h1"]["gloo_s"],
-                                                   r["h1"]["step_wall_s"])]
-                            for r in pod],
+          "collective_s_h1": [r["h1"]["collective_s"] for r in pod],
+          "collective_share_h1": [[g / w for g, w in zip(
+              r["h1"]["collective_s"], r["h1"]["step_wall_s"])]
+              for r in pod],
           "peak_bytes_h1": [r["h1"]["peak_bytes"] for r in pod],
           "weight_bytes_h1": [r["h1"]["weight_bytes"] for r in pod],
           **extra, "nvidia_smi": smi_line})
@@ -8084,7 +8164,8 @@ def phase38_ranks(smi_line: str) -> dict:
           f"(j2) a rank's weight bytes "
           f"{[r['j2']['weight_bytes'] for r in results]}, its layout's "
           f"{laid}")
-    emit({"phase": 38, "part": "j2", "model": FAMILY_PARTS["h2"][0],
+    emit({"phase": phase, "backend": backend,
+          "part": "j2", "model": FAMILY_PARTS["h2"][0],
           "layers": cfg.n_layers, "mesh": TP_SERVE_SHAPE,
           "rules": SSM_SEQ_PRESET, "loss_tokens": RANKS_SEQ,
           "prefill": TP_PREFILL, "decode_steps": TP_DECODE,
@@ -8106,12 +8187,71 @@ def phase38_ranks(smi_line: str) -> dict:
     counts = collections.Counter()
     for r in results + pod:
         counts.update(r["counts"])
-    emit({"phase": 38, "launches": dict(counts),
-          "gloo_cuda_collectives": ["all_reduce", "reduce_scatter",
-                                    "all_gather"], "staged": [],
+    emit({"phase": phase, "backend": backend, "launches": dict(counts),
+          "cuda_collectives": ["all_reduce", "reduce_scatter",
+                               "all_gather"], "staged": [],
+          "devices": [[str(d) for d in two], [str(d) for d in four]],
           "folded_child_s": folded_s, "ranks_child_s": ranks_s,
           "pod_child_s": pod_s, "wall_s": time.perf_counter() - t0})
-    return dict(counts)
+    return dict(counts), leg_summary(results, pod)
+
+
+# the parts of a leg whose walls and collectives a summary holds:
+# part -> (the spawn: 2 or 4 ranks, the key of its record in a rank's
+# results); (a) and (f) hold one record a mode
+LEG_PARTS = {"a": (2, "a"), "b": (2, "b"), "e": (2, "e"), "g2": (2, "g"),
+             "h2": (2, "h2"), "h4a": (2, "h4a"), "h4b": (2, "h4b"),
+             "i2": (2, "i2"), "j2": (2, "j2"), "f": (4, None),
+             "g1": (4, "g"), "h1": (4, "h1"), "h3": (4, "h3"),
+             "i1": (4, "i1"), "j1": (4, "j1")}
+CLOCK_KEYS = ("step_wall_s", "wall_s", "collective_s", "collective_calls",
+              "collectives_per_step", "collectives", "reduce_s",
+              "peak_bytes")
+
+
+def leg_summary(results, pod) -> dict:
+    """part -> per rank: its walls (a step, or the served path's), the
+    seconds in the collectives, the collectives by kind and operand
+    bytes (a step, or the path's) and the peak bytes; (a) and (f) per
+    mode, their peaks the spawn's."""
+    out = {}
+    for part, (n, key) in LEG_PARTS.items():
+        spawn = results if n == 2 else pod
+        if part in ("a", "f"):
+            modes = RANKS_MODES if part == "a" else POD_MODES
+            recs = [r["a"] if part == "a" else r for r in spawn]
+            out[part] = {
+                "modes": {m: [{k: v for k, v in rec[m].items()
+                               if k in CLOCK_KEYS} for rec in recs]
+                          for m in modes},
+                "peak_bytes": [r["a_peak_bytes" if part == "a"
+                                 else "peak_bytes"] for r in spawn]}
+        else:
+            out[part] = [{k: v for k, v in r[key].items() if k in CLOCK_KEYS}
+                         for r in spawn]
+    return out
+
+
+def phase38_ranks(smi_line: str) -> dict:
+    """Phase 38: the port across real ``torch.distributed`` ranks that
+    share ``cuda:0``.  The kernels are built in this process first; each
+    rank is a process of :func:`repro_torch.core.ranks.spawn` that loads
+    them: the folded comparisons and (d) in a one-rank spawn over
+    ``nccl`` (:func:`ranks_folded`), then every rank part over ``gloo``
+    (:func:`ranks_leg`; NCCL refuses two ranks on one card).  Returns
+    the ranks path's launches."""
+    folded = ranks_folded()
+    emit_world1(folded[0])
+    counts, _ = ranks_leg(folded, RANKS_DEVICES, POD_DEVICES, smi_line)
+    return counts
+
+
+def emit_world1(folded_out: dict) -> None:
+    """(d)'s line: the one-rank process's ``nccl`` step and reductions
+    against the folded W = 1 ones."""
+    emit({"phase": 38, "part": "d", "backend": folded_out["backend"],
+          "world_size": 1, "bit_equal_to_folded_w1":
+          folded_out["nccl_world1"]})
 
 
 def ranks_phase() -> int:
@@ -8131,6 +8271,349 @@ def check_ranks_path(counts: dict) -> None:
         "flash_attention", "flash_decode", "rms_norm", "rms_norm_residual",
         "ssd_scan", "quantize", "dequantize")),
         f"the ranks path skipped a kernel: {counts}")
+
+
+# ---------------------------------------------------------------------------
+# phase 39: the ranks one a card over NCCL, the grid across the cards
+# ---------------------------------------------------------------------------
+
+CARDS_PHASE_FLAG = "--cards-phase"
+CARDS = 4
+NCCL_LOG_DIR = ROOT / "build" / "nccl"
+# (k): four of phase 3's Fig. 6 windows, and phase 3's Fig. 11 grid; each
+# on the devices listed (None: run_batch's default, every card present)
+CARDS_GRIDS = (("fig6_windows", 800, {"windows": [5, 20, 100, 500]},
+                (4, 2, None)),
+               ("fig11_null_send", 1200, {"null_send": [True, False]},
+                (2, None)))
+
+
+def cards_devices() -> tuple:
+    """Phase 39's ranks, one a card (:func:`ranks.cards`): the two ranks
+    on cuda:0-1 and the four on cuda:0-3.  Fails, naming the count, on
+    fewer than CARDS cards."""
+    have = torch.cuda.device_count()
+    check(have >= CARDS, f"the cards phase needs {CARDS} cards; {have} "
+          f"present")
+    return tuple(ranks.cards(2)), tuple(ranks.cards(CARDS))
+
+
+def card_lines() -> dict:
+    """Each card's ``nvidia-smi`` name and power limit, and ``nvidia-smi
+    topo -m`` (the links between the cards), printed and returned."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    lines = smi.stdout.strip().splitlines()
+    for i, line in enumerate(lines):
+        print(f"cuda:{i} {line}", flush=True)
+    print(topo.stdout if topo.returncode == 0 else
+          f"nvidia-smi topo -m failed ({topo.returncode}): "
+          f"{topo.stdout.strip()} {topo.stderr.strip()}", flush=True)
+    return {"nvidia_smi": lines, "topo": (topo.stdout + topo.stderr).strip()
+            .splitlines(), "topo_rc": topo.returncode}
+
+
+@contextlib.contextmanager
+def nccl_debug():
+    """NCCL's ``INFO`` lines, one file a process under ``build/nccl``, for
+    the spawns inside; on a failure inside they go to stderr before it
+    is raised.  Yields a dict that on a clean exit holds the transports
+    NCCL chose (its ``via`` lines)."""
+    shutil.rmtree(NCCL_LOG_DIR, ignore_errors=True)
+    NCCL_LOG_DIR.mkdir(parents=True)
+    saved = {k: os.environ.get(k) for k in ("NCCL_DEBUG", "NCCL_DEBUG_FILE")}
+    os.environ["NCCL_DEBUG"] = "INFO"
+    os.environ["NCCL_DEBUG_FILE"] = str(NCCL_LOG_DIR / "%h.%p.log")
+    found = {}
+    try:
+        yield found
+        via = collections.Counter()
+        for f in NCCL_LOG_DIR.glob("*.log"):
+            via.update(m.group(1) for m in re.finditer(
+                r" via (\S+)", f.read_text(errors="replace")))
+        found.update(transports=dict(via), files=len(list(
+            NCCL_LOG_DIR.glob("*.log"))))
+    except BaseException:
+        for f in sorted(NCCL_LOG_DIR.glob("*.log")):
+            sys.stderr.write(f"--- NCCL_DEBUG=INFO {f.name}\n"
+                             + f.read_text(errors="replace"))
+        sys.stderr.flush()
+        raise
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def warm(recs) -> dict:
+    """A part's warm figures from its per-rank records: the slowest
+    rank's last step (or its served path), the seconds in collectives
+    there and their share."""
+    def last(r, key):
+        v = r.get("step_wall_s" if key == "wall" else "collective_s")
+        v = r.get("wall_s") if v is None and key == "wall" else v
+        return v[-1] if isinstance(v, list) else v
+    slow = max(recs, key=lambda r: last(r, "wall"))
+    wall, coll = last(slow, "wall"), last(slow, "coll")
+    return {"wall_s": wall, "collective_s": coll,
+            "collective_share": coll / wall}
+
+
+def leg_compare(nccl: dict, gloo: dict, cards: dict) -> dict:
+    """A line a part: the NCCL leg's walls, collectives and peaks beside
+    the ``gloo`` leg's from this call, and the warm wall's ratio."""
+    ratios = {}
+    for part in LEG_PARTS:
+        n, g = nccl[part], gloo[part]
+        if part in ("a", "f"):
+            w = {m: {"nccl": warm(n["modes"][m]), "gloo": warm(g["modes"][m])}
+                 for m in n["modes"]}
+            ratios[part] = {m: x["gloo"]["wall_s"] / x["nccl"]["wall_s"]
+                            for m, x in w.items()}
+        else:
+            w = {"nccl": warm(n), "gloo": warm(g)}
+            ratios[part] = w["gloo"]["wall_s"] / w["nccl"]["wall_s"]
+        emit({"phase": 39, "part": part, "compare":
+              "nccl (one rank a card) against gloo (ranks sharing cuda:0), "
+              "this call", "warm": w, "gloo_over_nccl_warm_wall":
+              ratios[part], "nccl": n, "gloo": g, **cards})
+    return ratios
+
+
+def other_card_kernels(cards, smi: dict) -> list:
+    """(l): the nine kernels at the shapes of the ``kernels`` line, inputs
+    on each card but the first while the first is current, each against
+    its plain version on the same inputs: the SMC pair and the quantize
+    pair exactly, the rest at the default run's bars; every output on
+    its inputs' card."""
+    home = torch.cuda.current_device()
+    check(home == cards[0].index, f"cuda:{home} is current")
+    gen = torch.Generator(device="cuda").manual_seed(39)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
+    lens = np.random.default_rng(6).integers(1, 41, 8).tolist()
+    rows = []
+    for dev in cards[1:]:
+        to = lambda *ts: [t.to(dev) for t in ts]
+        pub, proc, valid = to(*lane_inputs(16 * 16, 100, seed=356))
+        counters = ss.counters_from_counts(pub, 100).contiguous()
+        bf = torch.bfloat16
+        q, k, v = to(*(rnd(*sh).to(bf) for sh in (
+            (8, 16, 128), (8, 2048, 8, 128), (8, 2048, 8, 128))))
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        aq, ak, av = to(*(rnd(*sh).to(bf) for sh in (
+            (2, 2048, 16, 128), (2, 2048, 8, 128), (2, 2048, 8, 128))))
+        nx, nw = to(rnd(128, 128).to(bf), (1 + 0.1 * rnd(128)).to(bf))
+        rx, rr, rw = to(rnd(8, 2048).to(bf), rnd(8, 2048).to(bf),
+                        (1 + 0.1 * rnd(2048)).to(bf))
+        ssd = to(*ssd_inputs(1, 2048, 80, 64, 128, 1, bf, gen))
+        x = to(1e-3 * rnd(TRAIN_WORKERS * shard))[0]
+        qx, sx = qz.quantize_plain(x, shard)
+        cases = (
+            ("smc_sweep_watermark", None,
+             lambda: ss.smc_sweep_watermark(pub, proc, window=100,
+                                            valid=valid),
+             lambda: ss.smc_sweep_watermark_plain(pub, proc, 100, valid)),
+            ("smc_sweep", None, lambda: ss.smc_sweep(counters, proc),
+             lambda: ss.smc_sweep_plain(counters, proc)),
+            ("flash_decode", bf, lambda: fd.flash_decode(q, k, v, kv_len),
+             lambda: fd.flash_decode_plain(q, k, v, kv_len)),
+            ("rms_norm", bf, lambda: rn.rms_norm(nx, nw),
+             lambda: rn.rms_norm_plain(nx, nw)),
+            ("rms_norm_residual", bf,
+             lambda: rn.rms_norm_residual(rx, rr, rw),
+             lambda: rn.rms_norm_residual_plain(rx, rr, rw)),
+            ("flash_attention", bf, lambda: fa.flash_attention(aq, ak, av),
+             lambda: fa.flash_attention_plain(aq, ak, av, True)),
+            ("ssd_scan", bf, lambda: sc.ssd_scan(*ssd, 256),
+             lambda: sc.ssd_scan_plain(*ssd, 256)),
+            ("quantize", None, lambda: qz.quantize(x, shard),
+             lambda: (qx, sx)),
+            ("dequantize", None, lambda: qz.dequantize(qx, sx, shard),
+             lambda: qz.dequantize_plain(qx, sx, shard)))
+        errs = {}
+        for name, dtype, kernel, plain in cases:
+            got, want = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            check(all(t.device == dev for t in got),
+                  f"(l) {name}'s output is not on {dev}")
+            if dtype is None:
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"(l) {name} on {dev} is not its plain version bit "
+                      "for bit")
+                errs[name] = 0.0
+            elif name == "ssd_scan":
+                errs[name] = max(
+                    within(got[0], want[0], dtype, SSD_Y_TOL[dtype],
+                           f"(l) ssd_scan y on {dev}"),
+                    within(got[1], want[1], torch.float32, SSD_STATE_TOL,
+                           f"(l) ssd_scan state on {dev}"))
+            else:
+                errs[name] = max(within(a, b, dtype, what=f"(l) {name} on "
+                                        f"{dev}") for a, b in zip(got, want))
+        torch.cuda.synchronize(dev)
+        check(torch.cuda.current_device() == home,
+              f"the current card moved from cuda:{home}")
+        rows.append({"device": str(dev), "current": f"cuda:{home}",
+                     "max_abs_err": errs})
+        emit({"phase": 39, "part": "l", **rows[-1],
+              "nvidia_smi": smi["nvidia_smi"]})
+        del pub, proc, valid, counters, q, k, v, aq, ak, av, ssd, x, qx, sx
+        torch.cuda.empty_cache()
+    return rows
+
+
+def spans_union_ns(spans) -> int:
+    busy, end = 0, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            busy, end = busy + hi - lo, hi
+        elif hi > end:
+            busy, end = busy + hi - end, hi
+    return busy
+
+
+def per_card_trace(fn, cards) -> dict:
+    """``fn()`` under the profiler: its wall and each card's busy time
+    (the union of its device records), the time any card was busy, and
+    the overlap (the cards' busy times summed less that union: time two
+    or more cards ran at once)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for d in cards:
+        torch.cuda.synchronize(d)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        for d in cards:
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+    spans = collections.defaultdict(list)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            spans[e.device_index()].append((e.start_ns(), e.end_ns()))
+    busy = {f"cuda:{d}": spans_union_ns(v) / 1e9
+            for d, v in sorted(spans.items())}
+    check(busy, "the profiler recorded no device time")
+    anyone = spans_union_ns([x for v in spans.values() for x in v]) / 1e9
+    return {"traced_wall_s": wall, "busy_s": busy, "any_card_busy_s": anyone,
+            "overlap_s": sum(busy.values()) - anyone}
+
+
+def cards_grids(cards, smi: dict) -> dict:
+    """(k): each grid of CARDS_GRIDS through ``run_batch`` on card
+    ``kernel``, unsharded (on ``cuda:0``), on ``[cuda:0] * k`` and over
+    each count of cards listed, every point identical to the unsharded
+    batch and to its own run; cold and warm walls, launches a chunk; the
+    sharded runs traced last, each card's busy time."""
+    rows, traced = {}, []
+    for label, n_messages, grid, counts in CARDS_GRIDS:
+        cfg = api.single_group(16, msg_size=10240, n_messages=n_messages)
+        (key, values), = grid.items()
+        solos = []
+        for value in values:
+            over = ({"subgroups": tuple(dataclasses.replace(
+                s, window=value) for s in cfg.subgroups)}
+                if key == "windows" else {"flags": dataclasses.replace(
+                    cfg.flags, null_send=value)})
+            solo = api.Group(dataclasses.replace(cfg, **over), device="cuda")
+            solos.append((solo.run(backend=SyncCheckedKernelBackend("cuda")),
+                          solo.delivery_logs))
+        runs = [("unsharded", [cards[0]]),
+                ("cuda:0 x k", [cards[0]] * len(values))] + [
+            (f"{n} cards" if n else "default (every card)",
+             list(cards[:n]) if n else None) for n in counts]
+        out = {}
+        whole = None
+        for name, devices in runs:
+            batch = functools.partial(
+                api.Group(cfg, device="cuda").run_batch,
+                backend=SyncCheckedKernelBackend("cuda"), devices=devices,
+                **grid)
+            _, cold = timed(batch)
+            before = ss.WATERMARK_LAUNCHES
+            reports, wall = timed(batch)
+            launches = ss.WATERMARK_LAUNCHES - before
+            shards = placement.shard_count(
+                len(values), placement.default_devices(cards[0])
+                if devices is None else devices)
+            t_max = max(r.rounds for r in reports)
+            check(launches == shards * t_max, f"(k) {label} {name}: "
+                  f"{launches} launches, want {shards} x {t_max}")
+            whole = whole or reports
+            for value, rs, rb, (solo, logs) in zip(values, reports, whole,
+                                                   solos):
+                what = f"(k) {label} {name} point {value}"
+                same_logs(rs.extras["delivery_logs"],
+                          rb.extras["delivery_logs"], what + " (unsharded)")
+                same_report(rs, rb, what + " (unsharded)")
+                same_logs(rs.extras["delivery_logs"], logs, what + " (solo)")
+                same_report(rs, solo, what + " (solo)")
+            out[name] = {"devices": None if devices is None
+                         else [str(d) for d in devices], "shards": shards,
+                         "rounds": t_max, "launches": launches,
+                         "launches_a_chunk": launches / shards,
+                         "cold_wall_s": cold, "warm_wall_s": wall}
+            if shards > 1 and devices is not None and \
+                    len(set(devices)) > 1:
+                traced.append((label, name, batch))
+        rows[label] = {"points": len(values), key: values,
+                       "identical_to_unsharded_and_solo": True, **out}
+    for label, name, batch in traced:
+        rows[label][name]["trace"] = per_card_trace(batch, cards)
+    emit({"phase": 39, "part": "k", **rows,
+          "nvidia_smi": smi["nvidia_smi"]})
+    return rows
+
+
+def cards_phase() -> int:
+    """Phase 39 alone (``chip_smoke.py --cards-phase``, on a host of
+    CARDS cards): the build, phase 38 as the default run has it (the
+    one-rank folded run, then the ranks sharing ``cuda:0`` over
+    ``gloo``), then the same parts one rank a card over ``nccl`` held to
+    the same folded results with the same bars, each part's walls and
+    collectives beside the ``gloo`` leg's; (l) the nine kernels on the
+    other cards while ``cuda:0`` is current; (k) phase 3's grids over the
+    cards.  Exits 1, naming the count, on fewer than CARDS cards."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    two, four = cards_devices()
+    t0 = time.perf_counter()
+    smi_line = phase0_identity()
+    cards = card_lines()
+    folded = ranks_folded()
+    emit_world1(folded[0])
+    gloo_counts, gloo = ranks_leg(folded, RANKS_DEVICES, POD_DEVICES,
+                                  smi_line)
+    check_ranks_path(gloo_counts)
+    with nccl_debug() as nccl_log:
+        nccl_counts, nccl = ranks_leg(folded, two, four, smi_line, phase=39)
+    check_ranks_path(nccl_counts)
+    check(nccl_counts == gloo_counts, f"the legs' launches differ: nccl "
+          f"{nccl_counts}, gloo {gloo_counts}")
+    ratios = leg_compare(nccl, gloo, cards)
+    kernels = other_card_kernels(four, cards)
+    grids = cards_grids(four, cards)
+    emit({"phase": 39, "cards": cards, "nccl": nccl_log,
+          "launches": {"gloo": gloo_counts, "nccl": nccl_counts},
+          "gloo_over_nccl_warm_wall": ratios,
+          "kernels_checked_on": [r["device"] for r in kernels],
+          "grid_walls": {label: {name: r["warm_wall_s"]
+                                 for name, r in row.items()
+                                 if isinstance(r, dict)}
+                         for label, row in grids.items()},
+          "wall_s": time.perf_counter() - t0})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
 
 KERNELS = (
@@ -8192,6 +8675,8 @@ def main() -> int:
         return launch_phase()
     if RANKS_PHASE_FLAG in sys.argv[1:]:
         return ranks_phase()
+    if CARDS_PHASE_FLAG in sys.argv[1:]:
+        return cards_phase()
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 is float32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -8301,6 +8786,10 @@ def main() -> int:
     # expert parallelism and the SST push, each rank a process of its own
     ranks_counts = phase38_ranks(smi_line)
     check_ranks_path(ranks_counts)
+    emit({"phase": 39, "run": False, "cards": torch.cuda.device_count(),
+          "why": f"the ranks one a card over nccl and the grid across "
+          f"cards need {CARDS} cards: python3 chip_smoke.py "
+          f"{CARDS_PHASE_FLAG} runs them alone"})
 
     _, shard = train_plan(registry.get("qwen3-1.7b").cfg)
     line_shapes = dict(LINE_SHAPES, **{

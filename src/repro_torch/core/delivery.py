@@ -12,6 +12,7 @@ below them is host-side numpy over the traces a run copies back once.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -93,3 +94,18 @@ def apps_in_publish_prefix(app_pub, nulls, n_publishes) -> int:
     before = np.cumsum(total) - total            # exclusive prefix
     taken = np.clip(n_publishes - before, 0, app_pub)
     return int(taken.sum())
+
+
+def deliver(batch: DeliveryBatch,
+            upcall: Callable[[int, int, int], None],
+            batched: bool = True,
+            batch_upcall: Optional[Callable[[DeliveryBatch], None]] = None
+            ) -> None:
+    """Run the delivery upcalls of a batch (host-side plumbing): the one
+    ``batch_upcall`` where ``batched`` and one is given, else ``upcall(seq,
+    sender rank, sender index)`` a message in delivery order."""
+    if batched and batch_upcall is not None:
+        batch_upcall(batch)
+        return
+    for seq, rank, idx in batch.messages():
+        upcall(seq, rank, idx)

@@ -93,9 +93,9 @@ class _Capture:
         key = (self.device.index, self.depth)
         if key not in streams:
             ptr = _PTR()
-            with torch.cuda.device(self.device):
-                _check(_lib().graph_body_stream(ctypes.byref(ptr)),
-                       "graph_body_stream")
+            _check(_build.call_on(self.device.index,
+                                  _lib().graph_body_stream,
+                                  ctypes.byref(ptr)), "graph_body_stream")
             streams[key] = torch.cuda.ExternalStream(ptr.value,
                                                      device=self.device)
         return streams[key]
@@ -107,8 +107,10 @@ class _Capture:
         lib = _lib()
         body = self.body_stream()
         stream = torch.cuda.current_stream(self.device)
-        _check(lib.graph_if_begin(stream.cuda_stream, pred.data_ptr(),
-                                  body.cuda_stream), "graph_if_begin")
+        dev = self.device.index
+        _check(_build.call_on(dev, lib.graph_if_begin, stream.cuda_stream,
+                              pred.data_ptr(), body.cuda_stream),
+               "graph_if_begin")
         self.depth += 1
         count = ctypes.c_size_t(0)
         try:
@@ -116,8 +118,8 @@ class _Capture:
                 fn()
         finally:
             self.depth -= 1
-            _check(lib.graph_if_end(body.cuda_stream, ctypes.byref(count)),
-                   "graph_if_end")
+            _check(_build.call_on(dev, lib.graph_if_end, body.cuda_stream,
+                                  ctypes.byref(count)), "graph_if_end")
         self.nodes += 1 + count.value
 
 

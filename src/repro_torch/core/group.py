@@ -501,7 +501,9 @@ class Group:
         backends: one chunk a device over the largest count of them that
         divides the grid (:mod:`repro_torch.core.placement`; e.g. four
         ``cpu`` devices, or ``[cuda:0, cuda:0]``), every point's result
-        unchanged.  Without it the grid runs whole on the group's device.
+        unchanged.  Without it a group on a card shards over every card
+        present (the reference's ``jax.devices()``), which on one card is
+        the whole grid on it; a group on the CPU runs the grid whole.
 
         Returns one :class:`RunReport` per point; each report carries its
         delivery logs in ``extras["delivery_logs"]``.  Delivery upcalls do
@@ -850,9 +852,10 @@ class GraphBackend:
         shapes; schedules are padded to the common round budget and each
         point's traces sliced back to its own budget afterwards, so every
         point's results are identical to a sequential :meth:`run`.
-        ``devices`` (default: this backend's one device) shards the grid
-        one chunk a device (:mod:`repro_torch.core.placement`) when more
-        than one of them divides it."""
+        ``devices`` (default: :func:`~repro_torch.core.placement.
+        default_devices` of this backend's device) shards the grid one
+        chunk a device (:mod:`repro_torch.core.placement`) when more than
+        one of them divides it."""
         if not cfgs:
             return []
         base = cfgs[0]
@@ -886,6 +889,8 @@ class GraphBackend:
         nulls_on = np.asarray([cfg.flags.null_send for cfg in cfgs])
         costs = np.stack([st[5] for st in stacks])                # (B, G, 6)
         member_masks, sender_masks = _stack_masks(members, senders)
+        if devices is None:
+            devices = placement_mod.default_devices(self.device)
         outs = self._run_device(members, scheds, costs, windows, nulls_on,
                                 member_masks, sender_masks,
                                 int(windows.max()), devices)

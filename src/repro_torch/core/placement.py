@@ -14,18 +14,32 @@ batch's.
 Policy (:func:`shard_count`): shard over the LARGEST device count that
 evenly divides the batch; when that is 1 (one device, or an indivisible
 batch) callers run today's single-device program.  The devices are the
-caller's: every CUDA device present, or a list named explicitly (four
-``cpu`` devices, or ``[cuda:0, cuda:0]``, which runs the chunks one
-after another on one card).
+caller's: a list named explicitly (four ``cpu`` devices, or ``[cuda:0,
+cuda:0]``, which runs the chunks one after another on one card), or by
+default (:func:`default_devices`) every card present for a group on a
+card, as the reference shards over ``jax.devices()``.  The chunks run one
+after another from the host: each is queued on its card's stream, so
+the cards of a grid overlap only as far as the host queues ahead.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
 from repro_torch.launch import mesh as mesh_mod
+
+BATCH_AXIS = "data"
+
+
+def default_devices(device) -> Optional[List[torch.device]]:
+    """The devices a grid shards over when the caller names none: every
+    card present for a group on a card, ``None`` (the group's own
+    device, unsharded) for one on the CPU."""
+    if torch.device(device).type != "cuda":
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def shard_count(batch: int, devices: Sequence) -> int:
@@ -43,7 +57,7 @@ def shard_count(batch: int, devices: Sequence) -> int:
 
 def batch_mesh(devices: Sequence, n_shards: int) -> mesh_mod.Mesh:
     """A 1-D mesh over the first ``n_shards`` of ``devices``, axis
-    ``data`` (the launch plane's data-parallel axis name)."""
+    :data:`BATCH_AXIS` (the launch plane's data-parallel axis name)."""
     return mesh_mod.make_smoke_mesh(devices=list(devices)[:n_shards])
 
 

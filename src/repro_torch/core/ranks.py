@@ -43,7 +43,8 @@ differ only in that axis's coordinate.
   parent).  Rank ``r`` runs ``fn(r, devices[r], *args)`` and its result
   comes back to the parent.  The parent holds the rendezvous store on
   ``127.0.0.1`` at a port the kernel picks, so concurrent spawns never
-  race for a port.
+  race for a port.  :func:`cards` is the device list of one rank a
+  card.
 * :func:`init_from_env` -- a ``torchrun`` launch.
 * :func:`ledger` -- counts every collective run inside it, by kind,
   operand bytes and group size; on :meth:`RankMesh.ledger`, rank 0 of a
@@ -52,12 +53,17 @@ differ only in that axis's coordinate.
   collectives come out as the ranks would run them (the dry-run's).
 
 The backend follows from the devices, here and nowhere else
-(:func:`backend_for`): ``nccl`` when every rank has a CUDA device of its
-own, ``gloo`` when ranks share a device or run on the CPU (NCCL refuses
-two ranks on one card).  ``gloo`` takes CUDA tensors for all three
-collectives (``all_reduce``, ``reduce_scatter_tensor`` and
-``all_gather_into_tensor``, on torch 2.11 with CUDA 12.8 on an H100), so
-none is staged through host buffers.
+(:func:`backend_for`): ``nccl`` when every rank has a card of its own
+(over NVLink between the cards of one host), ``gloo`` when ranks share a
+card or run on the CPU (NCCL refuses two ranks on one card).  ``gloo``
+takes CUDA tensors for all three collectives (``all_reduce``,
+``reduce_scatter_tensor`` and ``all_gather_into_tensor``, on torch 2.11
+with CUDA 12.8 on an H100), so none is staged through host buffers.
+NCCL's collectives return before their work is done, queued on streams
+of its own that ``torch.cuda.synchronize()`` waits for; a group's
+communicator starts on its first collective, which :class:`RankMesh`
+runs on every group it builds.  Nothing falls back from one backend to
+the other: a rank that cannot start its backend fails the spawn.
 
 With no device named, every entry point wants the card, as
 :func:`repro_torch.resolve_device` does.
@@ -126,7 +132,8 @@ class RankMesh:
     Besides each axis, every product of two or more axes in mesh order
     gets its groups here (``("pod", "data")``, ``("data", "model")``, ...):
     a group can only be made by every rank together, so none is made on
-    demand.  A mesh of k axes makes ``2**k - 1`` axes' groups."""
+    demand.  A mesh of k axes makes ``2**k - 1`` axes' groups; over
+    ``nccl`` their communicators start here too."""
 
     def __init__(self, shape: Mapping[str, int], device: DeviceLike = None):
         if not dist.is_initialized():
@@ -154,6 +161,15 @@ class RankMesh:
             index = int(np.ravel_multi_index(
                 tuple(coords[i] for i in dims), along))
             self.axes[key] = Axis(key, mine, index, size)
+        if self.backend == "nccl":
+            # NCCL starts a group's communicator on its first collective:
+            # start the default group's and each of this rank's now, every
+            # rank in one order, so that no step carries their start-up
+            one = torch.zeros(1, device=self.device)
+            dist.all_reduce(one)
+            for axis in self.axes.values():
+                dist.all_reduce(one, group=axis.group)
+            torch.cuda.synchronize(self.device)
 
     @classmethod
     def ledger(cls, shape: Mapping[str, int],
@@ -499,14 +515,30 @@ def _entry(rank: int, fn: Callable, devices: List[torch.device], port: int,
         dist.destroy_process_group()
 
 
+def cards(n: int) -> List[torch.device]:
+    """``cuda:0`` ... ``cuda:n-1``: ``n`` ranks, one a card (``nccl``
+    between them).  Raises when fewer than ``n`` cards are present."""
+    resolve_device("cuda:0")          # raises without a card
+    have = torch.cuda.device_count()
+    if have < n:
+        raise RuntimeError(f"{n} ranks one a card need {n} cards; "
+                           f"{have} present")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 def _devices(devices: Optional[Sequence[DeviceLike]]) -> List[torch.device]:
     if devices is None:
-        resolve_device(None)          # raises without a card
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
+        return cards(torch.cuda.device_count())
     if not devices:
         raise ValueError("spawn needs at least one device")
-    return [resolve_device(d) for d in devices]
+    devs = [resolve_device(d) for d in devices]
+    if any(d.type == "cuda" for d in devs):
+        have = torch.cuda.device_count()
+        missing = sorted({str(d) for d in devs
+                          if d.type == "cuda" and d.index >= have})
+        if missing:
+            raise RuntimeError(f"ranks on {missing}: {have} cards present")
+    return devs
 
 
 def spawn(fn: Callable, devices: Optional[Sequence[DeviceLike]] = None,

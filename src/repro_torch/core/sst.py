@@ -2,8 +2,11 @@
 
 The Shared State Table holds each node's monotone protocol counters;
 merging any stale/fresh mixture of copies with elementwise ``max`` is
-always safe.  This module keeps the sequence arithmetic the fused sweep
-and the delivery logs are built on.  Every function keeps the dtype of
+always safe.  :class:`SSTSchema` declares its columns (the paper's Table
+1 in :func:`multicast_schema`), :func:`merge_tables` and
+:func:`update_own_row` are the table's monotone updates, on numpy host
+tables or torch tensors.  This module keeps the sequence arithmetic the
+fused sweep and the delivery logs are built on.  Every function keeps the dtype of
 its input: torch's ``cumprod``/``sum`` on int32 would return int64, so
 each reduction names its dtype.
 
@@ -23,13 +26,119 @@ gathered to all and merged into the local copy with ``max``.
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core import ranks
 
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64}
+
+
+# ---------------------------------------------------------------------------
+# Schema
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SSTColumn:
+    """One monotonic state variable, replicated per node (= per row):
+    int32 counters starting from -1, as in the paper."""
+
+    name: str
+    shape: tuple = ()            # trailing shape of the per-row entry
+    dtype: Any = np.int32
+    init: int = -1
+
+    def empty(self, n_nodes: int, xp=np):
+        """The column's (n_nodes, *shape) table at ``init``: a numpy
+        array, or with ``xp=torch`` a CPU tensor of the same dtype."""
+        shape = (n_nodes,) + tuple(self.shape)
+        if xp is torch:
+            return torch.full(shape, self.init,
+                              dtype=_TORCH_DTYPES[np.dtype(self.dtype)])
+        return xp.full(shape, self.init, dtype=self.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class SSTSchema:
+    columns: tuple
+
+    def __post_init__(self):
+        names = [c.name for c in self.columns]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate SST columns: {names}")
+
+    def column(self, name: str) -> SSTColumn:
+        for c in self.columns:
+            if c.name == name:
+                return c
+        raise KeyError(name)
+
+    def make_table(self, n_nodes: int, xp=np) -> Dict[str, Any]:
+        """A full table: dict col -> (n_nodes, *shape)."""
+        return {c.name: c.empty(n_nodes, xp) for c in self.columns}
+
+    def row_bytes(self) -> int:
+        return sum(int(np.prod(c.shape, dtype=np.int64)) *
+                   np.dtype(c.dtype).itemsize for c in self.columns)
+
+
+def multicast_schema(n_subgroups: int, window: int,
+                     max_msg_size: int) -> SSTSchema:
+    """The schema of Table 1: received_num / delivered_num per subgroup,
+    the published watermark per subgroup (the contiguous scan of the slot
+    counters) and the SMC slot counters themselves (payload bytes are
+    accounted, not stored)."""
+    return SSTSchema(columns=(
+        SSTColumn("received_num", (n_subgroups,)),
+        SSTColumn("delivered_num", (n_subgroups,)),
+        SSTColumn("published_num", (n_subgroups,)),
+        SSTColumn("slot_counter", (n_subgroups, window)),
+    ))
+
+
+def merge_tables(local: Mapping[str, Any],
+                 incoming: Mapping[str, Any]) -> Dict[str, Any]:
+    """Elementwise monotone merge, always safe for SST data: torch's
+    ``maximum`` where either side is a tensor, else numpy's."""
+    out = {}
+    for k in local:
+        a, b = local[k], incoming[k]
+        if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+            out[k] = torch.maximum(torch.as_tensor(a), torch.as_tensor(b))
+        else:
+            out[k] = np.maximum(a, b)
+    return out
+
+
+def update_own_row(table: Dict[str, Any], node: int, col: str, value, *,
+                   check: bool = True) -> Dict[str, Any]:
+    """A new table with node's own row of ``col`` updated.  On a numpy
+    host table the update must be monotone (``ValueError`` otherwise,
+    unless ``check`` is off); a tensor table takes the max of the old and
+    the new row."""
+    cur = table[col][node]
+    out = dict(table)
+    if isinstance(table[col], np.ndarray):
+        if check and np.any(np.asarray(value) < cur):
+            raise ValueError(f"non-monotonic SST update to {col}[{node}]: "
+                             f"{cur} -> {value}")
+        new_col = table[col].copy()
+        new_col[node] = value
+    else:
+        new_col = table[col].clone()
+        new_col[node] = torch.maximum(cur, torch.as_tensor(
+            value, dtype=cur.dtype, device=cur.device))
+    out[col] = new_col
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Round-robin sequence arithmetic (Sec. 2.1 delivery order)
+# ---------------------------------------------------------------------------
 
 def seq_of(rank, index, n_senders: int):
     return index * n_senders + rank

@@ -9,6 +9,12 @@ temporary name and renamed into place, so parallel processes that build
 the same source at once never load a half-written file.  The sources have
 a plain C interface and include no PyTorch headers, so a build takes
 seconds.
+
+Every call into a loaded library goes through :func:`call_on`, which makes
+the tensors' card the current device for the call: what the C side does
+on the current device (``cudaFuncSetAttribute``, occupancy and SM-count
+queries, TMA descriptors) then acts on the card the tensors lie on,
+whichever card the caller has current.
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -87,3 +95,14 @@ def load(name: str, signatures: Dict[str, Tuple[list, Any]]) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _LOADED[name] = lib
     return lib
+
+
+def call_on(dev: int, fn: Callable[..., int], *args) -> int:
+    """``fn(*args)``, a C function of a library that :func:`load` gave,
+    with CUDA device ``dev`` (an index) current: called directly when it
+    already is, else inside ``torch.cuda.device(dev)``.  Returns its
+    code."""
+    if dev == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)

@@ -199,9 +199,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     strides_arr = (ctypes.c_longlong * 9)(*strides)
-    code = _lib().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, hkv,
-        hq // hkv, d, int(bool(causal)), _DTYPES[q.dtype],
+    code = _build.call_on(
+        dev.index, _lib().flash_attention_launch, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), b, s, hkv, hq // hkv, d,
+        int(bool(causal)), _DTYPES[q.dtype],
         ctypes.cast(strides_arr, ctypes.c_void_p), 1.0 / math.sqrt(d),
         _stream(dev))
     if code != 0:
@@ -238,9 +239,10 @@ def tile_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                              "tensors")
     s_out = torch.empty((128, 64), dtype=torch.float32, device=q.device)
     o_out = torch.empty((128, d), dtype=torch.float32, device=q.device)
-    code = _lib().flash_attention_tile_check(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), s_out.data_ptr(),
-        o_out.data_ptr(), d, _stream(q.device))
+    code = _build.call_on(
+        q.device.index, _lib().flash_attention_tile_check, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), s_out.data_ptr(), o_out.data_ptr(), d,
+        _stream(q.device))
     if code != 0:
         raise RuntimeError(f"flash_attention tile check failed: cudaError "
                            f"{code}")

@@ -248,11 +248,7 @@ def _launch(q, k_cache, v_cache, kv_len) -> torch.Tensor:
     buf_args[4] = out.data_ptr()
     buf_args[5] = ws_ptr
     scale.value = 1.0 / math.sqrt(d)
-    if dev == torch._C._cuda_getDevice():
-        code = fn(buf_args)
-    else:
-        with torch.cuda.device(dev):
-            code = fn(buf_args)
+    code = _build.call_on(dev, fn, buf_args)
     if code != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {code}")
     LAUNCHES += 1

@@ -190,9 +190,8 @@ def _max_grid(dev: torch.device, dtype: int, vec: bool) -> int:
     key = (dev.index, dtype, vec)
     if key not in _MAX_GRID:
         out = _INT(0)
-        with torch.cuda.device(dev):
-            code = _lib().quantize_max_grid(dtype, int(vec),
-                                            ctypes.byref(out))
+        code = _build.call_on(dev.index, _lib().quantize_max_grid, dtype,
+                              int(vec), ctypes.byref(out))
         if code != 0 or out.value < 1:
             raise RuntimeError(f"quantize occupancy query failed: "
                                f"cudaError {code}, {out.value} CTAs")
@@ -245,10 +244,10 @@ def quantize(x: torch.Tensor, block: int
     geo = launch_geometry(n, block, 1 if block <= TILE else
                           _max_grid(dev, dtype, x.data_ptr() % 16 == 0))
     partials = torch.empty(geo.partials, dtype=torch.float32, device=dev)
-    code = _lib().quantize_launch(x.data_ptr(), q.data_ptr(),
-                                  scales.data_ptr(), partials.data_ptr(), n,
-                                  block, geo.grid, geo.span, geo.group,
-                                  dtype, _stream(dev))
+    code = _build.call_on(dev.index, _lib().quantize_launch, x.data_ptr(),
+                          q.data_ptr(), scales.data_ptr(),
+                          partials.data_ptr(), n, block, geo.grid, geo.span,
+                          geo.group, dtype, _stream(dev))
     if code != 0:
         raise RuntimeError(f"quantize launch failed: cudaError {code}")
     QUANTIZE_LAUNCHES += 1
@@ -285,9 +284,9 @@ def dequantize(q: torch.Tensor, scales: torch.Tensor, block: int,
         raise ValueError(f"no dequantize for device {dev}")
     q, scales = q.contiguous(), scales.contiguous()
     out = torch.empty(n, dtype=out_dtype, device=dev)
-    code = _lib().dequantize_launch(q.data_ptr(), scales.data_ptr(),
-                                    out.data_ptr(), n, block,
-                                    _DTYPES[out_dtype], _stream(dev))
+    code = _build.call_on(dev.index, _lib().dequantize_launch,
+                          q.data_ptr(), scales.data_ptr(), out.data_ptr(), n,
+                          block, _DTYPES[out_dtype], _stream(dev))
     if code != 0:
         raise RuntimeError(f"dequantize launch failed: cudaError {code}")
     DEQUANTIZE_LAUNCHES += 1

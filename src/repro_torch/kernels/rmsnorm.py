@@ -271,11 +271,7 @@ def _call(args: Tuple[int, ...], dev: int, eps: float, name: str) -> None:
     buf, eps_slot, fn = _callers()[len(args) + 2]
     buf[:-1] = (*args, torch._C._cuda_getCurrentRawStream(dev))
     eps_slot.value = eps
-    if dev == torch._C._cuda_getDevice():
-        code = fn(buf)
-    else:
-        with torch.cuda.device(dev):
-            code = fn(buf)
+    code = _build.call_on(dev, fn, buf)
     if code != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {code}")
 

@@ -228,12 +228,8 @@ def smc_sweep_watermark(published: torch.Tensor, processed: torch.Tensor, *,
                        0 if valid is None else valid.data_ptr(),
                        out.data_ptr(), n, window,
                        torch._C._cuda_getCurrentRawStream(dev))
-            if dev == torch._C._cuda_getDevice():
-                code = fn(args)
-            else:
-                with torch.cuda.device(dev):
-                    code = fn(args)
-            _check_launch(code, "smc_sweep_watermark")
+            _check_launch(_build.call_on(dev, fn, args),
+                          "smc_sweep_watermark")
             WATERMARK_LAUNCHES += 1
         return out
     if published.device.type == "cpu":
@@ -265,9 +261,9 @@ def smc_sweep(counters: torch.Tensor, processed: torch.Tensor
     out = torch.empty_like(processed)
     if n == 0:
         return out
-    lib = _lib()
-    _check_launch(lib.smc_sweep_ring_launch(
-        counters.data_ptr(), processed.data_ptr(), out.data_ptr(), n, window,
+    _check_launch(_build.call_on(
+        dev.index, _lib().smc_sweep_ring_launch, counters.data_ptr(),
+        processed.data_ptr(), out.data_ptr(), n, window,
         torch.cuda.current_stream(dev).cuda_stream), "smc_sweep")
     RING_LAUNCHES += 1
     return out

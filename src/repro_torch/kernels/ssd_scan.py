@@ -262,11 +262,7 @@ def _launch(x, dt, a_log, b, c, d_skip, dt_bias, chunk: int,
                _DTYPES[x.dtype], _DTYPES[dt.dtype], *x.stride()[:3],
                *dt.stride(), *b.stride()[:3], *c.stride()[:3],
                torch._C._cuda_getCurrentRawStream(dev.index))
-    if dev.index == torch._C._cuda_getDevice():
-        code = fn(args)
-    else:
-        with torch.cuda.device(dev):
-            code = fn(args)
+    code = _build.call_on(dev.index, fn, args)
     if code != 0:
         raise RuntimeError(f"ssd_scan launch failed: cudaError {code}")
     if workspace:

@@ -405,6 +405,17 @@ def tree_shard_bytes(specs: PyTree, rules: Dict[str, Any], mesh,
 # Primitive layers
 # ---------------------------------------------------------------------------
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm over the last dim in :func:`compute` precision (the
+    population variance), scaled and shifted, in ``x``'s dtype."""
+    xc = compute(x)
+    mu = xc.mean(-1, keepdim=True)
+    var = xc.var(-1, unbiased=False, keepdim=True)
+    out = (xc - mu) * torch.rsqrt(var + eps)
+    return (out * compute(weight) + compute(bias)).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=dtype,

@@ -277,6 +277,10 @@ def fake_lib(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(fa, "_lib", lambda: lib)
     monkeypatch.setattr(fa, "_stream", lambda dev: 0)
+    # the CPU tensors' device (index None) is the current one, so the
+    # device guard calls the library directly
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: None,
+                        raising=False)
     return lib
 
 
