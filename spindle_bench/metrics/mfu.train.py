@@ -1,0 +1,12 @@
+"""The training step's FLOPs (6 a weight a token, plus the causal
+attention's forward and backward) over the window's wall and the card's
+bf16 peak, in percent."""
+
+from yardstick.flops import PEAKS
+
+
+def read(run):
+    flops = run.counters.get("flops", 0.0)
+    if not flops:
+        return None
+    return 100.0 * flops / run.wall_s / PEAKS["bf16_flops_per_s"]
